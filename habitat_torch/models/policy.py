@@ -1,0 +1,137 @@
+"""PointNav actor-critic (port of the PointNavResNetPolicy parts of
+``habitat_tpu/models/policy.py``).
+
+The net concatenates visual_fc | goal_fc | prev_action_embed and feeds the
+LSTM; the pointgoal (rho, phi) enters as (rho, cos(-phi), sin(-phi)) and the
+previous action as index + 1, or 0 at an episode start."""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from habitat_torch.device import resolve_device
+from habitat_torch.models.resnet import ResNetEncoder
+from habitat_torch.models.rnn_state_encoder import RNNStateEncoder, initial_hidden_state
+
+POINTGOAL_KEYS = ("pointgoal_with_gps_compass", "pointgoal")
+
+
+class PointNavResNetNet(nn.Module):
+    def __init__(
+        self,
+        num_actions: int,
+        *,
+        visual_inputs: Sequence[str] = ("rgb", "depth"),
+        input_hw: Tuple[int, int] = (128, 128),
+        backbone: str = "resnet18",
+        hidden_size: int = 512,
+        num_recurrent_layers: int = 1,
+        base_planes: int = 32,
+        ngroups: int = 16,
+        goal_keys: Sequence[str] = ("pointgoal_with_gps_compass",),
+        dtype=torch.bfloat16,
+    ):
+        super().__init__()
+        for k in goal_keys:
+            if k not in POINTGOAL_KEYS:
+                raise ValueError(f"goal sensor {k!r} not ported; have {POINTGOAL_KEYS}")
+        self.num_actions = num_actions
+        self.hidden_size = hidden_size
+        self.num_recurrent_layers = num_recurrent_layers
+        self.encoder = ResNetEncoder(
+            visual_inputs, input_hw, backbone, base_planes, ngroups, dtype=dtype
+        )
+        self.visual_fc = nn.Linear(self.encoder.output_dim, hidden_size)
+        self.goal_keys = tuple(goal_keys)
+        self.goal_fc = nn.ModuleDict({k: nn.Linear(3, 32) for k in self.goal_keys})
+        self.prev_action_embed = nn.Embedding(num_actions + 1, 32)
+        self.rnn = RNNStateEncoder(
+            hidden_size + 32 * len(self.goal_keys) + 32, hidden_size, num_recurrent_layers
+        )
+
+    def forward(
+        self,
+        obs: Dict[str, torch.Tensor],
+        hidden: torch.Tensor,
+        prev_actions: torch.Tensor,
+        masks: torch.Tensor,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """obs leaves (N, ...), hidden (N, L, 2, H), prev_actions (N,),
+        masks (N,). Returns (features (N, H), new hidden)."""
+        parts = [F.relu(self.visual_fc(self.encoder(obs)))]
+        for k in self.goal_keys:
+            g = obs[k].float()
+            if g.shape[-1] == 2:
+                g = torch.stack([g[..., 0], torch.cos(-g[..., 1]), torch.sin(-g[..., 1])], dim=-1)
+            parts.append(self.goal_fc[k](g))
+        pa_idx = torch.where(masks > 0, prev_actions.long() + 1, 0)
+        parts.append(self.prev_action_embed(pa_idx))
+        return self.rnn(torch.cat(parts, dim=-1), hidden, masks)
+
+
+class ActorCritic(nn.Module):
+    """net -> (logits, value)."""
+
+    def __init__(self, net: PointNavResNetNet):
+        super().__init__()
+        self.net = net
+        self.action_head = nn.Linear(net.hidden_size, net.num_actions)
+        self.critic = nn.Linear(net.hidden_size, 1)
+        nn.init.orthogonal_(self.action_head.weight, gain=0.01)
+        nn.init.zeros_(self.action_head.bias)
+        nn.init.orthogonal_(self.critic.weight, gain=1.0)
+        nn.init.zeros_(self.critic.bias)
+
+    def forward(self, obs, hidden, prev_actions, masks):
+        feats, new_hidden = self.net(obs, hidden, prev_actions, masks)
+        return self.action_head(feats), self.critic(feats)[..., 0], new_hidden
+
+    def initial_hidden(self, batch: int) -> torch.Tensor:
+        return initial_hidden_state(
+            batch, self.net.hidden_size, self.net.num_recurrent_layers,
+            device=self.action_head.weight.device,
+        )
+
+
+def sample_action(
+    logits: torch.Tensor, generator: torch.Generator, deterministic: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Categorical sample (or argmax) + its log prob."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    if deterministic:
+        act = logits.argmax(dim=-1)
+    else:
+        act = torch.multinomial(logp.exp(), 1, generator=generator)[:, 0]
+    return act.to(torch.int32), logp.gather(-1, act[:, None].long())[:, 0]
+
+
+def make_pointnav_resnet_policy(
+    num_actions: int,
+    *,
+    visual_inputs: Sequence[str] = ("rgb", "depth"),
+    input_hw: Tuple[int, int] = (128, 128),
+    backbone: str = "resnet18",
+    hidden_size: int = 512,
+    num_recurrent_layers: int = 1,
+    goal_keys: Sequence[str] = ("pointgoal_with_gps_compass",),
+    dtype=torch.bfloat16,
+    device=None,
+) -> ActorCritic:
+    """PointNavResNetPolicy on ``device`` (``None`` = cuda)."""
+    dev = resolve_device(device)
+    return ActorCritic(
+        PointNavResNetNet(
+            num_actions,
+            visual_inputs=visual_inputs,
+            input_hw=input_hw,
+            backbone=backbone,
+            hidden_size=hidden_size,
+            num_recurrent_layers=num_recurrent_layers,
+            goal_keys=goal_keys,
+            dtype=dtype,
+        )
+    ).to(dev)

@@ -1,0 +1,207 @@
+"""Procedural scene generation (host, numpy).
+
+The reference ships tiny real scan scenes ("habitat-test-scenes") for tests and
+downloads HM3D/MP3D/ReplicaCAD for training (reference DATASETS.md). This image
+has no scene data, so the framework ships a procedural apartment generator that
+produces watertight triangle-soup scenes with rooms, doorways, and clutter —
+used by unit tests, benchmarks, and the built-in episode generator
+(counterpart of reference datasets/pointnav/pointnav_generator.py).
+
+Semantic ids: 0=void/sky, 1=floor, 2=wall, 3=ceiling, 4+=object categories.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+
+from habitat_torch.sims.scene import SceneData, rasterize_occupancy
+
+SEM_VOID = 0
+SEM_FLOOR = 1
+SEM_WALL = 2
+SEM_CEILING = 3
+SEM_OBJECT_BASE = 4
+
+# procedural object category vocabulary (objectnav goals); category id =
+# index into this list (reference maps category strings to task ids via
+# dataset.category_to_task_category_id)
+OBJECT_CATEGORIES = (
+    "chair", "table", "bed", "sofa", "plant", "tv_monitor",
+    "cabinet", "counter", "shelf", "fridge",
+)
+
+# region category vocabulary (habitat-sim SemanticRegion categories)
+REGION_CATEGORIES = (
+    "living room", "kitchen", "bedroom", "bathroom",
+    "hallway", "office", "dining room", "closet",
+)
+
+
+def _quad(p0, p1, p2, p3) -> np.ndarray:
+    """Two triangles for quad p0-p1-p2-p3 (ccw)."""
+    return np.array([[p0, p1, p2], [p0, p2, p3]], dtype=np.float32)
+
+
+def _box(center, size, y0: float, y1: float) -> np.ndarray:
+    """Axis-aligned box walls+top between heights y0..y1. center/size are xz."""
+    cx, cz = center
+    hx, hz = size[0] / 2, size[1] / 2
+    x0, x1, z0, z1 = cx - hx, cx + hx, cz - hz, cz + hz
+    quads = []
+    # four side walls
+    quads.append(_quad([x0, y0, z0], [x1, y0, z0], [x1, y1, z0], [x0, y1, z0]))
+    quads.append(_quad([x1, y0, z1], [x0, y0, z1], [x0, y1, z1], [x1, y1, z1]))
+    quads.append(_quad([x0, y0, z1], [x0, y0, z0], [x0, y1, z0], [x0, y1, z1]))
+    quads.append(_quad([x1, y0, z0], [x1, y0, z1], [x1, y1, z1], [x1, y1, z0]))
+    # top
+    quads.append(_quad([x0, y1, z0], [x1, y1, z0], [x1, y1, z1], [x0, y1, z1]))
+    return np.concatenate(quads, axis=0)
+
+
+def _wall_with_door(
+    x0, z0, x1, z1, height, door_center_t: Optional[float], door_width: float
+) -> List[np.ndarray]:
+    """Vertical wall from (x0,z0) to (x1,z1); optional door gap at param t."""
+    p0 = np.array([x0, z0])
+    p1 = np.array([x1, z1])
+    length = np.linalg.norm(p1 - p0)
+    segs = []
+    if door_center_t is None or length < door_width * 1.5:
+        segs.append((0.0, 1.0))
+    else:
+        t0 = max(0.0, door_center_t - door_width / 2 / length)
+        t1 = min(1.0, door_center_t + door_width / 2 / length)
+        if t0 > 1e-3:
+            segs.append((0.0, t0))
+        if t1 < 1 - 1e-3:
+            segs.append((t1, 1.0))
+    out = []
+    for a, b in segs:
+        pa = p0 + (p1 - p0) * a
+        pb = p0 + (p1 - p0) * b
+        out.append(
+            _quad(
+                [pa[0], 0.0, pa[1]],
+                [pb[0], 0.0, pb[1]],
+                [pb[0], height, pb[1]],
+                [pa[0], height, pa[1]],
+            )
+        )
+    return out
+
+
+def generate_apartment(
+    seed: int,
+    extent: float = 10.0,
+    n_rooms_per_axis: int = 2,
+    n_clutter: int = 6,
+    wall_height: float = 2.5,
+    nav_res: float = 0.1,
+    agent_radius: float = 0.1,
+    with_ceiling: bool = False,
+    scene_id: Optional[str] = None,
+) -> SceneData:
+    """A square apartment split into a grid of rooms joined by doorways."""
+    rng = np.random.default_rng(seed)
+    tris: List[np.ndarray] = []
+    cols: List[np.ndarray] = []
+    sems: List[np.ndarray] = []
+
+    def add(t: np.ndarray, color, sem: int):
+        tris.append(t)
+        c = np.asarray(color, np.float32)
+        cols.append(np.tile(c, (len(t), 1)))
+        sems.append(np.full((len(t),), sem, np.int32))
+
+    e = extent
+    # floor
+    add(
+        _quad([0, 0, 0], [e, 0, 0], [e, 0, e], [0, 0, e]),
+        rng.uniform(0.35, 0.55, 3),
+        SEM_FLOOR,
+    )
+    if with_ceiling:
+        add(
+            _quad([0, wall_height, 0], [0, wall_height, e], [e, wall_height, e], [e, wall_height, 0]),
+            [0.9, 0.9, 0.9],
+            SEM_CEILING,
+        )
+    wall_col = rng.uniform(0.55, 0.8, 3)
+    # outer walls
+    for w in (
+        _wall_with_door(0, 0, e, 0, wall_height, None, 0)
+        + _wall_with_door(e, 0, e, e, wall_height, None, 0)
+        + _wall_with_door(e, e, 0, e, wall_height, None, 0)
+        + _wall_with_door(0, e, 0, 0, wall_height, None, 0)
+    ):
+        add(w, wall_col, SEM_WALL)
+
+    # interior room divider walls with doors
+    k = n_rooms_per_axis
+    door_w = 1.0
+    for i in range(1, k):
+        x = e * i / k + rng.uniform(-0.5, 0.5)
+        # one wall per row segment, each with a door
+        for j in range(k):
+            z0, z1 = e * j / k, e * (j + 1) / k
+            t = rng.uniform(0.25, 0.75)
+            for w in _wall_with_door(x, z0, x, z1, wall_height, t, door_w):
+                add(w, wall_col, SEM_WALL)
+    for j in range(1, k):
+        z = e * j / k + rng.uniform(-0.5, 0.5)
+        for i in range(k):
+            x0, x1 = e * i / k, e * (i + 1) / k
+            t = rng.uniform(0.25, 0.75)
+            for w in _wall_with_door(x0, z, x1, z, wall_height, t, door_w):
+                add(w, wall_col, SEM_WALL)
+
+    # clutter boxes (furniture): random sizes, snapped to floor; each box is
+    # an annotated object instance with a category (SemanticScene equivalent,
+    # SURVEY §2.9 semantic id tables)
+    objects = []
+    for n in range(n_clutter):
+        size = rng.uniform(0.4, 1.2, 2)
+        c = rng.uniform(1.0, e - 1.0, 2)
+        h = rng.uniform(0.4, 1.4)
+        cat = int(rng.integers(0, len(OBJECT_CATEGORIES)))
+        add(
+            _box(c, size, 0.0, h),
+            rng.uniform(0.2, 0.9, 3),
+            SEM_OBJECT_BASE + n,
+        )
+        objects.append(
+            dict(
+                semantic_id=SEM_OBJECT_BASE + n,
+                category_id=cat,
+                category=OBJECT_CATEGORIES[cat],
+                center=[float(c[0]), h / 2, float(c[1])],
+                size=[float(size[0]), h, float(size[1])],
+            )
+        )
+
+    # room-grid regions: the region layer of the SemanticScene hierarchy
+    # (habitat-sim SemanticScene levels>regions>objects; semantic_scene.py)
+    regions = []
+    for i in range(k):
+        for j in range(k):
+            regions.append(
+                dict(
+                    id=f"room_{i}_{j}",
+                    category=REGION_CATEGORIES[(i * k + j) % len(REGION_CATEGORIES)],
+                    lo=[e * i / k, 0.0, e * j / k],
+                    hi=[e * (i + 1) / k, wall_height, e * (j + 1) / k],
+                )
+            )
+
+    scene = SceneData(
+        scene_id=scene_id or f"procgen/apartment_{seed}",
+        vertices=np.concatenate(tris, axis=0),
+        colors=np.concatenate(cols, axis=0),
+        semantic_ids=np.concatenate(sems, axis=0),
+    )
+    scene.objects = objects
+    scene.regions = regions
+    rasterize_occupancy(scene, res=nav_res, agent_radius=agent_radius)
+    return scene

@@ -1,0 +1,128 @@
+"""habitat_torch policy against habitat_tpu's Flax modules, with the Flax
+parameters converted by ``habitat_torch.models.convert.params_from_jax``.
+
+- ``ResNetEncoder`` in float32 on both sides: relative error 1e-4 of the
+  output's scale (float32 convolutions summed in different orders).
+- The bf16 ``ActorCritic`` (convs and block GroupNorms in bfloat16 with
+  float32 statistics, as the JAX package runs it): bf16 rounds activations
+  to 8 mantissa bits at every conv and norm, and the two frameworks round at
+  the same places but accumulate in different orders, so logits and values
+  agree to 3e-2 absolute (their spread is O(1)); the LSTM state to 3e-2.
+- The trained flagship checkpoint (depth-only, 128x128), restored with
+  orbax as scripts/eval_flagship_ckpt.py does, under the same bf16 bound.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+from flax import traverse_util
+
+from habitat_tpu.models.policy import make_pointnav_resnet_policy as jax_policy
+from habitat_tpu.models.resnet import ResNetEncoder as JaxEncoder
+from habitat_tpu.models.rnn_state_encoder import initial_hidden_state
+
+from habitat_torch.models.convert import params_from_jax
+from habitat_torch.models.policy import make_pointnav_resnet_policy
+from habitat_torch.models.resnet import ResNetEncoder
+
+CKPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "ckpts", "flagship_params")
+BF16_ATOL = 3e-2
+
+
+def _obs(rng, n, hw, keys=("rgb", "depth", "pointgoal_with_gps_compass")):
+    obs = {}
+    if "rgb" in keys:
+        obs["rgb"] = rng.integers(0, 256, (n, *hw, 3)).astype(np.uint8)
+    if "depth" in keys:
+        obs["depth"] = rng.uniform(0, 1, (n, *hw, 1)).astype(np.float32)
+    if "pointgoal_with_gps_compass" in keys:
+        obs["pointgoal_with_gps_compass"] = np.stack(
+            [rng.uniform(0.5, 8, n), rng.uniform(-np.pi, np.pi, n)], -1
+        ).astype(np.float32)
+    return obs
+
+
+def _perturb_affine(params, rng):
+    """Flax inits biases to 0 and GroupNorm scales to 1: perturb them so the
+    conversion of every leaf is exercised."""
+    flat = traverse_util.flatten_dict(params, sep="/")
+    for k, v in flat.items():
+        if k.endswith("bias") or k.endswith("scale"):
+            flat[k] = v + jnp.asarray(rng.normal(0, 0.1, v.shape), v.dtype)
+    return traverse_util.unflatten_dict(flat, sep="/")
+
+
+def _flat_np(params):
+    return {k: np.asarray(v) for k, v in traverse_util.flatten_dict(params, sep="/").items()}
+
+
+def _torch_obs(obs):
+    return {k: torch.from_numpy(v) for k, v in obs.items()}
+
+
+def test_resnet_encoder_f32_matches():
+    rng = np.random.default_rng(0)
+    obs = _obs(rng, 2, (64, 64), keys=("rgb", "depth"))
+    enc = JaxEncoder(dtype=jnp.float32)
+    params = _perturb_affine(enc.init(jax.random.PRNGKey(0), obs)["params"], rng)
+    ref = np.asarray(enc.apply({"params": params}, obs))
+    flat = {f"net/ResNetEncoder_0/{k}": v for k, v in _flat_np(params).items()}
+    sd = {k[len("net.encoder."):]: v for k, v in params_from_jax(flat).items()}
+    port = ResNetEncoder(("rgb", "depth"), (64, 64), dtype=torch.float32)
+    port.load_state_dict(sd)
+    with torch.no_grad():
+        got = port(_torch_obs(obs)).numpy()
+    assert got.shape == ref.shape == (2, 2 * 2 * 512)
+    assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+def _compare_policy(jpol, params, tpol, obs, hidden, prev, masks):
+    ref_logits, ref_values, ref_hidden = jpol.apply(params, obs, hidden, prev, masks)
+    tpol.load_state_dict(params_from_jax(_flat_np(params["params"])))
+    with torch.no_grad():
+        logits, values, new_hidden = tpol(
+            _torch_obs(obs), torch.from_numpy(np.array(hidden)),
+            torch.from_numpy(prev), torch.from_numpy(masks),
+        )
+    assert np.abs(logits.numpy() - np.asarray(ref_logits)).max() < BF16_ATOL
+    assert np.abs(values.numpy() - np.asarray(ref_values)).max() < BF16_ATOL
+    assert np.abs(new_hidden.numpy() - np.asarray(ref_hidden)).max() < BF16_ATOL
+    assert np.ptp(np.asarray(ref_logits)) > 10 * BF16_ATOL or np.ptp(np.asarray(ref_values)) > 10 * BF16_ATOL
+
+
+def test_actor_critic_bf16_matches():
+    rng = np.random.default_rng(1)
+    n, hw = 4, (64, 64)
+    obs = _obs(rng, n, hw)
+    hidden = jnp.asarray(rng.normal(0, 0.5, (n, 1, 2, 512)).astype(np.float32))
+    prev = np.array([0, 1, 2, 3], np.int32)
+    masks = np.array([1, 0, 1, 1], np.float32)
+    jpol = jax_policy(4, backbone="resnet18", hidden_size=512)
+    params = jpol.init(jax.random.PRNGKey(2), obs, hidden, jnp.asarray(prev), jnp.asarray(masks))
+    params = {"params": _perturb_affine(params["params"], rng)}
+    tpol = make_pointnav_resnet_policy(4, input_hw=hw, device="cpu")
+    _compare_policy(jpol, params, tpol, obs, hidden, prev, masks)
+
+
+def test_flagship_checkpoint_converts():
+    import orbax.checkpoint as ocp
+
+    rng = np.random.default_rng(2)
+    n, hw = 2, (128, 128)
+    obs = _obs(rng, n, hw, keys=("depth", "pointgoal_with_gps_compass"))
+    hidden = initial_hidden_state(n, 512)
+    prev = np.zeros(n, np.int32)
+    masks = np.zeros(n, np.float32)
+    jpol = jax_policy(4, backbone="resnet18", hidden_size=512)
+    abstract = jax.eval_shape(
+        lambda k: jpol.init(k, obs, hidden, jnp.asarray(prev), jnp.asarray(masks)),
+        jax.random.PRNGKey(1),
+    )
+    cpu = jax.sharding.SingleDeviceSharding(jax.devices("cpu")[0])
+    abstract = jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype, sharding=cpu), abstract)
+    params = ocp.StandardCheckpointer().restore(CKPT, abstract)
+    tpol = make_pointnav_resnet_policy(4, visual_inputs=("depth",), input_hw=hw, device="cpu")
+    _compare_policy(jpol, params, tpol, obs, hidden, prev, masks)
