@@ -9,15 +9,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build   nvcc compiles every CUDA source of the port (one per source, all
            started together) into habitat_torch/build/.
-2. kernels each kernel's wrapper runs on the card at the shapes the render
-           path gives it and is held against its plain PyTorch version on the
-           same inputs (the frustum-selected kernel on the bench reset, the
-           every-chunk kernel on the mid-size route's reset and on a
-           synthetic 8192-triangle pack): hit/miss agreement >= 0.9999, winner-id agreement
-           >= 0.999 (shared-edge near-ties), |dt| < 5e-3 m where the winner
-           is the same. Timed with CUDA events beside its plain version and
-           its bound on this card.
-3. paths   the main path: the bench PointNav configuration (4 procedural
+2. setup   host scenes and envs: the bench PointNav configuration, the
+           mid-size scene, and the scan-scale scene at full width
+           (generate_scan_apartment(0, tess=0.04, n_clutter=40) with
+           build_lod_scene(cells=(0.08, 0.25, 0.6), bands=(1.2, 3.0, 8.0)):
+           859,290 triangles, 16 episodes, N=256).
+3. kernels each kernel's wrapper runs on the card at the shapes the render
+           paths give it and is held against its plain PyTorch version on
+           the same inputs: the frustum-selected kernel on the bench reset,
+           the every-chunk kernel on the mid-size route's reset and on a
+           synthetic 8192-triangle pack, the chunklet stream and the chunk
+           stream kernels on the scan env's reset (N=256, 128x128, 16 tiles
+           of 32x32 pixels), the cull-mask kernel on that reset's head.
+           Closest-hit gates: hit/miss agreement >= 0.9999, winner-id
+           agreement >= 0.999 (shared-edge near-ties), |dt| < 5e-3 m where
+           the winner is the same. Cull mask: agreement >= 0.9999 on gated
+           slots and the same chunklet lists from select_chunklets_exact
+           with the kernel's mask as with the plain version's. Each is timed with CUDA events beside its
+           plain version and its bound on this card; the stream kernels'
+           bound counts only the chunks a ray's final hit leaves it to test.
+4. paths   the main path: the bench PointNav configuration (4 procedural
            scenes, 64 episodes, N=256 envs, 128x128 depth+RGB+pointgoal,
            resnet18 base 32 / 16 groups + LSTM-512, 4 actions, T=32) with
            weights from torch.manual_seed(0): reset, one warm-up rollout and
@@ -26,10 +37,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            under torch.profiler (device kernel time, idle share, launches,
            top kernels). Then the mid-size-scene route (one 4226-triangle
            scene padded to 4352, N=16, T=4), which renders through the
-           every-chunk kernel. Launch counters are zeroed just before each
+           every-chunk kernel. Then the scan path: the same rollout on the
+           scan env (warm-up, SCAN_ROLLOUTS timed, per-step times of the
+           render split into select / kernel / epilogue, a profiled rollout),
+           one reset render with backend="stream", and one whose cull mask
+           comes from the plain version, which must give the default route's
+           frames. Launch counters are zeroed just before each
            path and read just after; every render of a path must have
            launched its kernel.
-4. check   env + render + policy on the card against the same code on the
+5. exact   the scan route against the band-valid all-chunks oracle (every
+           chunk whose LOD band holds the camera, through the chunk stream
+           kernel) at 64x64, two poses, both with plane-exact t.
+6. check   env + render + policy on the card against the same code on the
            CPU (plain kernel versions) on a small input.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
@@ -41,6 +60,7 @@ import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_FP32_FLOPS = 67e12  # published dense float32 peak, SXM, 700 W
@@ -55,6 +75,11 @@ FLOPS_PER_RAY = 70
 BENCH = dict(num_envs=256, height=128, width=128, num_steps=32)
 MID = dict(num_envs=16, num_steps=4, extent=30.0, n_clutter=420)
 ROLLOUTS = 5  # timed bench rollouts after the warm-up one
+SCAN = dict(tess=0.04, n_clutter=40, cells=(0.08, 0.25, 0.6), bands=(1.2, 3.0, 8.0), triangles=859290)
+SCAN_ROLLOUTS = 5  # timed scan rollouts after the warm-up one
+# FP32 operations per (head slot, triangle) of the cull mask: 12 dots of 3
+# products and 2 sums, 8 more sums, 3 subtractions, 12 compares
+FLOPS_PER_CULL_TRI = 83
 
 
 def log(msg):
@@ -97,9 +122,38 @@ def device_us(evt):
     return 0.0
 
 
-def compare_kernel(name, kernel, args, kwargs, n_tests, reps=50, plain_reps=3):
+def share(mask):
+    """The true share of a boolean tensor, counted in integers (a float32
+    mean of millions of ones rounds)."""
+    return int(mask.sum().item()) / max(mask.numel(), 1)
+
+
+def agreement(name, got, ref):
+    """Closest-hit agreement of (t, idx) pairs at the gates; returns (hit
+    agreement, winner agreement, max |dt| on the same winner)."""
+    (t_k, i_k), (t_p, i_p) = got, ref
+    hit_k, hit_p = i_k >= 0, i_p >= 0
+    hit_agree = share(hit_k == hit_p)
+    both = hit_k & hit_p
+    idx_agree = share(i_k[both] == i_p[both])
+    same = both & (i_k == i_p)
+    max_err = (t_k[same] - t_p[same]).abs().max().item()
+    if not (hit_agree >= 0.9999 and idx_agree >= 0.999 and max_err < 5e-3):
+        fail(f"{name}: hit {hit_agree} idx {idx_agree} |dt| {max_err}")
+    return hit_agree, idx_agree, max_err
+
+
+def bound(bytes_moved, flops):
+    t_bytes, t_ops = bytes_moved / H100_BYTES_PER_S * 1e3, flops / H100_FP32_FLOPS * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes > t_ops else "operations")
+
+
+def compare_kernel(name, kernel, args, kwargs, n_tests, reps=50, plain_reps=3,
+                   source="habitat_torch/csrc/raycast_fused.cu", plain_kwargs=None):
     """Kernel vs its plain version on the same card inputs; times both and
-    works out the bound from this call's inputs and survivor count."""
+    works out the bound from this call's inputs and the tests they need.
+    ``n_tests`` may be a function of the kernel's (t, idx). With
+    ``plain_reps=0`` the plain version runs once, timed as it is compared."""
     import torch
 
     before = kernel.launches
@@ -107,28 +161,41 @@ def compare_kernel(name, kernel, args, kwargs, n_tests, reps=50, plain_reps=3):
     torch.cuda.synchronize()
     if kernel.launches != before + 1:
         fail(f"{name}: wrapper did not launch its kernel")
-    t_p, i_p = kernel.plain(*args, **kwargs)
-    hit_k, hit_p = i_k >= 0, i_p >= 0
-    hit_agree = (hit_k == hit_p).float().mean().item()
-    both = hit_k & hit_p
-    idx_agree = (i_k[both] == i_p[both]).float().mean().item()
-    same = both & (i_k == i_p)
-    max_err = (t_k[same] - t_p[same]).abs().max().item()
-    if not (hit_agree >= 0.9999 and idx_agree >= 0.999 and max_err < 5e-3):
-        fail(f"{name}: hit {hit_agree} idx {idx_agree} |dt| {max_err}")
+    t0 = time.perf_counter()
+    t_p, i_p = kernel.plain(*args, **kwargs, **(plain_kwargs or {}))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    hit_agree, idx_agree, max_err = agreement(name, (t_k, i_k), (t_p, i_p))
     ms = cuda_ms(lambda: kernel(*args, **kwargs), reps)
-    plain_ms = cuda_ms(lambda: kernel.plain(*args, **kwargs), plain_reps, warmup=1)
+    if plain_reps:
+        plain_ms = cuda_ms(lambda: kernel.plain(*args, **kwargs), plain_reps, warmup=1)
+    if callable(n_tests):
+        n_tests = n_tests(t_k, i_k)
     n_rays = t_k.numel()
     bytes_moved = sum(a.numel() * a.element_size() for a in args) + 8 * n_rays
-    flops = n_tests * FLOPS_PER_RAY_TRI + n_rays * FLOPS_PER_RAY
-    t_bytes, t_ops = bytes_moved / H100_BYTES_PER_S * 1e3, flops / H100_FP32_FLOPS * 1e3
     return dict(
-        name=name, route="cuda", source="habitat_torch/csrc/raycast_fused.cu",
+        name=name, route="cuda", source=source,
         max_abs_err=max_err, hit_agree=hit_agree, idx_agree=idx_agree,
         ms=ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes > t_ops else "operations",
-        library_ms=None, ray_tri_tests=n_tests, hit_fraction=hit_k.float().mean().item(),
+        **bound(bytes_moved, n_tests * FLOPS_PER_RAY_TRI + n_rays * FLOPS_PER_RAY),
+        library_ms=None, ray_tri_tests=n_tests, hit_fraction=(i_k >= 0).float().mean().item(),
+        # rays whose plain (no early stop) hit is nearer than the kernel's
+        nearer_in_plain_rays=int(((i_k != i_p) & (t_p < t_k)).sum().item()),
     )
+
+
+def needed_tests(ids, cnt, t, tri_chunk, ray_tile):
+    """Ray-triangle tests that a nearest-first list leaves to do given each
+    ray's final hit: the listed chunks whose dmin lies below the ray's t
+    (all of them for a miss), times the chunk size."""
+    import torch
+
+    N, nt, K = ids.shape
+    dmin = (ids >> 18).float() * 1e-2
+    pos = torch.arange(K, device=ids.device)
+    dmin = torch.where(pos < cnt[..., None], dmin, float("inf"))  # the tail is padding
+    need = torch.searchsorted(dmin, t.reshape(N, nt, ray_tile).contiguous())  # slots with dmin < t
+    return int(need.sum().item()) * tri_chunk
 
 
 def main():
@@ -143,10 +210,13 @@ def main():
     sys.path.insert(0, ROOT)
     from habitat_torch.baselines.ppo import PPOConfig, PPOLearner
     from habitat_torch.core.env_factory import make_nav_env
-    from habitat_torch.datasets.pointnav import make_procedural_pointnav
+    import numpy as np
+
+    from habitat_torch.datasets.pointnav import generate_pointnav_episode, make_procedural_pointnav
     from habitat_torch.models.policy import make_pointnav_resnet_policy
     from habitat_torch.ops import raycast as rc
     from habitat_torch.ops import raycast_kernels as rk
+    from habitat_torch.sims.procedural import build_lod_scene, generate_scan_apartment
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -154,11 +224,11 @@ def main():
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} card {gpu}")
 
     # ---- 1. build -------------------------------------------------------
-    secs, ptxas = rk.build()  # the port's one CUDA source
-    log(f"[build] raycast_fused.cu {secs:.1f} s")
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"[build]   {line.strip()}")
+    for name, (secs, ptxas) in rk.build().items():  # every source, nvcc in parallel
+        log(f"[build] {name}.cu done {secs:.1f} s after the start")
+        for line in ptxas.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"[build]   {line.strip()}")
 
     # ---- scenes and envs (host generation counts as set-up) ------------
     sensors = (
@@ -183,16 +253,33 @@ def main():
     )
     log(f"[setup] bench pack {tuple(env.pack.tri_mat.shape)}, mid pack {tuple(mid_env.pack.tri_mat.shape)}, "
         f"{time.perf_counter() - t_start:.1f} s")
+    t_scan = time.perf_counter()
+    scan_scene = generate_scan_apartment(0, tess=SCAN["tess"], n_clutter=SCAN["n_clutter"])
+    lod = build_lod_scene(scan_scene, cells=SCAN["cells"], bands=SCAN["bands"])
+    lod.scene_id = scan_scene.scene_id
+    if lod.num_triangles != SCAN["triangles"]:
+        fail(f"the scan scene has {lod.num_triangles} triangles, expected {SCAN['triangles']}")
+    erng = np.random.default_rng(0)
+    pairs = [generate_pointnav_episode(scan_scene, str(i), erng) for i in range(16)]
+    pairs = [p for p in pairs if p is not None]
+    scan_env = make_nav_env(
+        [lod], [p[0] for p in pairs], num_envs=BENCH["num_envs"], max_episode_steps=500,
+        precomputed_fields={e.episode_id: f for (e, f) in pairs}, sensor_specs=sensors,
+    )
+    spack = scan_env.pack
+    pack_bytes = sum(v.numel() * v.element_size() for v in vars(spack).values() if isinstance(v, torch.Tensor))
+    log(f"[setup] scan scene {lod.num_triangles} triangles, {len(pairs)} episodes, pack {tuple(spack.tri_mat.shape)} "
+        f"in chunks of {spack.tri_mat.shape[3] // spack.chunk_bounds.shape[1]}, {pack_bytes / 1e6:.1f} MB on the card, "
+        f"{time.perf_counter() - t_scan:.1f} s")
 
     # ---- 2. kernels -------------------------------------------------------
-    def reset_render_call(e):
+    cam_offset = torch.tensor([0.0, 1.25, 0.0], device=dev)
+    hw = dict(height=BENCH["height"], width=BENCH["width"])
+
+    def reset_render_call(e, **kw):
         """The closest-hit call of an env's reset render: its first render inputs."""
         st, _ = e.reset_fn()
-        cam = st.pos + torch.tensor([0.0, 1.25, 0.0], device=dev)
-        return rc.closest_hit_call(
-            e.pack, e._make_ctx(st).sid, cam, st.yaw, st.pitch,
-            height=BENCH["height"], width=BENCH["width"],
-        )
+        return rc.closest_hit_call(e.pack, e._make_ctx(st).sid, st.pos + cam_offset, st.yaw, st.pitch, **hw, **kw)
 
     kernel, args, kwargs, _ = reset_render_call(env)
     if kernel is not rk.raycast_fused_sel_t:
@@ -232,16 +319,122 @@ def main():
     )
     every["synthetic_8192_tris_n8"] = {k: synth[k] for k in (
         "max_abs_err", "hit_agree", "idx_agree", "ms", "plain_ms", "bound_ms", "bound_by")}
-    kernels = [sel, every]
+    # the scan route's kernels on the scan env's reset render
+    stream_src = "habitat_torch/csrc/raycast_stream.cu"
+    R = BENCH["height"] * BENCH["width"]
+    n_blocks = BENCH["num_envs"] * R // 256
+    stream_rows = []
+    for name, backend, line, reps in (("raycast_exactsel_t", "auto", 1464, 10), ("raycast_stream_t", "stream", 1143, 3)):
+        kernel, args, kwargs, _ = reset_render_call(scan_env, backend=backend)
+        if kernel is not getattr(rk, name) or args[4].shape != (R // 1024, 8, 1024):
+            fail(f"the scan env's {backend} route should take {name} on {R // 1024} tiles of 1024 rays")
+        ids, cnt, C = args[2], args[3], kwargs["tri_chunk"]
+        tested = {"block": 0, "warp": 0}
+        row = compare_kernel(
+            name, kernel, args, kwargs, lambda t, i: needed_tests(ids, cnt, t, C, 1024),
+            reps=reps, plain_reps=0, source=stream_src, plain_kwargs=dict(tested=tested),
+        )
+        row["replaces"] = f"habitat_tpu/ops/raycast_pallas.py:{line}"
+        row.update(
+            tri_chunk=C, list_slots=ids.shape[2], listed_per_tile_mean=cnt.float().mean().item(),
+            staged_per_block_mean=tested["block"] / n_blocks, computed_per_warp_mean=tested["warp"] / (n_blocks * 8),
+            needed_per_ray_mean=row["ray_tri_tests"] / C / (n_blocks * 256),
+        )
+        stream_rows.append(row)
+        log(f"[kernel] {name} (C={C}) on the scan reset: hit {row['hit_agree']:.6f} idx {row['idx_agree']:.6f} "
+            f"|dt| {row['max_abs_err']:.3g}, {row['nearer_in_plain_rays']} rays nearer in the plain version; "
+            f"{row['ms']:.3f} ms (plain {row['plain_ms']:.0f} ms, bound {row['bound_ms']:.3f} ms by {row['bound_by']}); "
+            f"per tile {row['listed_per_tile_mean']:.1f} listed of {ids.shape[2]} slots, per 256-ray block "
+            f"{row['staged_per_block_mean']:.1f} staged, per warp {row['computed_per_warp_mean']:.1f} computed, "
+            f"per ray {row['needed_per_ray_mean']:.1f} needed by its final hit")
+    exact_row, stream_row = stream_rows
+
+    # the cull mask on the head that the same reset's selection produces
+    st0, _ = scan_env.reset_fn()
+    sid0, cam0 = scan_env._make_ctx(st0).sid.to(torch.int32), (st0.pos + cam_offset).float()
+    _, _, _, planes_b, _ = rc.block_constants(90.0, BENCH["height"], BENCH["width"], cam0.device)
+    dirs_b = rc.to_blocks(rc.world_rays(st0.yaw, st0.pitch, 90.0, **hw), **hw)
+    ids0, cnt0 = rc.select_chunks(
+        spack.chunk_bounds[sid0.long()], cam0[:, None, :].expand(-1, R, -1), dirs_b, 1024, 320, with_cnt=True
+    )
+    sel_args = (spack.tri_v0, spack.tri_e1, spack.tri_e2, spack.tri_valid, spack.chunklet_ab32, sid0, cam0,
+                st0.yaw, st0.pitch, planes_b, ids0, cnt0)
+    sel_kw = dict(parent_c=spack.tri_mat.shape[3] // spack.chunk_bounds.shape[1], c=32)
+    # the level-1 survivors' nearest 384: the head of the packed-exact flow
+    head, cntk = rc.select_chunklets_exact(*sel_args, k_final=384, **sel_kw)
+    nw = torch.einsum("nij,kpj->nkpi", rc.view_rotation_matrix(st0.yaw, st0.pitch), planes_b).contiguous()
+    cull_args = (spack.tri_verts16, sid0, head, cntk, nw, cam0)
+    before = rk.cullmask_t.launches
+    mask_k = rk.cullmask_t(*cull_args)
+    torch.cuda.synchronize()
+    if rk.cullmask_t.launches != before + 1:
+        fail("cullmask_t: wrapper did not launch its kernel")
+    mask_p = rk.cullmask_t.plain(*cull_args)
+    gate = torch.arange(head.shape[2], device=dev) < cntk[..., None]
+    mask_agree = share(mask_k[gate] == mask_p[gate])
+    # the chunklet lists built from the kernel's mask and, with the wrapper
+    # swapped for its plain version in this script only, from the plain mask
+    with_plain_mask = mock.patch.object(rc, "cullmask_t", rk.cullmask_t.plain)
+    lists = {"kernel": rc.select_chunklets_exact(*sel_args, verts16=spack.tri_verts16, **sel_kw)}
+    with with_plain_mask:
+        lists["plain"] = rc.select_chunklets_exact(*sel_args, verts16=spack.tri_verts16, **sel_kw)
+    if rk.cullmask_t.launches != before + 2:
+        fail("select_chunklets_exact on card tensors did not launch the cull-mask kernel exactly once")
+    differing = int(((lists["plain"][0] != lists["kernel"][0]).any(-1) | (lists["plain"][1] != lists["kernel"][1])).sum().item())
+    if mask_agree < 0.9999 or differing:
+        fail(f"cullmask_t: mask agreement {mask_agree}, {differing} tiles with another chunklet list")
+    gated = int(gate.sum().item())
+    # bytes the test needs: each distinct 2 KB chunklet row once (tiles share rows)
+    nch = spack.tri_verts16.shape[1] // 32
+    rows = sid0.long()[:, None, None] * nch + (head & ((1 << 18) - 1)).clamp(max=nch - 1)
+    row_bytes = int(torch.unique(rows[gate]).numel()) * 2048
+    cull_row = dict(
+        name="cullmask_t", route="cuda", source="habitat_torch/csrc/cullmask.cu",
+        replaces="habitat_tpu/ops/raycast_pallas.py:2051",
+        max_abs_err=(mask_k[gate] - mask_p[gate]).abs().max().item(), mask_agree=mask_agree,
+        ms=cuda_ms(lambda: rk.cullmask_t(*cull_args), 20),
+        plain_ms=cuda_ms(lambda: rk.cullmask_t.plain(*cull_args), 3, warmup=1),
+        **bound(row_bytes + sum(a.numel() * a.element_size() for a in cull_args[1:]) + mask_k.numel() * 4,
+                gated * 32 * FLOPS_PER_CULL_TRI),
+        distinct_row_bytes=row_bytes, gathered_row_bytes=gated * 2048,
+        head_slots=head.shape[2], gated_slots_per_tile_mean=cntk.float().mean().item(),
+        pass_fraction=mask_k[gate].mean().item(),
+        survivors_per_tile_mean=lists["kernel"][1].float().mean().item(),
+    )
+    # the one PyTorch form of the same test is the plain version itself
+    cull_row["library_ms"] = cull_row["plain_ms"]
+    log(f"[kernel] cullmask_t on the scan reset's head ({head.shape[2]} slots, {cull_row['gated_slots_per_tile_mean']:.1f} "
+        f"gated per tile): mask agreement {mask_agree:.6f}, lists equal on all {cntk.numel()} tiles; "
+        f"{cull_row['ms']:.3f} ms (PyTorch form {cull_row['plain_ms']:.3f} ms, bound {cull_row['bound_ms']:.3f} ms by "
+        f"{cull_row['bound_by']}); {cull_row['pass_fraction']:.3f} of gated triangles pass, "
+        f"{cull_row['survivors_per_tile_mean']:.1f} chunklets per tile survive")
+
+    kernels = [sel, every, exact_row, stream_row, cull_row]
     for tag, r in (("bench reset", sel), ("mid-size reset", every), ("synthetic 8192 tris", synth)):
         log(f"[kernel] {r['name']} on the {tag}: hit {r['hit_agree']:.6f} idx {r['idx_agree']:.6f} "
             f"|dt| {r['max_abs_err']:.3g} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
             f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
 
     # ---- 3. main path ----------------------------------------------------
+    wrappers = {n: getattr(rk, n) for n in (
+        "raycast_fused_sel_t", "raycast_fused_t", "raycast_exactsel_t", "raycast_stream_t", "cullmask_t")}
+
+    def zero_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def path_counts(path, **want):
+        """The launch counts since zero_counts(); fails unless they are
+        exactly ``want`` (kernels not named: no launch)."""
+        got = {n: w.launches for n, w in wrappers.items()}
+        if got != {**dict.fromkeys(wrappers, 0), **want}:
+            fail(f"{path} launches {got}, want {want} and no other")
+        return got
+
     T_steps = BENCH["num_steps"]
+    frames_shape = (T_steps, BENCH["num_envs"], BENCH["height"], BENCH["width"], 1)
     learner = PPOLearner(env, policy, PPOConfig(num_steps=T_steps))
-    rk.raycast_fused_sel_t.launches = rk.raycast_fused_t.launches = 0
+    zero_counts()
     rs = learner.init(seed=0)
     rs, batch, last_value, _, _ = learner.collect_rollout(rs)  # warm-up
     walls = []
@@ -251,11 +444,8 @@ def main():
         rs, batch, last_value, _, stats = learner.collect_rollout(rs)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    main_launches = {"raycast_fused_sel_t": rk.raycast_fused_sel_t.launches,
-                     "raycast_fused_t": rk.raycast_fused_t.launches}
-    want = 1 + (1 + ROLLOUTS) * T_steps  # reset render + one per step
-    if main_launches != {"raycast_fused_sel_t": want, "raycast_fused_t": 0}:
-        fail(f"main path launches {main_launches}, want {want} frustum-selected renders")
+    # reset render + one per step
+    main_launches = path_counts("main path", raycast_fused_sel_t=1 + (1 + ROLLOUTS) * T_steps)
     for name, x in (("values", batch.values), ("rewards", batch.rewards), ("log_probs", batch.log_probs),
                     ("last_value", last_value)):
         if not torch.isfinite(x).all():
@@ -265,7 +455,7 @@ def main():
     if not torch.isfinite(logits).all() or logits.shape != (BENCH["num_envs"], 4):
         fail("bad logits")
     depth = batch.obs["depth"]
-    if depth.shape != (T_steps, BENCH["num_envs"], 128, 128, 1) or not torch.isfinite(depth.float()).all():
+    if depth.shape != frames_shape or not torch.isfinite(depth.float()).all():
         fail("bad depth frames")
     steps = BENCH["num_envs"] * T_steps
     sps = sorted(steps / w for w in walls)
@@ -275,8 +465,7 @@ def main():
     state = rs.env_state
     ctx = env._make_ctx(state)
     cam = state.pos + torch.tensor([0.0, 1.25, 0.0], device=dev)
-    render_ms = cuda_ms(lambda: rc.render_batch(env.pack, ctx.sid, cam, state.yaw, state.pitch,
-                                                 height=128, width=128), 10)
+    render_ms = cuda_ms(lambda: rc.render_batch(env.pack, ctx.sid, cam, state.yaw, state.pitch, **hw), 10)
     with torch.no_grad():
         policy_ms = cuda_ms(lambda: policy(rs.obs, rs.hidden, rs.prev_action, rs.not_done), 10)
     actions = torch.ones(BENCH["num_envs"], dtype=torch.int32, device=dev)
@@ -292,36 +481,158 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        rs, *_ = learner.collect_rollout(rs)
-        torch.cuda.synchronize()
-    dev_kernels = [e for e in prof.key_averages()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA and device_us(e) > 0]
-    dev_kernels.sort(key=device_us, reverse=True)
-    device_ms = sum(device_us(e) for e in dev_kernels) / 1e3
-    log(f"[profile] one rollout: device kernel time {device_ms:.1f} ms, idle share "
-        f"{1 - device_ms / (median_wall * 1e3):.3f} of the median unprofiled wall, "
-        f"{sum(e.count for e in dev_kernels)} kernel launches")
-    for e in dev_kernels[:15]:
-        log(f"[profile]   {device_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+    def profiled_rollout(tag, lrn, state, wall, top=15):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, *_ = lrn.collect_rollout(state)
+            torch.cuda.synchronize()
+        dev_kernels = [e for e in prof.key_averages()
+                       if getattr(e, "device_type", None) == DeviceType.CUDA and device_us(e) > 0]
+        dev_kernels.sort(key=device_us, reverse=True)
+        device_ms = sum(device_us(e) for e in dev_kernels) / 1e3
+        log(f"[{tag}] one rollout: device kernel time {device_ms:.1f} ms, idle share "
+            f"{1 - device_ms / (wall * 1e3):.3f} of the median unprofiled wall, "
+            f"{sum(e.count for e in dev_kernels)} kernel launches")
+        for e in dev_kernels[:top]:
+            log(f"[{tag}]   {device_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+        return state
+
+    rs = profiled_rollout("profile", learner, rs, median_wall)
 
     # mid-size-scene route: every-chunk kernel
     mid_learner = PPOLearner(mid_env, policy, PPOConfig(num_steps=MID["num_steps"]))
-    rk.raycast_fused_sel_t.launches = rk.raycast_fused_t.launches = 0
+    zero_counts()
     mrs = mid_learner.init(seed=1)
     mrs, mbatch, mlast, _, _ = mid_learner.collect_rollout(mrs)
     torch.cuda.synchronize()
-    mid_launches = {"raycast_fused_sel_t": rk.raycast_fused_sel_t.launches,
-                    "raycast_fused_t": rk.raycast_fused_t.launches}
-    if mid_launches != {"raycast_fused_sel_t": 0, "raycast_fused_t": 1 + MID["num_steps"]}:
-        fail(f"mid-size route launches {mid_launches}")
+    mid_launches = path_counts("mid-size route", raycast_fused_t=1 + MID["num_steps"])
     if not (torch.isfinite(mbatch.values).all() and torch.isfinite(mlast).all()):
         fail("non-finite values on the mid-size route")
     log(f"[mid] launches {mid_launches}")
     sel["launches"] = main_launches["raycast_fused_sel_t"]
     every["launches"] = mid_launches["raycast_fused_t"]
 
-    # ---- 4. card vs CPU on a small input --------------------------------
+    # ---- scan path: the same rollout on the 859,290-triangle LOD scene -----
+    scan_learner = PPOLearner(scan_env, policy, PPOConfig(num_steps=T_steps))
+    zero_counts()
+    srs = scan_learner.init(seed=2)
+    srs, sbatch, slast, _, _ = scan_learner.collect_rollout(srs)  # warm-up
+    swalls = []
+    for _ in range(SCAN_ROLLOUTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srs, sbatch, slast, _, sstats = scan_learner.collect_rollout(srs)
+        torch.cuda.synchronize()
+        swalls.append(time.perf_counter() - t0)
+    scan_renders = 1 + (1 + SCAN_ROLLOUTS) * T_steps  # reset render + one per step
+    scan_launches = path_counts("scan path", raycast_exactsel_t=scan_renders, cullmask_t=scan_renders)
+    sdepth = sbatch.obs["depth"]
+    if sdepth.shape != frames_shape or not torch.isfinite(sdepth.float()).all():
+        fail("bad depth frames on the scan path")
+    if (sdepth.float() < 0.999).float().mean() < 0.5:
+        fail("the scan path's depth frames see too little geometry")
+    for name, x in (("values", sbatch.values), ("rewards", sbatch.rewards), ("last_value", slast)):
+        if not torch.isfinite(x).all():
+            fail(f"non-finite {name} on the scan path")
+    ssps = sorted(steps / w for w in swalls)
+    smedian_wall = sorted(swalls)[SCAN_ROLLOUTS // 2]
+    sstate = srs.env_state
+    sctx = scan_env._make_ctx(sstate)
+    scam = sstate.pos + cam_offset
+    pose = (spack, sctx.sid, scam, sstate.yaw, sstate.pitch)
+    srender_ms = cuda_ms(lambda: rc.render_batch(*pose, **hw), 5)
+    sselect_ms = cuda_ms(lambda: rc.closest_hit_call(*pose, **hw), 5)
+    kernel, args, kwargs, _ = rc.closest_hit_call(*pose, **hw)
+    skernel_ms = cuda_ms(lambda: kernel(*args, **kwargs), 5)
+    with torch.no_grad():
+        spolicy_ms = cuda_ms(lambda: policy(srs.obs, srs.hidden, srs.prev_action, srs.not_done), 5)
+    sstep_ms = cuda_ms(lambda: scan_env.step_fn(sstate, actions), 5)
+    log(f"[scan] {gpu}: env-steps/s median {ssps[SCAN_ROLLOUTS // 2]:.1f} over {SCAN_ROLLOUTS} rollouts "
+        f"(min {ssps[0]:.1f}, max {ssps[-1]:.1f}; walls ms {[round(w * 1e3, 1) for w in swalls]} "
+        f"for {BENCH['num_envs']}x{T_steps}); per step: render {srender_ms:.3f} ms = select {sselect_ms:.3f} "
+        f"({sselect_ms / srender_ms:.3f} of it) + kernel {skernel_ms:.3f} + epilogue "
+        f"{srender_ms - sselect_ms - skernel_ms:.3f}; env step incl. render {sstep_ms:.3f} ms, policy "
+        f"{spolicy_ms:.3f} ms; {args[3].float().mean().item():.1f} chunklets listed per tile; episodes done "
+        f"{int(sstats['done_count'].item())}, launches {scan_launches}")
+    srs = profiled_rollout("scan-profile", scan_learner, srs, smedian_wall)
+    exact_row["launches"] = scan_launches["raycast_exactsel_t"]
+    cull_row["launches"] = scan_launches["cullmask_t"]
+
+    # one reset render through the chunk stream
+    reset_pose = (spack, sid0, cam0, st0.yaw, st0.pitch)
+    frames = rc.render_batch(*reset_pose, **hw)
+    zero_counts()
+    frames_s = rc.render_batch(*reset_pose, backend="stream", **hw)
+    torch.cuda.synchronize()
+    stream_row["launches"] = path_counts("stream render", raycast_stream_t=1)["raycast_stream_t"]
+    hit_d, hit_s = frames["depth"] < 0.999, frames_s["depth"] < 0.999
+    stream_hit_agree = share(hit_d == hit_s)
+    both = hit_d & hit_s
+    log(f"[stream] reset render with backend=stream: hit/miss equal on {stream_hit_agree:.6f} of pixels, "
+        f"depth within 1e-3 on {share((frames['depth'] - frames_s['depth']).abs()[both] < 1e-3):.6f} "
+        f"of common hits")
+    if stream_hit_agree < 0.999:
+        fail(f"the stream route's hit/miss differs from the default route's on {1 - stream_hit_agree} of pixels")
+    # the default route's frames (cull mask from the kernel) against a render
+    # whose cull mask comes from the plain version
+    zero_counts()
+    with with_plain_mask:
+        frames_p = rc.render_batch(*reset_pose, **hw)
+    torch.cuda.synchronize()
+    path_counts("render with the plain cull mask", raycast_exactsel_t=1)
+    for k in frames:
+        if not torch.equal(frames[k], frames_p[k]):
+            fail(f"the cull-mask kernel changes the {k} frames")
+    log("[cull] reset render: rgb, depth and semantic from the cull-mask kernel equal those from its plain version")
+
+    # ---- 5. exactness: the deployed scan route against the all-chunks oracle -----
+    n_val, eh = 2, 64
+    vrng = np.random.default_rng(0)
+    vpos = np.stack([scan_scene.sample_navigable_point(vrng) for _ in range(n_val)])
+    vpos[:, 1] = scan_scene.floor_y + 1.2
+    vpos = torch.as_tensor(vpos, dtype=torch.float32, device=dev)
+    vyaw = torch.as_tensor(vrng.uniform(0, 2 * np.pi, n_val), dtype=torch.float32, device=dev)
+    vpitch = torch.zeros(n_val, device=dev)
+    vsid = torch.zeros(n_val, dtype=torch.int32, device=dev)
+    vdirs = rc.world_rays(vyaw, vpitch, 90.0, eh, eh)  # raster order
+
+    def plane_exact(t, idx):
+        t, idx = rc.from_blocks(t, eh, eh), rc.from_blocks(idx, eh, eh)
+        hit = idx >= 0
+        safe = idx.clamp(min=0).long()
+        nrm = spack.tri_attr[0, safe, 0:3]
+        nd = (nrm * vdirs).sum(-1)
+        num = (nrm * (spack.tri_v0[0, safe] - vpos[:, None, :])).sum(-1)
+        ok = hit & (nd.abs() > 1e-6)
+        return torch.where(ok, num / torch.where(ok, nd, torch.ones_like(nd)), 1e6), hit
+
+    kernel, args, kwargs, _ = rc.closest_hit_call(spack, vsid, vpos, vyaw, vpitch, height=eh, width=eh)
+    if kernel is not rk.raycast_exactsel_t:
+        fail("the exactness guard should run the deployed chunklet stream")
+    t_k, hit_k = plane_exact(*kernel(*args, **kwargs))
+    d_t_v, Bt_v = args[4], args[5]
+    # oracle: every chunk whose LOD band holds the tile's apex, nearest first
+    cb = spack.chunk_bounds[vsid.long()]
+    NC = cb.shape[1]
+    dist_c = torch.linalg.vector_norm(cb[:, None, :, :3] - vpos[:, None, None, :], dim=-1)
+    dist_c = dist_c.expand(n_val, d_t_v.shape[0], NC)
+    valid_c = (cb[..., 3] > 0)[:, None, :] & rc._lod_band_ok(cb, dist_c)
+    score_c = torch.where(valid_c, (dist_c - cb[..., 3][:, None]).clamp(min=0.0), 1e9)
+    ids_all, cnt_all = rc._pack_nearest_first(*torch.topk(-score_c, NC, dim=-1))
+    C_big = spack.tri_mat.shape[3] // NC
+    t_o, hit_o = plane_exact(*rk.raycast_stream_t(
+        rc.group_tri_mat(spack.tri_mat, C_big).contiguous(), vsid, ids_all.contiguous(), cnt_all, d_t_v, Bt_v,
+        ray_tile=1024, tri_chunk=C_big,
+    ))
+    both = hit_o & hit_k
+    hitmatch = share(hit_o == hit_k)
+    t_agree = share((t_o[both] - t_k[both]).abs() < 5e-3)
+    log(f"[exactness] {eh}x{eh}, {n_val} poses: scan_cull_hitmatch {hitmatch:.6f}, scan_cull_t_agree_5mm {t_agree:.6f} "
+        f"(hit fraction {hit_k.float().mean().item():.4f}; oracle {cnt_all.float().mean().item():.1f} band-valid chunks "
+        f"of {NC} per tile, deployed {args[3].float().mean().item():.1f} chunklets per tile)")
+    if hitmatch < 0.9999 or t_agree < 0.9999:
+        fail(f"the scan route disagrees with the all-chunks oracle: hitmatch {hitmatch}, t_agree_5mm {t_agree}")
+
+    # ---- 6. card vs CPU on a small input --------------------------------
     small = dict(num_envs=8, precomputed_fields=fields, max_episode_steps=500, sensor_specs=sensors)
     env_c = make_nav_env(scenes, episodes, device="cpu", **small)
     env_g = make_nav_env(scenes, episodes, **small)

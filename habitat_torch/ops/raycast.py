@@ -1,10 +1,21 @@
 """Batched triangle raycasting -> RGB / depth / semantic frames.
 
-Port of the pinhole fast path of ``habitat_tpu/ops/raycast.py::render_batch``
-(and the helpers it runs): per-screen-tile frustum culling at 32-triangle
-chunk granularity (``select_chunks_frustum``), the closest-hit kernel
-(``ops/raycast_kernels.py``), then the attribute gather with plane-exact
-depth recovery and flat+Lambert shading.
+Port of the static pinhole routes of
+``habitat_tpu/ops/raycast.py::render_batch`` (and the helpers they run).
+
+Scenes up to 96 chunks of 128 triangles: per-screen-tile frustum culling at
+32-triangle chunk granularity (``select_chunks_frustum``) or every chunk,
+the closest-hit kernel (``ops/raycast_kernels.py``), then the attribute
+gather with plane-exact depth recovery and flat+Lambert shading.
+
+Larger scenes, on images that split into 32x32-pixel tiles: per tile, cone
+culling of the parent chunks' bounding spheres with the LOD distance bands
+(``select_chunks``), expansion into 32-triangle chunklets culled by their
+boxes and then by the exact three-vertex plane test
+(``select_chunklets_exact``), and the nearest-first chunklet stream kernel;
+or, with ``backend="stream"``, occlusion-bounded parent chunks
+(``select_chunks_occluded``) through the chunk stream kernel. The epilogue
+is one 64-byte row gather per ray from ``tri_attr16`` where the pack has it.
 
 The intersection is the matrix form of Möller–Trumbore: the four
 determinants are bilinear in per-ray features F = [d, o, o×d, 1] and
@@ -26,13 +37,36 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from habitat_torch.ops.raycast_kernels import raycast_fused_sel_t, raycast_fused_t
+from habitat_torch.ops.raycast_kernels import (  # VERTS16_VALID: re-exported beside ATTR16_NV0
+    _EPS,
+    _TMAX,
+    _TMIN,
+    VERTS16_VALID,
+    cullmask_t,
+    raycast_exactsel_t,
+    raycast_fused_sel_t,
+    raycast_fused_t,
+    raycast_stream_t,
+)
 from habitat_torch.sims.scene import ScenePack
-from habitat_torch.utils.geometry import camera_rays, view_rotation_matrix
+from habitat_torch.utils.geometry import camera_rays, view_rotation_matrix, yaw_to_forward
 
-# the fast path keeps the whole scene per kernel call up to 2 x 48 chunks
-# of 128 triangles; beyond it the JAX package switches to occlusion culling
-_MAX_FAST_CHUNKS = 96
+# tri_attr16 row [attr(8) | v0(3) | n.v0 | pad(4)]: the slot of n.v0
+ATTR16_NV0 = 11
+_ID_BITS = 18  # packed list slot: (dmin_cm << 18) | chunk id
+_SENTINEL = 0x7FFFFFFF
+# the chunk-culled routes' ray tile: one 32x32-pixel screen block
+_BLOCK = 32
+_BLOCK_RAYS = _BLOCK * _BLOCK
+
+# the fast path keeps the whole scene per kernel call up to 2 x 48 chunks of
+# 128 triangles (2 x cull_k where the caller gives one); beyond it the
+# chunk-culled routes take over
+_FAST_CULL_K = 48
+# parent chunks the chunk stream route keeps per tile when cull_k is not given
+_STREAM_CULL_K = 160
+# parent chunks the exact-cull route keeps per tile at least
+_EXACT_MIN_K = 320
 # frustum-selected route up to this many (padded) triangles
 _SEL_MAX_TRIS = 4096
 _SEL_CHUNK = 32
@@ -174,6 +208,337 @@ def select_chunks_frustum(
     return ids, cnt
 
 
+def mt_epilogue(G: torch.Tensor, C: int) -> torch.Tensor:
+    """Determinant segments (..., 4C) -> t (..., C), 1e6 where no hit."""
+    detA, tnum, unum, vnum = G[..., :C], G[..., C:2 * C], G[..., 2 * C:3 * C], G[..., 3 * C:]
+    sgn = torch.sign(detA)
+    a = detA.abs()
+    us, vs, ts = unum * sgn, vnum * sgn, tnum * sgn
+    hit = (a > _EPS) & (us >= 0.0) & (vs >= 0.0) & (us + vs <= a) & (ts > _TMIN * a)
+    return torch.where(hit, tnum / torch.where(a > _EPS, detA, torch.ones_like(detA)), _TMAX)
+
+
+def raycast_mxu_batch(
+    tri_mats: torch.Tensor,  # (N, 10, 4, T) per-env triangle matrices
+    origins: torch.Tensor,  # (N, R, 3)
+    dirs: torch.Tensor,  # (N, R, 3)
+    tri_chunk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Closest hit as batched matrix products in PyTorch, triangle chunks in
+    order: (t (N, R) f32, idx (N, R) i32, -1 on a miss). It is the occlusion
+    prepass of ``select_chunks_occluded`` and runs wherever its inputs lie."""
+    N, R, _ = origins.shape
+    T = tri_mats.shape[3]
+    C = min(tri_chunk, T)
+    if T % C:
+        raise ValueError(f"{T} triangles do not split into chunks of {C}")
+    ones = torch.ones(N, R, 1, device=origins.device)
+    F = torch.cat([dirs, origins, torch.linalg.cross(origins, dirs), ones], dim=-1).float()
+    Mc = tri_mats.reshape(N, 10, 4, T // C, C)
+    best_t = torch.full((N, R), _TMAX, device=origins.device)
+    best_i = torch.full((N, R), -1, dtype=torch.int32, device=origins.device)
+    for c in range(T // C):
+        t = mt_epilogue(torch.bmm(F, Mc[:, :, :, c].reshape(N, 10, 4 * C)), C)
+        tmin, win = t.min(dim=-1)
+        better = tmin < best_t
+        best_t = torch.where(better, tmin, best_t)
+        best_i = torch.where(better, win.to(torch.int32) + c * C, best_i)
+    return best_t, torch.where(best_t >= _TMAX, -1, best_i)
+
+
+def _lod_band_ok(chunk_bounds: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
+    """Discrete-LOD render band: a chunk competes only when the tile apex is
+    within its [dmin, dmax] distance range (chunk_bounds columns 4:6;
+    single-LOD packs carry [0, 1e9]), padded by the chunk radius so that band
+    boundaries never open gaps."""
+    if chunk_bounds.shape[-1] < 6:
+        return torch.ones_like(dist, dtype=torch.bool)
+    r = chunk_bounds[..., 3][:, None, :]
+    dmin = chunk_bounds[..., 4][:, None, :]
+    dmax = chunk_bounds[..., 5][:, None, :]
+    return ((dist + r) >= dmin) & ((dist - r) <= dmax)
+
+
+def _tile_cones(chunk_bounds, origins, dirs, ray_tile):
+    """Per (env, tile) cone test of every chunk sphere: (dist to the apex
+    (N, nt, NC), cone-visible (N, nt, NC), r (N, NC))."""
+    N, R, _ = origins.shape
+    n_tiles = R // ray_tile
+    d = dirs.reshape(N, n_tiles, ray_tile, 3)
+    axis = d.mean(dim=2)
+    axis = axis / (torch.linalg.vector_norm(axis, dim=-1, keepdim=True) + 1e-9)
+    cos_tile = (d * axis[:, :, None, :]).sum(-1).min(dim=2).values  # (N, nt)
+    ang_tile = torch.arccos(cos_tile.clamp(-1.0, 1.0))
+    o = origins.reshape(N, n_tiles, ray_tile, 3)[:, :, 0]  # (N, nt, 3) apex
+    r = chunk_bounds[..., 3]  # (N, NC)
+    v = chunk_bounds[:, None, :, :3] - o[:, :, None, :]  # (N, nt, NC, 3)
+    dist = torch.linalg.vector_norm(v, dim=-1)
+    safe = dist.clamp(min=1e-9)
+    cos_v = (v * axis[:, :, None, :]).sum(-1) / safe
+    ang_v = torch.arccos(cos_v.clamp(-1.0, 1.0))
+    ang_r = torch.arcsin((r[:, None, :] / safe).clamp(0.0, 1.0))
+    visible = (ang_v <= ang_tile[:, :, None] + ang_r) | (dist <= r[:, None, :])
+    return dist, visible, r
+
+
+def select_chunks(
+    chunk_bounds: torch.Tensor,  # (N, NC, 4 or 6) per-env chunk spheres (+ LOD band)
+    origins: torch.Tensor,  # (N, R, 3)
+    dirs: torch.Tensor,  # (N, R, 3)
+    ray_tile: int,
+    k: int,
+    with_cnt: bool = False,
+):
+    """Per-ray-tile K nearest candidate chunks by cone/sphere culling.
+
+    The rays of a tile share an origin and form a cone (axis = mean
+    direction, half-angle covering the tile's rays). A chunk is a candidate
+    iff the cone meets its bounding sphere and the apex lies in its LOD band;
+    the K nearest win. Returns ids (N, nt, K) int32 nearest first, and with
+    ``with_cnt`` the number of real candidates per tile (the tail is
+    arbitrary non-candidates)."""
+    dist, visible, r = _tile_cones(chunk_bounds, origins, dirs, ray_tile)
+    valid = (r > 0)[:, None, :] & _lod_band_ok(chunk_bounds, dist)
+    score = torch.where(visible & valid, (dist - r[:, None, :]).clamp(min=0.0), 1e9)
+    neg, idx = torch.topk(-score, min(k, score.shape[-1]), dim=-1)
+    if with_cnt:
+        return idx.to(torch.int32), (neg > -1e8).sum(-1, dtype=torch.int32)
+    return idx.to(torch.int32)
+
+
+def _pack_nearest_first(neg: torch.Tensor, idx: torch.Tensor):
+    """topk output (negated scores, ids) -> the stream kernels' list:
+    (packed (dmin_cm << 18) | id with the tail holding the last survivor,
+    cnt). dmin is floored to centimetres (never above the true bound) and
+    capped at 81.91 m."""
+    valid_sel = neg > -1e8
+    cnt = valid_sel.sum(-1, dtype=torch.int32)
+    ids = idx.to(torch.int32)
+    pos = torch.arange(ids.shape[-1], dtype=torch.int32, device=ids.device)
+    in_list = pos < cnt[..., None]
+    last = torch.gather(ids, -1, (cnt.long() - 1).clamp(min=0)[..., None])
+    ids = torch.where(in_list, ids, last)
+    ids = torch.where(cnt[..., None] > 0, ids, 0)
+    dmin_cm = torch.floor(-neg * 1e2).clamp(0, 8191).to(torch.int32)
+    dmin_cm = torch.where(valid_sel & in_list, dmin_cm, 0)
+    return (dmin_cm << _ID_BITS) | ids, cnt
+
+
+def select_chunks_occluded(
+    pack_tri_mat: torch.Tensor,  # (S, 10, 4, T)
+    chunk_bounds: torch.Tensor,  # (N, NC, 4 or 6)
+    sids: torch.Tensor,  # (N,)
+    origins: torch.Tensor,  # (N, R, 3)
+    dirs: torch.Tensor,  # (N, R, 3)
+    ray_tile: int,
+    k: int,
+    lowres_stride: int = 64,
+    depth_margin: float = 1.0,
+    pre_chunks: int = 16,
+    with_cnt: bool = False,
+    with_dmax: bool = False,
+):
+    """Occlusion-aware chunk selection: a low-resolution raycast (one ray in
+    ``lowres_stride``) against a proxy subset of the scene bounds each
+    tile's depth; only cone-visible chunks nearer than that bound compete
+    for the K slots. A subset can only overestimate the depth, so the bound
+    stays conservative with respect to a full prepass. On LOD packs the
+    proxy is the coarsest-LOD chunks (they cover the whole scene sparsely),
+    else the chunks nearest the agent.
+
+    Returns ids (N, nt, K) int32; with ``with_cnt`` the packed nearest-first
+    list of the stream kernel and the counts; ``with_dmax`` appends the
+    per-tile depth bound."""
+    N, R, _ = origins.shape
+    S, _, _, T = pack_tri_mat.shape
+    NC = chunk_bounds.shape[1]
+    C = T // NC
+    n_tiles = R // ray_tile
+    agent = origins[:, 0]
+    cdist = torch.linalg.vector_norm(chunk_bounds[..., :3] - agent[:, None, :], dim=-1) - chunk_bounds[..., 3]
+    cdist = torch.where(chunk_bounds[..., 3] > 0, cdist, 1e9)
+    if chunk_bounds.shape[-1] >= 6:
+        coarse = chunk_bounds[..., 5] > 1e8
+        cdist = torch.where(coarse, cdist, cdist + 1e6)
+        kp = min(max(pre_chunks, 192 * 128 // C), NC)  # constant proxy size in triangles
+    else:
+        kp = min(pre_chunks, NC)
+    near_ids = torch.topk(-cdist, kp, dim=-1).indices  # (N, kp)
+    # chunk-major gather, never materializing per-env scene matrices
+    flat = pack_tri_mat.reshape(S, 10, 4, NC, C).permute(0, 3, 1, 2, 4).reshape(S * NC, 10, 4, C)
+    Mg = flat[sids.long()[:, None] * NC + near_ids]  # (N, kp, 10, 4, C)
+    Mg = Mg.permute(0, 2, 3, 1, 4).reshape(N, 10, 4, kp * C)
+    t_lr, _ = raycast_mxu_batch(Mg, origins[:, ::lowres_stride], dirs[:, ::lowres_stride], tri_chunk=128)
+    t_lr = torch.where(t_lr > 1e5, 40.0, t_lr)  # miss -> generous bound
+    dmax = t_lr.reshape(N, n_tiles, ray_tile // lowres_stride).max(dim=-1).values * 1.2 + depth_margin
+
+    dist, visible, r = _tile_cones(chunk_bounds, origins, dirs, ray_tile)
+    near_enough = (dist - r[:, None, :]) <= dmax[:, :, None]
+    valid = (r > 0)[:, None, :] & _lod_band_ok(chunk_bounds, dist)
+    score = torch.where(visible & valid & near_enough, (dist - r[:, None, :]).clamp(min=0.0), 1e9)
+    neg, idx = torch.topk(-score, min(k, NC), dim=-1)
+    if not with_cnt:
+        ids = idx.to(torch.int32)
+        return (ids, dmax) if with_dmax else ids
+    packed, cnt = _pack_nearest_first(neg, idx)
+    return (packed, cnt, dmax) if with_dmax else (packed, cnt)
+
+
+def chunklet_aabbs(tri_v0, tri_e1, tri_e2, tri_valid, c: int = 32) -> torch.Tensor:
+    """Per-chunklet AABBs (S, T//c, 6) = [center(3), half(3)]; empty
+    chunklets get an inverted box that fails every positive-vertex test."""
+    S, T, _ = tri_v0.shape
+    n = T // c
+    verts = torch.stack([tri_v0, tri_v0 + tri_e1, tri_v0 + tri_e2], dim=2).reshape(S, n, c * 3, 3)
+    m = tri_valid.reshape(S, n, c).repeat_interleave(3, dim=2)[..., None]
+    inf = torch.tensor(float("inf"), device=tri_v0.device)
+    lo = torch.where(m, verts, inf).min(dim=2).values
+    hi = torch.where(m, verts, -inf).max(dim=2).values
+    any_v = tri_valid.reshape(S, n, c).any(dim=2)[..., None]
+    lo = torch.where(any_v, lo, 1e9)
+    hi = torch.where(any_v, hi, -1e9)
+    return torch.cat([(lo + hi) * 0.5, (hi - lo) * 0.5], dim=-1)
+
+
+def _finish_list(packed: torch.Tensor, cnt: torch.Tensor, kf: int):
+    """Cut or zero-pad a sorted packed list to ``kf`` slots, fill the tail
+    with the last survivor, zero the list of a tile without survivors."""
+    K = packed.shape[-1]
+    packed = packed[..., :kf] if kf <= K else torch.nn.functional.pad(packed, (0, kf - K))
+    cnt = cnt.clamp(max=kf)
+    last = torch.gather(packed, -1, (cnt.long() - 1).clamp(min=0)[..., None])
+    pos = torch.arange(kf, dtype=torch.int32, device=packed.device)
+    packed = torch.where(pos < cnt[..., None], packed, last)
+    packed = torch.where(cnt[..., None] > 0, packed, 0)
+    return packed.to(torch.int32), cnt.to(torch.int32)
+
+
+def _box_dmin_cm(ctr: torch.Tensor, half: torch.Tensor) -> torch.Tensor:
+    """Least distance from the apex to a box (centre relative to the apex),
+    in floored centimetres, capped at 8191."""
+    dmin = (torch.linalg.vector_norm(ctr, dim=-1) - torch.linalg.vector_norm(half, dim=-1)).clamp(min=0.0)
+    return torch.floor(dmin * 1e2).clamp(0, 8191).to(torch.int32)
+
+
+def select_chunklets_exact(
+    tri_v0: torch.Tensor,  # (S, T, 3)
+    tri_e1: torch.Tensor,
+    tri_e2: torch.Tensor,
+    tri_valid: torch.Tensor,  # (S, T)
+    aabbs: torch.Tensor,  # (S, T//c, 6) from chunklet_aabbs
+    sids: torch.Tensor,  # (N,)
+    cam_pos: torch.Tensor,  # (N, 3)
+    yaw: torch.Tensor,
+    pitch: torch.Tensor,
+    planes_cam: torch.Tensor,  # (nt, 4, 3) tile_plane_normals_cam
+    ids0: torch.Tensor,  # (N, nt, K0) surviving parent chunk ids
+    cnt0: torch.Tensor,  # (N, nt)
+    parent_c: int,  # parent chunk size (triangles)
+    c: int = 32,  # chunklet size
+    k_aabb: Optional[int] = None,
+    k_final: Optional[int] = None,
+    skip_exact: bool = True,
+    verts16: Optional[torch.Tensor] = None,
+    k_exact: int = 384,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Hierarchical exact chunklet selection.
+
+    Level 1 expands each surviving parent chunk into its chunklets and culls
+    them by the AABB positive-vertex rule (the box corner most inside each
+    tile plane: if even it is outside, every triangle in the box is). Level 2
+    is ``bin_tris_tiles``' exact three-vertex plane test on the survivors'
+    triangles, with the same -1e-3 margin, so a culled chunklet holds no
+    triangle that a ray of the tile can hit. There is no occlusion pre-cull:
+    the kernel exploits occlusion exactly, streaming nearest first and
+    stopping once no later chunklet can win.
+
+    Three flows:
+    - ``verts16`` given (packs that carry ``tri_verts16``): level 2 runs on
+      the ``k_exact`` nearest level-1 survivors, one 2 KB row gather per
+      chunklet; survivors beyond the cap pass through untested, so the cap
+      costs work, never exactness.
+    - ``skip_exact`` (default) without ``verts16``: level 1 only, uncapped.
+    - otherwise the capped level-2 flow (``k_aabb``, ``k_final``), which can
+      drop true survivors when counts exceed a cap.
+
+    Returns (packed (N, nt, Kf) int32 = (dmin_cm << 18) | chunklet id,
+    ascending, survivors first, the tail holding the last survivor, Kf =
+    ``k_final`` or all candidates, rounded up to a multiple of 128 in the
+    first two flows; cnt (N, nt) int32)."""
+    N, nt, K0 = ids0.shape
+    S, T, _ = tri_v0.shape
+    NCH = T // c
+    if NCH > (1 << _ID_BITS):
+        raise ValueError("a packed chunklet id has 18 bits")
+    expand = parent_c // c
+    Kc = K0 * expand
+    dev = ids0.device
+    sid = sids.long()
+    nw = torch.einsum("nij,kpj->nkpi", view_rotation_matrix(yaw, pitch), planes_cam)  # (N, nt, 4, 3)
+
+    # ---- level 1: AABB positive vertex over the expanded candidates ------
+    cand = (
+        ids0[..., None] * expand + torch.arange(expand, dtype=torch.int32, device=dev)
+    ).reshape(N, nt, Kc)
+    pos0 = torch.arange(K0, dtype=torch.int32, device=dev)
+    cand_valid = (
+        (pos0[None, None, :, None] < cnt0[..., None, None]).expand(N, nt, K0, expand).reshape(N, nt, Kc)
+    )
+    NC0 = T // parent_c
+    ab = aabbs.reshape(S * NC0, expand, 6)[sid[:, None, None] * NC0 + ids0.long()].reshape(N, nt, Kc, 6)
+    ctr = ab[..., 0:3] - cam_pos[:, None, None, :]
+    half = ab[..., 3:6]
+    surv1 = cand_valid
+    for p in range(4):
+        nw_p = nw[:, :, None, p, :]  # (N, nt, 1, 3)
+        surv1 = surv1 & (((ctr + torch.sign(nw_p) * half) * nw_p).sum(-1) > -1e-3)
+
+    if verts16 is not None or skip_exact:
+        packed = torch.where(surv1, (_box_dmin_cm(ctr, half) << _ID_BITS) | cand, _SENTINEL)
+        packed = torch.sort(packed, dim=-1).values  # nearest-first survivors
+        cnt = surv1.sum(-1, dtype=torch.int32)
+        if verts16 is not None:
+            ka = min(k_exact, Kc)
+            head = packed[..., :ka].contiguous()
+            cntk = cnt.clamp(max=ka)
+            tri_pass = cullmask_t(verts16, sids.to(torch.int32), head, cntk, nw.contiguous(), cam_pos, c=c)
+            pos_a = torch.arange(ka, dtype=torch.int32, device=dev)
+            keep_head = (tri_pass > 0.5).any(-1) & (pos_a < cntk[..., None])
+            head = torch.where(keep_head, head, _SENTINEL)
+            # push the culled slots to the tail
+            packed = torch.sort(torch.cat([head, packed[..., ka:]], dim=-1), dim=-1).values
+            cnt = keep_head.sum(-1, dtype=torch.int32) + (cnt - ka).clamp(min=0)
+        kf = Kc if k_final is None else min(k_final, Kc)
+        return _finish_list(packed, cnt, -(-kf // 128) * 128)
+
+    # ---- capped flow: compact by chunklet id, then level 2 ----------------
+    ka = min(k_aabb or 512, Kc)
+    key1 = torch.where(surv1, cand, 1 << 30)
+    ord1 = torch.argsort(key1, dim=-1, stable=True)[..., :ka]
+    ids1 = torch.gather(cand, -1, ord1)  # (N, nt, ka)
+    cnt1 = surv1.sum(-1).clamp(max=ka)
+    ord3 = ord1[..., None].expand(N, nt, ka, 3)
+    ctr1, half1 = torch.gather(ctr, 2, ord3), torch.gather(half, 2, ord3)
+    flat_key = sid[:, None, None] * NCH + ids1.long()
+    p9 = torch.cat([tri_v0, tri_e1, tri_e2], dim=-1).reshape(S * NCH, c, 9)[flat_key]  # (N, nt, ka, c, 9)
+    vgood = tri_valid.reshape(S * NCH, c)[flat_key]
+    rel0 = p9[..., 0:3] - cam_pos[:, None, None, None, :]
+    eps = -1e-3
+    out_any = torch.zeros_like(vgood)
+    for p in range(4):
+        nw_p = nw[:, :, None, None, p, :]
+        d0 = (rel0 * nw_p).sum(-1)
+        de1 = (p9[..., 3:6] * nw_p).sum(-1)
+        de2 = (p9[..., 6:9] * nw_p).sum(-1)
+        out_any = out_any | ((d0 < eps) & (d0 + de1 < eps) & (d0 + de2 < eps))
+    pos1 = torch.arange(ka, device=dev)
+    surv2 = (~out_any & vgood).any(-1) & (pos1 < cnt1[..., None])
+    packed = (_box_dmin_cm(ctr1, half1) << _ID_BITS) | ids1
+    kf = min(k_final or ka, ka)
+    packed = torch.sort(torch.where(surv2, packed, _SENTINEL), dim=-1).values
+    return _finish_list(packed, surv2.sum(-1), kf)
+
+
 @functools.lru_cache(maxsize=16)
 def pinhole_constants(hfov_deg: float, height: int, width: int, device: torch.device):
     """Per-camera constants of the fast path, on the device: camera-frame
@@ -196,6 +561,60 @@ def pinhole_constants(hfov_deg: float, height: int, width: int, device: torch.de
     return d_aug, d_t, planes, sky, ray_tile
 
 
+@functools.lru_cache(maxsize=16)
+def block_constants(hfov_deg: float, height: int, width: int, device: torch.device):
+    """Per-camera constants of the chunk-culled routes, rays in 32x32-pixel
+    block order (tile j = block j, row-major over blocks): camera-frame dirs
+    (R, 3), [d, 1] rows (R, 4), their transposed kernel tiles (nt, 8, 1024),
+    the block frustum planes (nt, 4, 3) and the sky colour."""
+    hfov_rad = math.radians(hfov_deg)
+    zero = torch.zeros((), device=device)
+    d_cam = camera_rays(zero, zero, hfov_rad, height, width, device=device)  # (H, W, 3)
+    dcb = to_blocks(d_cam.reshape(1, height * width, 3), height, width)[0]
+    R = dcb.shape[0]
+    d_aug = torch.cat([dcb, torch.ones(R, 1, device=device)], dim=-1)
+    n_tiles = R // _BLOCK_RAYS
+    d_t = torch.nn.functional.pad(
+        d_aug.reshape(n_tiles, _BLOCK_RAYS, 4).transpose(1, 2), (0, 0, 0, 4)
+    ).contiguous()  # (n_tiles, 8, 1024)
+    planes = torch.from_numpy(
+        tile_plane_normals_cam(hfov_rad, height, width, _BLOCK, _BLOCK)
+    ).to(device)
+    sky = torch.tensor([0.65, 0.75, 0.9], device=device)
+    return dcb, d_aug, d_t, planes, sky
+
+
+def to_blocks(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(N, H*W, ...) raster order -> 32x32-pixel block order."""
+    N, R = x.shape[:2]
+    tail = x.shape[2:]
+    x = x.reshape(N, height // _BLOCK, _BLOCK, width // _BLOCK, _BLOCK, *tail).transpose(2, 3)
+    return x.reshape(N, R, *tail)
+
+
+def from_blocks(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(N, H*W, ...) 32x32-pixel block order -> raster order."""
+    N, R = x.shape[:2]
+    tail = x.shape[2:]
+    x = x.reshape(N, height // _BLOCK, width // _BLOCK, _BLOCK, _BLOCK, *tail).transpose(2, 3)
+    return x.reshape(N, R, *tail)
+
+
+def world_rays(yaw: torch.Tensor, pitch: torch.Tensor, hfov_deg: float, height: int, width: int) -> torch.Tensor:
+    """(N,), (N,) -> (N, H*W, 3) world-space pinhole ray directions."""
+    y, p = yaw[:, None, None], pitch[:, None, None]
+    return camera_rays(y, p, math.radians(hfov_deg), height, width, device=yaw.device).reshape(
+        yaw.shape[0], height * width, 3
+    )
+
+
+def is_large_scene(pack: ScenePack, cull_k: Optional[int] = None) -> bool:
+    """Whether a render of this pack takes the chunk-culled routes: more
+    than 2 x 48 chunks of 128 triangles (2 x ``cull_k`` where given)."""
+    boundary = cull_k if cull_k is not None else _FAST_CULL_K
+    return pack.tri_attr.shape[1] // 128 > 2 * boundary
+
+
 def closest_hit_call(
     pack: ScenePack,
     sids: torch.Tensor,
@@ -206,21 +625,63 @@ def closest_hit_call(
     height: int,
     width: int,
     hfov_deg: float = 90.0,
+    cull_k: Optional[int] = None,
+    backend: str = "auto",
 ):
-    """The pinhole fast path's closest-hit step for one render: returns
-    (kernel wrapper, args, kwargs, B) where ``kernel(*args, **kwargs)`` gives
-    (t, idx) and B (N, 4, 10) is the ray-feature matrix. Scenes up to 4096
-    padded triangles take the frustum-selected kernel, larger ones (up to
-    96 chunks of 128) the every-chunk kernel. Raises NotImplementedError for
-    the branches the port does not have yet."""
+    """The closest-hit step of one static pinhole render: selection done,
+    returns (kernel wrapper, args, kwargs, B) where ``kernel(*args,
+    **kwargs)`` gives (t, idx) and B (N, 4, 10) is the ray-feature matrix.
+
+    Scenes up to 4096 padded triangles take the frustum-selected kernel and
+    up to 96 chunks of 128 the every-chunk kernel, rays in raster order.
+    Larger scenes take the exact-culled chunklet stream, or the parent-chunk
+    stream with ``backend="stream"``, rays in 32x32-pixel block order.
+    Raises NotImplementedError for the branches the port does not have yet."""
+    if backend not in ("auto", "stream"):
+        raise ValueError(f"backend {backend!r}: expected 'auto' or 'stream'")
     T = pack.tri_attr.shape[1]
-    if T // 128 > _MAX_FAST_CHUNKS:
-        raise NotImplementedError(
-            f"{T} padded triangles exceed the fast path's {_MAX_FAST_CHUNKS} "
-            "chunks; the occlusion-culled large-scene route is ROADMAP Queue 1 "
-            "item 7 / Queue 2 items 4-7"
-        )
     R = height * width
+    B = ray_feature_matrix(cam_pos, yaw, pitch)  # (N, 4, 10)
+    Bt = torch.nn.functional.pad(B.transpose(1, 2), (0, 0, 0, 6)).contiguous()  # (N,16,4)
+    sids = sids.to(torch.int32)
+    if is_large_scene(pack, cull_k):
+        if height % _BLOCK or width % _BLOCK:
+            raise NotImplementedError(
+                f"{height}x{width} images do not split into 32x32-pixel tiles; the "
+                "chunk-culled route for them is ROADMAP Queue 2 item 7 "
+                "(raycast_pallas_culled_t)"
+            )
+        if cull_k is None:
+            cull_k = _STREAM_CULL_K
+        _, _, d_t, planes, _ = block_constants(float(hfov_deg), height, width, cam_pos.device)
+        dirs_c = to_blocks(world_rays(yaw, pitch, hfov_deg, height, width), height, width)
+        origins_c = cam_pos[:, None, :].expand(-1, R, -1)
+        bounds = pack.chunk_bounds[sids.long()]
+        C_big = T // pack.chunk_bounds.shape[1]
+        kwargs = dict(ray_tile=_BLOCK_RAYS)
+        if backend == "stream":
+            ids, cnt = select_chunks_occluded(
+                pack.tri_mat, bounds, sids, origins_c, dirs_c, _BLOCK_RAYS, cull_k, with_cnt=True
+            )
+            gm = group_tri_mat(pack.tri_mat, C_big).contiguous()
+            return raycast_stream_t, (gm, sids, ids.contiguous(), cnt, d_t, Bt), dict(kwargs, tri_chunk=C_big), B
+        ids0, cnt0 = select_chunks(
+            bounds, origins_c, dirs_c, _BLOCK_RAYS, max(cull_k, _EXACT_MIN_K), with_cnt=True
+        )
+        # pack-time tables where the pack has them (scene-constant work does
+        # not belong in the per-step render)
+        ab = pack.chunklet_ab32
+        if ab is None:
+            ab = chunklet_aabbs(pack.tri_v0, pack.tri_e1, pack.tri_e2, pack.tri_valid, c=32)
+        gm32 = pack.tri_mat_g32
+        if gm32 is None:
+            gm32 = group_tri_mat(pack.tri_mat, 32).contiguous()
+        ids, cnt = select_chunklets_exact(
+            pack.tri_v0, pack.tri_e1, pack.tri_e2, pack.tri_valid, ab, sids, cam_pos, yaw, pitch,
+            planes, ids0, cnt0, parent_c=C_big, c=32, skip_exact=True,
+            verts16=pack.tri_verts16,
+        )
+        return raycast_exactsel_t, (gm32, sids, ids.contiguous(), cnt, d_t, Bt), dict(kwargs, tri_chunk=32), B
     if R % 1024 or R % min(_RAY_TILE, R):
         raise NotImplementedError(
             f"{height}x{width} images do not tile into 1024/2048-ray kernel "
@@ -228,9 +689,6 @@ def closest_hit_call(
             "(raycast_pallas_index_t)"
         )
     _, d_t, planes, _, ray_tile = pinhole_constants(float(hfov_deg), height, width, cam_pos.device)
-    B = ray_feature_matrix(cam_pos, yaw, pitch)  # (N, 4, 10)
-    Bt = torch.nn.functional.pad(B.transpose(1, 2), (0, 0, 0, 6)).contiguous()  # (N,16,4)
-    sids = sids.to(torch.int32)
     if T <= _SEL_MAX_TRIS and ray_tile % width == 0 and T % _SEL_CHUNK == 0:
         ids, cnt = select_chunks_frustum(
             pack.tri_v0, pack.tri_e1, pack.tri_e2, pack.tri_valid,
@@ -240,6 +698,24 @@ def closest_hit_call(
         return raycast_fused_sel_t, args, dict(ray_tile=ray_tile, tri_chunk=_SEL_CHUNK), B
     args = (group_tri_mat(pack.tri_mat).contiguous(), sids, d_t, Bt)
     return raycast_fused_t, args, dict(ray_tile=ray_tile, tri_chunk=128), B
+
+
+def _frames(N, height, width, hit, z, nd, base, sem_val, sky, max_depth, min_depth, normalize_depth):
+    """Shared tail of the epilogues on (N, R) planes in raster order: depth
+    clip/normalize, flat+Lambert shade, u8 rgb, semantic ids. ``base`` is
+    the (N, R, 3) colour of each ray's winner."""
+    z = torch.where(hit, z, torch.full_like(z, max_depth)).clamp(min_depth, max_depth)
+    if normalize_depth:
+        z = (z - min_depth) / (max_depth - min_depth)
+    shade = 0.35 + 0.65 * nd.abs()
+    rgb = torch.where(hit[..., None], base * shade[..., None], sky)
+    rgb_u8 = (rgb * 255.0).clamp(0, 255).to(torch.uint8)
+    sem = torch.where(hit, sem_val.round().to(torch.int32), 0)
+    return {
+        "rgb": rgb_u8.reshape(N, height, width, 3),
+        "depth": z.reshape(N, height, width, 1),
+        "semantic": sem.reshape(N, height, width, 1),
+    }
 
 
 def render_batch(
@@ -255,14 +731,20 @@ def render_batch(
     max_depth: float = 10.0,
     min_depth: float = 0.0,
     normalize_depth: bool = True,
+    backend: str = "auto",  # "stream": the parent-chunk stream on large scenes
     dynamic: Optional[Dict[str, torch.Tensor]] = None,
+    cull_k: Optional[int] = None,
     projection: str = "pinhole",
 ) -> Dict[str, torch.Tensor]:
-    """Render all envs: (N,H,W,C) frames through the pinhole fast path.
+    """Render all envs: (N,H,W,C) frames of a static scene through a pinhole
+    camera, at any scene size where the image splits into 32x32-pixel tiles
+    (small scenes need only a multiple of 1024 rays).
 
     Depth is planar z-depth clipped to [min_depth, max_depth], normalized if
     requested. Frames come out on the device of ``pack``; on the card the
-    closest-hit pass is the CUDA kernel, on the CPU its plain version."""
+    closest-hit pass is a CUDA kernel, on the CPU its plain version.
+    ``cull_k`` is the number of parent chunks the chunk-culled routes keep
+    per tile, and sets the scene size from which they are taken."""
     if projection != "pinhole":
         raise NotImplementedError(
             f"{projection} cameras are ROADMAP Queue 1 item 9 (equirect and "
@@ -270,39 +752,72 @@ def render_batch(
         )
     if dynamic is not None:
         raise NotImplementedError(
-            "dynamic geometry is ROADMAP Queue 1 item 8 (rearrangement render merge)"
+            "dynamic geometry is ROADMAP Queue 1 item 8 (rearrangement render "
+            "merge) with Queue 2 item 3 (raycast_pallas_index_t)"
         )
     N = sids.shape[0]
     cam_pos = cam_pos.float()
     kernel, args, kwargs, B = closest_hit_call(
-        pack, sids, cam_pos, yaw, pitch, height=height, width=width, hfov_deg=hfov_deg
+        pack, sids, cam_pos, yaw, pitch, height=height, width=width, hfov_deg=hfov_deg,
+        cull_k=cull_k, backend=backend,
     )
     t, idx = kernel(*args, **kwargs)
-    d_aug, _, _, sky, _ = pinhole_constants(float(hfov_deg), height, width, cam_pos.device)
+    sid = sids.long()[:, None]
+    depth_cfg = (max_depth, min_depth, normalize_depth)
+    if not is_large_scene(pack, cull_k):
+        d_aug, _, _, sky, _ = pinhole_constants(float(hfov_deg), height, width, cam_pos.device)
+        hit = idx >= 0
+        # winner attributes [n(3), rgb(3), sem, valid | v0(3)] gathered exactly
+        # (the JAX package's HIGHEST-precision one-hot product is this copy)
+        table = torch.cat([pack.tri_attr, pack.tri_v0], dim=2)  # (S, T, 11)
+        attrs = table[sid, idx.clamp(min=0).long()]  # (N, R, 11)
+        attrs = attrs * hit[..., None].float()
+        dirs = torch.einsum("rk,nkf->nrf", d_aug, B[..., 0:3])  # (N, R, 3) world dirs
+        nrm = attrs[..., 0:3]
+        nd = (nrm * dirs).sum(-1)  # signed n.d
+        num = (nrm * (attrs[..., 8:11] - cam_pos[:, None, :])).sum(-1)  # n.(v0 - o)
+        ok = hit & (nd.abs() > 1e-6)
+        # plane-exact t from the winner's plane
+        t_pl = torch.where(ok, num / torch.where(ok, nd, torch.ones_like(nd)), t)
+        z = t_pl * (-d_aug[None, :, 2])
+        return _frames(N, height, width, hit, z, nd, attrs[..., 3:6], attrs[..., 6], sky, *depth_cfg)
+
+    dcb, d_aug, _, _, sky = block_constants(float(hfov_deg), height, width, cam_pos.device)
+    if pack.tri_attr16 is not None:
+        # channel-major epilogue in block order: ONE 64-byte row gather per
+        # ray, then every quantity is an (N, R) plane
+        hit = idx >= 0
+        a16 = pack.tri_attr16[sid, idx.clamp(min=0).long()]  # (N, R, 16)
+        at = a16.permute(2, 0, 1).contiguous()  # (16, N, R)
+        dirs = torch.einsum("rk,nkf->fnr", d_aug, B[..., 0:3])  # (3, N, R) world dirs
+        cam = cam_pos.t()[:, :, None]  # (3, N, 1)
+        nd = at[0] * dirs[0] + at[1] * dirs[1] + at[2] * dirs[2]  # n.d
+        n_o = at[0] * cam[0] + at[1] * cam[1] + at[2] * cam[2]  # n.o
+        ok = hit & (nd.abs() > 1e-6)
+        # plane-exact t from the precomputed n.v0: (n.v0 - n.o) / (n.d). The
+        # two dots round independently (error ~|n.v0| * 1e-7): fine for
+        # scene coordinates of modest extent
+        t_pl = torch.where(ok, (at[ATTR16_NV0] - n_o) / torch.where(ok, nd, torch.ones_like(nd)), t)
+        z = torch.where(hit, t_pl, torch.zeros_like(t_pl)) * (-dcb[:, 2])[None, :]
+
+        def fb(x):
+            return from_blocks(x, height, width)
+
+        return _frames(N, height, width, fb(hit), fb(z), fb(nd), fb(a16[..., 3:6]), fb(at[6]), sky, *depth_cfg)
+    # row-gather epilogue for packs without tri_attr16, in raster order
+    t, idx = from_blocks(t, height, width), from_blocks(idx, height, width)
     hit = idx >= 0
-    # winner attributes [n(3), rgb(3), sem, valid | v0(3)] gathered exactly
-    # (the JAX package's HIGHEST-precision one-hot product is this copy)
-    table = torch.cat([pack.tri_attr, pack.tri_v0], dim=2)  # (S, T, 11)
-    attrs = table[sids.long()[:, None], idx.clamp(min=0).long()]  # (N, R, 11)
-    attrs = attrs * hit[..., None].float()
-    dirs = torch.einsum("rk,nkf->nrf", d_aug, B[..., 0:3])  # (N, R, 3) world dirs
-    nrm = attrs[..., 0:3]
-    nd = (nrm * dirs).sum(-1)  # signed n.d
-    num = (nrm * (attrs[..., 8:11] - cam_pos[:, None, :])).sum(-1)  # n.(v0 - o)
+    safe = idx.clamp(min=0).long()
+    attrs = pack.tri_attr[sid, safe] * hit[..., None].float()  # (N, R, 8)
+    v0g = pack.tri_v0[sid, safe]
+    dirs = world_rays(yaw, pitch, hfov_deg, height, width)
+    nd = (attrs[..., 0:3] * dirs).sum(-1)
+    num = (attrs[..., 0:3] * (v0g - cam_pos[:, None, :])).sum(-1)
     ok = hit & (nd.abs() > 1e-6)
-    # plane-exact t from the winner's plane
-    t_pl = torch.where(ok, num / torch.where(ok, nd, torch.ones_like(nd)), t)
-    z = t_pl * (-d_aug[None, :, 2])
-    z = torch.where(hit, z, torch.full_like(z, max_depth))
-    z = z.clamp(min_depth, max_depth)
-    if normalize_depth:
-        z = (z - min_depth) / (max_depth - min_depth)
-    shade = 0.35 + 0.65 * nd.abs()
-    rgb = torch.where(hit[..., None], attrs[..., 3:6] * shade[..., None], sky)
-    rgb_u8 = (rgb * 255.0).clamp(0, 255).to(torch.uint8)
-    sem = torch.where(hit, attrs[..., 6].round().to(torch.int32), 0)
-    return {
-        "rgb": rgb_u8.reshape(N, height, width, 3),
-        "depth": z.reshape(N, height, width, 1),
-        "semantic": sem.reshape(N, height, width, 1),
-    }
+    t = torch.where(ok, num / torch.where(ok, nd, torch.ones_like(nd)), t)
+    # planar depth = t * cos(angle to the camera's forward axis)
+    cp = torch.cos(pitch)
+    fwd_flat = yaw_to_forward(yaw)
+    fwd = torch.stack([fwd_flat[..., 0] * cp, torch.sin(pitch), fwd_flat[..., 2] * cp], dim=-1)
+    z = t * (dirs * fwd[:, None, :]).sum(-1)
+    return _frames(N, height, width, hit, z, nd, attrs[..., 3:6], attrs[..., 6], sky, *depth_cfg)

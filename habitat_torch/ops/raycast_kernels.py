@@ -1,20 +1,29 @@
-"""Closest-hit ray casting kernels: CUDA for tensors on the card, their plain
-PyTorch versions for tensors on the CPU.
+"""Ray casting kernels: CUDA for tensors on the card, their plain PyTorch
+versions for tensors on the CPU.
 
-Counterpart of ``habitat_tpu/ops/raycast_pallas.py`` for the two kernels the
-pinhole render path runs:
+Counterpart of ``habitat_tpu/ops/raycast_pallas.py`` for the kernels the
+pinhole render paths run:
 
 - ``raycast_fused_sel_t`` <- ``raycast_pallas_fused_sel_t``: per (env, ray
   tile) only the tile's frustum-surviving chunks (``select_chunks_frustum``).
 - ``raycast_fused_t`` <- ``raycast_pallas_fused_t``: every chunk in order.
+- ``raycast_exactsel_t`` <- ``raycast_pallas_exactsel_t``: per 32x32-pixel
+  tile the exact-culled 32-triangle chunklets of ``select_chunklets_exact``,
+  nearest first, stopping once no later chunklet can hold a nearer hit.
+- ``raycast_stream_t`` <- ``raycast_pallas_stream_t``: the same stream over
+  parent chunks of 128 or 256 triangles (``select_chunks_occluded``, or any
+  nearest-first chunk list).
+- ``cullmask_t`` <- ``cullmask_pallas_t``: the exact cull's per-triangle
+  test, valid and not wholly outside one of the tile's four frustum planes.
 
-Both take the JAX kernels' inputs unchanged: the chunk-grouped scene matrix
-(S, 10, 4T) from ``group_tri_mat``, scene ids (N,), the camera-frame [d, 1]
-tiles (nt, 8, Rt) and the ray-feature matrices B^T (N, 16, 4). They return
-(t (N, R) f32, idx (N, R) i32) with t = 1e6, idx = -1 on a miss.
+The closest-hit kernels take the JAX kernels' inputs: the chunk-grouped scene
+matrix (S, 10, 4T) from ``group_tri_mat`` (the TPU layout pads it to 16 rows
+for its DMA slices; here it keeps its 10), scene ids (N,), the camera-frame
+[d, 1] tiles (nt, 8, Rt) and the ray-feature matrices B^T (N, 16, 4). They
+return (t (N, R) f32, idx (N, R) i32) with t = 1e6, idx = -1 on a miss.
 
-The CUDA source is ``habitat_torch/csrc/raycast_fused.cu``, compiled with
-nvcc for sm_90a at first use into ``habitat_torch/build/`` and called through
+The CUDA sources are ``habitat_torch/csrc/*.cu``, each compiled with nvcc
+for sm_90a at first use into ``habitat_torch/build/`` and called through
 ctypes on PyTorch's current stream. A CUDA tensor launches the kernel or
 raises; only CPU tensors take the plain version. Each wrapper counts its
 kernel launches in its ``launches`` attribute and names its plain version
@@ -28,23 +37,43 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Optional, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
 _TMAX = 1e6
 _TMIN = 1e-3
 _EPS = 1e-7
+# packed list slot of the stream kernels: (dmin_cm << 18) | chunk id
+_ID_MASK = (1 << 18) - 1
+# tri_verts16 row [v0(3) | e1(3) | e2(3) | pad(6) | valid]
+VERTS16_VALID = 15
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "raycast_fused.cu")
 _BUILD = os.path.join(_PKG, "build")
-_SO = os.path.join(_BUILD, "libraycast_fused.so")
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-_lib: Optional[ctypes.CDLL] = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# source name -> {exported function: argument types}
+_SOURCES = {
+    "raycast_fused": {
+        "raycast_fused_sel": [_P] * 8 + [_I] * 6 + [_P],
+        "raycast_fused": [_P] * 6 + [_I] * 5 + [_P],
+    },
+    "raycast_stream": {"raycast_stream": [_P] * 8 + [_I] * 6 + [_P]},
+    "cullmask": {"cullmask": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P]},
+}
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _src(name: str) -> str:
+    return os.path.join(_PKG, "csrc", f"{name}.cu")
+
+
+def _so(name: str) -> str:
+    return os.path.join(_BUILD, f"lib{name}.so")
 
 
 def _nvcc() -> str:
@@ -54,35 +83,48 @@ def _nvcc() -> str:
     return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
 
 
-def build() -> Tuple[float, str]:
-    """Compile the kernel library; returns (seconds, ptxas report)."""
+def build(names: Sequence[str] = tuple(_SOURCES)) -> Dict[str, Tuple[float, str]]:
+    """Compile the named kernel libraries, one nvcc per source, all started
+    together; returns {name: (seconds, ptxas report)}."""
     os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *_NVCC_FLAGS, "-o", tmp, _SRC],
-        capture_output=True, text=True, timeout=600,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
-    os.replace(tmp, _SO)
-    return time.perf_counter() - t0, proc.stderr
+    procs = {}
+    for name in names:
+        tmp = f"{_so(name)}.{os.getpid()}.tmp"
+        procs[name] = (tmp, subprocess.Popen(
+            [_nvcc(), *_NVCC_FLAGS, "-o", tmp, _src(name)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        ))
+    out, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        try:
+            _, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+            err += "\nnvcc timed out"
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {_src(name)}:\n{err}")
+            continue
+        os.replace(tmp, _so(name))
+        out[name] = (time.perf_counter() - t0, err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is not None:
-        return _lib
-    if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-        build()
-    lib = ctypes.CDLL(_SO)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.raycast_fused_sel.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
-    lib.raycast_fused_sel.restype = i
-    lib.raycast_fused.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
-    lib.raycast_fused.restype = i
-    _lib = lib
-    return _lib
+def _load(name: str) -> ctypes.CDLL:
+    if name in _libs:
+        return _libs[name]
+    so, src = _so(name), _src(name)
+    if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
+        build((name,))
+    lib = ctypes.CDLL(so)
+    for fn, argtypes in _SOURCES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _I
+    _libs[name] = lib
+    return lib
 
 
 def _check_inputs(tri_mat_c, sids, d_t, Bt, ray_tile, tri_chunk, extra=()):
@@ -157,23 +199,99 @@ def _finish(best_t, best_i):
     return t, idx
 
 
-def raycast_fused_sel_t_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_tile=2048, tri_chunk=32):
-    """Plain version of the frustum-selected kernel."""
+# the plain versions walk envs in batches that keep one chunk's determinants
+# (batch, nt, 4C, Rt) under this many float32 values
+_PLAIN_BUDGET = 1 << 27
+
+
+def _listed_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, C, dmin=None, tested=None):
+    """Closest hit over each (env, tile)'s first ``cnt`` listed chunks, in
+    list order, every one tested (no early stop).
+
+    With ``dmin`` (N, nt, K) and a dict ``tested``, also counts what the
+    stream kernel's early stop leaves to do on these inputs: list slots at
+    which a 256-ray block (``tested["block"]``, chunks staged) or a 32-ray
+    warp (``tested["warp"]``, chunks computed) still holds a ray whose best
+    hit is farther than the slot's ``dmin``."""
     N = sids.shape[0]
     n_tiles, _, rt = d_t.shape
-    C = tri_chunk
-    F = _features(Bt, d_t)
-    Mg = tri_mat_c[sids.long()]  # (N, 10, 4T)
-    best_t = torch.full((N, n_tiles, rt), _TMAX, device=d_t.device)
-    best_i = torch.full((N, n_tiles, rt), -1, dtype=torch.int32, device=d_t.device)
-    cols = torch.arange(4 * C, device=d_t.device)
-    for k in range(chunk_ids.shape[2]):
-        cid = chunk_ids[:, :, k]  # (N, nt)
-        idx = (cid.long()[..., None] * 4 * C + cols)[:, :, None, :].expand(N, n_tiles, 10, 4 * C)
-        M = torch.gather(Mg[:, None].expand(N, n_tiles, *Mg.shape[1:]), 3, idx)
-        G = torch.einsum("ntfc,ntfr->ntcr", M, F)
-        best_t, best_i = _fold(G, C, cid, k < cnt, best_t, best_i)
-    return _finish(best_t, best_i)
+    dev = d_t.device
+    cols = torch.arange(4 * C, device=dev)
+    step = max(1, _PLAIN_BUDGET // (n_tiles * 4 * C * rt))
+    ts, idxs = [], []
+    for a in range(0, N, step):
+        sl = slice(a, min(a + step, N))
+        n = sl.stop - a
+        F = _features(Bt[sl], d_t)
+        Mg = tri_mat_c[sids[sl].long()]  # (n, 10, 4T)
+        Mg = Mg[:, None].expand(n, n_tiles, *Mg.shape[1:])
+        best_t = torch.full((n, n_tiles, rt), _TMAX, device=dev)
+        best_i = torch.full((n, n_tiles, rt), -1, dtype=torch.int32, device=dev)
+        for k in range(min(int(cnt[sl].max()), chunk_ids.shape[2])):
+            cid = chunk_ids[sl, :, k]  # (n, nt)
+            valid = k < cnt[sl]
+            if tested is not None:
+                still = (best_t > dmin[sl, :, k, None]) & valid[..., None]
+                tested["block"] += int(still.reshape(n, n_tiles, -1, 256).any(-1).sum())
+                tested["warp"] += int(still.reshape(n, n_tiles, -1, 32).any(-1).sum())
+            idx = (cid.long()[..., None] * 4 * C + cols)[:, :, None, :].expand(n, n_tiles, 10, 4 * C)
+            G = torch.einsum("ntfc,ntfr->ntcr", torch.gather(Mg, 3, idx), F)
+            best_t, best_i = _fold(G, C, cid, valid, best_t, best_i)
+        t, i = _finish(best_t, best_i)
+        ts.append(t)
+        idxs.append(i)
+    return torch.cat(ts), torch.cat(idxs)
+
+
+def raycast_fused_sel_t_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_tile=2048, tri_chunk=32):
+    """Plain version of the frustum-selected kernel."""
+    return _listed_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, tri_chunk)
+
+
+def raycast_stream_t_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_tile=1024, tri_chunk=128, tested=None):
+    """Plain version of the nearest-first stream kernels: the packed list's
+    ids (low 18 bits), every survivor tested. The early stop of the kernels
+    skips only chunks that cannot hold a nearer hit, so the results agree.
+    ``tested``: see ``_listed_plain``."""
+    dmin = (chunk_ids >> 18).float() * 1e-2 if tested is not None else None
+    return _listed_plain(tri_mat_c, sids, chunk_ids & _ID_MASK, cnt, d_t, Bt, tri_chunk, dmin, tested)
+
+
+def raycast_exactsel_t_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_tile=1024, tri_chunk=32, tested=None):
+    """Plain version of the exact-culled chunklet kernel."""
+    return raycast_stream_t_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_tile, tri_chunk, tested)
+
+
+def cull_mask_torch(verts16, sids, head, cntk, nw, cam_pos, eps=-1e-3, c=32):
+    """The exact cull's triangle test in PyTorch: (N, nt, ka, c) f32, 1.0
+    where the triangle of the head slot's chunklet is valid and does not
+    have all three vertices outside one of the tile's four planes (margin
+    ``eps``). It is the plain version of the ``cullmask_t`` kernel (the form
+    of the JAX package's XLA branch) and serves CPU tensors only: products
+    and sums are taken one by one in the kernel's order, so the two agree
+    bit for bit. ``cntk`` is not read: every slot is computed, and the
+    caller gates by position."""
+    S, T, _ = verts16.shape
+    nch = T // c
+    N, nt, ka = head.shape
+    cid = (head & _ID_MASK).clamp(max=nch - 1).long()
+    rows = verts16.reshape(S * nch, c, 16)[sids.long()[:, None, None] * nch + cid]  # (N,nt,ka,c,16)
+    comp = rows[..., 0:9].permute(4, 0, 1, 2, 3).contiguous()  # (9, N, nt, ka, c)
+    cam = cam_pos[:, None, None, None, :]
+    rel = [comp[k] - cam[..., k] for k in range(3)]
+
+    def dot(x, y, z, n):
+        return x * n[..., 0] + y * n[..., 1] + z * n[..., 2]
+
+    out_any = None
+    for p in range(4):
+        n = nw[:, :, None, None, p, :]  # (N, nt, 1, 1, 3)
+        d0 = dot(rel[0], rel[1], rel[2], n)
+        d1 = d0 + dot(comp[3], comp[4], comp[5], n)
+        d2 = d0 + dot(comp[6], comp[7], comp[8], n)
+        out_p = (d0 < eps) & (d1 < eps) & (d2 < eps)
+        out_any = out_p if out_any is None else (out_any | out_p)
+    return (~out_any & (rows[..., VERTS16_VALID] > 0.5)).float()
 
 
 def raycast_fused_t_plain(tri_mat_c, sids, d_t, Bt, ray_tile=2048, tri_chunk=128):
@@ -218,7 +336,7 @@ def raycast_fused_sel_t(
         raise ValueError(f"chunk_ids {tuple(chunk_ids.shape)} / cnt {tuple(cnt.shape)}")
     if d_t.device.type == "cpu":
         return raycast_fused_sel_t_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_tile, tri_chunk)
-    lib = _load()
+    lib = _load("raycast_fused")
     t = torch.empty((N, n_tiles * ray_tile), dtype=torch.float32, device=d_t.device)
     idx = torch.empty((N, n_tiles * ray_tile), dtype=torch.int32, device=d_t.device)
     err = lib.raycast_fused_sel(
@@ -248,7 +366,7 @@ def raycast_fused_t(
     n_tiles = _check_inputs(tri_mat_c, sids, d_t, Bt, ray_tile, tri_chunk)
     if d_t.device.type == "cpu":
         return raycast_fused_t_plain(tri_mat_c, sids, d_t, Bt, ray_tile, tri_chunk)
-    lib = _load()
+    lib = _load("raycast_fused")
     N = sids.shape[0]
     t = torch.empty((N, n_tiles * ray_tile), dtype=torch.float32, device=d_t.device)
     idx = torch.empty((N, n_tiles * ray_tile), dtype=torch.int32, device=d_t.device)
@@ -265,3 +383,126 @@ def raycast_fused_t(
 
 raycast_fused_t.launches = 0
 raycast_fused_t.plain = raycast_fused_t_plain
+
+
+def _stream_call(wrapper, name, tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_tile, tri_chunk):
+    n_tiles = _check_inputs(
+        tri_mat_c, sids, d_t, Bt, ray_tile, tri_chunk,
+        extra=(("chunk_ids", chunk_ids, torch.int32), ("cnt", cnt, torch.int32)),
+    )
+    N = sids.shape[0]
+    if chunk_ids.shape[:2] != (N, n_tiles) or cnt.shape != (N, n_tiles):
+        raise ValueError(f"chunk_ids {tuple(chunk_ids.shape)} / cnt {tuple(cnt.shape)}")
+    if (tri_mat_c.shape[2] // 4) // tri_chunk > _ID_MASK + 1:
+        raise ValueError("a packed chunk id has 18 bits")
+    if tri_mat_c.data_ptr() % 16:
+        raise ValueError("tri_mat_c: the kernel reads it in 16-byte words, so it must be 16-byte aligned")
+    if d_t.device.type == "cpu":
+        return wrapper.plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_tile, tri_chunk)
+    lib = _load("raycast_stream")
+    t = torch.empty((N, n_tiles * ray_tile), dtype=torch.float32, device=d_t.device)
+    idx = torch.empty((N, n_tiles * ray_tile), dtype=torch.int32, device=d_t.device)
+    err = lib.raycast_stream(
+        tri_mat_c.data_ptr(), sids.data_ptr(), chunk_ids.data_ptr(), cnt.data_ptr(),
+        d_t.data_ptr(), Bt.data_ptr(), t.data_ptr(), idx.data_ptr(),
+        N, tri_mat_c.shape[2], n_tiles, chunk_ids.shape[2], ray_tile, tri_chunk,
+        torch.cuda.current_stream(d_t.device).cuda_stream,
+    )
+    _raise_on(err, name)
+    wrapper.launches += 1
+    return t, idx
+
+
+def raycast_exactsel_t(
+    tri_mat_c: torch.Tensor,  # (S, 10, 4T) group_tri_mat(tri_mat, 32)
+    sids: torch.Tensor,  # (N,) int32
+    chunk_ids: torch.Tensor,  # (N, nt, Kf) int32 packed (dmin_cm << 18) | chunklet id,
+    #                           survivors first, ascending
+    cnt: torch.Tensor,  # (N, nt) int32 survivor counts
+    d_t: torch.Tensor,  # (nt, 8, Rt) camera [d, 1] transposed, 32x32-pixel tiles
+    Bt: torch.Tensor,  # (N, 16, 4) ray-feature matrices B^T
+    ray_tile: int = 1024,
+    tri_chunk: int = 32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact-culled chunklet stream closest hit: (t (N,R) f32, idx (N,R)
+    i32), rays in tile order; idx is a global triangle index."""
+    return _stream_call(
+        raycast_exactsel_t, "raycast_exactsel", tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_tile, tri_chunk
+    )
+
+
+raycast_exactsel_t.launches = 0
+raycast_exactsel_t.plain = raycast_exactsel_t_plain
+
+
+def raycast_stream_t(
+    tri_mat_c: torch.Tensor,  # (S, 10, 4T) group_tri_mat(tri_mat, C), C = 128 or 256
+    sids: torch.Tensor,  # (N,) int32
+    chunk_ids: torch.Tensor,  # (N, nt, K) int32 packed (dmin_cm << 18) | chunk id
+    cnt: torch.Tensor,  # (N, nt) int32
+    d_t: torch.Tensor,  # (nt, 8, Rt)
+    Bt: torch.Tensor,  # (N, 16, 4)
+    ray_tile: int = 1024,
+    tri_chunk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest-first parent-chunk stream closest hit: (t, idx) as above."""
+    return _stream_call(
+        raycast_stream_t, "raycast_stream", tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_tile, tri_chunk
+    )
+
+
+raycast_stream_t.launches = 0
+raycast_stream_t.plain = raycast_stream_t_plain
+
+
+def cullmask_t(
+    verts16: torch.Tensor,  # (S, T, 16) f32 rows [v0 | e1 | e2 | pad(6) | valid]
+    sids: torch.Tensor,  # (N,) int32
+    head: torch.Tensor,  # (N, nt, ka) int32 packed nearest-first head
+    cntk: torch.Tensor,  # (N, nt) int32 head counts
+    nw: torch.Tensor,  # (N, nt, 4, 3) world inward tile-plane normals
+    cam_pos: torch.Tensor,  # (N, 3)
+    eps: float = -1e-3,
+    c: int = 32,
+) -> torch.Tensor:
+    """Per (head slot, triangle) pass mask of the exact cull, (N, nt, ka, c)
+    f32. Slots at or beyond ``cntk`` hold no result (0 from the kernel);
+    callers gate by head position."""
+    dev = verts16.device
+    for name, x, dt in (
+        ("verts16", verts16, torch.float32), ("sids", sids, torch.int32),
+        ("head", head, torch.int32), ("cntk", cntk, torch.int32),
+        ("nw", nw, torch.float32), ("cam_pos", cam_pos, torch.float32),
+    ):
+        if x.device != dev or x.dtype != dt or not x.is_contiguous() or (x is verts16 and x.data_ptr() % 16):
+            raise ValueError(
+                f"{name}: expected a contiguous {dt} tensor on {dev} (verts16 16-byte aligned), got "
+                f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})"
+            )
+    N, nt, ka = head.shape
+    S, T, w = verts16.shape
+    if (
+        w != 16 or T % c or c != 32 or cntk.shape != (N, nt) or nw.shape != (N, nt, 4, 3)
+        or cam_pos.shape != (N, 3) or sids.shape != (N,)
+    ):
+        raise ValueError(
+            f"bad shapes verts16 {tuple(verts16.shape)} head {tuple(head.shape)} cntk "
+            f"{tuple(cntk.shape)} nw {tuple(nw.shape)} cam_pos {tuple(cam_pos.shape)} c {c}"
+        )
+    if dev.type == "cpu":
+        return cull_mask_torch(verts16, sids, head, cntk, nw, cam_pos, eps, c)
+    lib = _load("cullmask")
+    out = torch.empty((N, nt, ka, c), dtype=torch.float32, device=dev)
+    err = lib.cullmask(
+        verts16.data_ptr(), sids.data_ptr(), head.data_ptr(), cntk.data_ptr(),
+        nw.data_ptr(), cam_pos.data_ptr(), out.data_ptr(),
+        N, nt, ka, T // c, eps,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "cullmask")
+    cullmask_t.launches += 1
+    return out
+
+
+cullmask_t.launches = 0
+cullmask_t.plain = cull_mask_torch

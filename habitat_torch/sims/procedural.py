@@ -12,7 +12,7 @@ Semantic ids: 0=void/sky, 1=floor, 2=wall, 3=ceiling, 4+=object categories.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -205,3 +205,199 @@ def generate_apartment(
     scene.regions = regions
     rasterize_occupancy(scene, res=nav_res, agent_radius=agent_radius)
     return scene
+
+
+def scanify(
+    scene: SceneData,
+    tess: float = 0.08,
+    noise: float = 0.004,
+    color_noise: float = 0.06,
+    seed: int = 0,
+    max_tris: int = 1_500_000,
+) -> SceneData:
+    """Turn a clean CAD-style mesh into a scan-like mesh: every triangle is
+    subdivided until edges are ~``tess`` meters and vertices get hash-based
+    jitter (consistent across shared edges, so the surface stays watertight)
+    plus per-face color noise — the triangle-density and surface-roughness
+    profile of an HM3D/MP3D reconstruction (millions of small noisy faces)
+    rather than a procedural box world."""
+    rng = np.random.default_rng(seed)
+    v = scene.vertices.astype(np.float64)  # (T,3,3)
+    edges = np.stack(
+        [
+            np.linalg.norm(v[:, 1] - v[:, 0], axis=-1),
+            np.linalg.norm(v[:, 2] - v[:, 1], axis=-1),
+            np.linalg.norm(v[:, 2] - v[:, 0], axis=-1),
+        ],
+        axis=1,
+    ).max(axis=1)
+    lvl = np.clip(np.ceil(edges / tess).astype(np.int64), 1, 64)
+    # respect the budget by scaling levels down uniformly if needed
+    total = int((lvl**2).sum())
+    if total > max_tris:
+        lvl = np.maximum((lvl * np.sqrt(max_tris / total)).astype(np.int64), 1)
+
+    out_v, out_c, out_s = [], [], []
+    for n in np.unique(lvl):
+        sel = lvl == n
+        A = v[sel, 0][:, None, :]
+        AB = (v[sel, 1] - v[sel, 0])[:, None, :]
+        AC = (v[sel, 2] - v[sel, 0])[:, None, :]
+        # barycentric grid triangles for level n (upright + inverted)
+        ij_up, ij_v1, ij_v2 = [], [], []
+        for i in range(n):
+            for j in range(n - i):
+                ij_up.append((i, j))
+                ij_v1.append((i + 1, j))
+                ij_v2.append((i, j + 1))
+                if i + j < n - 1:
+                    ij_up.append((i + 1, j))
+                    ij_v1.append((i + 1, j + 1))
+                    ij_v2.append((i, j + 1))
+        bar = (
+            np.asarray([ij_up, ij_v1, ij_v2], np.float64).transpose(1, 0, 2) / n
+        )  # (n_sub, 3 verts, 2)
+        sub = (
+            A[:, None]
+            + bar[None, :, :, 0:1] * AB[:, None]
+            + bar[None, :, :, 1:2] * AC[:, None]
+        )  # (t, n_sub, 3, 3)
+        t_cnt = sub.shape[0] * sub.shape[1]
+        out_v.append(sub.reshape(t_cnt, 3, 3))
+        c = scene.colors[sel]
+        out_c.append(np.repeat(c, sub.shape[1], axis=0))
+        out_s.append(np.repeat(scene.semantic_ids[sel], sub.shape[1], axis=0))
+
+    V = np.concatenate(out_v)
+    C = np.concatenate(out_c).astype(np.float32)
+    S = np.concatenate(out_s)
+
+    # watertight jitter: displacement is a hash of the QUANTIZED position, so
+    # coincident vertices of adjacent triangles move identically
+    q = np.round(V / 1e-3).astype(np.int64)
+    h = (
+        q[..., 0] * 73856093 ^ q[..., 1] * 19349663 ^ q[..., 2] * 83492791
+    ).astype(np.uint64)
+    disp = np.stack(
+        [
+            ((h * np.uint64(2654435761)) % np.uint64(8192)).astype(np.float64),
+            ((h * np.uint64(40503)) % np.uint64(8192)).astype(np.float64),
+            ((h * np.uint64(1597334677)) % np.uint64(8192)).astype(np.float64),
+        ],
+        axis=-1,
+    )
+    V = V + (disp / 4096.0 - 1.0) * noise
+    C = np.clip(
+        C + rng.normal(0, color_noise, C.shape).astype(np.float32), 0.0, 1.0
+    )
+    out = SceneData(
+        scene_id=scene.scene_id + "_scan",
+        vertices=V.astype(np.float32),
+        colors=C,
+        semantic_ids=S.astype(np.int32),
+        objects=scene.objects,
+    )
+    rasterize_occupancy(out, res=scene.nav_res)
+    return out
+
+
+def generate_scan_apartment(
+    seed: int = 0,
+    extent: float = 16.0,
+    n_rooms_per_axis: int = 3,
+    n_clutter: int = 24,
+    tess: float = 0.08,
+    max_tris: int = 1_500_000,
+    scene_id: Optional[str] = None,
+) -> SceneData:
+    """A multi-room apartment at real-scan triangle density (>=500k tris with
+    multi-room occlusion): generate_apartment geometry scanified to ~tess-
+    meter faces: the large-scene configuration."""
+    base = generate_apartment(
+        seed,
+        extent=extent,
+        n_rooms_per_axis=n_rooms_per_axis,
+        n_clutter=n_clutter,
+        with_ceiling=True,
+        scene_id=scene_id or f"scan_apartment_{seed}",
+    )
+    return scanify(base, tess=tess, seed=seed, max_tris=max_tris)
+
+
+def decimate(scene: SceneData, cell: float) -> SceneData:
+    """Vertex-clustering mesh decimation (LOD generation for real scans —
+    works on any triangle soup): snap vertices to a ``cell`` grid, drop
+    degenerate triangles, dedupe coincident ones. Depth error <= cell/2."""
+    v = scene.vertices.astype(np.float64)
+    q = np.round(v / cell).astype(np.int64)  # (T,3,3) cell coords
+    snapped = (q * cell).astype(np.float32)
+    # degenerate: any two corners share a cell
+    deg = (
+        (q[:, 0] == q[:, 1]).all(-1)
+        | (q[:, 1] == q[:, 2]).all(-1)
+        | (q[:, 0] == q[:, 2]).all(-1)
+    )
+    keep = ~deg
+    qk = q[keep]
+    # dedupe by unordered corner set
+    corner_keys = (
+        qk[..., 0] * 73856093 ^ qk[..., 1] * 19349663 ^ qk[..., 2] * 83492791
+    )  # (t,3)
+    corner_keys = np.sort(corner_keys, axis=1)
+    _, first = np.unique(corner_keys, axis=0, return_index=True)
+    sel = np.zeros(keep.sum(), bool)
+    sel[first] = True
+    idx = np.flatnonzero(keep)[sel]
+    return SceneData(
+        scene_id=f"{scene.scene_id}_lod{cell}",
+        vertices=snapped[idx],
+        colors=scene.colors[idx],
+        semantic_ids=scene.semantic_ids[idx],
+        nav_occ=scene.nav_occ,
+        obst_dist=scene.obst_dist,
+        nav_lo=scene.nav_lo,
+        nav_res=scene.nav_res,
+        floor_y=scene.floor_y,
+        objects=scene.objects,
+    )
+
+
+def build_lod_scene(
+    scene: SceneData,
+    cells: Tuple[float, ...] = (0.12, 0.3),
+    bands: Tuple[float, ...] = (3.5, 9.0),
+    overlap: float = 1.3,
+) -> SceneData:
+    """Combine a full-resolution scan mesh with decimated LODs into one
+    SceneData with per-triangle render-distance bands, the discrete-LOD
+    scheme of production renderers: LOD0 (full) renders within bands[0],
+    LOD_i within (bands[i-1]/overlap, bands[i]), the last LOD beyond. Bands
+    overlap by ``overlap`` so closest-hit never sees a gap at a boundary —
+    within the overlap both LODs render and the nearer surface wins (they
+    coincide to within cell/2)."""
+    lods = [scene] + [decimate(scene, c) for c in cells]
+    ranges = []
+    for i in range(len(lods)):
+        dmin = 0.0 if i == 0 else float(bands[i - 1]) / overlap
+        dmax = float(bands[i]) if i < len(bands) else 1e9
+        ranges.append((dmin, dmax))
+    verts = np.concatenate([s.vertices for s in lods])
+    cols = np.concatenate([s.colors for s in lods])
+    sems = np.concatenate([s.semantic_ids for s in lods])
+    lod_ids = np.concatenate(
+        [np.full((s.num_triangles,), i, np.int32) for i, s in enumerate(lods)]
+    )
+    return SceneData(
+        scene_id=f"{scene.scene_id}_lod",
+        vertices=verts,
+        colors=cols,
+        semantic_ids=sems,
+        nav_occ=scene.nav_occ,
+        obst_dist=scene.obst_dist,
+        nav_lo=scene.nav_lo,
+        nav_res=scene.nav_res,
+        floor_y=scene.floor_y,
+        objects=scene.objects,
+        tri_lod=lod_ids,
+        lod_ranges=ranges,
+    )

@@ -60,6 +60,17 @@ class SceneData:
     def cell_to_world(self, ij: np.ndarray) -> np.ndarray:
         return np.asarray(ij, dtype=np.float64) * self.nav_res + self.nav_lo
 
+    def sample_navigable_point(
+        self, rng: np.random.Generator, largest_island_only: bool = False
+    ) -> np.ndarray:
+        occ = (
+            largest_island_mask(self.nav_occ) if largest_island_only else self.nav_occ
+        )
+        ii, kk = np.nonzero(occ)
+        j = rng.integers(len(ii))
+        xz = self.cell_to_world(np.array([ii[j], kk[j]]))
+        return np.array([xz[0], self.floor_y, xz[1]], dtype=np.float32)
+
 
 def largest_island_mask(occ: np.ndarray) -> np.ndarray:
     """Largest 4-connected navigable component (episode generation samples
@@ -183,11 +194,21 @@ class ScenePack:
     tri_valid: torch.Tensor  # (S, T) bool
     tri_mat: torch.Tensor  # (S, 10, 4, T) f32 — raycast coefficient matrix
     tri_attr: torch.Tensor  # (S, T, 8) f32 — [unit normal(3), color(3), sem, valid]
-    chunk_bounds: torch.Tensor  # (S, T//128, 6) f32 — spheres + LOD band
+    chunk_bounds: torch.Tensor  # (S, T//chunk, 6) f32 — spheres + LOD band
     nav_occ: torch.Tensor  # (S, NX, NZ) bool
     obst_dist: torch.Tensor  # (S, NX, NZ) f32 meters to nearest obstacle
     nav_lo: torch.Tensor  # (S, 2) f32
     floor_y: torch.Tensor  # (S,) f32
+    # scan-scale render tables, built at pack time for packs of chunk 256
+    # (None otherwise; the renderer then derives what it needs per call):
+    # the 32-triangle-grouped matrix (group_tri_mat(tri_mat, 32)), the
+    # per-chunklet AABBs [center(3), half(3)], the epilogue's 64-byte rows
+    # [attr(8) | v0(3) | n.v0 | pad(4)] and the exact cull's vertex rows
+    # [v0 | e1 | e2 | pad(6) | valid]
+    tri_mat_g32: Optional[torch.Tensor] = None  # (S, 10, 4T)
+    chunklet_ab32: Optional[torch.Tensor] = None  # (S, T//32, 6)
+    tri_attr16: Optional[torch.Tensor] = None  # (S, T, 16)
+    tri_verts16: Optional[torch.Tensor] = None  # (S, T, 16)
     nav_res: float = 0.1
     scene_ids: Tuple[str, ...] = ()
 
@@ -215,9 +236,11 @@ def _round_up(x: int, m: int) -> int:
 
 
 TRI_CHUNK = 128  # culling chunk; the renderer's kernels regroup it
-# padded triangle count at which the JAX package switches to scan-scale
-# packs (chunk 256 + stream tables); not ported yet
+# padded triangle count from which a pack is scan-scale: culling chunks of
+# 256 triangles (half the chunk-stream kernel's per-tile iterations) and the
+# render tables above built at pack time
 _SCAN_SCALE_TRIS = 262144
+_SCAN_CHUNK = 256
 
 
 def _morton_sort_keys(centroids: np.ndarray) -> np.ndarray:
@@ -236,21 +259,32 @@ def _morton_sort_keys(centroids: np.ndarray) -> np.ndarray:
     return (spread(q[:, 0]) << 2) | (spread(q[:, 1]) << 1) | spread(q[:, 2])
 
 
-def pack_scenes(scenes: List[SceneData], tri_pad: int = TRI_CHUNK) -> ScenePack:
+def pack_scenes(
+    scenes: List[SceneData],
+    tri_pad: int = TRI_CHUNK,
+    force_scan_tables: bool = False,
+) -> ScenePack:
     """Pack host scenes into one padded CPU ScenePack (triangles
-    morton-sorted; per-chunk bounding spheres). Move it with ``.to``."""
-    from habitat_torch.ops.raycast import build_tri_matrix
+    morton-sorted; per-chunk bounding spheres). Move it with ``.to``.
+
+    ``force_scan_tables`` builds the scan-scale layout (chunk 256 and the
+    render tables) whatever the scene size, so that tests reach the
+    scan-only render path on small scenes."""
+    from habitat_torch.ops.raycast import (
+        ATTR16_NV0,
+        VERTS16_VALID,
+        build_tri_matrix,
+        chunklet_aabbs,
+        group_tri_mat,
+    )
 
     if not scenes:
         raise ValueError("pack_scenes needs at least one scene")
     tri_pad = max(tri_pad, TRI_CHUNK)
     t_max = _round_up(max(s.num_triangles for s in scenes), tri_pad)
-    if t_max >= _SCAN_SCALE_TRIS:
-        raise NotImplementedError(
-            "scan-scale packs (>= 262144 padded triangles) are ROADMAP "
-            "Queue 1 item 7 (scan-scale renderer)"
-        )
-    chunk = TRI_CHUNK
+    scan = force_scan_tables or t_max >= _SCAN_SCALE_TRIS
+    chunk = _SCAN_CHUNK if scan else TRI_CHUNK
+    t_max = _round_up(t_max, chunk)
     grids = [s.nav_occ.shape for s in scenes]
     nx = max(g[0] for g in grids)
     nz = max(g[1] for g in grids)
@@ -322,6 +356,24 @@ def pack_scenes(scenes: List[SceneData], tri_pad: int = TRI_CHUNK) -> ScenePack:
         fy[i] = s.floor_y
 
     t = torch.from_numpy
+    tables = {}
+    if scan:
+        nv0 = (tattr[..., 0] * v0[..., 0] + tattr[..., 1] * v0[..., 1]) + tattr[..., 2] * v0[..., 2]
+        attr16 = np.zeros((S, t_max, 16), np.float32)
+        attr16[..., 0:8] = tattr
+        attr16[..., 8:11] = v0
+        attr16[..., ATTR16_NV0] = nv0
+        verts16 = np.zeros((S, t_max, 16), np.float32)
+        verts16[..., 0:3] = v0
+        verts16[..., 3:6] = e1
+        verts16[..., 6:9] = e2
+        verts16[..., VERTS16_VALID] = valid
+        tables = dict(
+            tri_mat_g32=group_tri_mat(t(tmat), 32).contiguous(),
+            chunklet_ab32=chunklet_aabbs(t(v0), t(e1), t(e2), t(valid), c=32),
+            tri_attr16=t(attr16),
+            tri_verts16=t(verts16),
+        )
     return ScenePack(
         tri_v0=t(v0),
         tri_e1=t(e1),
@@ -336,6 +388,7 @@ def pack_scenes(scenes: List[SceneData], tri_pad: int = TRI_CHUNK) -> ScenePack:
         obst_dist=t(odist),
         nav_lo=t(lo),
         floor_y=t(fy),
+        **tables,
         nav_res=scenes[0].nav_res,
         scene_ids=tuple(s.scene_id for s in scenes),
     )

@@ -14,6 +14,7 @@ import torch
 from habitat_torch.datasets.pointnav import make_procedural_pointnav
 from habitat_torch.ops import raycast as rc
 from habitat_torch.ops import raycast_kernels as rk
+from habitat_torch.sims.procedural import generate_scan_apartment
 from habitat_torch.sims.scene import pack_scenes
 
 pytestmark = pytest.mark.cuda
@@ -23,7 +24,7 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
-    rk.build()
+    rk.build()  # every source, in parallel
     return torch.device("cuda")
 
 
@@ -84,3 +85,96 @@ def test_wrapper_rejects_bad_inputs(cuda):
     Bt = torch.zeros(1, 16, 4, device=cuda)
     with pytest.raises(ValueError):
         rk.raycast_fused_t(gm, sids, d_t, Bt, ray_tile=1024, tri_chunk=128)
+
+
+# ---- the scan-scale route's kernels, on a forced-scan small pack -----------------
+
+
+@pytest.fixture(scope="module")
+def scan():
+    """A small scan apartment packed with the scan layout, 4 poses, 64x64
+    (four 32x32 tiles), and the route's kernel inputs built on the CPU."""
+    scene = generate_scan_apartment(seed=5, extent=6.0, n_rooms_per_axis=2, n_clutter=6, tess=0.35)
+    pack = pack_scenes([scene], force_scan_tables=True)
+    rng = np.random.RandomState(11)
+    n = 4
+    pos = torch.as_tensor(np.array([[3.0, 1.25, 3.0]]) + rng.uniform(-1, 1, (n, 3)) * [1, 0, 1], dtype=torch.float32)
+    yaw = torch.as_tensor(rng.uniform(-np.pi, np.pi, n), dtype=torch.float32)
+    sids = torch.zeros(n, dtype=torch.int32)
+    return pack, sids, pos, yaw, torch.zeros(n)
+
+
+def _route_call(scan, backend, device="cpu"):
+    pack, sids, pos, yaw, pitch = scan
+    return rc.closest_hit_call(
+        pack.to(device), sids.to(device), pos.to(device), yaw.to(device), pitch.to(device),
+        height=64, width=64, cull_k=8, backend=backend,
+    )
+
+
+@pytest.mark.parametrize("backend", ["auto", "stream"])
+def test_stream_kernels_match_plain(cuda, scan, backend):
+    """The chunklet stream (C = 32) and the chunk stream (C = 256) against
+    their plain versions on the same packed lists: the early stop may only
+    skip chunks that cannot win."""
+    kernel, args, kwargs, _ = _route_call(scan, backend)
+    assert kernel is (rk.raycast_stream_t if backend == "stream" else rk.raycast_exactsel_t)
+    assert kwargs["tri_chunk"] == (256 if backend == "stream" else 32)
+    ref = kernel(*args, **kwargs)  # CPU tensors: plain version
+    before = kernel.launches
+    got = kernel(*[a.to(cuda) for a in args], **kwargs)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert (ref[1] >= 0).float().mean() > 0.3
+    _agree(ref, got)
+
+
+def test_stream_kernel_chunk_128(cuda, scan):
+    pack = pack_scenes([generate_scan_apartment(seed=5, extent=6.0, n_rooms_per_axis=2, n_clutter=6, tess=0.35)])
+    kernel, args, kwargs, _ = _route_call((pack, *scan[1:]), "stream")
+    assert kernel is rk.raycast_stream_t and kwargs["tri_chunk"] == 128
+    _agree(kernel(*args, **kwargs), kernel(*[a.to(cuda) for a in args], **kwargs))
+
+
+def test_cullmask_kernel_matches_plain(cuda, scan):
+    """Bit-equal pass masks on the gated slots, zeros beyond them, and the
+    same chunklet list from select_chunklets_exact on the card (kernel) as on
+    the CPU (plain version)."""
+    pack, sids, pos, yaw, pitch = scan
+    _, _, d_t, planes, _ = rc.block_constants(90.0, 64, 64, torch.device("cpu"))
+    dirs = rc.to_blocks(rc.world_rays(yaw, pitch, 90.0, 64, 64), 64, 64)
+    ids0, cnt0 = rc.select_chunks(
+        pack.chunk_bounds[sids.long()], pos[:, None, :].expand(-1, 4096, -1), dirs, 1024, 64, with_cnt=True
+    )
+    sel = (pack.tri_v0, pack.tri_e1, pack.tri_e2, pack.tri_valid, pack.chunklet_ab32, sids, pos, yaw, pitch,
+           planes, ids0, cnt0)
+    head, cntk = rc.select_chunklets_exact(*sel, parent_c=256, c=32, k_final=128)  # level-1 survivors
+    nw = torch.einsum("nij,kpj->nkpi", rc.view_rotation_matrix(yaw, pitch), planes).contiguous()
+    ref = rk.cullmask_t(pack.tri_verts16, sids, head, cntk, nw, pos)
+    before = rk.cullmask_t.launches
+    got = rk.cullmask_t(*[x.to(cuda) for x in (pack.tri_verts16, sids, head, cntk, nw, pos)]).cpu()
+    torch.cuda.synchronize()
+    assert rk.cullmask_t.launches == before + 1
+    gate = torch.arange(128)[None, None, :] < cntk[..., None]
+    assert torch.equal(ref[gate], got[gate]) and not got[~gate].any()
+    assert 0.05 < ref[gate].mean() < 0.95
+    kw = dict(parent_c=256, c=32, verts16=pack.tri_verts16, k_exact=128)
+    a = rc.select_chunklets_exact(*sel, **kw)
+    before = rk.cullmask_t.launches
+    b = rc.select_chunklets_exact(*[x.to(cuda) for x in sel], **dict(kw, verts16=pack.tri_verts16.to(cuda)))
+    assert rk.cullmask_t.launches == before + 1  # card tensors: the kernel, by device alone
+    assert torch.equal(a[0], b[0].cpu()) and torch.equal(a[1], b[1].cpu())
+
+
+def test_scan_render_on_card_matches_cpu(cuda, scan):
+    """The default (exact-cull) route keeps every candidate chunk at this
+    size, so the card's frames equal the CPU's. The chunk-stream route keeps
+    the 8 nearest of chunks that tie at distance 0 around the camera, a
+    choice top-k makes differently on the two devices: it is held to its
+    plain version on one list above instead."""
+    pack, sids, pos, yaw, pitch = scan
+    kw = dict(height=64, width=64, cull_k=8)
+    ref = rc.render_batch(pack, sids, pos, yaw, pitch, **kw)
+    got = rc.render_batch(pack.to(cuda), *[x.to(cuda) for x in (sids, pos, yaw, pitch)], **kw)
+    assert ((ref["depth"] - got["depth"].cpu()).abs() > 1e-4).float().mean() < 1e-3
+    assert (ref["semantic"] != got["semantic"].cpu()).float().mean() < 1e-3
