@@ -15,19 +15,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            build_lod_scene(cells=(0.08, 0.25, 0.6), bands=(1.2, 3.0, 8.0)):
            859,290 triangles, 16 episodes, N=256).
 3. kernels each kernel's wrapper runs on the card at the shapes the render
-           paths give it and is held against its plain PyTorch version on
-           the same inputs: the frustum-selected kernel on the bench reset,
-           the every-chunk kernel on the mid-size route's reset and on a
-           synthetic 8192-triangle pack, the chunklet stream and the chunk
-           stream kernels on the scan env's reset (N=256, 128x128, 16 tiles
-           of 32x32 pixels), the cull-mask kernel on that reset's head.
+           and update paths give it and is held against its plain PyTorch
+           version on the same inputs: the frustum-selected kernel on the
+           bench reset, the every-chunk kernel on the mid-size route's reset
+           and on a synthetic 8192-triangle pack, the chunklet stream and the
+           chunk stream kernels on the scan env's reset (N=256, 128x128, 16
+           tiles of 32x32 pixels), the cull-mask kernel on that reset's head,
+           the stem max pool's backward at the bench update's minibatch
+           (4096 x 32 x 64 x 64 bf16, channels-last as the stem hands it
+           over) on a ReLU of normal noise and on an input full of positive
+           ties (bit-equal), and on a tie-free float32 input against
+           F.max_pool2d's own gradient.
            Closest-hit gates: hit/miss agreement >= 0.9999, winner-id
            agreement >= 0.999 (shared-edge near-ties), |dt| < 5e-3 m where
            the winner is the same. Cull mask: agreement >= 0.9999 on gated
            slots and the same chunklet lists from select_chunklets_exact
-           with the kernel's mask as with the plain version's. Each is timed with CUDA events beside its
-           plain version and its bound on this card; the stream kernels'
-           bound counts only the chunks a ray's final hit leaves it to test.
+           with the kernel's mask as with the plain version's. Each is timed
+           with CUDA events beside its plain version and its bound on this
+           card; the stream kernels' bound counts only the chunks a ray's
+           final hit leaves it to test.
 4. paths   the main path: the bench PointNav configuration (4 procedural
            scenes, 64 episodes, N=256 envs, 128x128 depth+RGB+pointgoal,
            resnet18 base 32 / 16 groups + LSTM-512, 4 actions, T=32) with
@@ -48,13 +54,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 5. exact   the scan route against the band-valid all-chunks oracle (every
            chunk whose LOD band holds the camera, through the chunk stream
            kernel) at 64x64, two poses, both with plane-exact t.
-6. check   env + render + policy on the card against the same code on the
-           CPU (plain kernel versions) on a small input.
+6. train   the bench train step, PPOLearner.train_step with
+           PPOConfig(num_steps=32, num_mini_batch=2, ppo_epoch=2) at N=256:
+           a warm-up and TRAIN_STEPS timed steps (median and range of train
+           env-steps/s, rollout / update split, peak memory, finite losses),
+           one update under torch.profiler; then the same train step on the
+           scan env (a warm-up and SCAN_TRAIN_STEPS timed). The max-pool
+           backward kernel must launch 4 times per train step and no plain
+           version may run on a card tensor.
+7. check   env + render + policy on the card against the same code on the
+           CPU (plain kernel versions) on a small input, and one update
+           (N=8, T=4, ppo_epoch=2, one minibatch) from the same weights and
+           batch on both: in bf16 (losses, pooled share of parameter changes
+           within lr/10) and in float32 (each trained tensor changed on both
+           devices, its share within lr/10 at least UPDATE_TENSOR_SHARE; a
+           planted fault in the pool backward must fail that gate).
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -77,6 +97,20 @@ MID = dict(num_envs=16, num_steps=4, extent=30.0, n_clutter=420)
 ROLLOUTS = 5  # timed bench rollouts after the warm-up one
 SCAN = dict(tess=0.04, n_clutter=40, cells=(0.08, 0.25, 0.6), bands=(1.2, 3.0, 8.0), triangles=859290)
 SCAN_ROLLOUTS = 5  # timed scan rollouts after the warm-up one
+TRAIN = dict(num_steps=32, num_mini_batch=2, ppo_epoch=2)  # bench.py's train step
+TRAIN_STEPS = 5  # timed bench train steps after the warm-up one
+SCAN_TRAIN_STEPS = 2  # timed scan train steps after the warm-up one
+# FP32 operations per input element of the max-pool backward: at most 4
+# compares and 4 adds
+FLOPS_PER_POOL_ELEMENT = 8
+BF16_ATOL = 3e-2  # the port's bf16 policy against another implementation
+# [check]: the least share of a trained tensor's elements whose card and CPU
+# float32 update deltas agree within lr/10
+UPDATE_TENSOR_SHARE = 0.99
+# the same share pooled over all tensors in bf16; it reads 0.994-0.998 from
+# run to run, since the policy reaching [check] was trained by [train]
+BF16_POOLED_SHARE = 0.98
+F32_ATOL = 1e-4  # float32 losses, card against CPU
 # FP32 operations per (head slot, triangle) of the cull mask: 12 dots of 3
 # products and 2 sums, 8 more sums, 3 subtractions, 12 compares
 FLOPS_PER_CULL_TRI = 83
@@ -208,12 +242,15 @@ def main():
         print("chip_smoke: run from a checkout of the repository (habitat_torch/ missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    import torch.nn.functional as F
+
     from habitat_torch.baselines.ppo import PPOConfig, PPOLearner
     from habitat_torch.core.env_factory import make_nav_env
     import numpy as np
 
     from habitat_torch.datasets.pointnav import generate_pointnav_episode, make_procedural_pointnav
     from habitat_torch.models.policy import make_pointnav_resnet_policy
+    from habitat_torch.ops import cuda_build, pool
     from habitat_torch.ops import raycast as rc
     from habitat_torch.ops import raycast_kernels as rk
     from habitat_torch.sims.procedural import build_lod_scene, generate_scan_apartment
@@ -224,7 +261,7 @@ def main():
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} card {gpu}")
 
     # ---- 1. build -------------------------------------------------------
-    for name, (secs, ptxas) in rk.build().items():  # every source, nvcc in parallel
+    for name, (secs, ptxas) in cuda_build.build().items():  # every source, nvcc in parallel
         log(f"[build] {name}.cu done {secs:.1f} s after the start")
         for line in ptxas.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -409,7 +446,96 @@ def main():
         f"{cull_row['bound_by']}); {cull_row['pass_fraction']:.3f} of gated triangles pass, "
         f"{cull_row['survivors_per_tile_mean']:.1f} chunklets per tile survive")
 
-    kernels = [sel, every, exact_row, stream_row, cull_row]
+    # the stem max pool's backward at the bench update's minibatch (T*N/2
+    # images), in the layout the policy's stem hands it over
+    backbone = policy.net.encoder.backbone
+    with torch.no_grad():  # the encoder's front: NHWC observations seen as NCHW
+        obs_view = torch.zeros(2, BENCH["height"], BENCH["width"], 4, device=dev).permute(0, 3, 1, 2)
+        stem_out = F.relu(backbone.stem_norm(backbone.stem(obs_view.to(torch.bfloat16))))
+    layout = torch.channels_last  # the one layout the kernel takes
+    if not stem_out.is_contiguous(memory_format=layout):
+        fail(f"the stem's output has strides {stem_out.stride()}, not channels-last")
+    mb_images = BENCH["num_envs"] * BENCH["num_steps"] // TRAIN["num_mini_batch"]
+    pool_shape = (mb_images, 32, BENCH["height"] // 2, BENCH["width"] // 2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def pool_inputs(x):
+        x = x.contiguous(memory_format=layout)
+        y = F.max_pool2d(F.pad(x, (0, 1, 0, 1), value=float("-inf")), 3, 2).contiguous(memory_format=layout)
+        dy = torch.randn(y.shape, generator=gen, device=dev).to(x.dtype).contiguous(memory_format=layout)
+        return x, y, dy
+
+    def pool_check(tag, args):
+        before = pool.max_pool_3x3s2_bwd.launches
+        gx = pool.max_pool_3x3s2_bwd(*args)
+        torch.cuda.synchronize()
+        if pool.max_pool_3x3s2_bwd.launches != before + 1:
+            fail("max_pool_3x3s2_bwd: wrapper did not launch its kernel")
+        ref = pool.max_pool_3x3s2_bwd.plain(*args)
+        err = (gx.float() - ref.float()).abs().max().item()
+        if not torch.equal(gx, ref):
+            fail(f"max_pool_3x3s2_bwd on the {tag} input: {int((gx != ref).sum().item())} elements differ from "
+                 f"the plain version, max |d| {err}")
+        return gx, err
+
+    x_relu = torch.relu(torch.randn(pool_shape, generator=gen, device=dev)).to(torch.bfloat16)
+    pool_args = pool_inputs(x_relu)
+    del x_relu
+    gx, pool_err = pool_check("ReLU", pool_args)
+    # positive ties: ReLU noise on a grid of 1/4
+    x_ties = (torch.relu(torch.randn(pool_shape, generator=gen, device=dev)) * 4).round().div(4).to(torch.bfloat16)
+    tie_args = pool_inputs(x_ties)
+    del x_ties
+    pool_check("tie-rich", tie_args)
+    # maxima credited per window: with dy = 1, gx counts the windows crediting each input
+    ones = torch.ones_like(tie_args[2])
+    maxima_per_window = pool.max_pool_3x3s2_bwd(tie_args[0], tie_args[1], ones).double().sum().item() / ones.numel()
+    del tie_args, ones
+    # float32 without ties (the 9 inputs of any window differ in (h % 3, w % 3),
+    # so k * 9 + 3 * (h % 3) + w % 3 on a grid of 1/256 never repeats in a
+    # window; plain normal noise ties a few hundred times at this size):
+    # F.max_pool2d's own gradient credits the same inputs
+    hh = torch.arange(pool_shape[2], device=dev)[:, None] % 3
+    ww = torch.arange(pool_shape[3], device=dev) % 3
+    k = torch.randint(-500, 500, pool_shape, generator=gen, device=dev)
+    x32 = (k * 9 + hh * 3 + ww).float() / 256
+    del k
+    args32 = pool_inputs(x32)
+    del x32
+    gx32 = pool.max_pool_3x3s2_bwd(*args32)
+    xp = F.pad(args32[0], (0, 1, 0, 1), value=float("-inf")).requires_grad_(True)
+    (g_lib,) = torch.autograd.grad(F.max_pool2d(xp, 3, 2), xp, args32[2])
+    lib32_err = (gx32 - g_lib[:, :, :-1, :-1]).abs().max().item()
+    # equal, up to the order of a float32 sum where two windows credit one input
+    if lib32_err > 1e-6 * gx32.abs().max().item():
+        fail(f"max_pool_3x3s2_bwd differs from F.max_pool2d's gradient on a tie-free float32 input: {lib32_err}")
+    del gx32, g_lib, xp, args32
+    # timed: the kernel, its plain version, and one PyTorch call computing a
+    # max-pool backward at the same shape (autograd through F.max_pool2d on
+    # the -inf-padded input; it credits one tied input, not all)
+    x_lib = F.pad(pool_args[0], (0, 1, 0, 1), value=float("-inf")).requires_grad_(True)
+    y_lib = F.max_pool2d(x_lib, 3, 2)
+    pool_bytes = sum(a.numel() * a.element_size() for a in pool_args) + gx.numel() * gx.element_size()
+    pool_row = dict(
+        name="max_pool_3x3s2_bwd", route="cuda", source="habitat_torch/csrc/maxpool_bwd.cu",
+        replaces="habitat_tpu/ops/pool.py:123", max_abs_err=pool_err,
+        ms=cuda_ms(lambda: pool.max_pool_3x3s2_bwd(*pool_args), 20),
+        plain_ms=cuda_ms(lambda: pool.max_pool_3x3s2_bwd.plain(*pool_args), 3, warmup=1),
+        **bound(pool_bytes, FLOPS_PER_POOL_ELEMENT * gx.numel()),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(y_lib, x_lib, pool_args[2], retain_graph=True), 10),
+        library_note="autograd.grad through F.max_pool2d on the padded input; credits one tied input",
+        shape=list(pool_shape), dtype="bfloat16", layout=str(layout),
+        tie_rich_maxima_per_window=maxima_per_window, f32_vs_library_max_abs_err=lib32_err,
+    )
+    del x_lib, y_lib, gx, pool_args
+    torch.cuda.empty_cache()
+    log(f"[kernel] max_pool_3x3s2_bwd at {pool_shape} bf16 ({layout}): bit-equal to its plain version on the ReLU "
+        f"and the tie-rich input ({maxima_per_window:.3f} maxima credited per window); against "
+        f"F.max_pool2d's gradient on tie-free float32 max |d| {lib32_err:.3g}; {pool_row['ms']:.3f} ms (plain {pool_row['plain_ms']:.3f} ms, "
+        f"bound {pool_row['bound_ms']:.3f} ms by {pool_row['bound_by']}, autograd through F.max_pool2d "
+        f"{pool_row['library_ms']:.3f} ms)")
+
+    kernels = [sel, every, exact_row, stream_row, cull_row, pool_row]
     for tag, r in (("bench reset", sel), ("mid-size reset", every), ("synthetic 8192 tris", synth)):
         log(f"[kernel] {r['name']} on the {tag}: hit {r['hit_agree']:.6f} idx {r['idx_agree']:.6f} "
             f"|dt| {r['max_abs_err']:.3g} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
@@ -418,6 +544,7 @@ def main():
     # ---- 3. main path ----------------------------------------------------
     wrappers = {n: getattr(rk, n) for n in (
         "raycast_fused_sel_t", "raycast_fused_t", "raycast_exactsel_t", "raycast_stream_t", "cullmask_t")}
+    wrappers["max_pool_3x3s2_bwd"] = pool.max_pool_3x3s2_bwd
 
     def zero_counts():
         for w in wrappers.values():
@@ -476,27 +603,28 @@ def main():
         f"env step incl. render {step_ms:.3f} ms/step, episodes done {int(stats['done_count'].item())}, "
         f"launches {main_launches}")
 
-    # one rollout under torch.profiler: device kernel time against the
-    # unprofiled median wall (kernels run on one stream) and launch count
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def profiled_rollout(tag, lrn, state, wall, top=15):
+    def profiled(tag, what, fn, wall, top=15):
+        """Run fn() once under torch.profiler: device kernel time against
+        the unprofiled wall ``wall`` (kernels run on one stream), launches
+        and the top kernels. Returns fn's result."""
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            state, *_ = lrn.collect_rollout(state)
+            out = fn()
             torch.cuda.synchronize()
         dev_kernels = [e for e in prof.key_averages()
                        if getattr(e, "device_type", None) == DeviceType.CUDA and device_us(e) > 0]
         dev_kernels.sort(key=device_us, reverse=True)
         device_ms = sum(device_us(e) for e in dev_kernels) / 1e3
-        log(f"[{tag}] one rollout: device kernel time {device_ms:.1f} ms, idle share "
+        log(f"[{tag}] one {what}: device kernel time {device_ms:.1f} ms, idle share "
             f"{1 - device_ms / (wall * 1e3):.3f} of the median unprofiled wall, "
             f"{sum(e.count for e in dev_kernels)} kernel launches")
         for e in dev_kernels[:top]:
             log(f"[{tag}]   {device_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
-        return state
+        return out
 
-    rs = profiled_rollout("profile", learner, rs, median_wall)
+    rs = profiled("profile", "rollout", lambda: learner.collect_rollout(rs)[0], median_wall)
 
     # mid-size-scene route: every-chunk kernel
     mid_learner = PPOLearner(mid_env, policy, PPOConfig(num_steps=MID["num_steps"]))
@@ -553,7 +681,7 @@ def main():
         f"{srender_ms - sselect_ms - skernel_ms:.3f}; env step incl. render {sstep_ms:.3f} ms, policy "
         f"{spolicy_ms:.3f} ms; {args[3].float().mean().item():.1f} chunklets listed per tile; episodes done "
         f"{int(sstats['done_count'].item())}, launches {scan_launches}")
-    srs = profiled_rollout("scan-profile", scan_learner, srs, smedian_wall)
+    srs = profiled("scan-profile", "rollout", lambda: scan_learner.collect_rollout(srs)[0], smedian_wall)
     exact_row["launches"] = scan_launches["raycast_exactsel_t"]
     cull_row["launches"] = scan_launches["cullmask_t"]
 
@@ -632,7 +760,100 @@ def main():
     if hitmatch < 0.9999 or t_agree < 0.9999:
         fail(f"the scan route disagrees with the all-chunks oracle: hitmatch {hitmatch}, t_agree_5mm {t_agree}")
 
-    # ---- 6. card vs CPU on a small input --------------------------------
+    # ---- 6. train: rollout + PPO update at the bench shape, then the scan scene ----
+    plain_on_card = []
+
+    def watch(fn):
+        def run(*args, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                plain_on_card.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return run
+
+    # every plain version, by the names its wrapper calls it
+    plain_watch = [
+        mock.patch.object(pool, "max_pool_3x3s2_bwd_plain", watch(pool.max_pool_3x3s2_bwd_plain)),
+        mock.patch.object(rk, "raycast_fused_sel_t_plain", watch(rk.raycast_fused_sel_t_plain)),
+        mock.patch.object(rk, "raycast_fused_t_plain", watch(rk.raycast_fused_t_plain)),
+        mock.patch.object(rk, "cull_mask_torch", watch(rk.cull_mask_torch)),
+        mock.patch.object(rk.raycast_exactsel_t, "plain", watch(rk.raycast_exactsel_t.plain)),
+        mock.patch.object(rk.raycast_stream_t, "plain", watch(rk.raycast_stream_t.plain)),
+    ]
+
+    def train_path(tag, lrn, seed, steps):
+        """A warm-up and ``steps`` timed train steps; returns (rollout
+        state, train env-steps/s sorted, per-step rollout and update ms,
+        the last metrics, peak bytes)."""
+        split = {"rollout": [], "update": []}
+
+        def timed(name, fn):
+            def run(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                split[name].append((time.perf_counter() - t0) * 1e3)
+                return out
+            return run
+
+        lrn.collect_rollout = timed("rollout", lrn.collect_rollout)
+        lrn.update = timed("update", lrn.update)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        for p in plain_watch:
+            p.start()
+        state = lrn.init(seed=seed)
+        walls = []
+        for i in range(1 + steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = lrn.train_step(state)
+            metrics = {k: v.item() for k, v in metrics.items()}
+            if i:
+                walls.append(time.perf_counter() - t0)
+            if not all(np.isfinite(v) for v in metrics.values()):
+                fail(f"{tag}: non-finite metrics {metrics}")
+        torch.cuda.synchronize()
+        for p in plain_watch:
+            p.stop()
+        del lrn.collect_rollout, lrn.update
+        if plain_on_card:
+            fail(f"{tag}: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+        rates = sorted(BENCH["num_envs"] * TRAIN["num_steps"] / w for w in walls)
+        return state, rates, split, metrics, torch.cuda.max_memory_allocated()
+
+    train_learner = PPOLearner(env, policy, PPOConfig(**TRAIN))
+    trs, rates, split, metrics, peak = train_path("train", train_learner, 3, TRAIN_STEPS)
+    renders = 1 + (1 + TRAIN_STEPS) * T_steps
+    updates = (1 + TRAIN_STEPS) * TRAIN["ppo_epoch"] * TRAIN["num_mini_batch"]
+    train_launches = path_counts("train path", raycast_fused_sel_t=renders, max_pool_3x3s2_bwd=updates)
+    pool_row["launches"] = train_launches["max_pool_3x3s2_bwd"]
+    train_median = rates[TRAIN_STEPS // 2]
+    log(f"[train] {gpu}: train env-steps/s median {train_median:.1f} over {TRAIN_STEPS} train steps (min {rates[0]:.1f}, "
+        f"max {rates[-1]:.1f}); per step rollout ms {[round(x, 1) for x in split['rollout'][1:]]}, update ms "
+        f"{[round(x, 1) for x in split['update'][1:]]} (warm-up {split['rollout'][0]:.1f} + {split['update'][0]:.1f}); "
+        f"peak memory {peak / 2**30:.2f} GiB; last losses "
+        + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items() if k.startswith("losses/") or k == "grad_norm")
+        + f"; launches {train_launches}")
+    # one update under the profiler, on a fresh rollout's batch
+    trs, tbatch, tlast, th0, _ = train_learner.collect_rollout(trs)
+    update_wall = sorted(split["update"][1:])[TRAIN_STEPS // 2] / 1e3
+    profiled("train-profile", "update", lambda: train_learner.update(trs.generator, tbatch, tlast, th0), update_wall)
+    del tbatch, tlast, th0, trs
+
+    scan_train = PPOLearner(scan_env, policy, PPOConfig(**TRAIN))
+    _, srates, ssplit, smetrics, speak = train_path("scan-train", scan_train, 4, SCAN_TRAIN_STEPS)
+    renders = 1 + (1 + SCAN_TRAIN_STEPS) * T_steps
+    updates = (1 + SCAN_TRAIN_STEPS) * TRAIN["ppo_epoch"] * TRAIN["num_mini_batch"]
+    scan_train_launches = path_counts(
+        "scan train path", raycast_exactsel_t=renders, cullmask_t=renders, max_pool_3x3s2_bwd=updates)
+    log(f"[scan-train] {gpu}: train env-steps/s {[round(r, 1) for r in srates]} over {SCAN_TRAIN_STEPS} train steps; "
+        f"per step rollout ms {[round(x, 1) for x in ssplit['rollout'][1:]]}, update ms "
+        f"{[round(x, 1) for x in ssplit['update'][1:]]}; peak memory {speak / 2**30:.2f} GiB; last losses "
+        + ", ".join(f"{k} {v:.4f}" for k, v in smetrics.items() if k.startswith("losses/"))
+        + f"; launches {scan_train_launches}")
+
+    # ---- 7. card vs CPU on a small input --------------------------------
     small = dict(num_envs=8, precomputed_fields=fields, max_episode_steps=500, sensor_specs=sensors)
     env_c = make_nav_env(scenes, episodes, device="cpu", **small)
     env_g = make_nav_env(scenes, episodes, **small)
@@ -659,8 +880,78 @@ def main():
     policy_err = max((lc - lg.cpu()).abs().max().item(), (vc - vg.cpu()).abs().max().item())
     if policy_err > 3e-2:
         fail(f"policy on the card disagrees with the CPU: {policy_err}")
+    # one update from the same weights and the same batch on both devices;
+    # with one minibatch the loss does not depend on the permutation
+    upd = PPOConfig(num_steps=4, ppo_epoch=2, num_mini_batch=1)
+    start = {k: v.detach().cpu().clone() for k, v in policy.state_dict().items()}
+    learner_g = PPOLearner(env_g, policy, upd)
+    _, gbatch, glast, gh0, _ = learner_g.collect_rollout(learner_g.init(seed=5))
+    on_cpu = dict(env=env_c, batch=gbatch._replace(
+        obs={k: v.cpu() for k, v in gbatch.obs.items()},
+        **{f: getattr(gbatch, f).cpu() for f in gbatch._fields if f != "obs"}), last=glast.cpu(), h0=gh0.cpu())
+    on_card = dict(env=env_g, batch=gbatch, last=glast, h0=gh0)
+
+    def one_update(dtype, device, **patch):
+        """The update from ``start`` on the rollout batch, with the policy in
+        ``dtype`` on ``device`` (``ops.pool`` functions patched as given):
+        its losses and each trained tensor's change."""
+        d = on_card if device == dev else on_cpu
+        net = make_pointnav_resnet_policy(4, dtype=dtype, device=device)
+        net.load_state_dict(start)
+        with mock.patch.multiple(pool, **patch) if patch else contextlib.nullcontext():
+            m = PPOLearner(d["env"], net, upd).update(
+                torch.Generator(device=device).manual_seed(0), d["batch"], d["last"], d["h0"])
+        return ({k: v.item() for k, v in m.items() if k.startswith("losses/")},
+                {k: p.detach().cpu() - start[k] for k, p in net.named_parameters() if p.requires_grad})
+
+    def per_tensor(da, db):
+        """Per trained tensor: the share of elements whose two changes agree
+        within lr/10, and whether it changed on both sides."""
+        return {k: (share((da[k] - db[k]).abs() <= upd.lr / 10), bool(da[k].any() and db[k].any())) for k in da}
+
+    def failing(rows):
+        return {k: r for k, r in rows.items() if r[0] < UPDATE_TENSOR_SHARE or not r[1]}
+
+    def pooled(rows):
+        return sum(r[0] * start[k].numel() for k, r in rows.items()) / sum(start[k].numel() for k in rows)
+
+    # bf16, as deployed: the stem's and first blocks' gradients carry bf16
+    # rounding noise of the order of their size (20-35% in either framework,
+    # tests/test_torch_ppo.py), and Adam's first steps turn it into sign
+    # flips there, so only the losses and the pooled share are gated
+    (m_g, d_g), (m_c, d_c) = one_update(torch.bfloat16, dev), one_update(torch.bfloat16, "cpu")
+    loss16 = max(abs(m_g[k] - m_c[k]) for k in m_g)
+    rows16 = per_tensor(d_g, d_c)
+    low16 = min(rows16, key=lambda k: rows16[k][0])
+    unchanged16 = [k for k, r in rows16.items() if not r[1]]
+    if loss16 > BF16_ATOL or pooled(rows16) < BF16_POOLED_SHARE or unchanged16:
+        fail(f"the bf16 update on the card disagrees with the CPU: losses {loss16}, pooled share within lr/10 "
+             f"{pooled(rows16)}, unchanged tensors {unchanged16}")
+    # float32 on both devices (no TF32): the algorithm itself, held per
+    # tensor; the same CPU update with the pool backward's gradient shifted
+    # one column (a fault confined to the stem's convolution and GroupNorm)
+    # must fail that gate
+    (m_g, d_g), (m_c, d_c) = one_update(torch.float32, dev), one_update(torch.float32, "cpu")
+    loss32 = max(abs(m_g[k] - m_c[k]) for k in m_g)
+    rows32 = per_tensor(d_g, d_c)
+    low32 = min(rows32, key=lambda k: rows32[k][0])
+    plain_bwd = pool.max_pool_3x3s2_bwd_plain
+    _, d_f = one_update(torch.float32, "cpu",
+                        max_pool_3x3s2_bwd_plain=lambda x, y, dy: torch.roll(plain_bwd(x, y, dy), 1, dims=3))
+    rows_f = per_tensor(d_g, d_f)
+    caught = failing(rows_f)
+    if loss32 > F32_ATOL or failing(rows32):
+        fail(f"the float32 update on the card disagrees with the CPU: losses {loss32}, tensors under "
+             f"{UPDATE_TENSOR_SHARE} within lr/10 or unchanged {failing(rows32)}")
+    if not caught:
+        fail("the float32 update gate passes a planted fault in the pool backward")
     log(f"[check] card vs CPU: dones/rewards equal over 3 steps, max depth diff {worst_depth:.3g}, "
-        f"policy logits/values max diff {policy_err:.3g}")
+        f"policy logits/values max diff {policy_err:.3g}; one update (N=8, T=4, 2 epochs, lr {upd.lr}) from the "
+        f"same weights: bf16 losses max diff {loss16:.3g}, share of elements within lr/10 {pooled(rows16):.4f} "
+        f"pooled, lowest per tensor {rows16[low16][0]:.4f} ({low16}); float32 losses max diff {loss32:.3g}, all "
+        f"{len(rows32)} trained tensors changed on both devices, lowest per-tensor share {rows32[low32][0]:.4f} "
+        f"({low32}; gate {UPDATE_TENSOR_SHARE}); planted fault (pool backward shifted one column) fails "
+        f"{len(caught)} of them, the stem convolution at {rows_f['net.encoder.backbone.stem.weight'][0]:.4f}")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)

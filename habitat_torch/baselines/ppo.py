@@ -1,26 +1,65 @@
-"""PPO rollout collection (port of the rollout half of
-``habitat_tpu/baselines/ppo.py``): T steps of policy act -> sample ->
-``env.step_fn``, stored as one ``RolloutBatch``, plus the bootstrap value.
-The update (GAE, clipped-surrogate epochs, optimizer) consumes the batch.
+"""PPO for the categorical policy (port of ``habitat_tpu/baselines/ppo.py``).
+
+``PPOLearner.train_step`` is one rollout and one update:
+
+- the rollout: T steps of policy act -> sample -> ``env.step_fn``, stored
+  as one ``RolloutBatch``, plus the bootstrap value;
+- the update: GAE, then ``ppo_epoch`` epochs, each over a fresh permutation
+  of the env index drawn from the rollout state's generator, of
+  ``num_mini_batch`` minibatch steps: the clipped-surrogate loss over the
+  minibatch's (T, N/num_mini_batch) sequences from the rollout's initial
+  hidden state, its gradient (the stem max pool's backward is the CUDA
+  kernel of ``ops/pool.py`` on the card), clipping by global norm, Adam.
+
+Math (reference rl/ppo/ppo.py, common/rollout_storage.py):
+- GAE: delta = r + gamma*V'*nd - V;  A = delta + gamma*tau*nd*A'
+- policy loss: -mean(min(ratio*A, clip(ratio, 1-c, 1+c)*A))
+- value loss: 0.5*mean(max((v-R)^2, (v_clip-R)^2)) when clipped
+- total: policy + value_loss_coef*value - entropy_coef*entropy
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
 from habitat_torch.core.batched_env import BatchedEnv, EnvState
-from habitat_torch.models.policy import ActorCritic, sample_action
+from habitat_torch.models.policy import ActorCritic, evaluate_actions_stats, sample_action
+
+# PPOConfig switches of the JAX package that the port does not have yet
+_NOT_PORTED = (
+    "use_linear_lr_decay", "use_linear_clip_decay", "use_normalized_advantage", "use_adaptive_entropy_pen",
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class PPOConfig:
-    """The rollout's settings (reference rl.ppo defaults); the update's
-    (epochs, minibatches, clipping, optimizer, GAE) join with the update."""
+    """Defaults of the reference's rl.ppo config, as in the JAX package.
+    The switches in ``_NOT_PORTED`` raise ``NotImplementedError`` when set."""
 
+    clip_param: float = 0.2
+    ppo_epoch: int = 4
+    num_mini_batch: int = 2
+    value_loss_coef: float = 0.5
+    entropy_coef: float = 0.01
+    lr: float = 2.5e-4
+    eps: float = 1e-5
+    max_grad_norm: float = 0.2
     num_steps: int = 128
+    gamma: float = 0.99
+    tau: float = 0.95
+    use_clipped_value_loss: bool = True
+    use_linear_lr_decay: bool = False
+    use_linear_clip_decay: bool = False
+    use_normalized_advantage: bool = False
+    use_adaptive_entropy_pen: bool = False
+
+    def __post_init__(self):
+        for name in _NOT_PORTED:
+            if getattr(self, name):
+                raise NotImplementedError(f"PPOConfig.{name} is not ported to habitat_torch yet")
 
 
 class RolloutBatch(NamedTuple):
@@ -49,6 +88,33 @@ class RolloutState:
     ep_len_acc: torch.Tensor  # (N,)
 
 
+def compute_gae(
+    rewards: torch.Tensor, values: torch.Tensor, dones: torch.Tensor, last_value: torch.Tensor,
+    gamma: float, tau: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(T, N) rewards, values, dones (done after step t) and the bootstrap
+    value (N,) -> (advantages, returns), reference rollout_storage.py:174."""
+    nd = 1.0 - dones.float()
+    advs = torch.empty_like(values)
+    adv, v_next = torch.zeros_like(last_value), last_value
+    for t in reversed(range(values.shape[0])):
+        delta = rewards[t] + gamma * v_next * nd[t] - values[t]
+        adv = delta + gamma * tau * nd[t] * adv
+        advs[t] = adv
+        v_next = values[t]
+    return advs, advs + values
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """Scale ``grads`` in place by max_norm / max(norm, max_norm), norm being
+    their global L2 norm (optax.clip_by_global_norm; unlike
+    ``clip_grad_norm_``, no epsilon is added to the norm). Returns the norm
+    before clipping."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    torch._foreach_mul_(grads, max_norm / torch.clamp(norm, min=max_norm))
+    return norm
+
+
 class PPOLearner:
     def __init__(
         self,
@@ -58,13 +124,19 @@ class PPOLearner:
         *,
         measure_keys: Tuple[str, ...] = ("success", "spl", "distance_to_goal"),
     ):
+        if env.num_envs % cfg.num_mini_batch:
+            raise ValueError(f"{env.num_envs} envs do not split into {cfg.num_mini_batch} minibatches")
         self.env = env
         self.policy = policy
         self.cfg = cfg
         self.measure_keys = measure_keys
+        # the JAX package's optax chain: clip by global norm, then Adam;
+        # ``update`` clips with ``clip_by_global_norm_`` before each step
+        self.optimizer = torch.optim.Adam(policy.parameters(), lr=cfg.lr, eps=cfg.eps)
 
     def init(self, seed: int = 0) -> RolloutState:
-        """Reset the envs; zero hidden state, previous action and not_done."""
+        """Reset the envs; zero hidden state, previous action and not_done;
+        the generator that samples actions and permutes minibatches."""
         env_state, obs = self.env.reset_fn()
         n, dev = self.env.num_envs, self.env.device
         gen = torch.Generator(device=dev)
@@ -144,3 +216,74 @@ class PPOLearner:
             ep_len_acc=ep_len,
         )
         return new_rs, batch, last_value, rs.hidden, stats
+
+    def _loss_fn(self, mb: Dict, h0_mb: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Clipped-surrogate loss of one minibatch: ``mb`` holds (T, n)
+        leaves (obs leaves (T, n, ...)), ``h0_mb`` (n, L, 2, H)."""
+        cfg = self.cfg
+        logits, values, _ = self.policy(mb["obs"], h0_mb, mb["prev_actions"], mb["masks"])
+        logp, entropy = evaluate_actions_stats(logits, mb["actions"])
+        ratio = torch.exp(logp - mb["log_probs"])
+        adv = mb["advantages"]
+        surr1 = ratio * adv
+        surr2 = torch.clamp(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param) * adv
+        action_loss = -torch.minimum(surr1, surr2).mean()
+        ret = mb["returns"]
+        if cfg.use_clipped_value_loss:
+            v_clip = mb["values"] + torch.clamp(values - mb["values"], -cfg.clip_param, cfg.clip_param)
+            value_loss = 0.5 * torch.maximum((values - ret) ** 2, (v_clip - ret) ** 2).mean()
+        else:
+            value_loss = 0.5 * ((values - ret) ** 2).mean()
+        ent = entropy.mean()
+        total = action_loss + cfg.value_loss_coef * value_loss - cfg.entropy_coef * ent
+        aux = {
+            "losses/learner_loss": total,
+            "losses/action_loss": action_loss,
+            "losses/value_loss": value_loss,
+            "losses/entropy": ent,
+        }
+        return total, {k: v.detach() for k, v in aux.items()}
+
+    def update(
+        self, generator: torch.Generator, batch: RolloutBatch, last_value: torch.Tensor, h0: torch.Tensor
+    ) -> Dict[str, torch.Tensor]:
+        """GAE, then ``ppo_epoch`` epochs of ``num_mini_batch`` Adam steps on
+        the policy's parameters. Each epoch permutes the env index with
+        ``torch.randperm`` on ``generator``; minibatch i takes envs
+        perm[i*n:(i+1)*n] with ``index_select``. Returns the loss terms and
+        the pre-clip gradient norm, averaged over all minibatch steps."""
+        cfg = self.cfg
+        advantages, returns = compute_gae(batch.rewards, batch.values, batch.dones, last_value, cfg.gamma, cfg.tau)
+        data = {
+            "actions": batch.actions, "log_probs": batch.log_probs, "values": batch.values,
+            "prev_actions": batch.prev_actions, "masks": batch.masks,
+            "advantages": advantages, "returns": returns,
+        }
+        n = self.env.num_envs
+        mb_size = n // cfg.num_mini_batch
+        params = [p for p in self.policy.parameters() if p.requires_grad]
+        steps = []
+        for _ in range(cfg.ppo_epoch):
+            perm = torch.randperm(n, generator=generator, device=generator.device)
+            for i in range(cfg.num_mini_batch):
+                idx = perm[i * mb_size:(i + 1) * mb_size]
+                mb = {k: v.index_select(1, idx) for k, v in data.items()}
+                mb["obs"] = {k: v.index_select(1, idx) for k, v in batch.obs.items()}
+                self.optimizer.zero_grad(set_to_none=True)
+                loss, aux = self._loss_fn(mb, h0.index_select(0, idx))
+                loss.backward()
+                aux["grad_norm"] = clip_by_global_norm_([p.grad for p in params], cfg.max_grad_norm)
+                self.optimizer.step()
+                steps.append(aux)
+        return {k: torch.stack([s[k] for s in steps]).mean() for k in steps[0]}
+
+    def train_step(self, rs: RolloutState) -> Tuple[RolloutState, Dict[str, torch.Tensor]]:
+        """One rollout and one update. Metrics: the update's loss terms and
+        ``grad_norm``, the rollout's episode sums (``reward_sum``,
+        ``len_sum``, ``done_count``, ``m_<measure>``) and
+        ``reward_step_mean``, as 0-d tensors on the env's device."""
+        rs, batch, last_value, h0, stats = self.collect_rollout(rs)
+        metrics = self.update(rs.generator, batch, last_value, h0)
+        metrics.update(stats)
+        metrics["reward_step_mean"] = batch.rewards.mean()
+        return rs, metrics

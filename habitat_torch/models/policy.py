@@ -60,21 +60,32 @@ class PointNavResNetNet(nn.Module):
         prev_actions: torch.Tensor,
         masks: torch.Tensor,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """obs leaves (N, ...), hidden (N, L, 2, H), prev_actions (N,),
-        masks (N,). Returns (features (N, H), new hidden)."""
+        """obs leaves (N, ...), prev_actions and masks (N,) for one step, or
+        obs leaves (T, N, ...), prev_actions and masks (T, N) for the update's
+        sequence mode; hidden (N, L, 2, H). Returns (features (N, H) or
+        (T, N, H), the final hidden state)."""
+        seq = masks.dim() == 2
+
+        def flat(v):
+            return v.reshape(-1, *v.shape[2:]) if seq else v
+
+        obs = {k: flat(v) for k, v in obs.items()}
         parts = [F.relu(self.visual_fc(self.encoder(obs)))]
         for k in self.goal_keys:
             g = obs[k].float()
             if g.shape[-1] == 2:
                 g = torch.stack([g[..., 0], torch.cos(-g[..., 1]), torch.sin(-g[..., 1])], dim=-1)
             parts.append(self.goal_fc[k](g))
-        pa_idx = torch.where(masks > 0, prev_actions.long() + 1, 0)
+        pa_idx = torch.where(flat(masks) > 0, flat(prev_actions).long() + 1, 0)
         parts.append(self.prev_action_embed(pa_idx))
-        return self.rnn(torch.cat(parts, dim=-1), hidden, masks)
+        x = torch.cat(parts, dim=-1)
+        if seq:
+            x = x.reshape(*masks.shape, -1)
+        return self.rnn(x, hidden, masks)
 
 
 class ActorCritic(nn.Module):
-    """net -> (logits, value)."""
+    """net -> (logits, value), per step or over a (T, N) sequence."""
 
     def __init__(self, net: PointNavResNetNet):
         super().__init__()
@@ -107,6 +118,13 @@ def sample_action(
     else:
         act = torch.multinomial(logp.exp(), 1, generator=generator)[:, 0]
     return act.to(torch.int32), logp.gather(-1, act[:, None].long())[:, 0]
+
+
+def evaluate_actions_stats(logits: torch.Tensor, actions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(log prob of ``actions``, entropy) from logits, in float32."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    act_logp = logp.gather(-1, actions.long()[..., None])[..., 0]
+    return act_logp, -(logp.exp() * logp).sum(-1)
 
 
 def make_pointnav_resnet_policy(

@@ -7,8 +7,11 @@ the same features. Inside, convolutions are NCHW. Numerics follow the Flax
 modules:
 
 - "SAME" padding as XLA computes it, which is asymmetric for stride 2 (the
-  7x7/2 stem pads (2, 3), 3x3/2 pads (0, 1), 1x1/2 pads 0; the 3x3/2 max
-  pool pads (0, 1) with -inf), applied with ``F.pad`` before an unpadded op;
+  7x7/2 stem pads (2, 3), 3x3/2 pads (0, 1), 1x1/2 pads 0), applied with
+  ``F.pad`` before an unpadded op;
+- the stem's 3x3/2 max pool is ``ops.pool.max_pool_3x3s2`` (pads (0, 1)
+  with -inf), whose backward is a CUDA kernel on the card and credits every
+  tied input where ``flax.linen.max_pool``'s credits one;
 - convolutions and block GroupNorms run in the compute dtype (bfloat16 by
   default) with float32 group statistics; the compression GroupNorm outputs
   float32.
@@ -23,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from habitat_torch.ops.pool import max_pool_3x3s2
+
 # basic-block stage depths of the backbones the port supports
 SPECS = {"resnet9": (1, 1, 1, 1), "resnet18": (2, 2, 2, 2)}
 
@@ -33,13 +38,13 @@ def _same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def same_pad(x: torch.Tensor, k: int, s: int, value: float = 0.0) -> torch.Tensor:
+def same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
     """Pad an NCHW tensor like XLA's "SAME" for kernel k, stride s."""
     top, bottom = _same_pads(x.shape[2], k, s)
     left, right = _same_pads(x.shape[3], k, s)
     if top == bottom == left == right == 0:
         return x
-    return F.pad(x, (left, right, top, bottom), value=value)
+    return F.pad(x, (left, right, top, bottom))
 
 
 def _lecun_normal_(w: torch.Tensor) -> None:
@@ -127,7 +132,7 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.stem_norm(self.stem(x.to(self.dtype))))
-        x = F.max_pool2d(same_pad(x, 3, 2, value=float("-inf")), 3, 2)
+        x = max_pool_3x3s2(x)
         for blk in self.blocks:
             x = blk(x)
         return x

@@ -23,23 +23,20 @@ for its DMA slices; here it keeps its 10), scene ids (N,), the camera-frame
 return (t (N, R) f32, idx (N, R) i32) with t = 1e6, idx = -1 on a miss.
 
 The CUDA sources are ``habitat_torch/csrc/*.cu``, each compiled with nvcc
-for sm_90a at first use into ``habitat_torch/build/`` and called through
-ctypes on PyTorch's current stream. A CUDA tensor launches the kernel or
-raises; only CPU tensors take the plain version. Each wrapper counts its
-kernel launches in its ``launches`` attribute and names its plain version
-(same signature) in ``plain``.
+for sm_90a at first use into ``habitat_torch/build/`` (``ops/cuda_build.py``)
+and called through ctypes on PyTorch's current stream. A CUDA tensor
+launches the kernel or raises; only CPU tensors take the plain version. Each
+wrapper counts its kernel launches in its ``launches`` attribute and names
+its plain version (same signature) in ``plain``.
 """
 
 from __future__ import annotations
 
-import ctypes
-import os
-import shutil
-import subprocess
-import time
-from typing import Dict, Sequence, Tuple
+from typing import Tuple
 
 import torch
+
+from habitat_torch.ops import cuda_build
 
 _TMAX = 1e6
 _TMIN = 1e-3
@@ -48,83 +45,6 @@ _EPS = 1e-7
 _ID_MASK = (1 << 18) - 1
 # tri_verts16 row [v0(3) | e1(3) | e2(3) | pad(6) | valid]
 VERTS16_VALID = 15
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_BUILD = os.path.join(_PKG, "build")
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# source name -> {exported function: argument types}
-_SOURCES = {
-    "raycast_fused": {
-        "raycast_fused_sel": [_P] * 8 + [_I] * 6 + [_P],
-        "raycast_fused": [_P] * 6 + [_I] * 5 + [_P],
-    },
-    "raycast_stream": {"raycast_stream": [_P] * 8 + [_I] * 6 + [_P]},
-    "cullmask": {"cullmask": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P]},
-}
-_libs: Dict[str, ctypes.CDLL] = {}
-
-
-def _src(name: str) -> str:
-    return os.path.join(_PKG, "csrc", f"{name}.cu")
-
-
-def _so(name: str) -> str:
-    return os.path.join(_BUILD, f"lib{name}.so")
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-
-
-def build(names: Sequence[str] = tuple(_SOURCES)) -> Dict[str, Tuple[float, str]]:
-    """Compile the named kernel libraries, one nvcc per source, all started
-    together; returns {name: (seconds, ptxas report)}."""
-    os.makedirs(_BUILD, exist_ok=True)
-    t0 = time.perf_counter()
-    procs = {}
-    for name in names:
-        tmp = f"{_so(name)}.{os.getpid()}.tmp"
-        procs[name] = (tmp, subprocess.Popen(
-            [_nvcc(), *_NVCC_FLAGS, "-o", tmp, _src(name)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        ))
-    out, failed = {}, []
-    for name, (tmp, proc) in procs.items():
-        try:
-            _, err = proc.communicate(timeout=600)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            _, err = proc.communicate()
-            err += "\nnvcc timed out"
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed on {_src(name)}:\n{err}")
-            continue
-        os.replace(tmp, _so(name))
-        out[name] = (time.perf_counter() - t0, err)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return out
-
-
-def _load(name: str) -> ctypes.CDLL:
-    if name in _libs:
-        return _libs[name]
-    so, src = _so(name), _src(name)
-    if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
-        build((name,))
-    lib = ctypes.CDLL(so)
-    for fn, argtypes in _SOURCES[name].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = _I
-    _libs[name] = lib
-    return lib
 
 
 def _check_inputs(tri_mat_c, sids, d_t, Bt, ray_tile, tri_chunk, extra=()):
@@ -147,11 +67,6 @@ def _check_inputs(tri_mat_c, sids, d_t, Bt, ray_tile, tri_chunk, extra=()):
     if (tri_mat_c.shape[2] // 4) % tri_chunk or tri_mat_c.shape[1] != 10:
         raise ValueError(f"tri_mat_c {tuple(tri_mat_c.shape)} vs chunk {tri_chunk}")
     return n_tiles
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -336,7 +251,7 @@ def raycast_fused_sel_t(
         raise ValueError(f"chunk_ids {tuple(chunk_ids.shape)} / cnt {tuple(cnt.shape)}")
     if d_t.device.type == "cpu":
         return raycast_fused_sel_t_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_tile, tri_chunk)
-    lib = _load("raycast_fused")
+    lib = cuda_build.load("raycast_fused")
     t = torch.empty((N, n_tiles * ray_tile), dtype=torch.float32, device=d_t.device)
     idx = torch.empty((N, n_tiles * ray_tile), dtype=torch.int32, device=d_t.device)
     err = lib.raycast_fused_sel(
@@ -345,7 +260,7 @@ def raycast_fused_sel_t(
         N, tri_mat_c.shape[2], n_tiles, chunk_ids.shape[2], ray_tile, tri_chunk,
         torch.cuda.current_stream(d_t.device).cuda_stream,
     )
-    _raise_on(err, "raycast_fused_sel")
+    cuda_build.raise_on(err, "raycast_fused_sel")
     raycast_fused_sel_t.launches += 1
     return t, idx
 
@@ -366,7 +281,7 @@ def raycast_fused_t(
     n_tiles = _check_inputs(tri_mat_c, sids, d_t, Bt, ray_tile, tri_chunk)
     if d_t.device.type == "cpu":
         return raycast_fused_t_plain(tri_mat_c, sids, d_t, Bt, ray_tile, tri_chunk)
-    lib = _load("raycast_fused")
+    lib = cuda_build.load("raycast_fused")
     N = sids.shape[0]
     t = torch.empty((N, n_tiles * ray_tile), dtype=torch.float32, device=d_t.device)
     idx = torch.empty((N, n_tiles * ray_tile), dtype=torch.int32, device=d_t.device)
@@ -376,7 +291,7 @@ def raycast_fused_t(
         N, tri_mat_c.shape[2], n_tiles, ray_tile, tri_chunk,
         torch.cuda.current_stream(d_t.device).cuda_stream,
     )
-    _raise_on(err, "raycast_fused")
+    cuda_build.raise_on(err, "raycast_fused")
     raycast_fused_t.launches += 1
     return t, idx
 
@@ -399,7 +314,7 @@ def _stream_call(wrapper, name, tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_ti
         raise ValueError("tri_mat_c: the kernel reads it in 16-byte words, so it must be 16-byte aligned")
     if d_t.device.type == "cpu":
         return wrapper.plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_tile, tri_chunk)
-    lib = _load("raycast_stream")
+    lib = cuda_build.load("raycast_stream")
     t = torch.empty((N, n_tiles * ray_tile), dtype=torch.float32, device=d_t.device)
     idx = torch.empty((N, n_tiles * ray_tile), dtype=torch.int32, device=d_t.device)
     err = lib.raycast_stream(
@@ -408,7 +323,7 @@ def _stream_call(wrapper, name, tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_ti
         N, tri_mat_c.shape[2], n_tiles, chunk_ids.shape[2], ray_tile, tri_chunk,
         torch.cuda.current_stream(d_t.device).cuda_stream,
     )
-    _raise_on(err, name)
+    cuda_build.raise_on(err, name)
     wrapper.launches += 1
     return t, idx
 
@@ -491,7 +406,7 @@ def cullmask_t(
         )
     if dev.type == "cpu":
         return cull_mask_torch(verts16, sids, head, cntk, nw, cam_pos, eps, c)
-    lib = _load("cullmask")
+    lib = cuda_build.load("cullmask")
     out = torch.empty((N, nt, ka, c), dtype=torch.float32, device=dev)
     err = lib.cullmask(
         verts16.data_ptr(), sids.data_ptr(), head.data_ptr(), cntk.data_ptr(),
@@ -499,7 +414,7 @@ def cullmask_t(
         N, nt, ka, T // c, eps,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(err, "cullmask")
+    cuda_build.raise_on(err, "cullmask")
     cullmask_t.launches += 1
     return out
 

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from habitat_torch.datasets.pointnav import make_procedural_pointnav
+from habitat_torch.ops import cuda_build, pool
 from habitat_torch.ops import raycast as rc
 from habitat_torch.ops import raycast_kernels as rk
 from habitat_torch.sims.procedural import generate_scan_apartment
@@ -24,7 +25,7 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
-    rk.build()  # every source, in parallel
+    cuda_build.build()  # every source, in parallel
     return torch.device("cuda")
 
 
@@ -178,3 +179,38 @@ def test_scan_render_on_card_matches_cpu(cuda, scan):
     got = rc.render_batch(pack.to(cuda), *[x.to(cuda) for x in (sids, pos, yaw, pitch)], **kw)
     assert ((ref["depth"] - got["depth"].cpu()).abs() > 1e-4).float().mean() < 1e-3
     assert (ref["semantic"] != got["semantic"].cpu()).float().mean() < 1e-3
+
+
+# ---- the stem max pool's backward -----------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_maxpool_bwd_kernel_matches_plain(cuda, dtype):
+    """Bit-equal to the plain version (same float32 sums in the same order),
+    on a channels-last input with many positive ties; an NCHW-contiguous
+    card tensor raises."""
+    g = torch.Generator().manual_seed(0)
+    x = (torch.randint(0, 6, (8, 16, 32, 32), generator=g) * 0.25).to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    y = torch.nn.functional.max_pool2d(torch.nn.functional.pad(x, (0, 1, 0, 1), value=float("-inf")), 3, 2)
+    y = y.contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(y.shape, generator=g).to(dtype).contiguous(memory_format=torch.channels_last)
+    ref = pool.max_pool_3x3s2_bwd(x, y, dy)
+    before = pool.max_pool_3x3s2_bwd.launches
+    got = pool.max_pool_3x3s2_bwd(*(t.to(cuda) for t in (x, y, dy)))
+    torch.cuda.synchronize()
+    assert pool.max_pool_3x3s2_bwd.launches == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got.cpu(), ref)
+    with pytest.raises(ValueError, match="channels-last"):
+        pool.max_pool_3x3s2_bwd(*(t.to(cuda).contiguous() for t in (x, y, dy)))
+
+
+def test_maxpool_autograd_launches_kernel(cuda):
+    x = torch.relu(torch.randn(4, 16, 16, 8, device=cuda)).to(torch.bfloat16).permute(0, 3, 1, 2).requires_grad_(True)
+    before = pool.max_pool_3x3s2_bwd.launches
+    pool.max_pool_3x3s2(x).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert pool.max_pool_3x3s2_bwd.launches == before + 1 and torch.isfinite(x.grad.float()).all()
+    with pytest.raises(ValueError):
+        pool.max_pool_3x3s2(torch.zeros(1, 1, 5, 6, device=cuda))
