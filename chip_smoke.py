@@ -25,7 +25,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            (4096 x 32 x 64 x 64 bf16, channels-last as the stem hands it
            over) on a ReLU of normal noise and on an input full of positive
            ties (bit-equal), and on a tie-free float32 input against
-           F.max_pool2d's own gradient.
+           F.max_pool2d's own gradient; the general route's index kernel
+           on the panoramic bench reset (N=256, 128x256 equirect) and on
+           the mid-size scene's fisheye reset (N=16, 128x128), and its
+           culled kernel on the scan env's equirect reset (N=32, 128x256,
+           chunks of 256, K=160; its winner's 8 attributes must equal the
+           plain version's where the winner does).
            Closest-hit gates: hit/miss agreement >= 0.9999, winner-id
            agreement >= 0.999 (shared-edge near-ties), |dt| < 5e-3 m where
            the winner is the same. Cull mask: agreement >= 0.9999 on gated
@@ -69,6 +74,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            within lr/10) and in float32 (each trained tensor changed on both
            devices, its share within lr/10 at least UPDATE_TENSOR_SHARE; a
            planted fault in the pool backward must fail that gate).
+8. pano    the panoramic main path at full width: the bench
+           configuration with HabitatSimEquirectangularDepthSensor and
+           HabitatSimEquirectangularRGBSensor at 128x256 in place of the
+           pinhole pair and the policy built for 128x256: reset, a warm-up
+           and PANO_ROLLOUTS timed rollouts, render ms per step, then a
+           warm-up and PANO_TRAIN_STEPS timed train steps (peak memory,
+           finite losses); every render launches the index kernel and no
+           other. Then the scan env with the same cameras at N=32: reset and
+           PANO_SCAN["steps"] env steps through the culled kernel, render
+           ms split into select / kernel / epilogue, the share of rays hit.
+           It runs after [check], which then meets the card as the earlier
+           paths leave it.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
@@ -100,6 +117,10 @@ SCAN_ROLLOUTS = 5  # timed scan rollouts after the warm-up one
 TRAIN = dict(num_steps=32, num_mini_batch=2, ppo_epoch=2)  # bench.py's train step
 TRAIN_STEPS = 5  # timed bench train steps after the warm-up one
 SCAN_TRAIN_STEPS = 2  # timed scan train steps after the warm-up one
+PANO = dict(height=128, width=256)  # the equirect depth+RGB pair of [pano] and [pano-scan]
+PANO_ROLLOUTS = 3  # timed panoramic rollouts after the warm-up one
+PANO_TRAIN_STEPS = 2  # timed panoramic train steps after the warm-up one
+PANO_SCAN = dict(num_envs=32, steps=4)  # [pano-scan]: N, env steps after the reset
 # FP32 operations per input element of the max-pool backward: at most 4
 # compares and 4 adds
 FLOPS_PER_POOL_ELEMENT = 8
@@ -183,11 +204,12 @@ def bound(bytes_moved, flops):
 
 
 def compare_kernel(name, kernel, args, kwargs, n_tests, reps=50, plain_reps=3,
-                   source="habitat_torch/csrc/raycast_fused.cu", plain_kwargs=None):
+                   source="habitat_torch/csrc/raycast_fused.cu", plain_kwargs=None, flops_per_ray=FLOPS_PER_RAY):
     """Kernel vs its plain version on the same card inputs; times both and
     works out the bound from this call's inputs and the tests they need.
     ``n_tests`` may be a function of the kernel's (t, idx). With
-    ``plain_reps=0`` the plain version runs once, timed as it is compared."""
+    ``plain_reps=0`` the plain version runs once, timed as it is compared.
+    ``flops_per_ray``: 0 where the ray features are an input."""
     import torch
 
     before = kernel.launches
@@ -211,10 +233,49 @@ def compare_kernel(name, kernel, args, kwargs, n_tests, reps=50, plain_reps=3,
         name=name, route="cuda", source=source,
         max_abs_err=max_err, hit_agree=hit_agree, idx_agree=idx_agree,
         ms=ms, plain_ms=plain_ms,
-        **bound(bytes_moved, n_tests * FLOPS_PER_RAY_TRI + n_rays * FLOPS_PER_RAY),
+        **bound(bytes_moved, n_tests * FLOPS_PER_RAY_TRI + n_rays * flops_per_ray),
         library_ms=None, ray_tri_tests=n_tests, hit_fraction=(i_k >= 0).float().mean().item(),
         # rays whose plain (no early stop) hit is nearer than the kernel's
         nearer_in_plain_rays=int(((i_k != i_p) & (t_p < t_k)).sum().item()),
+    )
+
+
+def compare_culled(kernel, args, kwargs, source, reps=5):
+    """The culled kernel against its plain version on the same card inputs
+    (it returns the winner's attributes, not its index): hit/miss agreement
+    >= 0.9999, all 8 attributes equal on >= 0.999 of common hits, |dt| <
+    5e-3 m where they are equal. Every listed chunk is tested by every ray of
+    its tile, so the bound counts N * R * K * C tests."""
+    import torch
+
+    before = kernel.launches
+    t_k, a_k = kernel(*args, **kwargs)
+    torch.cuda.synchronize()
+    if kernel.launches != before + 1:
+        fail("raycast_culled_t: wrapper did not launch its kernel")
+    t0 = time.perf_counter()
+    t_p, a_p = kernel.plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    hit_k, hit_p = a_k[:, 7] > 0.5, a_p[:, 7] > 0.5
+    hit_agree = share(hit_k == hit_p)
+    both = hit_k & hit_p
+    same = both & (a_k == a_p).all(1)
+    attr_agree = share(same[both])
+    max_err = (t_k[same] - t_p[same]).abs().max().item()
+    if not (hit_agree >= 0.9999 and attr_agree >= 0.999 and max_err < 5e-3):
+        fail(f"raycast_culled_t: hit {hit_agree} attributes {attr_agree} |dt| {max_err}")
+    ms = cuda_ms(lambda: kernel(*args, **kwargs), reps)
+    N, nt, K = args[2].shape
+    n_rays = t_k.numel()
+    n_tests = n_rays * K * kwargs["tri_chunk"]
+    bytes_moved = sum(a.numel() * a.element_size() for a in args) + (4 + 32) * n_rays
+    return dict(
+        name="raycast_culled_t", route="cuda", source=source,
+        max_abs_err=max_err, hit_agree=hit_agree, attr_agree=attr_agree, ms=ms, plain_ms=plain_ms,
+        **bound(bytes_moved, n_tests * FLOPS_PER_RAY_TRI),
+        library_ms=None, ray_tri_tests=n_tests, hit_fraction=share(hit_k), list_slots=K,
+        tri_chunk=kwargs["tri_chunk"],
     )
 
 
@@ -245,7 +306,9 @@ def main():
     import torch.nn.functional as F
 
     from habitat_torch.baselines.ppo import PPOConfig, PPOLearner
+    from habitat_torch.core.batched_env import BatchedEnv
     from habitat_torch.core.env_factory import make_nav_env
+    from habitat_torch.core.registry import registry
     import numpy as np
 
     from habitat_torch.datasets.pointnav import generate_pointnav_episode, make_procedural_pointnav
@@ -308,15 +371,31 @@ def main():
     log(f"[setup] scan scene {lod.num_triangles} triangles, {len(pairs)} episodes, pack {tuple(spack.tri_mat.shape)} "
         f"in chunks of {spack.tri_mat.shape[3] // spack.chunk_bounds.shape[1]}, {pack_bytes / 1e6:.1f} MB on the card, "
         f"{time.perf_counter() - t_scan:.1f} s")
+    # the panoramic cameras: the bench configuration, and the scan env's
+    # scenes, episodes and pack (shared on the card) at N=32
+    pano_sensors = (
+        ("HabitatSimEquirectangularDepthSensor", PANO),
+        ("HabitatSimEquirectangularRGBSensor", PANO),
+        ("PointGoalWithGPSCompassSensor", None),
+    )
+    pano_env = make_nav_env(
+        scenes, episodes, num_envs=BENCH["num_envs"], precomputed_fields=fields,
+        max_episode_steps=500, sensor_specs=pano_sensors,
+    )
+    pano_scan_env = BatchedEnv(
+        scan_env.pack, scan_env.table, scan_env.order[:PANO_SCAN["num_envs"]].cpu().numpy(),
+        [registry.get_sensor(name)(cfg) for name, cfg in pano_sensors], scan_env.measures, scan_env.actions,
+        device=dev, max_episode_steps=500,
+    )
 
     # ---- 2. kernels -------------------------------------------------------
     cam_offset = torch.tensor([0.0, 1.25, 0.0], device=dev)
     hw = dict(height=BENCH["height"], width=BENCH["width"])
 
-    def reset_render_call(e, **kw):
+    def reset_render_call(e, size=hw, **kw):
         """The closest-hit call of an env's reset render: its first render inputs."""
         st, _ = e.reset_fn()
-        return rc.closest_hit_call(e.pack, e._make_ctx(st).sid, st.pos + cam_offset, st.yaw, st.pitch, **hw, **kw)
+        return rc.closest_hit_call(e.pack, e._make_ctx(st).sid, st.pos + cam_offset, st.yaw, st.pitch, **size, **kw)
 
     kernel, args, kwargs, _ = reset_render_call(env)
     if kernel is not rk.raycast_fused_sel_t:
@@ -535,7 +614,50 @@ def main():
         f"bound {pool_row['bound_ms']:.3f} ms by {pool_row['bound_by']}, autograd through F.max_pool2d "
         f"{pool_row['library_ms']:.3f} ms)")
 
-    kernels = [sel, every, exact_row, stream_row, cull_row, pool_row]
+    # the general route: the index kernel on the panoramic bench reset and on
+    # the mid-size scene's fisheye reset, every chunk of min(128, T) tested
+    general_src = "habitat_torch/csrc/raycast_general.cu"
+    pano_hw = dict(height=PANO["height"], width=PANO["width"])
+    R_pano = PANO["height"] * PANO["width"]
+    kernel, args, kwargs, _ = reset_render_call(pano_env, pano_hw, projection="equirect")
+    if kernel is not rk.raycast_index_t or kwargs["ray_tile"] != 2048:
+        fail("the panoramic bench render should take the index kernel on 2048-ray tiles")
+    index_row = compare_kernel(
+        "raycast_index_t", kernel, args, kwargs, BENCH["num_envs"] * R_pano * args[0].shape[3],
+        reps=20, plain_reps=1, source=general_src, flops_per_ray=0,
+    )
+    index_row["replaces"] = "habitat_tpu/ops/raycast_pallas.py:327"
+    kernel, args, kwargs, _ = reset_render_call(mid_env, projection="fisheye")
+    if kernel is not rk.raycast_index_t or args[0].shape[3] != 4352:
+        fail("the mid-size fisheye render should take the index kernel over 4352 triangles")
+    mid_fe = compare_kernel(
+        "raycast_index_t", kernel, args, kwargs, MID["num_envs"] * R * args[0].shape[3],
+        reps=10, plain_reps=1, source=general_src, flops_per_ray=0,
+    )
+    index_row["mid_fisheye_n16_128x128"] = {k: mid_fe[k] for k in (
+        "max_abs_err", "hit_agree", "idx_agree", "ms", "plain_ms", "bound_ms", "bound_by", "hit_fraction")}
+    for tag, r in (("panoramic bench reset (N=256, 128x256 equirect, 128 tris)", index_row),
+                   ("mid-size fisheye reset (N=16, 128x128, 4352 tris)", mid_fe)):
+        log(f"[kernel] raycast_index_t on the {tag}: hit {r['hit_agree']:.6f} idx {r['idx_agree']:.6f} "
+            f"|dt| {r['max_abs_err']:.3g}, {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} "
+            f"ms by {r['bound_by']}), hit fraction {r['hit_fraction']:.4f}")
+
+    # the culled kernel on the scan env's equirect reset: each raster-order
+    # 1024-ray tile's K nearest occlusion-bounded chunks of the pack's 256
+    kernel, args, kwargs, _ = reset_render_call(pano_scan_env, pano_hw, projection="equirect")
+    C_scan = spack.tri_mat.shape[3] // spack.chunk_bounds.shape[1]
+    if kernel is not rk.raycast_culled_t or kwargs["tri_chunk"] != C_scan or kwargs["ray_tile"] != 1024:
+        fail(f"the scan env's equirect render should take the culled kernel on chunks of {C_scan}")
+    culled_row = compare_culled(kernel, args, kwargs, source=general_src)
+    culled_row["replaces"] = "habitat_tpu/ops/raycast_pallas.py:1614"
+    log(f"[kernel] raycast_culled_t on the scan equirect reset (N={PANO_SCAN['num_envs']}, 128x256, "
+        f"K={culled_row['list_slots']} chunks of {C_scan} per 1024-ray tile; the plain version on all envs): "
+        f"hit {culled_row['hit_agree']:.6f}, attributes equal on {culled_row['attr_agree']:.6f} of common hits, "
+        f"|dt| {culled_row['max_abs_err']:.3g} where they are; {culled_row['ms']:.3f} ms (plain "
+        f"{culled_row['plain_ms']:.0f} ms, bound {culled_row['bound_ms']:.3f} ms by {culled_row['bound_by']}), "
+        f"hit fraction {culled_row['hit_fraction']:.4f}")
+
+    kernels = [sel, every, exact_row, stream_row, cull_row, pool_row, index_row, culled_row]
     for tag, r in (("bench reset", sel), ("mid-size reset", every), ("synthetic 8192 tris", synth)):
         log(f"[kernel] {r['name']} on the {tag}: hit {r['hit_agree']:.6f} idx {r['idx_agree']:.6f} "
             f"|dt| {r['max_abs_err']:.3g} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
@@ -543,7 +665,8 @@ def main():
 
     # ---- 3. main path ----------------------------------------------------
     wrappers = {n: getattr(rk, n) for n in (
-        "raycast_fused_sel_t", "raycast_fused_t", "raycast_exactsel_t", "raycast_stream_t", "cullmask_t")}
+        "raycast_fused_sel_t", "raycast_fused_t", "raycast_exactsel_t", "raycast_stream_t", "cullmask_t",
+        "raycast_index_t", "raycast_culled_t")}
     wrappers["max_pool_3x3s2_bwd"] = pool.max_pool_3x3s2_bwd
 
     def zero_counts():
@@ -778,6 +901,8 @@ def main():
         mock.patch.object(rk, "cull_mask_torch", watch(rk.cull_mask_torch)),
         mock.patch.object(rk.raycast_exactsel_t, "plain", watch(rk.raycast_exactsel_t.plain)),
         mock.patch.object(rk.raycast_stream_t, "plain", watch(rk.raycast_stream_t.plain)),
+        mock.patch.object(rk, "raycast_index_t_plain", watch(rk.raycast_index_t_plain)),
+        mock.patch.object(rk, "raycast_culled_t_plain", watch(rk.raycast_culled_t_plain)),
     ]
 
     def train_path(tag, lrn, seed, steps):
@@ -952,6 +1077,91 @@ def main():
         f"{len(rows32)} trained tensors changed on both devices, lowest per-tensor share {rows32[low32][0]:.4f} "
         f"({low32}; gate {UPDATE_TENSOR_SHARE}); planted fault (pool backward shifted one column) fails "
         f"{len(caught)} of them, the stem convolution at {rows_f['net.encoder.backbone.stem.weight'][0]:.4f}")
+
+    # ---- 8. the panoramic main path: equirect depth+RGB at 128x256 ----------
+    # (after [check], so that the card-vs-CPU update meets the card in the
+    # state the earlier paths leave, not after a 47 GiB train step)
+    del train_learner, scan_train
+    torch.cuda.empty_cache()
+    torch.manual_seed(0)
+    pano_policy = make_pointnav_resnet_policy(
+        len(pano_env.actions), backbone="resnet18", hidden_size=512, input_hw=(PANO["height"], PANO["width"]))
+    pano_learner = PPOLearner(pano_env, pano_policy, PPOConfig(num_steps=T_steps))
+    zero_counts()
+    prs = pano_learner.init(seed=6)
+    prs, pbatch, plast, _, _ = pano_learner.collect_rollout(prs)  # warm-up
+    pwalls = []
+    for _ in range(PANO_ROLLOUTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prs, pbatch, plast, _, pstats = pano_learner.collect_rollout(prs)
+        torch.cuda.synchronize()
+        pwalls.append(time.perf_counter() - t0)
+    pano_launches = path_counts("panoramic path", raycast_index_t=1 + (1 + PANO_ROLLOUTS) * T_steps)
+    pdepth = pbatch.obs["depth"]
+    if pdepth.shape != (T_steps, BENCH["num_envs"], PANO["height"], PANO["width"], 1) or not torch.isfinite(
+            pdepth.float()).all():
+        fail(f"bad panoramic depth frames {tuple(pdepth.shape)}")
+    for name, x in (("values", pbatch.values), ("rewards", pbatch.rewards), ("last_value", plast)):
+        if not torch.isfinite(x).all():
+            fail(f"non-finite {name} on the panoramic path")
+    psps = sorted(steps / w for w in pwalls)
+    pstate = prs.env_state
+    pctx = pano_env._make_ctx(pstate)
+    ppose = (pano_env.pack, pctx.sid, pstate.pos + cam_offset, pstate.yaw, pstate.pitch)
+    pkw = dict(pano_hw, projection="equirect")
+    prender_ms = cuda_ms(lambda: rc.render_batch(*ppose, **pkw), 5)
+    pselect_ms = cuda_ms(lambda: rc.closest_hit_call(*ppose, **pkw), 5)
+    kernel, args, kwargs, _ = rc.closest_hit_call(*ppose, **pkw)
+    pkernel_ms = cuda_ms(lambda: kernel(*args, **kwargs), 5)
+    with torch.no_grad():
+        ppolicy_ms = cuda_ms(lambda: pano_policy(prs.obs, prs.hidden, prs.prev_action, prs.not_done), 5)
+    log(f"[pano] {gpu}: env-steps/s median {psps[PANO_ROLLOUTS // 2]:.1f} over {PANO_ROLLOUTS} rollouts "
+        f"(min {psps[0]:.1f}, max {psps[-1]:.1f}; walls ms {[round(w * 1e3, 1) for w in pwalls]} for "
+        f"{BENCH['num_envs']}x{T_steps}, 128x256 equirect depth+RGB); per step: render {prender_ms:.3f} ms = rays "
+        f"and features {pselect_ms:.3f} + kernel {pkernel_ms:.3f} + epilogue "
+        f"{prender_ms - pselect_ms - pkernel_ms:.3f}, policy {ppolicy_ms:.3f} ms; hit share "
+        f"{share(pdepth < 1.0):.4f}; episodes done {int(pstats['done_count'].item())}, launches {pano_launches}")
+    index_row["launches"] = pano_launches["raycast_index_t"]
+    del pbatch, plast, pano_learner
+    _, prates, psplit, pmetrics, ppeak = train_path(
+        "pano-train", PPOLearner(pano_env, pano_policy, PPOConfig(**TRAIN)), 7, PANO_TRAIN_STEPS)
+    pano_train_launches = path_counts(
+        "panoramic train path", raycast_index_t=1 + (1 + PANO_TRAIN_STEPS) * T_steps,
+        max_pool_3x3s2_bwd=(1 + PANO_TRAIN_STEPS) * TRAIN["ppo_epoch"] * TRAIN["num_mini_batch"])
+    log(f"[pano-train] {gpu}: train env-steps/s {[round(r, 1) for r in prates]} over {PANO_TRAIN_STEPS} train steps; "
+        f"per step rollout ms {[round(x, 1) for x in psplit['rollout'][1:]]}, update ms "
+        f"{[round(x, 1) for x in psplit['update'][1:]]} (warm-up {psplit['rollout'][0]:.1f} + "
+        f"{psplit['update'][0]:.1f}); peak memory {ppeak / 2**30:.2f} GiB; last losses "
+        + ", ".join(f"{k} {v:.4f}" for k, v in pmetrics.items() if k.startswith("losses/"))
+        + f"; launches {pano_train_launches}")
+    torch.cuda.empty_cache()
+
+    # the scan env with the same cameras: the culled kernel at every render
+    zero_counts()
+    ps_state, ps_obs = pano_scan_env.reset_fn()
+    gen_a = torch.Generator(device=dev).manual_seed(8)
+    for _ in range(PANO_SCAN["steps"]):
+        acts = torch.randint(1, 4, (PANO_SCAN["num_envs"],), generator=gen_a, device=dev, dtype=torch.int32)
+        ps_state, ps_obs, ps_r, _, _ = pano_scan_env.step_fn(ps_state, acts)
+    torch.cuda.synchronize()
+    ps_launches = path_counts("panoramic scan path", raycast_culled_t=1 + PANO_SCAN["steps"])
+    psd = ps_obs["depth"]
+    if psd.shape != (PANO_SCAN["num_envs"], PANO["height"], PANO["width"], 1) or not torch.isfinite(psd).all() \
+            or not torch.isfinite(ps_r).all():
+        fail("bad frames or rewards on the panoramic scan path")
+    psctx = pano_scan_env._make_ctx(ps_state)
+    pspose = (spack, psctx.sid, ps_state.pos + cam_offset, ps_state.yaw, ps_state.pitch)
+    psrender_ms = cuda_ms(lambda: rc.render_batch(*pspose, **pkw), 5, warmup=1)
+    psselect_ms = cuda_ms(lambda: rc.closest_hit_call(*pspose, **pkw), 5, warmup=1)
+    kernel, args, kwargs, _ = rc.closest_hit_call(*pspose, **pkw)
+    pskernel_ms = cuda_ms(lambda: kernel(*args, **kwargs), 5, warmup=1)
+    log(f"[pano-scan] {gpu}: N={PANO_SCAN['num_envs']} reset + {PANO_SCAN['steps']} env steps, 128x256 equirect "
+        f"depth+RGB on the {lod.num_triangles}-triangle scene; per render {psrender_ms:.3f} ms = select "
+        f"{psselect_ms:.3f} + kernel {pskernel_ms:.3f} + epilogue {psrender_ms - psselect_ms - pskernel_ms:.3f}; "
+        f"share of rays hit {share(psd < 1.0):.4f}; launches {ps_launches}")
+    culled_row["launches"] = ps_launches["raycast_culled_t"]
+
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)

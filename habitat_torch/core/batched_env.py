@@ -112,14 +112,14 @@ class BatchedEnv:
         by_cam: Dict[Tuple, List[VisualSensorSpec]] = {}
         for s in self.sensors:
             if isinstance(s, VisualSensorSpec):
-                key = (s.height, s.width, s.hfov, s.position_y)
+                key = (s.height, s.width, s.hfov, s.projection, s.position_y)
                 by_cam.setdefault(key, []).append(s)
         self._render_groups = []
-        for (h, w, hfov, cam_y), group in by_cam.items():
+        for (h, w, hfov, proj, cam_y), group in by_cam.items():
             depth = next((s for s in group if isinstance(s, DepthSensor)), DepthSensor(None))
             self._render_groups.append(
                 dict(
-                    h=h, w=w, hfov=hfov,
+                    h=h, w=w, hfov=hfov, proj=proj,
                     cam_offset=torch.tensor([0.0, cam_y, 0.0], device=device),
                     uuids=tuple(s.uuid for s in group),
                     depth_cfg=(depth.min_depth, depth.max_depth, depth.normalize_depth),
@@ -164,6 +164,7 @@ class BatchedEnv:
                 min_depth=mn,
                 max_depth=mx,
                 normalize_depth=norm,
+                projection=g["proj"],
             )
             for uuid in g["uuids"]:
                 obs[uuid] = frames[uuid]

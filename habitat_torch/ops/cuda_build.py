@@ -33,6 +33,10 @@ SOURCES = {
         "raycast_fused": [_P] * 6 + [_I] * 5 + [_P],
     },
     "raycast_stream": {"raycast_stream": [_P] * 8 + [_I] * 6 + [_P]},
+    "raycast_general": {
+        "raycast_index": [_P] * 5 + [_I] * 5 + [_P],
+        "raycast_culled": [_P] * 7 + [_I] * 6 + [_P],
+    },
     "cullmask": {"cullmask": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P]},
     "maxpool_bwd": {"maxpool_bwd": [_P] * 4 + [_I] * 5 + [_P]},
 }

@@ -1,7 +1,8 @@
 """Batched triangle raycasting -> RGB / depth / semantic frames.
 
-Port of the static pinhole routes of
-``habitat_tpu/ops/raycast.py::render_batch`` (and the helpers they run).
+Port of the static routes of ``habitat_tpu/ops/raycast.py::render_batch``
+(and the helpers they run): the pinhole routes below, and the general route
+for equirect and fisheye cameras and for pinhole images that do not tile.
 
 Scenes up to 96 chunks of 128 triangles: per-screen-tile frustum culling at
 32-triangle chunk granularity (``select_chunks_frustum``) or every chunk,
@@ -16,6 +17,15 @@ boxes and then by the exact three-vertex plane test
 or, with ``backend="stream"``, occlusion-bounded parent chunks
 (``select_chunks_occluded``) through the chunk stream kernel. The epilogue
 is one 64-byte row gather per ray from ``tri_attr16`` where the pack has it.
+
+The general route generates world rays per projection and their transposed
+features ``ray_features_t``: small scenes (and large ones whose image is not
+a multiple of 1024 rays) take the every-chunk index kernel over the whole
+scene; large scenes take, per raster-order 1024-ray tile, the K nearest
+occlusion-bounded parent chunks of ``select_chunks_occluded`` through the
+culled kernel, which returns the winner's attributes. Its epilogue keeps the
+kernel's t: planar depth for pinhole, Euclidean range for the panoramic
+projections.
 
 The intersection is the matrix form of Möller–Trumbore: the four
 determinants are bilinear in per-ray features F = [d, o, o×d, 1] and
@@ -43,13 +53,21 @@ from habitat_torch.ops.raycast_kernels import (  # VERTS16_VALID: re-exported be
     _TMIN,
     VERTS16_VALID,
     cullmask_t,
+    raycast_culled_t,
     raycast_exactsel_t,
     raycast_fused_sel_t,
     raycast_fused_t,
+    raycast_index_t,
     raycast_stream_t,
 )
 from habitat_torch.sims.scene import ScenePack
-from habitat_torch.utils.geometry import camera_rays, view_rotation_matrix, yaw_to_forward
+from habitat_torch.utils.geometry import (
+    camera_rays,
+    equirect_rays,
+    fisheye_rays,
+    view_rotation_matrix,
+    yaw_to_forward,
+)
 
 # tri_attr16 row [attr(8) | v0(3) | n.v0 | pad(4)]: the slot of n.v0
 ATTR16_NV0 = 11
@@ -102,6 +120,19 @@ def group_tri_mat(tri_mat: torch.Tensor, tri_chunk: int = 128) -> torch.Tensor:
         .permute(0, 1, 3, 2, 4)
         .reshape(S, 10, 4 * T)
     )
+
+
+def ray_features_t(origins: torch.Tensor, dirs: torch.Tensor, ray_tile: int) -> torch.Tensor:
+    """(N, R, 3), (N, R, 3) -> (N, R/ray_tile, 16, ray_tile) transposed ray
+    features [d, o, o x d, 1], rays minor; rows 10:16 are zero."""
+    N, R, _ = origins.shape
+    oxd = torch.linalg.cross(origins, dirs)
+    F = torch.cat(
+        [dirs.transpose(1, 2), origins.transpose(1, 2), oxd.transpose(1, 2),
+         torch.ones(N, 1, R, device=dirs.device), torch.zeros(N, 6, R, device=dirs.device)],
+        dim=1,
+    ).float()  # (N, 16, R)
+    return F.reshape(N, 16, R // ray_tile, ray_tile).transpose(1, 2).contiguous()
 
 
 def ray_feature_matrix(cam_pos: torch.Tensor, yaw: torch.Tensor, pitch: torch.Tensor) -> torch.Tensor:
@@ -324,6 +355,14 @@ def _pack_nearest_first(neg: torch.Tensor, idx: torch.Tensor):
     return (dmin_cm << _ID_BITS) | ids, cnt
 
 
+def _top_k(x: torch.Tensor, k: int):
+    """The k largest along the last dim, ties to the lower index first (as
+    ``jax.lax.top_k``; ``torch.topk`` orders ties arbitrarily, and a tie at
+    a clamped score of 0 can decide which chunks a tile keeps)."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
 def select_chunks_occluded(
     pack_tri_mat: torch.Tensor,  # (S, 10, 4, T)
     chunk_bounds: torch.Tensor,  # (N, NC, 4 or 6)
@@ -363,7 +402,7 @@ def select_chunks_occluded(
         kp = min(max(pre_chunks, 192 * 128 // C), NC)  # constant proxy size in triangles
     else:
         kp = min(pre_chunks, NC)
-    near_ids = torch.topk(-cdist, kp, dim=-1).indices  # (N, kp)
+    near_ids = _top_k(-cdist, kp)[1]  # (N, kp)
     # chunk-major gather, never materializing per-env scene matrices
     flat = pack_tri_mat.reshape(S, 10, 4, NC, C).permute(0, 3, 1, 2, 4).reshape(S * NC, 10, 4, C)
     Mg = flat[sids.long()[:, None] * NC + near_ids]  # (N, kp, 10, 4, C)
@@ -376,7 +415,7 @@ def select_chunks_occluded(
     near_enough = (dist - r[:, None, :]) <= dmax[:, :, None]
     valid = (r > 0)[:, None, :] & _lod_band_ok(chunk_bounds, dist)
     score = torch.where(visible & valid & near_enough, (dist - r[:, None, :]).clamp(min=0.0), 1e9)
-    neg, idx = torch.topk(-score, min(k, NC), dim=-1)
+    neg, idx = _top_k(-score, min(k, NC))
     if not with_cnt:
         ids = idx.to(torch.int32)
         return (ids, dmax) if with_dmax else ids
@@ -600,12 +639,23 @@ def from_blocks(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
     return x.reshape(N, R, *tail)
 
 
-def world_rays(yaw: torch.Tensor, pitch: torch.Tensor, hfov_deg: float, height: int, width: int) -> torch.Tensor:
-    """(N,), (N,) -> (N, H*W, 3) world-space pinhole ray directions."""
+def world_rays(
+    yaw: torch.Tensor, pitch: torch.Tensor, hfov_deg: float, height: int, width: int,
+    projection: str = "pinhole",
+) -> torch.Tensor:
+    """(N,), (N,) -> (N, H*W, 3) world-space ray directions in raster order.
+    A fisheye camera's field of view is twice ``hfov_deg``; an equirect one
+    sees the whole sphere."""
     y, p = yaw[:, None, None], pitch[:, None, None]
-    return camera_rays(y, p, math.radians(hfov_deg), height, width, device=yaw.device).reshape(
-        yaw.shape[0], height * width, 3
-    )
+    if projection == "equirect":
+        d = equirect_rays(y, p, height, width)
+    elif projection == "fisheye":
+        d = fisheye_rays(y, p, math.radians(hfov_deg * 2), height, width)
+    elif projection == "pinhole":
+        d = camera_rays(y, p, math.radians(hfov_deg), height, width, device=yaw.device)
+    else:
+        raise ValueError(f"projection {projection!r}: expected 'pinhole', 'equirect' or 'fisheye'")
+    return d.reshape(yaw.shape[0], height * width, 3)
 
 
 def is_large_scene(pack: ScenePack, cull_k: Optional[int] = None) -> bool:
@@ -613,6 +663,31 @@ def is_large_scene(pack: ScenePack, cull_k: Optional[int] = None) -> bool:
     than 2 x 48 chunks of 128 triangles (2 x ``cull_k`` where given)."""
     boundary = cull_k if cull_k is not None else _FAST_CULL_K
     return pack.tri_attr.shape[1] // 128 > 2 * boundary
+
+
+def render_route(
+    pack: ScenePack, height: int, width: int, projection: str = "pinhole", cull_k: Optional[int] = None
+) -> str:
+    """The route a render takes, as the JAX package dispatches it:
+
+    - "pinhole": a pinhole image of a multiple of 1024 rays (and of 2048
+      above 2048) on a scene of up to 2 x 48 chunks of 128 triangles (2 x
+      ``cull_k``): frustum-selected or every-chunk kernel, raster order;
+    - "block": a pinhole image that splits into 32x32-pixel tiles on a
+      larger scene: the chunklet or chunk stream, block order;
+    - "culled": any other image of a multiple of 1024 rays on a larger
+      scene: the culled kernel over raster-order 1024-ray tiles;
+    - "index": everything else: the every-chunk index kernel."""
+    R = height * width
+    large = is_large_scene(pack, cull_k)
+    if projection == "pinhole":
+        if not large and R % 1024 == 0 and R % min(_RAY_TILE, R) == 0:
+            return "pinhole"
+        if large and height % _BLOCK == 0 and width % _BLOCK == 0:
+            return "block"
+    elif projection not in ("equirect", "fisheye"):
+        raise ValueError(f"projection {projection!r}: expected 'pinhole', 'equirect' or 'fisheye'")
+    return "culled" if large and R % _BLOCK_RAYS == 0 else "index"
 
 
 def closest_hit_call(
@@ -627,30 +702,43 @@ def closest_hit_call(
     hfov_deg: float = 90.0,
     cull_k: Optional[int] = None,
     backend: str = "auto",
+    projection: str = "pinhole",
 ):
-    """The closest-hit step of one static pinhole render: selection done,
-    returns (kernel wrapper, args, kwargs, B) where ``kernel(*args,
-    **kwargs)`` gives (t, idx) and B (N, 4, 10) is the ray-feature matrix.
+    """The closest-hit step of one static render: selection done, returns
+    (kernel wrapper, args, kwargs, rays) where ``kernel(*args, **kwargs)``
+    gives (t, idx), or (t, attrs_t) on the "culled" route (``render_route``).
+    ``rays`` is the ray-feature matrix B (N, 4, 10) on the pinhole and block
+    routes and the world ray directions (N, R, 3), raster order, on the
+    general ones.
 
     Scenes up to 4096 padded triangles take the frustum-selected kernel and
     up to 96 chunks of 128 the every-chunk kernel, rays in raster order.
     Larger scenes take the exact-culled chunklet stream, or the parent-chunk
-    stream with ``backend="stream"``, rays in 32x32-pixel block order.
-    Raises NotImplementedError for the branches the port does not have yet."""
+    stream with ``backend="stream"``, rays in 32x32-pixel block order."""
     if backend not in ("auto", "stream"):
         raise ValueError(f"backend {backend!r}: expected 'auto' or 'stream'")
     T = pack.tri_attr.shape[1]
     R = height * width
+    sids = sids.to(torch.int32)
+    route = render_route(pack, height, width, projection, cull_k)
+    if route in ("index", "culled"):
+        dirs = world_rays(yaw, pitch, hfov_deg, height, width, projection)
+        origins = cam_pos[:, None, :].expand(-1, R, -1)
+        if route == "index":
+            rt = _RAY_TILE if R % _RAY_TILE == 0 else R
+            return raycast_index_t, (pack.tri_mat, sids, ray_features_t(origins, dirs, rt)), dict(ray_tile=rt), dirs
+        ids = select_chunks_occluded(
+            pack.tri_mat, pack.chunk_bounds[sids.long()], sids, origins, dirs, _BLOCK_RAYS,
+            _STREAM_CULL_K if cull_k is None else cull_k,
+        )
+        # the ids count the pack's own chunks: T // NC triangles each
+        C_big = T // pack.chunk_bounds.shape[1]
+        args = (pack.tri_mat, pack.tri_attr.transpose(1, 2).contiguous(), ids.contiguous(), sids,
+                ray_features_t(origins, dirs, _BLOCK_RAYS))
+        return raycast_culled_t, args, dict(ray_tile=_BLOCK_RAYS, tri_chunk=C_big), dirs
     B = ray_feature_matrix(cam_pos, yaw, pitch)  # (N, 4, 10)
     Bt = torch.nn.functional.pad(B.transpose(1, 2), (0, 0, 0, 6)).contiguous()  # (N,16,4)
-    sids = sids.to(torch.int32)
-    if is_large_scene(pack, cull_k):
-        if height % _BLOCK or width % _BLOCK:
-            raise NotImplementedError(
-                f"{height}x{width} images do not split into 32x32-pixel tiles; the "
-                "chunk-culled route for them is ROADMAP Queue 2 item 7 "
-                "(raycast_pallas_culled_t)"
-            )
+    if route == "block":
         if cull_k is None:
             cull_k = _STREAM_CULL_K
         _, _, d_t, planes, _ = block_constants(float(hfov_deg), height, width, cam_pos.device)
@@ -682,12 +770,6 @@ def closest_hit_call(
             verts16=pack.tri_verts16,
         )
         return raycast_exactsel_t, (gm32, sids, ids.contiguous(), cnt, d_t, Bt), dict(kwargs, tri_chunk=32), B
-    if R % 1024 or R % min(_RAY_TILE, R):
-        raise NotImplementedError(
-            f"{height}x{width} images do not tile into 1024/2048-ray kernel "
-            "tiles; the general path is ROADMAP Queue 2 item 3 "
-            "(raycast_pallas_index_t)"
-        )
     _, d_t, planes, _, ray_tile = pinhole_constants(float(hfov_deg), height, width, cam_pos.device)
     if T <= _SEL_MAX_TRIS and ray_tile % width == 0 and T % _SEL_CHUNK == 0:
         ids, cnt = select_chunks_frustum(
@@ -718,6 +800,32 @@ def _frames(N, height, width, hit, z, nd, base, sem_val, sky, max_depth, min_dep
     }
 
 
+def _general_epilogue(pack, sid, route, t, res, dirs, yaw, pitch, projection, height, width, depth_cfg):
+    """The general route's frames from the kernel's t and its winner index
+    (``res`` = idx) or attributes (``res`` = attrs_t, "culled"): no
+    plane-exact t; planar depth t (d . forward) for pinhole cameras, the
+    range t otherwise; Lambert shade |n . d|."""
+    N = t.shape[0]
+    if route == "culled":
+        attrs = res.transpose(1, 2)  # (N, R, 8)
+        hit = attrs[..., 7] > 0.5
+    else:
+        hit = res >= 0
+        # the winner's attributes, gathered exactly (the JAX package's
+        # one-hot product is this copy)
+        attrs = pack.tri_attr[sid, res.clamp(min=0).long()] * hit[..., None].float()
+    if projection == "pinhole":
+        cp = torch.cos(pitch)
+        fwd_flat = yaw_to_forward(yaw)
+        fwd = torch.stack([fwd_flat[..., 0] * cp, torch.sin(pitch), fwd_flat[..., 2] * cp], dim=-1)
+        z = t * (dirs * fwd[:, None, :]).sum(-1)
+    else:
+        z = t
+    nd = (attrs[..., 0:3] * dirs).sum(-1)
+    sky = torch.tensor([0.65, 0.75, 0.9], device=t.device)
+    return _frames(N, height, width, hit, z, nd, attrs[..., 3:6], attrs[..., 6], sky, *depth_cfg)
+
+
 def render_batch(
     pack: ScenePack,
     sids: torch.Tensor,  # (N,) int
@@ -736,35 +844,35 @@ def render_batch(
     cull_k: Optional[int] = None,
     projection: str = "pinhole",
 ) -> Dict[str, torch.Tensor]:
-    """Render all envs: (N,H,W,C) frames of a static scene through a pinhole
-    camera, at any scene size where the image splits into 32x32-pixel tiles
-    (small scenes need only a multiple of 1024 rays).
+    """Render all envs: (N,H,W,C) frames of a static scene through a
+    pinhole, equirect or fisheye camera (``render_route`` says which kernel
+    serves which camera, image size and scene size).
 
-    Depth is planar z-depth clipped to [min_depth, max_depth], normalized if
-    requested. Frames come out on the device of ``pack``; on the card the
+    Depth is clipped to [min_depth, max_depth] and normalized if requested:
+    planar z-depth for pinhole cameras, the Euclidean range for equirect and
+    fisheye ones. Frames come out on the device of ``pack``; on the card the
     closest-hit pass is a CUDA kernel, on the CPU its plain version.
     ``cull_k`` is the number of parent chunks the chunk-culled routes keep
     per tile, and sets the scene size from which they are taken."""
-    if projection != "pinhole":
-        raise NotImplementedError(
-            f"{projection} cameras are ROADMAP Queue 1 item 9 (equirect and "
-            "fisheye cameras)"
-        )
     if dynamic is not None:
         raise NotImplementedError(
             "dynamic geometry is ROADMAP Queue 1 item 8 (rearrangement render "
-            "merge) with Queue 2 item 3 (raycast_pallas_index_t)"
+            "merge, on kernel 3, raycast_index_t)"
         )
     N = sids.shape[0]
     cam_pos = cam_pos.float()
-    kernel, args, kwargs, B = closest_hit_call(
+    route = render_route(pack, height, width, projection, cull_k)
+    kernel, args, kwargs, rays = closest_hit_call(
         pack, sids, cam_pos, yaw, pitch, height=height, width=width, hfov_deg=hfov_deg,
-        cull_k=cull_k, backend=backend,
+        cull_k=cull_k, backend=backend, projection=projection,
     )
-    t, idx = kernel(*args, **kwargs)
+    t, res = kernel(*args, **kwargs)
     sid = sids.long()[:, None]
     depth_cfg = (max_depth, min_depth, normalize_depth)
-    if not is_large_scene(pack, cull_k):
+    if route in ("index", "culled"):
+        return _general_epilogue(pack, sid, route, t, res, rays, yaw, pitch, projection, height, width, depth_cfg)
+    B, idx = rays, res
+    if route == "pinhole":
         d_aug, _, _, sky, _ = pinhole_constants(float(hfov_deg), height, width, cam_pos.device)
         hit = idx >= 0
         # winner attributes [n(3), rgb(3), sem, valid | v0(3)] gathered exactly

@@ -16,11 +16,22 @@ pinhole render paths run:
 - ``cullmask_t`` <- ``cullmask_pallas_t``: the exact cull's per-triangle
   test, valid and not wholly outside one of the tile's four frustum planes.
 
-The closest-hit kernels take the JAX kernels' inputs: the chunk-grouped scene
-matrix (S, 10, 4T) from ``group_tri_mat`` (the TPU layout pads it to 16 rows
-for its DMA slices; here it keeps its 10), scene ids (N,), the camera-frame
-[d, 1] tiles (nt, 8, Rt) and the ray-feature matrices B^T (N, 16, 4). They
-return (t (N, R) f32, idx (N, R) i32) with t = 1e6, idx = -1 on a miss.
+and for the general render route (any camera model, any image size):
+
+- ``raycast_index_t`` <- ``raycast_pallas_index_t``: every chunk of
+  min(128, T) triangles in order, from precomputed transposed ray features.
+- ``raycast_culled_t`` <- ``raycast_pallas_culled_t``: each (env, ray tile)'s
+  K candidate chunks of the pack's chunk size in the order given, returning
+  the winner's 8 attributes instead of its index.
+
+The pinhole closest-hit kernels take the JAX kernels' inputs: the
+chunk-grouped scene matrix (S, 10, 4T) from ``group_tri_mat`` (the TPU layout
+pads it to 16 rows for its DMA slices; here it keeps its 10), scene ids (N,),
+the camera-frame [d, 1] tiles (nt, 8, Rt) and the ray-feature matrices B^T
+(N, 16, 4). They return (t (N, R) f32, idx (N, R) i32) with t = 1e6, idx = -1
+on a miss. The general route's kernels take the scene matrix as the pack
+holds it (S, 10, 4, T) and the ray features of ``ray_features_t`` (N, nt, 16,
+Rt).
 
 The CUDA sources are ``habitat_torch/csrc/*.cu``, each compiled with nvcc
 for sm_90a at first use into ``habitat_torch/build/`` (``ops/cuda_build.py``)
@@ -85,19 +96,19 @@ def _features(Bt: torch.Tensor, d_t: torch.Tensor) -> torch.Tensor:
     return F
 
 
-def _fold(G, C, base, valid, best_t, best_i):
+def _fold(G, C, base, valid, best_t, best_i, strict=False):
     """Fold one chunk's determinants G (N, nt, 4C, Rt) into the running
-    winner: sign-free margin, argmin-first within the chunk, strict < across."""
+    winner: sign-free margin, argmin-first within the chunk, strict < across.
+    ``strict``: the culled kernel's rule, strict on the t/det side of the
+    margin, instead of the fused margin >= 0."""
     detA, tnum, unum, vnum = G[:, :, :C], G[:, :, C:2 * C], G[:, :, 2 * C:3 * C], G[:, :, 3 * C:]
     aa = detA * detA
     p = unum * detA
     q = vnum * detA
     w = tnum * detA
-    m = torch.minimum(
-        torch.minimum(torch.minimum(p, q), aa - p - q),
-        torch.minimum(w - _TMIN * aa, aa - _EPS * _EPS),
-    )
-    hit = m >= 0.0
+    m1 = torch.minimum(torch.minimum(p, q), aa - p - q)
+    m2 = torch.minimum(w - _TMIN * aa, aa - _EPS * _EPS)
+    hit = (m1 >= 0.0) & (m2 > 0.0) if strict else torch.minimum(m1, m2) >= 0.0
     t = torch.where(hit, tnum / torch.where(hit, detA, torch.ones_like(detA)), _TMAX)
     tmin, win = t.min(dim=2)  # (N, nt, Rt), first minimum
     better = (tmin < best_t) & valid[..., None]
@@ -119,6 +130,13 @@ def _finish(best_t, best_i):
 _PLAIN_BUDGET = 1 << 27
 
 
+def _env_batches(N, per_env):
+    """Slices of envs that keep one chunk's determinants (``per_env`` float32
+    values per env) under the plain versions' budget."""
+    step = max(1, _PLAIN_BUDGET // per_env)
+    return [slice(a, min(a + step, N)) for a in range(0, N, step)]
+
+
 def _listed_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, C, dmin=None, tested=None):
     """Closest hit over each (env, tile)'s first ``cnt`` listed chunks, in
     list order, every one tested (no early stop).
@@ -132,11 +150,9 @@ def _listed_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, C, dmin=None, tested
     n_tiles, _, rt = d_t.shape
     dev = d_t.device
     cols = torch.arange(4 * C, device=dev)
-    step = max(1, _PLAIN_BUDGET // (n_tiles * 4 * C * rt))
     ts, idxs = [], []
-    for a in range(0, N, step):
-        sl = slice(a, min(a + step, N))
-        n = sl.stop - a
+    for sl in _env_batches(N, n_tiles * 4 * C * rt):
+        n = sl.stop - sl.start
         F = _features(Bt[sl], d_t)
         Mg = tri_mat_c[sids[sl].long()]  # (n, 10, 4T)
         Mg = Mg[:, None].expand(n, n_tiles, *Mg.shape[1:])
@@ -224,6 +240,60 @@ def raycast_fused_t_plain(tri_mat_c, sids, d_t, Bt, ray_tile=2048, tri_chunk=128
         base = torch.full((N, n_tiles), c, dtype=torch.int32, device=d_t.device)
         best_t, best_i = _fold(G, C, base, valid, best_t, best_i)
     return _finish(best_t, best_i)
+
+
+def raycast_index_t_plain(tri_mat, sids, features_t, ray_tile=2048):
+    """Plain version of the index kernel: every chunk of min(128, T)
+    triangles of the env's scene, in order."""
+    N, n_tiles, _, rt = features_t.shape
+    T = tri_mat.shape[3]
+    C = min(128, T)
+    dev = features_t.device
+    valid = torch.ones((1, n_tiles), dtype=torch.bool, device=dev)
+    ts, idxs = [], []
+    for sl in _env_batches(N, n_tiles * 4 * C * rt):
+        F = features_t[sl, :, :10]  # (n, nt, 10, rt)
+        n = F.shape[0]
+        Mg = tri_mat[sids[sl].long()]  # (n, 10, 4, T)
+        best_t = torch.full((n, n_tiles, rt), _TMAX, device=dev)
+        best_i = torch.full((n, n_tiles, rt), -1, dtype=torch.int32, device=dev)
+        for c in range(T // C):
+            G = torch.einsum("nfc,ntfr->ntcr", Mg[..., c * C:(c + 1) * C].reshape(n, 10, 4 * C), F)
+            base = torch.full((n, n_tiles), c, dtype=torch.int32, device=dev)
+            best_t, best_i = _fold(G, C, base, valid, best_t, best_i)
+        t, i = _finish(best_t, best_i)
+        ts.append(t)
+        idxs.append(i)
+    return torch.cat(ts), torch.cat(idxs)
+
+
+def raycast_culled_t_plain(tri_mat, tri_attr_t, chunk_ids, sids, features_t, ray_tile=1024, tri_chunk=128):
+    """Plain version of the culled kernel: every listed chunk of
+    ``tri_chunk`` triangles in list order, then the winner's attributes."""
+    N, n_tiles, _, rt = features_t.shape
+    S, _, _, T = tri_mat.shape
+    C = tri_chunk
+    NC = T // C
+    dev = features_t.device
+    # chunk-major (S * NC, 10, 4C): chunk c as [detA(C)|tnum(C)|unum(C)|vnum(C)]
+    chunks = tri_mat.reshape(S, 10, 4, NC, C).permute(0, 3, 1, 2, 4).reshape(S * NC, 10, 4 * C)
+    valid = torch.ones((1, n_tiles), dtype=torch.bool, device=dev)
+    ts, attrs = [], []
+    for sl in _env_batches(N, n_tiles * 4 * C * rt):
+        F = features_t[sl, :, :10]
+        n = F.shape[0]
+        sid = sids[sl].long()
+        best_t = torch.full((n, n_tiles, rt), _TMAX, device=dev)
+        best_i = torch.full((n, n_tiles, rt), -1, dtype=torch.int32, device=dev)
+        for k in range(chunk_ids.shape[2]):
+            cid = chunk_ids[sl, :, k]  # (n, nt)
+            G = torch.einsum("ntfc,ntfr->ntcr", chunks[sid[:, None] * NC + cid.long()], F)
+            best_t, best_i = _fold(G, C, cid, valid, best_t, best_i, strict=True)
+        hit = best_t < _TMAX
+        a = tri_attr_t[sid[:, None], :, best_i.reshape(n, -1).clamp(min=0).long()]  # (n, R, 8)
+        ts.append(best_t.reshape(n, -1))
+        attrs.append((a * hit.reshape(n, -1, 1)).transpose(1, 2))
+    return torch.cat(ts), torch.cat(attrs)
 
 
 # ---------------------------------------------------------------------------
@@ -421,3 +491,103 @@ def cullmask_t(
 
 cullmask_t.launches = 0
 cullmask_t.plain = cull_mask_torch
+
+
+def _check_general(tri_mat, sids, features_t, ray_tile, extra=()):
+    dev = features_t.device
+    for name, x, dt in (
+        ("tri_mat", tri_mat, torch.float32),
+        ("sids", sids, torch.int32),
+        ("features_t", features_t, torch.float32),
+        *extra,
+    ):
+        if x.device != dev or x.dtype != dt or not x.is_contiguous():
+            raise ValueError(
+                f"{name}: expected a contiguous {dt} tensor on {dev}, got "
+                f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})"
+            )
+    N, n_tiles, k16, rt = features_t.shape
+    if k16 != 16 or rt != ray_tile or sids.shape != (N,) or tri_mat.shape[1:3] != (10, 4):
+        raise ValueError(
+            f"bad shapes features_t {tuple(features_t.shape)} (ray_tile {ray_tile}) sids "
+            f"{tuple(sids.shape)} tri_mat {tuple(tri_mat.shape)}"
+        )
+    return N, n_tiles
+
+
+def raycast_index_t(
+    tri_mat: torch.Tensor,  # (S, 10, 4, T)
+    sids: torch.Tensor,  # (N,) int32
+    features_t: torch.Tensor,  # (N, nt, 16, Rt) ray_features_t, rows 0:10 used
+    ray_tile: int = 2048,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Closest hit against every chunk of min(128, T) triangles of the env's
+    scene: (t (N, R) f32, idx (N, R) i32). ``ray_tile`` is any size (the
+    whole image for an untiled one)."""
+    N, n_tiles = _check_general(tri_mat, sids, features_t, ray_tile)
+    T = tri_mat.shape[3]
+    C = min(128, T)
+    if T % C:
+        raise ValueError(f"{T} triangles do not split into chunks of {C}")
+    if features_t.device.type == "cpu":
+        return raycast_index_t_plain(tri_mat, sids, features_t, ray_tile)
+    lib = cuda_build.load("raycast_general")
+    dev = features_t.device
+    t = torch.empty((N, n_tiles * ray_tile), dtype=torch.float32, device=dev)
+    idx = torch.empty((N, n_tiles * ray_tile), dtype=torch.int32, device=dev)
+    err = lib.raycast_index(
+        tri_mat.data_ptr(), sids.data_ptr(), features_t.data_ptr(), t.data_ptr(), idx.data_ptr(),
+        N, T, C, n_tiles, ray_tile, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.raise_on(err, "raycast_index")
+    raycast_index_t.launches += 1
+    return t, idx
+
+
+raycast_index_t.launches = 0
+raycast_index_t.plain = raycast_index_t_plain
+
+
+def raycast_culled_t(
+    tri_mat: torch.Tensor,  # (S, 10, 4, T)
+    tri_attr_t: torch.Tensor,  # (S, 8, T) transposed attribute tables
+    chunk_ids: torch.Tensor,  # (N, nt, K) int32 candidate chunks, in the order to test
+    sids: torch.Tensor,  # (N,) int32
+    features_t: torch.Tensor,  # (N, nt, 16, Rt)
+    ray_tile: int = 1024,
+    tri_chunk: int = 128,  # the pack's chunk size T // NC, the unit of chunk_ids
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Closest hit over each (env, tile)'s K listed chunks with the winner's
+    attributes: (t (N, R) f32, 1e6 on a miss; attrs_t (N, 8, R) f32, zero
+    on a miss, so attrs_t[:, 7] (valid) marks the hits)."""
+    N, n_tiles = _check_general(
+        tri_mat, sids, features_t, ray_tile,
+        extra=(("tri_attr_t", tri_attr_t, torch.float32), ("chunk_ids", chunk_ids, torch.int32)),
+    )
+    S, _, _, T = tri_mat.shape
+    if (
+        T % tri_chunk or tri_attr_t.shape != (S, 8, T) or chunk_ids.dim() != 3
+        or chunk_ids.shape[:2] != (N, n_tiles)
+    ):
+        raise ValueError(
+            f"bad shapes tri_attr_t {tuple(tri_attr_t.shape)} chunk_ids {tuple(chunk_ids.shape)} "
+            f"for tri_mat {tuple(tri_mat.shape)} in chunks of {tri_chunk}"
+        )
+    if features_t.device.type == "cpu":
+        return raycast_culled_t_plain(tri_mat, tri_attr_t, chunk_ids, sids, features_t, ray_tile, tri_chunk)
+    lib = cuda_build.load("raycast_general")
+    dev = features_t.device
+    t = torch.empty((N, n_tiles * ray_tile), dtype=torch.float32, device=dev)
+    attrs = torch.empty((N, 8, n_tiles * ray_tile), dtype=torch.float32, device=dev)
+    err = lib.raycast_culled(
+        tri_mat.data_ptr(), tri_attr_t.data_ptr(), chunk_ids.data_ptr(), sids.data_ptr(),
+        features_t.data_ptr(), t.data_ptr(), attrs.data_ptr(),
+        N, T, tri_chunk, n_tiles, chunk_ids.shape[2], ray_tile, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.raise_on(err, "raycast_culled")
+    raycast_culled_t.launches += 1
+    return t, attrs
+
+
+raycast_culled_t.launches = 0
+raycast_culled_t.plain = raycast_culled_t_plain

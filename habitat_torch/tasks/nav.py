@@ -3,8 +3,10 @@ the PointNav parts of ``habitat_tpu/tasks/nav.py``, under the same
 registered names).
 
 - sensors: PointGoalWithGPSCompassSensor, HabitatSimRGBSensor,
-  HabitatSimDepthSensor (the visual ones are rendered once per step by the
-  env);
+  HabitatSimDepthSensor, HabitatSimSemanticSensor and their equirect and
+  fisheye versions (HabitatSimEquirectangular*Sensor,
+  HabitatSimFisheye*Sensor); the visual ones are rendered once per step and
+  camera model by the env;
 - measures: DistanceToGoal, Success, SPL, SoftSPL, Collisions,
   DistanceToGoalReward, NumSteps;
 - actions: stop / move_forward / turn_left / turn_right.
@@ -81,8 +83,11 @@ class IntegratedPointGoalGPSAndCompassSensor(FunctionalSensor):
 
 
 class VisualSensorSpec(FunctionalSensor):
-    """Marker base for raster (pinhole) sensors; the env renders once per
-    step per camera model and hands each sensor its frame."""
+    """Marker base for raster sensors; the env renders once per step per
+    camera model (size, hfov, projection, mount height) and hands each
+    sensor its frame."""
+
+    projection = "pinhole"
 
     def __init__(self, config=None):
         super().__init__(config)
@@ -107,6 +112,44 @@ class DepthSensor(VisualSensorSpec):
         self.min_depth = _cfg(config, "min_depth", 0.0)
         self.max_depth = _cfg(config, "max_depth", 10.0)
         self.normalize_depth = _cfg(config, "normalize_depth", True)
+
+
+@registry.register_sensor("HabitatSimSemanticSensor")
+class SemanticSensor(VisualSensorSpec):
+    uuid = "semantic"
+
+
+# panoramic projections: the same uuids through other ray generators
+
+
+@registry.register_sensor("HabitatSimEquirectangularRGBSensor")
+class EquirectRGBSensor(RGBSensor):
+    projection = "equirect"
+
+
+@registry.register_sensor("HabitatSimEquirectangularDepthSensor")
+class EquirectDepthSensor(DepthSensor):
+    projection = "equirect"
+
+
+@registry.register_sensor("HabitatSimEquirectangularSemanticSensor")
+class EquirectSemanticSensor(SemanticSensor):
+    projection = "equirect"
+
+
+@registry.register_sensor("HabitatSimFisheyeRGBSensor")
+class FisheyeRGBSensor(RGBSensor):
+    projection = "fisheye"
+
+
+@registry.register_sensor("HabitatSimFisheyeDepthSensor")
+class FisheyeDepthSensor(DepthSensor):
+    projection = "fisheye"
+
+
+@registry.register_sensor("HabitatSimFisheyeSemanticSensor")
+class FisheyeSemanticSensor(SemanticSensor):
+    projection = "fisheye"
 
 
 # ---------------------------------------------------------------------------

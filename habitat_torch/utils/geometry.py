@@ -60,3 +60,37 @@ def view_rotation_matrix(yaw: torch.Tensor, pitch: torch.Tensor) -> torch.Tensor
     eye = torch.eye(3, dtype=torch.float32, device=yaw.device)
     cols = [rotate_dirs(eye[k], yaw, pitch) for k in range(3)]
     return torch.stack(cols, dim=-1)
+
+
+def equirect_rays(yaw: torch.Tensor, pitch: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(height, width, 3) unit world-space rays of an equirectangular camera:
+    the full 360x180 panorama turned by the yaw, the pitch applied as a
+    latitude shift. yaw/pitch broadcast against (height, width), e.g.
+    (N, 1, 1) for a batch."""
+    dev = yaw.device
+    # longitudes without the endpoint: width steps of 2 pi / width from -pi
+    lon = torch.linspace(-math.pi, math.pi, width + 1, dtype=torch.float32, device=dev)[:width]
+    lat = torch.linspace(math.pi / 2, -math.pi / 2, height, dtype=torch.float32, device=dev)
+    la, lo = torch.meshgrid(lat, lon, indexing="ij")  # (H, W)
+    la = la + pitch
+    return torch.stack(
+        [-torch.sin(lo + yaw) * torch.cos(la), torch.sin(la), -torch.cos(lo + yaw) * torch.cos(la)], dim=-1
+    )
+
+
+def fisheye_rays(yaw: torch.Tensor, pitch: torch.Tensor, fov_rad: float, height: int, width: int) -> torch.Tensor:
+    """(height, width, 3) unit world-space rays of an equidistant fisheye
+    camera: the angle from the axis grows with the radius in the image.
+    Pixels outside the image circle take the edge angle (the radius is
+    clipped to 1); nothing masks them."""
+    dev = yaw.device
+    ys = torch.linspace(1.0, -1.0, height, dtype=torch.float32, device=dev)
+    xs = torch.linspace(-1.0, 1.0, width, dtype=torch.float32, device=dev)
+    yy, xx = torch.meshgrid(ys, xs, indexing="ij")
+    r = torch.sqrt(xx**2 + yy**2)
+    theta = r.clamp(0.0, 1.0) * (fov_rad / 2.0)
+    phi = torch.atan2(yy, xx)
+    d_cam = torch.stack(
+        [torch.sin(theta) * torch.cos(phi), torch.sin(theta) * torch.sin(phi), -torch.cos(theta)], dim=-1
+    )
+    return rotate_dirs(d_cam, yaw, pitch)

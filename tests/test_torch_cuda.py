@@ -169,16 +169,84 @@ def test_cullmask_kernel_matches_plain(cuda, scan):
 
 def test_scan_render_on_card_matches_cpu(cuda, scan):
     """The default (exact-cull) route keeps every candidate chunk at this
-    size, so the card's frames equal the CPU's. The chunk-stream route keeps
-    the 8 nearest of chunks that tie at distance 0 around the camera, a
-    choice top-k makes differently on the two devices: it is held to its
-    plain version on one list above instead."""
+    size, so the card's frames equal the CPU's."""
     pack, sids, pos, yaw, pitch = scan
     kw = dict(height=64, width=64, cull_k=8)
     ref = rc.render_batch(pack, sids, pos, yaw, pitch, **kw)
     got = rc.render_batch(pack.to(cuda), *[x.to(cuda) for x in (sids, pos, yaw, pitch)], **kw)
     assert ((ref["depth"] - got["depth"].cpu()).abs() > 1e-4).float().mean() < 1e-3
     assert (ref["semantic"] != got["semantic"].cpu()).float().mean() < 1e-3
+
+
+# ---- the general route's kernels (any camera, any image size) --------------------
+
+
+def _general_call(pack, projection, H, W, n=4, seed=3, cull_k=None):
+    rng = np.random.RandomState(seed)
+    sids = torch.as_tensor(np.arange(n) % pack.num_scenes, dtype=torch.int32)
+    c = pack.chunk_bounds[0, :, :3].mean(0).numpy()
+    pos = torch.as_tensor(np.c_[c[0] + rng.uniform(-1, 1, n), np.full(n, 1.25), c[2] + rng.uniform(-1, 1, n)],
+                          dtype=torch.float32)
+    yaw = torch.as_tensor(rng.uniform(-np.pi, np.pi, n), dtype=torch.float32)
+    return rc.closest_hit_call(pack, sids, pos, yaw, torch.zeros(n), height=H, width=W, projection=projection,
+                               cull_k=cull_k)
+
+
+@pytest.mark.parametrize("projection,H,W,rt", [("equirect", 64, 128, 2048), ("fisheye", 64, 64, 2048),
+                                              ("pinhole", 20, 30, 600)])
+def test_index_kernel_matches_plain(cuda, projection, H, W, rt):
+    """Every chunk of the bench scenes; the untiled 20x30 image is one tile
+    of 600 rays, not a multiple of the 256-thread block."""
+    scenes, _, _ = make_procedural_pointnav(num_scenes=2, episodes_per_scene=1, seed=0)
+    kernel, args, kwargs, _ = _general_call(pack_scenes(scenes), projection, H, W)
+    assert kernel is rk.raycast_index_t and kwargs["ray_tile"] == rt
+    ref = kernel(*args, **kwargs)
+    before = kernel.launches
+    got = kernel(*[a.to(cuda) for a in args], **kwargs)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert (ref[1] >= 0).float().mean() > 0.3
+    _agree(ref, got)
+
+
+@pytest.mark.parametrize("force_scan_tables,chunk", [(False, 128), (True, 256)])
+def test_culled_kernel_matches_plain(cuda, force_scan_tables, chunk):
+    """The candidate chunks of the scan apartment's equirect tiles, in the
+    pack's chunk size; the 8 attributes equal wherever the winner is."""
+    scene = generate_scan_apartment(seed=5, extent=6.0, n_rooms_per_axis=2, n_clutter=6, tess=0.35)
+    pack = pack_scenes([scene], force_scan_tables=force_scan_tables)
+    kernel, args, kwargs, _ = _general_call(pack, "equirect", 32, 128, cull_k=8)
+    assert kernel is rk.raycast_culled_t and kwargs["tri_chunk"] == chunk
+    t0, a0 = kernel(*args, **kwargs)
+    before = kernel.launches
+    t1, a1 = (x.cpu() for x in kernel(*[a.to(cuda) for a in args], **kwargs))
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    h0, h1 = a0[:, 7] > 0.5, a1[:, 7] > 0.5
+    assert (h0 == h1).float().mean() >= 0.9999 and h0.float().mean() > 0.3
+    same = h0 & h1 & (a0 == a1).all(1)
+    assert same.sum() >= 0.999 * (h0 & h1).sum()
+    assert (t0[same] - t1[same]).abs().max() < 5e-3
+    assert not a1.transpose(1, 2)[~h1].any() and (t1[~h1] == 1e6).all()
+
+
+def test_general_kernels_reject_bad_layouts(cuda):
+    """A card tensor the kernels do not read as given (a strided view, a
+    wrong type) raises instead of launching."""
+    scenes, _, _ = make_procedural_pointnav(num_scenes=1, episodes_per_scene=1, seed=0)
+    kernel, args, kwargs, _ = _general_call(pack_scenes(scenes), "equirect", 32, 64)
+    tri_mat, sids, feat = (a.to(cuda) for a in args)
+    before = rk.raycast_index_t.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        rk.raycast_index_t(tri_mat, sids, feat.transpose(2, 3).contiguous().transpose(2, 3), **kwargs)
+    with pytest.raises(ValueError):
+        rk.raycast_index_t(tri_mat, sids.long(), feat, **kwargs)
+    attr_t = torch.zeros(1, 8, tri_mat.shape[3], device=cuda)
+    ids = torch.zeros(sids.shape[0], 2, 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        rk.raycast_culled_t(tri_mat, attr_t.transpose(1, 2).contiguous().transpose(1, 2), ids, sids,
+                            feat.reshape(sids.shape[0], 2, 16, 1024), ray_tile=1024)
+    assert rk.raycast_index_t.launches == before
 
 
 # ---- the stem max pool's backward -----------------------------------------------

@@ -191,14 +191,17 @@ def test_render_batch_matches_pallas_path(scenes):
 
 
 def test_unported_branches_raise(scenes):
+    """Dynamic geometry still raises; equirect cameras and images that do not
+    tile into 1024-ray kernel tiles render through the general route
+    (tests/test_torch_panoramic.py holds them against the JAX package)."""
     tp = torch_pack(torch_pointnav(num_scenes=1, episodes_per_scene=1, seed=0)[0])
     args = (tp, torch.zeros(1, dtype=torch.int32), torch.zeros(1, 3), torch.zeros(1), torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        trc.render_batch(*args, height=32, width=32, projection="equirect")
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         trc.render_batch(*args, height=32, width=32, dynamic={})
-    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
-        trc.render_batch(*args, height=30, width=30)
+    for kw in (dict(height=32, width=32, projection="equirect"), dict(height=30, width=30)):
+        assert trc.render_route(tp, kw["height"], kw["width"], kw.get("projection", "pinhole")) == "index"
+        out = trc.render_batch(*args, **kw)
+        assert out["depth"].shape == (1, kw["height"], kw["width"], 1)
 
 
 def test_geometry_matches():

@@ -241,16 +241,20 @@ def test_render_on_cpu_counts_no_launch(setup):
 
 
 def test_scan_unported_branches_raise(setup):
+    """On a large scene, dynamic geometry and unknown backends still raise;
+    an image that is not 32x32-blockable and a fisheye camera render through
+    the general route (tests/test_torch_panoramic.py holds it against the
+    JAX package)."""
     s = setup
     args = (s["pt"], _t(s["sids"]), _t(s["pos"]), _t(s["yaw"]), _t(s["pitch"]))
-    with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
-        trc.render_batch(*args, height=48, width=48, cull_k=8)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 3"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         trc.render_batch(*args, height=H, width=W, cull_k=8, dynamic={})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        trc.render_batch(*args, height=H, width=W, cull_k=8, projection="fisheye")
     with pytest.raises(ValueError, match="backend"):
         trc.render_batch(*args, height=H, width=W, cull_k=8, backend="pallas")
+    for kw, route in ((dict(height=48, width=48), "index"), (dict(height=H, width=W, projection="fisheye"), "culled")):
+        assert trc.render_route(s["pt"], kw["height"], kw["width"], kw.get("projection", "pinhole"), 8) == route
+        out = trc.render_batch(*args, cull_k=8, **kw)
+        assert (out["depth"] < 0.999).float().mean() > 0.5
 
 
 # ---- (g) the env on a scan pack ---------------------------------------------------
