@@ -6,8 +6,18 @@
 //                          (the frustum-survivor chunk list, C = 32)
 //   raycast_fused       <- raycast_pallas_fused_t / _fused_kernel_t
 //                          (every chunk of the scene in order, C = 128)
-// Both are one kernel: the second is the first with the chunk list
-// 0, 1, ..., T/C - 1.
+//   raycast_tilecull    <- raycast_pallas_tilecull_t / _tilecull_kernel_t
+//                          (a tile's surviving chunks, the winner's 16
+//                          attr16 rows, plane-exact t and the shade)
+// The first two are one kernel: the second is the first with the chunk list
+// 0, 1, ..., T/C - 1. The third runs the same loop over the tile's first
+// cnt listed chunks and then an epilogue for every ray, misses included:
+// it reads the winner's 16 rows [n(3), v0(3), gid, sem, rgb(3), valid, 4 pad]
+// from attr16 (S, T/C, 16, C) once, at the end, instead of copying them out
+// of each chunk that improves the hit, and with d = F[0:3], o = B^T[3:6, 3]:
+//   nd = n.d, t = n.(v0 - o) / nd unless |nd| < 1e-6 (then the loop's t),
+//   t = 1e6 on a miss, row 12 = 0.35 + 0.65 |nd| (0.35 on a miss, where the
+//   rows are zero).
 //
 // What it computes, per (env, ray): the ray features F (10) = B[env]^T [d,1]
 // from the env's (16, 4) feature matrix and the ray's camera-frame [d, 1];
@@ -29,6 +39,8 @@
 // bank conflicts), and the ray's features and running winner in registers,
 // so the inner loop is FP32 arithmetic only. The frustum list cuts the
 // triangles tested per ray from the whole scene to the tile's survivors.
+// The tile-cull kernel adds 64 B read (the winner's rows) and 68 B written
+// per ray, and the same loop bounds it.
 //
 // Numerics: no fast math, so the division is IEEE. F and the margin terms
 // use explicitly rounded multiplies and adds (no FMA contraction), matching
@@ -44,6 +56,7 @@
 //   d_t       (nt, 8, Rt)   rows 0:4 are the camera-frame [d, 1] of the tile
 //   bt        (N, 16, 4)    rows 0:10 are B^T
 //   t_out     (N, nt*Rt)    idx_out (N, nt*Rt) int32
+//   attr16    (S, T/C, 16, C)  tilecull: attr_out (N, nt, 16, Rt)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,6 +67,68 @@ constexpr float kTMax = 1e6f;
 constexpr float kTMin = 1e-3f;
 constexpr float kEps2 = 1e-14f;  // (1e-7)^2
 constexpr int kThreads = 256;
+
+// F (10) = B[env]^T [d, 1], each row's four products summed in order with
+// explicit rounding (no FMA contraction).
+__device__ __forceinline__ void ray_features(const float* __restrict__ d_t,
+                                             const float* __restrict__ bt,
+                                             int env, int tile, int rt, int r,
+                                             float (&f)[10]) {
+  float d[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) d[k] = d_t[(size_t)(tile * 8 + k) * rt + r];
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const float* b = bt + ((size_t)env * 16 + i) * 4;
+    float acc = __fmul_rn(b[0], d[0]);
+#pragma unroll
+    for (int k = 1; k < 4; ++k) acc = __fadd_rn(acc, __fmul_rn(b[k], d[k]));
+    f[i] = acc;
+  }
+}
+
+// Stage chunk cid's 40 x C coefficients of the scene's (10, 4T) matrix.
+template <int C>
+__device__ __forceinline__ void stage_chunk(float* m_s, const float* m_g,
+                                            int t4, int cid) {
+  for (int e = threadIdx.x; e < 40 * C; e += kThreads) {
+    const int row = e / (4 * C);
+    const int col = e - row * (4 * C);
+    m_s[e] = m_g[(size_t)row * t4 + (size_t)cid * 4 * C + col];
+  }
+}
+
+// Test every lane of the staged chunk cid against the ray (fused margin),
+// keeping the first strict minimum in (best_t, best_i).
+template <int C>
+__device__ __forceinline__ void test_chunk(const float* m_s, const float (&f)[10],
+                                           int cid, float& best_t, int& best_i) {
+  for (int j = 0; j < C; ++j) {
+    float det = 0.f, tn = 0.f, un = 0.f, vn = 0.f;
+#pragma unroll
+    for (int i = 0; i < 10; ++i) {
+      const float* row = m_s + i * 4 * C;
+      det = fmaf(f[i], row[j], det);
+      tn = fmaf(f[i], row[C + j], tn);
+      un = fmaf(f[i], row[2 * C + j], un);
+      vn = fmaf(f[i], row[3 * C + j], vn);
+    }
+    const float aa = __fmul_rn(det, det);
+    const float p = __fmul_rn(un, det);
+    const float q = __fmul_rn(vn, det);
+    const float w = __fmul_rn(tn, det);
+    const float m = fminf(
+        fminf(fminf(p, q), __fsub_rn(__fsub_rn(aa, p), q)),
+        fminf(__fsub_rn(w, __fmul_rn(kTMin, aa)), __fsub_rn(aa, kEps2)));
+    if (m >= 0.f) {
+      const float t = tn / det;
+      if (t < best_t) {
+        best_t = t;
+        best_i = cid * C + j;
+      }
+    }
+  }
+}
 
 template <int C>
 __global__ void __launch_bounds__(kThreads) fused_raycast_kernel(
@@ -67,65 +142,84 @@ __global__ void __launch_bounds__(kThreads) fused_raycast_kernel(
   const int slices = rt / kThreads;
   const int tile = blockIdx.x / slices;
   const int r = (blockIdx.x % slices) * kThreads + threadIdx.x;
-  const int sid = sids[env];
-
-  float d[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) d[k] = d_t[(size_t)(tile * 8 + k) * rt + r];
   float f[10];
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const float* b = bt + ((size_t)env * 16 + i) * 4;
-    float acc = __fmul_rn(b[0], d[0]);
-#pragma unroll
-    for (int k = 1; k < 4; ++k) acc = __fadd_rn(acc, __fmul_rn(b[k], d[k]));
-    f[i] = acc;
-  }
+  ray_features(d_t, bt, env, tile, rt, r, f);
 
   const int et = env * nt + tile;
   const int n_chunks = chunk_ids ? cnt[et] : t4 / (4 * C);
-  const float* m_g = tri_mat_c + (size_t)sid * 10 * t4;
+  const float* m_g = tri_mat_c + (size_t)sids[env] * 10 * t4;
   float best_t = kTMax;
   int best_i = -1;
   for (int c = 0; c < n_chunks; ++c) {
     const int cid = chunk_ids ? chunk_ids[(size_t)et * k_max + c] : c;
     __syncthreads();  // the previous chunk is fully consumed
-    for (int e = threadIdx.x; e < 40 * C; e += kThreads) {
-      const int row = e / (4 * C);
-      const int col = e - row * (4 * C);
-      m_s[e] = m_g[(size_t)row * t4 + (size_t)cid * 4 * C + col];
-    }
+    stage_chunk<C>(m_s, m_g, t4, cid);
     __syncthreads();
-    for (int j = 0; j < C; ++j) {
-      float det = 0.f, tn = 0.f, un = 0.f, vn = 0.f;
-#pragma unroll
-      for (int i = 0; i < 10; ++i) {
-        const float* row = m_s + i * 4 * C;
-        det = fmaf(f[i], row[j], det);
-        tn = fmaf(f[i], row[C + j], tn);
-        un = fmaf(f[i], row[2 * C + j], un);
-        vn = fmaf(f[i], row[3 * C + j], vn);
-      }
-      const float aa = __fmul_rn(det, det);
-      const float p = __fmul_rn(un, det);
-      const float q = __fmul_rn(vn, det);
-      const float w = __fmul_rn(tn, det);
-      const float m = fminf(
-          fminf(fminf(p, q), __fsub_rn(__fsub_rn(aa, p), q)),
-          fminf(__fsub_rn(w, __fmul_rn(kTMin, aa)), __fsub_rn(aa, kEps2)));
-      if (m >= 0.f) {
-        const float t = tn / det;
-        if (t < best_t) {
-          best_t = t;
-          best_i = cid * C + j;
-        }
-      }
-    }
+    test_chunk<C>(m_s, f, cid, best_t, best_i);
   }
   const size_t out = (size_t)env * nt * rt + (size_t)tile * rt + r;
   const bool miss = best_t >= kTMax * 0.5f;
   t_out[out] = miss ? kTMax : best_t;
   idx_out[out] = miss ? -1 : best_i;
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads) tilecull_raycast_kernel(
+    const float* __restrict__ tri_mat_c, const float* __restrict__ attr16,
+    const int* __restrict__ sids, const int* __restrict__ chunk_ids,
+    const int* __restrict__ cnt, const float* __restrict__ d_t,
+    const float* __restrict__ bt, float* __restrict__ t_out,
+    float* __restrict__ attr_out, int t4, int nt, int k_max, int rt) {
+  __shared__ float m_s[10 * 4 * C];
+  const int env = blockIdx.y;
+  const int slices = rt / kThreads;
+  const int tile = blockIdx.x / slices;
+  const int r = (blockIdx.x % slices) * kThreads + threadIdx.x;
+  float f[10];
+  ray_features(d_t, bt, env, tile, rt, r, f);
+
+  const int et = env * nt + tile;
+  const int n_listed = min(cnt[et], k_max);  // the tail repeats the last id
+  const int sid = sids[env];
+  const float* m_g = tri_mat_c + (size_t)sid * 10 * t4;
+  float best_t = kTMax;
+  int best_i = -1;
+  const int n_chunks = t4 / (4 * C);
+  for (int c = 0; c < n_listed; ++c) {
+    const int cid = chunk_ids[(size_t)et * k_max + c];
+    if (cid < 0 || cid >= n_chunks) continue;  // uniform across the block
+    __syncthreads();  // the previous chunk is fully consumed
+    stage_chunk<C>(m_s, m_g, t4, cid);
+    __syncthreads();
+    test_chunk<C>(m_s, f, cid, best_t, best_i);
+  }
+
+  // the winner's 16 rows (zero without one), plane-exact t and the shade
+  float a[16];
+  if (best_i >= 0) {
+    const int cid = best_i / C;
+    const float* src = attr16 + ((size_t)sid * n_chunks + cid) * 16 * C + (best_i - cid * C);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) a[i] = src[(size_t)i * C];
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) a[i] = 0.f;
+  }
+  const float* b = bt + (size_t)env * 16 * 4;  // o = B^T[3:6, 3]
+  const float nd = __fadd_rn(__fadd_rn(__fmul_rn(a[0], f[0]), __fmul_rn(a[1], f[1])),
+                             __fmul_rn(a[2], f[2]));
+  const float num = __fadd_rn(
+      __fadd_rn(__fmul_rn(a[0], __fsub_rn(a[3], b[3 * 4 + 3])),
+                __fmul_rn(a[1], __fsub_rn(a[4], b[4 * 4 + 3]))),
+      __fmul_rn(a[2], __fsub_rn(a[5], b[5 * 4 + 3])));
+  const bool hit = best_t < kTMax * 0.5f;
+  const bool grazing = fabsf(nd) < 1e-6f;
+  const float t_pl = num / (grazing ? 1.f : nd);
+  a[12] = __fadd_rn(0.35f, __fmul_rn(0.65f, fabsf(nd)));
+  t_out[(size_t)et * rt + r] = hit ? (grazing ? best_t : t_pl) : kTMax;
+  float* dst = attr_out + (size_t)et * 16 * rt + r;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dst[(size_t)i * rt] = a[i];
 }
 
 template <int C>
@@ -158,6 +252,19 @@ int dispatch(int tri_chunk, const void* tri_mat_c, const void* sids,
   }
 }
 
+template <int C>
+int launch_tilecull(const void* tri_mat_c, const void* attr16, const void* sids,
+                    const void* chunk_ids, const void* cnt, const void* d_t,
+                    const void* bt, void* t_out, void* attr_out, int n_env,
+                    int t4, int nt, int k_max, int rt, void* stream) {
+  const dim3 grid(nt * (rt / kThreads), n_env);
+  tilecull_raycast_kernel<C><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)tri_mat_c, (const float*)attr16, (const int*)sids,
+      (const int*)chunk_ids, (const int*)cnt, (const float*)d_t,
+      (const float*)bt, (float*)t_out, (float*)attr_out, t4, nt, k_max, rt);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -179,6 +286,27 @@ int raycast_fused(const void* tri_mat_c, const void* sids, const void* d_t,
                   int t4, int nt, int rt, int tri_chunk, void* stream) {
   return dispatch(tri_chunk, tri_mat_c, sids, nullptr, nullptr, d_t, bt, t_out,
                   idx_out, n_env, t4, nt, 0, rt, stream);
+}
+
+// A tile's first cnt listed chunks, then the plane-exact epilogue.
+int raycast_tilecull(const void* tri_mat_c, const void* attr16,
+                     const void* sids, const void* chunk_ids, const void* cnt,
+                     const void* d_t, const void* bt, void* t_out,
+                     void* attr_out, int n_env, int t4, int nt, int k_max,
+                     int rt, int tri_chunk, void* stream) {
+  if (rt % kThreads != 0 || k_max <= 0) return (int)cudaErrorInvalidValue;
+  switch (tri_chunk) {
+    case 32:
+      return launch_tilecull<32>(tri_mat_c, attr16, sids, chunk_ids, cnt, d_t,
+                                 bt, t_out, attr_out, n_env, t4, nt, k_max,
+                                 rt, stream);
+    case 128:
+      return launch_tilecull<128>(tri_mat_c, attr16, sids, chunk_ids, cnt,
+                                  d_t, bt, t_out, attr_out, n_env, t4, nt,
+                                  k_max, rt, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -1,23 +1,35 @@
 // Closest-hit ray casting of the general render route (any camera model,
-// any image size), one thread per ray, for sm_90a.
+// any image size) and of the ray-batch entry points, one thread per ray, for
+// sm_90a.
 //
 // Replaces the TPU kernels of habitat_tpu/ops/raycast_pallas.py:
-//   raycast_index   <- raycast_pallas_index_t / _kernel_t: every chunk of
-//                      min(128, T) triangles of the env's scene, in order
-//   raycast_culled  <- raycast_pallas_culled_t / _culled_kernel_t: each
-//                      (env, ray tile)'s K candidate chunks in the order
-//                      given, with the winner's 8 attributes
+//   raycast_index     <- raycast_pallas_index_t / _kernel_t: every chunk of
+//                        min(128, T) triangles of the env's scene, in order,
+//                        from transposed ray features
+//   raycast_index_rm  <- raycast_pallas_index / _kernel (the v3 kernel under
+//                        raycast_pallas_batch): the same from row-major ray
+//                        features, with the split hit margin
+//   raycast_culled    <- raycast_pallas_culled_t / _culled_kernel_t: each
+//                        (env, ray tile)'s K candidate chunks in the order
+//                        given, with the winner's 8 attributes, transposed
+//   raycast_culled_rm <- raycast_pallas_culled / _culled_kernel (v3): the
+//                        same from row-major features and attribute rows
+// One index kernel and one culled kernel, templated on the feature layout
+// (and the index kernel on the margin); each TPU kernel keeps its own
+// exported function.
 //
-// Both read precomputed ray features F = [d, o, o x d, 1] in the transposed
-// layout features_t (N, nt, 16, rt) (rows 10:16 are padding), since rays of
-// a non-pinhole camera are not bilinear in a camera-frame grid. For every
-// triangle of every visited chunk, the four Möller–Trumbore determinants
-// G = M_chunk^T F (dot products of length 10) and, with aa = detA^2,
-// p = u*detA, q = v*detA, w = tnum*detA:
-//   index:  hit iff min(min(p, q), aa - p - q, w - TMIN*aa, aa - EPS^2) >= 0
-//           (the TPU kernel's fused margin)
-//   culled: hit iff min(min(p, q), aa - p - q) >= 0 and
-//           min(w - TMIN*aa, aa - EPS^2) > 0 (strict on the t/det side)
+// Ray features F = [d, o, o x d, 1] are precomputed, since rays of a
+// non-pinhole camera are not bilinear in a camera-frame grid: transposed
+// feat_t (N, nt, 16, rt) (rows 10:16 padding) or row-major feat (N, R, 10)
+// (40 B per ray, read as ten consecutive floats). For every triangle of every
+// visited chunk, the four Möller–Trumbore determinants G = M_chunk^T F (dot
+// products of length 10) and, with aa = detA^2, p = u*detA, q = v*detA,
+// w = tnum*detA:
+//   fused margin (raycast_index):
+//           hit iff min(min(p, q), aa - p - q, w - TMIN*aa, aa - EPS^2) >= 0
+//   split margin (raycast_index_rm and both culled kernels):
+//           hit iff min(min(p, q), aa - p - q) >= 0 and
+//                   min(w - TMIN*aa, aa - EPS^2) > 0 (strict on the t/det side)
 // A hit has t = tnum / detA. Chunks are visited in order (ascending, or the
 // list's order) and triangles in lane order with a strict < throughout,
 // which is the TPU kernels' argmin-first within a chunk and strict < across
@@ -25,9 +37,9 @@
 // ray that no candidate hits keeps t = 1e6 and all-zero attributes
 // (attribute 7, "valid", is 0).
 //
-// The culled kernel takes the pack's own chunk size C = T / NC (128 or 256)
-// for its chunk ids: the ids of select_chunks_occluded are in units of the
-// pack's chunks.
+// The culled kernels take the chunk size C as given for their chunk ids:
+// the general route passes the pack's own chunk size T / NC (the unit of
+// select_chunks_occluded's ids), the ray-batch entry point its tri_chunk.
 //
 // What bounds them on an H100: arithmetic. Each ray-triangle test is 40
 // FMAs plus ~15 other FP32 operations, and an IEEE division on a hit, while
@@ -37,8 +49,8 @@
 // block stages one chunk's 40 x C coefficients (and 8 x C attributes) in
 // shared memory, which every thread reads at the same address (a
 // broadcast), and keeps its ray's features, running best t and winner in
-// registers, so the inner loop is FP32 arithmetic only. The culled kernel
-// copies the winner's 8 attributes from shared memory into registers only
+// registers, so the inner loop is FP32 arithmetic only. The culled kernels
+// copy the winner's 8 attributes from shared memory into registers only
 // when a chunk improves the ray's hit.
 //
 // Numerics: no fast math, so the division is IEEE. The margin terms use
@@ -48,12 +60,13 @@
 // Layouts (row-major, float32 unless noted):
 //   tri_mat    (S, 10, 4, T)  rows (i, k): feature i of determinant k
 //                             (detA, tnum, unum, vnum) for triangle t
-//   tri_attr_t (S, 8, T)      attribute columns
+//   tri_attr_t (S, 8, T)      attribute columns (culled)
+//   tri_attr   (S, T, 8)      attribute rows (culled_rm)
 //   sids       (N,)           int32 scene per env
 //   chunk_ids  (N, nt, K)     int32 candidate chunk ids (culled)
-//   feat_t     (N, nt, 16, rt)
-//   index:  t_out (N, nt*rt), idx_out (N, nt*rt) int32
-//   culled: t_out (N, nt*rt), attr_out (N, 8, nt*rt)
+//   feat_t     (N, nt, 16, rt) | feat (N, R, 10), R = nt * rt
+//   index:     t_out (N, R), idx_out (N, R) int32
+//   culled:    t_out (N, R), attr_out (N, 8, R) | culled_rm: (N, R, 8)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,6 +98,19 @@ __device__ __forceinline__ Det determinants(const float* m_s, int C, int j,
   return g;
 }
 
+// The hit test of one triangle: the fused margin (kSplit false) or the split
+// one (kSplit true).
+template <bool kSplit>
+__device__ __forceinline__ bool is_hit(const Det& g) {
+  const float aa = __fmul_rn(g.det, g.det);
+  const float p = __fmul_rn(g.un, g.det);
+  const float q = __fmul_rn(g.vn, g.det);
+  const float w = __fmul_rn(g.tn, g.det);
+  const float m1 = fminf(fminf(p, q), __fsub_rn(__fsub_rn(aa, p), q));
+  const float m2 = fminf(__fsub_rn(w, __fmul_rn(kTMin, aa)), __fsub_rn(aa, kEps2));
+  return kSplit ? (m1 >= 0.f && m2 > 0.f) : fminf(m1, m2) >= 0.f;
+}
+
 // Stage rows [0, rows) x chunk columns [c0, c0 + C) of a (rows, T) matrix.
 __device__ __forceinline__ void stage(float* dst, const float* src, int rows,
                                       int C, int T, int c0) {
@@ -94,21 +120,39 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int rows,
   }
 }
 
-// The ray's features; rays past rt (the ragged slab of an untiled image)
-// are inactive but still take part in the block's barriers.
-__device__ __forceinline__ bool load_features(const float* feat_t, int env,
+// Stage rows [c0, c0 + C) of a (T, 8) attribute table as 8 columns of C.
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, int C,
+                                           int c0) {
+  for (int e = threadIdx.x; e < kAttr * C; e += kThreads) {
+    const int j = e / kAttr;
+    dst[(e - j * kAttr) * C + j] = src[(size_t)(c0 + j) * kAttr + e - j * kAttr];
+  }
+}
+
+// The ray's features, transposed (N, nt, 16, rt) or row-major (N, nt*rt,
+// 10); rays past rt (the ragged slab of an untiled image) are inactive but
+// still take part in the block's barriers.
+template <bool kRowMajor>
+__device__ __forceinline__ bool load_features(const float* feat, int env,
                                               int tile, int nt, int rt,
                                               int r, float (&f)[10]) {
   if (r >= rt) return false;
-  const float* src = feat_t + ((size_t)(env * nt + tile) * 16) * rt + r;
+  if (kRowMajor) {
+    const float* src = feat + ((size_t)env * nt * rt + (size_t)tile * rt + r) * 10;
 #pragma unroll
-  for (int i = 0; i < 10; ++i) f[i] = src[(size_t)i * rt];
+    for (int i = 0; i < 10; ++i) f[i] = src[i];
+  } else {
+    const float* src = feat + ((size_t)(env * nt + tile) * 16) * rt + r;
+#pragma unroll
+    for (int i = 0; i < 10; ++i) f[i] = src[(size_t)i * rt];
+  }
   return true;
 }
 
+template <bool kRowMajor, bool kSplit>
 __global__ void __launch_bounds__(kThreads) index_raycast_kernel(
     const float* __restrict__ tri_mat, const int* __restrict__ sids,
-    const float* __restrict__ feat_t, float* __restrict__ t_out,
+    const float* __restrict__ feat, float* __restrict__ t_out,
     int* __restrict__ idx_out, int T, int C, int nt, int rt) {
   extern __shared__ float m_s[];  // 40 x C
   const int env = blockIdx.y;
@@ -116,7 +160,7 @@ __global__ void __launch_bounds__(kThreads) index_raycast_kernel(
   const int tile = blockIdx.x / slabs;
   const int r = (blockIdx.x % slabs) * kThreads + threadIdx.x;
   float f[10];
-  const bool active = load_features(feat_t, env, tile, nt, rt, r, f);
+  const bool active = load_features<kRowMajor>(feat, env, tile, nt, rt, r, f);
   const float* m_g = tri_mat + (size_t)sids[env] * 40 * T;
   float best_t = kTMax;
   int best_i = -1;
@@ -127,14 +171,7 @@ __global__ void __launch_bounds__(kThreads) index_raycast_kernel(
     if (!active) continue;
     for (int j = 0; j < C; ++j) {
       const Det g = determinants(m_s, C, j, f);
-      const float aa = __fmul_rn(g.det, g.det);
-      const float p = __fmul_rn(g.un, g.det);
-      const float q = __fmul_rn(g.vn, g.det);
-      const float w = __fmul_rn(g.tn, g.det);
-      const float m = fminf(
-          fminf(fminf(p, q), __fsub_rn(__fsub_rn(aa, p), q)),
-          fminf(__fsub_rn(w, __fmul_rn(kTMin, aa)), __fsub_rn(aa, kEps2)));
-      if (m >= 0.f) {
+      if (is_hit<kSplit>(g)) {
         const float t = g.tn / g.det;
         if (t < best_t) {
           best_t = t;
@@ -150,10 +187,14 @@ __global__ void __launch_bounds__(kThreads) index_raycast_kernel(
   idx_out[out] = miss ? -1 : best_i;
 }
 
+// kRowMajor: row-major features, attribute rows (S, T, 8) and output
+// (N, R, 8); else transposed features, attribute columns (S, 8, T) and
+// output (N, 8, R).
+template <bool kRowMajor>
 __global__ void __launch_bounds__(kThreads) culled_raycast_kernel(
-    const float* __restrict__ tri_mat, const float* __restrict__ tri_attr_t,
+    const float* __restrict__ tri_mat, const float* __restrict__ tri_attr,
     const int* __restrict__ chunk_ids, const int* __restrict__ sids,
-    const float* __restrict__ feat_t, float* __restrict__ t_out,
+    const float* __restrict__ feat, float* __restrict__ t_out,
     float* __restrict__ attr_out, int T, int C, int nt, int k_max, int rt) {
   extern __shared__ float smem[];
   float* m_s = smem;           // 40 x C
@@ -163,10 +204,10 @@ __global__ void __launch_bounds__(kThreads) culled_raycast_kernel(
   const int tile = blockIdx.x / slabs;
   const int r = (blockIdx.x % slabs) * kThreads + threadIdx.x;
   float f[10];
-  const bool active = load_features(feat_t, env, tile, nt, rt, r, f);
+  const bool active = load_features<kRowMajor>(feat, env, tile, nt, rt, r, f);
   const int sid = sids[env];
   const float* m_g = tri_mat + (size_t)sid * 40 * T;
-  const float* a_g = tri_attr_t + (size_t)sid * kAttr * T;
+  const float* a_g = tri_attr + (size_t)sid * kAttr * T;
   const int* ids = chunk_ids + (size_t)(env * nt + tile) * k_max;
   const int n_chunks = T / C;
   float best_t = kTMax;
@@ -178,19 +219,17 @@ __global__ void __launch_bounds__(kThreads) culled_raycast_kernel(
     if (cid < 0 || cid >= n_chunks) continue;  // uniform across the block
     __syncthreads();  // the previous chunk is fully consumed
     stage(m_s, m_g, 40, C, T, cid * C);
-    stage(a_s, a_g, kAttr, C, T, cid * C);
+    if (kRowMajor) {
+      stage_rows(a_s, a_g, C, cid * C);
+    } else {
+      stage(a_s, a_g, kAttr, C, T, cid * C);
+    }
     __syncthreads();
     if (!active) continue;
     int win = -1;
     for (int j = 0; j < C; ++j) {
       const Det g = determinants(m_s, C, j, f);
-      const float aa = __fmul_rn(g.det, g.det);
-      const float p = __fmul_rn(g.un, g.det);
-      const float q = __fmul_rn(g.vn, g.det);
-      const float w = __fmul_rn(g.tn, g.det);
-      const float m1 = fminf(fminf(p, q), __fsub_rn(__fsub_rn(aa, p), q));
-      const float m2 = fminf(__fsub_rn(w, __fmul_rn(kTMin, aa)), __fsub_rn(aa, kEps2));
-      if (m1 >= 0.f && m2 > 0.f) {
+      if (is_hit<true>(g)) {
         const float t = g.tn / g.det;
         if (t < best_t) {
           best_t = t;
@@ -208,7 +247,13 @@ __global__ void __launch_bounds__(kThreads) culled_raycast_kernel(
   const size_t ray = (size_t)tile * rt + r;
   t_out[(size_t)env * R + ray] = best_t;
 #pragma unroll
-  for (int a = 0; a < kAttr; ++a) attr_out[((size_t)env * kAttr + a) * R + ray] = attr[a];
+  for (int a = 0; a < kAttr; ++a) {
+    if (kRowMajor) {
+      attr_out[((size_t)env * R + ray) * kAttr + a] = attr[a];
+    } else {
+      attr_out[((size_t)env * kAttr + a) * R + ray] = attr[a];
+    }
+  }
 }
 
 int launch_config(const void* kernel, int smem_bytes) {
@@ -220,40 +265,82 @@ int launch_config(const void* kernel, int smem_bytes) {
   return 0;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Every chunk of C triangles of the env's scene, in order; T % C == 0.
-int raycast_index(const void* tri_mat, const void* sids, const void* feat_t,
-                  void* t_out, void* idx_out, int n_env, int T, int C, int nt,
-                  int rt, void* stream) {
+template <bool kRowMajor, bool kSplit>
+int launch_index(const void* tri_mat, const void* sids, const void* feat,
+                 void* t_out, void* idx_out, int n_env, int T, int C, int nt,
+                 int rt, void* stream) {
   if (C <= 0 || T % C != 0 || rt <= 0) return (int)cudaErrorInvalidValue;
   const int smem = 40 * C * (int)sizeof(float);
-  const int err = launch_config((const void*)index_raycast_kernel, smem);
+  const void* kernel = (const void*)index_raycast_kernel<kRowMajor, kSplit>;
+  const int err = launch_config(kernel, smem);
   if (err) return err;
   const dim3 grid(nt * ((rt + kThreads - 1) / kThreads), n_env);
-  index_raycast_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)tri_mat, (const int*)sids, (const float*)feat_t,
+  index_raycast_kernel<kRowMajor, kSplit><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)tri_mat, (const int*)sids, (const float*)feat,
       (float*)t_out, (int*)idx_out, T, C, nt, rt);
   return (int)cudaGetLastError();
 }
 
-// Each (env, tile)'s k_max listed chunks of C triangles, in list order.
+template <bool kRowMajor>
+int launch_culled(const void* tri_mat, const void* tri_attr,
+                  const void* chunk_ids, const void* sids, const void* feat,
+                  void* t_out, void* attr_out, int n_env, int T, int C,
+                  int nt, int k_max, int rt, void* stream) {
+  if (C <= 0 || T % C != 0 || rt <= 0) return (int)cudaErrorInvalidValue;
+  const int smem = (40 + kAttr) * C * (int)sizeof(float);
+  const void* kernel = (const void*)culled_raycast_kernel<kRowMajor>;
+  const int err = launch_config(kernel, smem);
+  if (err) return err;
+  const dim3 grid(nt * ((rt + kThreads - 1) / kThreads), n_env);
+  culled_raycast_kernel<kRowMajor><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)tri_mat, (const float*)tri_attr, (const int*)chunk_ids,
+      (const int*)sids, (const float*)feat, (float*)t_out,
+      (float*)attr_out, T, C, nt, k_max, rt);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Every chunk of C triangles of the env's scene, in order; T % C == 0;
+// transposed features, fused margin.
+int raycast_index(const void* tri_mat, const void* sids, const void* feat_t,
+                  void* t_out, void* idx_out, int n_env, int T, int C, int nt,
+                  int rt, void* stream) {
+  return launch_index<false, false>(tri_mat, sids, feat_t, t_out, idx_out,
+                                    n_env, T, C, nt, rt, stream);
+}
+
+// The same from row-major features (N, R, 10), split margin. The rays of an
+// env are one slab of R: the TPU kernel's ray tiles change no value.
+int raycast_index_rm(const void* tri_mat, const void* sids, const void* feat,
+                     void* t_out, void* idx_out, int n_env, int T, int C,
+                     int R, void* stream) {
+  return launch_index<true, true>(tri_mat, sids, feat, t_out, idx_out, n_env,
+                                  T, C, 1, R, stream);
+}
+
+// Each (env, tile)'s k_max listed chunks of C triangles, in list order;
+// transposed features and attribute columns.
 int raycast_culled(const void* tri_mat, const void* tri_attr_t,
                    const void* chunk_ids, const void* sids, const void* feat_t,
                    void* t_out, void* attr_out, int n_env, int T, int C,
                    int nt, int k_max, int rt, void* stream) {
-  if (C <= 0 || T % C != 0 || rt <= 0) return (int)cudaErrorInvalidValue;
-  const int smem = (40 + kAttr) * C * (int)sizeof(float);
-  const int err = launch_config((const void*)culled_raycast_kernel, smem);
-  if (err) return err;
-  const dim3 grid(nt * ((rt + kThreads - 1) / kThreads), n_env);
-  culled_raycast_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)tri_mat, (const float*)tri_attr_t, (const int*)chunk_ids,
-      (const int*)sids, (const float*)feat_t, (float*)t_out,
-      (float*)attr_out, T, C, nt, k_max, rt);
-  return (int)cudaGetLastError();
+  return launch_culled<false>(tri_mat, tri_attr_t, chunk_ids, sids, feat_t,
+                              t_out, attr_out, n_env, T, C, nt, k_max, rt,
+                              stream);
+}
+
+// The same from row-major features (N, R, 10) and attribute rows (S, T, 8),
+// writing attribute rows (N, R, 8).
+int raycast_culled_rm(const void* tri_mat, const void* tri_attr,
+                      const void* chunk_ids, const void* sids,
+                      const void* feat, void* t_out, void* attr_out,
+                      int n_env, int T, int C, int nt, int k_max, int rt,
+                      void* stream) {
+  return launch_culled<true>(tri_mat, tri_attr, chunk_ids, sids, feat, t_out,
+                             attr_out, n_env, T, C, nt, k_max, rt, stream);
 }
 
 }  // extern "C"

@@ -31,11 +31,14 @@ SOURCES = {
     "raycast_fused": {
         "raycast_fused_sel": [_P] * 8 + [_I] * 6 + [_P],
         "raycast_fused": [_P] * 6 + [_I] * 5 + [_P],
+        "raycast_tilecull": [_P] * 9 + [_I] * 6 + [_P],
     },
     "raycast_stream": {"raycast_stream": [_P] * 8 + [_I] * 6 + [_P]},
     "raycast_general": {
         "raycast_index": [_P] * 5 + [_I] * 5 + [_P],
         "raycast_culled": [_P] * 7 + [_I] * 6 + [_P],
+        "raycast_index_rm": [_P] * 5 + [_I] * 4 + [_P],
+        "raycast_culled_rm": [_P] * 7 + [_I] * 6 + [_P],
     },
     "cullmask": {"cullmask": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P]},
     "maxpool_bwd": {"maxpool_bwd": [_P] * 4 + [_I] * 5 + [_P]},

@@ -1,8 +1,9 @@
 """Batched triangle raycasting -> RGB / depth / semantic frames.
 
-Port of the static routes of ``habitat_tpu/ops/raycast.py::render_batch``
-(and the helpers they run): the pinhole routes below, and the general route
-for equirect and fisheye cameras and for pinhole images that do not tile.
+Port of ``habitat_tpu/ops/raycast.py::render_batch`` (and the helpers it
+runs): the pinhole routes below, the general route for equirect and fisheye
+cameras and for pinhole images that do not tile, and the merge of per-env
+dynamic geometry (movable objects) by closest hit.
 
 Scenes up to 96 chunks of 128 triangles: per-screen-tile frustum culling at
 32-triangle chunk granularity (``select_chunks_frustum``) or every chunk,
@@ -26,6 +27,15 @@ occlusion-bounded parent chunks of ``select_chunks_occluded`` through the
 culled kernel, which returns the winner's attributes. Its epilogue keeps the
 kernel's t: planar depth for pinhole, Euclidean range for the panoramic
 projections.
+
+Dynamic geometry (``render_batch(dynamic=...)``): each env's triangles,
+padded to a multiple of 128, become that env's own scene for the index
+kernel (``sids = arange(N)``), with matrices built on the device every call
+(``build_tri_matrix_torch``); a ray takes the dynamic triangle where it hits
+one nearer than the static winner. A render with dynamic geometry never
+takes the pinhole fast path: small scenes go through the index route; the
+block route merges in 32x32-pixel block order, channel-major; the others
+merge in raster order.
 
 The intersection is the matrix form of Möller–Trumbore: the four
 determinants are bilinear in per-ray features F = [d, o, o×d, 1] and
@@ -110,6 +120,26 @@ def build_tri_matrix(tri_v0, tri_e1, tri_e2, tri_valid) -> np.ndarray:
     return M
 
 
+def build_tri_matrix_torch(tri_v0, tri_e1, tri_e2, valid) -> torch.Tensor:
+    """(..., T, 3) tensors -> (..., 10, 4, T) float32 coefficient matrices on
+    their device: ``build_tri_matrix`` for dynamic triangles, whose
+    transforms change every step. ``valid`` (..., T) zeroes padding
+    columns."""
+    n = torch.linalg.cross(tri_e1, tri_e2)
+    v0xe2 = torch.linalg.cross(tri_v0, tri_e2)
+    e1xv0 = torch.linalg.cross(tri_e1, tri_v0)
+    *batch, T, _ = tri_v0.shape
+    M = tri_v0.new_zeros(*batch, 10, 4, T)
+    M[..., 0:3, 0, :] = -n.transpose(-1, -2)
+    M[..., 3:6, 1, :] = n.transpose(-1, -2)
+    M[..., 9, 1, :] = -(tri_v0 * n).sum(-1)
+    M[..., 0:3, 2, :] = v0xe2.transpose(-1, -2)
+    M[..., 6:9, 2, :] = tri_e2.transpose(-1, -2)
+    M[..., 0:3, 3, :] = e1xv0.transpose(-1, -2)
+    M[..., 6:9, 3, :] = -tri_e1.transpose(-1, -2)
+    return M * valid[..., None, None, :].to(M.dtype)
+
+
 def group_tri_mat(tri_mat: torch.Tensor, tri_chunk: int = 128) -> torch.Tensor:
     """(S,10,4,T) -> (S,10,4T) with chunk c in columns [c*4C, (c+1)*4C) as
     [detA(C)|tnum(C)|unum(C)|vnum(C)] — the kernels' input layout."""
@@ -122,17 +152,19 @@ def group_tri_mat(tri_mat: torch.Tensor, tri_chunk: int = 128) -> torch.Tensor:
     )
 
 
+def ray_features(origins: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """(..., 3), (..., 3) -> (..., 10) row-major ray features [d, o, o x d, 1]
+    (the ray-batch kernels' input)."""
+    oxd = torch.linalg.cross(origins, dirs)
+    return torch.cat([dirs, origins, oxd, torch.ones_like(dirs[..., :1])], dim=-1).float()
+
+
 def ray_features_t(origins: torch.Tensor, dirs: torch.Tensor, ray_tile: int) -> torch.Tensor:
     """(N, R, 3), (N, R, 3) -> (N, R/ray_tile, 16, ray_tile) transposed ray
     features [d, o, o x d, 1], rays minor; rows 10:16 are zero."""
     N, R, _ = origins.shape
-    oxd = torch.linalg.cross(origins, dirs)
-    F = torch.cat(
-        [dirs.transpose(1, 2), origins.transpose(1, 2), oxd.transpose(1, 2),
-         torch.ones(N, 1, R, device=dirs.device), torch.zeros(N, 6, R, device=dirs.device)],
-        dim=1,
-    ).float()  # (N, 16, R)
-    return F.reshape(N, 16, R // ray_tile, ray_tile).transpose(1, 2).contiguous()
+    F = torch.nn.functional.pad(ray_features(origins, dirs), (0, 6))  # (N, R, 16)
+    return F.reshape(N, R // ray_tile, ray_tile, 16).transpose(2, 3).contiguous()
 
 
 def ray_feature_matrix(cam_pos: torch.Tensor, yaw: torch.Tensor, pitch: torch.Tensor) -> torch.Tensor:
@@ -666,13 +698,16 @@ def is_large_scene(pack: ScenePack, cull_k: Optional[int] = None) -> bool:
 
 
 def render_route(
-    pack: ScenePack, height: int, width: int, projection: str = "pinhole", cull_k: Optional[int] = None
+    pack: ScenePack, height: int, width: int, projection: str = "pinhole", cull_k: Optional[int] = None,
+    dynamic: bool = False,
 ) -> str:
-    """The route a render takes, as the JAX package dispatches it:
+    """The route a render takes, as the JAX package dispatches it
+    (``dynamic``: whether the render merges dynamic geometry):
 
     - "pinhole": a pinhole image of a multiple of 1024 rays (and of 2048
       above 2048) on a scene of up to 2 x 48 chunks of 128 triangles (2 x
-      ``cull_k``): frustum-selected or every-chunk kernel, raster order;
+      ``cull_k``), without dynamic geometry: frustum-selected or every-chunk
+      kernel, raster order;
     - "block": a pinhole image that splits into 32x32-pixel tiles on a
       larger scene: the chunklet or chunk stream, block order;
     - "culled": any other image of a multiple of 1024 rays on a larger
@@ -681,7 +716,7 @@ def render_route(
     R = height * width
     large = is_large_scene(pack, cull_k)
     if projection == "pinhole":
-        if not large and R % 1024 == 0 and R % min(_RAY_TILE, R) == 0:
+        if not large and not dynamic and R % 1024 == 0 and R % min(_RAY_TILE, R) == 0:
             return "pinhole"
         if large and height % _BLOCK == 0 and width % _BLOCK == 0:
             return "block"
@@ -703,8 +738,9 @@ def closest_hit_call(
     cull_k: Optional[int] = None,
     backend: str = "auto",
     projection: str = "pinhole",
+    dynamic: bool = False,
 ):
-    """The closest-hit step of one static render: selection done, returns
+    """The closest-hit step of one render's static scene: selection done, returns
     (kernel wrapper, args, kwargs, rays) where ``kernel(*args, **kwargs)``
     gives (t, idx), or (t, attrs_t) on the "culled" route (``render_route``).
     ``rays`` is the ray-feature matrix B (N, 4, 10) on the pinhole and block
@@ -712,7 +748,8 @@ def closest_hit_call(
     general ones.
 
     Scenes up to 4096 padded triangles take the frustum-selected kernel and
-    up to 96 chunks of 128 the every-chunk kernel, rays in raster order.
+    up to 96 chunks of 128 the every-chunk kernel, rays in raster order
+    (with ``dynamic``, the index route instead).
     Larger scenes take the exact-culled chunklet stream, or the parent-chunk
     stream with ``backend="stream"``, rays in 32x32-pixel block order."""
     if backend not in ("auto", "stream"):
@@ -720,7 +757,7 @@ def closest_hit_call(
     T = pack.tri_attr.shape[1]
     R = height * width
     sids = sids.to(torch.int32)
-    route = render_route(pack, height, width, projection, cull_k)
+    route = render_route(pack, height, width, projection, cull_k, dynamic)
     if route in ("index", "culled"):
         dirs = world_rays(yaw, pitch, hfov_deg, height, width, projection)
         origins = cam_pos[:, None, :].expand(-1, R, -1)
@@ -782,6 +819,27 @@ def closest_hit_call(
     return raycast_fused_t, args, dict(ray_tile=ray_tile, tri_chunk=128), B
 
 
+def plane_exact_t(pack: ScenePack, sids: torch.Tensor, B: torch.Tensor, t: torch.Tensor, idx: torch.Tensor,
+                  d_aug: torch.Tensor):
+    """The pinhole route's epilogue head on the kernel's (t, idx) (N, R),
+    raster order, with B the ray-feature matrix (N, 4, 10) and ``d_aug`` the
+    camera-frame rays of ``pinhole_constants``: (the plane-exact t, the
+    winner's 8 attributes (N, R, 8), zero on a miss, n.d). The plane-exact t
+    is n.(v0 - o) / n.d from the winner's plane; the kernel's t on a miss or
+    a grazing hit (|n.d| <= 1e-6)."""
+    hit = idx >= 0
+    # winner attributes [n(3), rgb(3), sem, valid | v0(3)] gathered exactly
+    # (the JAX package's HIGHEST-precision one-hot product is this copy)
+    table = torch.cat([pack.tri_attr, pack.tri_v0], dim=2)  # (S, T, 11)
+    attrs = table[sids.long()[:, None], idx.clamp(min=0).long()] * hit[..., None].float()  # (N, R, 11)
+    dirs = torch.einsum("rk,nkf->nrf", d_aug, B[..., 0:3])  # (N, R, 3) world dirs
+    nrm = attrs[..., 0:3]
+    nd = (nrm * dirs).sum(-1)  # signed n.d
+    num = (nrm * (attrs[..., 8:11] - B[:, 3:4, 3:6])).sum(-1)  # n.(v0 - o); B[:, 3, 3:6] is o
+    ok = hit & (nd.abs() > 1e-6)
+    return torch.where(ok, num / torch.where(ok, nd, torch.ones_like(nd)), t), attrs[..., :8], nd
+
+
 def _frames(N, height, width, hit, z, nd, base, sem_val, sky, max_depth, min_depth, normalize_depth):
     """Shared tail of the epilogues on (N, R) planes in raster order: depth
     clip/normalize, flat+Lambert shade, u8 rgb, semantic ids. ``base`` is
@@ -800,11 +858,56 @@ def _frames(N, height, width, hit, z, nd, base, sem_val, sky, max_depth, min_dep
     }
 
 
-def _general_epilogue(pack, sid, route, t, res, dirs, yaw, pitch, projection, height, width, depth_cfg):
+def _dynamic_hits(dynamic: Dict[str, torch.Tensor], origins: torch.Tensor, dirs: torch.Tensor, ray_tile: int):
+    """The dynamic pass: each env's triangles, padded to a multiple of 128,
+    as that env's own scene through the index kernel (``sids = arange(N)``).
+    Returns (t2 (N, R), idx2 (N, R), the winner's [n(3), rgb(3), sem] (N, R,
+    7), zero on a miss); n is the unit normal e1 x e2 / (|e1 x e2| + 1e-9)."""
+    N, td, _ = dynamic["v0"].shape
+    pad = (-td) % 128
+
+    def padded(x):
+        return torch.nn.functional.pad(x.float(), (0, 0, 0, pad))
+
+    v0, e1, e2 = padded(dynamic["v0"]), padded(dynamic["e1"]), padded(dynamic["e2"])
+    mat = build_tri_matrix_torch(v0, e1, e2, torch.nn.functional.pad(dynamic["valid"].float(), (0, pad)))
+    nrm = torch.linalg.cross(e1, e2)
+    nrm = nrm / (torch.linalg.vector_norm(nrm, dim=-1, keepdim=True) + 1e-9)
+    sem = torch.nn.functional.pad(dynamic["sem"].float(), (0, pad))
+    table = torch.cat([nrm, padded(dynamic["color"]), sem[..., None]], dim=-1)  # (N, Tp, 7)
+    env = torch.arange(N, dtype=torch.int32, device=v0.device)
+    t2, idx2 = raycast_index_t(mat.contiguous(), env, ray_features_t(origins, dirs, ray_tile), ray_tile=ray_tile)
+    # the winner's row, gathered exactly (the JAX package's one-hot product)
+    attr2 = table[env.long()[:, None], idx2.clamp(min=0).long()] * (idx2 >= 0)[..., None]
+    return t2, idx2, attr2
+
+
+def _merge_dynamic(dynamic, cam_pos, dirs, t, hit, nrm, base, sem_val):
+    """The general merge, rays in raster order: where a dynamic triangle is
+    hit nearer than the static t, its t, normal, colour and semantic id."""
+    R = dirs.shape[1]
+    origins = cam_pos[:, None, :].expand(-1, R, -1)
+    t2, idx2, attr2 = _dynamic_hits(dynamic, origins, dirs, _RAY_TILE if R % _RAY_TILE == 0 else R)
+    closer = (idx2 >= 0) & (t2 < t)
+    c = closer[..., None]
+    return (torch.where(closer, t2, t), hit | closer, torch.where(c, attr2[..., 0:3], nrm),
+            torch.where(c, attr2[..., 3:6], base), torch.where(closer, attr2[..., 6], sem_val))
+
+
+def _planar(t, dirs, yaw, pitch):
+    """Planar depth t * cos(angle to the camera's forward axis)."""
+    cp = torch.cos(pitch)
+    fwd_flat = yaw_to_forward(yaw)
+    fwd = torch.stack([fwd_flat[..., 0] * cp, torch.sin(pitch), fwd_flat[..., 2] * cp], dim=-1)
+    return t * (dirs * fwd[:, None, :]).sum(-1)
+
+
+def _general_epilogue(pack, sid, route, t, res, dirs, yaw, pitch, projection, height, width, depth_cfg,
+                      cam_pos, dynamic):
     """The general route's frames from the kernel's t and its winner index
-    (``res`` = idx) or attributes (``res`` = attrs_t, "culled"): no
-    plane-exact t; planar depth t (d . forward) for pinhole cameras, the
-    range t otherwise; Lambert shade |n . d|."""
+    (``res`` = idx) or attributes (``res`` = attrs_t, "culled"), merged with
+    ``dynamic`` where given: no plane-exact t; planar depth t (d . forward)
+    for pinhole cameras, the range t otherwise; Lambert shade |n . d|."""
     N = t.shape[0]
     if route == "culled":
         attrs = res.transpose(1, 2)  # (N, R, 8)
@@ -814,16 +917,13 @@ def _general_epilogue(pack, sid, route, t, res, dirs, yaw, pitch, projection, he
         # the winner's attributes, gathered exactly (the JAX package's
         # one-hot product is this copy)
         attrs = pack.tri_attr[sid, res.clamp(min=0).long()] * hit[..., None].float()
-    if projection == "pinhole":
-        cp = torch.cos(pitch)
-        fwd_flat = yaw_to_forward(yaw)
-        fwd = torch.stack([fwd_flat[..., 0] * cp, torch.sin(pitch), fwd_flat[..., 2] * cp], dim=-1)
-        z = t * (dirs * fwd[:, None, :]).sum(-1)
-    else:
-        z = t
-    nd = (attrs[..., 0:3] * dirs).sum(-1)
+    nrm, base, sem_val = attrs[..., 0:3], attrs[..., 3:6], attrs[..., 6]
+    if dynamic is not None:
+        t, hit, nrm, base, sem_val = _merge_dynamic(dynamic, cam_pos, dirs, t, hit, nrm, base, sem_val)
+    z = _planar(t, dirs, yaw, pitch) if projection == "pinhole" else t
+    nd = (nrm * dirs).sum(-1)
     sky = torch.tensor([0.65, 0.75, 0.9], device=t.device)
-    return _frames(N, height, width, hit, z, nd, attrs[..., 3:6], attrs[..., 6], sky, *depth_cfg)
+    return _frames(N, height, width, hit, z, nd, base, sem_val, sky, *depth_cfg)
 
 
 def render_batch(
@@ -844,51 +944,39 @@ def render_batch(
     cull_k: Optional[int] = None,
     projection: str = "pinhole",
 ) -> Dict[str, torch.Tensor]:
-    """Render all envs: (N,H,W,C) frames of a static scene through a
-    pinhole, equirect or fisheye camera (``render_route`` says which kernel
-    serves which camera, image size and scene size).
+    """Render all envs: (N,H,W,C) frames of a scene through a pinhole,
+    equirect or fisheye camera (``render_route`` says which kernel serves
+    which camera, image size and scene size).
 
     Depth is clipped to [min_depth, max_depth] and normalized if requested:
     planar z-depth for pinhole cameras, the Euclidean range for equirect and
     fisheye ones. Frames come out on the device of ``pack``; on the card the
     closest-hit pass is a CUDA kernel, on the CPU its plain version.
     ``cull_k`` is the number of parent chunks the chunk-culled routes keep
-    per tile, and sets the scene size from which they are taken."""
-    if dynamic is not None:
-        raise NotImplementedError(
-            "dynamic geometry is ROADMAP Queue 1 item 8 (rearrangement render "
-            "merge, on kernel 3, raycast_index_t)"
-        )
+    per tile, and sets the scene size from which they are taken.
+
+    ``dynamic``: per-env movable geometry merged by closest hit, a dict of
+    v0, e1, e2 (N, Td, 3), valid (N, Td), color (N, Td, 3) and sem (N, Td),
+    on the pack's device."""
     N = sids.shape[0]
     cam_pos = cam_pos.float()
-    route = render_route(pack, height, width, projection, cull_k)
+    route = render_route(pack, height, width, projection, cull_k, dynamic is not None)
     kernel, args, kwargs, rays = closest_hit_call(
         pack, sids, cam_pos, yaw, pitch, height=height, width=width, hfov_deg=hfov_deg,
-        cull_k=cull_k, backend=backend, projection=projection,
+        cull_k=cull_k, backend=backend, projection=projection, dynamic=dynamic is not None,
     )
     t, res = kernel(*args, **kwargs)
     sid = sids.long()[:, None]
     depth_cfg = (max_depth, min_depth, normalize_depth)
     if route in ("index", "culled"):
-        return _general_epilogue(pack, sid, route, t, res, rays, yaw, pitch, projection, height, width, depth_cfg)
+        return _general_epilogue(pack, sid, route, t, res, rays, yaw, pitch, projection, height, width, depth_cfg,
+                                 cam_pos, dynamic)
     B, idx = rays, res
     if route == "pinhole":
         d_aug, _, _, sky, _ = pinhole_constants(float(hfov_deg), height, width, cam_pos.device)
-        hit = idx >= 0
-        # winner attributes [n(3), rgb(3), sem, valid | v0(3)] gathered exactly
-        # (the JAX package's HIGHEST-precision one-hot product is this copy)
-        table = torch.cat([pack.tri_attr, pack.tri_v0], dim=2)  # (S, T, 11)
-        attrs = table[sid, idx.clamp(min=0).long()]  # (N, R, 11)
-        attrs = attrs * hit[..., None].float()
-        dirs = torch.einsum("rk,nkf->nrf", d_aug, B[..., 0:3])  # (N, R, 3) world dirs
-        nrm = attrs[..., 0:3]
-        nd = (nrm * dirs).sum(-1)  # signed n.d
-        num = (nrm * (attrs[..., 8:11] - cam_pos[:, None, :])).sum(-1)  # n.(v0 - o)
-        ok = hit & (nd.abs() > 1e-6)
-        # plane-exact t from the winner's plane
-        t_pl = torch.where(ok, num / torch.where(ok, nd, torch.ones_like(nd)), t)
+        t_pl, attrs, nd = plane_exact_t(pack, sids, B, t, idx, d_aug)
         z = t_pl * (-d_aug[None, :, 2])
-        return _frames(N, height, width, hit, z, nd, attrs[..., 3:6], attrs[..., 6], sky, *depth_cfg)
+        return _frames(N, height, width, idx >= 0, z, nd, attrs[..., 3:6], attrs[..., 6], sky, *depth_cfg)
 
     dcb, d_aug, _, _, sky = block_constants(float(hfov_deg), height, width, cam_pos.device)
     if pack.tri_attr16 is not None:
@@ -906,12 +994,25 @@ def render_batch(
         # two dots round independently (error ~|n.v0| * 1e-7): fine for
         # scene coordinates of modest extent
         t_pl = torch.where(ok, (at[ATTR16_NV0] - n_o) / torch.where(ok, nd, torch.ones_like(nd)), t)
+        base, sem_val = a16[..., 3:6], at[6]
+        if dynamic is not None:
+            # the dynamic pass in block order, merged against the kernel's t
+            R = height * width
+            dirs_c = to_blocks(world_rays(yaw, pitch, hfov_deg, height, width), height, width)
+            t2, idx2, attr2 = _dynamic_hits(dynamic, cam_pos[:, None, :].expand(-1, R, -1), dirs_c, _BLOCK_RAYS)
+            closer = (idx2 >= 0) & (t2 < t)
+            nd2 = attr2[..., 0] * dirs[0] + attr2[..., 1] * dirs[1] + attr2[..., 2] * dirs[2]
+            hit = hit | closer
+            t_pl = torch.where(closer, t2, t_pl)
+            nd = torch.where(closer, nd2, nd)
+            base = torch.where(closer[..., None], attr2[..., 3:6], base)
+            sem_val = torch.where(closer, attr2[..., 6], sem_val)
         z = torch.where(hit, t_pl, torch.zeros_like(t_pl)) * (-dcb[:, 2])[None, :]
 
         def fb(x):
             return from_blocks(x, height, width)
 
-        return _frames(N, height, width, fb(hit), fb(z), fb(nd), fb(a16[..., 3:6]), fb(at[6]), sky, *depth_cfg)
+        return _frames(N, height, width, fb(hit), fb(z), fb(nd), fb(base), fb(sem_val), sky, *depth_cfg)
     # row-gather epilogue for packs without tri_attr16, in raster order
     t, idx = from_blocks(t, height, width), from_blocks(idx, height, width)
     hit = idx >= 0
@@ -919,13 +1020,12 @@ def render_batch(
     attrs = pack.tri_attr[sid, safe] * hit[..., None].float()  # (N, R, 8)
     v0g = pack.tri_v0[sid, safe]
     dirs = world_rays(yaw, pitch, hfov_deg, height, width)
-    nd = (attrs[..., 0:3] * dirs).sum(-1)
-    num = (attrs[..., 0:3] * (v0g - cam_pos[:, None, :])).sum(-1)
+    nrm, base, sem_val = attrs[..., 0:3], attrs[..., 3:6], attrs[..., 6]
+    nd = (nrm * dirs).sum(-1)
+    num = (nrm * (v0g - cam_pos[:, None, :])).sum(-1)
     ok = hit & (nd.abs() > 1e-6)
     t = torch.where(ok, num / torch.where(ok, nd, torch.ones_like(nd)), t)
-    # planar depth = t * cos(angle to the camera's forward axis)
-    cp = torch.cos(pitch)
-    fwd_flat = yaw_to_forward(yaw)
-    fwd = torch.stack([fwd_flat[..., 0] * cp, torch.sin(pitch), fwd_flat[..., 2] * cp], dim=-1)
-    z = t * (dirs * fwd[:, None, :]).sum(-1)
-    return _frames(N, height, width, hit, z, nd, attrs[..., 3:6], attrs[..., 6], sky, *depth_cfg)
+    if dynamic is not None:
+        t, hit, nrm, base, sem_val = _merge_dynamic(dynamic, cam_pos, dirs, t, hit, nrm, base, sem_val)
+        nd = (nrm * dirs).sum(-1)
+    return _frames(N, height, width, hit, _planar(t, dirs, yaw, pitch), nd, base, sem_val, sky, *depth_cfg)

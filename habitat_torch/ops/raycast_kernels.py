@@ -24,6 +24,21 @@ and for the general render route (any camera model, any image size):
   K candidate chunks of the pack's chunk size in the order given, returning
   the winner's 8 attributes instead of its index.
 
+and for the ray-batch entry points of the JAX module, which take row-major
+ray features (N, R, 10) from ``ops/raycast.py::ray_features``:
+
+- ``raycast_index`` <- ``raycast_pallas_index`` (the v3 kernel): every chunk
+  of min(128, T) triangles in order, with the split hit margin;
+  ``raycast_batch`` (<- ``raycast_pallas_batch``) adds the winner's 8
+  attributes, gathered exactly, zero on a miss;
+- ``raycast_culled`` <- ``raycast_pallas_culled`` (v3): each 1024-ray tile's
+  K listed chunks of ``tri_chunk`` triangles in list order, returning the
+  winner's 8 attribute rows (N, R, 8);
+- ``raycast_tilecull_t`` <- ``raycast_pallas_tilecull_t``: each tile's first
+  ``cnt`` listed chunks (features built from B as in the frustum-selected
+  kernel), then for every ray the winner's 16 rows of ``attr16_table``,
+  plane-exact t and the shade in row 12.
+
 The pinhole closest-hit kernels take the JAX kernels' inputs: the
 chunk-grouped scene matrix (S, 10, 4T) from ``group_tri_mat`` (the TPU layout
 pads it to 16 rows for its DMA slices; here it keeps its 10), scene ids (N,),
@@ -43,7 +58,7 @@ its plain version (same signature) in ``plain``.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -58,20 +73,25 @@ _ID_MASK = (1 << 18) - 1
 VERTS16_VALID = 15
 
 
-def _check_inputs(tri_mat_c, sids, d_t, Bt, ray_tile, tri_chunk, extra=()):
-    dev = d_t.device
-    for name, x, dt in (
-        ("tri_mat_c", tri_mat_c, torch.float32),
-        ("sids", sids, torch.int32),
-        ("d_t", d_t, torch.float32),
-        ("Bt", Bt, torch.float32),
-        *extra,
-    ):
+def _require(dev, items):
+    """Raise unless each (name, tensor, dtype) is a contiguous tensor of that
+    dtype on ``dev``."""
+    for name, x, dt in items:
         if x.device != dev or x.dtype != dt or not x.is_contiguous():
             raise ValueError(
                 f"{name}: expected a contiguous {dt} tensor on {dev}, got "
                 f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})"
             )
+
+
+def _check_inputs(tri_mat_c, sids, d_t, Bt, ray_tile, tri_chunk, extra=()):
+    _require(d_t.device, (
+        ("tri_mat_c", tri_mat_c, torch.float32),
+        ("sids", sids, torch.int32),
+        ("d_t", d_t, torch.float32),
+        ("Bt", Bt, torch.float32),
+        *extra,
+    ))
     n_tiles, k8, rt = d_t.shape
     if k8 != 8 or rt != ray_tile or Bt.shape[1:] != (16, 4) or Bt.shape[0] != sids.shape[0]:
         raise ValueError(f"bad shapes d_t {tuple(d_t.shape)} Bt {tuple(Bt.shape)}")
@@ -137,9 +157,10 @@ def _env_batches(N, per_env):
     return [slice(a, min(a + step, N)) for a in range(0, N, step)]
 
 
-def _listed_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, C, dmin=None, tested=None):
+def _listed_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, C, dmin=None, tested=None, finish=True):
     """Closest hit over each (env, tile)'s first ``cnt`` listed chunks, in
-    list order, every one tested (no early stop).
+    list order, every one tested (no early stop). ``finish=False`` returns
+    the running (t, idx) as they are, without the miss threshold.
 
     With ``dmin`` (N, nt, K) and a dict ``tested``, also counts what the
     stream kernel's early stop leaves to do on these inputs: list slots at
@@ -168,7 +189,7 @@ def _listed_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, C, dmin=None, tested
             idx = (cid.long()[..., None] * 4 * C + cols)[:, :, None, :].expand(n, n_tiles, 10, 4 * C)
             G = torch.einsum("ntfc,ntfr->ntcr", torch.gather(Mg, 3, idx), F)
             best_t, best_i = _fold(G, C, cid, valid, best_t, best_i)
-        t, i = _finish(best_t, best_i)
+        t, i = _finish(best_t, best_i) if finish else (best_t.reshape(n, -1), best_i.reshape(n, -1))
         ts.append(t)
         idxs.append(i)
     return torch.cat(ts), torch.cat(idxs)
@@ -242,58 +263,139 @@ def raycast_fused_t_plain(tri_mat_c, sids, d_t, Bt, ray_tile=2048, tri_chunk=128
     return _finish(best_t, best_i)
 
 
-def raycast_index_t_plain(tri_mat, sids, features_t, ray_tile=2048):
-    """Plain version of the index kernel: every chunk of min(128, T)
-    triangles of the env's scene, in order."""
-    N, n_tiles, _, rt = features_t.shape
+def _index_plain(tri_mat, sids, F, C, strict):
+    """Every chunk of C triangles of the env's scene in order, for ray
+    features F (N, nt, 10, rt): (t (N, R), idx (N, R))."""
+    N, n_tiles, _, rt = F.shape
     T = tri_mat.shape[3]
-    C = min(128, T)
-    dev = features_t.device
+    dev = F.device
     valid = torch.ones((1, n_tiles), dtype=torch.bool, device=dev)
     ts, idxs = [], []
     for sl in _env_batches(N, n_tiles * 4 * C * rt):
-        F = features_t[sl, :, :10]  # (n, nt, 10, rt)
-        n = F.shape[0]
+        Fs = F[sl]
+        n = Fs.shape[0]
         Mg = tri_mat[sids[sl].long()]  # (n, 10, 4, T)
         best_t = torch.full((n, n_tiles, rt), _TMAX, device=dev)
         best_i = torch.full((n, n_tiles, rt), -1, dtype=torch.int32, device=dev)
         for c in range(T // C):
-            G = torch.einsum("nfc,ntfr->ntcr", Mg[..., c * C:(c + 1) * C].reshape(n, 10, 4 * C), F)
+            G = torch.einsum("nfc,ntfr->ntcr", Mg[..., c * C:(c + 1) * C].reshape(n, 10, 4 * C), Fs)
             base = torch.full((n, n_tiles), c, dtype=torch.int32, device=dev)
-            best_t, best_i = _fold(G, C, base, valid, best_t, best_i)
+            best_t, best_i = _fold(G, C, base, valid, best_t, best_i, strict=strict)
         t, i = _finish(best_t, best_i)
         ts.append(t)
         idxs.append(i)
     return torch.cat(ts), torch.cat(idxs)
 
 
-def raycast_culled_t_plain(tri_mat, tri_attr_t, chunk_ids, sids, features_t, ray_tile=1024, tri_chunk=128):
-    """Plain version of the culled kernel: every listed chunk of
-    ``tri_chunk`` triangles in list order, then the winner's attributes."""
-    N, n_tiles, _, rt = features_t.shape
+def raycast_index_t_plain(tri_mat, sids, features_t, ray_tile=2048):
+    """Plain version of the index kernel: every chunk of min(128, T)
+    triangles of the env's scene, in order."""
+    return _index_plain(tri_mat, sids, features_t[:, :, :10], min(128, tri_mat.shape[3]), strict=False)
+
+
+def raycast_index_plain(tri_mat, sids, features, ray_tile=2048, tri_chunk=128):
+    """Plain version of the v3 index kernel: row-major features (N, R, 10),
+    every chunk of min(tri_chunk, T) triangles in order, split margin."""
+    F = features.transpose(1, 2)[:, None]  # (N, 1, 10, R)
+    return _index_plain(tri_mat, sids, F, min(tri_chunk, tri_mat.shape[3]), strict=True)
+
+
+def _culled_plain(tri_mat, tri_attr, chunk_ids, sids, F, C):
+    """Every listed chunk of C triangles in list order, for ray features F
+    (N, nt, 10, rt), then the winner's attribute row of ``tri_attr`` (S, T,
+    8), zero on a miss: (t (N, R), attrs (N, R, 8))."""
+    N, n_tiles, _, rt = F.shape
     S, _, _, T = tri_mat.shape
-    C = tri_chunk
     NC = T // C
-    dev = features_t.device
+    dev = F.device
     # chunk-major (S * NC, 10, 4C): chunk c as [detA(C)|tnum(C)|unum(C)|vnum(C)]
     chunks = tri_mat.reshape(S, 10, 4, NC, C).permute(0, 3, 1, 2, 4).reshape(S * NC, 10, 4 * C)
     valid = torch.ones((1, n_tiles), dtype=torch.bool, device=dev)
     ts, attrs = [], []
     for sl in _env_batches(N, n_tiles * 4 * C * rt):
-        F = features_t[sl, :, :10]
-        n = F.shape[0]
+        Fs = F[sl]
+        n = Fs.shape[0]
         sid = sids[sl].long()
         best_t = torch.full((n, n_tiles, rt), _TMAX, device=dev)
         best_i = torch.full((n, n_tiles, rt), -1, dtype=torch.int32, device=dev)
         for k in range(chunk_ids.shape[2]):
             cid = chunk_ids[sl, :, k]  # (n, nt)
-            G = torch.einsum("ntfc,ntfr->ntcr", chunks[sid[:, None] * NC + cid.long()], F)
+            G = torch.einsum("ntfc,ntfr->ntcr", chunks[sid[:, None] * NC + cid.long()], Fs)
             best_t, best_i = _fold(G, C, cid, valid, best_t, best_i, strict=True)
         hit = best_t < _TMAX
-        a = tri_attr_t[sid[:, None], :, best_i.reshape(n, -1).clamp(min=0).long()]  # (n, R, 8)
+        a = tri_attr[sid[:, None], best_i.reshape(n, -1).clamp(min=0).long()]  # (n, R, 8)
         ts.append(best_t.reshape(n, -1))
-        attrs.append((a * hit.reshape(n, -1, 1)).transpose(1, 2))
+        attrs.append(a * hit.reshape(n, -1, 1))
     return torch.cat(ts), torch.cat(attrs)
+
+
+def raycast_culled_t_plain(tri_mat, tri_attr_t, chunk_ids, sids, features_t, ray_tile=1024, tri_chunk=128):
+    """Plain version of the culled kernel: every listed chunk of
+    ``tri_chunk`` triangles in list order, then the winner's attributes."""
+    t, attrs = _culled_plain(tri_mat, tri_attr_t.transpose(1, 2), chunk_ids, sids, features_t[:, :, :10], tri_chunk)
+    return t, attrs.transpose(1, 2)
+
+
+def _batch_features(origins, dirs, features):
+    """The ray-batch entry points' features: ``features`` or those of
+    (origins, dirs)."""
+    if features is not None:
+        return features
+    from habitat_torch.ops.raycast import ray_features
+
+    return ray_features(origins, dirs)
+
+
+def raycast_culled_plain(tri_mat, tri_attr, chunk_ids, sids, origins=None, dirs=None, ray_tile=1024,
+                         tri_chunk=128, features=None):
+    """Plain version of the v3 culled kernel: row-major features (N, R, 10)
+    and attribute rows (S, T, 8); returns (t (N, R), attrs (N, R, 8))."""
+    features = _batch_features(origins, dirs, features)
+    N, R, _ = features.shape
+    F = features.reshape(N, R // ray_tile, ray_tile, 10).transpose(2, 3)  # (N, nt, 10, rt)
+    return _culled_plain(tri_mat, tri_attr, chunk_ids, sids, F, tri_chunk)
+
+
+def raycast_tilecull_t_plain(tri_mat_c, attr16, chunk_ids, cnt, sids, d_t, Bt, ray_tile=2048, tri_chunk=32):
+    """Plain version of the tile-cull kernel: the frustum-selected loop over
+    each tile's first ``cnt`` listed chunks, then for every ray the winner's
+    16 ``attr16`` rows (zero without a winner), t = n.(v0 - o) / (n.d) on a
+    hit unless |n.d| < 1e-6, t = 1e6 on a miss, and row 12 = 0.35 + 0.65
+    |n.d|, each product and sum rounded in the kernel's order."""
+    best_t, best_i = _listed_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, tri_chunk, finish=False)
+    N, R = best_t.shape
+    n_tiles, _, rt = d_t.shape
+    C = tri_chunk
+    g = best_i.clamp(min=0).long()
+    A = attr16[sids.long()[:, None], g // C, :, g % C] * (best_i >= 0)[..., None]  # (N, R, 16)
+    d = _features(Bt, d_t)[:, :, 0:3].transpose(1, 2).reshape(N, 3, R)  # world dirs
+    o = Bt[:, 3:6, 3:4]  # (N, 3, 1)
+    a = A.transpose(1, 2)  # (N, 16, R)
+    nd = a[:, 0] * d[:, 0] + a[:, 1] * d[:, 1] + a[:, 2] * d[:, 2]
+    num = a[:, 0] * (a[:, 3] - o[:, 0]) + a[:, 1] * (a[:, 4] - o[:, 1]) + a[:, 2] * (a[:, 5] - o[:, 2])
+    hit = best_t < _TMAX * 0.5
+    grazing = nd.abs() < 1e-6
+    t_pl = num / torch.where(grazing, torch.ones_like(nd), nd)
+    t = torch.where(hit, torch.where(grazing, best_t, t_pl), _TMAX)
+    out = torch.cat([a[:, :12], (0.35 + 0.65 * nd.abs())[:, None], a[:, 13:]], dim=1)  # (N, 16, R)
+    return t, out.reshape(N, 16, n_tiles, rt).transpose(1, 2).contiguous()
+
+
+def attr16_table(tri_attr: torch.Tensor, tri_v0: torch.Tensor, tri_chunk: int = 32) -> torch.Tensor:
+    """(S, T, 8) [n(3), rgb(3), sem, valid], (S, T, 3) -> the tile-cull
+    kernel's chunked table (S, T // C, 16, C), rows [n(3), v0(3), gid, sem |
+    rgb(3), valid, 4 zero]; gid is the global triangle index as float32
+    (exact below 2**24)."""
+    S, T, _ = tri_attr.shape
+    C = tri_chunk
+    at = tri_attr.transpose(1, 2)  # (S, 8, T)
+    gid = torch.arange(T, dtype=torch.float32, device=tri_attr.device).expand(S, 1, T)
+    flat = torch.cat(
+        [at[:, 0:3], tri_v0.transpose(1, 2), gid, at[:, 6:7], at[:, 3:6], at[:, 7:8],
+         torch.zeros(S, 4, T, device=tri_attr.device)],
+        dim=1,
+    )  # (S, 16, T)
+    return flat.reshape(S, 16, T // C, C).transpose(1, 2).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -494,18 +596,12 @@ cullmask_t.plain = cull_mask_torch
 
 
 def _check_general(tri_mat, sids, features_t, ray_tile, extra=()):
-    dev = features_t.device
-    for name, x, dt in (
+    _require(features_t.device, (
         ("tri_mat", tri_mat, torch.float32),
         ("sids", sids, torch.int32),
         ("features_t", features_t, torch.float32),
         *extra,
-    ):
-        if x.device != dev or x.dtype != dt or not x.is_contiguous():
-            raise ValueError(
-                f"{name}: expected a contiguous {dt} tensor on {dev}, got "
-                f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})"
-            )
+    ))
     N, n_tiles, k16, rt = features_t.shape
     if k16 != 16 or rt != ray_tile or sids.shape != (N,) or tri_mat.shape[1:3] != (10, 4):
         raise ValueError(
@@ -591,3 +687,178 @@ def raycast_culled_t(
 
 raycast_culled_t.launches = 0
 raycast_culled_t.plain = raycast_culled_t_plain
+
+
+def _as_int32(*xs):
+    return [x.to(torch.int32).contiguous() for x in xs]
+
+
+def raycast_index(
+    tri_mat: torch.Tensor,  # (S, 10, 4, T)
+    sids: torch.Tensor,  # (N,) int
+    features: torch.Tensor,  # (N, R, 10) ray_features
+    ray_tile: int = 2048,
+    tri_chunk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """v3 closest hit against every chunk of min(tri_chunk, T) triangles of
+    the env's scene, from row-major ray features, split margin: (t (N, R)
+    f32, idx (N, R) i32; 1e6 and -1 on a miss). ``ray_tile`` is min(ray_tile,
+    R) and must divide R, as the TPU kernel's grid needs; it changes no
+    value."""
+    (sids,) = _as_int32(sids)
+    _require(features.device, (("tri_mat", tri_mat, torch.float32), ("sids", sids, torch.int32),
+                               ("features", features, torch.float32)))
+    N, R, k10 = features.shape
+    S, ten, four, T = tri_mat.shape
+    C = min(tri_chunk, T)
+    rt = min(ray_tile, R)
+    if k10 != 10 or sids.shape != (N,) or (ten, four) != (10, 4) or T % C or R % rt:
+        raise ValueError(
+            f"bad shapes features {tuple(features.shape)} sids {tuple(sids.shape)} tri_mat "
+            f"{tuple(tri_mat.shape)} (chunks of {C}, ray tile {rt})"
+        )
+    if features.device.type == "cpu":
+        return raycast_index_plain(tri_mat, sids, features, ray_tile, tri_chunk)
+    lib = cuda_build.load("raycast_general")
+    dev = features.device
+    t = torch.empty((N, R), dtype=torch.float32, device=dev)
+    idx = torch.empty((N, R), dtype=torch.int32, device=dev)
+    err = lib.raycast_index_rm(
+        tri_mat.data_ptr(), sids.data_ptr(), features.data_ptr(), t.data_ptr(), idx.data_ptr(),
+        N, T, C, R, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.raise_on(err, "raycast_index_rm")
+    raycast_index.launches += 1
+    return t, idx
+
+
+raycast_index.launches = 0
+raycast_index.plain = raycast_index_plain
+
+
+def raycast_batch(
+    tri_mat: torch.Tensor,  # (S, 10, 4, T)
+    tri_attr: torch.Tensor,  # (S, T, 8) attribute tables
+    sids: torch.Tensor,  # (N,)
+    origins: Optional[torch.Tensor] = None,  # (N, R, 3)
+    dirs: Optional[torch.Tensor] = None,  # (N, R, 3)
+    ray_tile: int = 2048,
+    tri_chunk: int = 128,
+    features: Optional[torch.Tensor] = None,  # precomputed (N, R, 10)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Closest hit and attributes for all envs: ``raycast_index``, then the
+    winner's row of ``tri_attr``, gathered exactly, zero on a miss. Returns
+    (t (N, R) f32, attrs (N, R, 8) f32); attrs[..., 7] == 0 marks a miss."""
+    features = _batch_features(origins, dirs, features)
+    t, idx = raycast_index(tri_mat, sids, features, ray_tile=ray_tile, tri_chunk=tri_chunk)
+    hit = idx >= 0
+    attrs = tri_attr[sids.long()[:, None], idx.clamp(min=0).long()] * hit[..., None]
+    return t, attrs
+
+
+def raycast_culled(
+    tri_mat: torch.Tensor,  # (S, 10, 4, T)
+    tri_attr: torch.Tensor,  # (S, T, 8)
+    chunk_ids: torch.Tensor,  # (N, nt, K) candidate chunk ids in units of tri_chunk
+    sids: torch.Tensor,  # (N,)
+    origins: Optional[torch.Tensor] = None,  # (N, R, 3)
+    dirs: Optional[torch.Tensor] = None,  # (N, R, 3)
+    ray_tile: int = 1024,
+    tri_chunk: int = 128,
+    features: Optional[torch.Tensor] = None,  # precomputed (N, R, 10)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """v3 culled closest hit with attributes: each ray tile tests its K
+    listed chunks of ``tri_chunk`` triangles in list order (strict < across
+    them, the lowest lane within), and keeps the winner's attribute row.
+    Returns (t (N, R) f32, 1e6 on a miss; attrs (N, R, 8) f32, zero on a
+    miss). The JAX wrapper splits N in halves when its id table passes 96 KB,
+    a TPU scalar-memory budget that changes no value; it is not ported."""
+    features = _batch_features(origins, dirs, features)
+    sids, chunk_ids = _as_int32(sids, chunk_ids)
+    _require(features.device, (
+        ("tri_mat", tri_mat, torch.float32), ("tri_attr", tri_attr, torch.float32),
+        ("chunk_ids", chunk_ids, torch.int32), ("sids", sids, torch.int32), ("features", features, torch.float32),
+    ))
+    N, R, k10 = features.shape
+    S, _, _, T = tri_mat.shape
+    if (
+        k10 != 10 or R % ray_tile or T % tri_chunk or tri_attr.shape != (S, T, 8) or sids.shape != (N,)
+        or chunk_ids.dim() != 3 or chunk_ids.shape[:2] != (N, R // ray_tile) or tri_mat.shape[1:3] != (10, 4)
+    ):
+        raise ValueError(
+            f"bad shapes features {tuple(features.shape)} (ray tile {ray_tile}) tri_attr {tuple(tri_attr.shape)} "
+            f"chunk_ids {tuple(chunk_ids.shape)} for tri_mat {tuple(tri_mat.shape)} in chunks of {tri_chunk}"
+        )
+    if features.device.type == "cpu":
+        return raycast_culled_plain(tri_mat, tri_attr, chunk_ids, sids, ray_tile=ray_tile, tri_chunk=tri_chunk,
+                                    features=features)
+    lib = cuda_build.load("raycast_general")
+    dev = features.device
+    t = torch.empty((N, R), dtype=torch.float32, device=dev)
+    attrs = torch.empty((N, R, 8), dtype=torch.float32, device=dev)
+    err = lib.raycast_culled_rm(
+        tri_mat.data_ptr(), tri_attr.data_ptr(), chunk_ids.data_ptr(), sids.data_ptr(), features.data_ptr(),
+        t.data_ptr(), attrs.data_ptr(), N, T, tri_chunk, R // ray_tile, chunk_ids.shape[2], ray_tile,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.raise_on(err, "raycast_culled_rm")
+    raycast_culled.launches += 1
+    return t, attrs
+
+
+raycast_culled.launches = 0
+raycast_culled.plain = raycast_culled_plain
+
+
+def raycast_tilecull_t(
+    tri_mat_c: torch.Tensor,  # (S, 10, 4T) group_tri_mat(tri_mat, C)
+    attr16: torch.Tensor,  # (S, T // C, 16, C) attr16_table
+    chunk_ids: torch.Tensor,  # (N, nt, K) survivors first, the tail repeating the last
+    cnt: torch.Tensor,  # (N, nt) survivor counts
+    sids: torch.Tensor,  # (N,)
+    d_t: torch.Tensor,  # (nt, 8, Rt) camera [d, 1] transposed
+    Bt: torch.Tensor,  # (N, 16, 4) ray-feature matrices B^T
+    ray_tile: int = 2048,
+    tri_chunk: int = 32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tile-culled closest hit with plane-exact t and shading: (t (N, R)
+    f32, plane-exact on a hit, 1e6 on a miss; attrs (N, nt, 16, Rt) f32 rows
+    [n(3), v0(3), gid, sem, rgb(3), valid, shade, 0, 0, 0]). Every ray gets
+    the epilogue: on a miss the rows are zero but the shade reads 0.35. The
+    winner is the frustum-selected kernel's on the same inputs."""
+    sids, chunk_ids, cnt = _as_int32(sids, chunk_ids, cnt)
+    n_tiles = _check_inputs(
+        tri_mat_c, sids, d_t, Bt, ray_tile, tri_chunk,
+        extra=(("attr16", attr16, torch.float32), ("chunk_ids", chunk_ids, torch.int32), ("cnt", cnt, torch.int32)),
+    )
+    N = sids.shape[0]
+    S, _, T4 = tri_mat_c.shape
+    C = tri_chunk
+    if (
+        attr16.shape != (S, T4 // 4 // C, 16, C) or chunk_ids.dim() != 3 or chunk_ids.shape[:2] != (N, n_tiles)
+        or chunk_ids.shape[2] < 1 or cnt.shape != (N, n_tiles)
+    ):
+        raise ValueError(
+            f"bad shapes attr16 {tuple(attr16.shape)} chunk_ids {tuple(chunk_ids.shape)} cnt {tuple(cnt.shape)} "
+            f"for tri_mat_c {tuple(tri_mat_c.shape)} in chunks of {C}"
+        )
+    if d_t.device.type == "cpu":
+        return raycast_tilecull_t_plain(tri_mat_c, attr16, chunk_ids, cnt, sids, d_t, Bt, ray_tile, tri_chunk)
+    if C not in (32, 128) or ray_tile % 256:
+        raise ValueError(f"the kernel takes chunks of 32 or 128 and ray tiles of a multiple of 256, not {C}, {ray_tile}")
+    lib = cuda_build.load("raycast_fused")
+    dev = d_t.device
+    t = torch.empty((N, n_tiles * ray_tile), dtype=torch.float32, device=dev)
+    attrs = torch.empty((N, n_tiles, 16, ray_tile), dtype=torch.float32, device=dev)
+    err = lib.raycast_tilecull(
+        tri_mat_c.data_ptr(), attr16.data_ptr(), sids.data_ptr(), chunk_ids.data_ptr(), cnt.data_ptr(),
+        d_t.data_ptr(), Bt.data_ptr(), t.data_ptr(), attrs.data_ptr(),
+        N, T4, n_tiles, chunk_ids.shape[2], ray_tile, C, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.raise_on(err, "raycast_tilecull")
+    raycast_tilecull_t.launches += 1
+    return t, attrs
+
+
+raycast_tilecull_t.launches = 0
+raycast_tilecull_t.plain = raycast_tilecull_t_plain

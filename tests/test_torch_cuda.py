@@ -249,6 +249,122 @@ def test_general_kernels_reject_bad_layouts(cuda):
     assert rk.raycast_index_t.launches == before
 
 
+# ---- the ray-batch kernels (#8 - #10) and the dynamic merge ---------------------
+
+
+def _equirect_rays(n, H, W, seed, centre=5.0, spread=3.0):
+    rng = np.random.RandomState(seed)
+    pos = torch.as_tensor(np.c_[rng.uniform(centre - spread, centre + spread, n), np.full(n, 1.25),
+                                rng.uniform(centre - spread, centre + spread, n)], dtype=torch.float32)
+    yaw = torch.as_tensor(rng.uniform(-np.pi, np.pi, n), dtype=torch.float32)
+    dirs = rc.world_rays(yaw, torch.zeros(n), 90.0, H, W, "equirect")
+    return pos, yaw, pos[:, None, :].expand(-1, H * W, -1).contiguous(), dirs
+
+
+@pytest.mark.parametrize("H,W,ray_tile", [(64, 128, 2048), (20, 30, 2048)])
+def test_raycast_index_kernel_matches_plain(cuda, H, W, ray_tile):
+    """#8 under raycast_batch on the bench scenes; 20x30 is one untiled 600-ray slab."""
+    scenes, _, _ = make_procedural_pointnav(num_scenes=2, episodes_per_scene=1, seed=0)
+    pack = pack_scenes(scenes)
+    _, _, o, d = _equirect_rays(4, H, W, 3)
+    sids = torch.arange(4, dtype=torch.int32) % 2
+    ref = rk.raycast_batch(pack.tri_mat, pack.tri_attr, sids, o, d, ray_tile=ray_tile)
+    before = rk.raycast_index.launches
+    got = [x.cpu() for x in rk.raycast_batch(pack.tri_mat.to(cuda), pack.tri_attr.to(cuda), sids.to(cuda),
+                                             o.to(cuda), d.to(cuda), ray_tile=ray_tile)]
+    torch.cuda.synchronize()
+    assert rk.raycast_index.launches == before + 1
+    h0, h1 = ref[1][..., 7] > 0.5, got[1][..., 7] > 0.5
+    assert (h0 == h1).float().mean() >= 0.9999 and h0.float().mean() > 0.3
+    same = h0 & h1 & (ref[1] == got[1]).all(-1)
+    assert same.sum() >= 0.999 * (h0 & h1).sum()
+    assert (ref[0][same] - got[0][same]).abs().max() < 5e-3
+
+
+def test_raycast_culled_kernel_matches_plain(cuda):
+    """#9 on the scan apartment's equirect tiles, its 256-triangle ids split
+    into 128-triangle ones; the same as #7 on the unsplit ids."""
+    scene = generate_scan_apartment(seed=5, extent=6.0, n_rooms_per_axis=2, n_clutter=6, tess=0.35)
+    pack = pack_scenes([scene], force_scan_tables=True)
+    kernel, args, kwargs, dirs = _general_call(pack, "equirect", 32, 128, cull_k=8)
+    assert kernel is rk.raycast_culled_t and kwargs["tri_chunk"] == 256
+    tri_mat, attr_t, ids, sids, feat_t = args
+    ids128 = (ids[..., None] * 2 + torch.arange(2, dtype=torch.int32)).reshape(*ids.shape[:2], -1)
+    feat = rc.ray_features(feat_t[:, :, 3:6].transpose(2, 3).reshape(dirs.shape), dirs)
+    cargs = (tri_mat, pack.tri_attr, ids128, sids, None, None)
+    ref = rk.raycast_culled(*cargs, features=feat)
+    before = rk.raycast_culled.launches
+    got = [x.cpu() for x in rk.raycast_culled(*[a.to(cuda) if a is not None else None for a in cargs],
+                                              features=feat.to(cuda))]
+    t7, a7 = (x.cpu() for x in kernel(*[a.to(cuda) for a in args], **kwargs))
+    torch.cuda.synchronize()
+    assert rk.raycast_culled.launches == before + 1
+    h0, h1 = ref[1][..., 7] > 0.5, got[1][..., 7] > 0.5
+    assert (h0 == h1).float().mean() >= 0.9999 and h0.float().mean() > 0.3
+    same = h0 & h1 & (ref[1] == got[1]).all(-1)
+    assert same.sum() >= 0.999 * (h0 & h1).sum()
+    assert (ref[0][same] - got[0][same]).abs().max() < 5e-3
+    # the same triangles in the same order as #7: the same bits
+    assert torch.equal(got[0], t7) and torch.equal(got[1], a7.transpose(1, 2))
+
+
+def test_tilecull_kernel_matches_plain(cuda):
+    """#10 on the bench scenes' frustum-selected inputs: all 16 rows, and the
+    gid row equal to #1's winner."""
+    scenes, _, _ = make_procedural_pointnav(num_scenes=2, episodes_per_scene=1, seed=0)
+    pack = pack_scenes(scenes)
+    sids, pos, yaw, pitch, d_t, Bt, ids, cnt, rt = _inputs(pack, 8, 64, 4)
+    gm = rc.group_tri_mat(pack.tri_mat, 32).contiguous()
+    a16 = rk.attr16_table(pack.tri_attr, pack.tri_v0)
+    args = [gm, a16, ids, cnt, sids, d_t, Bt]
+    t0, a0 = rk.raycast_tilecull_t(*args, ray_tile=rt)
+    before = rk.raycast_tilecull_t.launches
+    t1, a1 = (x.cpu() for x in rk.raycast_tilecull_t(*[a.to(cuda) for a in args], ray_tile=rt))
+    t_sel, i_sel = (x.cpu() for x in rk.raycast_fused_sel_t(
+        *[a.to(cuda) for a in (gm, sids, ids, cnt, d_t, Bt)], ray_tile=rt, tri_chunk=32))
+    torch.cuda.synchronize()
+    assert rk.raycast_tilecull_t.launches == before + 1
+    h0, h1 = a0[:, :, 11] > 0.5, a1[:, :, 11] > 0.5
+    assert (h0 == h1).float().mean() >= 0.9999 and 0.3 < h0.float().mean() < 1.0
+    same = h0 & h1 & (a0[:, :, 6] == a1[:, :, 6])
+    assert same.sum() >= 0.999 * (h0 & h1).sum()
+    assert (a0 - a1).transpose(2, 3)[same].abs().max() < 1e-5
+    assert (a1[:, :, 12].transpose(1, 2)[~h1.transpose(1, 2)] == 0.35).all()
+    gid = torch.where(h1, a1[:, :, 6], -1.0).reshape(8, -1)
+    assert (gid == i_sel.float()).float().mean() >= 0.999
+
+
+def test_dynamic_render_on_card_matches_cpu(cuda):
+    """The merge on the index route (bench scenes, 64x64 pinhole, three boxes
+    per env): the card's frames against the CPU's."""
+    scenes, _, _ = make_procedural_pointnav(num_scenes=2, episodes_per_scene=1, seed=0)
+    pack = pack_scenes(scenes)
+    n = 4
+    pos, yaw, _, _ = _equirect_rays(n, 4, 4, 5, spread=2.0)
+    fwd = torch.stack([-torch.sin(yaw), torch.zeros(n), -torch.cos(yaw)], -1)
+    g = torch.Generator().manual_seed(0)
+    centre = pos[:, None] + fwd[:, None] * (0.6 + torch.rand(n, 3, 1, generator=g)) - torch.tensor([0.0, 0.5, 0.0])
+    corners = torch.tensor([[x, y, z] for x in (-1, 1) for y in (-1, 1) for z in (-1, 1)], dtype=torch.float32)
+    faces = torch.tensor([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5], [0, 5, 1],
+                          [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]])
+    v = (centre[:, :, None] + 0.2 * corners)[:, :, faces].reshape(n, 36, 3, 3)
+    dyn = dict(v0=v[:, :, 0], e1=v[:, :, 1] - v[:, :, 0], e2=v[:, :, 2] - v[:, :, 0],
+               valid=torch.ones(n, 36, dtype=torch.bool), color=torch.rand(n, 36, 3, generator=g),
+               sem=torch.full((n, 36), 100, dtype=torch.int32))
+    sids = torch.arange(n, dtype=torch.int32) % 2
+    pitch = torch.full((n,), -0.45)
+    kw = dict(height=64, width=64)
+    ref = rc.render_batch(pack, sids, pos, yaw, pitch, dynamic=dyn, **kw)
+    before = rk.raycast_index_t.launches
+    got = rc.render_batch(pack.to(cuda), sids.to(cuda), pos.to(cuda), yaw.to(cuda), pitch.to(cuda),
+                          dynamic={k: x.to(cuda) for k, x in dyn.items()}, **kw)
+    torch.cuda.synchronize()
+    assert rk.raycast_index_t.launches == before + 2  # the static scene and the boxes
+    assert (ref["semantic"] == 100).float().mean() > 0.05
+    assert (ref["semantic"] == got["semantic"].cpu()).float().mean() >= 0.999
+    assert ((ref["depth"] - got["depth"].cpu()).abs() < 1e-4).float().mean() >= 0.999
+
+
 # ---- the stem max pool's backward -----------------------------------------------
 
 

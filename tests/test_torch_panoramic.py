@@ -335,9 +335,11 @@ def test_routes_and_dynamic_raises(packs):
     assert trc.render_route(ps, 20, 30, cull_k=CULL_K) == "index"
     with pytest.raises(ValueError, match="projection"):
         trc.render_route(pb, 32, 32, "cubemap")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        trc.render_batch(pb, torch.zeros(1, dtype=torch.int32), torch.zeros(1, 3), torch.zeros(1), torch.zeros(1),
-                         height=32, width=32, projection="equirect", dynamic={})
+    # dynamic geometry no longer raises: it leaves the panoramic routes as
+    # they are and takes small-scene pinhole images off the fast path
+    assert trc.render_route(pb, 128, 256, "equirect", dynamic=True) == "index"
+    assert trc.render_route(ps, 128, 256, "fisheye", cull_k=CULL_K, dynamic=True) == "culled"
+    assert trc.render_route(pb, 32, 32, dynamic=True) == "index"
 
 
 def test_policy_128x256_matches(monkeypatch):

@@ -191,13 +191,19 @@ def test_render_batch_matches_pallas_path(scenes):
 
 
 def test_unported_branches_raise(scenes):
-    """Dynamic geometry still raises; equirect cameras and images that do not
-    tile into 1024-ray kernel tiles render through the general route
-    (tests/test_torch_panoramic.py holds them against the JAX package)."""
+    """No branch raises any more: dynamic geometry renders through the index
+    route (tests/test_torch_dynamic.py holds the merge against the JAX
+    package), and equirect cameras and images that do not tile into 1024-ray
+    kernel tiles through the general route (tests/test_torch_panoramic.py)."""
     tp = torch_pack(torch_pointnav(num_scenes=1, episodes_per_scene=1, seed=0)[0])
     args = (tp, torch.zeros(1, dtype=torch.int32), torch.zeros(1, 3), torch.zeros(1), torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        trc.render_batch(*args, height=32, width=32, dynamic={})
+    no_objects = dict(v0=torch.zeros(1, 12, 3), e1=torch.zeros(1, 12, 3), e2=torch.zeros(1, 12, 3),
+                      valid=torch.zeros(1, 12, dtype=torch.bool), color=torch.zeros(1, 12, 3),
+                      sem=torch.zeros(1, 12, dtype=torch.int32))
+    assert trc.render_route(tp, 32, 32, dynamic=True) == "index"
+    out = trc.render_batch(*args, height=32, width=32, dynamic=no_objects)
+    static = trc.render_batch(*args, height=32, width=32)
+    assert torch.equal(out["semantic"], static["semantic"])
     for kw in (dict(height=32, width=32, projection="equirect"), dict(height=30, width=30)):
         assert trc.render_route(tp, kw["height"], kw["width"], kw.get("projection", "pinhole")) == "index"
         out = trc.render_batch(*args, **kw)

@@ -241,14 +241,21 @@ def test_render_on_cpu_counts_no_launch(setup):
 
 
 def test_scan_unported_branches_raise(setup):
-    """On a large scene, dynamic geometry and unknown backends still raise;
-    an image that is not 32x32-blockable and a fisheye camera render through
-    the general route (tests/test_torch_panoramic.py holds it against the
-    JAX package)."""
+    """On a large scene, unknown backends still raise; dynamic geometry
+    merges on the block route (tests/test_torch_dynamic.py holds it against
+    the JAX package); an image that is not 32x32-blockable and a fisheye
+    camera render through the general route (tests/test_torch_panoramic.py
+    holds it against the JAX package)."""
     s = setup
     args = (s["pt"], _t(s["sids"]), _t(s["pos"]), _t(s["yaw"]), _t(s["pitch"]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        trc.render_batch(*args, height=H, width=W, cull_k=8, dynamic={})
+    no_objects = dict(v0=torch.zeros(N, 12, 3), e1=torch.zeros(N, 12, 3), e2=torch.zeros(N, 12, 3),
+                      valid=torch.zeros(N, 12, dtype=torch.bool), color=torch.zeros(N, 12, 3),
+                      sem=torch.zeros(N, 12, dtype=torch.int32))
+    assert trc.render_route(s["pt"], H, W, cull_k=8, dynamic=True) == "block"
+    out = trc.render_batch(*args, height=H, width=W, cull_k=8, dynamic=no_objects)
+    static = trc.render_batch(*args, height=H, width=W, cull_k=8)
+    for k in out:
+        assert torch.equal(out[k], static[k]), k
     with pytest.raises(ValueError, match="backend"):
         trc.render_batch(*args, height=H, width=W, cull_k=8, backend="pallas")
     for kw, route in ((dict(height=48, width=48), "index"), (dict(height=H, width=W, projection="fisheye"), "culled")):
