@@ -34,7 +34,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            #8 (raycast_index, row-major features) on the bench reset's rays,
            also held against #3 on the same rays; #9 (raycast_culled) on #7's
            inputs with its 256-triangle ids split into 128-triangle ones,
-           also held against #7's output; #10 (raycast_tilecull_t) on #1's
+           bit-equal to #7's output on every ray; #10 (raycast_tilecull_t) on #1's
            inputs with attr16_table(pack), all 16 rows, its gid against #1's
            winner and its t against the pinhole route's plane-exact t. Then
            the ray-batch path: raycast_batch, raycast_culled and
@@ -46,7 +46,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            with the kernel's mask as with the plain version's. Each is timed
            with CUDA events beside its plain version and its bound on this
            card; the stream kernels' bound counts only the chunks a ray's
-           final hit leaves it to test.
+           final hit leaves it to test, and the stream and culled kernels'
+           bound the whole test only for pairs whose ray line meets the
+           triangle (the rest end before tnum). The rows of the stream kernels (#4,
+           #5) and the culled kernels (#7, #9) carry their design as their
+           libraries report it (rays per thread and per block, ring depth,
+           registers, spills, shared memory, blocks per SM), which must
+           match the wrappers' constants.
 4. paths   the main path: the bench PointNav configuration (4 procedural
            scenes, 64 episodes, N=256 envs, 128x128 depth+RGB+pointgoal,
            resnet18 base 32 / 16 groups + LSTM-512, 4 actions, T=32) with
@@ -130,6 +136,12 @@ H100_BYTES_PER_S = 3.35e12  # published HBM3 rate
 # flops), the margin (4 mul, 2 sub, 1 mul + 1 sub, 1 sub, 4 min, 1 compare)
 # and the fold compare
 FLOPS_PER_RAY_TRI = 95
+# The stream and culled kernels sum tnum only where a ray's line meets the
+# triangle (p, q, aa - p - q >= 0, aa above EPS^2: an "inside" pair); any
+# other pair needs 3 dots (30 FMAs = 60 flops), aa, p, q, aa - p - q and
+# their test (8): their bound counts this for every test and the rest of
+# FLOPS_PER_RAY_TRI for the inside pairs
+FLOPS_OUTSIDE = 68
 # per ray: 10 features of 4 products and 3 sums
 FLOPS_PER_RAY = 70
 
@@ -261,11 +273,22 @@ def tensor_bytes(*xs):
     return sum(x.numel() * x.element_size() for x in xs if isinstance(x, torch.Tensor))
 
 
+def test_flops(n_tests, n_inside=None):
+    """FP32 operations of ``n_tests`` ray-triangle tests, of which
+    ``n_inside`` are inside pairs (None: a kernel that completes every
+    test)."""
+    if n_inside is None:
+        return n_tests * FLOPS_PER_RAY_TRI
+    return n_tests * FLOPS_OUTSIDE + n_inside * (FLOPS_PER_RAY_TRI - FLOPS_OUTSIDE)
+
+
 def compare_kernel(name, kernel, args, kwargs, n_tests, reps=50, plain_reps=3,
-                   source="habitat_torch/csrc/raycast_fused.cu", plain_kwargs=None, flops_per_ray=FLOPS_PER_RAY):
+                   source="habitat_torch/csrc/raycast_fused.cu", plain_kwargs=None, flops_per_ray=FLOPS_PER_RAY,
+                   n_inside=None):
     """Kernel vs its plain version on the same card inputs; times both and
     works out the bound from this call's inputs and the tests they need.
-    ``n_tests`` may be a function of the kernel's (t, idx). With
+    ``n_tests`` and ``n_inside`` (see ``test_flops``) may be functions of
+    the kernel's (t, idx), called after the plain version ran. With
     ``plain_reps=0`` the plain version runs once, timed as it is compared.
     ``flops_per_ray``: 0 where the ray features are an input."""
     import torch
@@ -285,14 +308,16 @@ def compare_kernel(name, kernel, args, kwargs, n_tests, reps=50, plain_reps=3,
         plain_ms = cuda_ms(lambda: kernel.plain(*args, **kwargs), plain_reps, warmup=1)
     if callable(n_tests):
         n_tests = n_tests(t_k, i_k)
+    if callable(n_inside):
+        n_inside = n_inside(t_k, i_k)
     n_rays = t_k.numel()
     bytes_moved = tensor_bytes(*args) + 8 * n_rays
     return dict(
         name=name, route="cuda", source=source,
         max_abs_err=max_err, hit_agree=hit_agree, idx_agree=idx_agree,
         ms=ms, plain_ms=plain_ms,
-        **bound(bytes_moved, n_tests * FLOPS_PER_RAY_TRI + n_rays * flops_per_ray),
-        library_ms=None, ray_tri_tests=n_tests, hit_fraction=(i_k >= 0).float().mean().item(),
+        **bound(bytes_moved, test_flops(n_tests, n_inside) + n_rays * flops_per_ray),
+        library_ms=None, ray_tri_tests=n_tests, inside_pairs=n_inside, hit_fraction=(i_k >= 0).float().mean().item(),
         # rays whose plain (no early stop) hit is nearer than the kernel's
         nearer_in_plain_rays=int(((i_k != i_p) & (t_p < t_k)).sum().item()),
     )
@@ -304,7 +329,8 @@ def compare_culled(kernel, args, kwargs, source, reps=5, attr_dim=1):
     their axis): hit/miss agreement >= 0.9999, all 8 attributes equal on >=
     0.999 of common hits, |dt| < 5e-3 m where they are equal. Every listed
     chunk is tested by every ray of its tile, so the bound counts N * R * K
-    * C tests. Returns (row, the kernel's (t, attrs))."""
+    * C tests and the plain version's inside pairs. Returns (row, the
+    kernel's (t, attrs))."""
     import torch
 
     name = kernel.__name__
@@ -313,8 +339,9 @@ def compare_culled(kernel, args, kwargs, source, reps=5, attr_dim=1):
     torch.cuda.synchronize()
     if kernel.launches != before + 1:
         fail(f"{name}: wrapper did not launch its kernel")
+    tested = {}
     t0 = time.perf_counter()
-    t_p, a_p = kernel.plain(*args, **kwargs)
+    t_p, a_p = kernel.plain(*args, **kwargs, tested=tested)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     hit_k, hit_p = a_k.select(attr_dim, 7) > 0.5, a_p.select(attr_dim, 7) > 0.5
@@ -333,8 +360,8 @@ def compare_culled(kernel, args, kwargs, source, reps=5, attr_dim=1):
     return dict(
         name=name, route="cuda", source=source,
         max_abs_err=max_err, hit_agree=hit_agree, attr_agree=attr_agree, ms=ms, plain_ms=plain_ms,
-        **bound(bytes_moved, n_tests * FLOPS_PER_RAY_TRI),
-        library_ms=None, ray_tri_tests=n_tests, hit_fraction=share(hit_k), list_slots=K,
+        **bound(bytes_moved, test_flops(n_tests, tested["inside"])),
+        library_ms=None, ray_tri_tests=n_tests, inside_pairs=tested["inside"], hit_fraction=share(hit_k), list_slots=K,
         tri_chunk=kwargs["tri_chunk"],
     ), (t_k, a_k)
 
@@ -378,6 +405,26 @@ def compare_tilecull(kernel, args, kwargs, n_tests, reps=50):
         library_ms=None, ray_tri_tests=n_tests, hit_fraction=share(hit_k),
         survivor_chunks_mean=args[3].float().mean().item(),
     ), (t_k, a_k)
+
+
+def kernel_design(name, design, block_rays, stages, warp_rays=None, tile_width=32):
+    """A kernel's design as its library reports it (``rk.stream_design`` or
+    ``rk.culled_design``), checked against the constants the wrappers and
+    the plain versions' counters assume; adds the pixel rows a block covers
+    in tiles ``tile_width`` pixels wide."""
+    want = dict(rays_per_block=block_rays, ring_stages=stages, spill_bytes=0)
+    if warp_rays is not None:
+        want["rays_per_warp"] = warp_rays
+    got = {k: design[k] for k in want}
+    if got != want:
+        fail(f"{name}: the kernel's design {design} is not the wrappers' {want}")
+    return dict(design, pixel_rows_per_block=block_rays // tile_width)
+
+
+def design_text(d):
+    return (f"{d['rays_per_thread']} rays per thread, {d['rays_per_block']} rays ({d['pixel_rows_per_block']} pixel "
+            f"rows) per block, ring of {d['ring_stages']}, {d['registers']} registers, {d['spill_bytes']} B spilled, "
+            f"{d['static_smem_bytes'] + d['dynamic_smem_bytes']} B shared memory, {d['blocks_per_sm']} blocks per SM")
 
 
 def needed_tests(ids, cnt, t, tri_chunk, ray_tile):
@@ -626,7 +673,9 @@ def main():
     # the scan route's kernels on the scan env's reset render
     stream_src = "habitat_torch/csrc/raycast_stream.cu"
     R = BENCH["height"] * BENCH["width"]
-    n_blocks = BENCH["num_envs"] * R // 256
+    n_blocks = BENCH["num_envs"] * R // rk.STREAM_BLOCK_RAYS
+    stream_design = kernel_design("raycast_stream", rk.stream_design(), rk.STREAM_BLOCK_RAYS, rk.STREAM_STAGES,
+                                  warp_rays=rk.STREAM_WARP_RAYS, tile_width=32)
     stream_rows = []
     for name, backend, line, reps in (("raycast_exactsel_t", "auto", 1464, 10), ("raycast_stream_t", "stream", 1143, 3)):
         kernel, args, kwargs, _ = reset_render_call(scan_env, backend=backend)
@@ -634,23 +683,29 @@ def main():
             fail(f"the scan env's {backend} route should take {name} on {R // 1024} tiles of 1024 rays")
         ids, cnt, C = args[2], args[3], kwargs["tri_chunk"]
         tested = {"block": 0, "warp": 0}
+        # inside pairs are counted over the slots where a ray is still open,
+        # a few more than its final hit needs
         row = compare_kernel(
             name, kernel, args, kwargs, lambda t, i: needed_tests(ids, cnt, t, C, 1024),
             reps=reps, plain_reps=0, source=stream_src, plain_kwargs=dict(tested=tested),
+            n_inside=lambda t, i: tested["inside"],
         )
         row["replaces"] = f"habitat_tpu/ops/raycast_pallas.py:{line}"
+        warps = n_blocks * rk.STREAM_BLOCK_RAYS // rk.STREAM_WARP_RAYS
         row.update(
             tri_chunk=C, list_slots=ids.shape[2], listed_per_tile_mean=cnt.float().mean().item(),
-            staged_per_block_mean=tested["block"] / n_blocks, computed_per_warp_mean=tested["warp"] / (n_blocks * 8),
-            needed_per_ray_mean=row["ray_tri_tests"] / C / (n_blocks * 256),
+            staged_per_block_mean=tested["block"] / n_blocks, computed_per_warp_mean=tested["warp"] / warps,
+            needed_per_ray_mean=row["ray_tri_tests"] / C / (n_blocks * rk.STREAM_BLOCK_RAYS), design=stream_design,
         )
         stream_rows.append(row)
         log(f"[kernel] {name} (C={C}) on the scan reset: hit {row['hit_agree']:.6f} idx {row['idx_agree']:.6f} "
             f"|dt| {row['max_abs_err']:.3g}, {row['nearer_in_plain_rays']} rays nearer in the plain version; "
             f"{row['ms']:.3f} ms (plain {row['plain_ms']:.0f} ms, bound {row['bound_ms']:.3f} ms by {row['bound_by']}); "
-            f"per tile {row['listed_per_tile_mean']:.1f} listed of {ids.shape[2]} slots, per 256-ray block "
-            f"{row['staged_per_block_mean']:.1f} staged, per warp {row['computed_per_warp_mean']:.1f} computed, "
-            f"per ray {row['needed_per_ray_mean']:.1f} needed by its final hit")
+            f"per tile {row['listed_per_tile_mean']:.1f} listed of {ids.shape[2]} slots, per "
+            f"{rk.STREAM_BLOCK_RAYS}-ray block {row['staged_per_block_mean']:.1f} staged, per "
+            f"{rk.STREAM_WARP_RAYS}-ray warp {row['computed_per_warp_mean']:.1f} computed, per ray "
+            f"{row['needed_per_ray_mean']:.1f} needed by its final hit, {row['inside_pairs']} inside pairs of open rays; "
+            f"{design_text(stream_design)}")
     exact_row, stream_row = stream_rows
 
     # the cull mask on the head that the same reset's selection produces
@@ -842,12 +897,15 @@ def main():
     culled_row, (t7, a7) = compare_culled(kernel, args, kwargs, source=general_src)
     culled_args = args
     culled_row["replaces"] = "habitat_tpu/ops/raycast_pallas.py:1614"
+    culled_row["design"] = kernel_design("raycast_culled_t", rk.culled_design(C_scan, args[2].shape[2]), 1024,
+                                         rk.CULLED_STAGES, tile_width=PANO["width"])
     log(f"[kernel] raycast_culled_t on the scan equirect reset (N={PANO_SCAN['num_envs']}, 128x256, "
         f"K={culled_row['list_slots']} chunks of {C_scan} per 1024-ray tile; the plain version on all envs): "
         f"hit {culled_row['hit_agree']:.6f}, attributes equal on {culled_row['attr_agree']:.6f} of common hits, "
         f"|dt| {culled_row['max_abs_err']:.3g} where they are; {culled_row['ms']:.3f} ms (plain "
         f"{culled_row['plain_ms']:.0f} ms, bound {culled_row['bound_ms']:.3f} ms by {culled_row['bound_by']}), "
-        f"hit fraction {culled_row['hit_fraction']:.4f}")
+        f"hit fraction {culled_row['hit_fraction']:.4f}, {culled_row['ray_tri_tests'] / culled_row['ms'] / 1e-3:.4g} "
+        f"tests/s, {culled_row['inside_pairs']} inside pairs; {design_text(culled_row['design'])}")
 
     def ray_batch_phase(t7, a7):
         """#8-#10 against their plain versions and against #3, #7 and #1 on
@@ -892,14 +950,16 @@ def main():
         hit7 = a7r[..., 7] > 0.5
         same7 = (t9 == t7) & (a9 == a7r).all(-1)
         c9_row["vs_culled_t"] = dict(hit_agree=share((a9[..., 7] > 0.5) == hit7), rays_differing=int((~same7).sum().item()))
-        if c9_row["vs_culled_t"]["hit_agree"] < 0.9999 or share(same7[hit7]) < 0.999:
+        if c9_row["vs_culled_t"]["rays_differing"]:  # the same triangles in the same order: the same bits
             fail(f"raycast_culled on 128-triangle ids disagrees with raycast_culled_t: {c9_row['vs_culled_t']}")
+        c9_row["design"] = kernel_design("raycast_culled", rk.culled_design(128, ids128.shape[2], row_major=True),
+                                         1024, rk.CULLED_STAGES, tile_width=PANO["width"])
         log(f"[kernel] raycast_culled on the scan equirect reset (N={PANO_SCAN['num_envs']}, 128x256, K={ids128.shape[2]} "
             f"chunks of 128 per 1024-ray tile): hit {c9_row['hit_agree']:.6f}, attributes equal on "
             f"{c9_row['attr_agree']:.6f} of common hits, |dt| {c9_row['max_abs_err']:.3g}; {c9_row['ms']:.3f} ms (plain "
             f"{c9_row['plain_ms']:.0f} ms, bound {c9_row['bound_ms']:.3f} ms by {c9_row['bound_by']}); against "
             f"raycast_culled_t on the unsplit ids: {c9_row['vs_culled_t']['rays_differing']} of {t9.numel()} rays differ in "
-            f"t or an attribute")
+            f"t or an attribute; {design_text(c9_row['design'])}")
         del a7r, t9, a9
 
         # the tile-cull kernel (#10) on the bench reset, with the arguments #1

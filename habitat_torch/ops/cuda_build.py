@@ -33,12 +33,16 @@ SOURCES = {
         "raycast_fused": [_P] * 6 + [_I] * 5 + [_P],
         "raycast_tilecull": [_P] * 9 + [_I] * 6 + [_P],
     },
-    "raycast_stream": {"raycast_stream": [_P] * 8 + [_I] * 6 + [_P]},
+    "raycast_stream": {
+        "raycast_stream": [_P] * 8 + [_I] * 8 + [_P],
+        "raycast_stream_design": [_P],
+    },
     "raycast_general": {
         "raycast_index": [_P] * 5 + [_I] * 5 + [_P],
         "raycast_culled": [_P] * 7 + [_I] * 6 + [_P],
         "raycast_index_rm": [_P] * 5 + [_I] * 4 + [_P],
         "raycast_culled_rm": [_P] * 7 + [_I] * 6 + [_P],
+        "raycast_culled_design": [_I, _I, _I, _P],
     },
     "cullmask": {"cullmask": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P]},
     "maxpool_bwd": {"maxpool_bwd": [_P] * 4 + [_I] * 5 + [_P]},

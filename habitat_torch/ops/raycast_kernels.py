@@ -58,6 +58,7 @@ its plain version (same signature) in ``plain``.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -71,6 +72,16 @@ _EPS = 1e-7
 _ID_MASK = (1 << 18) - 1
 # tri_verts16 row [v0(3) | e1(3) | e2(3) | pad(6) | valid]
 VERTS16_VALID = 15
+# The stream kernels' launch (csrc/raycast_stream.cu refuses others): rays
+# per block and per warp, the granularity of their early stop, which the
+# plain versions' ``tested`` counters follow; the ring's stages, units of
+# STREAM_UNIT lanes (a chunklet, or a part of a larger chunk). The culled
+# kernels' ring depth in chunks (csrc/raycast_general.cu).
+STREAM_BLOCK_RAYS = 256
+STREAM_WARP_RAYS = 64
+STREAM_UNIT = 32
+STREAM_STAGES = 2
+CULLED_STAGES = 2
 
 
 def _require(dev, items):
@@ -116,17 +127,26 @@ def _features(Bt: torch.Tensor, d_t: torch.Tensor) -> torch.Tensor:
     return F
 
 
-def _fold(G, C, base, valid, best_t, best_i, strict=False):
+def _fold(G, C, base, valid, best_t, best_i, strict=False, tested=None, rays=None):
     """Fold one chunk's determinants G (N, nt, 4C, Rt) into the running
     winner: sign-free margin, argmin-first within the chunk, strict < across.
     ``strict``: the culled kernel's rule, strict on the t/det side of the
-    margin, instead of the fused margin >= 0."""
+    margin, instead of the fused margin >= 0. With a dict ``tested``, adds
+    to ``tested["inside"]`` the (ray, triangle) pairs whose test needs tnum
+    (the ray's line meets a non-degenerate triangle: p, q, aa - p - q >= 0
+    and aa above EPS^2; the stream and culled kernels skip tnum for 4 lanes
+    where no ray of a warp passes p, q and aa - p - q), over the rays
+    ``rays`` (N, nt, Rt) of valid slots."""
     detA, tnum, unum, vnum = G[:, :, :C], G[:, :, C:2 * C], G[:, :, 2 * C:3 * C], G[:, :, 3 * C:]
     aa = detA * detA
     p = unum * detA
     q = vnum * detA
     w = tnum * detA
     m1 = torch.minimum(torch.minimum(p, q), aa - p - q)
+    if tested is not None:
+        counted = valid[..., None] if rays is None else rays & valid[..., None]
+        solid = aa - _EPS * _EPS > 0.0 if strict else aa - _EPS * _EPS >= 0.0
+        tested["inside"] = tested.get("inside", 0) + int(((m1 >= 0.0) & solid & counted[:, :, None, :]).sum())
     m2 = torch.minimum(w - _TMIN * aa, aa - _EPS * _EPS)
     hit = (m1 >= 0.0) & (m2 > 0.0) if strict else torch.minimum(m1, m2) >= 0.0
     t = torch.where(hit, tnum / torch.where(hit, detA, torch.ones_like(detA)), _TMAX)
@@ -164,9 +184,11 @@ def _listed_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, C, dmin=None, tested
 
     With ``dmin`` (N, nt, K) and a dict ``tested``, also counts what the
     stream kernel's early stop leaves to do on these inputs: list slots at
-    which a 256-ray block (``tested["block"]``, chunks staged) or a 32-ray
-    warp (``tested["warp"]``, chunks computed) still holds a ray whose best
-    hit is farther than the slot's ``dmin``."""
+    which a block of STREAM_BLOCK_RAYS rays (``tested["block"]``, chunks
+    staged) or a warp of STREAM_WARP_RAYS (``tested["warp"]``, chunks
+    computed) still holds a ray whose best hit is farther than the slot's
+    ``dmin``, and (``tested["inside"]``, see ``_fold``) the inside pairs of
+    those rays."""
     N = sids.shape[0]
     n_tiles, _, rt = d_t.shape
     dev = d_t.device
@@ -184,11 +206,11 @@ def _listed_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, C, dmin=None, tested
             valid = k < cnt[sl]
             if tested is not None:
                 still = (best_t > dmin[sl, :, k, None]) & valid[..., None]
-                tested["block"] += int(still.reshape(n, n_tiles, -1, 256).any(-1).sum())
-                tested["warp"] += int(still.reshape(n, n_tiles, -1, 32).any(-1).sum())
+                tested["block"] += int(still.reshape(n, n_tiles, -1, STREAM_BLOCK_RAYS).any(-1).sum())
+                tested["warp"] += int(still.reshape(n, n_tiles, -1, STREAM_WARP_RAYS).any(-1).sum())
             idx = (cid.long()[..., None] * 4 * C + cols)[:, :, None, :].expand(n, n_tiles, 10, 4 * C)
             G = torch.einsum("ntfc,ntfr->ntcr", torch.gather(Mg, 3, idx), F)
-            best_t, best_i = _fold(G, C, cid, valid, best_t, best_i)
+            best_t, best_i = _fold(G, C, cid, valid, best_t, best_i, tested=tested, rays=still if tested is not None else None)
         t, i = _finish(best_t, best_i) if finish else (best_t.reshape(n, -1), best_i.reshape(n, -1))
         ts.append(t)
         idxs.append(i)
@@ -300,17 +322,17 @@ def raycast_index_plain(tri_mat, sids, features, ray_tile=2048, tri_chunk=128):
     return _index_plain(tri_mat, sids, F, min(tri_chunk, tri_mat.shape[3]), strict=True)
 
 
-def _culled_plain(tri_mat, tri_attr, chunk_ids, sids, F, C):
+def _culled_plain(tri_mat, tri_attr, chunk_ids, sids, F, C, tested=None):
     """Every listed chunk of C triangles in list order, for ray features F
     (N, nt, 10, rt), then the winner's attribute row of ``tri_attr`` (S, T,
-    8), zero on a miss: (t (N, R), attrs (N, R, 8))."""
+    8), zero on a miss: (t (N, R), attrs (N, R, 8)). Ids outside [0, T / C)
+    are skipped, as the kernels skip them. ``tested``: see ``_fold``."""
     N, n_tiles, _, rt = F.shape
     S, _, _, T = tri_mat.shape
     NC = T // C
     dev = F.device
     # chunk-major (S * NC, 10, 4C): chunk c as [detA(C)|tnum(C)|unum(C)|vnum(C)]
     chunks = tri_mat.reshape(S, 10, 4, NC, C).permute(0, 3, 1, 2, 4).reshape(S * NC, 10, 4 * C)
-    valid = torch.ones((1, n_tiles), dtype=torch.bool, device=dev)
     ts, attrs = [], []
     for sl in _env_batches(N, n_tiles * 4 * C * rt):
         Fs = F[sl]
@@ -320,8 +342,9 @@ def _culled_plain(tri_mat, tri_attr, chunk_ids, sids, F, C):
         best_i = torch.full((n, n_tiles, rt), -1, dtype=torch.int32, device=dev)
         for k in range(chunk_ids.shape[2]):
             cid = chunk_ids[sl, :, k]  # (n, nt)
-            G = torch.einsum("ntfc,ntfr->ntcr", chunks[sid[:, None] * NC + cid.long()], Fs)
-            best_t, best_i = _fold(G, C, cid, valid, best_t, best_i, strict=True)
+            valid = (cid >= 0) & (cid < NC)
+            G = torch.einsum("ntfc,ntfr->ntcr", chunks[sid[:, None] * NC + cid.clamp(0, NC - 1).long()], Fs)
+            best_t, best_i = _fold(G, C, cid, valid, best_t, best_i, strict=True, tested=tested)
         hit = best_t < _TMAX
         a = tri_attr[sid[:, None], best_i.reshape(n, -1).clamp(min=0).long()]  # (n, R, 8)
         ts.append(best_t.reshape(n, -1))
@@ -329,10 +352,13 @@ def _culled_plain(tri_mat, tri_attr, chunk_ids, sids, F, C):
     return torch.cat(ts), torch.cat(attrs)
 
 
-def raycast_culled_t_plain(tri_mat, tri_attr_t, chunk_ids, sids, features_t, ray_tile=1024, tri_chunk=128):
+def raycast_culled_t_plain(tri_mat, tri_attr_t, chunk_ids, sids, features_t, ray_tile=1024, tri_chunk=128,
+                           tested=None):
     """Plain version of the culled kernel: every listed chunk of
-    ``tri_chunk`` triangles in list order, then the winner's attributes."""
-    t, attrs = _culled_plain(tri_mat, tri_attr_t.transpose(1, 2), chunk_ids, sids, features_t[:, :, :10], tri_chunk)
+    ``tri_chunk`` triangles in list order, then the winner's attributes.
+    ``tested``: see ``_fold``."""
+    t, attrs = _culled_plain(tri_mat, tri_attr_t.transpose(1, 2), chunk_ids, sids, features_t[:, :, :10], tri_chunk,
+                             tested)
     return t, attrs.transpose(1, 2)
 
 
@@ -347,13 +373,14 @@ def _batch_features(origins, dirs, features):
 
 
 def raycast_culled_plain(tri_mat, tri_attr, chunk_ids, sids, origins=None, dirs=None, ray_tile=1024,
-                         tri_chunk=128, features=None):
+                         tri_chunk=128, features=None, tested=None):
     """Plain version of the v3 culled kernel: row-major features (N, R, 10)
-    and attribute rows (S, T, 8); returns (t (N, R), attrs (N, R, 8))."""
+    and attribute rows (S, T, 8); returns (t (N, R), attrs (N, R, 8)).
+    ``tested``: see ``_fold``."""
     features = _batch_features(origins, dirs, features)
     N, R, _ = features.shape
     F = features.reshape(N, R // ray_tile, ray_tile, 10).transpose(2, 3)  # (N, nt, 10, rt)
-    return _culled_plain(tri_mat, tri_attr, chunk_ids, sids, F, tri_chunk)
+    return _culled_plain(tri_mat, tri_attr, chunk_ids, sids, F, tri_chunk, tested)
 
 
 def raycast_tilecull_t_plain(tri_mat_c, attr16, chunk_ids, cnt, sids, d_t, Bt, ray_tile=2048, tri_chunk=32):
@@ -486,14 +513,17 @@ def _stream_call(wrapper, name, tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_ti
         raise ValueError("tri_mat_c: the kernel reads it in 16-byte words, so it must be 16-byte aligned")
     if d_t.device.type == "cpu":
         return wrapper.plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_tile, tri_chunk)
+    if tri_chunk % STREAM_UNIT or ray_tile % STREAM_BLOCK_RAYS:
+        raise ValueError(f"the kernel takes chunks of a multiple of {STREAM_UNIT} triangles and ray tiles of a "
+                         f"multiple of {STREAM_BLOCK_RAYS}, not {tri_chunk}, {ray_tile}")
     lib = cuda_build.load("raycast_stream")
     t = torch.empty((N, n_tiles * ray_tile), dtype=torch.float32, device=d_t.device)
     idx = torch.empty((N, n_tiles * ray_tile), dtype=torch.int32, device=d_t.device)
     err = lib.raycast_stream(
         tri_mat_c.data_ptr(), sids.data_ptr(), chunk_ids.data_ptr(), cnt.data_ptr(),
         d_t.data_ptr(), Bt.data_ptr(), t.data_ptr(), idx.data_ptr(),
-        N, tri_mat_c.shape[2], n_tiles, chunk_ids.shape[2], ray_tile, tri_chunk,
-        torch.cuda.current_stream(d_t.device).cuda_stream,
+        N, tri_mat_c.shape[2], n_tiles, chunk_ids.shape[2], ray_tile, tri_chunk, STREAM_BLOCK_RAYS,
+        STREAM_WARP_RAYS, torch.cuda.current_stream(d_t.device).cuda_stream,
     )
     cuda_build.raise_on(err, name)
     wrapper.launches += 1
@@ -644,6 +674,13 @@ raycast_index_t.launches = 0
 raycast_index_t.plain = raycast_index_t_plain
 
 
+def _check_culled_launch(tri_mat, tri_chunk):
+    """The culled kernels copy 16-byte words of the scene matrix."""
+    if tri_chunk % 4 or tri_mat.shape[3] % 4 or tri_mat.data_ptr() % 16:
+        raise ValueError(f"the culled kernels take a 16-byte aligned tri_mat {tuple(tri_mat.shape)} and chunks of a "
+                         f"multiple of 4 triangles, not {tri_chunk}")
+
+
 def raycast_culled_t(
     tri_mat: torch.Tensor,  # (S, 10, 4, T)
     tri_attr_t: torch.Tensor,  # (S, 8, T) transposed attribute tables
@@ -671,6 +708,7 @@ def raycast_culled_t(
         )
     if features_t.device.type == "cpu":
         return raycast_culled_t_plain(tri_mat, tri_attr_t, chunk_ids, sids, features_t, ray_tile, tri_chunk)
+    _check_culled_launch(tri_mat, tri_chunk)
     lib = cuda_build.load("raycast_general")
     dev = features_t.device
     t = torch.empty((N, n_tiles * ray_tile), dtype=torch.float32, device=dev)
@@ -792,6 +830,7 @@ def raycast_culled(
     if features.device.type == "cpu":
         return raycast_culled_plain(tri_mat, tri_attr, chunk_ids, sids, ray_tile=ray_tile, tri_chunk=tri_chunk,
                                     features=features)
+    _check_culled_launch(tri_mat, tri_chunk)
     lib = cuda_build.load("raycast_general")
     dev = features.device
     t = torch.empty((N, R), dtype=torch.float32, device=dev)
@@ -808,6 +847,30 @@ def raycast_culled(
 
 raycast_culled.launches = 0
 raycast_culled.plain = raycast_culled_plain
+
+_DESIGN_KEYS = ("rays_per_thread", "rays_per_block", "rays_per_warp", "ring_stages", "registers", "spill_bytes",
+                "static_smem_bytes", "dynamic_smem_bytes", "blocks_per_sm")
+
+
+def _design(source, fn, *args):
+    out = (ctypes.c_int * len(_DESIGN_KEYS))()
+    cuda_build.raise_on(getattr(cuda_build.load(source), fn)(*args, ctypes.addressof(out)), fn)
+    return dict(zip(_DESIGN_KEYS, out))
+
+
+def stream_design() -> dict:
+    """The stream kernel's design on the current card, as the library
+    reports it (cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor): rays per thread, block
+    and warp, ring stages, registers and spilled bytes per thread, static
+    and dynamic shared bytes, blocks per SM."""
+    return _design("raycast_stream", "raycast_stream_design")
+
+
+def culled_design(tri_chunk: int, k_max: int, row_major: bool = False) -> dict:
+    """The same for the culled kernels (``row_major``: raycast_culled's) at
+    chunk size ``tri_chunk`` and list length ``k_max``."""
+    return _design("raycast_general", "raycast_culled_design", int(row_major), tri_chunk, k_max)
 
 
 def raycast_tilecull_t(

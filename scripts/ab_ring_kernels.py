@@ -1,0 +1,172 @@
+#!/usr/bin/env python3
+"""Times the scan route's closest-hit kernels of two checkouts of the port on
+the same inputs, in one run on one card.
+
+    python3 scripts/ab_ring_kernels.py --roots PARENT . . PARENT [--check]
+
+Each root is a checkout holding ``habitat_torch/``; each is run in its own
+process, in the order given (parent, change, change, parent puts drift on
+both sides). A process builds that checkout's kernels, generates the scan
+scene of ``chip_smoke.py`` (859,290 triangles), and on the scan env's reset
+times with CUDA events:
+
+- #4 ``raycast_exactsel_t`` (N=256, 128x128, chunklets of 32),
+- #5 ``raycast_stream_t`` (the same reset, ``backend="stream"``, chunks of 256),
+- #7 ``raycast_culled_t`` (N=32, 128x256 equirect, K=160 chunks of 256),
+- #9 ``raycast_culled`` (#7's ids split into 320 chunks of 128).
+
+With ``--check`` each kernel is also held against its plain version on the
+card (t and winner equal on every ray, except the stream kernels' rounding
+case: a ray whose plain hit is nearer, counted), and #9 against #7 bit for
+bit. Prints one JSON line per root and the card's name and power limit.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+SCAN = dict(tess=0.04, n_clutter=40, cells=(0.08, 0.25, 0.6), bands=(1.2, 3.0, 8.0))
+
+
+def cuda_ms(fn, reps, warmup=2):
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def one(root, check):
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    from habitat_torch.core.batched_env import BatchedEnv
+    from habitat_torch.core.env_factory import make_nav_env
+    from habitat_torch.core.registry import registry
+    from habitat_torch.datasets.pointnav import generate_pointnav_episode
+    from habitat_torch.ops import cuda_build
+    from habitat_torch.ops import raycast as rc
+    from habitat_torch.ops import raycast_kernels as rk
+    from habitat_torch.sims.procedural import build_lod_scene, generate_scan_apartment
+
+    if not rk.__file__.startswith(root):
+        raise RuntimeError(f"imported {rk.__file__}, not from {root}")
+    ptxas = {name: rep for name, (_, rep) in cuda_build.build(("raycast_stream", "raycast_general")).items()}
+    dev = torch.device("cuda")
+    scene = generate_scan_apartment(0, tess=SCAN["tess"], n_clutter=SCAN["n_clutter"])
+    lod = build_lod_scene(scene, cells=SCAN["cells"], bands=SCAN["bands"])
+    lod.scene_id = scene.scene_id
+    rng = np.random.default_rng(0)
+    pairs = [p for p in (generate_pointnav_episode(scene, str(i), rng) for i in range(16)) if p is not None]
+    size = dict(height=128, width=128)
+    sensors = (("HabitatSimDepthSensor", size), ("HabitatSimRGBSensor", size), ("PointGoalWithGPSCompassSensor", None))
+    env = make_nav_env([lod], [p[0] for p in pairs], num_envs=256, max_episode_steps=500,
+                       precomputed_fields={e.episode_id: f for (e, f) in pairs}, sensor_specs=sensors)
+    pano = dict(height=128, width=256)
+    pano_sensors = (("HabitatSimEquirectangularDepthSensor", pano), ("HabitatSimEquirectangularRGBSensor", pano),
+                    ("PointGoalWithGPSCompassSensor", None))
+    pano_env = BatchedEnv(env.pack, env.table, env.order[:32].cpu().numpy(),
+                          [registry.get_sensor(n)(c) for n, c in pano_sensors], env.measures, env.actions,
+                          device=dev, max_episode_steps=500)
+    cam = torch.tensor([0.0, 1.25, 0.0], device=dev)
+
+    def call(e, hw, **kw):
+        st, _ = e.reset_fn()
+        return rc.closest_hit_call(e.pack, e._make_ctx(st).sid, st.pos + cam, st.yaw, st.pitch, **hw, **kw)
+
+    out = dict(root=root, ptxas={k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
+                                 for k, v in ptxas.items()})
+    runs = [("raycast_exactsel_t", call(env, size), 20), ("raycast_stream_t", call(env, size, backend="stream"), 3)]
+    culled = call(pano_env, pano, projection="equirect")
+    ids, split = culled[1][2], culled[2]["tri_chunk"] // 128
+    ids128 = (ids[..., None] * split + torch.arange(split, dtype=torch.int32, device=dev)).reshape(*ids.shape[:2], -1)
+    origins = culled[1][4][:, :, 3:6].transpose(2, 3).reshape(culled[3].shape)
+    feat9 = rc.ray_features(origins, culled[3])
+    runs += [("raycast_culled_t", culled, 5),
+             ("raycast_culled", (rk.raycast_culled, (env.pack.tri_mat, env.pack.tri_attr, ids128.contiguous(),
+                                                     culled[1][3], None, None),
+                                 dict(ray_tile=1024, tri_chunk=128, features=feat9), None), 5)]
+    results = {}
+    for name, (kernel, args, kwargs, _), reps in runs:
+        if kernel is not getattr(rk, name):
+            raise RuntimeError(f"{name}: the route took {kernel.__name__}")
+        before = kernel.launches
+        got = kernel(*args, **kwargs)
+        torch.cuda.synchronize()
+        if kernel.launches != before + 1:
+            raise RuntimeError(f"{name} did not launch its kernel")
+        row = dict(ms=cuda_ms(lambda: kernel(*args, **kwargs), reps))
+        if check:
+            stream = name in ("raycast_exactsel_t", "raycast_stream_t")
+            tested = dict(block=0, warp=0)
+            t0 = time.perf_counter()
+            ref = kernel.plain(*args, **kwargs, **(dict(tested=tested) if stream else {}))
+            torch.cuda.synchronize()
+            row["plain_s"] = time.perf_counter() - t0
+            if stream:  # the early stop's work on these inputs at the kernel's granularity
+                n_rays = ref[0].numel()
+                row.update(staged_per_block_mean=tested["block"] / (n_rays / getattr(rk, "STREAM_BLOCK_RAYS", 256)),
+                           computed_per_warp_mean=tested["warp"] / (n_rays / getattr(rk, "STREAM_WARP_RAYS", 32)))
+            (t_k, w_k), (t_p, w_p) = got, ref
+            differ = t_k != t_p
+            if name == "raycast_culled_t":  # attributes (N, 8, R)
+                differ |= (w_k != w_p).any(1)
+            elif name == "raycast_culled":  # (N, R, 8)
+                differ |= (w_k != w_p).any(2)
+            else:
+                differ |= w_k != w_p
+            # the stream kernels' rounding case: the plain version, testing every slot, is nearer
+            nearer = differ & (t_p < t_k) if stream else differ & False
+            row.update(rays=t_k.numel(), rays_differing=int(differ.sum()), nearer_in_plain_rays=int(nearer.sum()))
+            if int((differ & ~nearer).sum()):
+                raise RuntimeError(f"{name}: {row}")
+        results[name] = (row, got)
+    if check:
+        t7, a7 = results["raycast_culled_t"][1]
+        t9, a9 = results["raycast_culled"][1]
+        if not (torch.equal(t9, t7) and torch.equal(a9, a7.transpose(1, 2))):
+            raise RuntimeError("raycast_culled differs from raycast_culled_t")
+    out["kernels"] = {k: v[0] for k, v in results.items()}
+    if hasattr(rk, "stream_design"):
+        out["design"] = dict(raycast_stream=rk.stream_design(),
+                             raycast_culled_t=rk.culled_design(culled[2]["tri_chunk"], ids.shape[2]),
+                             raycast_culled=rk.culled_design(128, ids128.shape[2], row_major=True))
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--roots", nargs="+", default=["."])
+    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--one", help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ab_ring_kernels: no CUDA device", file=sys.stderr)
+        return 2
+    if a.one:
+        print(json.dumps(one(a.one, a.check)), flush=True)
+        return 0
+    for root in a.roots:
+        cmd = [sys.executable, os.path.abspath(__file__), "--one", root] + (["--check"] if a.check else [])
+        subprocess.run(cmd, check=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -137,6 +137,86 @@ def test_stream_kernel_chunk_128(cuda, scan):
     _agree(kernel(*args, **kwargs), kernel(*[a.to(cuda) for a in args], **kwargs))
 
 
+def _ring_edge_cases():
+    """{0, 1, S - 1, S, S + 1, K} list slots, S the stream kernel's ring depth."""
+    S = rk.STREAM_STAGES
+    return sorted({0, 1, S - 1, S, S + 1}) + ["K"]
+
+
+@pytest.mark.parametrize("cnt_case", _ring_edge_cases())
+@pytest.mark.parametrize("backend", ["auto", "stream"])
+def test_stream_kernels_at_ring_edges(cuda, scan, backend, cnt_case):
+    """The lists cut to cnt slots (the tail repeating the last survivor, as
+    the selections pad it): the kernel equals its plain version on the card
+    on every ray, except where the plain version, testing every slot, finds
+    a nearer hit (a float32 t below its own chunk's floored dmin), which is
+    counted."""
+    kernel, args, kwargs, _ = _route_call(scan, backend, cuda)
+    gm, sids, ids, cnt, d_t, Bt = args
+    K = ids.shape[2]
+    n = K if cnt_case == "K" else cnt_case
+    ids = ids.clone()
+    if 0 < n < K:
+        ids[..., n:] = ids[..., n - 1:n]
+    args = (gm, sids, ids.contiguous(), torch.full_like(cnt, n), d_t, Bt)
+    before = kernel.launches
+    t_k, i_k = kernel(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    t_p, i_p = kernel.plain(*args, **kwargs)
+    differ = (t_k != t_p) | (i_k != i_p)
+    nearer_in_plain = differ & (t_p < t_k)
+    assert not (differ & ~nearer_in_plain).any(), f"{int(differ.sum())} rays differ"
+    assert int(nearer_in_plain.sum()) <= 1e-3 * t_k.numel()
+    assert (i_k >= 0).any() == (n > 0)
+
+
+@pytest.mark.parametrize("where", ["mid", "ends"])
+def test_culled_kernels_skip_invalid_ids(cuda, where):
+    """#7 on a list of odd length with invalid ids (-1 and T / C) inserted,
+    and #9 on the same list split into 128-triangle ids: t and the 8
+    attributes equal to the plain version's on the card on every ray."""
+    scene = generate_scan_apartment(seed=5, extent=6.0, n_rooms_per_axis=2, n_clutter=6, tess=0.35)
+    pack = pack_scenes([scene], force_scan_tables=True)
+    kernel, args, kwargs, dirs = _general_call(pack, "equirect", 32, 128, cull_k=7)
+    tri_mat, attr_t, ids, sids, feat_t, dirs = (x.to(cuda) for x in (*args, dirs))
+    n_chunks = tri_mat.shape[3] // kwargs["tri_chunk"]
+    cols = list(ids.unbind(2))
+    at = {"mid": (1, 4), "ends": (0, len(cols) + 1)}[where]
+    cols.insert(at[0], torch.full_like(cols[0], -1))
+    cols.insert(at[1], torch.full_like(cols[0], n_chunks))
+    ids = torch.stack(cols, 2).contiguous()
+    assert ids.shape[2] % rk.CULLED_STAGES
+    args = (tri_mat, attr_t, ids, sids, feat_t)
+    before = kernel.launches
+    t_k, a_k = kernel(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    t_p, a_p = kernel.plain(*args, **kwargs)
+    assert torch.equal(t_k, t_p) and torch.equal(a_k, a_p)
+    assert (a_k[:, 7] > 0.5).float().mean() > 0.3
+    # #9: the same triangles in the same order, from row-major features
+    split = kwargs["tri_chunk"] // 128
+    ids128 = torch.where(ids[..., None] >= 0, ids[..., None] * split + torch.arange(split, device=cuda), -1)
+    feat = rc.ray_features(feat_t[:, :, 3:6].transpose(2, 3).reshape(dirs.shape), dirs)
+    t9, a9 = rk.raycast_culled(tri_mat, pack.tri_attr.to(cuda), ids128.reshape(*ids.shape[:2], -1).contiguous(), sids,
+                               features=feat, ray_tile=1024, tri_chunk=128)
+    assert torch.equal(t9, t_k) and torch.equal(a9, a_k.transpose(1, 2))
+
+
+def test_kernel_designs_match_the_wrappers(cuda):
+    """The ring depths and early-stop granularity the wrappers and the plain
+    versions' counters assume are the kernels' own, without spills."""
+    d = rk.stream_design()
+    assert (d["rays_per_block"], d["rays_per_warp"], d["ring_stages"]) == (
+        rk.STREAM_BLOCK_RAYS, rk.STREAM_WARP_RAYS, rk.STREAM_STAGES)
+    assert d["spill_bytes"] == 0 and d["blocks_per_sm"] >= 1
+    for row_major, C in ((False, 256), (False, 128), (True, 128)):
+        d = rk.culled_design(C, 160, row_major=row_major)
+        assert d["ring_stages"] == rk.CULLED_STAGES and d["rays_per_block"] == 1024
+        assert d["spill_bytes"] == 0 and d["blocks_per_sm"] >= 1
+
+
 def test_cullmask_kernel_matches_plain(cuda, scan):
     """Bit-equal pass masks on the gated slots, zeros beyond them, and the
     same chunklet list from select_chunklets_exact on the card (kernel) as on
