@@ -46,13 +46,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            with the kernel's mask as with the plain version's. Each is timed
            with CUDA events beside its plain version and its bound on this
            card; the stream kernels' bound counts only the chunks a ray's
-           final hit leaves it to test, and the stream and culled kernels'
-           bound the whole test only for pairs whose ray line meets the
-           triangle (the rest end before tnum). The rows of the stream kernels (#4,
-           #5) and the culled kernels (#7, #9) carry their design as their
-           libraries report it (rays per thread and per block, ring depth,
-           registers, spills, shared memory, blocks per SM), which must
-           match the wrappers' constants.
+           final hit leaves it to test, and every closest-hit kernel's bound
+           but #10's counts the whole test only for pairs whose ray line
+           meets the triangle (the rest end before tnum; the plain versions
+           count them), beside the bound by the old rule (every test whole).
+           The rows of the stream kernels (#4, #5) and the ring kernels (#1,
+           #2, #3, #7, #8, #9) carry their design as their libraries report
+           it (rays per thread and per block, ring depth, registers, spills,
+           shared memory, blocks per SM), which must match the wrappers'
+           constants.
 4. paths   the main path: the bench PointNav configuration (4 procedural
            scenes, 64 episodes, N=256 envs, 128x128 depth+RGB+pointgoal,
            resnet18 base 32 / 16 groups + LSTM-512, 4 actions, T=32) with
@@ -64,7 +66,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            scene padded to 4352, N=16, T=4), which renders through the
            every-chunk kernel. Then the scan path: the same rollout on the
            scan env (warm-up, SCAN_ROLLOUTS timed, per-step times of the
-           render split into select / kernel / epilogue, a profiled rollout),
+           render and of its stages, select / kernel / epilogue, each timed
+           on its own, a profiled rollout),
            one reset render with backend="stream", and one whose cull mask
            comes from the plain version, which must give the default route's
            frames. Launch counters are zeroed just before each
@@ -96,12 +99,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            configuration with HabitatSimEquirectangularDepthSensor and
            HabitatSimEquirectangularRGBSensor at 128x256 in place of the
            pinhole pair and the policy built for 128x256: reset, a warm-up
-           and PANO_ROLLOUTS timed rollouts, render ms per step, then a
+           and PANO_ROLLOUTS timed rollouts, render ms per step and its
+           stages, then a
            warm-up and PANO_TRAIN_STEPS timed train steps (peak memory,
            finite losses); every render launches the index kernel and no
            other. Then the scan env with the same cameras at N=32: reset and
            PANO_SCAN["steps"] env steps through the culled kernel, render
-           ms split into select / kernel / epilogue, the share of rays hit.
+           ms and its stages, select / kernel / epilogue, each timed on its
+           own, the share of rays hit.
            It runs after [check], which then meets the card as the earlier
            paths leave it.
 9. exact   the culled route on CULLED_GUARD_ENVS envs of the scan equirect
@@ -312,15 +317,67 @@ def compare_kernel(name, kernel, args, kwargs, n_tests, reps=50, plain_reps=3,
         n_inside = n_inside(t_k, i_k)
     n_rays = t_k.numel()
     bytes_moved = tensor_bytes(*args) + 8 * n_rays
-    return dict(
+    row = dict(
         name=name, route="cuda", source=source,
         max_abs_err=max_err, hit_agree=hit_agree, idx_agree=idx_agree,
         ms=ms, plain_ms=plain_ms,
         **bound(bytes_moved, test_flops(n_tests, n_inside) + n_rays * flops_per_ray),
-        library_ms=None, ray_tri_tests=n_tests, inside_pairs=n_inside, hit_fraction=(i_k >= 0).float().mean().item(),
+        library_ms=None, ray_tri_tests=n_tests, tests_per_s=n_tests / (ms * 1e-3), inside_pairs=n_inside,
+        hit_fraction=(i_k >= 0).float().mean().item(),
         # rays whose plain (no early stop) hit is nearer than the kernel's
         nearer_in_plain_rays=int(((i_k != i_p) & (t_p < t_k)).sum().item()),
+        # rays whose t or winner differs from the plain version's
+        rays_differing=int(((t_k != t_p) | (i_k != i_p)).sum().item()),
     )
+    if n_inside is not None:  # the bound of a kernel that completes every test
+        row["bound_old_rule_ms"] = bound(bytes_moved, test_flops(n_tests) + n_rays * flops_per_ray)["bound_ms"]
+    return row
+
+
+def ring_row(name, kernel, args, kwargs, n_tests, design, tile_width, **kw):
+    """``compare_kernel`` for a ring kernel (csrc/closest_hit_ring.cuh): its
+    bound counts the whole test only for the plain version's inside pairs,
+    and the row carries the kernel's design, which must match the wrappers'
+    constants."""
+    import torch
+    from habitat_torch.ops import raycast_kernels as rk
+
+    tested = {}
+    row = compare_kernel(name, kernel, args, kwargs, n_tests, plain_kwargs=dict(tested=tested),
+                         n_inside=lambda t, i: tested["inside"], **kw)
+    row["design"] = kernel_design(name, design, rk.RING_BLOCK_RAYS, rk.RING_STAGES, tile_width=tile_width)
+    torch.cuda.empty_cache()
+    return row
+
+
+def ring_text(r):
+    """A ring kernel's rate, inside pairs, bounds and design, for its
+    [kernel] line."""
+    return (f"{r['tests_per_s']:.4g} tests/s, {r['inside_pairs']} inside pairs of {r['ray_tri_tests']} tests; "
+            f"bound {r['bound_ms']:.4f} ms (restated rule; {r['bound_ms'] / r['ms']:.3f} of the kernel's time), "
+            f"{r['bound_old_rule_ms']:.4f} ms by the old rule; {design_text(r['design'])}")
+
+
+def render_split(pose, kw, reps, warmup=2):
+    """One render's time, and its stages each timed on its own with CUDA
+    events: the closest-hit call (selection, rays and features), the kernel,
+    and the epilogue from the kernel's outputs to the frames. Returns (the
+    times in ms, the kernel's (wrapper, args, kwargs))."""
+    from habitat_torch.ops import raycast as rc
+
+    render = cuda_ms(lambda: rc.render_batch(*pose, **kw), reps, warmup)
+    select = cuda_ms(lambda: rc.closest_hit_call(*pose, **kw), reps, warmup)
+    kernel, args, kwargs, rays = rc.closest_hit_call(*pose, **kw)
+    kernel_ms = cuda_ms(lambda: kernel(*args, **kwargs), reps, warmup)
+    hits = kernel(*args, **kwargs)
+    epilogue = cuda_ms(lambda: rc.render_epilogue(*pose, hits, rays, **kw), reps, warmup)
+    return (dict(render=render, select=select, kernel=kernel_ms, epilogue=epilogue,
+                 stages=select + kernel_ms + epilogue), (kernel, args, kwargs))
+
+
+def split_text(sp, select="select"):
+    return (f"render {sp['render']:.3f} ms; stages timed one by one: {select} {sp['select']:.3f} + kernel "
+            f"{sp['kernel']:.3f} + epilogue {sp['epilogue']:.3f} = {sp['stages']:.3f}")
 
 
 def compare_culled(kernel, args, kwargs, source, reps=5, attr_dim=1):
@@ -637,7 +694,7 @@ def main():
     fused_sel_args, fused_sel_kwargs = args, kwargs  # also #10's inputs (fused_sel_B: their rays)
     cnt = args[3]
     n_tests = int(cnt.sum().item()) * 32 * kwargs["ray_tile"]
-    sel = compare_kernel("raycast_fused_sel_t", kernel, args, kwargs, n_tests)
+    sel = ring_row("raycast_fused_sel_t", kernel, args, kwargs, n_tests, rk.fused_design(32), BENCH["width"])
     sel["replaces"] = "habitat_tpu/ops/raycast_pallas.py:623"
     sel["survivor_chunks_mean"] = cnt.float().mean().item()
 
@@ -646,7 +703,9 @@ def main():
     if kernel is not rk.raycast_fused_t:
         fail("the mid-size scene should take the every-chunk kernel")
     n_tests = MID["num_envs"] * BENCH["height"] * BENCH["width"] * mid_env.pack.tri_attr.shape[1]
-    every = compare_kernel("raycast_fused_t", kernel, args, kwargs, n_tests, reps=20, plain_reps=1)
+    fused128 = rk.fused_design(128)
+    every = ring_row("raycast_fused_t", kernel, args, kwargs, n_tests, fused128, BENCH["width"], reps=20,
+                     plain_reps=1)
     every["replaces"] = "habitat_tpu/ops/raycast_pallas.py:482"
 
     # and on a synthetic 8192-triangle pack, N=8 (twice the mid scene's chunks)
@@ -664,12 +723,13 @@ def main():
     _, d_t, _, _, rt = rc.pinhole_constants(90.0, BENCH["height"], BENCH["width"], dev)
     sids = torch.zeros(n, dtype=torch.int32, device=dev)
     n_tests = n * BENCH["height"] * BENCH["width"] * T
-    synth = compare_kernel(
+    synth = ring_row(
         "raycast_fused_t", rk.raycast_fused_t, (gm, sids, d_t, Bt), dict(ray_tile=rt, tri_chunk=128),
-        n_tests, reps=10, plain_reps=1,
+        n_tests, fused128, BENCH["width"], reps=10, plain_reps=1,
     )
     every["synthetic_8192_tris_n8"] = {k: synth[k] for k in (
-        "max_abs_err", "hit_agree", "idx_agree", "ms", "plain_ms", "bound_ms", "bound_by")}
+        "max_abs_err", "hit_agree", "idx_agree", "rays_differing", "ms", "plain_ms", "bound_ms", "bound_by",
+        "bound_old_rule_ms", "inside_pairs")}
     # the scan route's kernels on the scan env's reset render
     stream_src = "habitat_torch/csrc/raycast_stream.cu"
     R = BENCH["height"] * BENCH["width"]
@@ -865,25 +925,26 @@ def main():
     kernel, args, kwargs, _ = reset_render_call(pano_env, pano_hw, projection="equirect")
     if kernel is not rk.raycast_index_t or kwargs["ray_tile"] != 2048:
         fail("the panoramic bench render should take the index kernel on 2048-ray tiles")
-    index_row = compare_kernel(
+    index_row = ring_row(
         "raycast_index_t", kernel, args, kwargs, BENCH["num_envs"] * R_pano * args[0].shape[3],
-        reps=20, plain_reps=1, source=general_src, flops_per_ray=0,
+        rk.index_design(128), PANO["width"], reps=20, plain_reps=1, source=general_src, flops_per_ray=0,
     )
     index_row["replaces"] = "habitat_tpu/ops/raycast_pallas.py:327"
     kernel, args, kwargs, _ = reset_render_call(mid_env, projection="fisheye")
     if kernel is not rk.raycast_index_t or args[0].shape[3] != 4352:
         fail("the mid-size fisheye render should take the index kernel over 4352 triangles")
-    mid_fe = compare_kernel(
+    mid_fe = ring_row(
         "raycast_index_t", kernel, args, kwargs, MID["num_envs"] * R * args[0].shape[3],
-        reps=10, plain_reps=1, source=general_src, flops_per_ray=0,
+        index_row["design"], BENCH["width"], reps=10, plain_reps=1, source=general_src, flops_per_ray=0,
     )
     index_row["mid_fisheye_n16_128x128"] = {k: mid_fe[k] for k in (
-        "max_abs_err", "hit_agree", "idx_agree", "ms", "plain_ms", "bound_ms", "bound_by", "hit_fraction")}
+        "max_abs_err", "hit_agree", "idx_agree", "rays_differing", "ms", "plain_ms", "bound_ms", "bound_by",
+        "bound_old_rule_ms", "inside_pairs", "hit_fraction")}
     for tag, r in (("panoramic bench reset (N=256, 128x256 equirect, 128 tris)", index_row),
                    ("mid-size fisheye reset (N=16, 128x128, 4352 tris)", mid_fe)):
         log(f"[kernel] raycast_index_t on the {tag}: hit {r['hit_agree']:.6f} idx {r['idx_agree']:.6f} "
-            f"|dt| {r['max_abs_err']:.3g}, {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} "
-            f"ms by {r['bound_by']}), hit fraction {r['hit_fraction']:.4f}")
+            f"|dt| {r['max_abs_err']:.3g}, {r['rays_differing']} rays differ from the plain version; {r['ms']:.4f} "
+            f"ms (plain {r['plain_ms']:.3f} ms), hit fraction {r['hit_fraction']:.4f}; {ring_text(r)}")
 
     # the culled kernel on the scan env's equirect reset: each raster-order
     # 1024-ray tile's K nearest occlusion-bounded chunks of the pack's 256
@@ -898,7 +959,7 @@ def main():
     culled_args = args
     culled_row["replaces"] = "habitat_tpu/ops/raycast_pallas.py:1614"
     culled_row["design"] = kernel_design("raycast_culled_t", rk.culled_design(C_scan, args[2].shape[2]), 1024,
-                                         rk.CULLED_STAGES, tile_width=PANO["width"])
+                                         rk.RING_STAGES, tile_width=PANO["width"])
     log(f"[kernel] raycast_culled_t on the scan equirect reset (N={PANO_SCAN['num_envs']}, 128x256, "
         f"K={culled_row['list_slots']} chunks of {C_scan} per 1024-ray tile; the plain version on all envs): "
         f"hit {culled_row['hit_agree']:.6f}, attributes equal on {culled_row['attr_agree']:.6f} of common hits, "
@@ -920,20 +981,23 @@ def main():
         orig_b = cam_b[:, None, :].expand(-1, R, -1)
         feat_b = rc.ray_features(orig_b, dirs_b)
         rb_args = (env.pack.tri_mat, sid_b, feat_b)
-        batch_row = compare_kernel(
+        batch_row = ring_row(
             "raycast_index", rk.raycast_index, rb_args, dict(ray_tile=2048), BENCH["num_envs"] * R * env.pack.tri_mat.shape[3],
-            reps=20, plain_reps=1, source=general_src, flops_per_ray=0,
+            rk.index_design(128, row_major=True), BENCH["width"], reps=20, plain_reps=1, source=general_src,
+            flops_per_ray=0,
         )
         batch_row["replaces"] = "habitat_tpu/ops/raycast_pallas.py:151"
         t8, i8 = rk.raycast_index(*rb_args, ray_tile=2048)
         t3, i3 = rk.raycast_index_t(env.pack.tri_mat, sid_b, rc.ray_features_t(orig_b, dirs_b, 2048), ray_tile=2048)
         batch_row["vs_index_t"] = dict(zip(("hit_agree", "idx_agree", "max_abs_err"),
                                           agreement("raycast_index against raycast_index_t", (t8, i8), (t3, i3))))
+        batch_row["vs_index_t"]["rays_differing"] = int(((t8 != t3) | (i8 != i3)).sum().item())
         log(f"[kernel] raycast_index on the bench reset's rays (N=256, 128x128, T={env.pack.tri_mat.shape[3]}): hit "
-            f"{batch_row['hit_agree']:.6f} idx {batch_row['idx_agree']:.6f} |dt| {batch_row['max_abs_err']:.3g}; "
-            f"{batch_row['ms']:.4f} ms (plain {batch_row['plain_ms']:.3f} ms, bound {batch_row['bound_ms']:.4f} ms by "
-            f"{batch_row['bound_by']}); against raycast_index_t on the same rays: hit "
-            f"{batch_row['vs_index_t']['hit_agree']:.6f}, idx {batch_row['vs_index_t']['idx_agree']:.6f} on common hits")
+            f"{batch_row['hit_agree']:.6f} idx {batch_row['idx_agree']:.6f} |dt| {batch_row['max_abs_err']:.3g}, "
+            f"{batch_row['rays_differing']} rays differ from the plain version; {batch_row['ms']:.4f} ms (plain "
+            f"{batch_row['plain_ms']:.3f} ms); against raycast_index_t on the same rays: hit "
+            f"{batch_row['vs_index_t']['hit_agree']:.6f}, idx {batch_row['vs_index_t']['idx_agree']:.6f} on common hits, "
+            f"{batch_row['vs_index_t']['rays_differing']} rays differ; {ring_text(batch_row)}")
         del t3, i3
 
         # the v3 culled kernel (#9) on #7's inputs: its 160 ids of 256-triangle
@@ -953,7 +1017,7 @@ def main():
         if c9_row["vs_culled_t"]["rays_differing"]:  # the same triangles in the same order: the same bits
             fail(f"raycast_culled on 128-triangle ids disagrees with raycast_culled_t: {c9_row['vs_culled_t']}")
         c9_row["design"] = kernel_design("raycast_culled", rk.culled_design(128, ids128.shape[2], row_major=True),
-                                         1024, rk.CULLED_STAGES, tile_width=PANO["width"])
+                                         1024, rk.RING_STAGES, tile_width=PANO["width"])
         log(f"[kernel] raycast_culled on the scan equirect reset (N={PANO_SCAN['num_envs']}, 128x256, K={ids128.shape[2]} "
             f"chunks of 128 per 1024-ray tile): hit {c9_row['hit_agree']:.6f}, attributes equal on "
             f"{c9_row['attr_agree']:.6f} of common hits, |dt| {c9_row['max_abs_err']:.3g}; {c9_row['ms']:.3f} ms (plain "
@@ -1025,8 +1089,8 @@ def main():
                tc_row]
     for tag, r in (("bench reset", sel), ("mid-size reset", every), ("synthetic 8192 tris", synth)):
         log(f"[kernel] {r['name']} on the {tag}: hit {r['hit_agree']:.6f} idx {r['idx_agree']:.6f} "
-            f"|dt| {r['max_abs_err']:.3g} {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms, "
-            f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
+            f"|dt| {r['max_abs_err']:.3g}, {r['rays_differing']} rays differ from the plain version; {r['ms']:.4f} ms "
+            f"(plain {r['plain_ms']:.3f} ms); {ring_text(r)}")
 
     # ---- 3. main path ----------------------------------------------------
     T_steps = BENCH["num_steps"]
@@ -1138,18 +1202,13 @@ def main():
     sctx = scan_env._make_ctx(sstate)
     scam = sstate.pos + cam_offset
     pose = (spack, sctx.sid, scam, sstate.yaw, sstate.pitch)
-    srender_ms = cuda_ms(lambda: rc.render_batch(*pose, **hw), 5)
-    sselect_ms = cuda_ms(lambda: rc.closest_hit_call(*pose, **hw), 5)
-    kernel, args, kwargs, _ = rc.closest_hit_call(*pose, **hw)
-    skernel_ms = cuda_ms(lambda: kernel(*args, **kwargs), 5)
+    ssplit, (kernel, args, kwargs) = render_split(pose, hw, 5)
     with torch.no_grad():
         spolicy_ms = cuda_ms(lambda: policy(srs.obs, srs.hidden, srs.prev_action, srs.not_done), 5)
     sstep_ms = cuda_ms(lambda: scan_env.step_fn(sstate, actions), 5)
     log(f"[scan] {gpu}: env-steps/s median {ssps[SCAN_ROLLOUTS // 2]:.1f} over {SCAN_ROLLOUTS} rollouts "
         f"(min {ssps[0]:.1f}, max {ssps[-1]:.1f}; walls ms {[round(w * 1e3, 1) for w in swalls]} "
-        f"for {BENCH['num_envs']}x{T_steps}); per step: render {srender_ms:.3f} ms = select {sselect_ms:.3f} "
-        f"({sselect_ms / srender_ms:.3f} of it) + kernel {skernel_ms:.3f} + epilogue "
-        f"{srender_ms - sselect_ms - skernel_ms:.3f}; env step incl. render {sstep_ms:.3f} ms, policy "
+        f"for {BENCH['num_envs']}x{T_steps}); per step: {split_text(ssplit)}; env step incl. render {sstep_ms:.3f} ms, policy "
         f"{spolicy_ms:.3f} ms; {args[3].float().mean().item():.1f} chunklets listed per tile; episodes done "
         f"{int(sstats['done_count'].item())}, launches {scan_launches}")
     srs = profiled("scan-profile", "rollout", lambda: scan_learner.collect_rollout(srs)[0], smedian_wall)
@@ -1463,17 +1522,13 @@ def main():
     pctx = pano_env._make_ctx(pstate)
     ppose = (pano_env.pack, pctx.sid, pstate.pos + cam_offset, pstate.yaw, pstate.pitch)
     pkw = dict(pano_hw, projection="equirect")
-    prender_ms = cuda_ms(lambda: rc.render_batch(*ppose, **pkw), 5)
-    pselect_ms = cuda_ms(lambda: rc.closest_hit_call(*ppose, **pkw), 5)
-    kernel, args, kwargs, _ = rc.closest_hit_call(*ppose, **pkw)
-    pkernel_ms = cuda_ms(lambda: kernel(*args, **kwargs), 5)
+    psplit_r, _ = render_split(ppose, pkw, 5)
     with torch.no_grad():
         ppolicy_ms = cuda_ms(lambda: pano_policy(prs.obs, prs.hidden, prs.prev_action, prs.not_done), 5)
     log(f"[pano] {gpu}: env-steps/s median {psps[PANO_ROLLOUTS // 2]:.1f} over {PANO_ROLLOUTS} rollouts "
         f"(min {psps[0]:.1f}, max {psps[-1]:.1f}; walls ms {[round(w * 1e3, 1) for w in pwalls]} for "
-        f"{BENCH['num_envs']}x{T_steps}, 128x256 equirect depth+RGB); per step: render {prender_ms:.3f} ms = rays "
-        f"and features {pselect_ms:.3f} + kernel {pkernel_ms:.3f} + epilogue "
-        f"{prender_ms - pselect_ms - pkernel_ms:.3f}, policy {ppolicy_ms:.3f} ms; share of depth under max_depth "
+        f"{BENCH['num_envs']}x{T_steps}, 128x256 equirect depth+RGB); per step: "
+        f"{split_text(psplit_r, 'rays and features')}, policy {ppolicy_ms:.3f} ms; share of depth under max_depth "
         f"{share(pdepth < 1.0):.4f}; episodes done {int(pstats['done_count'].item())}, launches {pano_launches}")
     index_row["launches"] = pano_launches["raycast_index_t"]
     del pbatch, plast, pano_learner
@@ -1505,13 +1560,9 @@ def main():
         fail("bad frames or rewards on the panoramic scan path")
     psctx = pano_scan_env._make_ctx(ps_state)
     pspose = (spack, psctx.sid, ps_state.pos + cam_offset, ps_state.yaw, ps_state.pitch)
-    psrender_ms = cuda_ms(lambda: rc.render_batch(*pspose, **pkw), 5, warmup=1)
-    psselect_ms = cuda_ms(lambda: rc.closest_hit_call(*pspose, **pkw), 5, warmup=1)
-    kernel, args, kwargs, _ = rc.closest_hit_call(*pspose, **pkw)
-    pskernel_ms = cuda_ms(lambda: kernel(*args, **kwargs), 5, warmup=1)
+    pssplit, _ = render_split(pspose, pkw, 5, warmup=1)
     log(f"[pano-scan] {gpu}: N={PANO_SCAN['num_envs']} reset + {PANO_SCAN['steps']} env steps, 128x256 equirect "
-        f"depth+RGB on the {lod.num_triangles}-triangle scene; per render {psrender_ms:.3f} ms = select "
-        f"{psselect_ms:.3f} + kernel {pskernel_ms:.3f} + epilogue {psrender_ms - psselect_ms - pskernel_ms:.3f}; "
+        f"depth+RGB on the {lod.num_triangles}-triangle scene; per {split_text(pssplit)}; "
         f"share of depth under max_depth {share(psd < 1.0):.4f}; launches {ps_launches}")
     culled_row["launches"] = ps_launches["raycast_culled_t"]
 

@@ -1,5 +1,5 @@
 // Closest-hit ray casting against a whole scene or its frustum-selected
-// chunks, one thread per ray, for sm_90a.
+// chunks, for sm_90a.
 //
 // Replaces the TPU kernels of habitat_tpu/ops/raycast_pallas.py:
 //   raycast_fused_sel   <- raycast_pallas_fused_sel_t / _fused_sel_kernel_t
@@ -10,18 +10,18 @@
 //                          (a tile's surviving chunks, the winner's 16
 //                          attr16 rows, plane-exact t and the shade)
 // The first two are one kernel: the second is the first with the chunk list
-// 0, 1, ..., T/C - 1. The third runs the same loop over the tile's first
-// cnt listed chunks and then an epilogue for every ray, misses included:
-// it reads the winner's 16 rows [n(3), v0(3), gid, sem, rgb(3), valid, 4 pad]
+// 0, 1, ..., T/C - 1. The third runs a loop over the tile's first cnt
+// listed chunks and then an epilogue for every ray, misses included: it
+// reads the winner's 16 rows [n(3), v0(3), gid, sem, rgb(3), valid, 4 pad]
 // from attr16 (S, T/C, 16, C) once, at the end, instead of copying them out
 // of each chunk that improves the hit, and with d = F[0:3], o = B^T[3:6, 3]:
 //   nd = n.d, t = n.(v0 - o) / nd unless |nd| < 1e-6 (then the loop's t),
 //   t = 1e6 on a miss, row 12 = 0.35 + 0.65 |nd| (0.35 on a miss, where the
 //   rows are zero).
 //
-// What it computes, per (env, ray): the ray features F (10) = B[env]^T [d,1]
-// from the env's (16, 4) feature matrix and the ray's camera-frame [d, 1];
-// for every triangle of every listed chunk the four Möller–Trumbore
+// What they compute, per (env, ray): the ray features F (10) = B[env]^T
+// [d,1] from the env's (16, 4) feature matrix and the ray's camera-frame
+// [d, 1]; for every triangle of every listed chunk the four Möller–Trumbore
 // determinants G = M_chunk^T F (dot products of length 10) and the
 // sign-free hit margin
 //   min(min(p, q), aa - p - q, w - TMIN*aa, aa - EPS^2) >= 0
@@ -30,17 +30,18 @@
 // order with a strict < throughout, which is the TPU kernel's argmin-first
 // within a chunk and strict < across chunks. Misses give t = 1e6, idx = -1.
 //
-// What bounds it on an H100: arithmetic. Each ray-triangle test is 40 FMAs
-// plus ~15 other FP32 operations and one IEEE division on a hit candidate,
-// while the bytes are small (the scene matrix is 160 B per triangle and is
-// read once per block into shared memory; each ray reads 16 B and writes
-// 8 B). The design keeps the per-triangle coefficients in shared memory,
-// read by every thread of the block at the same address (a broadcast, no
-// bank conflicts), and the ray's features and running winner in registers,
-// so the inner loop is FP32 arithmetic only. The frustum list cuts the
-// triangles tested per ray from the whole scene to the tile's survivors.
-// The tile-cull kernel adds 64 B read (the winner's rows) and 68 B written
-// per ray, and the same loop bounds it.
+// What bounds them on an H100: FP32 issue. The bytes are small: the scene
+// matrix is 160 B per triangle, read once per block from L2; each ray reads
+// 16 B and writes 8 B. The first two are ring kernels (closest_hit_ring.cuh):
+// one block of 256 threads per 1024 rays of a tile, 4 rays per thread, each
+// ray's features built in registers with explicit rounding, a 2-stage
+// cp.async ring of the listed chunks (min(cnt, K) of them, in list order),
+// 16-byte broadcast loads of four lanes that feed 16 FMAs, the margin term
+// by term and tnum only where a ray's line meets a triangle. On the bench
+// path a 2048-ray tile's 2.5 listed chunks of 32 are staged twice, not
+// eight times. The tile-cull kernel keeps the earlier loop, one thread per
+// ray: it stages each chunk's 40 x C coefficients synchronously and reads
+// them with one 4-byte broadcast load per FMA, so shared loads bound it.
 //
 // Numerics: no fast math, so the division is IEEE. F and the margin terms
 // use explicitly rounded multiplies and adds (no FMA contraction), matching
@@ -49,7 +50,8 @@
 //
 // Layouts (row-major, float32 unless noted):
 //   tri_mat_c (S, 10, 4T)   chunk c in columns [c*4C, (c+1)*4C) as
-//                           [detA(C) | tnum(C) | unum(C) | vnum(C)]
+//                           [detA(C) | tnum(C) | unum(C) | vnum(C)];
+//                           16-byte aligned for the ring kernels
 //   sids      (N,)          int32 scene per env
 //   chunk_ids (N, nt, K)    int32 survivors first; the tail is padding
 //   cnt       (N, nt)       int32 survivors per (env, tile)
@@ -58,15 +60,9 @@
 //   t_out     (N, nt*Rt)    idx_out (N, nt*Rt) int32
 //   attr16    (S, T/C, 16, C)  tilecull: attr_out (N, nt, 16, Rt)
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "closest_hit_ring.cuh"
 
 namespace {
-
-constexpr float kTMax = 1e6f;
-constexpr float kTMin = 1e-3f;
-constexpr float kEps2 = 1e-14f;  // (1e-7)^2
-constexpr int kThreads = 256;
 
 // F (10) = B[env]^T [d, 1], each row's four products summed in order with
 // explicit rounding (no FMA contraction).
@@ -131,36 +127,47 @@ __device__ __forceinline__ void test_chunk(const float* m_s, const float (&f)[10
 }
 
 template <int C>
-__global__ void __launch_bounds__(kThreads) fused_raycast_kernel(
+__global__ void __launch_bounds__(kThreads, 2) fused_raycast_kernel(
     const float* __restrict__ tri_mat_c, const int* __restrict__ sids,
     const int* __restrict__ chunk_ids, const int* __restrict__ cnt,
     const float* __restrict__ d_t, const float* __restrict__ bt,
     float* __restrict__ t_out, int* __restrict__ idx_out,
     int t4, int nt, int k_max, int rt) {
-  __shared__ float m_s[10 * 4 * C];
+  extern __shared__ __align__(16) float smem[];  // kStages x 40 x C
   const int env = blockIdx.y;
-  const int slices = rt / kThreads;
-  const int tile = blockIdx.x / slices;
-  const int r = (blockIdx.x % slices) * kThreads + threadIdx.x;
-  float f[10];
-  ray_features(d_t, bt, env, tile, rt, r, f);
+  const int slabs = (rt + kBlockRays - 1) / kBlockRays;
+  const int tile = blockIdx.x / slabs;
+  const int r0 = (blockIdx.x % slabs) * kBlockRays + threadIdx.x;
+  float f[kRays][10];
+  float best_t[kRays];
+  int best_i[kRays];
+#pragma unroll
+  for (int r = 0; r < kRays; ++r) {
+    const int ray = r0 + r * kThreads;
+    if (ray < rt) {
+      ray_features(d_t, bt, env, tile, rt, ray, f[r]);
+    } else {  // past the tile: zero features never pass the margin
+#pragma unroll
+      for (int i = 0; i < 10; ++i) f[r][i] = 0.f;
+    }
+    best_t[r] = kTMax;
+    best_i[r] = -1;
+  }
 
   const int et = env * nt + tile;
-  const int n_chunks = chunk_ids ? cnt[et] : t4 / (4 * C);
-  const float* m_g = tri_mat_c + (size_t)sids[env] * 10 * t4;
-  float best_t = kTMax;
-  int best_i = -1;
-  for (int c = 0; c < n_chunks; ++c) {
-    const int cid = chunk_ids ? chunk_ids[(size_t)et * k_max + c] : c;
-    __syncthreads();  // the previous chunk is fully consumed
-    stage_chunk<C>(m_s, m_g, t4, cid);
-    __syncthreads();
-    test_chunk<C>(m_s, f, cid, best_t, best_i);
+  const int* list = chunk_ids ? chunk_ids + (size_t)et * k_max : nullptr;
+  const int n = chunk_ids ? min(cnt[et], k_max) : t4 / (4 * C);
+  walk_chunks<true, false, C>(smem, tri_mat_c + (size_t)sids[env] * 10 * t4, C, t4 / 4, list, n, f, best_t,
+                              best_i);
+#pragma unroll
+  for (int r = 0; r < kRays; ++r) {
+    const int ray = r0 + r * kThreads;
+    if (ray >= rt) continue;
+    const size_t out = (size_t)et * rt + ray;
+    const bool miss = best_t[r] >= kTMax * 0.5f;
+    t_out[out] = miss ? kTMax : best_t[r];
+    idx_out[out] = miss ? -1 : best_i[r];
   }
-  const size_t out = (size_t)env * nt * rt + (size_t)tile * rt + r;
-  const bool miss = best_t >= kTMax * 0.5f;
-  t_out[out] = miss ? kTMax : best_t;
-  idx_out[out] = miss ? -1 : best_i;
 }
 
 template <int C>
@@ -227,19 +234,21 @@ int launch(const void* tri_mat_c, const void* sids, const void* chunk_ids,
            const void* cnt, const void* d_t, const void* bt, void* t_out,
            void* idx_out, int n_env, int t4, int nt, int k_max, int rt,
            void* stream) {
-  const dim3 grid(nt * (rt / kThreads), n_env);
-  fused_raycast_kernel<C><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  const dim3 grid(nt * ((rt + kBlockRays - 1) / kBlockRays), n_env);
+  fused_raycast_kernel<C><<<grid, kThreads, ring_smem(C), (cudaStream_t)stream>>>(
       (const float*)tri_mat_c, (const int*)sids, (const int*)chunk_ids,
       (const int*)cnt, (const float*)d_t, (const float*)bt, (float*)t_out,
       (int*)idx_out, t4, nt, k_max, rt);
   return (int)cudaGetLastError();
 }
 
+// The ring's 16-byte copies of four lanes need a 16-byte aligned matrix and
+// C in {32, 128}.
 int dispatch(int tri_chunk, const void* tri_mat_c, const void* sids,
              const void* chunk_ids, const void* cnt, const void* d_t,
              const void* bt, void* t_out, void* idx_out, int n_env, int t4,
              int nt, int k_max, int rt, void* stream) {
-  if (rt % kThreads != 0) return (int)cudaErrorInvalidValue;
+  if (rt <= 0 || (uintptr_t)tri_mat_c % 16 != 0) return (int)cudaErrorInvalidValue;
   switch (tri_chunk) {
     case 32:
       return launch<32>(tri_mat_c, sids, chunk_ids, cnt, d_t, bt, t_out,
@@ -307,6 +316,13 @@ int raycast_tilecull(const void* tri_mat_c, const void* attr16,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The frustum-selected and every-chunk kernel's design at chunk size C (32
+// or 128), as ring_design reports it.
+int raycast_fused_design(int C, int* out) {
+  const void* kernel = C == 32 ? (const void*)fused_raycast_kernel<32> : (const void*)fused_raycast_kernel<128>;
+  return ring_design(kernel, ring_smem(C), out);
 }
 
 }  // extern "C"

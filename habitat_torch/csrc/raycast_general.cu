@@ -40,49 +40,28 @@
 // the general route passes the pack's own chunk size T / NC (the unit of
 // select_chunks_occluded's ids), the ray-batch entry point its tri_chunk.
 //
-// The index kernels: one thread per ray; a block stages one chunk's 40 x C
-// coefficients in shared memory, which every thread reads at the same
-// address (a broadcast), and keeps its ray's features, running best t and
-// winner in registers. One 4-byte shared load feeds one FMA, and an SM
-// issues about one shared load per clock against four FP32 warp
-// instructions, so they are bound by shared loads.
+// Both are ring kernels (closest_hit_ring.cuh): one block of 256 threads
+// per 1024-ray slab, 4 rays per thread, a 2-stage cp.async ring of chunks,
+// 16-byte broadcast loads that feed 16 FMAs, the margin term by term and
+// tnum only where a ray's line meets a triangle. They are bound by FP32
+// issue: a test is 30 FMAs and ~8 other FP32 operations, 10 FMAs more where
+// the ray's line meets the triangle, against 160 B of coefficients per
+// triangle read once per block from L2, 40 B of features and 8-36 B of
+// output per ray. The index kernels walk every chunk of the scene (one
+// chunk on the bench scenes, 34 on the mid-size one) with walk_chunks; the
+// culled kernels walk each tile's list with the same ring and test written
+// out in the kernel (see there), drop invalid ids from the list (one
+// ballot per 32 slots) before any copy is issued, and stage no attributes:
+// the winner's global index stays in registers and its 8 attributes are
+// read from device memory once, at the end. Every listed slot is tested
+// (no early stop: the list's tail holds sentinel scores, not distances).
 //
-// The culled kernels are bound by FP32 issue instead: a test is 30 FMAs and
-// ~8 other FP32 operations, 10 FMAs and a few operations more (an IEEE
-// division on a hit) where the ray's line meets the triangle, against 160 B
-// of coefficients per triangle, read once per block from L2 (neighbouring
-// tiles list the same chunks), 40 B of features and 36 B of output per ray.
-// Their design for the H100:
-//   - one block of 256 threads per 1024-ray tile, 4 rays per thread (rays
-//     r, r + 256, r + 512, r + 768 of the tile), so each listed chunk is
-//     staged once per tile;
-//   - each 16-byte broadcast load of a coefficient row (four consecutive
-//     triangles) feeds 4 lanes x 4 rays = 16 FMAs; each determinant is
-//     fmaf over i = 0..9 in order, as in the index kernels, and lanes are
-//     visited in order with a strict <, so the first minimum wins;
-//   - a ring of 2 chunk stages (2 x 40 KB at C = 256, dynamic shared
-//     memory) filled with 16-byte cp.async copies: chunk k + 1 is in flight
-//     while chunk k is tested, and one barrier per chunk both publishes
-//     chunk k and frees the stage of chunk k - 1; invalid ids are dropped
-//     from the list (one ballot per 32 slots) before any copy is issued;
-//   - no attribute staging: the winner's global index stays in registers
-//     and its 8 attributes are read from device memory once, at the end;
-//   - 128 registers a thread, no spills, two blocks per SM.
-// Every listed slot is tested (no early stop: the list's tail holds
-// sentinel scores, not distances). The margin is tested term by term
-// (x - y > 0 iff x > y for finite floats), which gives the hits of the min
-// form: detA, unum and vnum first, and tnum is summed for a group of 4
-// lanes only if the line of some ray of the warp meets one of them, so
-// every result is the one the whole test gives.
-//
-// Numerics: no fast math, so the division is IEEE. The margin terms use
-// explicitly rounded multiplies and adds (no FMA contraction); the
-// determinant dots use fmaf.
+// Numerics: see closest_hit_ring.cuh.
 //
 // Layouts (row-major, float32 unless noted):
 //   tri_mat    (S, 10, 4, T)  rows (i, k): feature i of determinant k
 //                             (detA, tnum, unum, vnum) for triangle t;
-//                             16-byte aligned for the culled kernels
+//                             16-byte aligned, T % 4 == 0
 //   tri_attr_t (S, 8, T)      attribute columns (culled)
 //   tri_attr   (S, T, 8)      attribute rows (culled_rm)
 //   sids       (N,)           int32 scene per env
@@ -91,172 +70,67 @@
 //   index:     t_out (N, R), idx_out (N, R) int32
 //   culled:    t_out (N, R), attr_out (N, 8, R) | culled_rm: (N, R, 8)
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "closest_hit_ring.cuh"
 
 namespace {
 
-constexpr float kTMax = 1e6f;
-constexpr float kTMin = 1e-3f;
-constexpr float kEps2 = 1e-14f;  // (1e-7)^2
-constexpr int kThreads = 256;
 constexpr int kAttr = 8;
 
-struct Det {
-  float det, tn, un, vn;
-};
-
-// The four determinants of lane j of the staged chunk m_s (40 rows of C).
-__device__ __forceinline__ Det determinants(const float* m_s, int C, int j,
-                                            const float (&f)[10]) {
-  Det g{0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const float* row = m_s + i * 4 * C + j;
-    g.det = fmaf(f[i], row[0], g.det);
-    g.tn = fmaf(f[i], row[C], g.tn);
-    g.un = fmaf(f[i], row[2 * C], g.un);
-    g.vn = fmaf(f[i], row[3 * C], g.vn);
-  }
-  return g;
-}
-
-// The hit test of one triangle: the fused margin (kSplit false) or the split
-// one (kSplit true).
-template <bool kSplit>
-__device__ __forceinline__ bool is_hit(const Det& g) {
-  const float aa = __fmul_rn(g.det, g.det);
-  const float p = __fmul_rn(g.un, g.det);
-  const float q = __fmul_rn(g.vn, g.det);
-  const float w = __fmul_rn(g.tn, g.det);
-  const float m1 = fminf(fminf(p, q), __fsub_rn(__fsub_rn(aa, p), q));
-  const float m2 = fminf(__fsub_rn(w, __fmul_rn(kTMin, aa)), __fsub_rn(aa, kEps2));
-  return kSplit ? (m1 >= 0.f && m2 > 0.f) : fminf(m1, m2) >= 0.f;
-}
-
-// Stage rows [0, rows) x chunk columns [c0, c0 + C) of a (rows, T) matrix.
-__device__ __forceinline__ void stage(float* dst, const float* src, int rows,
-                                      int C, int T, int c0) {
-  for (int e = threadIdx.x; e < rows * C; e += kThreads) {
-    const int row = e / C;
-    dst[e] = src[(size_t)row * T + c0 + (e - row * C)];
-  }
-}
-
-// The ray's features, transposed (N, nt, 16, rt) or row-major (N, nt*rt,
-// 10); rays past rt (the ragged slab of an untiled image) are inactive but
-// still take part in the block's barriers.
+// The thread's kRays rays of the slab at r0 (ray r0 + r * kThreads),
+// transposed (N, nt, 16, rt) or row-major (N, nt*rt, 10) features; rays
+// past rt (the ragged slab of an untiled image) get zero features, which
+// never pass the margin. Also resets the running winners.
 template <bool kRowMajor>
-__device__ __forceinline__ bool load_features(const float* feat, int env,
-                                              int tile, int nt, int rt,
-                                              int r, float (&f)[10]) {
-  if (r >= rt) return false;
-  if (kRowMajor) {
-    const float* src = feat + ((size_t)env * nt * rt + (size_t)tile * rt + r) * 10;
+__device__ __forceinline__ void load_rays(const float* feat, int env, int tile, int nt, int rt, int r0,
+                                          float (&f)[kRays][10], float (&best_t)[kRays],
+                                          int (&best_i)[kRays]) {
 #pragma unroll
-    for (int i = 0; i < 10; ++i) f[i] = src[i];
-  } else {
-    const float* src = feat + ((size_t)(env * nt + tile) * 16) * rt + r;
+  for (int r = 0; r < kRays; ++r) {
+    const int ray = r0 + r * kThreads;
+    if (ray >= rt) {
 #pragma unroll
-    for (int i = 0; i < 10; ++i) f[i] = src[(size_t)i * rt];
+      for (int i = 0; i < 10; ++i) f[r][i] = 0.f;
+    } else if (kRowMajor) {
+      const float* src = feat + ((size_t)env * nt * rt + (size_t)tile * rt + ray) * 10;
+#pragma unroll
+      for (int i = 0; i < 10; ++i) f[r][i] = src[i];
+    } else {
+      const float* src = feat + ((size_t)(env * nt + tile) * 16) * rt + ray;
+#pragma unroll
+      for (int i = 0; i < 10; ++i) f[r][i] = src[(size_t)i * rt];
+    }
+    best_t[r] = kTMax;
+    best_i[r] = -1;
   }
-  return true;
 }
 
-template <bool kRowMajor, bool kSplit>
-__global__ void __launch_bounds__(kThreads) index_raycast_kernel(
+// Every chunk of C triangles of the env's scene, in order. kC: the chunk
+// size, or 0 for the C argument.
+template <bool kRowMajor, bool kSplit, int kC>
+__global__ void __launch_bounds__(kThreads, 2) index_raycast_kernel(
     const float* __restrict__ tri_mat, const int* __restrict__ sids,
     const float* __restrict__ feat, float* __restrict__ t_out,
     int* __restrict__ idx_out, int T, int C, int nt, int rt) {
-  extern __shared__ float m_s[];  // 40 x C
+  extern __shared__ __align__(16) float smem[];  // kStages x 40 x C
+  const int C_ = kC ? kC : C;
   const int env = blockIdx.y;
-  const int slabs = (rt + kThreads - 1) / kThreads;
+  const int slabs = (rt + kBlockRays - 1) / kBlockRays;
   const int tile = blockIdx.x / slabs;
-  const int r = (blockIdx.x % slabs) * kThreads + threadIdx.x;
-  float f[10];
-  const bool active = load_features<kRowMajor>(feat, env, tile, nt, rt, r, f);
-  const float* m_g = tri_mat + (size_t)sids[env] * 40 * T;
-  float best_t = kTMax;
-  int best_i = -1;
-  for (int c = 0; c < T / C; ++c) {
-    __syncthreads();  // the previous chunk is fully consumed
-    stage(m_s, m_g, 40, C, T, c * C);
-    __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < C; ++j) {
-      const Det g = determinants(m_s, C, j, f);
-      if (is_hit<kSplit>(g)) {
-        const float t = g.tn / g.det;
-        if (t < best_t) {
-          best_t = t;
-          best_i = c * C + j;
-        }
-      }
-    }
-  }
-  if (!active) return;
-  const size_t out = (size_t)env * nt * rt + (size_t)tile * rt + r;
-  const bool miss = best_t >= kTMax * 0.5f;
-  t_out[out] = miss ? kTMax : best_t;
-  idx_out[out] = miss ? -1 : best_i;
-}
-
-// ---- the culled kernels: a block per 1024-ray tile, a ring of staged chunks ----
-
-constexpr int kRays = 4;                      // rays per thread
-constexpr int kTileRays = kThreads * kRays;   // rays per block
-constexpr int kStages = 2;                    // chunks in the ring
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// Issue the 16-byte copies of chunk cid's 40 rows of C coefficients (row
-// (i, k) of the (S, 10, 4, T) matrix, columns [cid * C, (cid + 1) * C)) into
-// dst, 40 x C.
-template <int kC>
-__device__ __forceinline__ void issue_chunk(float* dst, const float* m_g, int C,
-                                            int T, int cid) {
-  const int C_ = kC ? kC : C;
-  const int q = C_ / 4;
-  const float* src = m_g + (size_t)cid * C_;
-  for (int e = threadIdx.x; e < 40 * q; e += kThreads) {
-    const int row = e / q;
-    const int c4 = (e - row * q) * 4;
-    cp_async16(dst + row * C_ + c4, src + (size_t)row * T + c4);
-  }
-}
-
-// The determinant k (0 detA, 1 tnum, 2 unum, 3 vnum) of four consecutive
-// lanes [j, j + 4) for each of the thread's rays: one 16-byte broadcast load
-// of a coefficient row feeds 4 lanes x kRays rays.
-template <int kC>
-__device__ __forceinline__ void dots(const float* m_s, int C, int j, int k,
-                                     const float (&f)[kRays][10],
-                                     float (&g)[kRays][4]) {
-  const int C_ = kC ? kC : C;
+  const int r0 = (blockIdx.x % slabs) * kBlockRays + threadIdx.x;
+  float f[kRays][10];
+  float best_t[kRays];
+  int best_i[kRays];
+  load_rays<kRowMajor>(feat, env, tile, nt, rt, r0, f, best_t, best_i);
+  walk_chunks<false, kSplit, kC>(smem, tri_mat + (size_t)sids[env] * 40 * T, C_, T, nullptr, T / C_, f,
+                                 best_t, best_i);
 #pragma unroll
-  for (int r = 0; r < kRays; ++r)
-#pragma unroll
-    for (int l = 0; l < 4; ++l) g[r][l] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const float4 a = *reinterpret_cast<const float4*>(m_s + (4 * i + k) * C_ + j);
-#pragma unroll
-    for (int r = 0; r < kRays; ++r) {
-      g[r][0] = fmaf(f[r][i], a.x, g[r][0]);
-      g[r][1] = fmaf(f[r][i], a.y, g[r][1]);
-      g[r][2] = fmaf(f[r][i], a.z, g[r][2]);
-      g[r][3] = fmaf(f[r][i], a.w, g[r][3]);
-    }
+  for (int r = 0; r < kRays; ++r) {
+    const int ray = r0 + r * kThreads;
+    if (ray >= rt) continue;
+    const size_t out = (size_t)env * nt * rt + (size_t)tile * rt + ray;
+    const bool miss = best_t[r] >= kTMax * 0.5f;
+    t_out[out] = miss ? kTMax : best_t[r];
+    idx_out[out] = miss ? -1 : best_i[r];
   }
 }
 
@@ -274,11 +148,10 @@ __global__ void __launch_bounds__(kThreads, 2) culled_raycast_kernel(
   int* list = reinterpret_cast<int*>(smem + kStages * 40 * C_);
   __shared__ int n_list;
   const int env = blockIdx.y;
-  const int slabs = (rt + kTileRays - 1) / kTileRays;
+  const int slabs = (rt + kBlockRays - 1) / kBlockRays;
   const int tile = blockIdx.x / slabs;
-  const int r0 = (blockIdx.x % slabs) * kTileRays + threadIdx.x;
+  const int r0 = (blockIdx.x % slabs) * kBlockRays + threadIdx.x;
   const int sid = sids[env];
-  const float* m_g = tri_mat + (size_t)sid * 40 * T;
   const int n_chunks = T / C_;
 
   // the tile's valid ids, in list order (warp 0; one ballot per 32 slots)
@@ -300,23 +173,19 @@ __global__ void __launch_bounds__(kThreads, 2) culled_raycast_kernel(
   float f[kRays][10];
   float best_t[kRays];
   int best_i[kRays];
-#pragma unroll
-  for (int r = 0; r < kRays; ++r) {
-    if (!load_features<kRowMajor>(feat, env, tile, nt, rt, r0 + r * kThreads, f[r])) {
-#pragma unroll
-      for (int i = 0; i < 10; ++i) f[r][i] = 0.f;  // inactive: computed, never written
-    }
-    best_t[r] = kTMax;
-    best_i[r] = -1;
-  }
+  load_rays<kRowMajor>(feat, env, tile, nt, rt, r0, f, best_t, best_i);
   __syncthreads();
+  // The ring of walk_chunks and the test of test_lanes, written out here
+  // with the vote on p, q and aa - p - q only (aa - EPS^2 is tested on the
+  // t side: a tile's list holds scan-pack chunks, with almost no zero
+  // padding). Through the shared functions this kernel measured 4-6% slower
+  // on an H100 with the same arithmetic (scripts/ab_ring_kernels.py, scan
+  // equirect reset: 69.4-71.0 ms against 66.3-67.0).
   const int n = n_list;
-
-  // the ring: chunk k sits in stage k % kStages; the copy of chunk
-  // k + kStages - 1 is in flight while chunk k is tested
+  const float* m_g = tri_mat + (size_t)sid * 40 * T;
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n) issue_chunk<kC>(smem + s * 40 * C_, m_g, C_, T, list[s]);
+    if (s < n) issue_chunk<false, kC>(smem + s * 40 * C_, m_g, C_, T, list[s]);
     cp_async_commit();
   }
   for (int k = 0; k < n; ++k) {
@@ -324,13 +193,11 @@ __global__ void __launch_bounds__(kThreads, 2) culled_raycast_kernel(
     // chunk k has landed for every thread, and chunk k - 1 is consumed
     __syncthreads();
     const int kn = k + kStages - 1;
-    if (kn < n) issue_chunk<kC>(smem + (kn % kStages) * 40 * C_, m_g, C_, T, list[kn]);
+    if (kn < n) issue_chunk<false, kC>(smem + (kn % kStages) * 40 * C_, m_g, C_, T, list[kn]);
     cp_async_commit();
     const float* m_s = smem + (k % kStages) * 40 * C_;
     const int base = list[k] * C_;
     for (int j = 0; j < C_; j += 4) {
-      // the split margin of is_hit<true> term by term: x - y >= 0 iff
-      // x >= y, and x - y > 0 iff x > y, for finite floats
       float det[kRays][4], p[kRays][4], g[kRays][4];
       unsigned inside = 0;  // bit 4r + l: p, q and aa - p - q pass
       dots<kC>(m_s, C_, j, 0, f, det);
@@ -348,7 +215,6 @@ __global__ void __launch_bounds__(kThreads, 2) culled_raycast_kernel(
           const float q = __fmul_rn(g[r][l], det[r][l]);
           if (p[r][l] >= 0.f && q >= 0.f && __fsub_rn(aa, p[r][l]) >= q) inside |= 1u << (4 * r + l);
         }
-      // tnum is summed only where the line of some ray of the warp meets a triangle
       if (!__any_sync(0xffffffffu, inside != 0)) continue;
       dots<kC>(m_s, C_, j, 1, f, g);  // tnum
 #pragma unroll
@@ -392,29 +258,32 @@ __global__ void __launch_bounds__(kThreads, 2) culled_raycast_kernel(
   }
 }
 
-int launch_config(const void* kernel, int smem_bytes) {
-  if (smem_bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
+// The ring's 16-byte copies need C % 4 == 0, T % C == 0 (so T % 4 == 0) and
+// a 16-byte aligned matrix.
+bool ring_layout_ok(const void* tri_mat, int T, int C) {
+  return C > 0 && C % 4 == 0 && T % C == 0 && (uintptr_t)tri_mat % 16 == 0;
+}
+
+template <bool kRowMajor, bool kSplit>
+const void* index_kernel(int C) {
+  return C == 128 ? (const void*)index_raycast_kernel<kRowMajor, kSplit, 128>
+                  : (const void*)index_raycast_kernel<kRowMajor, kSplit, 0>;
 }
 
 template <bool kRowMajor, bool kSplit>
 int launch_index(const void* tri_mat, const void* sids, const void* feat,
                  void* t_out, void* idx_out, int n_env, int T, int C, int nt,
                  int rt, void* stream) {
-  if (C <= 0 || T % C != 0 || rt <= 0) return (int)cudaErrorInvalidValue;
-  const int smem = 40 * C * (int)sizeof(float);
-  const void* kernel = (const void*)index_raycast_kernel<kRowMajor, kSplit>;
+  if (!ring_layout_ok(tri_mat, T, C) || rt <= 0) return (int)cudaErrorInvalidValue;
+  const int smem = ring_smem(C);
+  const void* kernel = index_kernel<kRowMajor, kSplit>(C);
   const int err = launch_config(kernel, smem);
   if (err) return err;
-  const dim3 grid(nt * ((rt + kThreads - 1) / kThreads), n_env);
-  index_raycast_kernel<kRowMajor, kSplit><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)tri_mat, (const int*)sids, (const float*)feat,
-      (float*)t_out, (int*)idx_out, T, C, nt, rt);
-  return (int)cudaGetLastError();
+  const dim3 grid(nt * ((rt + kBlockRays - 1) / kBlockRays), n_env);
+  void* args[] = {(void*)&tri_mat, (void*)&sids, (void*)&feat, (void*)&t_out,
+                  (void*)&idx_out, (void*)&T, (void*)&C, (void*)&nt, (void*)&rt};
+  return (int)cudaLaunchKernel(kernel, grid, dim3(kThreads), args, smem,
+                               (cudaStream_t)stream);
 }
 
 template <bool kRowMajor>
@@ -430,7 +299,7 @@ const void* culled_kernel(int C) {
 }
 
 int culled_smem(int C, int k_max) {
-  return (kStages * 40 * C + k_max) * (int)sizeof(float);
+  return ring_smem(C) + k_max * (int)sizeof(int);
 }
 
 template <bool kRowMajor>
@@ -438,14 +307,12 @@ int launch_culled(const void* tri_mat, const void* tri_attr,
                   const void* chunk_ids, const void* sids, const void* feat,
                   void* t_out, void* attr_out, int n_env, int T, int C,
                   int nt, int k_max, int rt, void* stream) {
-  if (C <= 0 || C % 4 != 0 || T % C != 0 || rt <= 0 || k_max < 0 ||
-      (uintptr_t)tri_mat % 16 != 0)
-    return (int)cudaErrorInvalidValue;
+  if (!ring_layout_ok(tri_mat, T, C) || rt <= 0 || k_max < 0) return (int)cudaErrorInvalidValue;
   const int smem = culled_smem(C, k_max);
   const void* kernel = culled_kernel<kRowMajor>(C);
   const int err = launch_config(kernel, smem);
   if (err) return err;
-  const dim3 grid(nt * ((rt + kTileRays - 1) / kTileRays), n_env);
+  const dim3 grid(nt * ((rt + kBlockRays - 1) / kBlockRays), n_env);
   void* args[] = {(void*)&tri_mat, (void*)&tri_attr, (void*)&chunk_ids,
                   (void*)&sids, (void*)&feat, (void*)&t_out, (void*)&attr_out,
                   (void*)&T, (void*)&C, (void*)&nt, (void*)&k_max, (void*)&rt};
@@ -497,25 +364,17 @@ int raycast_culled_rm(const void* tri_mat, const void* tri_attr,
                              attr_out, n_env, T, C, nt, k_max, rt, stream);
 }
 
-// The culled kernels' design at chunk size C and list length k_max: out =
-// {rays per thread, rays per block, rays per warp, ring stages, registers
-// per thread, local (spilled) bytes per thread, static shared bytes,
-// dynamic shared bytes, blocks per SM}.
+// The index kernels' design at chunk size C (row_major: raycast_index_rm's),
+// as ring_design reports it.
+int raycast_index_design(int row_major, int C, int* out) {
+  const void* kernel = row_major ? index_kernel<true, true>(C) : index_kernel<false, false>(C);
+  return ring_design(kernel, ring_smem(C), out);
+}
+
+// The culled kernels' design at chunk size C and list length k_max.
 int raycast_culled_design(int row_major, int C, int k_max, int* out) {
   const void* kernel = row_major ? culled_kernel<true>(C) : culled_kernel<false>(C);
-  const int smem = culled_smem(C, k_max);
-  int err = launch_config(kernel, smem);
-  if (err) return err;
-  cudaFuncAttributes attr;
-  err = (int)cudaFuncGetAttributes(&attr, kernel);
-  if (err) return err;
-  int blocks = 0;
-  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
-  if (err) return err;
-  const int v[9] = {kRays, kTileRays, 32 * kRays, kStages, attr.numRegs,
-                    (int)attr.localSizeBytes, (int)attr.sharedSizeBytes, smem, blocks};
-  for (int i = 0; i < 9; ++i) out[i] = v[i];
-  return 0;
+  return ring_design(kernel, culled_smem(C, k_max), out);
 }
 
 }  // extern "C"

@@ -4,10 +4,10 @@ Each source ``habitat_torch/csrc/<name>.cu`` exports functions with a plain
 C interface. ``build`` compiles sources with nvcc for sm_90a into
 ``habitat_torch/build/lib<name>.so`` (one nvcc per source, all started
 together); ``load`` builds a source at first use when its library is missing
-or older than the source, and loads it through ctypes with the argument
-types registered in ``SOURCES``. Every exported function returns
-``cudaGetLastError()`` after its launch; ``raise_on`` turns a nonzero code
-into an exception.
+or older than the source or a header of ``csrc/``, and loads it through
+ctypes with the argument types registered in ``SOURCES``. Every exported
+function returns ``cudaGetLastError()`` after its launch; ``raise_on``
+turns a nonzero code into an exception.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ SOURCES = {
         "raycast_fused_sel": [_P] * 8 + [_I] * 6 + [_P],
         "raycast_fused": [_P] * 6 + [_I] * 5 + [_P],
         "raycast_tilecull": [_P] * 9 + [_I] * 6 + [_P],
+        "raycast_fused_design": [_I, _P],
     },
     "raycast_stream": {
         "raycast_stream": [_P] * 8 + [_I] * 8 + [_P],
@@ -42,6 +43,7 @@ SOURCES = {
         "raycast_culled": [_P] * 7 + [_I] * 6 + [_P],
         "raycast_index_rm": [_P] * 5 + [_I] * 4 + [_P],
         "raycast_culled_rm": [_P] * 7 + [_I] * 6 + [_P],
+        "raycast_index_design": [_I, _I, _P],
         "raycast_culled_design": [_I, _I, _I, _P],
     },
     "cullmask": {"cullmask": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P]},
@@ -52,6 +54,13 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 def _src(name: str) -> str:
     return os.path.join(_PKG, "csrc", f"{name}.cu")
+
+
+def _newest_input(name: str) -> float:
+    """The latest change to a source or to a header the sources include."""
+    csrc = os.path.dirname(_src(name))
+    headers = [os.path.join(csrc, f) for f in os.listdir(csrc) if f.endswith(".cuh")]
+    return max(os.path.getmtime(f) for f in [_src(name), *headers])
 
 
 def _so(name: str) -> str:
@@ -98,8 +107,8 @@ def build(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, Tuple[float, str]]
 def load(name: str) -> ctypes.CDLL:
     if name in _libs:
         return _libs[name]
-    so, src = _so(name), _src(name)
-    if not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src):
+    so = _so(name)
+    if not os.path.exists(so) or os.path.getmtime(so) < _newest_input(name):
         build((name,))
     lib = ctypes.CDLL(so)
     for fn, argtypes in SOURCES[name].items():

@@ -958,14 +958,44 @@ def render_batch(
     ``dynamic``: per-env movable geometry merged by closest hit, a dict of
     v0, e1, e2 (N, Td, 3), valid (N, Td), color (N, Td, 3) and sem (N, Td),
     on the pack's device."""
-    N = sids.shape[0]
     cam_pos = cam_pos.float()
-    route = render_route(pack, height, width, projection, cull_k, dynamic is not None)
     kernel, args, kwargs, rays = closest_hit_call(
         pack, sids, cam_pos, yaw, pitch, height=height, width=width, hfov_deg=hfov_deg,
         cull_k=cull_k, backend=backend, projection=projection, dynamic=dynamic is not None,
     )
-    t, res = kernel(*args, **kwargs)
+    return render_epilogue(
+        pack, sids, cam_pos, yaw, pitch, kernel(*args, **kwargs), rays, height=height, width=width,
+        hfov_deg=hfov_deg, max_depth=max_depth, min_depth=min_depth, normalize_depth=normalize_depth,
+        dynamic=dynamic, cull_k=cull_k, projection=projection,
+    )
+
+
+def render_epilogue(
+    pack: ScenePack,
+    sids: torch.Tensor,
+    cam_pos: torch.Tensor,
+    yaw: torch.Tensor,
+    pitch: torch.Tensor,
+    hits: Tuple[torch.Tensor, torch.Tensor],
+    rays: torch.Tensor,
+    *,
+    height: int,
+    width: int,
+    hfov_deg: float = 90.0,
+    max_depth: float = 10.0,
+    min_depth: float = 0.0,
+    normalize_depth: bool = True,
+    dynamic: Optional[Dict[str, torch.Tensor]] = None,
+    cull_k: Optional[int] = None,
+    projection: str = "pinhole",
+) -> Dict[str, torch.Tensor]:
+    """The frames of ``render_batch`` from its closest-hit step: ``hits`` =
+    ``kernel(*args, **kwargs)`` and ``rays`` of ``closest_hit_call`` on the
+    same arguments. The last stage of a render, callable on its own."""
+    N = sids.shape[0]
+    cam_pos = cam_pos.float()
+    route = render_route(pack, height, width, projection, cull_k, dynamic is not None)
+    t, res = hits
     sid = sids.long()[:, None]
     depth_cfg = (max_depth, min_depth, normalize_depth)
     if route in ("index", "culled"):

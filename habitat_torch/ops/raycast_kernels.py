@@ -75,13 +75,15 @@ VERTS16_VALID = 15
 # The stream kernels' launch (csrc/raycast_stream.cu refuses others): rays
 # per block and per warp, the granularity of their early stop, which the
 # plain versions' ``tested`` counters follow; the ring's stages, units of
-# STREAM_UNIT lanes (a chunklet, or a part of a larger chunk). The culled
-# kernels' ring depth in chunks (csrc/raycast_general.cu).
+# STREAM_UNIT lanes (a chunklet, or a part of a larger chunk). The ring
+# kernels' design (csrc/closest_hit_ring.cuh: the fused #1/#2, index #3/#8
+# and culled #7/#9 kernels): rays per block and the ring's depth in chunks.
 STREAM_BLOCK_RAYS = 256
 STREAM_WARP_RAYS = 64
 STREAM_UNIT = 32
 STREAM_STAGES = 2
-CULLED_STAGES = 2
+RING_BLOCK_RAYS = 1024
+RING_STAGES = 2
 
 
 def _require(dev, items):
@@ -134,9 +136,10 @@ def _fold(G, C, base, valid, best_t, best_i, strict=False, tested=None, rays=Non
     margin, instead of the fused margin >= 0. With a dict ``tested``, adds
     to ``tested["inside"]`` the (ray, triangle) pairs whose test needs tnum
     (the ray's line meets a non-degenerate triangle: p, q, aa - p - q >= 0
-    and aa above EPS^2; the stream and culled kernels skip tnum for 4 lanes
-    where no ray of a warp passes p, q and aa - p - q), over the rays
-    ``rays`` (N, nt, Rt) of valid slots."""
+    and aa above EPS^2; the stream and ring kernels skip tnum for 4 lanes
+    where no ray of a warp passes p, q and aa - p - q, the fused and index
+    kernels also aa - EPS^2), over the rays ``rays`` (N, nt, Rt) of valid
+    slots."""
     detA, tnum, unum, vnum = G[:, :, :C], G[:, :, C:2 * C], G[:, :, 2 * C:3 * C], G[:, :, 3 * C:]
     aa = detA * detA
     p = unum * detA
@@ -182,13 +185,14 @@ def _listed_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, C, dmin=None, tested
     list order, every one tested (no early stop). ``finish=False`` returns
     the running (t, idx) as they are, without the miss threshold.
 
-    With ``dmin`` (N, nt, K) and a dict ``tested``, also counts what the
-    stream kernel's early stop leaves to do on these inputs: list slots at
-    which a block of STREAM_BLOCK_RAYS rays (``tested["block"]``, chunks
-    staged) or a warp of STREAM_WARP_RAYS (``tested["warp"]``, chunks
-    computed) still holds a ray whose best hit is farther than the slot's
-    ``dmin``, and (``tested["inside"]``, see ``_fold``) the inside pairs of
-    those rays."""
+    With a dict ``tested``, counts (``tested["inside"]``, see ``_fold``)
+    the inside pairs of the listed slots. With ``dmin`` (N, nt, K) as well,
+    counts what the stream kernel's early stop leaves to do on these
+    inputs: list slots at which a block of STREAM_BLOCK_RAYS rays
+    (``tested["block"]``, chunks staged) or a warp of STREAM_WARP_RAYS
+    (``tested["warp"]``, chunks computed) still holds a ray whose best hit
+    is farther than the slot's ``dmin``, and the inside pairs of those rays
+    only."""
     N = sids.shape[0]
     n_tiles, _, rt = d_t.shape
     dev = d_t.device
@@ -204,22 +208,24 @@ def _listed_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, C, dmin=None, tested
         for k in range(min(int(cnt[sl].max()), chunk_ids.shape[2])):
             cid = chunk_ids[sl, :, k]  # (n, nt)
             valid = k < cnt[sl]
-            if tested is not None:
+            still = None
+            if dmin is not None:
                 still = (best_t > dmin[sl, :, k, None]) & valid[..., None]
                 tested["block"] += int(still.reshape(n, n_tiles, -1, STREAM_BLOCK_RAYS).any(-1).sum())
                 tested["warp"] += int(still.reshape(n, n_tiles, -1, STREAM_WARP_RAYS).any(-1).sum())
             idx = (cid.long()[..., None] * 4 * C + cols)[:, :, None, :].expand(n, n_tiles, 10, 4 * C)
             G = torch.einsum("ntfc,ntfr->ntcr", torch.gather(Mg, 3, idx), F)
-            best_t, best_i = _fold(G, C, cid, valid, best_t, best_i, tested=tested, rays=still if tested is not None else None)
+            best_t, best_i = _fold(G, C, cid, valid, best_t, best_i, tested=tested, rays=still)
         t, i = _finish(best_t, best_i) if finish else (best_t.reshape(n, -1), best_i.reshape(n, -1))
         ts.append(t)
         idxs.append(i)
     return torch.cat(ts), torch.cat(idxs)
 
 
-def raycast_fused_sel_t_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_tile=2048, tri_chunk=32):
-    """Plain version of the frustum-selected kernel."""
-    return _listed_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, tri_chunk)
+def raycast_fused_sel_t_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_tile=2048, tri_chunk=32, tested=None):
+    """Plain version of the frustum-selected kernel. ``tested``: see
+    ``_fold``."""
+    return _listed_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, tri_chunk, tested=tested)
 
 
 def raycast_stream_t_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_tile=1024, tri_chunk=128, tested=None):
@@ -268,8 +274,8 @@ def cull_mask_torch(verts16, sids, head, cntk, nw, cam_pos, eps=-1e-3, c=32):
     return (~out_any & (rows[..., VERTS16_VALID] > 0.5)).float()
 
 
-def raycast_fused_t_plain(tri_mat_c, sids, d_t, Bt, ray_tile=2048, tri_chunk=128):
-    """Plain version of the every-chunk kernel."""
+def raycast_fused_t_plain(tri_mat_c, sids, d_t, Bt, ray_tile=2048, tri_chunk=128, tested=None):
+    """Plain version of the every-chunk kernel. ``tested``: see ``_fold``."""
     N = sids.shape[0]
     n_tiles, _, rt = d_t.shape
     C = tri_chunk
@@ -281,13 +287,14 @@ def raycast_fused_t_plain(tri_mat_c, sids, d_t, Bt, ray_tile=2048, tri_chunk=128
     for c in range(Mg.shape[2] // (4 * C)):
         G = torch.einsum("nfc,ntfr->ntcr", Mg[:, :, c * 4 * C:(c + 1) * 4 * C], F)
         base = torch.full((N, n_tiles), c, dtype=torch.int32, device=d_t.device)
-        best_t, best_i = _fold(G, C, base, valid, best_t, best_i)
+        best_t, best_i = _fold(G, C, base, valid, best_t, best_i, tested=tested)
     return _finish(best_t, best_i)
 
 
-def _index_plain(tri_mat, sids, F, C, strict):
+def _index_plain(tri_mat, sids, F, C, strict, tested=None):
     """Every chunk of C triangles of the env's scene in order, for ray
-    features F (N, nt, 10, rt): (t (N, R), idx (N, R))."""
+    features F (N, nt, 10, rt): (t (N, R), idx (N, R)). ``tested``: see
+    ``_fold``."""
     N, n_tiles, _, rt = F.shape
     T = tri_mat.shape[3]
     dev = F.device
@@ -302,24 +309,26 @@ def _index_plain(tri_mat, sids, F, C, strict):
         for c in range(T // C):
             G = torch.einsum("nfc,ntfr->ntcr", Mg[..., c * C:(c + 1) * C].reshape(n, 10, 4 * C), Fs)
             base = torch.full((n, n_tiles), c, dtype=torch.int32, device=dev)
-            best_t, best_i = _fold(G, C, base, valid, best_t, best_i, strict=strict)
+            best_t, best_i = _fold(G, C, base, valid, best_t, best_i, strict=strict, tested=tested)
         t, i = _finish(best_t, best_i)
         ts.append(t)
         idxs.append(i)
     return torch.cat(ts), torch.cat(idxs)
 
 
-def raycast_index_t_plain(tri_mat, sids, features_t, ray_tile=2048):
+def raycast_index_t_plain(tri_mat, sids, features_t, ray_tile=2048, tested=None):
     """Plain version of the index kernel: every chunk of min(128, T)
-    triangles of the env's scene, in order."""
-    return _index_plain(tri_mat, sids, features_t[:, :, :10], min(128, tri_mat.shape[3]), strict=False)
+    triangles of the env's scene, in order. ``tested``: see ``_fold``."""
+    return _index_plain(tri_mat, sids, features_t[:, :, :10], min(128, tri_mat.shape[3]), strict=False,
+                        tested=tested)
 
 
-def raycast_index_plain(tri_mat, sids, features, ray_tile=2048, tri_chunk=128):
+def raycast_index_plain(tri_mat, sids, features, ray_tile=2048, tri_chunk=128, tested=None):
     """Plain version of the v3 index kernel: row-major features (N, R, 10),
-    every chunk of min(tri_chunk, T) triangles in order, split margin."""
+    every chunk of min(tri_chunk, T) triangles in order, split margin.
+    ``tested``: see ``_fold``."""
     F = features.transpose(1, 2)[:, None]  # (N, 1, 10, R)
-    return _index_plain(tri_mat, sids, F, min(tri_chunk, tri_mat.shape[3]), strict=True)
+    return _index_plain(tri_mat, sids, F, min(tri_chunk, tri_mat.shape[3]), strict=True, tested=tested)
 
 
 def _culled_plain(tri_mat, tri_attr, chunk_ids, sids, F, C, tested=None):
@@ -430,6 +439,22 @@ def attr16_table(tri_attr: torch.Tensor, tri_v0: torch.Tensor, tri_chunk: int = 
 # ---------------------------------------------------------------------------
 
 
+def _check_fused_launch(tri_mat_c, tri_chunk):
+    """The fused kernels copy and read four consecutive lanes of a chunk's
+    rows as 16-byte words."""
+    if tri_chunk not in (32, 128) or tri_mat_c.data_ptr() % 16:
+        raise ValueError(f"the fused kernels take a 16-byte aligned tri_mat_c in chunks of 32 or 128, not "
+                         f"{tri_chunk} (data_ptr % 16 = {tri_mat_c.data_ptr() % 16})")
+
+
+def _check_ring_launch(tri_mat, tri_chunk):
+    """The index and culled kernels copy 16-byte words of the scene
+    matrix."""
+    if tri_chunk % 4 or tri_mat.shape[3] % 4 or tri_mat.data_ptr() % 16:
+        raise ValueError(f"the ring kernels take a 16-byte aligned tri_mat {tuple(tri_mat.shape)} and chunks of a "
+                         f"multiple of 4 triangles, not {tri_chunk}")
+
+
 def raycast_fused_sel_t(
     tri_mat_c: torch.Tensor,  # (S, 10, 4T) group_tri_mat(tri_mat, C)
     sids: torch.Tensor,  # (N,) int32
@@ -450,6 +475,7 @@ def raycast_fused_sel_t(
         raise ValueError(f"chunk_ids {tuple(chunk_ids.shape)} / cnt {tuple(cnt.shape)}")
     if d_t.device.type == "cpu":
         return raycast_fused_sel_t_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_tile, tri_chunk)
+    _check_fused_launch(tri_mat_c, tri_chunk)
     lib = cuda_build.load("raycast_fused")
     t = torch.empty((N, n_tiles * ray_tile), dtype=torch.float32, device=d_t.device)
     idx = torch.empty((N, n_tiles * ray_tile), dtype=torch.int32, device=d_t.device)
@@ -480,6 +506,7 @@ def raycast_fused_t(
     n_tiles = _check_inputs(tri_mat_c, sids, d_t, Bt, ray_tile, tri_chunk)
     if d_t.device.type == "cpu":
         return raycast_fused_t_plain(tri_mat_c, sids, d_t, Bt, ray_tile, tri_chunk)
+    _check_fused_launch(tri_mat_c, tri_chunk)
     lib = cuda_build.load("raycast_fused")
     N = sids.shape[0]
     t = torch.empty((N, n_tiles * ray_tile), dtype=torch.float32, device=d_t.device)
@@ -657,6 +684,7 @@ def raycast_index_t(
         raise ValueError(f"{T} triangles do not split into chunks of {C}")
     if features_t.device.type == "cpu":
         return raycast_index_t_plain(tri_mat, sids, features_t, ray_tile)
+    _check_ring_launch(tri_mat, C)
     lib = cuda_build.load("raycast_general")
     dev = features_t.device
     t = torch.empty((N, n_tiles * ray_tile), dtype=torch.float32, device=dev)
@@ -672,13 +700,6 @@ def raycast_index_t(
 
 raycast_index_t.launches = 0
 raycast_index_t.plain = raycast_index_t_plain
-
-
-def _check_culled_launch(tri_mat, tri_chunk):
-    """The culled kernels copy 16-byte words of the scene matrix."""
-    if tri_chunk % 4 or tri_mat.shape[3] % 4 or tri_mat.data_ptr() % 16:
-        raise ValueError(f"the culled kernels take a 16-byte aligned tri_mat {tuple(tri_mat.shape)} and chunks of a "
-                         f"multiple of 4 triangles, not {tri_chunk}")
 
 
 def raycast_culled_t(
@@ -708,7 +729,7 @@ def raycast_culled_t(
         )
     if features_t.device.type == "cpu":
         return raycast_culled_t_plain(tri_mat, tri_attr_t, chunk_ids, sids, features_t, ray_tile, tri_chunk)
-    _check_culled_launch(tri_mat, tri_chunk)
+    _check_ring_launch(tri_mat, tri_chunk)
     lib = cuda_build.load("raycast_general")
     dev = features_t.device
     t = torch.empty((N, n_tiles * ray_tile), dtype=torch.float32, device=dev)
@@ -757,6 +778,7 @@ def raycast_index(
         )
     if features.device.type == "cpu":
         return raycast_index_plain(tri_mat, sids, features, ray_tile, tri_chunk)
+    _check_ring_launch(tri_mat, C)
     lib = cuda_build.load("raycast_general")
     dev = features.device
     t = torch.empty((N, R), dtype=torch.float32, device=dev)
@@ -830,7 +852,7 @@ def raycast_culled(
     if features.device.type == "cpu":
         return raycast_culled_plain(tri_mat, tri_attr, chunk_ids, sids, ray_tile=ray_tile, tri_chunk=tri_chunk,
                                     features=features)
-    _check_culled_launch(tri_mat, tri_chunk)
+    _check_ring_launch(tri_mat, tri_chunk)
     lib = cuda_build.load("raycast_general")
     dev = features.device
     t = torch.empty((N, R), dtype=torch.float32, device=dev)
@@ -871,6 +893,18 @@ def culled_design(tri_chunk: int, k_max: int, row_major: bool = False) -> dict:
     """The same for the culled kernels (``row_major``: raycast_culled's) at
     chunk size ``tri_chunk`` and list length ``k_max``."""
     return _design("raycast_general", "raycast_culled_design", int(row_major), tri_chunk, k_max)
+
+
+def index_design(tri_chunk: int = 128, row_major: bool = False) -> dict:
+    """The same for the index kernels (``row_major``: raycast_index's) at
+    chunk size ``tri_chunk``."""
+    return _design("raycast_general", "raycast_index_design", int(row_major), tri_chunk)
+
+
+def fused_design(tri_chunk: int = 32) -> dict:
+    """The same for the frustum-selected and every-chunk kernel at chunk size
+    ``tri_chunk`` (32 or 128)."""
+    return _design("raycast_fused", "raycast_fused_design", tri_chunk)
 
 
 def raycast_tilecull_t(

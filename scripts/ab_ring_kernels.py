@@ -1,24 +1,32 @@
 #!/usr/bin/env python3
-"""Times the scan route's closest-hit kernels of two checkouts of the port on
-the same inputs, in one run on one card.
+"""Times the ring and stream closest-hit kernels of two checkouts of the
+port on the same inputs, in one run on one card.
 
-    python3 scripts/ab_ring_kernels.py --roots PARENT . . PARENT [--check]
+    python3 scripts/ab_ring_kernels.py --roots PARENT . . PARENT [--check] [--set scan|bench|all]
 
 Each root is a checkout holding ``habitat_torch/``; each is run in its own
 process, in the order given (parent, change, change, parent puts drift on
-both sides). A process builds that checkout's kernels, generates the scan
-scene of ``chip_smoke.py`` (859,290 triangles), and on the scan env's reset
-times with CUDA events:
+both sides). A process builds that checkout's kernels, generates the scenes
+of ``chip_smoke.py`` and times with CUDA events, on each scene's reset:
 
-- #4 ``raycast_exactsel_t`` (N=256, 128x128, chunklets of 32),
-- #5 ``raycast_stream_t`` (the same reset, ``backend="stream"``, chunks of 256),
-- #7 ``raycast_culled_t`` (N=32, 128x256 equirect, K=160 chunks of 256),
-- #9 ``raycast_culled`` (#7's ids split into 320 chunks of 128).
+- ``--set scan`` (the scan scene, 859,290 triangles):
+  #4 ``raycast_exactsel_t`` (N=256, 128x128, chunklets of 32),
+  #5 ``raycast_stream_t`` (the same reset, ``backend="stream"``, chunks of 256),
+  #7 ``raycast_culled_t`` (N=32, 128x256 equirect, K=160 chunks of 256),
+  #9 ``raycast_culled`` (#7's ids split into 320 chunks of 128);
+- ``--set bench`` (the bench scenes and the mid-size scene):
+  #1 ``raycast_fused_sel_t`` (bench reset, N=256, 128x128),
+  #2 ``raycast_fused_t`` (mid-size reset, N=16, 128x128, 34 chunks of 128),
+  #3 ``raycast_index_t`` (panoramic bench reset, N=256, 128x256 equirect;
+  mid-size fisheye reset, N=16, 128x128),
+  #8 ``raycast_index`` (the bench reset's rays, row-major features).
 
 With ``--check`` each kernel is also held against its plain version on the
 card (t and winner equal on every ray, except the stream kernels' rounding
-case: a ray whose plain hit is nearer, counted), and #9 against #7 bit for
-bit. Prints one JSON line per root and the card's name and power limit.
+case: a ray whose plain hit is nearer, counted), #9 against #7 bit for bit
+and #8 against #3 on the same rays (winner and t equal but on margin
+boundaries, counted). Prints one JSON line per root and the card's name and
+power limit.
 """
 
 import argparse
@@ -46,9 +54,8 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def one(root, check):
-    root = os.path.abspath(root)
-    sys.path.insert(0, root)
+def scan_runs(rk, rc, dev, call):
+    """The scan route's kernels on the scan scene's resets."""
     import numpy as np
     import torch
 
@@ -56,57 +63,124 @@ def one(root, check):
     from habitat_torch.core.env_factory import make_nav_env
     from habitat_torch.core.registry import registry
     from habitat_torch.datasets.pointnav import generate_pointnav_episode
-    from habitat_torch.ops import cuda_build
-    from habitat_torch.ops import raycast as rc
-    from habitat_torch.ops import raycast_kernels as rk
     from habitat_torch.sims.procedural import build_lod_scene, generate_scan_apartment
 
-    if not rk.__file__.startswith(root):
-        raise RuntimeError(f"imported {rk.__file__}, not from {root}")
-    ptxas = {name: rep for name, (_, rep) in cuda_build.build(("raycast_stream", "raycast_general")).items()}
-    dev = torch.device("cuda")
     scene = generate_scan_apartment(0, tess=SCAN["tess"], n_clutter=SCAN["n_clutter"])
     lod = build_lod_scene(scene, cells=SCAN["cells"], bands=SCAN["bands"])
     lod.scene_id = scene.scene_id
     rng = np.random.default_rng(0)
     pairs = [p for p in (generate_pointnav_episode(scene, str(i), rng) for i in range(16)) if p is not None]
-    size = dict(height=128, width=128)
-    sensors = (("HabitatSimDepthSensor", size), ("HabitatSimRGBSensor", size), ("PointGoalWithGPSCompassSensor", None))
     env = make_nav_env([lod], [p[0] for p in pairs], num_envs=256, max_episode_steps=500,
-                       precomputed_fields={e.episode_id: f for (e, f) in pairs}, sensor_specs=sensors)
-    pano = dict(height=128, width=256)
-    pano_sensors = (("HabitatSimEquirectangularDepthSensor", pano), ("HabitatSimEquirectangularRGBSensor", pano),
-                    ("PointGoalWithGPSCompassSensor", None))
+                       precomputed_fields={e.episode_id: f for (e, f) in pairs}, sensor_specs=sensors(SIZE))
     pano_env = BatchedEnv(env.pack, env.table, env.order[:32].cpu().numpy(),
-                          [registry.get_sensor(n)(c) for n, c in pano_sensors], env.measures, env.actions,
-                          device=dev, max_episode_steps=500)
-    cam = torch.tensor([0.0, 1.25, 0.0], device=dev)
-
-    def call(e, hw, **kw):
-        st, _ = e.reset_fn()
-        return rc.closest_hit_call(e.pack, e._make_ctx(st).sid, st.pos + cam, st.yaw, st.pitch, **hw, **kw)
-
-    out = dict(root=root, ptxas={k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
-                                 for k, v in ptxas.items()})
-    runs = [("raycast_exactsel_t", call(env, size), 20), ("raycast_stream_t", call(env, size, backend="stream"), 3)]
-    culled = call(pano_env, pano, projection="equirect")
+                          [registry.get_sensor(n)(c) for n, c in sensors(PANO, "Equirectangular")], env.measures,
+                          env.actions, device=dev, max_episode_steps=500)
+    culled = call(pano_env, PANO, projection="equirect")
     ids, split = culled[1][2], culled[2]["tri_chunk"] // 128
     ids128 = (ids[..., None] * split + torch.arange(split, dtype=torch.int32, device=dev)).reshape(*ids.shape[:2], -1)
     origins = culled[1][4][:, :, 3:6].transpose(2, 3).reshape(culled[3].shape)
-    feat9 = rc.ray_features(origins, culled[3])
-    runs += [("raycast_culled_t", culled, 5),
-             ("raycast_culled", (rk.raycast_culled, (env.pack.tri_mat, env.pack.tri_attr, ids128.contiguous(),
-                                                     culled[1][3], None, None),
-                                 dict(ray_tile=1024, tri_chunk=128, features=feat9), None), 5)]
+    c9 = (rk.raycast_culled, (env.pack.tri_mat, env.pack.tri_attr, ids128.contiguous(), culled[1][3], None, None),
+          dict(ray_tile=1024, tri_chunk=128, features=rc.ray_features(origins, culled[3])), None)
+    runs = [("raycast_exactsel_t", call(env, SIZE), 20), ("raycast_stream_t", call(env, SIZE, backend="stream"), 3),
+            ("raycast_culled_t", culled, 5), ("raycast_culled", c9, 5)]
+    design = {}
+    if hasattr(rk, "stream_design"):
+        design = dict(raycast_stream=rk.stream_design(),
+                      raycast_culled_t=rk.culled_design(culled[2]["tri_chunk"], ids.shape[2]),
+                      raycast_culled=rk.culled_design(128, ids128.shape[2], row_major=True))
+    return runs, design
+
+
+def bench_runs(rk, rc, dev, call):
+    """The frustum-selected, every-chunk and index kernels on the bench and
+    mid-size scenes' resets."""
+    import torch
+
+    from habitat_torch.core.env_factory import make_nav_env
+    from habitat_torch.datasets.pointnav import make_procedural_pointnav
+
+    scenes, episodes, fields = make_procedural_pointnav(num_scenes=4, episodes_per_scene=16, seed=0)
+    kw = dict(num_envs=256, precomputed_fields=fields, max_episode_steps=500)
+    env = make_nav_env(scenes, episodes, sensor_specs=sensors(SIZE), **kw)
+    pano_env = make_nav_env(scenes, episodes, sensor_specs=sensors(PANO, "Equirectangular"), **kw)
+    mscenes, meps, mfields = make_procedural_pointnav(num_scenes=1, episodes_per_scene=4, seed=0, extent=30.0,
+                                                      scene_kw=dict(n_clutter=420))
+    mid_env = make_nav_env(mscenes, meps, num_envs=16, precomputed_fields=mfields, max_episode_steps=500,
+                           sensor_specs=sensors(SIZE))
+    st, _ = env.reset_fn()
+    cam = st.pos + torch.tensor(CAM, device=dev)
+    dirs = rc.world_rays(st.yaw, st.pitch, 90.0, **SIZE)
+    origins = cam[:, None, :].expand(-1, dirs.shape[1], -1)
+    sid = env._make_ctx(st).sid.to(torch.int32)
+    # #8 on the bench reset's rays, and #3 on the same rays to compare with
+    index_rm = (rk.raycast_index, (env.pack.tri_mat, sid, rc.ray_features(origins, dirs)), dict(ray_tile=2048), None)
+    index_t = (rk.raycast_index_t, (env.pack.tri_mat, sid, rc.ray_features_t(origins, dirs, 2048)),
+               dict(ray_tile=2048), None)
+    runs = [("raycast_fused_sel_t", call(env, SIZE), 50), ("raycast_fused_t", call(mid_env, SIZE), 20),
+            ("raycast_index_t", call(pano_env, PANO, projection="equirect"), 20),
+            ("raycast_index_t", call(mid_env, SIZE, projection="fisheye"), 10),
+            ("raycast_index", index_rm, 20)]
+    design = {}
+    if hasattr(rk, "index_design"):
+        design = dict(raycast_index_t=rk.index_design(128), raycast_index=rk.index_design(128, row_major=True),
+                      raycast_fused_sel_t=rk.fused_design(32), raycast_fused_t=rk.fused_design(128))
+    return runs, design, index_t
+
+
+CAM = (0.0, 1.25, 0.0)  # the camera above the agent's position
+SIZE = dict(height=128, width=128)
+PANO = dict(height=128, width=256)
+LABELS = {  # run order within a set -> the row's name in the output
+    "bench": ("raycast_fused_sel_t", "raycast_fused_t mid", "raycast_index_t pano", "raycast_index_t mid fisheye",
+              "raycast_index"),
+    "scan": ("raycast_exactsel_t", "raycast_stream_t", "raycast_culled_t", "raycast_culled"),
+}
+
+
+def sensors(hw, kind=""):
+    return ((f"HabitatSim{kind}DepthSensor", hw), (f"HabitatSim{kind}RGBSensor", hw),
+            ("PointGoalWithGPSCompassSensor", None))
+
+
+def one(root, check, sets):
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    from habitat_torch.ops import cuda_build
+    from habitat_torch.ops import raycast as rc
+    from habitat_torch.ops import raycast_kernels as rk
+
+    if not rk.__file__.startswith(root):
+        raise RuntimeError(f"imported {rk.__file__}, not from {root}")
+    sources = {"scan": ("raycast_stream", "raycast_general"), "bench": ("raycast_fused", "raycast_general")}
+    built = cuda_build.build(tuple(sorted({n for k in sets for n in sources[k]})))
+    dev = torch.device("cuda")
+
+    def call(e, hw, **kw):
+        st, _ = e.reset_fn()
+        cam = st.pos + torch.tensor(CAM, device=dev)
+        return rc.closest_hit_call(e.pack, e._make_ctx(st).sid, cam, st.yaw, st.pitch, **hw, **kw)
+
+    out = dict(root=root, ptxas={k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
+                                 for k, (_, v) in built.items()}, design={})
+    runs, index_t_on_rays8 = [], None
+    for name in sets:
+        if name == "scan":
+            got, design = scan_runs(rk, rc, dev, call)
+        else:
+            got, design, index_t_on_rays8 = bench_runs(rk, rc, dev, call)
+        runs += [(label, *run) for label, run in zip(LABELS[name], got)]
+        out["design"].update(design)
     results = {}
-    for name, (kernel, args, kwargs, _), reps in runs:
+    for label, name, (kernel, args, kwargs, _), reps in runs:
         if kernel is not getattr(rk, name):
-            raise RuntimeError(f"{name}: the route took {kernel.__name__}")
+            raise RuntimeError(f"{label}: the route took {kernel.__name__}")
         before = kernel.launches
         got = kernel(*args, **kwargs)
         torch.cuda.synchronize()
         if kernel.launches != before + 1:
-            raise RuntimeError(f"{name} did not launch its kernel")
+            raise RuntimeError(f"{label} did not launch its kernel")
         row = dict(ms=cuda_ms(lambda: kernel(*args, **kwargs), reps))
         if check:
             stream = name in ("raycast_exactsel_t", "raycast_stream_t")
@@ -131,18 +205,18 @@ def one(root, check):
             nearer = differ & (t_p < t_k) if stream else differ & False
             row.update(rays=t_k.numel(), rays_differing=int(differ.sum()), nearer_in_plain_rays=int(nearer.sum()))
             if int((differ & ~nearer).sum()):
-                raise RuntimeError(f"{name}: {row}")
-        results[name] = (row, got)
-    if check:
+                raise RuntimeError(f"{label}: {row}")
+        results[label] = (row, got)
+    if check and "scan" in sets:
         t7, a7 = results["raycast_culled_t"][1]
         t9, a9 = results["raycast_culled"][1]
         if not (torch.equal(t9, t7) and torch.equal(a9, a7.transpose(1, 2))):
             raise RuntimeError("raycast_culled differs from raycast_culled_t")
+    if check and "bench" in sets:  # #8 against #3 on the same rays: the margins differ on boundaries only
+        kernel, args, kwargs, _ = index_t_on_rays8
+        (t3, i3), (t8, i8) = kernel(*args, **kwargs), results["raycast_index"][1]
+        results["raycast_index"][0]["rays_differing_from_index_t"] = int(((t3 != t8) | (i3 != i8)).sum())
     out["kernels"] = {k: v[0] for k, v in results.items()}
-    if hasattr(rk, "stream_design"):
-        out["design"] = dict(raycast_stream=rk.stream_design(),
-                             raycast_culled_t=rk.culled_design(culled[2]["tri_chunk"], ids.shape[2]),
-                             raycast_culled=rk.culled_design(128, ids128.shape[2], row_major=True))
     return out
 
 
@@ -150,6 +224,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--roots", nargs="+", default=["."])
     ap.add_argument("--check", action="store_true")
+    ap.add_argument("--set", choices=("scan", "bench", "all"), default="all")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     a = ap.parse_args()
     import torch
@@ -158,10 +233,10 @@ def main():
         print("ab_ring_kernels: no CUDA device", file=sys.stderr)
         return 2
     if a.one:
-        print(json.dumps(one(a.one, a.check)), flush=True)
+        print(json.dumps(one(a.one, a.check, ("bench", "scan") if a.set == "all" else (a.set,))), flush=True)
         return 0
     for root in a.roots:
-        cmd = [sys.executable, os.path.abspath(__file__), "--one", root] + (["--check"] if a.check else [])
+        cmd = [sys.executable, os.path.abspath(__file__), "--one", root, "--set", a.set] + (["--check"] if a.check else [])
         subprocess.run(cmd, check=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())

@@ -186,7 +186,7 @@ def test_culled_kernels_skip_invalid_ids(cuda, where):
     cols.insert(at[0], torch.full_like(cols[0], -1))
     cols.insert(at[1], torch.full_like(cols[0], n_chunks))
     ids = torch.stack(cols, 2).contiguous()
-    assert ids.shape[2] % rk.CULLED_STAGES
+    assert ids.shape[2] % rk.RING_STAGES
     args = (tri_mat, attr_t, ids, sids, feat_t)
     before = kernel.launches
     t_k, a_k = kernel(*args, **kwargs)
@@ -213,7 +213,7 @@ def test_kernel_designs_match_the_wrappers(cuda):
     assert d["spill_bytes"] == 0 and d["blocks_per_sm"] >= 1
     for row_major, C in ((False, 256), (False, 128), (True, 128)):
         d = rk.culled_design(C, 160, row_major=row_major)
-        assert d["ring_stages"] == rk.CULLED_STAGES and d["rays_per_block"] == 1024
+        assert d["ring_stages"] == rk.RING_STAGES and d["rays_per_block"] == 1024
         assert d["spill_bytes"] == 0 and d["blocks_per_sm"] >= 1
 
 
@@ -443,6 +443,154 @@ def test_dynamic_render_on_card_matches_cpu(cuda):
     assert (ref["semantic"] == 100).float().mean() > 0.05
     assert (ref["semantic"] == got["semantic"].cpu()).float().mean() >= 0.999
     assert ((ref["depth"] - got["depth"].cpu()).abs() < 1e-4).float().mean() >= 0.999
+
+
+# ---- the ring kernels #1, #2, #3 and #8 at their edges ---------------------------
+
+
+def _equal(got, ref):
+    """t and winner equal on every ray."""
+    (t0, i0), (t1, i1) = ref, got
+    assert torch.equal(t0, t1) and torch.equal(i0, i1), f"{int(((t0 != t1) | (i0 != i1)).sum())} rays differ"
+
+
+def _launch(wrapper, *args, **kwargs):
+    """The wrapper on card tensors: it must launch its kernel once."""
+    before = wrapper.launches
+    out = wrapper(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    return out
+
+
+@pytest.fixture(scope="module")
+def ring_packs():
+    """The bench scenes (T = 128) and the mid-size scene (4352 triangles, 34
+    chunks of 128)."""
+    scenes, _, _ = make_procedural_pointnav(num_scenes=2, episodes_per_scene=1, seed=0)
+    mid, _, _ = make_procedural_pointnav(num_scenes=1, episodes_per_scene=1, seed=0, extent=30.0,
+                                         scene_kw=dict(n_clutter=420))
+    return dict(bench=pack_scenes(scenes), mid=pack_scenes(mid))
+
+
+@pytest.mark.parametrize("cnt_case", [0, 1, 2, 3, "K"])
+def test_fused_sel_kernel_at_ring_edges(cuda, ring_packs, cnt_case):
+    """#1 on 2048-ray tiles, each listing the scene's K = 4 chunks of 32 in a
+    seeded order cut to cnt slots (the tail repeating the last): t and idx
+    equal to the plain version's on the card on every ray."""
+    pack = ring_packs["bench"]
+    sids, _, _, _, d_t, Bt, _, _, rt = _inputs(pack, 8, 64, 6)
+    assert rt == 2048
+    gm = rc.group_tri_mat(pack.tri_mat, 32).contiguous()
+    K, nt = gm.shape[2] // 4 // 32, d_t.shape[0]
+    g = torch.Generator().manual_seed(5)
+    ids = torch.stack([torch.randperm(K, generator=g) for _ in range(8 * nt)]).reshape(8, nt, K).to(torch.int32)
+    n = K if cnt_case == "K" else cnt_case
+    if 0 < n < K:
+        ids[..., n:] = ids[..., n - 1:n]
+    cnt = torch.full((8, nt), n, dtype=torch.int32)
+    args = [x.to(cuda) for x in (gm, sids, ids.contiguous(), cnt, d_t, Bt)]
+    got = _launch(rk.raycast_fused_sel_t, *args, ray_tile=rt, tri_chunk=32)
+    _equal(got, rk.raycast_fused_sel_t.plain(*args, ray_tile=rt, tri_chunk=32))
+    assert bool((got[1] >= 0).any()) == (n > 0)
+
+
+def test_fused_kernel_on_the_mid_size_scene(cuda, ring_packs):
+    """#2 over the mid-size scene's 34 chunks of 128 on 2048-ray tiles."""
+    pack = ring_packs["mid"]
+    sids, _, _, _, d_t, Bt, _, _, rt = _inputs(pack, 4, 64, 7)
+    args = [x.to(cuda) for x in (rc.group_tri_mat(pack.tri_mat, 128).contiguous(), sids, d_t, Bt)]
+    assert args[0].shape[2] // 4 // 128 == 34
+    got = _launch(rk.raycast_fused_t, *args, ray_tile=rt, tri_chunk=128)
+    _equal(got, rk.raycast_fused_t.plain(*args, ray_tile=rt, tri_chunk=128))
+    assert (got[1] >= 0).float().mean() > 0.3
+
+
+def _index_rays(pack, n, H, W, seed):
+    """Equirect rays of n poses around the centre of the pack's first scene."""
+    rng = np.random.RandomState(seed)
+    c = pack.chunk_bounds[0, :, :3].mean(0).numpy()
+    pos = torch.as_tensor(np.c_[c[0] + rng.uniform(-1, 1, n), np.full(n, 1.25), c[2] + rng.uniform(-1, 1, n)],
+                          dtype=torch.float32)
+    yaw = torch.as_tensor(rng.uniform(-np.pi, np.pi, n), dtype=torch.float32)
+    dirs = rc.world_rays(yaw, torch.zeros(n), 90.0, H, W, "equirect")
+    return pos[:, None, :].expand(-1, H * W, -1).contiguous(), dirs
+
+
+def _with_soup(tri_mat, T, seed):
+    """The pack's matrix (S, 10, 4, 128) and T - 128 seeded triangles of
+    0.1-0.6 m around each scene's rooms."""
+    k = T - tri_mat.shape[3]
+    if k == 0:
+        return tri_mat
+    rng = np.random.RandomState(seed)
+    soup = []
+    for _ in range(tri_mat.shape[0]):
+        v0 = rng.uniform([2, 0.3, 2], [8, 2.5, 8], (k, 3)).astype(np.float32)
+        e1, e2 = (rng.normal(0, 0.3, (k, 3)).astype(np.float32) for _ in range(2))
+        soup.append(torch.from_numpy(rc.build_tri_matrix(v0, e1, e2, np.ones(k, bool))))
+    return torch.cat([tri_mat, torch.stack(soup)], dim=3).contiguous()
+
+
+@pytest.mark.parametrize("case", ["T128", "T256", "T384", "slab600", "slab1600", "mid"])
+def test_index_kernels_at_ring_edges(cuda, ring_packs, case):
+    """#3 over one, two and three chunks of 128 (the bench room and a seeded
+    soup), on untiled slabs of 600 and 1600 rays, and over the mid-size
+    scene's 34 chunks; #8 on the same rays from row-major features. Each
+    equals its plain version on the card on every ray, and #8 agrees with #3
+    (their margins differ on boundaries only)."""
+    pack = ring_packs["mid" if case == "mid" else "bench"]
+    n, (H, W) = 4, {"slab600": (20, 30), "slab1600": (40, 40)}.get(case, (64, 64))
+    tri_mat = _with_soup(pack.tri_mat, int(case[1:]), 3) if case[0] == "T" else pack.tri_mat
+    o, d = _index_rays(pack, n, H, W, 9)
+    R = H * W
+    rt = 2048 if R % 2048 == 0 else R
+    sids = (torch.arange(n, dtype=torch.int32) % pack.num_scenes).to(cuda)
+    tri_mat, o, d = tri_mat.to(cuda), o.to(cuda), d.to(cuda)
+    feat_t = rc.ray_features_t(o, d, rt)
+    t3, i3 = _launch(rk.raycast_index_t, tri_mat, sids, feat_t, ray_tile=rt)
+    _equal((t3, i3), rk.raycast_index_t.plain(tri_mat, sids, feat_t, ray_tile=rt))
+    assert (i3 >= 0).float().mean() > 0.3
+    if case[0] == "T" and case != "T128":
+        assert (i3 >= 128).any()  # the later chunks are walked
+    feat = rc.ray_features(o, d)
+    t8, i8 = _launch(rk.raycast_index, tri_mat, sids, feat, ray_tile=rt)
+    _equal((t8, i8), rk.raycast_index.plain(tri_mat, sids, feat, ray_tile=rt))
+    _agree((t3, i3), (t8, i8))
+
+
+def test_ring_wrappers_reject_bad_layouts(cuda):
+    """A misaligned or T % 4 != 0 matrix, or a chunk the fused kernel does not
+    take, raises on the card and launches nothing."""
+    dev = cuda
+    sids = torch.zeros(1, dtype=torch.int32, device=dev)
+    feat_t = torch.zeros(1, 1, 16, 1024, device=dev)
+    feat = torch.zeros(1, 1024, 10, device=dev)
+    bad = torch.zeros(40 * 128 + 1, device=dev)[1:].view(1, 10, 4, 128)  # 4 bytes past a 16-byte boundary
+    odd = torch.zeros(1, 10, 4, 126, device=dev)  # one chunk of 126
+    counts = (rk.raycast_index_t.launches, rk.raycast_index.launches, rk.raycast_fused_t.launches)
+    for tm in (bad, odd):
+        with pytest.raises(ValueError):
+            rk.raycast_index_t(tm, sids, feat_t, ray_tile=1024)
+        with pytest.raises(ValueError):
+            rk.raycast_index(tm, sids, feat, ray_tile=1024)
+    d_t = torch.zeros(1, 8, 1024, device=dev)
+    Bt = torch.zeros(1, 16, 4, device=dev)
+    gm_bad = torch.zeros(40 * 128 + 1, device=dev)[1:].view(1, 10, 512)
+    with pytest.raises(ValueError):
+        rk.raycast_fused_t(gm_bad, sids, d_t, Bt, ray_tile=1024, tri_chunk=128)
+    with pytest.raises(ValueError):
+        rk.raycast_fused_t(torch.zeros(1, 10, 512, device=dev), sids, d_t, Bt, ray_tile=1024, tri_chunk=64)
+    assert counts == (rk.raycast_index_t.launches, rk.raycast_index.launches, rk.raycast_fused_t.launches)
+
+
+def test_ring_designs_match_the_wrappers(cuda):
+    """The index and fused kernels' block and ring depth are the wrappers'
+    constants, with no spills and two blocks per SM."""
+    for d in (rk.index_design(128), rk.index_design(64), rk.index_design(128, row_major=True),
+              rk.fused_design(32), rk.fused_design(128)):
+        assert (d["rays_per_block"], d["ring_stages"]) == (rk.RING_BLOCK_RAYS, rk.RING_STAGES)
+        assert d["spill_bytes"] == 0 and d["blocks_per_sm"] >= 2
 
 
 # ---- the stem max pool's backward -----------------------------------------------

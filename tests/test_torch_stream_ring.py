@@ -10,7 +10,7 @@ tensors) against the JAX package's Pallas kernels under
   winner ids equal on >= 99.9% of hits (shared-edge near-ties), |dt| < 5e-3
   m on equal winners (float32 determinants summed in another order).
 - #7: a list of odd length (not a multiple of the ring depth
-  ``CULLED_STAGES``) with invalid ids (-1 and T / C) inserted. The kernels
+  ``RING_STAGES``) with invalid ids (-1 and T / C) inserted. The kernels
   skip such ids; the Pallas kernel has no rule for them, so its reference
   list repeats the previous valid id in their place, which cannot change a
   strict-< winner. The same tolerance, with the 8 attributes equal where the
@@ -207,7 +207,7 @@ def test_culled_plain_skips_invalid_ids(culled_ref, scan, where):
     c = culled_ref
     ids, ref_ids = _with_invalid(c["ids"], where, c["n_chunks"])
     K = ids.shape[2]
-    assert K % trk.CULLED_STAGES != 0 and ((ids < 0) | (ids >= c["n_chunks"])).any()
+    assert K % trk.RING_STAGES != 0 and ((ids < 0) | (ids >= c["n_chunks"])).any()
     before = trk.raycast_culled_t.launches
     t_p, a_p = trk.raycast_culled_t(scan["p128"][1].tri_mat, _t(c["attr_t"]), _t(ids), _t(scan["sids"]),
                                     _t(c["feat"]), ray_tile=1024, tri_chunk=128)
