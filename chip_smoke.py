@@ -54,7 +54,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            #2, #3, #7, #8, #9) carry their design as their libraries report
            it (rays per thread and per block, ring depth, registers, spills,
            shared memory, blocks per SM), which must match the wrappers'
-           constants.
+           constants; those of the cull mask (#6) and the max-pool backward
+           (#11) carry theirs (no spills), their achieved TB/s and their
+           share of the bound.
 4. paths   the main path: the bench PointNav configuration (4 procedural
            scenes, 64 episodes, N=256 envs, 128x128 depth+RGB+pointgoal,
            resnet18 base 32 / 16 groups + LSTM-512, 4 actions, T=32) with
@@ -80,8 +82,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            PPOConfig(num_steps=32, num_mini_batch=2, ppo_epoch=2) at N=256:
            a warm-up and TRAIN_STEPS timed steps (median and range of train
            env-steps/s, rollout / update split, peak memory, finite losses),
-           one update under torch.profiler; then the same train step on the
-           scan env (a warm-up and SCAN_TRAIN_STEPS timed). The max-pool
+           one update under torch.profiler (with the max-pool backward's
+           share of its device time, and whether autograd hands that
+           backward dy channels-last or it copies); then the same train step
+           on the scan env (a warm-up and SCAN_TRAIN_STEPS timed). The max-pool
            backward kernel must launch 4 times per train step and no plain
            version may run on a card tensor.
 7. check   env + render + policy on the card against the same code on the
@@ -356,6 +360,14 @@ def ring_text(r):
     return (f"{r['tests_per_s']:.4g} tests/s, {r['inside_pairs']} inside pairs of {r['ray_tri_tests']} tests; "
             f"bound {r['bound_ms']:.4f} ms (restated rule; {r['bound_ms'] / r['ms']:.3f} of the kernel's time), "
             f"{r['bound_old_rule_ms']:.4f} ms by the old rule; {design_text(r['design'])}")
+
+
+def rate_text(r):
+    """A bytes-bound kernel's achieved rate and share of its bound, for its
+    [kernel] line (the row's "bytes" key: what the bound counts)."""
+    r["tb_per_s"] = r["bytes"] / (r["ms"] * 1e-3) / 1e12
+    return (f"{r['bytes'] / 1e6:.1f} MB at {r['tb_per_s']:.3f} TB/s; bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.3f} of the kernel's time")
 
 
 def render_split(pose, kw, reps, warmup=2):
@@ -807,26 +819,28 @@ def main():
     nch = spack.tri_verts16.shape[1] // 32
     rows = sid0.long()[:, None, None] * nch + (head & ((1 << 18) - 1)).clamp(max=nch - 1)
     row_bytes = int(torch.unique(rows[gate]).numel()) * 2048
+    cull_bytes = row_bytes + sum(a.numel() * a.element_size() for a in cull_args[1:]) + mask_k.numel() * 4
     cull_row = dict(
         name="cullmask_t", route="cuda", source="habitat_torch/csrc/cullmask.cu",
         replaces="habitat_tpu/ops/raycast_pallas.py:2051",
         max_abs_err=(mask_k[gate] - mask_p[gate]).abs().max().item(), mask_agree=mask_agree,
         ms=cuda_ms(lambda: rk.cullmask_t(*cull_args), 20),
         plain_ms=cuda_ms(lambda: rk.cullmask_t.plain(*cull_args), 3, warmup=1),
-        **bound(row_bytes + sum(a.numel() * a.element_size() for a in cull_args[1:]) + mask_k.numel() * 4,
-                gated * 32 * FLOPS_PER_CULL_TRI),
+        **bound(cull_bytes, gated * 32 * FLOPS_PER_CULL_TRI), bytes=cull_bytes,
         distinct_row_bytes=row_bytes, gathered_row_bytes=gated * 2048,
         head_slots=head.shape[2], gated_slots_per_tile_mean=cntk.float().mean().item(),
         pass_fraction=mask_k[gate].mean().item(),
         survivors_per_tile_mean=lists["kernel"][1].float().mean().item(),
+        # no single PyTorch call computes the test: the plain version is a chain of ~40 ops
+        library_ms=None, design=rk.cullmask_design(),
     )
-    # the one PyTorch form of the same test is the plain version itself
-    cull_row["library_ms"] = cull_row["plain_ms"]
+    if cull_row["design"]["spill_bytes"]:
+        fail(f"cullmask_t spills: {cull_row['design']}")
     log(f"[kernel] cullmask_t on the scan reset's head ({head.shape[2]} slots, {cull_row['gated_slots_per_tile_mean']:.1f} "
         f"gated per tile): mask agreement {mask_agree:.6f}, lists equal on all {cntk.numel()} tiles; "
-        f"{cull_row['ms']:.3f} ms (PyTorch form {cull_row['plain_ms']:.3f} ms, bound {cull_row['bound_ms']:.3f} ms by "
-        f"{cull_row['bound_by']}); {cull_row['pass_fraction']:.3f} of gated triangles pass, "
-        f"{cull_row['survivors_per_tile_mean']:.1f} chunklets per tile survive")
+        f"{cull_row['ms']:.4f} ms (plain version {cull_row['plain_ms']:.3f} ms, no single PyTorch call); "
+        f"{rate_text(cull_row)}; {cull_row['pass_fraction']:.3f} of gated triangles pass, "
+        f"{cull_row['survivors_per_tile_mean']:.1f} chunklets per tile survive; design {cull_row['design']}")
 
     # the stem max pool's backward at the bench update's minibatch (T*N/2
     # images), in the layout the policy's stem hands it over
@@ -903,19 +917,23 @@ def main():
         replaces="habitat_tpu/ops/pool.py:123", max_abs_err=pool_err,
         ms=cuda_ms(lambda: pool.max_pool_3x3s2_bwd(*pool_args), 20),
         plain_ms=cuda_ms(lambda: pool.max_pool_3x3s2_bwd.plain(*pool_args), 3, warmup=1),
-        **bound(pool_bytes, FLOPS_PER_POOL_ELEMENT * gx.numel()),
+        **bound(pool_bytes, FLOPS_PER_POOL_ELEMENT * gx.numel()), bytes=pool_bytes,
         library_ms=cuda_ms(lambda: torch.autograd.grad(y_lib, x_lib, pool_args[2], retain_graph=True), 10),
         library_note="autograd.grad through F.max_pool2d on the padded input; credits one tied input",
         shape=list(pool_shape), dtype="bfloat16", layout=str(layout),
         tie_rich_maxima_per_window=maxima_per_window, f32_vs_library_max_abs_err=lib32_err,
+        design=pool.maxpool_bwd_design(torch.bfloat16), design_f32=pool.maxpool_bwd_design(torch.float32),
     )
+    for d in (pool_row["design"], pool_row["design_f32"]):
+        if d["spill_bytes"]:
+            fail(f"max_pool_3x3s2_bwd spills: {d}")
     del x_lib, y_lib, gx, pool_args
     torch.cuda.empty_cache()
     log(f"[kernel] max_pool_3x3s2_bwd at {pool_shape} bf16 ({layout}): bit-equal to its plain version on the ReLU "
         f"and the tie-rich input ({maxima_per_window:.3f} maxima credited per window); against "
-        f"F.max_pool2d's gradient on tie-free float32 max |d| {lib32_err:.3g}; {pool_row['ms']:.3f} ms (plain {pool_row['plain_ms']:.3f} ms, "
-        f"bound {pool_row['bound_ms']:.3f} ms by {pool_row['bound_by']}, autograd through F.max_pool2d "
-        f"{pool_row['library_ms']:.3f} ms)")
+        f"F.max_pool2d's gradient on tie-free float32 max |d| {lib32_err:.3g}; {pool_row['ms']:.4f} ms (plain "
+        f"{pool_row['plain_ms']:.3f} ms, autograd through F.max_pool2d {pool_row['library_ms']:.3f} ms); "
+        f"{rate_text(pool_row)}; design bf16 {pool_row['design']}, float32 {pool_row['design_f32']}")
 
     # the general route: the index kernel on the panoramic bench reset and on
     # the mid-size scene's fisheye reset, every chunk of min(128, T) tested
@@ -1141,10 +1159,11 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def profiled(tag, what, fn, wall, top=15):
+    def profiled(tag, what, fn, wall, top=15, name=None):
         """Run fn() once under torch.profiler: device kernel time against
         the unprofiled wall ``wall`` (kernels run on one stream), launches
-        and the top kernels. Returns fn's result."""
+        and the top kernels, and the time and share of the kernels whose
+        name holds ``name``. Returns fn's result."""
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             out = fn()
             torch.cuda.synchronize()
@@ -1157,6 +1176,11 @@ def main():
             f"{sum(e.count for e in dev_kernels)} kernel launches")
         for e in dev_kernels[:top]:
             log(f"[{tag}]   {device_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
+        if name:
+            named = [e for e in dev_kernels if name in e.key]
+            named_ms = sum(device_us(e) for e in named) / 1e3
+            log(f"[{tag}] {name}: {named_ms:.3f} ms in {sum(e.count for e in named)} launches, "
+                f"{named_ms / device_ms:.4f} of the device kernel time")
         return out
 
     rs = profiled("profile", "rollout", lambda: learner.collect_rollout(rs)[0], median_wall)
@@ -1373,7 +1397,20 @@ def main():
     # one update under the profiler, on a fresh rollout's batch
     trs, tbatch, tlast, th0, _ = train_learner.collect_rollout(trs)
     update_wall = sorted(split["update"][1:])[TRAIN_STEPS // 2] / 1e3
-    profiled("train-profile", "update", lambda: train_learner.update(trs.generator, tbatch, tlast, th0), update_wall)
+    # and whether the gradient reaches the pool's backward in x's layout, or
+    # needs a copy before the kernel
+    dy_layouts = []
+    pool_backward = pool._MaxPool3x3s2.backward
+
+    def backward_seen(ctx, dy):
+        dy_layouts.append(dy.is_contiguous(memory_format=torch.channels_last))
+        return pool_backward(ctx, dy)
+
+    with mock.patch.object(pool._MaxPool3x3s2, "backward", staticmethod(backward_seen)):
+        profiled("train-profile", "update", lambda: train_learner.update(trs.generator, tbatch, tlast, th0),
+                 update_wall, name="maxpool_bwd")
+    log(f"[train-profile] the pool's backward got dy channels-last in {sum(dy_layouts)} of {len(dy_layouts)} calls "
+        f"({len(dy_layouts) - sum(dy_layouts)} copies before the kernel)")
     del tbatch, tlast, th0, trs
 
     scan_train = PPOLearner(scan_env, policy, PPOConfig(**TRAIN))

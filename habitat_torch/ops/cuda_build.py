@@ -46,8 +46,14 @@ SOURCES = {
         "raycast_index_design": [_I, _I, _P],
         "raycast_culled_design": [_I, _I, _I, _P],
     },
-    "cullmask": {"cullmask": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P]},
-    "maxpool_bwd": {"maxpool_bwd": [_P] * 4 + [_I] * 5 + [_P]},
+    "cullmask": {
+        "cullmask": [_P] * 7 + [_I] * 4 + [ctypes.c_float, _P],
+        "cullmask_design": [_P],
+    },
+    "maxpool_bwd": {
+        "maxpool_bwd": [_P] * 4 + [_I] * 5 + [_P],
+        "maxpool_bwd_design": [_I, _P],
+    },
 }
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -17,20 +17,25 @@ that layout); the kernel reads that layout only, the plain version any.
 
 ``max_pool_3x3s2_bwd`` launches the kernel of ``csrc/maxpool_bwd.cu`` on card
 tensors (built at first use, ``ops/cuda_build.py``) and raises on what it
-does not take; CPU tensors take the plain version
-``max_pool_3x3s2_bwd_plain``, which sums in the kernel's order, so the two
-agree bit for bit. The wrapper counts its launches in ``launches`` and names
-its plain version in ``plain``.
+does not take: a thread there moves 16 bytes of channels at a time, so C
+must be a multiple of ``VEC[dtype]`` and each tensor 16-byte aligned. CPU
+tensors take the plain version ``max_pool_3x3s2_bwd_plain`` (any C), which
+sums in the kernel's order, so the two agree bit for bit. The wrapper counts
+its launches in ``launches`` and names its plain version in ``plain``;
+``maxpool_bwd_design`` reports the kernel's build.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
 
 from habitat_torch.ops import cuda_build
 
-_DTYPES = (torch.float32, torch.bfloat16)
+# channels per 16 bytes: the kernel's vector width for each dtype it takes
+VEC = {torch.float32: 4, torch.bfloat16: 8}
 
 
 def _check_even(x: torch.Tensor) -> None:
@@ -92,12 +97,17 @@ def max_pool_3x3s2_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor) -> to
             )
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-    if x.dtype not in _DTYPES:
+    if x.dtype not in VEC:
         raise ValueError(f"x: expected float32 or bfloat16, got {x.dtype}")
     if x.device.type == "cpu":
         return max_pool_3x3s2_bwd_plain(x, y, dy)
-    if x.numel() + 256 > 2**32 - 1:
-        raise ValueError(f"x: the kernel indexes in 32 bits, {x.numel()} elements are too many")
+    if C % VEC[x.dtype] or any(t.data_ptr() % 16 for t in (x, y, dy)):
+        raise ValueError(
+            f"the kernel takes {x.dtype} channels in groups of {VEC[x.dtype]} from 16-byte aligned tensors, got "
+            f"C={C} at addresses {[hex(t.data_ptr()) for t in (x, y, dy)]}"
+        )
+    if x.numel() // VEC[x.dtype] + 128 > 2**32 - 1:
+        raise ValueError(f"x: the kernel indexes 16-byte groups in 32 bits, {x.numel()} elements are too many")
     lib = cuda_build.load("maxpool_bwd")
     gx = torch.empty_like(x, memory_format=fmt)
     err = lib.maxpool_bwd(
@@ -111,6 +121,21 @@ def max_pool_3x3s2_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor) -> to
 
 max_pool_3x3s2_bwd.launches = 0
 max_pool_3x3s2_bwd.plain = max_pool_3x3s2_bwd_plain
+
+_DESIGN_KEYS = ("channels_per_thread", "window_rows_per_thread", "threads_per_block", "registers", "spill_bytes",
+                "static_smem_bytes", "blocks_per_sm")
+
+
+def maxpool_bwd_design(dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The kernel's design for ``dtype`` on the current card, as the library
+    reports it (cudaFuncGetAttributes and
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor): channels and window rows
+    per thread, threads per block, registers and spilled bytes per thread,
+    static shared bytes, blocks per SM."""
+    out = (ctypes.c_int * len(_DESIGN_KEYS))()
+    err = cuda_build.load("maxpool_bwd").maxpool_bwd_design(int(dtype == torch.bfloat16), ctypes.addressof(out))
+    cuda_build.raise_on(err, "maxpool_bwd_design")
+    return dict(zip(_DESIGN_KEYS, out))
 
 
 class _MaxPool3x3s2(torch.autograd.Function):

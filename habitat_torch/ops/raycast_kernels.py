@@ -907,6 +907,18 @@ def fused_design(tri_chunk: int = 32) -> dict:
     return _design("raycast_fused", "raycast_fused_design", tri_chunk)
 
 
+def cullmask_design() -> dict:
+    """The cull-mask kernel's design on the current card: triangles per slot
+    (the wrapper's ``c``), warps per block, slots a warp has in flight,
+    threads per block, registers and spilled bytes per thread, static shared
+    bytes, blocks per SM."""
+    keys = ("triangles_per_slot", "warps_per_block", "slots_in_flight", "threads_per_block", "registers",
+            "spill_bytes", "static_smem_bytes", "blocks_per_sm")
+    out = (ctypes.c_int * len(keys))()
+    cuda_build.raise_on(cuda_build.load("cullmask").cullmask_design(ctypes.addressof(out)), "cullmask_design")
+    return dict(zip(keys, out))
+
+
 def raycast_tilecull_t(
     tri_mat_c: torch.Tensor,  # (S, 10, 4T) group_tri_mat(tri_mat, C)
     attr16: torch.Tensor,  # (S, T // C, 16, C) attr16_table

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Times the ring and stream closest-hit kernels of two checkouts of the
-port on the same inputs, in one run on one card.
+"""Times the closest-hit, max-pool backward and cull-mask kernels of two
+checkouts of the port on the same inputs, in one run on one card.
 
-    python3 scripts/ab_ring_kernels.py --roots PARENT . . PARENT [--check] [--set scan|bench|all]
+    python3 scripts/ab_ring_kernels.py --roots PARENT . . PARENT [--check] [--set scan|bench|pool_cull|all]
 
 Each root is a checkout holding ``habitat_torch/``; each is run in its own
 process, in the order given (parent, change, change, parent puts drift on
@@ -19,14 +19,19 @@ of ``chip_smoke.py`` and times with CUDA events, on each scene's reset:
   #2 ``raycast_fused_t`` (mid-size reset, N=16, 128x128, 34 chunks of 128),
   #3 ``raycast_index_t`` (panoramic bench reset, N=256, 128x256 equirect;
   mid-size fisheye reset, N=16, 128x128),
-  #8 ``raycast_index`` (the bench reset's rays, row-major features).
+  #8 ``raycast_index`` (the bench reset's rays, row-major features);
+- ``--set pool_cull``: #11 ``max_pool_3x3s2_bwd`` on the bench update's
+  minibatch, (4096, 32, 64, 64) bf16 channels-last ReLU noise (also on the
+  panoramic minibatch (4096, 32, 64, 128) bf16 and the bench one in
+  float32), and #6 ``cullmask_t`` on the scan reset's 384-slot head (the
+  level-1 survivors of ``select_chunklets_exact``, N=256, 16 tiles).
 
 With ``--check`` each kernel is also held against its plain version on the
 card (t and winner equal on every ray, except the stream kernels' rounding
-case: a ray whose plain hit is nearer, counted), #9 against #7 bit for bit
-and #8 against #3 on the same rays (winner and t equal but on margin
-boundaries, counted). Prints one JSON line per root and the card's name and
-power limit.
+case: a ray whose plain hit is nearer, counted; #11 bit-equal; #6 bit-equal
+on the gated slots and zero beyond), #9 against #7 bit for bit and #8
+against #3 on the same rays (winner and t equal but on margin boundaries,
+counted). Prints one JSON line per root and the card's name and power limit.
 """
 
 import argparse
@@ -127,6 +132,89 @@ def bench_runs(rk, rc, dev, call):
     return runs, design, index_t
 
 
+def pool_cull_rows(rk, dev, check):
+    """#11 on the update's minibatches and #6 on the scan reset's head:
+    {label: row}, and the kernels' designs where the checkout reports them."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from habitat_torch.core.env_factory import make_nav_env
+    from habitat_torch.datasets.pointnav import generate_pointnav_episode
+    from habitat_torch.ops import pool
+    from habitat_torch.ops import raycast as rc
+    from habitat_torch.sims.procedural import build_lod_scene, generate_scan_apartment
+
+    rows, design = {}, {}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for label, shape, dtype in (("max_pool_3x3s2_bwd", (4096, 32, 64, 64), torch.bfloat16),
+                                ("max_pool_3x3s2_bwd pano", (4096, 32, 64, 128), torch.bfloat16),
+                                ("max_pool_3x3s2_bwd f32", (4096, 32, 64, 64), torch.float32)):
+        x = torch.relu(torch.randn(shape, generator=gen, device=dev)).to(dtype).contiguous(memory_format=torch.channels_last)
+        y = F.max_pool2d(F.pad(x, (0, 1, 0, 1), value=float("-inf")), 3, 2).contiguous(memory_format=torch.channels_last)
+        dy = torch.randn(y.shape, generator=gen, device=dev).to(dtype).contiguous(memory_format=torch.channels_last)
+        before = pool.max_pool_3x3s2_bwd.launches
+        gx = pool.max_pool_3x3s2_bwd(x, y, dy)
+        torch.cuda.synchronize()
+        if pool.max_pool_3x3s2_bwd.launches != before + 1:
+            raise RuntimeError(f"{label} did not launch its kernel")
+        row = dict(ms=cuda_ms(lambda: pool.max_pool_3x3s2_bwd(x, y, dy), 20))
+        row["tb_per_s"] = 2 * (x.numel() + y.numel()) * x.element_size() / (row["ms"] * 1e-3) / 1e12
+        if check:
+            row["elements_differing"] = int((gx != pool.max_pool_3x3s2_bwd.plain(x, y, dy)).sum())
+            if row["elements_differing"]:
+                raise RuntimeError(f"{label}: {row}")
+        rows[label] = row
+        del x, y, dy, gx
+        torch.cuda.empty_cache()
+    if hasattr(pool, "maxpool_bwd_design"):
+        design.update(max_pool_3x3s2_bwd=pool.maxpool_bwd_design(torch.bfloat16),
+                      max_pool_3x3s2_bwd_f32=pool.maxpool_bwd_design(torch.float32))
+
+    scene = generate_scan_apartment(0, tess=SCAN["tess"], n_clutter=SCAN["n_clutter"])
+    lod = build_lod_scene(scene, cells=SCAN["cells"], bands=SCAN["bands"])
+    lod.scene_id = scene.scene_id
+    rng = np.random.default_rng(0)
+    pairs = [p for p in (generate_pointnav_episode(scene, str(i), rng) for i in range(16)) if p is not None]
+    env = make_nav_env([lod], [p[0] for p in pairs], num_envs=256, max_episode_steps=500,
+                       precomputed_fields={e.episode_id: f for (e, f) in pairs}, sensor_specs=sensors(SIZE))
+    pack = env.pack
+    st, _ = env.reset_fn()
+    sid, cam = env._make_ctx(st).sid.to(torch.int32), (st.pos + torch.tensor(CAM, device=dev)).float()
+    _, _, _, planes, _ = rc.block_constants(90.0, SIZE["height"], SIZE["width"], dev)
+    dirs = rc.to_blocks(rc.world_rays(st.yaw, st.pitch, 90.0, **SIZE), **SIZE)
+    R = SIZE["height"] * SIZE["width"]
+    ids0, cnt0 = rc.select_chunks(pack.chunk_bounds[sid.long()], cam[:, None, :].expand(-1, R, -1), dirs, 1024, 320,
+                                  with_cnt=True)
+    head, cntk = rc.select_chunklets_exact(
+        pack.tri_v0, pack.tri_e1, pack.tri_e2, pack.tri_valid, pack.chunklet_ab32, sid, cam, st.yaw, st.pitch, planes,
+        ids0, cnt0, parent_c=pack.tri_mat.shape[3] // pack.chunk_bounds.shape[1], c=32, k_final=384)
+    nw = torch.einsum("nij,kpj->nkpi", rc.view_rotation_matrix(st.yaw, st.pitch), planes).contiguous()
+    args = (pack.tri_verts16, sid, head, cntk, nw, cam)
+    before = rk.cullmask_t.launches
+    mask = rk.cullmask_t(*args)
+    torch.cuda.synchronize()
+    if rk.cullmask_t.launches != before + 1:
+        raise RuntimeError("cullmask_t did not launch its kernel")
+    gate = torch.arange(head.shape[2], device=dev) < cntk[..., None]
+    nch = pack.tri_verts16.shape[1] // 32
+    cid = (head & ((1 << 18) - 1)).clamp(max=nch - 1).long()
+    env_rows = torch.arange(head.shape[0], device=dev)[:, None, None] * nch + cid  # (env, chunklet) pairs
+    row = dict(ms=cuda_ms(lambda: rk.cullmask_t(*args), 50), gated_slots_per_tile_mean=cntk.float().mean().item(),
+               gathered_row_bytes=int(gate.sum()) * 2048,
+               distinct_per_env_row_bytes=int(torch.unique(env_rows[gate]).numel()) * 2048)
+    if check:
+        ref = rk.cullmask_t.plain(*args)
+        row["gated_differing"] = int((mask[gate] != ref[gate]).sum())
+        row["ungated_nonzero"] = int((mask[~gate] != 0).sum())
+        if row["gated_differing"] or row["ungated_nonzero"]:
+            raise RuntimeError(f"cullmask_t: {row}")
+    rows["cullmask_t"] = row
+    if hasattr(rk, "cullmask_design"):
+        design["cullmask_t"] = rk.cullmask_design()
+    return rows, design
+
+
 CAM = (0.0, 1.25, 0.0)  # the camera above the agent's position
 SIZE = dict(height=128, width=128)
 PANO = dict(height=128, width=256)
@@ -153,7 +241,8 @@ def one(root, check, sets):
 
     if not rk.__file__.startswith(root):
         raise RuntimeError(f"imported {rk.__file__}, not from {root}")
-    sources = {"scan": ("raycast_stream", "raycast_general"), "bench": ("raycast_fused", "raycast_general")}
+    sources = {"scan": ("raycast_stream", "raycast_general"), "bench": ("raycast_fused", "raycast_general"),
+               "pool_cull": ("maxpool_bwd", "cullmask")}
     built = cuda_build.build(tuple(sorted({n for k in sets for n in sources[k]})))
     dev = torch.device("cuda")
 
@@ -164,13 +253,16 @@ def one(root, check, sets):
 
     out = dict(root=root, ptxas={k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
                                  for k, (_, v) in built.items()}, design={})
-    runs, index_t_on_rays8 = [], None
+    runs, index_t_on_rays8, pool_cull = [], None, {}
     for name in sets:
-        if name == "scan":
+        if name == "pool_cull":
+            pool_cull, design = pool_cull_rows(rk, dev, check)
+        elif name == "scan":
             got, design = scan_runs(rk, rc, dev, call)
         else:
             got, design, index_t_on_rays8 = bench_runs(rk, rc, dev, call)
-        runs += [(label, *run) for label, run in zip(LABELS[name], got)]
+        if name in LABELS:
+            runs += [(label, *run) for label, run in zip(LABELS[name], got)]
         out["design"].update(design)
     results = {}
     for label, name, (kernel, args, kwargs, _), reps in runs:
@@ -216,7 +308,7 @@ def one(root, check, sets):
         kernel, args, kwargs, _ = index_t_on_rays8
         (t3, i3), (t8, i8) = kernel(*args, **kwargs), results["raycast_index"][1]
         results["raycast_index"][0]["rays_differing_from_index_t"] = int(((t3 != t8) | (i3 != i8)).sum())
-    out["kernels"] = {k: v[0] for k, v in results.items()}
+    out["kernels"] = {**{k: v[0] for k, v in results.items()}, **pool_cull}
     return out
 
 
@@ -224,7 +316,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--roots", nargs="+", default=["."])
     ap.add_argument("--check", action="store_true")
-    ap.add_argument("--set", choices=("scan", "bench", "all"), default="all")
+    ap.add_argument("--set", choices=("scan", "bench", "pool_cull", "all"), default="all")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     a = ap.parse_args()
     import torch
@@ -233,7 +325,8 @@ def main():
         print("ab_ring_kernels: no CUDA device", file=sys.stderr)
         return 2
     if a.one:
-        print(json.dumps(one(a.one, a.check, ("bench", "scan") if a.set == "all" else (a.set,))), flush=True)
+        print(json.dumps(one(a.one, a.check, ("bench", "scan", "pool_cull") if a.set == "all" else (a.set,))),
+              flush=True)
         return 0
     for root in a.roots:
         cmd = [sys.executable, os.path.abspath(__file__), "--one", root, "--set", a.set] + (["--check"] if a.check else [])

@@ -626,3 +626,95 @@ def test_maxpool_autograd_launches_kernel(cuda):
     assert pool.max_pool_3x3s2_bwd.launches == before + 1 and torch.isfinite(x.grad.float()).all()
     with pytest.raises(ValueError):
         pool.max_pool_3x3s2(torch.zeros(1, 1, 5, 6, device=cuda))
+
+
+def _pool_args(shape, dtype, seed, ties=True):
+    """Channels-last (x, y, dy) of an (N, C, H, W) max pool: x on a grid of
+    1/4 (many positive ties) or a ReLU of normal noise."""
+    g = torch.Generator().manual_seed(seed)
+    if ties:
+        x = torch.randint(0, 6, shape, generator=g) * 0.25
+    else:
+        x = torch.relu(torch.randn(shape, generator=g))
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    y = torch.nn.functional.max_pool2d(torch.nn.functional.pad(x, (0, 1, 0, 1), value=float("-inf")), 3, 2)
+    y = y.contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(y.shape, generator=g).to(dtype).contiguous(memory_format=torch.channels_last)
+    return x, y, dy
+
+
+@pytest.mark.parametrize("dtype,shape,ties", [
+    (torch.bfloat16, (1, 8, 2, 2), True), (torch.bfloat16, (3, 16, 32, 64), True),
+    (torch.bfloat16, (5, 32, 16, 16), False), (torch.bfloat16, (2, 64, 32, 32), True),
+    (torch.float32, (1, 4, 2, 2), True), (torch.float32, (3, 8, 32, 64), True),
+])
+def test_maxpool_bwd_kernel_at_edge_shapes(cuda, dtype, shape, ties):
+    """One window (H = W = 2), H != W, N = 1 and odd N, every vector width's
+    channel counts: bit-equal to the plain version."""
+    args = _pool_args(shape, dtype, sum(shape))
+    ref = pool.max_pool_3x3s2_bwd(*args)
+    got = pool.max_pool_3x3s2_bwd(*(t.to(cuda) for t in args))
+    torch.cuda.synchronize()
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got.cpu(), ref)
+
+
+def test_maxpool_bwd_rejects_what_the_kernel_does_not_take(cuda):
+    """C not a multiple of the vector width, and a view whose base is not
+    16-byte aligned, raise on the card (the plain version takes both)."""
+    x, y, dy = (t.to(cuda) for t in _pool_args((2, 12, 8, 8), torch.bfloat16, 0))
+    before = pool.max_pool_3x3s2_bwd.launches
+    with pytest.raises(ValueError, match="groups of 8"):
+        pool.max_pool_3x3s2_bwd(x, y, dy)
+    x, y, dy = _pool_args((2, 8, 8, 8), torch.bfloat16, 1)
+    # the same values one element into a larger buffer: channels-last, 2 bytes off
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    xs = buf[1:].view(2, 8, 8, 8).permute(0, 3, 1, 2)
+    xs.copy_(x)
+    assert xs.is_contiguous(memory_format=torch.channels_last) and xs.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pool.max_pool_3x3s2_bwd(xs, y.to(cuda), dy.to(cuda))
+    assert pool.max_pool_3x3s2_bwd.launches == before
+    cpu12 = _pool_args((2, 12, 8, 8), torch.bfloat16, 0)
+    assert torch.equal(pool.max_pool_3x3s2_bwd(*cpu12), pool.max_pool_3x3s2_bwd_plain(*cpu12))
+
+
+@pytest.mark.parametrize("ka", [37, 128, 3000])
+def test_cullmask_kernel_at_head_edges(cuda, ka):
+    """Tiles at cntk = 0, 1, ka and in between (ka = 37 is no multiple of the
+    warps per block, ka = 3000 a long head), chunklet ids at and beyond the
+    clamp to nch - 1: gated slots bit-equal to the plain version, the rest
+    exact zeros."""
+    g = torch.Generator().manual_seed(ka)
+    S, nch, N, nt = 2, 6, 3, 4
+    verts16 = torch.randn(S, nch * 32, 16, generator=g)
+    verts16[..., rk.VERTS16_VALID] = (torch.rand(S, nch * 32, generator=g) > 0.2).float()
+    sids = torch.tensor([1, 0, 1], dtype=torch.int32)
+    cid = torch.randint(0, nch + 4, (N, nt, ka), generator=g, dtype=torch.int32)  # nch - 1 and beyond
+    cid[0, 0, :4] = torch.tensor([nch - 1, nch, nch + 3, 2 ** 18 - 1], dtype=torch.int32)
+    head = (torch.randint(0, 5000, (N, nt, ka), generator=g, dtype=torch.int32) << 18) | cid
+    cntk = torch.tensor([[ka, 0, 1, ka // 2], [ka, ka - 1, 2, 0], [ka + 5, 17, ka, 3]], dtype=torch.int32)
+    nw = torch.nn.functional.normalize(torch.randn(N, nt, 4, 3, generator=g), dim=-1)
+    cam = torch.randn(N, 3, generator=g) * 0.5
+    args = (verts16, sids, head, cntk, nw, cam)
+    ref = rk.cullmask_t(*args)
+    before = rk.cullmask_t.launches
+    got = rk.cullmask_t(*(a.to(cuda) for a in args)).cpu()
+    torch.cuda.synchronize()
+    assert rk.cullmask_t.launches == before + 1
+    gate = torch.arange(ka)[None, None, :] < cntk[..., None]
+    assert torch.equal(got[gate], ref[gate]) and not got[~gate].any()
+    assert 0.05 < ref[gate].mean() < 0.95
+
+
+def test_pool_and_cull_designs_match_the_wrappers(cuda):
+    """The max-pool backward's vector width is the wrapper's channel rule,
+    the cull mask's slot width the wrapper's c; neither spills and both fit
+    an SM."""
+    for dtype in (torch.bfloat16, torch.float32):
+        d = pool.maxpool_bwd_design(dtype)
+        assert d["channels_per_thread"] == pool.VEC[dtype]
+        assert d["spill_bytes"] == 0 and d["blocks_per_sm"] >= 1
+    d = rk.cullmask_design()
+    assert d["triangles_per_slot"] == 32 and d["threads_per_block"] == 32 * d["warps_per_block"]
+    assert d["spill_bytes"] == 0 and d["blocks_per_sm"] >= 1

@@ -94,6 +94,23 @@ def test_backward_matches_jax(shape, dtype):
     assert torch.equal(gx_c, gx)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [(1, 2, 2, 8), (3, 32, 64, 8)])
+def test_backward_matches_jax_at_edge_shapes(shape, dtype):
+    """The kernel's edge shapes (one window, H != W, C = 8) on the plain
+    backward, against the JAX package's gather form (``_supported`` refuses
+    them)."""
+    jdt, tdt, tol = DTYPES[dtype]
+    x, dy = _inputs(shape, 4)
+    xj, dyj = jnp.asarray(x).astype(jdt), jnp.asarray(dy).astype(jdt)
+    assert not _supported(xj)
+    _, vjp = jax.vjp(lambda v: jax_max_pool(v, True), xj)
+    ref = np.asarray(vjp(dyj)[0].astype(jnp.float32))
+    _, gx = _port_grad(x, dy, tdt)
+    assert gx.dtype == tdt and gx.shape == (shape[0], shape[3], shape[1], shape[2])
+    np.testing.assert_allclose(_nhwc(gx), ref, atol=tol, rtol=tol)
+
+
 def test_backward_credits_every_tie():
     """bf16 input built to hold many positive ties (values on a coarse grid),
     against test_pool.py's numpy all-ties oracle; XLA's and torch's own

@@ -320,6 +320,37 @@ def test_cullmask_plain_matches_pallas(packs, poses):
     assert 0.05 < (got > 0.5)[gate].mean() < 0.95  # the test culls and keeps
 
 
+def test_cullmask_plain_matches_pallas_at_head_edges(packs, poses):
+    """A tile with no gated slot (cntk = 0) and one with every slot gated
+    (cntk = ka, the head's tail refilled with its own ids), against the
+    Pallas kernel, gated by position as above."""
+    pj, pt = packs["lod"]
+    pos, yaw, pitch, sids = poses
+    jargs, _, parent_c = _select_inputs(pj, pt, poses)
+    head_j, cnt_j = jrc.select_chunklets_exact(*jargs, parent_c=parent_c, c=32, skip_exact=True, k_final=128)
+    head, cnt = np.array(head_j), np.asarray(cnt_j)
+    ka = head.shape[2]
+    assert ka == 128 and cnt[1, 0] > 0
+    k = np.arange(ka)
+    head[1, 0] = head[1, 0, k % cnt[1, 0]]  # every slot a real survivor
+    cntk = np.array([[0], [ka]], dtype=np.int32)
+    planes = jrc.tile_plane_normals_cam(np.deg2rad(90.0), H, W, 32, 32)
+    nw = np.asarray(jnp.einsum(
+        "nij,kpj->nkpi", jax_view_rotation(jnp.asarray(yaw), jnp.asarray(pitch)), jnp.asarray(planes),
+        precision="highest",
+    ))
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(jrp.cullmask_pallas_t(
+            pj.tri_verts16, jnp.asarray(sids), jnp.asarray(head), jnp.asarray(cntk), jnp.asarray(nw), jnp.asarray(pos)
+        ))
+    got = trk.cullmask_t(pt.tri_verts16, _t(sids), _t(head), _t(cntk), _t(nw), _t(pos)).numpy()
+    assert got.shape == ref.shape == (N, 1, ka, 32)
+    gate = k[None, None, :] < cntk[..., None]
+    assert gate.sum() == ka  # env 0 gates nothing, env 1 everything
+    assert ((ref > 0.5) == (got > 0.5))[gate].mean() >= 0.999
+    assert 0.05 < (got > 0.5)[gate].mean() < 0.95
+
+
 # ---- (h) overflow passes through untested ---------------------------------------
 
 
