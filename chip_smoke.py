@@ -35,8 +35,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            also held against #3 on the same rays; #9 (raycast_culled) on #7's
            inputs with its 256-triangle ids split into 128-triangle ones,
            bit-equal to #7's output on every ray; #10 (raycast_tilecull_t) on #1's
-           inputs with attr16_table(pack), all 16 rows, its gid against #1's
-           winner and its t against the pinhole route's plane-exact t. Then
+           inputs with attr16_table(pack), t and all 16 rows equal to its
+           plain version's on every ray, its gid equal to #1's winner on
+           every ray and its t against the pinhole route's plane-exact t. Then
            the ray-batch path: raycast_batch, raycast_culled and
            raycast_tilecull_t once each, counted.
            Closest-hit gates: hit/miss agreement >= 0.9999, winner-id
@@ -47,11 +48,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            with CUDA events beside its plain version and its bound on this
            card; the stream kernels' bound counts only the chunks a ray's
            final hit leaves it to test, and every closest-hit kernel's bound
-           but #10's counts the whole test only for pairs whose ray line
-           meets the triangle (the rest end before tnum; the plain versions
-           count them), beside the bound by the old rule (every test whole).
+           counts the whole test only for pairs whose ray line meets the
+           triangle (the rest end before tnum; the plain versions count
+           them), beside the bound by the old rule (every test whole); #10's
+           adds its epilogue's operations and bytes.
            The rows of the stream kernels (#4, #5) and the ring kernels (#1,
-           #2, #3, #7, #8, #9) carry their design as their libraries report
+           #2, #3, #7, #8, #9, #10) carry their design as their libraries report
            it (rays per thread and per block, ring depth, registers, spills,
            shared memory, blocks per SM), which must match the wrappers'
            constants; those of the cull mask (#6) and the max-pool backward
@@ -125,12 +127,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            the boxes take, render ms with and without them (on the index
            case also the index route's own static render), #3's extra
            launches per render.
+11. flagship-eval  the flagship PointNav checkpoint, exported without JAX
+           (habitat_torch/weights/flagship_pointnav.pt), evaluated by
+           scripts/eval_flagship_torch.py's protocol: 64 held-out procedural
+           scenes (seed 91000), N=64, 128x128 depth + pointgoal, greedy, the
+           first 4 episodes of each env within 850 env steps. It must count
+           256 episodes with success and SPL within 0.03 of the JAX
+           package's 0.9414 and 0.8919 on the same episodes; #1 must launch
+           once per render (the reset's and one per env step) and no plain
+           version may see a card tensor.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -153,6 +165,10 @@ FLOPS_PER_RAY_TRI = 95
 FLOPS_OUTSIDE = 68
 # per ray: 10 features of 4 products and 3 sums
 FLOPS_PER_RAY = 70
+# per ray of the tile-cull epilogue: n.d (3 products, 2 sums), n.(v0 - o) (3
+# differences, 3 products, 2 sums), |n.d| and its compare, the division, the
+# shade (1 product, 1 sum), the hit compare
+FLOPS_TILECULL_EPILOGUE = 18
 
 BENCH = dict(num_envs=256, height=128, width=128, num_steps=32)
 MID = dict(num_envs=16, num_steps=4, extent=30.0, n_clutter=420)
@@ -194,6 +210,11 @@ CHECK_THREADS = 8
 # FP32 operations per (head slot, triangle) of the cull mask: 12 dots of 3
 # products and 2 sums, 8 more sums, 3 subtractions, 12 compares
 FLOPS_PER_CULL_TRI = 83
+# [flagship-eval]'s gate, set before its first run: the JAX package's result
+# on the same 256 episodes (scripts/eval_flagship_ckpt.py, 0.9414 success and
+# 0.8919 SPL), within 0.03 (~8 of 256 episodes) for argmaxes that bf16 on
+# the card flips
+FLAGSHIP = dict(episodes=256, success=0.9414, spl=0.8919, tol=0.03)
 
 
 def log(msg):
@@ -440,8 +461,12 @@ def compare_tilecull(kernel, args, kwargs, n_tests, reps=50):
     inputs: hit/miss (row 11) agreement >= 0.9999, the winner (gid, row 6)
     on >= 0.999 of common hits, all 16 rows within 1e-5 on >= 0.999 of the
     rays whose winner (or miss) is the same, |dt| < 5e-3 m there, and row
-    12 = 0.35 on every miss. Returns (row, the kernel's (t, attrs))."""
+    12 = 0.35 on every miss; on the ring loop also t and all
+    16 rows equal on every ray. Its bound is #1's (the whole test only for
+    the plain version's inside pairs) plus the epilogue's operations and its
+    68 B per ray. Returns (row, the kernel's (t, attrs))."""
     import torch
+    from habitat_torch.ops import raycast_kernels as rk
 
     before = kernel.launches
     t_k, a_k = kernel(*args, **kwargs)
@@ -463,17 +488,30 @@ def compare_tilecull(kernel, args, kwargs, n_tests, reps=50):
     if not (hit_agree >= 0.9999 and idx_agree >= 0.999 and rows_agree >= 0.999 and t_err < 5e-3 and miss_shade):
         fail(f"raycast_tilecull_t: hit {hit_agree} gid {idx_agree} rows {rows_agree} |dt| {t_err} "
              f"miss shade 0.35 {miss_shade}")
+    rays_differing = int(((t_k.reshape(N, nt, rt) != t_p.reshape(N, nt, rt)) | (a_k != a_p).any(2)).sum().item())
+    if rays_differing:
+        fail(f"raycast_tilecull_t: {rays_differing} rays differ from the plain version in t or a row")
+    tested = {}
+    gm, _, ids, cnt, sids, d_t, Bt = args
+    rk.raycast_fused_sel_t.plain(gm, sids, ids, cnt, d_t, Bt, **kwargs, tested=tested)
     n_rays = t_k.numel()
-    return dict(
+    flops = test_flops(n_tests, tested["inside"]) + n_rays * (FLOPS_PER_RAY + FLOPS_TILECULL_EPILOGUE)
+    bytes_moved = tensor_bytes(*args) + (4 + 64) * n_rays
+    row = dict(
         name="raycast_tilecull_t", route="cuda", source="habitat_torch/csrc/raycast_fused.cu",
         replaces="habitat_tpu/ops/raycast_pallas.py:856", max_abs_err=max(t_err, rows_err.max().item()),
         hit_agree=hit_agree, idx_agree=idx_agree, rows_agree=rows_agree, miss_shade=0.35 if miss_shade else None,
+        rays_differing=rays_differing,
         ms=cuda_ms(lambda: kernel(*args, **kwargs), reps),
         plain_ms=cuda_ms(lambda: kernel.plain(*args, **kwargs), 3, warmup=1),
-        **bound(tensor_bytes(*args) + (4 + 64) * n_rays, n_tests * FLOPS_PER_RAY_TRI + n_rays * FLOPS_PER_RAY),
-        library_ms=None, ray_tri_tests=n_tests, hit_fraction=share(hit_k),
+        **bound(bytes_moved, flops),
+        library_ms=None, ray_tri_tests=n_tests, inside_pairs=tested["inside"], hit_fraction=share(hit_k),
         survivor_chunks_mean=args[3].float().mean().item(),
-    ), (t_k, a_k)
+        # the bound by the old rule: every test whole, no epilogue operations
+        bound_old_rule_ms=bound(bytes_moved, n_tests * FLOPS_PER_RAY_TRI + n_rays * FLOPS_PER_RAY)["bound_ms"],
+    )
+    row["tests_per_s"] = n_tests / (row["ms"] * 1e-3)
+    return row, (t_k, a_k)
 
 
 def kernel_design(name, design, block_rays, stages, warp_rays=None, tile_width=32):
@@ -1061,18 +1099,26 @@ def main():
         t_pl1, _, _ = rc.plane_exact_t(env.pack, sid1, fused_sel_B, t1, i1, d_aug1)
         same1 = both & (gid10 == i1.float())
         tc_row["vs_fused_sel_t"]["plane_exact_max_abs_err"] = (t10[same1] - t_pl1[same1]).abs().max().item()
+        # one loop: #1's winner on every ray
+        tc_row["vs_fused_sel_t"]["gid_rays_differing"] = int((torch.where(hit10, gid10, -1.0) != i1.float()).sum().item())
         if (tc_row["vs_fused_sel_t"]["hit_agree"] < 0.9999 or tc_row["vs_fused_sel_t"]["gid_agree"] < 0.999
-                or tc_row["vs_fused_sel_t"]["plane_exact_max_abs_err"] >= 5e-3):
+                or tc_row["vs_fused_sel_t"]["plane_exact_max_abs_err"] >= 5e-3
+                or tc_row["vs_fused_sel_t"]["gid_rays_differing"]):
             fail(f"raycast_tilecull_t against raycast_fused_sel_t and the pinhole route's plane-exact t: "
                  f"{tc_row['vs_fused_sel_t']}")
+        tc_row["design"] = kernel_design("raycast_tilecull_t", rk.tilecull_design(32), rk.RING_BLOCK_RAYS,
+                                         rk.RING_STAGES, tile_width=BENCH["width"])
+        if tc_row["design"]["rays_per_thread"] != 4:
+            fail(f"raycast_tilecull_t: {tc_row['design']['rays_per_thread']} rays per thread, not 4")
         log(f"[kernel] raycast_tilecull_t on the bench reset (N=256, 128x128, {tc_row['survivor_chunks_mean']:.2f} "
             f"survivor chunks of 32 per 2048-ray tile): hit {tc_row['hit_agree']:.6f}, gid {tc_row['idx_agree']:.6f} of "
             f"common hits, 16 rows within 1e-5 on {tc_row['rows_agree']:.6f} of rays with the same winner (max |d| "
-            f"{tc_row['max_abs_err']:.3g}, row 12 {tc_row['miss_shade']} on every miss); {tc_row['ms']:.4f} ms (plain "
-            f"{tc_row['plain_ms']:.3f} ms, bound {tc_row['bound_ms']:.4f} ms by {tc_row['bound_by']}); against "
-            f"raycast_fused_sel_t: hit {tc_row['vs_fused_sel_t']['hit_agree']:.6f}, gid = idx on "
-            f"{tc_row['vs_fused_sel_t']['gid_agree']:.6f} of hits, |t - plane-exact t| <= "
-            f"{tc_row['vs_fused_sel_t']['plane_exact_max_abs_err']:.3g} m")
+            f"{tc_row['max_abs_err']:.3g}, row 12 {tc_row['miss_shade']} on every miss), {tc_row['rays_differing']} rays "
+            f"differ from the plain version in t or a row; {tc_row['ms']:.4f} ms (plain {tc_row['plain_ms']:.3f} ms); "
+            f"against raycast_fused_sel_t: hit {tc_row['vs_fused_sel_t']['hit_agree']:.6f}, gid = idx on "
+            f"{tc_row['vs_fused_sel_t']['gid_agree']:.6f} of hits ({tc_row['vs_fused_sel_t']['gid_rays_differing']} rays "
+            f"differ), |t - plane-exact t| <= {tc_row['vs_fused_sel_t']['plane_exact_max_abs_err']:.3g} m; "
+            f"{ring_text(tc_row)}")
         del t10, a10, t1, i1
 
         # the ray-batch path: each entry point once on the inputs above
@@ -1714,6 +1760,32 @@ def main():
             f"{own}; {dyn_rows[route]['extra_index_launches']} extra raycast_index_t launch per render")
         if merged == 0.0:
             fail(f"[dynamic] {route} route: no pixel shows a box")
+
+    # ---- 11. the flagship checkpoint evaluated on the card -----------------
+    spec = importlib.util.spec_from_file_location("eval_flagship_torch",
+                                                  os.path.join(ROOT, "scripts", "eval_flagship_torch.py"))
+    flagship = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(flagship)
+    torch.cuda.empty_cache()
+    zero_counts()
+    for p in plain_watch:
+        p.start()
+    fe = flagship.flagship_eval()
+    for p in plain_watch:
+        p.stop()
+    if plain_on_card:
+        fail(f"[flagship-eval]: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+    # the reset's render and one per env step, each through #1
+    fe_launches = path_counts("flagship eval", raycast_fused_sel_t=1 + fe["env_steps"])
+    sel["flagship_eval_launches"] = fe_launches["raycast_fused_sel_t"]
+    log(f"[flagship-eval] {gpu}: {fe['episodes']} episodes, success {fe['success']:.4f}, SPL {fe['spl']:.4f} "
+        f"(soft SPL {fe['soft_spl']:.4f}; the JAX package's {FLAGSHIP['success']} / {FLAGSHIP['spl']} on the same "
+        f"episodes, gate +-{FLAGSHIP['tol']}); {fe['env_steps']} env steps at N=64 in {fe['wall_s']:.1f} s = "
+        f"{fe['env_steps_per_s']:.1f} env-steps/s (set-up {fe['setup_s']:.1f} s); raycast_fused_sel_t launches "
+        f"{fe_launches['raycast_fused_sel_t']} (1 + one per env step), no plain version on a card tensor")
+    if not (fe["episodes"] == FLAGSHIP["episodes"] and abs(fe["success"] - FLAGSHIP["success"]) <= FLAGSHIP["tol"]
+            and abs(fe["spl"] - FLAGSHIP["spl"]) <= FLAGSHIP["tol"]):
+        fail(f"[flagship-eval] {fe} against {FLAGSHIP}")
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 

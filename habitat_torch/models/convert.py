@@ -9,15 +9,26 @@ under "/"-joined paths (a leading "params/" is accepted), as
 - ``OptimizedLSTMCell`` gates: input kernels ii/if/ig/io (no bias) and
   recurrent kernels hi/hf/hg/ho (with bias) -> ``nn.LSTMCell`` weight_ih /
   weight_hh / bias_hh in torch's i, f, g, o order, bias_ih = 0.
+
+``load_policy_file`` reads such a state dict back without JAX, as
+``scripts/export_flagship_torch.py`` writes it: the ``torch.save`` file and,
+beside it with the suffix ``.json``, its sha256 and the policy's build
+arguments.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
+import os
 import re
 from typing import Dict
 
 import numpy as np
 import torch
+
+from habitat_torch.device import resolve_device
+from habitat_torch.models.policy import make_pointnav_resnet_policy
 
 _BLOCK_CONVS = ("conv1", "conv2", "down")
 _BLOCK_NORMS = ("norm1", "norm2", "down_norm")
@@ -92,3 +103,24 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         out[f"{prefix}.bias_hh"] = np.concatenate([g[f"h{k}/bias"] for k in _GATES])
         out[f"{prefix}.bias_ih"] = np.zeros_like(out[f"{prefix}.bias_hh"])
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
+
+
+def load_policy_file(path: str, device=None):
+    """The policy saved at ``path`` (a state dict of ``params_from_jax``) on
+    ``device`` (``None`` = cuda): checks the file's sha256 against the JSON
+    beside it, builds ``make_pointnav_resnet_policy`` from the JSON's
+    arguments and loads the weights with ``strict=True``."""
+    dev = resolve_device(device)
+    with open(os.path.splitext(path)[0] + ".json") as f:
+        meta = json.load(f)
+    with open(path, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    if digest != meta["sha256"]:
+        raise ValueError(f"{path}: sha256 {digest}, expected {meta['sha256']}")
+    kw = dict(meta["policy"])
+    policy = make_pointnav_resnet_policy(
+        kw.pop("num_actions"), visual_inputs=tuple(kw.pop("visual_inputs")), input_hw=tuple(kw.pop("input_hw")),
+        goal_keys=tuple(kw.pop("goal_keys")), device=dev, **kw,
+    )
+    policy.load_state_dict(torch.load(path, map_location=dev, weights_only=True), strict=True)
+    return policy

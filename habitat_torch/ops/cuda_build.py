@@ -32,7 +32,7 @@ SOURCES = {
         "raycast_fused_sel": [_P] * 8 + [_I] * 6 + [_P],
         "raycast_fused": [_P] * 6 + [_I] * 5 + [_P],
         "raycast_tilecull": [_P] * 9 + [_I] * 6 + [_P],
-        "raycast_fused_design": [_I, _P],
+        "raycast_fused_design": [_I, _I, _P],
     },
     "raycast_stream": {
         "raycast_stream": [_P] * 8 + [_I] * 8 + [_P],

@@ -904,7 +904,13 @@ def index_design(tri_chunk: int = 128, row_major: bool = False) -> dict:
 def fused_design(tri_chunk: int = 32) -> dict:
     """The same for the frustum-selected and every-chunk kernel at chunk size
     ``tri_chunk`` (32 or 128)."""
-    return _design("raycast_fused", "raycast_fused_design", tri_chunk)
+    return _design("raycast_fused", "raycast_fused_design", tri_chunk, 0)
+
+
+def tilecull_design(tri_chunk: int = 32) -> dict:
+    """The same for the tile-cull kernel (that kernel with its epilogue) at
+    chunk size ``tri_chunk`` (32 or 128)."""
+    return _design("raycast_fused", "raycast_fused_design", tri_chunk, 1)
 
 
 def cullmask_design() -> dict:
@@ -934,7 +940,9 @@ def raycast_tilecull_t(
     f32, plane-exact on a hit, 1e6 on a miss; attrs (N, nt, 16, Rt) f32 rows
     [n(3), v0(3), gid, sem, rgb(3), valid, shade, 0, 0, 0]). Every ray gets
     the epilogue: on a miss the rows are zero but the shade reads 0.35. The
-    winner is the frustum-selected kernel's on the same inputs."""
+    winner is the frustum-selected kernel's on the same inputs, and, as
+    there, the listed ids must lie in [0, T / C): neither the kernel nor
+    the plain version skips others."""
     sids, chunk_ids, cnt = _as_int32(sids, chunk_ids, cnt)
     n_tiles = _check_inputs(
         tri_mat_c, sids, d_t, Bt, ray_tile, tri_chunk,
@@ -953,8 +961,7 @@ def raycast_tilecull_t(
         )
     if d_t.device.type == "cpu":
         return raycast_tilecull_t_plain(tri_mat_c, attr16, chunk_ids, cnt, sids, d_t, Bt, ray_tile, tri_chunk)
-    if C not in (32, 128) or ray_tile % 256:
-        raise ValueError(f"the kernel takes chunks of 32 or 128 and ray tiles of a multiple of 256, not {C}, {ray_tile}")
+    _check_fused_launch(tri_mat_c, C)
     lib = cuda_build.load("raycast_fused")
     dev = d_t.device
     t = torch.empty((N, n_tiles * ray_tile), dtype=torch.float32, device=dev)

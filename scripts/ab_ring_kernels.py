@@ -2,7 +2,7 @@
 """Times the closest-hit, max-pool backward and cull-mask kernels of two
 checkouts of the port on the same inputs, in one run on one card.
 
-    python3 scripts/ab_ring_kernels.py --roots PARENT . . PARENT [--check] [--set scan|bench|pool_cull|all]
+    python3 scripts/ab_ring_kernels.py --roots PARENT . . PARENT [--check] [--set scan|bench|pool_cull|tilecull|all]
 
 Each root is a checkout holding ``habitat_torch/``; each is run in its own
 process, in the order given (parent, change, change, parent puts drift on
@@ -24,12 +24,16 @@ of ``chip_smoke.py`` and times with CUDA events, on each scene's reset:
   minibatch, (4096, 32, 64, 64) bf16 channels-last ReLU noise (also on the
   panoramic minibatch (4096, 32, 64, 128) bf16 and the bench one in
   float32), and #6 ``cullmask_t`` on the scan reset's 384-slot head (the
-  level-1 survivors of ``select_chunklets_exact``, N=256, 16 tiles).
+  level-1 survivors of ``select_chunklets_exact``, N=256, 16 tiles);
+- ``--set tilecull``: #10 ``raycast_tilecull_t`` on #1's bench reset
+  inputs (N=256, 128x128, chunks of 32) with ``attr16_table`` of the bench
+  pack.
 
 With ``--check`` each kernel is also held against its plain version on the
 card (t and winner equal on every ray, except the stream kernels' rounding
 case: a ray whose plain hit is nearer, counted; #11 bit-equal; #6 bit-equal
-on the gated slots and zero beyond), #9 against #7 bit for bit and #8
+on the gated slots and zero beyond; #10 t and all 16 rows equal), #9
+against #7 bit for bit and #8
 against #3 on the same rays (winner and t equal but on margin boundaries,
 counted). Prints one JSON line per root and the card's name and power limit.
 """
@@ -132,6 +136,22 @@ def bench_runs(rk, rc, dev, call):
     return runs, design, index_t
 
 
+def tilecull_runs(rk, call):
+    """The tile-cull kernel on the frustum-selected kernel's bench reset
+    inputs."""
+    from habitat_torch.core.env_factory import make_nav_env
+    from habitat_torch.datasets.pointnav import make_procedural_pointnav
+
+    scenes, episodes, fields = make_procedural_pointnav(num_scenes=4, episodes_per_scene=16, seed=0)
+    env = make_nav_env(scenes, episodes, num_envs=256, precomputed_fields=fields, max_episode_steps=500,
+                       sensor_specs=sensors(SIZE))
+    _, (gm, sids, ids, cnt, d_t, Bt), kwargs, _ = call(env, SIZE)
+    a16 = rk.attr16_table(env.pack.tri_attr, env.pack.tri_v0, tri_chunk=kwargs["tri_chunk"])
+    runs = [("raycast_tilecull_t", (rk.raycast_tilecull_t, (gm, a16, ids, cnt, sids, d_t, Bt), kwargs, None), 50)]
+    design = dict(raycast_tilecull_t=rk.tilecull_design(32)) if hasattr(rk, "tilecull_design") else {}
+    return runs, design
+
+
 def pool_cull_rows(rk, dev, check):
     """#11 on the update's minibatches and #6 on the scan reset's head:
     {label: row}, and the kernels' designs where the checkout reports them."""
@@ -222,6 +242,7 @@ LABELS = {  # run order within a set -> the row's name in the output
     "bench": ("raycast_fused_sel_t", "raycast_fused_t mid", "raycast_index_t pano", "raycast_index_t mid fisheye",
               "raycast_index"),
     "scan": ("raycast_exactsel_t", "raycast_stream_t", "raycast_culled_t", "raycast_culled"),
+    "tilecull": ("raycast_tilecull_t",),
 }
 
 
@@ -242,7 +263,7 @@ def one(root, check, sets):
     if not rk.__file__.startswith(root):
         raise RuntimeError(f"imported {rk.__file__}, not from {root}")
     sources = {"scan": ("raycast_stream", "raycast_general"), "bench": ("raycast_fused", "raycast_general"),
-               "pool_cull": ("maxpool_bwd", "cullmask")}
+               "pool_cull": ("maxpool_bwd", "cullmask"), "tilecull": ("raycast_fused",)}
     built = cuda_build.build(tuple(sorted({n for k in sets for n in sources[k]})))
     dev = torch.device("cuda")
 
@@ -259,6 +280,8 @@ def one(root, check, sets):
             pool_cull, design = pool_cull_rows(rk, dev, check)
         elif name == "scan":
             got, design = scan_runs(rk, rc, dev, call)
+        elif name == "tilecull":
+            got, design = tilecull_runs(rk, call)
         else:
             got, design, index_t_on_rays8 = bench_runs(rk, rc, dev, call)
         if name in LABELS:
@@ -291,6 +314,8 @@ def one(root, check, sets):
                 differ |= (w_k != w_p).any(1)
             elif name == "raycast_culled":  # (N, R, 8)
                 differ |= (w_k != w_p).any(2)
+            elif name == "raycast_tilecull_t":  # (N, nt, 16, Rt)
+                differ |= (w_k != w_p).any(2).reshape(differ.shape)
             else:
                 differ |= w_k != w_p
             # the stream kernels' rounding case: the plain version, testing every slot, is nearer
@@ -316,7 +341,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--roots", nargs="+", default=["."])
     ap.add_argument("--check", action="store_true")
-    ap.add_argument("--set", choices=("scan", "bench", "pool_cull", "all"), default="all")
+    ap.add_argument("--set", choices=("scan", "bench", "pool_cull", "tilecull", "all"), default="all")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     a = ap.parse_args()
     import torch
@@ -325,7 +350,7 @@ def main():
         print("ab_ring_kernels: no CUDA device", file=sys.stderr)
         return 2
     if a.one:
-        print(json.dumps(one(a.one, a.check, ("bench", "scan", "pool_cull") if a.set == "all" else (a.set,))),
+        print(json.dumps(one(a.one, a.check, ("bench", "scan", "pool_cull", "tilecull") if a.set == "all" else (a.set,))),
               flush=True)
         return 0
     for root in a.roots:

@@ -17,6 +17,7 @@ from habitat_torch.ops import raycast as rc
 from habitat_torch.ops import raycast_kernels as rk
 from habitat_torch.sims.procedural import generate_scan_apartment
 from habitat_torch.sims.scene import pack_scenes
+from habitat_torch.utils.geometry import camera_rays
 
 pytestmark = pytest.mark.cuda
 
@@ -584,13 +585,83 @@ def test_ring_wrappers_reject_bad_layouts(cuda):
     assert counts == (rk.raycast_index_t.launches, rk.raycast_index.launches, rk.raycast_fused_t.launches)
 
 
+def _tilecull_case(ring_packs, case, dev):
+    """#10's inputs on the card: 90-degree pinhole tiles of rt rays (1000,
+    1536 or 2048) on the bench scenes with each tile's K = 4 chunks of 32 in
+    a seeded order cut to a seeded count in 0..K ("cnt0": none, "cntK":
+    all), or on the mid-size scene with its frustum-selected chunks of 128
+    ("C128")."""
+    pack = ring_packs["mid" if case == "C128" else "bench"]
+    C = 128 if case == "C128" else 32
+    H, W, rt = {"rt1000": (40, 50, 1000), "rt1536": (48, 64, 1536)}.get(case, (64, 64, 2048))
+    n = 8
+    sids, pos, yaw, pitch, _, Bt, _, _, _ = _inputs(pack, n, 64, 12)
+    zero = torch.zeros(())
+    d_cam = camera_rays(zero, zero, np.deg2rad(90.0), H, W).reshape(-1, 3)
+    d_aug = torch.cat([d_cam, torch.ones(H * W, 1)], dim=-1)
+    nt = H * W // rt
+    d_t = torch.nn.functional.pad(d_aug.reshape(nt, rt, 4).transpose(1, 2), (0, 0, 0, 4)).contiguous()
+    gm = rc.group_tri_mat(pack.tri_mat, C).contiguous()
+    K = gm.shape[2] // 4 // C
+    if case == "C128":
+        planes = torch.as_tensor(rc.tile_plane_normals_cam(np.deg2rad(90.0), H, W, rt // W, W))
+        ids, cnt = rc.select_chunks_frustum(pack.tri_v0, pack.tri_e1, pack.tri_e2, pack.tri_valid, sids.long(), pos,
+                                            yaw, pitch, planes, tri_chunk=C)
+    else:
+        g = torch.Generator().manual_seed(13)
+        ids = torch.stack([torch.randperm(K, generator=g) for _ in range(n * nt)]).reshape(n, nt, K).to(torch.int32)
+        cnt = {"cnt0": torch.zeros(n, nt), "cntK": torch.full((n, nt), K)}.get(
+            case, torch.randint(0, K + 1, (n, nt), generator=g)).to(torch.int32)
+    a16 = rk.attr16_table(pack.tri_attr, pack.tri_v0, tri_chunk=C)
+    args = [x.to(dev) for x in (gm, a16, ids.contiguous(), cnt.contiguous(), sids, d_t, Bt)]
+    return args, dict(ray_tile=rt, tri_chunk=C)
+
+
+@pytest.mark.parametrize("case", ["rt1000", "rt1536", "rt2048", "cnt0", "cntK", "C128"])
+def test_tilecull_kernel_at_ring_edges(cuda, ring_packs, case):
+    """#10 on the ring loop: t and all 16 rows equal to the plain version's on
+    the card on every ray, for ray tiles that are not multiples of the
+    1024-ray block, empty and full lists and chunks of 128; its gid row is
+    #1's winner on the same inputs."""
+    args, kw = _tilecull_case(ring_packs, case, cuda)
+    t_k, a_k = _launch(rk.raycast_tilecull_t, *args, **kw)
+    t_p, a_p = rk.raycast_tilecull_t.plain(*args, **kw)
+    assert torch.equal(t_k, t_p), f"{int((t_k != t_p).sum())} rays differ in t"
+    assert torch.equal(a_k, a_p), f"{int((a_k != a_p).any(2).sum())} rays differ in a row"
+    hit = a_k[:, :, 11] > 0.5  # (N, nt, rt)
+    assert hit.any() == (case != "cnt0")
+    assert (a_k[:, :, 12][~hit] == 0.35).all()
+    gm, _, ids, cnt, sids, d_t, Bt = args
+    _, i1 = _launch(rk.raycast_fused_sel_t, gm, sids, ids, cnt, d_t, Bt, **kw)
+    assert torch.equal(torch.where(hit, a_k[:, :, 6], -1.0).reshape(i1.shape), i1.float())
+
+
+def test_tilecull_wrapper_rejects_what_the_kernel_does_not_take(cuda, ring_packs):
+    """A misaligned matrix, or chunks of 64, raise on the card and launch
+    nothing."""
+    args, kw = _tilecull_case(ring_packs, "cntK", cuda)
+    before = rk.raycast_tilecull_t.launches
+    gm = args[0]
+    bad = torch.zeros(gm.numel() + 1, device=cuda)[1:].view(gm.shape)  # 4 bytes past a 16-byte boundary
+    bad.copy_(gm)
+    with pytest.raises(ValueError):
+        rk.raycast_tilecull_t(bad, *args[1:], **kw)
+    pack = ring_packs["bench"]
+    a64 = rk.attr16_table(pack.tri_attr, pack.tri_v0, tri_chunk=64).to(cuda)
+    with pytest.raises(ValueError):
+        rk.raycast_tilecull_t(gm, a64, args[2][..., :2].contiguous(), args[3], *args[4:], ray_tile=kw["ray_tile"],
+                              tri_chunk=64)
+    assert rk.raycast_tilecull_t.launches == before
+
+
 def test_ring_designs_match_the_wrappers(cuda):
-    """The index and fused kernels' block and ring depth are the wrappers'
-    constants, with no spills and two blocks per SM."""
+    """The index, fused and tile-cull kernels' block and ring depth are the
+    wrappers' constants, with no spills and two blocks per SM."""
     for d in (rk.index_design(128), rk.index_design(64), rk.index_design(128, row_major=True),
-              rk.fused_design(32), rk.fused_design(128)):
+              rk.fused_design(32), rk.fused_design(128), rk.tilecull_design(32), rk.tilecull_design(128)):
         assert (d["rays_per_block"], d["ring_stages"]) == (rk.RING_BLOCK_RAYS, rk.RING_STAGES)
         assert d["spill_bytes"] == 0 and d["blocks_per_sm"] >= 2
+    assert rk.tilecull_design(32)["rays_per_thread"] == 4
 
 
 # ---- the stem max pool's backward -----------------------------------------------

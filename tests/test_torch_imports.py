@@ -1,5 +1,6 @@
-"""The port stands alone: nothing under habitat_torch/ and nothing in
-chip_smoke.py imports JAX, Flax, Optax, Orbax or the habitat_tpu package."""
+"""The port stands alone: nothing under habitat_torch/, nothing in
+chip_smoke.py and nothing in the script it runs (scripts/eval_flagship_torch.py)
+imports JAX, Flax, Optax, Orbax or the habitat_tpu package."""
 
 import ast
 import os
@@ -11,7 +12,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "habitat_tpu")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "scripts", "eval_flagship_torch.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "habitat_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
