@@ -129,7 +129,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            launches per render.
 11. flagship-eval  the flagship PointNav checkpoint, exported without JAX
            (habitat_torch/weights/flagship_pointnav.pt), evaluated by
-           scripts/eval_flagship_torch.py's protocol: 64 held-out procedural
+           habitat_torch.baselines.flagship's protocol: 64 held-out procedural
            scenes (seed 91000), N=64, 128x128 depth + pointgoal, greedy, the
            first 4 episodes of each env within 850 env steps. It must count
            256 episodes with success and SPL within 0.03 of the JAX
@@ -142,7 +142,6 @@ Prints the kernels' JSON line, the card's name and power limit, and last
 """
 
 import contextlib
-import importlib.util
 import json
 import os
 import subprocess
@@ -1762,15 +1761,13 @@ def main():
             fail(f"[dynamic] {route} route: no pixel shows a box")
 
     # ---- 11. the flagship checkpoint evaluated on the card -----------------
-    spec = importlib.util.spec_from_file_location("eval_flagship_torch",
-                                                  os.path.join(ROOT, "scripts", "eval_flagship_torch.py"))
-    flagship = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(flagship)
+    from habitat_torch.baselines.flagship import flagship_eval
+
     torch.cuda.empty_cache()
     zero_counts()
     for p in plain_watch:
         p.start()
-    fe = flagship.flagship_eval()
+    fe = flagship_eval()
     for p in plain_watch:
         p.stop()
     if plain_on_card:

@@ -447,6 +447,18 @@ def _check_fused_launch(tri_mat_c, tri_chunk):
                          f"{tri_chunk} (data_ptr % 16 = {tri_mat_c.data_ptr() % 16})")
 
 
+def _check_listed_ids(chunk_ids, cnt, tri_mat_c, tri_chunk):
+    """The listed fused kernels read a tile's first min(cnt, K) ids
+    unchecked, as their plain versions do: an id outside [0, T / C) reads
+    past the scene's slab. The wrappers' opt-in ``check_ids`` (one host
+    sync) raises on one instead."""
+    n_chunks = tri_mat_c.shape[2] // 4 // tri_chunk
+    listed = torch.arange(chunk_ids.shape[2], device=chunk_ids.device) < cnt[..., None]
+    bad = listed & ((chunk_ids < 0) | (chunk_ids >= n_chunks))
+    if bool(bad.any()):
+        raise ValueError(f"{int(bad.sum())} listed chunk ids lie outside [0, {n_chunks})")
+
+
 def _check_ring_launch(tri_mat, tri_chunk):
     """The index and culled kernels copy 16-byte words of the scene
     matrix."""
@@ -464,8 +476,11 @@ def raycast_fused_sel_t(
     Bt: torch.Tensor,  # (N, 16, 4) ray-feature matrices B^T
     ray_tile: int = 2048,
     tri_chunk: int = 32,
+    check_ids: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Frustum-selected closest hit: (t (N,R) f32, idx (N,R) i32)."""
+    """Frustum-selected closest hit: (t (N,R) f32, idx (N,R) i32). The
+    listed ids must lie in [0, T / C); ``check_ids`` raises on one that
+    does not (one host sync)."""
     n_tiles = _check_inputs(
         tri_mat_c, sids, d_t, Bt, ray_tile, tri_chunk,
         extra=(("chunk_ids", chunk_ids, torch.int32), ("cnt", cnt, torch.int32)),
@@ -473,6 +488,8 @@ def raycast_fused_sel_t(
     N = sids.shape[0]
     if chunk_ids.shape[:2] != (N, n_tiles) or cnt.shape != (N, n_tiles):
         raise ValueError(f"chunk_ids {tuple(chunk_ids.shape)} / cnt {tuple(cnt.shape)}")
+    if check_ids:
+        _check_listed_ids(chunk_ids, cnt, tri_mat_c, tri_chunk)
     if d_t.device.type == "cpu":
         return raycast_fused_sel_t_plain(tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_tile, tri_chunk)
     _check_fused_launch(tri_mat_c, tri_chunk)
@@ -935,6 +952,7 @@ def raycast_tilecull_t(
     Bt: torch.Tensor,  # (N, 16, 4) ray-feature matrices B^T
     ray_tile: int = 2048,
     tri_chunk: int = 32,
+    check_ids: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Tile-culled closest hit with plane-exact t and shading: (t (N, R)
     f32, plane-exact on a hit, 1e6 on a miss; attrs (N, nt, 16, Rt) f32 rows
@@ -942,7 +960,8 @@ def raycast_tilecull_t(
     the epilogue: on a miss the rows are zero but the shade reads 0.35. The
     winner is the frustum-selected kernel's on the same inputs, and, as
     there, the listed ids must lie in [0, T / C): neither the kernel nor
-    the plain version skips others."""
+    the plain version skips others. ``check_ids`` raises on one that does
+    not (one host sync)."""
     sids, chunk_ids, cnt = _as_int32(sids, chunk_ids, cnt)
     n_tiles = _check_inputs(
         tri_mat_c, sids, d_t, Bt, ray_tile, tri_chunk,
@@ -959,6 +978,8 @@ def raycast_tilecull_t(
             f"bad shapes attr16 {tuple(attr16.shape)} chunk_ids {tuple(chunk_ids.shape)} cnt {tuple(cnt.shape)} "
             f"for tri_mat_c {tuple(tri_mat_c.shape)} in chunks of {C}"
         )
+    if check_ids:
+        _check_listed_ids(chunk_ids, cnt, tri_mat_c, C)
     if d_t.device.type == "cpu":
         return raycast_tilecull_t_plain(tri_mat_c, attr16, chunk_ids, cnt, sids, d_t, Bt, ray_tile, tri_chunk)
     _check_fused_launch(tri_mat_c, C)

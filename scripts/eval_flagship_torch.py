@@ -2,18 +2,12 @@
 """Evaluates the flagship PointNav checkpoint with the PyTorch port, on the
 card unless asked for the CPU, without JAX.
 
-The protocol of ``scripts/eval_flagship_ckpt.py``: held-out procedural
-scenes (``make_procedural_pointnav(num_scenes=64, episodes_per_scene=16,
-seed=91000)``, seeds disjoint from every training seed), 64 envs with
-128x128 depth and the pointgoal, episodes of at most 200 steps, greedy
-actions, the first 4 episodes of each env counted (256 episodes) within 850
-env steps. The JAX script plays that rollout from four reset keys and counts
-1024 episodes, but its env never reads the key: the four passes replay the
-same 256 episodes, so one pass here plays the episodes behind its 0.9414
-success and 0.8919 SPL.
+Runs ``habitat_torch.baselines.flagship.flagship_eval``: the protocol of
+``scripts/eval_flagship_ckpt.py`` (64 held-out procedural scenes, 64 envs,
+128x128 depth + pointgoal, greedy, the first 4 episodes of each env within
+850 env steps; see that module).
 
-    python scripts/eval_flagship_torch.py [--weights W] [--device cuda|cpu] [--num-scenes 64]
-        [--episodes-per-scene 16] [--res 128]
+    python scripts/eval_flagship_torch.py [--weights W] [--device cuda|cpu]
 
 ``--weights`` defaults to ``habitat_torch/weights/flagship_pointnav.pt``
 (``scripts/export_flagship_torch.py`` writes it). Prints one JSON line:
@@ -25,72 +19,18 @@ import argparse
 import json
 import os
 import sys
-import time
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WEIGHTS = os.path.join(ROOT, "habitat_torch", "weights", "flagship_pointnav.pt")
-PROTOCOL = dict(num_envs=64, max_episode_steps=200, episodes_per_env=4, max_steps=850, scene_seed=91_000)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-
-def flagship_eval(weights=WEIGHTS, device=None, num_scenes=64, episodes_per_scene=16, res=128):
-    """The protocol on ``device`` (``None`` = cuda). Returns its result as a
-    dict; ``env_steps`` counts the batched env steps run (one render
-    each, after the reset's)."""
-    import torch
-
-    sys.path.insert(0, ROOT)
-    from habitat_torch.baselines.evaluator import evaluate_agent
-    from habitat_torch.core.env_factory import make_nav_env
-    from habitat_torch.datasets.pointnav import make_procedural_pointnav
-    from habitat_torch.device import resolve_device
-    from habitat_torch.models.convert import load_policy_file
-
-    dev = resolve_device(device)
-    t_setup = time.perf_counter()
-    scenes, episodes, fields = make_procedural_pointnav(
-        num_scenes=num_scenes, episodes_per_scene=episodes_per_scene, seed=PROTOCOL["scene_seed"])
-    env = make_nav_env(
-        scenes, episodes, num_envs=PROTOCOL["num_envs"], precomputed_fields=fields,
-        max_episode_steps=PROTOCOL["max_episode_steps"], device=dev,
-        sensor_specs=(("HabitatSimDepthSensor", {"height": res, "width": res}), ("PointGoalWithGPSCompassSensor", None)),
-    )
-    policy = load_policy_file(weights, device=dev)
-    setup_s = time.perf_counter() - t_setup
-
-    steps = 0
-    step_fn = env.step_fn
-
-    def counted_step(*args):
-        nonlocal steps
-        steps += 1
-        return step_fn(*args)
-
-    env.step_fn = counted_step
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    m = evaluate_agent(env, policy, episodes_per_env=PROTOCOL["episodes_per_env"], deterministic=True,
-                       max_steps=PROTOCOL["max_steps"])
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    wall = time.perf_counter() - t0
-    return dict(
-        episodes=int(m.get("num_episodes", 0)), success=m.get("success"), spl=m.get("spl"),
-        soft_spl=m.get("soft_spl"), env_steps=steps, env_steps_per_s=steps * env.num_envs / wall, wall_s=wall,
-        setup_s=setup_s, eval_scenes=num_scenes, device=torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-    )
+from habitat_torch.baselines.flagship import WEIGHTS, flagship_eval  # noqa: E402
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--weights", default=WEIGHTS)
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
-    ap.add_argument("--num-scenes", type=int, default=64)
-    ap.add_argument("--episodes-per-scene", type=int, default=16)
-    ap.add_argument("--res", type=int, default=128)
     a = ap.parse_args()
-    out = flagship_eval(a.weights, a.device, a.num_scenes, a.episodes_per_scene, a.res)
-    print(json.dumps(out), flush=True)
+    print(json.dumps(flagship_eval(a.weights, a.device)), flush=True)
     return 0
 
 

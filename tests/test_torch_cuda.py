@@ -654,6 +654,56 @@ def test_tilecull_wrapper_rejects_what_the_kernel_does_not_take(cuda, ring_packs
     assert rk.raycast_tilecull_t.launches == before
 
 
+@pytest.mark.parametrize("wrapper", ["raycast_fused_sel_t", "raycast_tilecull_t"])
+def test_check_ids_raises_before_a_launch(cuda, ring_packs, wrapper):
+    """The kernels read every listed id unchecked; with ``check_ids`` a
+    listed id past the scene's chunks (or below 0) raises and launches
+    nothing, one past ``cnt`` is not looked at, and ids in range give the
+    same result as without the check."""
+    args, kw = _tilecull_case(ring_packs, "cntK", cuda)
+    if wrapper == "raycast_fused_sel_t":
+        gm, _, ids, cnt, sids, d_t, Bt = args
+        args = [gm, sids, ids, cnt, d_t, Bt]
+    fn = getattr(rk, wrapper)
+    ids, cnt = args[2], args[3]  # both wrappers take them third and fourth
+    K = ids.shape[2]
+    ref = _launch(fn, *args, **kw)
+    checked = _launch(fn, *args, **kw, check_ids=True)
+    assert all(torch.equal(a, b) for a, b in zip(ref, checked))
+    before = fn.launches
+    for bad_id in (K, -1):
+        bad = ids.clone()
+        bad[0, 0, K - 1] = bad_id
+        with pytest.raises(ValueError, match="outside"):
+            fn(*args[:2], bad, *args[3:], **kw, check_ids=True)
+    assert fn.launches == before
+    short = cnt.clone()
+    short[0, 0] = K - 1
+    bad = ids.clone()
+    bad[0, 0, K - 1] = K  # not listed
+    fn(*args[:2], bad, short, *args[4:], **kw, check_ids=True)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+
+
+def test_evaluate_agent_takes_a_policy_on_cuda0(cuda):
+    """The env resolves ``device=None`` to ``cuda`` and the loader puts a
+    policy on ``cuda:0``: the evaluator runs them together on the card."""
+    from habitat_torch.baselines.evaluator import evaluate_agent
+    from habitat_torch.core.env_factory import make_nav_env
+    from habitat_torch.models.policy import make_pointnav_resnet_policy
+
+    scenes, episodes, fields = make_procedural_pointnav(num_scenes=2, episodes_per_scene=2, seed=4)
+    env = make_nav_env(scenes, episodes, num_envs=2, precomputed_fields=fields, max_episode_steps=20,
+                       sensor_specs=(("HabitatSimDepthSensor", {"height": 64, "width": 64}),
+                                     ("PointGoalWithGPSCompassSensor", None)))
+    policy = make_pointnav_resnet_policy(4, visual_inputs=("depth",), input_hw=(64, 64), backbone="resnet9",
+                                         hidden_size=32, device="cuda:0")
+    assert env.device != next(policy.parameters()).device  # torch.device("cuda") != "cuda:0"
+    got = evaluate_agent(env, policy, episodes_per_env=1, deterministic=True, max_steps=60)
+    assert got["num_episodes"] == 2
+
+
 def test_ring_designs_match_the_wrappers(cuda):
     """The index, fused and tile-cull kernels' block and ring depth are the
     wrappers' constants, with no spills and two blocks per SM."""

@@ -49,6 +49,7 @@ from habitat_tpu.models.resnet import ResNetEncoder as JaxResNetEncoder
 from habitat_tpu.models.rnn_state_encoder import initial_hidden_state as jax_hidden
 
 from habitat_torch.baselines import evaluator as tev
+from habitat_torch.baselines.flagship import flagship_eval
 from habitat_torch.baselines.ppo import PPOConfig
 from habitat_torch.baselines.trainer import PPOTrainer, TrainerConfig
 from habitat_torch.core.env_factory import make_nav_env
@@ -308,11 +309,5 @@ def test_device_none_needs_the_card(envs):
     sc, ep, fields = make_procedural_pointnav(num_scenes=1, episodes_per_scene=1, seed=0)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_nav_env(sc, ep, num_envs=1, precomputed_fields=fields)
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location("eval_flagship_torch", os.path.join(ROOT, "scripts",
-                                                                                   "eval_flagship_torch.py"))
-    script = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(script)
     with pytest.raises(RuntimeError, match="CUDA"):
-        script.flagship_eval(num_scenes=1, episodes_per_scene=1)
+        flagship_eval()

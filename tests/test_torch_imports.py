@@ -1,6 +1,6 @@
 """The port stands alone: nothing under habitat_torch/, nothing in
-chip_smoke.py and nothing in the script it runs (scripts/eval_flagship_torch.py)
-imports JAX, Flax, Optax, Orbax or the habitat_tpu package."""
+chip_smoke.py and nothing in scripts/eval_flagship_torch.py imports JAX,
+Flax, Optax, Orbax or the habitat_tpu package."""
 
 import ast
 import os

@@ -148,3 +148,29 @@ def test_tilecull_plain_matches_pallas_at_ring_edges(packs, case):
     # the gid row is #1's winner on the same inputs
     _, i1 = trk.raycast_fused_sel_t(args[0], args[4], args[2], args[3], args[5], args[6], ray_tile=rt, tri_chunk=C)
     np.testing.assert_array_equal(np.where(hit_p, a_p[:, :, 6], -1).reshape(N, -1), i1.numpy())
+
+
+@pytest.mark.parametrize("wrapper", ["raycast_fused_sel_t", "raycast_tilecull_t"])
+@pytest.mark.parametrize("bad_id", [-1, 2])
+def test_check_ids_rejects_listed_ids_out_of_range(wrapper, bad_id):
+    """Neither the kernels nor the plain versions skip a listed id outside
+    [0, T / C); the wrappers' ``check_ids`` raises on one (here T / C = 2)
+    and passes one that lies past ``cnt``."""
+    T, C, rt = 64, 32, 64
+    gm = torch.zeros(1, 10, 4 * T)
+    a16 = torch.zeros(1, T // C, 16, C)
+    ids = torch.tensor([[[1, bad_id]]], dtype=torch.int32)
+    sids = torch.zeros(1, dtype=torch.int32)
+    d_t, Bt = torch.zeros(1, 8, rt), torch.zeros(1, 16, 4)
+    fn = getattr(trk, wrapper)
+
+    def call(cnt):
+        cnt = torch.tensor([[cnt]], dtype=torch.int32)
+        if wrapper == "raycast_fused_sel_t":
+            return fn(gm, sids, ids, cnt, d_t, Bt, ray_tile=rt, tri_chunk=C, check_ids=True)
+        return fn(gm, a16, ids, cnt, sids, d_t, Bt, ray_tile=rt, tri_chunk=C, check_ids=True)
+
+    with pytest.raises(ValueError, match=r"1 listed chunk ids lie outside \[0, 2\)"):
+        call(2)
+    t, _ = call(1)  # the bad id is not listed
+    assert t.shape == (1, rt)
