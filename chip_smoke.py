@@ -137,6 +137,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            once per render (the reset's and one per env step) and no plain
            version may see a card tensor.
 
+12. contacts  rearrangement physics at the Pick configuration's scale (N=128
+           envs, 3 boxes each; PyTorch ops, no kernel of the port's):
+           settle_objects (30 contacts-v3 steps, every valid box on or above
+           its floor), then a 300-step episode of the v6 contact_step (dt
+           0.1, 4 substeps) with boxes of 0.05-0.20 m half-extents spawned
+           overlapping, floating and tipped and the robot driven through
+           them: ms per step (median and range of the episode's three runs
+           of 100 steps), launches per step and the idle share from 3
+           profiled steps, no host sync in a step. Gates: one step on the
+           card against the CPU from the same states (steps 0 and 30), held
+           to the CPU's float64 result (PHYS_ATOL, PHYS_W_RTOL, FORCE_ATOL,
+           FORCE_RTOL, plus twice the CPU float32 error); after 300 steps
+           the shares of boxes asleep and tipped within SHARE_GAP of the
+           CPU's episode and no corner FLOOR_SINK below its floor.
+    arm    Fetch's step_arm (7 joints, the env's motors, dt 1/30, 4
+           substeps) for 300 calls at N=128 toward seeded targets (ms per
+           call, launches, no host sync in a call; calls 0, 1, 10, 100
+           and 299 held to the CPU's float64 result; every joint within
+           ARM_TRACK of its target at the end) and ik_solve (8 iterations)
+           toward reachable targets (ms, launches, held to float64, final
+           error within IK_MEDIAN_ERR / IK_MAX_ERR). No kernel launches in
+           either phase.
+
 Prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
@@ -214,6 +237,37 @@ FLOPS_PER_CULL_TRI = 83
 # 0.8919 SPL), within 0.03 (~8 of 256 episodes) for argmaxes that bf16 on
 # the card flips
 FLAGSHIP = dict(episodes=256, success=0.9414, spl=0.8919, tol=0.03)
+# [contacts]: the Pick configuration's scale (N=128, scripts/train_rearrange_tpu.py:23;
+# 3 boxes, generator.py:405), the env's step (dt 0.1, 4 substeps,
+# rearrange_env.py:2225) over an episode of max_episode_steps 300, timed in
+# `runs` runs of 100 consecutive steps; settling as the generator runs it
+# (30 contacts-v3 steps)
+CONTACTS = dict(num_envs=128, objects=3, steps=300, dt=0.1, substeps=4, warmup=5, runs=3, profile_steps=3,
+                settle_steps=30, robot_steps=60)
+# [arm]: Fetch's 7 joints under the env's motors (kp 300, kd 30,
+# rearrange_env.py:765) at the env's rate (dt 1/30, 4 substeps, :1742), 300
+# calls timed in `runs` runs of 100, and its IK (8 iterations, :1756)
+ARM = dict(num_envs=128, steps=300, dt=1.0 / 30.0, substeps=4, kp=300.0, kd=30.0, warmup=5, runs=3, ik_iters=8,
+           ik_reps=20)
+# The physics gates, set before the first card run (PERF.md §6).
+# One call on the card from a given state is held to the float64 result of
+# the same code on the CPU: its largest error there within PHYS_ATOL (+
+# PHYS_W_RTOL of the largest |omega| for angular velocities, FORCE_ATOL and
+# FORCE_RTOL for the robot force) plus twice the CPU float32 result's own
+# error (the robot contact and tumbling boxes are ill-conditioned: float32
+# and float64 part by up to 1e-3 rad/s there in both packages).
+PHYS_ATOL = 1e-5
+PHYS_W_RTOL = 1e-5
+FORCE_ATOL, FORCE_RTOL = 1e-3, 1e-4
+# after the 300-step episode: the shares of free boxes asleep and tipped
+# (body up axis below 0.9 of world up), card against CPU, and every box's
+# lowest corner above its floor less this sink
+SHARE_GAP = 0.05
+FLOOR_SINK = 0.01
+# [arm] tracking after 300 calls (the JAX package's test band, its gravity
+# sag |c|/kp) and the IK's final error on reachable targets
+ARM_TRACK = 0.1
+IK_MEDIAN_ERR, IK_MAX_ERR = 0.02, 0.1
 
 
 def log(msg):
@@ -614,6 +668,303 @@ def check_start(env_c, upd, seed):
     deployed = make_pointnav_resnet_policy(4, device="cpu")
     deployed.load_state_dict(net.state_dict())
     return deployed.state_dict()
+
+
+def device_time_and_launches(fn):
+    """fn() once under torch.profiler: (fn's result, device kernel ms, kernel
+    launches, the kernels sorted by device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    dev_kernels = [e for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA and device_us(e) > 0]
+    dev_kernels.sort(key=device_us, reverse=True)
+    return out, sum(device_us(e) for e in dev_kernels) / 1e3, sum(e.count for e in dev_kernels), dev_kernels
+
+
+def held_to_float64(tag, name, card, cpu32, cpu64, atol, rtol=0.0):
+    """One call's output on the card against the same call in float32 and in
+    float64 on the CPU: the card's largest error against float64 within
+    atol (+ rtol of the largest |float64| value) plus twice the CPU float32
+    error. Returns the gaps for the log."""
+    err_card = (card.double().cpu() - cpu64).abs().max().item()
+    err_cpu = (cpu32.double() - cpu64).abs().max().item()
+    gap = (card.cpu() - cpu32).abs().max().item()
+    allowed = atol + rtol * cpu64.abs().max().item() + 2 * err_cpu
+    if not err_card <= allowed:
+        fail(f"[{tag}] {name}: card error {err_card:.3g} against float64, allowed {allowed:.3g} "
+             f"(CPU float32 error {err_cpu:.3g}; card - CPU {gap:.3g})")
+    return dict(gap=gap, err_card=err_card, err_cpu=err_cpu)
+
+
+def contacts_scene(seed=0):
+    """The [contacts] episode's start, seeded, float32 numpy: N envs of O
+    boxes with half-extents 0.05-0.20 m, floors at -0.1..0.1 m, a third of
+    the boxes floating up to 0.4 m, a third tipped 10-40 degrees, spawns
+    overlapping where they fall together, one box in 10 envs held, and the
+    robot's path: across the boxes in CONTACTS["robot_steps"] steps, then
+    parked far off."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    N, O = CONTACTS["num_envs"], CONTACTS["objects"]
+    half = rng.uniform(0.05, 0.20, (N, O, 3))
+    floor = rng.uniform(-0.1, 0.1, N)
+    lift = np.where(rng.uniform(size=(N, O)) < 1 / 3, rng.uniform(0.0, 0.4, (N, O)), 0.0)
+    pos = np.stack([rng.uniform(-0.5, 0.5, (N, O)), floor[:, None] + lift, rng.uniform(-0.3, 0.3, (N, O))], -1)
+    yaw = rng.uniform(-np.pi, np.pi, (N, O))
+    tilt = np.where(rng.uniform(size=(N, O)) < 1 / 3, np.deg2rad(rng.uniform(10, 40, (N, O))), 0.0)
+    phi = rng.uniform(0, 2 * np.pi, (N, O))  # the tilt axis, horizontal
+    q_yaw = np.stack([np.cos(yaw / 2), 0 * yaw, np.sin(yaw / 2), 0 * yaw], -1)
+    q_tilt = np.stack([np.cos(tilt / 2), np.sin(tilt / 2) * np.cos(phi), 0 * tilt, np.sin(tilt / 2) * np.sin(phi)], -1)
+    w1, x1, y1, z1 = np.moveaxis(q_tilt, -1, 0)
+    w2, x2, y2, z2 = np.moveaxis(q_yaw, -1, 0)
+    quat = np.stack([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2, w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                     w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2, w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2], -1)
+    free = np.ones((N, O), bool)
+    free[rng.uniform(size=N) < 0.1, 0] = False
+    steps, rs = CONTACTS["steps"], CONTACTS["robot_steps"]
+    x = np.where(np.arange(steps) < rs, -1.5 + 3.0 * np.arange(steps) / rs, 50.0)
+    z0 = rng.uniform(-0.2, 0.2, N)
+    agent = np.stack([np.broadcast_to(x[:, None], (steps, N)), np.broadcast_to(floor, (steps, N)),
+                      np.broadcast_to(z0, (steps, N))], -1)
+    f32 = lambda a: np.ascontiguousarray(a, dtype=np.float32)  # noqa: E731
+    return dict(p=f32(pos), v=np.zeros((N, O, 3), np.float32), q=f32(quat), w=np.zeros((N, O, 3), np.float32),
+                free=free, floor=f32(floor), half=f32(half), agent=f32(agent))
+
+
+def box_shares(p, q, w_, v, free, floor, half):
+    """(share of free boxes asleep, share tipped, the lowest corner's largest
+    sink below its floor) of a contacts-v6 state, CPU tensors."""
+    import torch
+
+    from habitat_torch.tasks.rearrange import rigid_body as rigid
+
+    R = rigid.quat_to_matrix(q)
+    asleep = (v == 0).all(-1) & (w_ == 0).all(-1)
+    tipped = R[..., 1, 1] < 0.9
+    centre = p + torch.stack([torch.zeros_like(half[..., 1]), half[..., 1], torch.zeros_like(half[..., 1])], -1)
+    corners = centre.unsqueeze(-2) + (R.unsqueeze(-3) @ (rigid.corner_signs(p) * half.unsqueeze(-2)).unsqueeze(-1)
+                                      ).squeeze(-1)
+    sink = (floor[:, None] - corners[..., 1].amin(-1))[free].max().item()
+    n = int(free.sum())
+    return int((asleep & free).sum()) / n, int((tipped & free).sum()) / n, sink
+
+
+def contacts_phase(gpu, dev):
+    """[contacts]: settle_objects at E=128 x O=3, then the v6 contact step
+    over a 300-step episode on ``dev``: ms per step, launches per step, the
+    device's idle share, and the gates against the CPU."""
+    import numpy as np
+    import torch
+
+    from habitat_torch.tasks.rearrange import rearrange_env as renv
+    from habitat_torch.tasks.rearrange.generator import settle_objects
+
+    t_phase = time.perf_counter()
+    sc = contacts_scene(0)
+    N, O, steps = CONTACTS["num_envs"], CONTACTS["objects"], CONTACTS["steps"]
+
+    # settling: every spawn upright, as the generator settles them (v3)
+    settled = settle_objects(sc["p"], sc["free"], sc["floor"], steps=CONTACTS["settle_steps"], device=dev)
+    t0 = time.perf_counter()
+    settle_objects(sc["p"], sc["free"], sc["floor"], steps=CONTACTS["settle_steps"], device=dev)
+    settle_s = time.perf_counter() - t0  # numpy out: the call ends synchronised
+    sink = (sc["floor"][:, None] - settled[..., 1])[sc["free"]].max()
+    if not (np.isfinite(settled).all() and sink <= 1e-6):
+        fail(f"[contacts] settle_objects left a valid box {sink:.3g} m below its floor")
+    log(f"[contacts] {gpu}: settle_objects E={N} x O={O}, {CONTACTS['settle_steps']} v3 steps: {settle_s * 1e3:.1f} ms "
+        f"({settle_s * 1e3 / CONTACTS['settle_steps']:.2f} ms per step); every valid box on or above its floor "
+        f"(lowest {-sink:.2e} m above)")
+
+    cpu = {k: torch.as_tensor(x) for k, x in sc.items()}
+    card = {k: x.to(dev) for k, x in cpu.items()}
+    kw = dict(dt=CONTACTS["dt"], n_substeps=CONTACTS["substeps"])
+
+    def step(st, c, s):
+        p, v, f, q, w = renv.contact_step(st[0], st[1], c["free"], c["floor"], c["agent"][s], half=c["half"],
+                                          quat=st[2], omega=st[3], **kw)
+        return (p, v, q, w), f
+
+    def episode(c, n=steps, keep=(), windows=1):
+        """n steps from the start; the states at the steps in ``keep``, and
+        the wall of each of ``windows`` equal runs of consecutive steps."""
+        st = (c["p"], c["v"], c["q"], c["w"])
+        kept, force, walls = {}, torch.zeros(N, device=c["p"].device), []
+        for s in range(n):
+            if s % (n // windows) == 0:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            if s in keep:
+                kept[s] = st
+            st, f = step(st, c, s)
+            force = force + f
+            if (s + 1) % (n // windows) == 0:
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        return st, force, kept, walls
+
+    episode(card, n=CONTACTS["warmup"])
+    # the episode, timed in CONTACTS["runs"] runs of consecutive steps
+    card_end, card_force, kept, walls = episode(card, keep=(0, 30), windows=CONTACTS["runs"])
+    ms = sorted(w * 1e3 * CONTACTS["runs"] / steps for w in walls)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(kept[30], card, 30)
+    except RuntimeError as e:
+        fail(f"[contacts] contact_step synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n_prof = CONTACTS["profile_steps"]
+    t0 = time.perf_counter()
+    _, dev_ms, launches, top = device_time_and_launches(lambda: episode(card, n=n_prof))
+    prof_s = time.perf_counter() - t0
+    idle = 1 - dev_ms / (ms[len(ms) // 2] * n_prof)
+    log(f"[contacts] {gpu}: contact_step v6 N={N} O={O} dt={kw['dt']} x{kw['n_substeps']} substeps: ms per step "
+        f"median {ms[len(ms) // 2]:.3f} (min {ms[0]:.3f}, max {ms[-1]:.3f}) over the {steps}-step episode's "
+        f"{CONTACTS['runs']} runs of {steps // CONTACTS['runs']} steps; {launches / n_prof:.0f} launches per step, "
+        f"device {dev_ms / n_prof:.3f} ms per step, idle share {idle:.3f} ({n_prof} profiled steps against the "
+        f"median; profiling took {prof_s:.1f} s); no host sync in a step")
+    for e in top[:5]:
+        log(f"[contacts]   {device_us(e) / 1e3 / n_prof:8.4f} ms/step {e.count // n_prof:5d}x  {e.key[:80]}")
+
+    # gate 1: one call from the same state, card against the CPU
+    one = {}
+    for s, st in kept.items():
+        st32 = tuple(x.cpu() for x in st)
+        ref32, f32 = step(st32, cpu, s)
+        c64 = {k: (x.double() if x.is_floating_point() else x) for k, x in cpu.items()}
+        ref64, f64 = step(tuple(x.double() for x in st32), c64, s)
+        got, fg = step(st, card, s)
+        for name, g, r32, r64 in zip("pvqw", got, ref32, ref64):
+            one[(s, name)] = held_to_float64(
+                "contacts", f"step {s} {name}", g, r32, r64, PHYS_ATOL, PHYS_W_RTOL if name == "w" else 0.0)
+        one[(s, "force")] = held_to_float64("contacts", f"step {s} force", fg, f32, f64, FORCE_ATOL, FORCE_RTOL)
+        one[(s, "force")]["rel"] = one[(s, "force")]["gap"] / max(f32.abs().max().item(), 1e-12)
+    log("[contacts] one step card vs CPU from the same state: " + "; ".join(
+        f"step {s}: " + ", ".join(f"|d{k}| {one[(s, k)]['gap']:.2e}" for k in "pvqw")
+        + f", force rel {one[(s, 'force')]['rel']:.2e}" for s in kept)
+        + " (each within its float64 gate)")
+
+    # gate 2: the 300-step episode on the CPU from the same start
+    t0 = time.perf_counter()
+    cpu_end, cpu_force, _, _ = episode(cpu)
+    cpu_s = time.perf_counter() - t0
+    shares = {}
+    for tag, (p, v, q, w_) in (("card", card_end), ("cpu", cpu_end)):
+        p, v, q, w_ = (x.cpu() for x in (p, v, q, w_))
+        if not all(torch.isfinite(x).all() for x in (p, v, q, w_)):
+            fail(f"[contacts] non-finite {tag} state after {steps} steps")
+        shares[tag] = box_shares(p, q, w_, v, cpu["free"], cpu["floor"], cpu["half"])
+    (a_c, t_c, s_c), (a_p, t_p, s_p) = shares["card"], shares["cpu"]
+    log(f"[contacts] after {steps} steps: asleep {a_c:.4f} card / {a_p:.4f} CPU, tipped {t_c:.4f} / {t_p:.4f}, "
+        f"deepest corner below its floor {s_c * 1e3:.2f} / {s_p * 1e3:.2f} mm, robot force summed over the episode "
+        f"{card_force.sum().item():.1f} / {cpu_force.sum().item():.1f}; the CPU episode took {cpu_s:.1f} s, the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if not (abs(a_c - a_p) <= SHARE_GAP and abs(t_c - t_p) <= SHARE_GAP and max(s_c, s_p) <= FLOOR_SINK):
+        fail(f"[contacts] shares card {shares['card']} against CPU {shares['cpu']}: gap above {SHARE_GAP} "
+             f"or a corner deeper than {FLOOR_SINK} m")
+
+
+def arm_phase(gpu, dev):
+    """[arm]: Fetch's step_arm and IK at N=128 on ``dev``: ms per call,
+    launches per call, no host sync in step_arm, and the gates against the
+    CPU."""
+    import numpy as np
+    import torch
+
+    from habitat_torch.articulated_agents import dynamics as arm_dyn
+    from habitat_torch.articulated_agents import kinematics as kin
+    from habitat_torch.articulated_agents.params import FETCH
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    N = ARM["num_envs"]
+    lo, hi = np.array(FETCH.joint_limits_lower), np.array(FETCH.joint_limits_upper)
+    rest = np.array(FETCH.resting_pose)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))  # noqa: E731
+    q0 = f32(np.clip(rest + rng.normal(0, 0.3, (N, 7)), lo, hi))
+    target = f32(np.clip(rest + rng.normal(0, 0.4, (N, 7)), lo + 0.05, hi - 0.05))
+    qd0 = torch.zeros(N, 7)
+    dyn = arm_dyn.default_arm_dynamics(FETCH, kp=ARM["kp"], kd=ARM["kd"], device=dev)
+    dyn_cpu = arm_dyn.default_arm_dynamics(FETCH, kp=ARM["kp"], kd=ARM["kd"], device="cpu")
+    dyn64 = arm_dyn.ArmDynParams(*(x.double() for x in dyn_cpu[:5]), armature=dyn_cpu.armature)
+    kw = dict(dt=ARM["dt"], substeps=ARM["substeps"])
+    tc = target.to(dev)
+
+    def run(q, qd, n, keep=(), windows=1):
+        kept, walls = {}, []
+        for s in range(n):
+            if s % (n // windows) == 0:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            if s in keep:
+                kept[s] = (q, qd)
+            q, qd = arm_dyn.step_arm(FETCH, dyn, q, qd, tc, **kw)
+            if (s + 1) % (n // windows) == 0:
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+        return q, qd, kept, walls
+
+    run(q0.to(dev), qd0.to(dev), ARM["warmup"])
+    q_end, qd_end, kept, walls = run(q0.to(dev), qd0.to(dev), ARM["steps"], keep=(0, 1, 10, 100, 299),
+                                     windows=ARM["runs"])
+    ms = sorted(w * 1e3 * ARM["runs"] / ARM["steps"] for w in walls)
+    _, dev_ms, launches, _ = device_time_and_launches(lambda: arm_dyn.step_arm(FETCH, dyn, q_end, qd_end, tc, **kw))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        arm_dyn.step_arm(FETCH, dyn, q_end, qd_end, tc, **kw)
+    except RuntimeError as e:
+        fail(f"[arm] step_arm synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    gaps = {}
+    for s, (q, qd) in kept.items():
+        gq, gqd = arm_dyn.step_arm(FETCH, dyn, q, qd, tc, **kw)
+        rq, rqd = arm_dyn.step_arm(FETCH, dyn_cpu, q.cpu(), qd.cpu(), target, **kw)
+        eq, eqd = arm_dyn.step_arm(FETCH, dyn64, q.cpu().double(), qd.cpu().double(), target.double(), **kw)
+        gaps[s] = (held_to_float64("arm", f"call {s} q", gq, rq, eq, PHYS_ATOL),
+                   held_to_float64("arm", f"call {s} qd", gqd, rqd, eqd, PHYS_ATOL, PHYS_W_RTOL))
+    track = (q_end.cpu() - target).abs().max().item()
+    log(f"[arm] {gpu}: step_arm Fetch N={N} dt=1/30 x{ARM['substeps']} substeps: ms per call median "
+        f"{ms[len(ms) // 2]:.3f} (min {ms[0]:.3f}, max {ms[-1]:.3f}) over the {ARM['steps']} calls' {ARM['runs']} runs "
+        f"of {ARM['steps'] // ARM['runs']}; "
+        f"{launches} launches per call, device {dev_ms:.3f} ms per call; no host sync in a call; card vs CPU per call "
+        f"max |dq| {max(g[0]['gap'] for g in gaps.values()):.2e}, |dqd| {max(g[1]['gap'] for g in gaps.values()):.2e} "
+        f"(float64 gates met); tracking after {ARM['steps']} calls {track:.4f} rad, |qd| "
+        f"{qd_end.abs().max().item():.4f} rad/s")
+    if not track <= ARM_TRACK:
+        fail(f"[arm] the PD motors left a joint {track} rad from its target")
+
+    # IK toward reachable targets near the resting pose, from the resting pose
+    goal = f32(np.clip(rest + rng.normal(0, 0.3, (N, 7)), lo, hi))
+    ee_goal = kin.ee_position(FETCH, goal)
+    start = f32(np.broadcast_to(rest, (N, 7)))
+    ik_kw = dict(iters=ARM["ik_iters"])
+    ee_c, start_c = ee_goal.to(dev), start.to(dev)
+    kin.ik_solve(FETCH, ee_c, start_c, **ik_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ARM["ik_reps"]):
+        got = kin.ik_solve(FETCH, ee_c, start_c, **ik_kw)
+    torch.cuda.synchronize()
+    ik_ms = (time.perf_counter() - t0) * 1e3 / ARM["ik_reps"]
+    _, ik_dev_ms, ik_launches, _ = device_time_and_launches(lambda: kin.ik_solve(FETCH, ee_c, start_c, **ik_kw))
+    ref = kin.ik_solve(FETCH, ee_goal, start, **ik_kw)
+    ref64 = kin.ik_solve(FETCH, ee_goal.double(), start.double(), **ik_kw)
+    g = held_to_float64("arm", "ik_solve q", got, ref, ref64, PHYS_ATOL)
+    err = kin.ik_error(FETCH, ee_goal, got.cpu()).sort().values
+    med, worst = err[N // 2].item(), err[-1].item()
+    log(f"[arm] {gpu}: ik_solve Fetch N={N} iters={ARM['ik_iters']}: {ik_ms:.3f} ms per call, {ik_launches} launches "
+        f"(device {ik_dev_ms:.3f} ms); card vs CPU max |dq| {g['gap']:.2e}; final error median {med * 1e3:.2f} mm, "
+        f"max {worst * 1e3:.2f} mm; the phase {time.perf_counter() - t_phase:.1f} s")
+    if not (med <= IK_MEDIAN_ERR and worst <= IK_MAX_ERR):
+        fail(f"[arm] IK error median {med} max {worst} against {IK_MEDIAN_ERR} / {IK_MAX_ERR}")
 
 
 def main():
@@ -1201,24 +1552,14 @@ def main():
         f"env step incl. render {step_ms:.3f} ms/step, episodes done {int(stats['done_count'].item())}, "
         f"launches {main_launches}")
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def profiled(tag, what, fn, wall, top=15, name=None):
         """Run fn() once under torch.profiler: device kernel time against
         the unprofiled wall ``wall`` (kernels run on one stream), launches
         and the top kernels, and the time and share of the kernels whose
         name holds ``name``. Returns fn's result."""
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            out = fn()
-            torch.cuda.synchronize()
-        dev_kernels = [e for e in prof.key_averages()
-                       if getattr(e, "device_type", None) == DeviceType.CUDA and device_us(e) > 0]
-        dev_kernels.sort(key=device_us, reverse=True)
-        device_ms = sum(device_us(e) for e in dev_kernels) / 1e3
+        out, device_ms, launches, dev_kernels = device_time_and_launches(fn)
         log(f"[{tag}] one {what}: device kernel time {device_ms:.1f} ms, idle share "
-            f"{1 - device_ms / (wall * 1e3):.3f} of the median unprofiled wall, "
-            f"{sum(e.count for e in dev_kernels)} kernel launches")
+            f"{1 - device_ms / (wall * 1e3):.3f} of the median unprofiled wall, {launches} kernel launches")
         for e in dev_kernels[:top]:
             log(f"[{tag}]   {device_us(e) / 1e3:9.3f} ms {e.count:6d}x  {e.key[:90]}")
         if name:
@@ -1783,6 +2124,16 @@ def main():
     if not (fe["episodes"] == FLAGSHIP["episodes"] and abs(fe["success"] - FLAGSHIP["success"]) <= FLAGSHIP["tol"]
             and abs(fe["spl"] - FLAGSHIP["spl"]) <= FLAGSHIP["tol"]):
         fail(f"[flagship-eval] {fe} against {FLAGSHIP}")
+
+    # ---- 12. rearrangement physics and the arm (PyTorch ops, no kernel) ---
+    log(f"[contacts] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    zero_counts()
+    contacts_phase(gpu, dev)
+    path_counts("contacts")
+    zero_counts()
+    arm_phase(gpu, dev)
+    path_counts("arm")
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 

@@ -24,6 +24,14 @@ def rotate_world_to_agent(vec: torch.Tensor, yaw: torch.Tensor) -> torch.Tensor:
     return torch.stack([c * x - s * z, y, s * x + c * z], dim=-1)
 
 
+def rotate_agent_to_world(vec: torch.Tensor, yaw: torch.Tensor) -> torch.Tensor:
+    """Express an agent-frame vector (..., 3) in the world frame (rotation by
+    yaw about +y); the inverse of ``rotate_world_to_agent``."""
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    x, y, z = vec[..., 0], vec[..., 1], vec[..., 2]
+    return torch.stack([c * x + s * z, y, -s * x + c * z], dim=-1)
+
+
 def cartesian_to_polar(x: torch.Tensor, y: torch.Tensor):
     """(rho, phi)."""
     return torch.sqrt(x**2 + y**2), torch.atan2(y, x)

@@ -11,12 +11,19 @@ import numpy as np
 import pytest
 import torch
 
+from habitat_torch.articulated_agents import dynamics as arm_dyn
+from habitat_torch.articulated_agents import kinematics as kin
+from habitat_torch.articulated_agents import legs, urdf
+from habitat_torch.articulated_agents.params import FETCH
 from habitat_torch.datasets.pointnav import make_procedural_pointnav
 from habitat_torch.ops import cuda_build, pool
 from habitat_torch.ops import raycast as rc
 from habitat_torch.ops import raycast_kernels as rk
 from habitat_torch.sims.procedural import generate_scan_apartment
 from habitat_torch.sims.scene import pack_scenes
+from habitat_torch.tasks.rearrange import generator as rgen
+from habitat_torch.tasks.rearrange import rearrange_env as renv
+from habitat_torch.tasks.rearrange import rigid_body as rigid
 from habitat_torch.utils.geometry import camera_rays
 
 pytestmark = pytest.mark.cuda
@@ -839,3 +846,162 @@ def test_pool_and_cull_designs_match_the_wrappers(cuda):
     d = rk.cullmask_design()
     assert d["triangles_per_slot"] == 32 and d["threads_per_block"] == 32 * d["warps_per_block"]
     assert d["spill_bytes"] == 0 and d["blocks_per_sm"] >= 1
+
+
+# -- rearrangement physics and the arm (no kernels: PyTorch ops on the card) --
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _box_state(n, o, seed, robot_away=True):
+    """Random boxes (tipped, spinning, floating, some held), float32 on the
+    CPU: bottoms, velocities, quats, omegas, free, floor, agent, halves."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(n, o, 4))
+    agent = np.c_[rng.uniform(-0.3, 0.3, n), np.zeros(n), rng.uniform(-0.3, 0.3, n)] + [5.0 * robot_away, 0, 0]
+    xs = (np.c_[rng.uniform(-0.3, 0.3, (n * o, 1)), rng.uniform(0.0, 0.4, (n * o, 1)),
+                rng.uniform(-0.3, 0.3, (n * o, 1))].reshape(n, o, 3),
+          rng.normal(0, 0.5, (n, o, 3)), q / np.linalg.norm(q, axis=-1, keepdims=True), rng.normal(0, 1, (n, o, 3)),
+          rng.uniform(size=(n, o)) > 0.15, rng.uniform(-0.1, 0.1, n), agent, rng.uniform(0.05, 0.2, (n, o, 3)))
+    return [torch.as_tensor(x if x.dtype == bool else np.asarray(x, np.float32)) for x in xs]
+
+
+def _close(got, ref, atol=1e-5, rtol=0.0):
+    torch.testing.assert_close(got.cpu(), ref, atol=atol, rtol=rtol)
+
+
+def test_contact_step_v6_on_card_matches_cpu(card):
+    """One env step (dt 0.1, 4 substeps) at N=128, O=3 on the card against
+    the same code on the CPU, the robot away from the boxes (its contact is
+    ill-conditioned where its axis crosses a box)."""
+    p, v, q, w, free, floor, agent, half = _box_state(128, 3, 0)
+    ref = renv.contact_step(p, v, free, floor, agent, half=half, quat=q, omega=w)
+    got = renv.contact_step(*(x.to(card) for x in (p, v, free, floor, agent)), half=half.to(card),
+                            quat=q.to(card), omega=w.to(card))
+    for name, g, r in zip(("p", "v", "force", "q", "w"), got, ref):
+        assert g.device.type == "cuda", name
+        if name == "force":
+            _close(g, r, atol=1e-3, rtol=1e-4)
+        else:
+            _close(g, r, rtol=1e-5 if name == "w" else 0.0)
+
+
+def test_box_floor_substep_on_card_matches_cpu(card):
+    p, v, q, w, free, floor, _, half = _box_state(128, 3, 1)
+    ref = rigid.box_floor_substep(p, v, q, w, half, free, floor, 0.025)
+    got = rigid.box_floor_substep(*(x.to(card) for x in (p, v, q, w, half, free, floor)), 0.025)
+    for g, r in zip(got, ref):
+        _close(g, r, rtol=1e-5)
+
+
+def _arm_state(n, seed):
+    rng = np.random.default_rng(seed)
+    lo, hi = np.array(FETCH.joint_limits_lower), np.array(FETCH.joint_limits_upper)
+    q = np.clip(np.array(FETCH.resting_pose) + rng.normal(0, 0.4, (n, 7)), lo, hi)
+    target = np.clip(q + rng.normal(0, 0.3, (n, 7)), lo, hi)
+    return [torch.as_tensor(np.asarray(x, np.float32)) for x in (q, rng.normal(0, 1, (n, 7)), target)]
+
+
+def test_step_arm_on_card_matches_cpu(card):
+    """The env's arm step (kp 300, kd 30, dt 1/30, 4 substeps) at N=128."""
+    q, qd, target = _arm_state(128, 2)
+    ref = arm_dyn.step_arm(FETCH, arm_dyn.default_arm_dynamics(FETCH, kp=300.0, kd=30.0, device="cpu"),
+                           q, qd, target, dt=1.0 / 30.0)
+    dyn = arm_dyn.default_arm_dynamics(FETCH, kp=300.0, kd=30.0)
+    got = arm_dyn.step_arm(FETCH, dyn, q.to(card), qd.to(card), target.to(card), dt=1.0 / 30.0)
+    _close(got[0], ref[0])
+    _close(got[1], ref[1], rtol=1e-5)
+
+
+def test_step_arm_and_ik_make_no_host_sync(card):
+    """Neither step_arm nor ik_solve waits on the card: every constant is
+    made on the device and the solves leave their status there."""
+    q, qd, target = (x.to(card) for x in _arm_state(128, 3))
+    dyn = arm_dyn.default_arm_dynamics(FETCH, kp=300.0, kd=30.0)
+    arm_dyn.step_arm(FETCH, dyn, q, qd, target, dt=1.0 / 30.0)  # warm up allocators and libraries
+    kin.ik_solve(FETCH, kin.ee_position(FETCH, target), q, iters=8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        arm_dyn.step_arm(FETCH, dyn, q, qd, target, dt=1.0 / 30.0)
+        kin.ik_solve(FETCH, kin.ee_position(FETCH, target), q, iters=8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+_CHAIN_URDF = """
+<robot name="two_link_slider">
+  <link name="base"/> <link name="l1"/> <link name="l2"/> <link name="tip"/>
+  <joint name="j1" type="revolute">
+    <parent link="base"/> <child link="l1"/> <origin xyz="0 0 0.3"/> <axis xyz="0 0 1"/>
+    <limit lower="-2.0" upper="2.0"/>
+  </joint>
+  <joint name="j2" type="revolute">
+    <parent link="l1"/> <child link="l2"/> <origin rpy="-1.5708 0 0" xyz="0.2 0 0"/> <axis xyz="0 0 1"/>
+    <limit lower="-1.5" upper="1.5"/>
+  </joint>
+  <joint name="j3" type="prismatic">
+    <parent link="l2"/> <child link="tip"/> <origin xyz="0.25 0 0"/> <axis xyz="1 0 0"/>
+    <limit lower="0.0" upper="0.1"/>
+  </joint>
+</robot>
+"""
+
+
+def test_leg_boxes_and_chain_ik_make_no_host_sync(card):
+    """After the first call on the card, which copies their tables there,
+    neither Spot's leg boxes nor IK on a URDF chain waits on the card."""
+    rng = np.random.default_rng(7)
+    chain = urdf.parse_urdf(_CHAIN_URDF).extract_chain()
+    q0 = torch.zeros((128, chain.num_joints), device=card)
+    q_goal = rng.uniform(-0.5, 0.5, (128, chain.num_joints)).astype(np.float32)
+    target = kin.ee_chain(chain, torch.as_tensor(q_goal, device=card))
+    base = torch.as_tensor(rng.uniform(-2, 2, (128, 3)).astype(np.float32), device=card)
+    yaw = torch.as_tensor(rng.uniform(-3, 3, 128).astype(np.float32), device=card)
+    leg_q = torch.as_tensor(np.tile(legs.LEG_INIT, (128, 1)), device=card)
+    kin.ik_solve_chain(chain, target, q0, iters=8)
+    legs.leg_segment_boxes(base, yaw, leg_q)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kin.ik_solve_chain(chain, target, q0, iters=8)
+        legs.leg_segment_boxes(base, yaw, leg_q)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_contact_step_makes_no_host_sync(card):
+    p, v, q, w, free, floor, agent, half = (x.to(card) for x in _box_state(128, 3, 6, robot_away=False))
+    renv.contact_step(p, v, free, floor, agent, half=half, quat=q, omega=w)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        renv.contact_step(p, v, free, floor, agent, half=half, quat=q, omega=w)
+        renv.contact_step(p, v, free, floor, agent, half=half)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_contact_step_refuses_a_cpu_floor_with_card_tensors(card):
+    p, v, q, w, free, floor, agent, half = _box_state(4, 3, 4)
+    with pytest.raises(RuntimeError, match="same device"):
+        renv.contact_step(p.to(card), v.to(card), free.to(card), floor, agent.to(card), half=half.to(card),
+                          quat=q.to(card), omega=w.to(card))
+    with pytest.raises(RuntimeError, match="same device"):
+        rigid.box_floor_substep(*(x.to(card) for x in (p, v, q, w, half, free)), floor, 0.025)
+
+
+def test_settle_objects_runs_on_the_card_by_default(card):
+    rng = np.random.default_rng(5)
+    init = np.c_[rng.uniform(-0.25, 0.25, (64 * 3, 1)), rng.uniform(0.0, 0.6, (64 * 3, 1)),
+                 rng.uniform(-0.25, 0.25, (64 * 3, 1))].reshape(64, 3, 3).astype(np.float32)
+    valid = rng.uniform(size=(64, 3)) > 0.2
+    floor = rng.uniform(-0.1, 0.1, 64).astype(np.float32)
+    got = rgen.settle_objects(init, valid, floor)
+    assert isinstance(got, np.ndarray) and got.shape == init.shape and np.isfinite(got).all()
+    assert (got[..., 1] >= floor[:, None] - 1e-6)[valid].all()
