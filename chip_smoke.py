@@ -159,6 +159,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            toward reachable targets (ms, launches, held to float64, final
            error within IK_MEDIAN_ERR / IK_MAX_ERR). No kernel launches in
            either phase.
+13. pick   vision Pick trained at full width (PICK: the repo's
+           scripts/train_pick_vision_tpu.py configuration, N=128, 64x64
+           head depth + RGB, resnet9 + LSTM-128 with the rearrangement state
+           sensors, PPO T=64 in 2 minibatches and 2 epochs, weights from
+           torch.manual_seed(0)): reset, a warm-up and PICK_TRAIN_STEPS
+           timed train steps (median and range of train env-steps/s,
+           rollout / update split, peak memory, finite losses), then one env
+           step's ms and its render, the synchronising calls a step makes
+           with the render (counted) and none without it (checked), and
+           the greedy controller of tests/test_rearrange.py for
+           PICK_GREEDY_STEPS steps. Gates: #3 launched twice per render (the
+           reset's and 64 per rollout), #11 4 times per train step, no plain
+           version on a card tensor; some env picks its target, and every
+           pick reads pick_success 1 with a reward of at least the success
+           reward.
+    pick-contacts  pick_procgen.yaml's values (PICK_CONTACTS: contacts v6,
+           128x128 cameras, 2 scenes x 16 episodes) at N=128: the settled
+           reset and the greedy controller for PICK_CONTACTS_STEPS steps (ms per
+           env step, its split into physics / render / rest, launches and
+           idle share from 3 profiled steps, no host sync without the
+           render). Gates at N=PICK_CHECK_ENVS from the same states (the
+           reset, and the target held): state sensors and reward within
+           1e-5 of the CPU's; the contact step's outputs held to the CPU's
+           float64 result as in [contacts]; held, done and success equal;
+           the frames' hit/miss and semantics equal on >= PICK_FRAME_AGREE
+           of pixels; #3 twice per render.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
@@ -249,6 +275,35 @@ CONTACTS = dict(num_envs=128, objects=3, steps=300, dt=0.1, substeps=4, warmup=5
 # calls timed in `runs` runs of 100, and its IK (8 iterations, :1756)
 ARM = dict(num_envs=128, steps=300, dt=1.0 / 30.0, substeps=4, kp=300.0, kd=30.0, warmup=5, runs=3, ik_iters=8,
            ik_reps=20)
+# [pick]: the repo's vision-Pick configuration (scripts/train_pick_vision_tpu.py:16-27):
+# N=128, 8 scenes x 16 episodes, one room per axis, no clutter, 64x64 head
+# depth + RGB, 120 steps, kinematic; resnet9 + LSTM-128 without a goal
+# sensor and with the rearrangement state sensors; PPO T=64, 2 minibatches,
+# 2 epochs. A warm-up and PICK_TRAIN_STEPS timed train steps, then the greedy
+# controller of tests/test_rearrange.py:53-73 for PICK_GREEDY_STEPS steps.
+PICK = dict(num_envs=128, task="pick", num_scenes=8, episodes_per_scene=16, seed=0, render_size=(64, 64),
+            n_rooms_per_axis=1, n_clutter=0, max_episode_steps=120)
+PICK_TRAIN = dict(num_steps=64, num_mini_batch=2, ppo_epoch=2, lr=2.5e-4)
+PICK_TRAIN_STEPS = 3
+PICK_GREEDY_STEPS = 150
+# [pick-contacts]: pick_procgen.yaml as habitat_tpu/core/construct.py:504-670
+# builds it (pick, discrete, Fetch, contacts, 128x128 head cameras, 2 scenes
+# x 16 episodes, 2 rooms per axis, 3 clutter, 3 objects, 300 steps, success
+# reward 10, slack -0.01) at the [contacts] scale N=128: the reset (with
+# settling) and the greedy controller for PICK_CONTACTS_STEPS steps; the card
+# against the CPU at N=PICK_CHECK_ENVS
+PICK_CONTACTS = dict(num_envs=128, task="pick", num_scenes=2, episodes_per_scene=16, seed=0, render_size=(128, 128),
+                     n_rooms_per_axis=2, n_clutter=3, num_objects=3, max_episode_steps=300, success_reward=10.0,
+                     slack_reward=-0.01, dynamics="contacts")
+PICK_CONTACTS_STEPS = 64
+PICK_CHECK_ENVS = 8
+PICK_FRAME_AGREE = 0.999
+PICK_DROP_STEPS = 3  # teacher-forced steps from a release: the box leaves the EE, falls, lands
+# in an env whose boxes the contact step moved, a state sensor or the reward
+# is held to 1e-5 plus this many times the card's largest box-position gap:
+# obj_start_sensor turns an xz offset (at most sqrt(2) of the largest
+# component), the Pick reward's distance delta moves by at most sqrt(3) of it
+MOVED_SENSOR_FACTOR = 2.0
 # The physics gates, set before the first card run (PERF.md §6).
 # One call on the card from a given state is held to the float64 result of
 # the same code on the CPU: its largest error there within PHYS_ATOL (+
@@ -755,6 +810,21 @@ def box_shares(p, q, w_, v, free, floor, half):
     return int((asleep & free).sum()) / n, int((tipped & free).sum()) / n, sink
 
 
+def no_host_sync(tag, what, fn):
+    """fn()'s result; fails unless fn() runs under
+    torch.cuda.set_sync_debug_mode("error")."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    except RuntimeError as e:
+        fail(f"[{tag}] {what} synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def contacts_phase(gpu, dev):
     """[contacts]: settle_objects at E=128 x O=3, then the v6 contact step
     over a 300-step episode on ``dev``: ms per step, launches per step, the
@@ -812,13 +882,7 @@ def contacts_phase(gpu, dev):
     # the episode, timed in CONTACTS["runs"] runs of consecutive steps
     card_end, card_force, kept, walls = episode(card, keep=(0, 30), windows=CONTACTS["runs"])
     ms = sorted(w * 1e3 * CONTACTS["runs"] / steps for w in walls)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        step(kept[30], card, 30)
-    except RuntimeError as e:
-        fail(f"[contacts] contact_step synchronised with the host: {e}")
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    no_host_sync("contacts", "contact_step", lambda: step(kept[30], card, 30))
     n_prof = CONTACTS["profile_steps"]
     t0 = time.perf_counter()
     _, dev_ms, launches, top = device_time_and_launches(lambda: episode(card, n=n_prof))
@@ -915,14 +979,7 @@ def arm_phase(gpu, dev):
                                      windows=ARM["runs"])
     ms = sorted(w * 1e3 * ARM["runs"] / ARM["steps"] for w in walls)
     _, dev_ms, launches, _ = device_time_and_launches(lambda: arm_dyn.step_arm(FETCH, dyn, q_end, qd_end, tc, **kw))
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        arm_dyn.step_arm(FETCH, dyn, q_end, qd_end, tc, **kw)
-    except RuntimeError as e:
-        fail(f"[arm] step_arm synchronised with the host: {e}")
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    no_host_sync("arm", "step_arm", lambda: arm_dyn.step_arm(FETCH, dyn, q_end, qd_end, tc, **kw))
     gaps = {}
     for s, (q, qd) in kept.items():
         gq, gqd = arm_dyn.step_arm(FETCH, dyn, q, qd, tc, **kw)
@@ -965,6 +1022,498 @@ def arm_phase(gpu, dev):
         f"max {worst * 1e3:.2f} mm; the phase {time.perf_counter() - t_phase:.1f} s")
     if not (med <= IK_MEDIAN_ERR and worst <= IK_MAX_ERR):
         fail(f"[arm] IK error median {med} max {worst} against {IK_MEDIAN_ERR} / {IK_MAX_ERR}")
+
+
+def greedy_pick(obs):
+    """The scripted greedy controller of tests/test_rearrange.py:53-73 on card
+    tensors: turn toward the pick target, drive, grab within 0.7 m."""
+    import torch
+
+    from habitat_torch.tasks.rearrange import rearrange_env as renv
+
+    rel = obs["obj_start_sensor"]
+    dist = torch.sqrt(rel[:, 0] ** 2 + rel[:, 2] ** 2)
+    ang = torch.atan2(-rel[:, 0], -rel[:, 2])
+    act = torch.where(ang.abs() < 0.20943951, renv.A_FWD, torch.where(ang > 0, renv.A_LEFT, renv.A_RIGHT))
+    return torch.where(dist < 0.7, renv.A_GRAB, act).to(torch.int32)
+
+
+def count_syncs(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): (fn's result, the
+    number of synchronising CUDA calls it made, where in the port each was
+    made)."""
+    import traceback
+    import warnings
+
+    import torch
+
+    sites = []
+
+    def record(message, *args, **kwargs):
+        if "called a synchronizing" in str(message):
+            port = [f for f in traceback.extract_stack() if "habitat_torch" in f.filename]
+            sites.append(f"{os.path.relpath(port[-1].filename, ROOT)}:{port[-1].lineno}" if port else "?")
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, len(sites), ", ".join(sites)
+
+
+def env_like(env, device, idx=None, with_visual=None):
+    """A RearrangeBatchedEnv with ``env``'s pack, table and settings on
+    ``device``: the envs ``idx`` of its episode order (all by default), with
+    the head camera unless ``with_visual=False``."""
+    from habitat_torch.tasks.rearrange.rearrange_env import RearrangeBatchedEnv
+
+    order = env.order if idx is None else env.order[idx.to(env.order.device)]
+    return RearrangeBatchedEnv(env.pack, env.table, order.cpu().numpy(), task=env.task,
+                               max_episode_steps=env.max_episode_steps,
+                               with_visual=env.with_visual if with_visual is None else with_visual,
+                               render_size=env.render_size, dynamics=env.dynamics, success_reward=env.success_reward,
+                               slack_reward=env.slack_reward, device=device)
+
+
+def state_rows(st, idx):
+    """The envs ``idx`` of a RearrangeState."""
+    import dataclasses
+
+    return type(st)(**{f.name: getattr(st, f.name)[idx.to(st.pos.device)] for f in dataclasses.fields(st)})
+
+
+def head_frames(env, st):
+    """The env's head render of ``st``, semantics included (its observations
+    keep depth and RGB only)."""
+    import torch
+
+    from habitat_torch.ops import raycast as rc
+    from habitat_torch.tasks.rearrange.rigid_body import add_y
+
+    h, w = env.render_size
+    return rc.render_batch(env.pack, env._sid(st), add_y(st.pos, 1.25), st.yaw, torch.full_like(st.yaw, -0.45),
+                           height=h, width=w, dynamic=env._dynamic_geometry(st))
+
+
+def pool_check(tag, args):
+    """max_pool_3x3s2_bwd on card inputs (x, y, dy): fails unless the wrapper
+    launched its kernel and the result equals the plain version's bit for
+    bit. Returns (the result, max |kernel - plain|)."""
+    import torch
+
+    from habitat_torch.ops import pool
+
+    before = pool.max_pool_3x3s2_bwd.launches
+    gx = pool.max_pool_3x3s2_bwd(*args)
+    torch.cuda.synchronize()
+    if pool.max_pool_3x3s2_bwd.launches != before + 1:
+        fail("max_pool_3x3s2_bwd: wrapper did not launch its kernel")
+    ref = pool.max_pool_3x3s2_bwd.plain(*args)
+    err = (gx.float() - ref.float()).abs().max().item()
+    if not torch.equal(gx, ref):
+        fail(f"max_pool_3x3s2_bwd on the {tag} input: {int((gx != ref).sum().item())} elements differ from "
+             f"the plain version, max |d| {err}")
+    return gx, err
+
+
+def step_split(env, st, act, reps=5):
+    """ms of one env step and of its render (the head camera's observations
+    on the same state), each timed with CUDA events."""
+    step = cuda_ms(lambda: env.step_fn(st, act), reps)
+    render = cuda_ms(lambda: env._observations(st), reps)
+    return step, render
+
+
+def pick_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card):
+    """[pick]: vision Pick trained at full width on ``dev``, and #3 and #11
+    held to their plain versions on the path's own inputs; returns the
+    launch counts of its train path and those checks' readings."""
+    import numpy as np
+    import torch
+
+    from habitat_torch.baselines.ppo import PPOConfig, PPOLearner
+    from habitat_torch.models.policy import make_pointnav_resnet_policy, state_keys_of
+    from habitat_torch.ops import pool
+    from habitat_torch.ops import raycast as rc
+    from habitat_torch.ops import raycast_kernels as rk
+    from habitat_torch.tasks.rearrange.generator import make_rearrange_env
+
+    t_phase = time.perf_counter()
+    env = make_rearrange_env(with_visual=True, device=dev, **PICK)
+    h, w = PICK["render_size"]
+    if rc.render_route(env.pack, h, w, "pinhole", dynamic=True) != "index":
+        fail("[pick] the head camera should take the index route")
+    torch.manual_seed(0)
+    policy = make_pointnav_resnet_policy(env.num_actions, backbone="resnet9", hidden_size=128, goal_keys=(),
+                                         input_hw=(h, w), state_keys=state_keys_of(env.observation_shapes), device=dev)
+    lrn = PPOLearner(env, policy, PPOConfig(**PICK_TRAIN), measure_keys=("success", "pick_success"))
+    split = {"rollout": [], "update": []}
+
+    def timed(name, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            split[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    lrn.collect_rollout = timed("rollout", lrn.collect_rollout)
+    lrn.update = timed("update", lrn.update)
+    log(f"[pick] setup {time.perf_counter() - t_phase:.1f} s: {len(env.table.obj_init)} episodes, pack "
+        f"{tuple(env.pack.tri_mat.shape)}, state keys {list(policy.net.state_keys)}")
+    T, N = PICK_TRAIN["num_steps"], PICK["num_envs"]
+    renders = 1 + (1 + PICK_TRAIN_STEPS) * T
+    updates = (1 + PICK_TRAIN_STEPS) * PICK_TRAIN["ppo_epoch"] * PICK_TRAIN["num_mini_batch"]
+    # the pool backward's inputs at the path's last launch (the last
+    # minibatch of the last update), kept for the check after the path
+    pool_backward, last_bwd = pool._MaxPool3x3s2.backward, {}
+
+    def backward_seen(ctx, dy):
+        gx = pool_backward(ctx, dy)
+        if pool.max_pool_3x3s2_bwd.launches == updates:
+            x, y = ctx.saved_tensors
+            last_bwd["args"] = (x, y, dy.contiguous(memory_format=torch.channels_last))
+        return gx
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    for p in plain_watch:
+        p.start()
+    rs = lrn.init(seed=0)
+    walls = []
+    with mock.patch.object(pool._MaxPool3x3s2, "backward", staticmethod(backward_seen)):
+        for i in range(1 + PICK_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rs, metrics = lrn.train_step(rs)
+            metrics = {k: v.item() for k, v in metrics.items()}
+            if i:
+                walls.append(time.perf_counter() - t0)
+            if not all(np.isfinite(v) for v in metrics.values()):
+                fail(f"[pick] non-finite metrics {metrics}")
+    torch.cuda.synchronize()
+    for p in plain_watch:
+        p.stop()
+    if plain_on_card:
+        fail(f"[pick]: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+    peak = torch.cuda.max_memory_allocated()
+    launches = path_counts("pick train path", raycast_index_t=2 * renders, max_pool_3x3s2_bwd=updates)
+    rates = sorted(N * T / w_ for w_ in walls)
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    roll, upd = split["rollout"][1:], split["update"][1:]
+    log(f"[pick] {gpu}: vision Pick N={N} {h}x{w} depth+RGB, resnet9 + LSTM-128, PPO T={T}: train env-steps/s "
+        f"median {rates[len(rates) // 2]:.1f} (min {rates[0]:.1f}, max {rates[-1]:.1f}) over {PICK_TRAIN_STEPS} train "
+        f"steps; rollout ms {[round(x, 1) for x in roll]} (median {med(roll):.1f}, {med(roll) / T:.2f} ms per env "
+        f"step with the policy), update ms {[round(x, 1) for x in upd]} (warm-up {split['rollout'][0]:.1f} + "
+        f"{split['update'][0]:.1f}); peak memory {peak / 2**30:.2f} GiB; last losses "
+        + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items() if k.startswith("losses/") or k == "grad_norm")
+        + f"; episodes done {metrics['done_count']:.0f}, picked {metrics['m_pick_success']:.0f}; launches {launches} "
+        f"(#3 twice per render, #11 {updates // (1 + PICK_TRAIN_STEPS)} per train step), no plain version on a card "
+        f"tensor")
+    del lrn.collect_rollout, lrn.update
+
+    # #11 on the path's own input: the stem output of the update's last
+    # minibatch, channels-last bf16, against its plain version
+    x, y, dy = last_bwd.pop("args")
+    mb_shape = (N * T // PICK_TRAIN["num_mini_batch"], 32, h // 2, w // 2)
+    if tuple(x.shape) != mb_shape or x.dtype != torch.bfloat16 or not all(
+            a.is_contiguous(memory_format=torch.channels_last) for a in (x, y, dy)):
+        fail(f"[pick] the pool backward got {tuple(x.shape)} {x.dtype} (strides {x.stride()}), want {mb_shape} "
+             f"bfloat16 channels-last")
+    _, pool_err = pool_check(f"[pick] minibatch {mb_shape}", (x, y, dy))
+    del x, y, dy
+    # #3 on the path's own inputs: both launches of the head render of the
+    # rollout's last state (the static scene on the index route, the per-env
+    # dynamic pass) against its plain version, at the [kernel] gates; and the
+    # frames against those rendered with the plain version
+    st, obs = rs.env_state, rs.obs
+    index_calls = []
+
+    def index_seen(*a, **k):
+        index_calls.append((a, k))
+        return rk.raycast_index_t(*a, **k)
+
+    with mock.patch.object(rc, "raycast_index_t", index_seen):
+        frames = head_frames(env, st)
+    if len(index_calls) != 2:
+        fail(f"[pick] the head render made {len(index_calls)} raycast_index_t calls, want 2")
+    index_check = {}
+    for what, (a, k) in zip(("static", "dynamic"), index_calls):
+        got, ref = rk.raycast_index_t(*a, **k), rk.raycast_index_t.plain(*a, **k)
+        hit_a, idx_a, dt = agreement(f"[pick] raycast_index_t on the head render's {what} pass", got, ref)
+        index_check[what] = dict(matrix=list(a[0].shape), rays=a[2].numel() // 16, hit_agree=hit_a,
+                                 idx_agree=idx_a, max_abs_err=dt)
+    with mock.patch.object(rc, "raycast_index_t", rk.raycast_index_t.plain):
+        frames_p = head_frames(env, st)
+    hit_f = share((frames["depth"] < 1.0) == (frames_p["depth"] < 1.0))
+    sem_f = share(frames["semantic"] == frames_p["semantic"])
+    if not (hit_f >= PICK_FRAME_AGREE and sem_f >= PICK_FRAME_AGREE):
+        fail(f"[pick] the head frames agree with the plain version's on {hit_f} (hit/miss) and {sem_f} "
+             f"(semantics) of pixels")
+    del frames, frames_p, index_calls
+    log(f"[pick] the path's own kernel inputs: max_pool_3x3s2_bwd on the last minibatch {mb_shape} bf16 "
+        f"channels-last bit-equal to its plain version; raycast_index_t on the head render of the rollout's last "
+        f"state (N={N}, {h}x{w}) against its plain version: " + "; ".join(
+            f"{what} {r['matrix']} x {r['rays']} rays hit {r['hit_agree']:.6f} idx {r['idx_agree']:.6f} |dt| "
+            f"{r['max_abs_err']:.3g}" for what, r in index_check.items())
+        + f"; frames' hit/miss {hit_f:.6f} and semantics {sem_f:.6f} equal to the plain version's")
+
+    # the env step and its render, timed on the rollout's last state
+    act = greedy_pick(obs)
+    step_ms, render_ms = step_split(env, st, act)
+    _, n_sync, first = count_syncs(lambda: env.step_fn(st, act))
+    bare = env_like(env, env.device, with_visual=False)
+    bare.step_fn(st, act)
+    no_host_sync("pick", "step_fn without the render", lambda: bare.step_fn(st, act))
+    n_prof = 3
+    _, dev_ms, n_launch, top = device_time_and_launches(lambda: [env.step_fn(st, act) for _ in range(n_prof)])
+    log(f"[pick] {gpu}: env step N={N} {step_ms:.3f} ms = render {render_ms:.3f} ms + step rest "
+        f"{step_ms - render_ms:.3f} ms; {n_launch / n_prof:.0f} launches per step, device {dev_ms / n_prof:.3f} ms "
+        f"per step, idle share {1 - dev_ms / (n_prof * step_ms):.3f} ({n_prof} profiled steps); with the render a "
+        f"step makes {n_sync} synchronising calls (at {first}); without it none (checked under "
+        f"set_sync_debug_mode('error'))")
+    for e in top[:4]:
+        log(f"[pick]   {device_us(e) / 1e3 / n_prof:8.4f} ms/step {e.count // n_prof:5d}x  {e.key[:80]}")
+
+    # the greedy controller from a fresh reset: some env picks its target
+    st, obs = env.reset_fn()
+    picked_envs, first_step, bad = 0, None, 0
+    t0 = time.perf_counter()
+    for t in range(PICK_GREEDY_STEPS):
+        st, obs, reward, done, info = env.step_fn(st, greedy_pick(obs))
+        # an env that picked its target this step (its episode then ends)
+        picked = info["did_pick_object"] > 0
+        bad += int((picked & ((info["pick_success"] != 1) | (reward < env.success_reward) | ~done)).sum().item())
+        n_picked = int(picked.sum().item())
+        if n_picked and first_step is None:
+            first_step = t
+        picked_envs += n_picked
+    greedy_s = time.perf_counter() - t0
+    log(f"[pick] greedy controller {PICK_GREEDY_STEPS} steps ({greedy_s:.1f} s): {picked_envs} picks, the first at step "
+        f"{first_step}; every pick with pick_success 1, reward >= {env.success_reward} and done; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if not picked_envs or bad:
+        fail(f"[pick] greedy controller: {picked_envs} picks, {bad} without pick_success 1, a reward of at least the "
+             f"success reward or the episode's end")
+    return launches, dict(index=index_check, pool=dict(shape=list(mb_shape), max_abs_err=pool_err))
+
+
+def contact_recorder(calls, key):
+    """contact_step, keeping its inputs and outputs in calls[key]."""
+    from habitat_torch.tasks.rearrange import rearrange_env as renv
+
+    real_step = renv.contact_step
+
+    def run(*a, **k):
+        out = real_step(*a, **k)
+        calls[key] = (a, k, out)
+        return out
+    return run
+
+
+def moved_boxes(call):
+    """(N, O) bool: the free boxes whose position a recorded contact_step
+    call changed."""
+    a, _, out = call
+    return (out[0] != a[0]).any(-1) & a[2]
+
+
+def step_against_cpu(tag, env_c, env_g, s, acts, dev):
+    """One env step from the CPU state ``s`` on the CPU and on the card.
+    Fails unless held, done, success and the grasp-constraint flag are
+    equal; the state sensors and reward are within 1e-5 in envs where the
+    contact step moved no box, and within 1e-5 + MOVED_SENSOR_FACTOR times
+    the card's |dp| where it did; the contact step's outputs meet the
+    [contacts] float64 gates; and the head frames' hit/miss and semantics
+    agree on PICK_FRAME_AGREE of pixels. Returns the readings and the CPU's
+    next state."""
+    import torch
+
+    from habitat_torch.tasks.rearrange import rearrange_env as renv
+
+    calls = {}
+    with mock.patch.object(renv, "contact_step", contact_recorder(calls, "cpu")):
+        sc, oc, rc_, dc, ic = env_c.step_fn(s, acts)
+    with mock.patch.object(renv, "contact_step", contact_recorder(calls, "card")):
+        sg, og, rg, dg, ig = env_g.step_fn(s.to(dev), acts.to(dev))
+    for k, g, c in (("held", sg.held, sc.held), ("done", dg, dc), ("success", ig["success"], ic["success"]),
+                    ("constraint_violation", ig["constraint_violation"], ic["constraint_violation"])):
+        if not torch.equal(g.cpu(), c):
+            fail(f"[pick-contacts] {tag}: {k} differs between the card and the CPU")
+    a, k, out_c = calls["cpu"]
+    to64 = lambda x: x.double() if torch.is_tensor(x) and x.is_floating_point() else x  # noqa: E731
+    ref64 = renv.contact_step(*(to64(x) for x in a), **{kk: to64(v) for kk, v in k.items()})
+    gap = {}
+    for name, g, c32, c64 in zip(("p", "v", "force", "q", "w"), calls["card"][2], out_c, ref64):
+        atol, rtol = (FORCE_ATOL, FORCE_RTOL) if name == "force" else (PHYS_ATOL, PHYS_W_RTOL if name == "w" else 0.0)
+        gap[name] = held_to_float64("pick-contacts", f"{tag} {name}", g, c32, c64, atol, rtol)["gap"]
+    moved = moved_boxes(calls["cpu"])
+    near = moved.any(-1)
+    d = (rg.cpu() - rc_).abs()
+    for key in oc:
+        if not key.startswith("robot_head"):
+            d = torch.maximum(d, (og[key].cpu() - oc[key]).abs().reshape(len(d), -1).amax(-1))
+    tol = torch.where(near, 1e-5 + MOVED_SENSOR_FACTOR * gap["p"], 1e-5)
+    if not (d <= tol).all():
+        fail(f"[pick-contacts] {tag}: state sensors or reward {d.tolist()} from the CPU's, allowed {tol.tolist()}")
+    fc, fg = head_frames(env_c, sc), head_frames(env_g, sg)
+    hit = share((fc["depth"] < 1.0) == (fg["depth"].cpu() < 1.0))
+    sem = share(fc["semantic"] == fg["semantic"].cpu())
+    if not (hit >= PICK_FRAME_AGREE and sem >= PICK_FRAME_AGREE):
+        fail(f"[pick-contacts] {tag}: frames agree on {hit} (hit/miss) and {sem} (semantics) of pixels")
+    return dict(moved=int(moved.sum()), gap=gap, still=d[~near].max().item() if (~near).any() else 0.0,
+                near=d[near].max().item() if near.any() else 0.0, frames=min(hit, sem), next=sc)
+
+
+def pick_contacts_phase(gpu, dev, zero_counts, path_counts):
+    """[pick-contacts]: pick_procgen.yaml's values at N=128 on ``dev``: the
+    settled reset, the greedy controller, ms per env step and its split, and
+    steps on the card against the CPU from the same states (the reset, a held
+    box, its drop, the robot against a box, the greedy step that moved the
+    most boxes); returns the launch counts of the greedy episode."""
+    import dataclasses
+
+    import torch
+
+    from habitat_torch.tasks.rearrange import rearrange_env as renv
+    from habitat_torch.tasks.rearrange.generator import make_rearrange_env
+
+    t_phase = time.perf_counter()
+    env = make_rearrange_env(with_visual=True, device=dev, **PICK_CONTACTS)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
+    N, steps = PICK_CONTACTS["num_envs"], PICK_CONTACTS_STEPS
+    zero_counts()
+    st, obs = env.reset_fn()
+    walls = []
+    real_step = renv.contact_step
+    picks = 0
+    states = []  # every step's (state, action) of the greedy episode
+    for t in range(steps):
+        act = greedy_pick(obs)
+        states.append((st, act))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, obs, reward, done, info = env.step_fn(st, act)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        picks += int((info["pick_success"] > 0).sum().item())
+    launches = path_counts("pick-contacts episode", raycast_index_t=2 * (1 + steps))
+    # the split: every eighth step again, the contact step and the render
+    # each timed inside it (synchronised before and after), the rest as
+    # what the step's wall leaves
+    part = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            part[name] = time.perf_counter() - t0
+            return out
+        return run
+
+    split = []
+    with mock.patch.object(renv, "contact_step", timed("physics", real_step)), \
+            mock.patch.object(renv, "render_batch", timed("render", renv.render_batch)):
+        for s_, a_ in states[::8]:
+            timed("step", env.step_fn)(s_, a_)
+            split.append((part["physics"], part["render"], part["step"] - part["physics"] - part["render"]))
+    ms = sorted(w_ * 1e3 for w_ in walls[1:])
+    med = ms[len(ms) // 2]
+    phys_ms, rend_ms, rest_ms = (sorted(x)[len(x) // 2] * 1e3 for x in zip(*split))
+    n_prof = 3
+    s_p, a_p = states[-1]
+
+    def prof_steps():
+        s = s_p
+        for _ in range(n_prof):
+            s = env.step_fn(s, a_p)[0]
+        return s
+
+    _, dev_ms, n_launch, top = device_time_and_launches(prof_steps)
+    idle = 1 - dev_ms / (med * n_prof)
+    bare = env_like(env, env.device, with_visual=False)
+    bare.step_fn(s_p, a_p)
+    no_host_sync("pick-contacts", "step_fn without the render", lambda: bare.step_fn(s_p, a_p))
+    _, n_sync, first = count_syncs(lambda: env.step_fn(s_p, a_p))
+    hh, ww = PICK_CONTACTS["render_size"]
+    log(f"[pick-contacts] {gpu}: pick_procgen.yaml values at N={N} (contacts v6, {hh}x{ww} head depth+RGB, "
+        f"{len(env.table.obj_init)} episodes, setup with settling {setup_s:.1f} s): ms per env step median {med:.3f} "
+        f"(min {ms[0]:.3f}, max {ms[-1]:.3f}) over {steps - 1} greedy steps after the first; split (medians over "
+        f"{len(split)} of its steps replayed, each part synchronised) physics {phys_ms:.3f} + render {rend_ms:.3f} + "
+        f"rest {rest_ms:.3f} ms; {n_launch / n_prof:.0f} "
+        f"launches per step, device {dev_ms / n_prof:.3f} ms per step, idle share {idle:.3f} ({n_prof} profiled "
+        f"steps against the median); {picks} picks; #3 launches {launches['raycast_index_t']} (twice per render); "
+        f"{n_sync} synchronising calls per step with the render (at {first}), none without it")
+    for e in top[:6]:
+        log(f"[pick-contacts]   {device_us(e) / 1e3 / n_prof:8.4f} ms/step {e.count // n_prof:5d}x  {e.key[:80]}")
+
+    # the card against the CPU at N=PICK_CHECK_ENVS, from the same states,
+    # on the episode's own table and pack
+    n = PICK_CHECK_ENVS
+    first = torch.arange(n)
+    env_c, env_g = env_like(env, "cpu", first), env_like(env, dev, first)
+    s0, _ = env_c.reset_fn()
+    moves = torch.tensor([renv.A_FWD, renv.A_LEFT, renv.A_RIGHT, renv.A_FWD] * (n // 4), dtype=torch.int32)
+    turns = torch.tensor([renv.A_LEFT, renv.A_RIGHT] * (n // 2), dtype=torch.int32)
+    held_state = dataclasses.replace(s0, held=env_c.table.pick_target[s0.ep_idx])
+    checks = {"step 0": step_against_cpu("step 0", env_c, env_g, s0, moves, dev),
+              "held box": step_against_cpu("held box", env_c, env_g, held_state, moves, dev)}
+    # the drop: the held box released from the EE, then its fall, each step
+    # from the CPU's state (teacher-forced)
+    s_, a_ = held_state, torch.full((n,), renv.A_GRAB, dtype=torch.int32)
+    for i in range(PICK_DROP_STEPS):
+        checks[f"drop {i}"] = step_against_cpu(f"drop {i}", env_c, env_g, s_, a_, dev)
+        s_, a_ = checks[f"drop {i}"]["next"], turns
+    # the robot against a box: each env's first box put inside the robot's
+    # radius (its centre AGENT_RADIUS + half its smaller half-extent away),
+    # the robot turning in place
+    half = env_c.table.obj_half[s0.ep_idx]
+    o = env_c.table.obj_valid[s0.ep_idx].to(torch.uint8).argmax(1)
+    lane = torch.arange(n)
+    reach = renv.AGENT_RADIUS + 0.5 * torch.minimum(half[lane, o, 0], half[lane, o, 2])
+    box = s0.obj_pos[lane, o]
+    against = dataclasses.replace(s0, pos=torch.stack([box[:, 0] - reach, s0.pos[:, 1], box[:, 2]], -1))
+    checks["robot against a box"] = step_against_cpu("robot against a box", env_c, env_g, against, turns, dev)
+    for tag in ("drop 0", "robot against a box"):
+        if not checks[tag]["moved"]:
+            fail(f"[pick-contacts] {tag}: the contact step moved no box")
+    # the greedy episode's step whose contact step moved boxes in the most
+    # envs (the robot reaching them), on those envs
+    moved_envs = []
+    for t, (s_, a_) in enumerate(states):
+        calls = {}
+        with mock.patch.object(renv, "contact_step", contact_recorder(calls, "card")):
+            bare.step_fn(s_, a_)
+        moved_envs.append(moved_boxes(calls["card"]).any(-1).nonzero().flatten().cpu())
+    t_best = max(range(steps), key=lambda t: len(moved_envs[t]))
+    greedy_moved = sum(len(m) for m in moved_envs)
+    if len(moved_envs[t_best]):
+        idx = moved_envs[t_best][:n]
+        s_, a_ = states[t_best]
+        checks[f"greedy step {t_best}"] = step_against_cpu(
+            f"greedy step {t_best}", env_like(env, "cpu", idx), env_like(env, dev, idx), state_rows(s_, idx).to("cpu"),
+            a_[idx.to(dev)].cpu(), dev)
+    log(f"[pick-contacts] card vs CPU at N<={n} from the same states on the episode's table: held, done, success and "
+        f"the grasp-constraint flag equal; state sensors and reward within 1e-5 where no box moved, within 1e-5 + "
+        f"{MOVED_SENSOR_FACTOR} |dp| where one did; the contact step within its float64 gates; frames' hit/miss and "
+        f"semantics equal on >= {PICK_FRAME_AGREE} of pixels. " + "; ".join(
+            f"{tag}: {c['moved']} boxes moved, |dp| {c['gap']['p']:.2e} |dv| {c['gap']['v']:.2e} |dq| "
+            f"{c['gap']['q']:.2e} |dw| {c['gap']['w']:.2e} force {c['gap']['force']:.2e}, sensors/reward "
+            f"{c['still']:.2e} still / {c['near']:.2e} moved, frames {c['frames']:.5f}" for tag, c in checks.items())
+        + f". The greedy episode's contact steps moved boxes in {greedy_moved} env-steps of {steps} x {N}; the "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main():
@@ -1248,19 +1797,6 @@ def main():
         y = F.max_pool2d(F.pad(x, (0, 1, 0, 1), value=float("-inf")), 3, 2).contiguous(memory_format=layout)
         dy = torch.randn(y.shape, generator=gen, device=dev).to(x.dtype).contiguous(memory_format=layout)
         return x, y, dy
-
-    def pool_check(tag, args):
-        before = pool.max_pool_3x3s2_bwd.launches
-        gx = pool.max_pool_3x3s2_bwd(*args)
-        torch.cuda.synchronize()
-        if pool.max_pool_3x3s2_bwd.launches != before + 1:
-            fail("max_pool_3x3s2_bwd: wrapper did not launch its kernel")
-        ref = pool.max_pool_3x3s2_bwd.plain(*args)
-        err = (gx.float() - ref.float()).abs().max().item()
-        if not torch.equal(gx, ref):
-            fail(f"max_pool_3x3s2_bwd on the {tag} input: {int((gx != ref).sum().item())} elements differ from "
-                 f"the plain version, max |d| {err}")
-        return gx, err
 
     x_relu = torch.relu(torch.randn(pool_shape, generator=gen, device=dev)).to(torch.bfloat16)
     pool_args = pool_inputs(x_relu)
@@ -2134,6 +2670,18 @@ def main():
     zero_counts()
     arm_phase(gpu, dev)
     path_counts("arm")
+
+    # ---- 13. vision Pick trained, and Pick under contacts ----------------
+    log(f"[pick] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    pick_launches, pick_checks = pick_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
+    index_row["pick_launches"] = pick_launches["raycast_index_t"]
+    index_row["pick_head_render"] = pick_checks["index"]
+    pool_row["pick_launches"] = pick_launches["max_pool_3x3s2_bwd"]
+    pool_row["pick_minibatch"] = pick_checks["pool"]
+    torch.cuda.empty_cache()
+    pc_launches = pick_contacts_phase(gpu, dev, zero_counts, path_counts)
+    index_row["pick_contacts_launches"] = pc_launches["raycast_index_t"]
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 

@@ -11,6 +11,12 @@
   hidden state, its gradient (the stem max pool's backward is the CUDA
   kernel of ``ops/pool.py`` on the card), clipping by global norm, Adam.
 
+The env is any batched env of the port with ``reset_fn()``, ``step_fn(state,
+actions)``, ``num_envs`` and ``device``: the PointNav ``BatchedEnv`` or the
+rearrangement ``RearrangeBatchedEnv`` (whose Pick users pass
+``measure_keys=("success", "pick_success")``). Float image observations are
+stored in bfloat16; state sensors stay float32.
+
 Math (reference rl/ppo/ppo.py, common/rollout_storage.py):
 - GAE: delta = r + gamma*V'*nd - V;  A = delta + gamma*tau*nd*A'
 - policy loss: -mean(min(ratio*A, clip(ratio, 1-c, 1+c)*A))
@@ -21,12 +27,23 @@ Math (reference rl/ppo/ppo.py, common/rollout_storage.py):
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Protocol, Tuple
 
 import torch
 
-from habitat_torch.core.batched_env import BatchedEnv, EnvState
 from habitat_torch.models.policy import ActorCritic, evaluate_actions_stats, sample_action
+
+
+class BatchedEnvLike(Protocol):
+    """What the learner uses of a batched env."""
+
+    num_envs: int
+    device: torch.device
+
+    def reset_fn(self) -> Tuple[Any, Dict[str, torch.Tensor]]: ...
+
+    def step_fn(self, state: Any, actions: torch.Tensor) -> tuple: ...
+
 
 # PPOConfig switches of the JAX package that the port does not have yet
 _NOT_PORTED = (
@@ -78,7 +95,7 @@ class RolloutState:
     """What carries from one rollout to the next (the policy's weights live
     in the policy module)."""
 
-    env_state: EnvState
+    env_state: Any  # the env's state: EnvState or RearrangeState
     obs: Dict[str, torch.Tensor]
     hidden: torch.Tensor  # (N, L, 2, H)
     prev_action: torch.Tensor  # (N,) int32
@@ -118,7 +135,7 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Te
 class PPOLearner:
     def __init__(
         self,
-        env: BatchedEnv,
+        env: BatchedEnvLike,
         policy: ActorCritic,
         cfg: PPOConfig = PPOConfig(),
         *,

@@ -59,6 +59,9 @@ def _convert_one(path, v):
     m = re.fullmatch(r"net/goal_fc_(\w+)/(kernel|bias)", p)
     if m:
         return _dense(f"net.goal_fc.{m[1]}", m[2], v)
+    m = re.fullmatch(r"net/state_fc_(\w+)/(kernel|bias)", p)
+    if m:
+        return _dense(f"net.state_fc.{m[1]}", m[2], v)
     if p == "net/prev_action_embed/embedding":
         return {"net.prev_action_embed.weight": v}
     m = re.fullmatch(r"net/ResNetEncoder_0/Conv_0/kernel", p)

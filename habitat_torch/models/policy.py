@@ -1,13 +1,16 @@
 """PointNav actor-critic (port of the PointNavResNetPolicy parts of
 ``habitat_tpu/models/policy.py``).
 
-The net concatenates visual_fc | goal_fc | prev_action_embed and feeds the
-LSTM; the pointgoal (rho, phi) enters as (rho, cos(-phi), sin(-phi)) and the
-previous action as index + 1, or 0 at an episode start."""
+The net concatenates visual_fc | goal_fc | state_fc | prev_action_embed and
+feeds the LSTM; the pointgoal (rho, phi) enters as (rho, cos(-phi),
+sin(-phi)), each state sensor through its own Linear(width, 32), and the
+previous action as index + 1, or 0 at an episode start. The rearrangement
+head cameras ``robot_head_rgb`` / ``robot_head_depth`` are read as the
+encoder's rgb / depth."""
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Mapping, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -18,6 +21,17 @@ from habitat_torch.models.resnet import ResNetEncoder
 from habitat_torch.models.rnn_state_encoder import RNNStateEncoder, initial_hidden_state
 
 POINTGOAL_KEYS = ("pointgoal_with_gps_compass", "pointgoal")
+# the rearrangement state sensors the net embeds, in the JAX package's fixed
+# concatenation order (its other state keys, gps/compass/heading/proximity
+# and the VLN/EQA tables, are not ported)
+STATE_KEYS = ("obj_start_sensor", "obj_goal_sensor", "joint", "is_holding", "ee_pos", "relative_resting_position")
+
+
+def state_keys_of(observation_shapes: Mapping[str, Tuple[Tuple[int, ...], torch.dtype]]) -> Dict[str, int]:
+    """{key: width} of the state sensors an env emits, from its
+    ``observation_shapes``, in ``STATE_KEYS`` order: what the JAX package's
+    net embeds when those keys are in its observations."""
+    return {k: int(observation_shapes[k][0][0]) for k in STATE_KEYS if k in observation_shapes}
 
 
 class PointNavResNetNet(nn.Module):
@@ -33,12 +47,17 @@ class PointNavResNetNet(nn.Module):
         base_planes: int = 32,
         ngroups: int = 16,
         goal_keys: Sequence[str] = ("pointgoal_with_gps_compass",),
+        state_keys: Mapping[str, int] = (),
         dtype=torch.bfloat16,
     ):
         super().__init__()
         for k in goal_keys:
             if k not in POINTGOAL_KEYS:
                 raise ValueError(f"goal sensor {k!r} not ported; have {POINTGOAL_KEYS}")
+        state_keys = dict(state_keys)
+        for k in state_keys:
+            if k not in STATE_KEYS:
+                raise ValueError(f"state sensor {k!r} not ported; have {STATE_KEYS}")
         self.num_actions = num_actions
         self.hidden_size = hidden_size
         self.num_recurrent_layers = num_recurrent_layers
@@ -48,9 +67,12 @@ class PointNavResNetNet(nn.Module):
         self.visual_fc = nn.Linear(self.encoder.output_dim, hidden_size)
         self.goal_keys = tuple(goal_keys)
         self.goal_fc = nn.ModuleDict({k: nn.Linear(3, 32) for k in self.goal_keys})
+        # declared as {key: width}, embedded in STATE_KEYS order
+        self.state_keys = tuple(k for k in STATE_KEYS if k in state_keys)
+        self.state_fc = nn.ModuleDict({k: nn.Linear(state_keys[k], 32) for k in self.state_keys})
         self.prev_action_embed = nn.Embedding(num_actions + 1, 32)
         self.rnn = RNNStateEncoder(
-            hidden_size + 32 * len(self.goal_keys) + 32, hidden_size, num_recurrent_layers
+            hidden_size + 32 * (len(self.goal_keys) + len(self.state_keys)) + 32, hidden_size, num_recurrent_layers
         )
 
     def forward(
@@ -70,12 +92,17 @@ class PointNavResNetNet(nn.Module):
             return v.reshape(-1, *v.shape[2:]) if seq else v
 
         obs = {k: flat(v) for k, v in obs.items()}
+        for k in ("rgb", "depth"):
+            if f"robot_head_{k}" in obs:
+                obs[k] = obs[f"robot_head_{k}"]
         parts = [F.relu(self.visual_fc(self.encoder(obs)))]
         for k in self.goal_keys:
             g = obs[k].float()
             if g.shape[-1] == 2:
                 g = torch.stack([g[..., 0], torch.cos(-g[..., 1]), torch.sin(-g[..., 1])], dim=-1)
             parts.append(self.goal_fc[k](g))
+        for k in self.state_keys:
+            parts.append(self.state_fc[k](obs[k].float()))
         pa_idx = torch.where(flat(masks) > 0, flat(prev_actions).long() + 1, 0)
         parts.append(self.prev_action_embed(pa_idx))
         x = torch.cat(parts, dim=-1)
@@ -136,10 +163,13 @@ def make_pointnav_resnet_policy(
     hidden_size: int = 512,
     num_recurrent_layers: int = 1,
     goal_keys: Sequence[str] = ("pointgoal_with_gps_compass",),
+    state_keys: Mapping[str, int] = (),
     dtype=torch.bfloat16,
     device=None,
 ) -> ActorCritic:
-    """PointNavResNetPolicy on ``device`` (``None`` = cuda)."""
+    """PointNavResNetPolicy on ``device`` (``None`` = cuda). ``state_keys``
+    maps each embedded state sensor to its width (``state_keys_of`` reads
+    them from an env's ``observation_shapes``)."""
     dev = resolve_device(device)
     return ActorCritic(
         PointNavResNetNet(
@@ -150,6 +180,7 @@ def make_pointnav_resnet_policy(
             hidden_size=hidden_size,
             num_recurrent_layers=num_recurrent_layers,
             goal_keys=goal_keys,
+            state_keys=state_keys,
             dtype=dtype,
         )
     ).to(dev)

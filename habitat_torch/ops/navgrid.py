@@ -1,6 +1,12 @@
 """Navigation-grid queries on tensors, batched over envs (port of
 ``habitat_tpu/ops/navgrid.py``): navigability tests, sliding collision for
-agent motion, geodesic-distance lookups on precomputed fields."""
+agent motion, snapping to the nearest navigable cell, geodesic-distance
+lookups on precomputed fields.
+
+Nothing here copies from the host: the xz components are taken by slicing
+(``pos[..., ::2]``), not by a Python index list, and masks are built from
+the inputs on their device, so a call on card tensors never waits on the
+card."""
 
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ def is_navigable(pack: ScenePack, sid: torch.Tensor, pos: torch.Tensor) -> torch
     """pos (N,3) world, sid (N,) -> (N,) bool. Nearest-cell test,
     out-of-grid = False."""
     nx, nz = pack.nav_occ.shape[-2], pack.nav_occ.shape[-1]
-    cf = world_to_cell_f(pack.nav_lo[sid], pack.nav_res, pos[..., [0, 2]])
+    cf = world_to_cell_f(pack.nav_lo[sid], pack.nav_res, pos[..., ::2])
     ci = torch.round(cf).to(torch.int64)
     inb = (ci[..., 0] >= 0) & (ci[..., 0] < nx) & (ci[..., 1] >= 0) & (ci[..., 1] < nz)
     return inb & pack.nav_occ[sid, ci[..., 0].clamp(0, nx - 1), ci[..., 1].clamp(0, nz - 1)]
@@ -43,8 +49,8 @@ def try_step(
     components; ``collided`` is True iff some substep could not take the
     full delta."""
     delta = (target - pos) / n_substeps
-    dx = delta * torch.tensor([1.0, 0.0, 0.0], device=pos.device)
-    dz = delta * torch.tensor([0.0, 0.0, 1.0], device=pos.device)
+    dx = torch.stack([delta[:, 0], delta[:, 1] * 0.0, delta[:, 2] * 0.0], dim=-1)
+    dz = torch.stack([delta[:, 0] * 0.0, delta[:, 1] * 0.0, delta[:, 2]], dim=-1)
     p = pos
     collided = torch.zeros(pos.shape[0], dtype=torch.bool, device=pos.device)
     for _ in range(n_substeps):
@@ -72,7 +78,7 @@ def distance_at(
     cells of field + euclidean offset to that cell (robust near walls where
     bilinear interpolation against INF neighbors would poison the value)."""
     nx, nz = fields.shape[-2], fields.shape[-1]
-    cf = world_to_cell_f(nav_lo, nav_res, pos[:, [0, 2]])  # (N,2)
+    cf = world_to_cell_f(nav_lo, nav_res, pos[:, ::2])  # (N,2)
     c0 = torch.floor(cf).to(torch.int64)
     best = torch.full(pos.shape[:1], float(INF_DIST), device=pos.device)
     for di in (0, 1):
@@ -83,3 +89,29 @@ def distance_at(
             off = torch.sqrt((cf[:, 0] - ci.float()) ** 2 + (cf[:, 1] - ck.float()) ** 2) * nav_res
             best = torch.minimum(best, d + off)
     return best
+
+
+def snap_to_navigable(
+    pack: ScenePack, sid: torch.Tensor, pos: torch.Tensor, max_radius_cells: int = 10
+) -> torch.Tensor:
+    """Snap world points (N,3) to the nearest navigable cell centre within a
+    (2w+1)^2 window around their nearest cell (PathFinder.snap_point); y is
+    the scene's floor. Ties go to the first cell in row-major window order,
+    as ``jnp.argmin`` takes it; a window with no navigable cell gives its
+    first cell."""
+    nx, nz = pack.nav_occ.shape[-2], pack.nav_occ.shape[-1]
+    lo = pack.nav_lo[sid]  # (N,2)
+    cf = world_to_cell_f(lo, pack.nav_res, pos[:, ::2])
+    c = torch.round(cf).to(torch.int64)
+    w = max_radius_cells
+    off = torch.arange(-w, w + 1, device=pos.device)
+    ii = (c[:, 0:1] + off).clamp(0, nx - 1)  # (N, 2w+1)
+    kk = (c[:, 1:2] + off).clamp(0, nz - 1)
+    window = pack.nav_occ[sid[:, None, None], ii[:, :, None], kk[:, None, :]]  # (N, 2w+1, 2w+1)
+    dist2 = (ii.float() - cf[:, 0:1])[:, :, None] ** 2 + (kk.float() - cf[:, 1:2])[:, None, :] ** 2
+    dist2 = torch.where(window, dist2, torch.inf)
+    flat = dist2.flatten(1).argmin(1)
+    bi = torch.gather(ii, 1, (flat // (2 * w + 1))[:, None])[:, 0]
+    bk = torch.gather(kk, 1, (flat % (2 * w + 1))[:, None])[:, 0]
+    xz = torch.stack([bi, bk], dim=-1).float() * pack.nav_res + lo
+    return torch.stack([xz[:, 0], pack.floor_y[sid], xz[:, 1]], dim=-1)

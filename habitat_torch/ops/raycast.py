@@ -840,6 +840,13 @@ def plane_exact_t(pack: ScenePack, sids: torch.Tensor, B: torch.Tensor, t: torch
     return torch.where(ok, num / torch.where(ok, nd, torch.ones_like(nd)), t), attrs[..., :8], nd
 
 
+@functools.lru_cache(maxsize=None)
+def _sky(device: torch.device) -> torch.Tensor:
+    """The sky colour on ``device``, copied from the host once per device (a
+    copy per render would wait on the card)."""
+    return torch.tensor([0.65, 0.75, 0.9], device=device)
+
+
 def _frames(N, height, width, hit, z, nd, base, sem_val, sky, max_depth, min_depth, normalize_depth):
     """Shared tail of the epilogues on (N, R) planes in raster order: depth
     clip/normalize, flat+Lambert shade, u8 rgb, semantic ids. ``base`` is
@@ -922,8 +929,7 @@ def _general_epilogue(pack, sid, route, t, res, dirs, yaw, pitch, projection, he
         t, hit, nrm, base, sem_val = _merge_dynamic(dynamic, cam_pos, dirs, t, hit, nrm, base, sem_val)
     z = _planar(t, dirs, yaw, pitch) if projection == "pinhole" else t
     nd = (nrm * dirs).sum(-1)
-    sky = torch.tensor([0.65, 0.75, 0.9], device=t.device)
-    return _frames(N, height, width, hit, z, nd, base, sem_val, sky, *depth_cfg)
+    return _frames(N, height, width, hit, z, nd, base, sem_val, _sky(t.device), *depth_cfg)
 
 
 def render_batch(

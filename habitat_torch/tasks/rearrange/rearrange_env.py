@@ -1,4 +1,4 @@
-"""Rearrangement physics (port of the contact step of
+"""Batched rearrangement (port of
 ``habitat_tpu/tasks/rearrange/rearrange_env.py``).
 
 ``contact_step`` is the impulse/projection contact dynamics of movable boxes
@@ -16,19 +16,54 @@ batched over N envs and O boxes, on the device of its inputs:
   cylinder against the true rotated box (closest point by ternary search).
 
 The robot's pushout depth integrates into a pseudo contact force per env
-(reference RobotForce, rearrange_sensors.py:814). The env itself
-(``RearrangeBatchedEnv``) is not ported yet.
+(reference RobotForce, rearrange_sensors.py:814).
+
+``RearrangeBatchedEnv`` is N rearrangement envs as one set of tensors
+(reference RearrangeSim and its Pick/Place/articulated sub-tasks): objects
+are (N, O, 3) box bottoms, grasping parents the object to the end effector
+(the reference's kinematic_mode recipe, rearrange_grasp_manager.py:27-60),
+the physics is ``kinematic`` (objects still unless held), ``gravity`` or
+``contacts`` (v6 above), and the head camera renders the scene with the
+boxes, articulated objects, Spot's legs and the arm links merged by closest
+hit (``render_batch(..., dynamic=...)``). ``step_fn`` makes no host sync:
+constants live on the env's device, built once.
+
+Not ported yet, each raising ``NotImplementedError`` at construction:
+registry-resolved task actions (``action_specs``, task_actions.py), the
+humanoid lane (a spec with ``agent_idx >= 1``), the PDDL predicate sensors
+(``all_predicates`` / ``multi_agent_all_predicates``, multi_task/pddl_yaml.py)
+and ``task="reach"``, whose per-episode goal the JAX package draws from its
+own RNG (``jax.random.fold_in``), which the port does not reproduce.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import functools
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from habitat_torch.articulated_agents import dynamics as arm_dyn
+from habitat_torch.articulated_agents import kinematics as kin
+from habitat_torch.articulated_agents import legs as legs_mod
+from habitat_torch.articulated_agents.params import ROBOTS
+from habitat_torch.core.dataset import EpisodeTable
+from habitat_torch.device import resolve_device
+from habitat_torch.ops import navgrid as ng
+from habitat_torch.ops.raycast import render_batch
+from habitat_torch.sims.scene import ScenePack
 from habitat_torch.tasks.rearrange import rigid_body as rigid
 from habitat_torch.tasks.rearrange.rigid_body import add_y, cross, matvec, norm
+from habitat_torch.utils.geometry import rotate_agent_to_world, rotate_world_to_agent, yaw_to_forward
 
+# fixed kinematic EE offset in the agent frame (forward, lifted; stands in
+# for the articulated arm's resting EE outside the arm controls)
+EE_OFFSET = (0.0, 0.9, -0.45)
+HELD_OFFSET = (0.0, 0.9, -0.45)
+DOOR_LEN = 0.6  # revolute (fridge) door length, hinge to handle
+OBJ_SEM_BASE = 100
 OBJ_HALF = 0.12  # rearrange objects are ~24 cm boxes (YCB-ish scale)
 AGENT_RADIUS = 0.3
 FORCE_K = 100.0  # pseudo-force per meter of robot-object penetration
@@ -303,3 +338,799 @@ def contact_step(
         v = torch.where((on_ground | supported)[..., None], _scale_xz(v, 0.2), v)
         p, force = _robot_pushout(p, free, agent_pos, half, u, w, force)
     return p - center_off, torch.where(freem, v, 0.0), force
+
+
+# discrete kinematic action set (abstract-grasp mode)
+A_STOP, A_FWD, A_LEFT, A_RIGHT, A_GRAB = 0, 1, 2, 3, 4
+REARRANGE_ACTION_NAMES = ("stop", "move_forward", "turn_left", "turn_right", "grab_release")
+
+TASKS = ("pick", "place", "rearrange", "nav_to_obj", "open", "close", "empty")
+CONTROLS = ("discrete", "continuous", "arm", "arm_ee")
+DYNAMICS = ("kinematic", "gravity", "contacts")
+EXTRA_SENSORS = ("obj_goal_pos_sensor", "initial_gps_compass_sensor", "nav_to_skill_sensor")
+# the task's reward under its reference reward-measure uuid
+REWARD_KEYS = {
+    "pick": "pick_reward",
+    "place": "place_reward",
+    "open": "art_obj_reward",
+    "close": "art_obj_reward",
+    "nav_to_obj": "nav_to_obj_reward",
+    "rearrange": "move_objects_reward",
+}
+_BOX_CORNERS = np.array(
+    [[-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1], [-1, -1, 1], [1, -1, 1], [1, 1, 1], [-1, 1, 1]], np.float32
+)
+_BOX_FACES = np.array(
+    [[0, 1, 2], [0, 2, 3], [4, 6, 5], [4, 7, 6], [0, 4, 5], [0, 5, 1],
+     [1, 5, 6], [1, 6, 2], [2, 6, 7], [2, 7, 3], [3, 7, 4], [3, 4, 0]],
+    np.int64,
+)
+
+
+@functools.lru_cache(maxsize=None)
+def _box_tables(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The unit box's corners (8, 3), faces (12, 3) and triangles (12, 3, 3)
+    on ``device``: copied from the host once per device."""
+    corners = torch.as_tensor(_BOX_CORNERS, device=device)
+    faces = torch.as_tensor(_BOX_FACES, device=device)
+    return corners, faces, corners[faces]
+
+
+def _xz_norm(x: torch.Tensor) -> torch.Tensor:
+    """Norm of the xz components of (..., 3)."""
+    return torch.sqrt(x[..., 0] * x[..., 0] + x[..., 2] * x[..., 2])
+
+
+def _tensor_fields(obj):
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+@dataclasses.dataclass
+class RearrangeTable:
+    """Per-episode rearrangement data (extends the nav EpisodeTable): E
+    episodes, O objects, A articulated objects."""
+
+    nav: EpisodeTable
+    obj_init: torch.Tensor  # (E, O, 3) box bottoms
+    obj_valid: torch.Tensor  # (E, O) bool
+    obj_half: torch.Tensor  # (E, O, 3) box half-extents from the asset
+    obj_yaw: torch.Tensor  # (E, O) spawn yaw
+    target_pos: torch.Tensor  # (E, O, 3) goal per object
+    target_mask: torch.Tensor  # (E, O) bool: objects that must move
+    pick_target: torch.Tensor  # (E,) i64: focus object of pick/place
+    # articulated objects: prismatic (drawer, q metres along art_axis) or
+    # revolute (fridge door, q radians about the vertical hinge at art_pos;
+    # art_axis is the door's direction at q=0)
+    art_pos: torch.Tensor  # (E, A, 3)
+    art_axis: torch.Tensor  # (E, A, 3)
+    art_valid: torch.Tensor  # (E, A) bool
+    art_target: torch.Tensor  # (E,) i64
+    art_init_q: torch.Tensor  # (E,)
+    art_goal_q: torch.Tensor  # (E,)
+    art_is_revolute: torch.Tensor  # (E, A) bool
+
+    def to(self, device) -> "RearrangeTable":
+        return RearrangeTable(**{k: v.to(device) for k, v in _tensor_fields(self).items()})
+
+
+@dataclasses.dataclass
+class RearrangeState:
+    """Batched rearrangement env state, (N, ...) tensors."""
+
+    ep_ptr: torch.Tensor  # (N,) i64 position in the per-env episode order
+    ep_idx: torch.Tensor  # (N,) i64
+    step: torch.Tensor  # (N,) i32
+    pos: torch.Tensor  # (N, 3)
+    yaw: torch.Tensor  # (N,)
+    prev_pos: torch.Tensor  # (N, 3)
+    obj_pos: torch.Tensor  # (N, O, 3) box bottoms
+    obj_vel: torch.Tensor  # (N, O, 3)
+    obj_quat: torch.Tensor  # (N, O, 4) (w, x, y, z)
+    obj_omega: torch.Tensor  # (N, O, 3) world angular velocity
+    art_q: torch.Tensor  # (N, A) joint states
+    art_vel: torch.Tensor  # (N, A) joint velocities
+    joints: torch.Tensor  # (N, J) arm joint positions
+    leg_q: torch.Tensor  # (N, L) leg joints; L = 0 without legs
+    joint_vel: torch.Tensor  # (N, J) (arm_dynamics)
+    motor_target: torch.Tensor  # (N, J) accumulated PD motor targets
+    held: torch.Tensor  # (N,) i64, -1 = none
+    ever_held: torch.Tensor  # (N,) bool: picked the target at least once
+    accum_force: torch.Tensor  # (N,) running contact force on the robot
+    stop_called: torch.Tensor  # (N,) bool
+    collided: torch.Tensor  # (N,) bool
+    collision_count: torch.Tensor  # (N,) i32
+    last_action: torch.Tensor  # (N,) i32
+    episode_over: torch.Tensor  # (N,) bool
+    episode_count: torch.Tensor  # (N,) i32
+
+    def to(self, device) -> "RearrangeState":
+        return RearrangeState(**{k: v.to(device) for k, v in _tensor_fields(self).items()})
+
+
+class RearrangeBatchedEnv:
+    """N batched rearrangement envs on one device.
+
+    task: "pick" (success = holding the target object), "place" (the target
+    at its goal and released), "rearrange" (all targets at their goals),
+    "nav_to_obj" (near and facing the target, then stop), "open" / "close"
+    (the articulated target at its goal state), "empty" (no objective).
+    control: "discrete" (``REARRANGE_ACTION_NAMES``), "continuous" (base
+    velocity and grip), "arm" (joint deltas, grip, base velocity; kinematic
+    or, with ``arm_dynamics``, PD motors under gravity), "arm_ee" (an EE
+    displacement through 8 IK iterations, grip, base velocity).
+
+    ``sensor_keys`` / ``measure_keys`` select what the env emits; unknown
+    keys raise ``ValueError`` at construction. ``observation_shapes`` maps
+    each key to its (shape, dtype) per env."""
+
+    def __init__(
+        self,
+        pack: ScenePack,
+        table: RearrangeTable,
+        episode_order: np.ndarray,  # (N, L) per-env episode schedule
+        *,
+        task: str = "pick",
+        max_episode_steps: int = 300,
+        grasp_distance: float = 1.0,
+        at_goal_thresh: float = 0.15,
+        success_reward: float = 10.0,
+        slack_reward: float = -0.01,
+        dist_reward_scale: float = 1.0,
+        forward_step: float = 0.25,
+        turn_angle_deg: float = 10.0,
+        render_size: Optional[Tuple[int, int]] = (128, 128),
+        with_visual: bool = True,
+        continuous: bool = False,
+        dynamics: str = "kinematic",
+        control: Optional[str] = None,
+        robot: str = "FetchRobot",
+        max_joint_delta: float = 0.1,
+        arm_dynamics: bool = False,
+        ee_delta: float = 0.06,
+        arm_grasp_distance: float = 0.25,
+        max_accum_force: float = -1.0,
+        constraint_violation_ends_episode: bool = False,
+        constraint_violation_drops_object: bool = False,
+        sensor_keys: Optional[Sequence[str]] = None,
+        measure_keys: Optional[Sequence[str]] = None,
+        action_specs: Optional[list] = None,
+        device=None,
+    ):
+        if action_specs:
+            if any(getattr(s, "agent_idx", 0) >= 1 for s in action_specs):
+                raise NotImplementedError("the humanoid lane (agent_idx >= 1) is not ported to habitat_torch yet")
+            raise NotImplementedError("action_specs wait for the port of tasks/rearrange/task_actions.py")
+        if task == "reach":
+            raise NotImplementedError(
+                "task='reach' waits for a port of JAX's threefry RNG: its goal comes from jax.random.fold_in")
+        preds = [k for k in (sensor_keys or ()) if k in ("all_predicates", "multi_agent_all_predicates")]
+        if preds:
+            raise NotImplementedError(f"{preds} wait for the port of tasks/rearrange/multi_task/pddl_yaml.py")
+        if control is None:
+            control = "continuous" if continuous else "discrete"
+        for name, value, allowed in (("task", task, TASKS), ("control", control, CONTROLS),
+                                     ("dynamics", dynamics, DYNAMICS)):
+            if value not in allowed:
+                raise ValueError(f"{name}={value!r}: the port has {allowed}")
+        dev = resolve_device(device)
+        self.device = dev
+        self.pack = pack.to(dev)
+        self.table = table.to(dev)
+        self.order = torch.as_tensor(np.asarray(episode_order), dtype=torch.int64, device=dev)
+        self.num_envs = int(episode_order.shape[0])
+        self._order_len = int(episode_order.shape[1])
+        self._env_ids = torch.arange(self.num_envs, device=dev)
+        self.task = task
+        self.dynamics = dynamics
+        self.max_accum_force = max_accum_force
+        self.cv_ends_episode = constraint_violation_ends_episode
+        self.cv_drops_object = constraint_violation_drops_object
+        self.max_episode_steps = max_episode_steps
+        self.grasp_distance = grasp_distance
+        self.at_goal_thresh = at_goal_thresh
+        self.success_reward = success_reward
+        self.slack_reward = slack_reward
+        self.dist_reward_scale = dist_reward_scale
+        self.fwd = forward_step
+        self.turn = float(np.deg2rad(turn_angle_deg))
+        self.with_visual = with_visual and render_size is not None
+        self.render_size = render_size
+        self.num_objects = int(self.table.obj_init.shape[1])
+        self.num_art = int(self.table.art_pos.shape[1])
+        self._o_lane = torch.arange(self.num_objects, device=dev)[None]
+        self._a_lane = torch.arange(self.num_art, device=dev)[None]
+        self.control = control
+        self.continuous = control != "discrete"
+        self.rparams = ROBOTS[robot]
+        self.n_joints = self.rparams.arm_joints
+        self.max_joint_delta = max_joint_delta
+        self.arm_dynamics = arm_dynamics
+        self._arm_dyn = arm_dyn.default_arm_dynamics(self.rparams, kp=300.0, kd=30.0, device=dev)
+        self.ee_delta = ee_delta
+        f32 = functools.partial(torch.tensor, dtype=torch.float32, device=dev)
+        self._resting = f32(self.rparams.resting_pose)
+        self._arm_root = f32(self.rparams.arm_root_offset)
+        self._joint_lo = f32(self.rparams.joint_limits_lower)
+        self._joint_hi = f32(self.rparams.joint_limits_upper)
+        self._leg_init = f32(legs_mod.LEG_INIT[: self.rparams.leg_joints])
+        self._ee_offset = f32(EE_OFFSET)
+        # resting EE in the agent frame (RelativeRestingPositionSensor origin)
+        self._resting_ee_local = kin.ee_position(self.rparams, self._resting) + self._arm_root
+        if control in ("arm", "arm_ee"):
+            self.grasp_distance = arm_grasp_distance
+        self._extra_sensors = tuple(k for k in EXTRA_SENSORS if k in (sensor_keys or ()))
+        self._build_dynamic_constants()
+
+        if control == "arm":
+            # [J joint deltas | grip | base lin | base ang] (reference
+            # ArmRelPosAction + MagicGraspAction + BaseVelAction)
+            self.action_names, self.action_dim = ("arm_action", "base_velocity"), self.n_joints + 3
+        elif control == "arm_ee":
+            # [EE delta xyz | grip | base lin | base ang] (ArmEEAction)
+            self.action_names, self.action_dim = ("arm_ee_action", "base_velocity"), 6
+        elif control == "continuous":
+            # (lin_vel, ang_vel, grip) in [-1, 1]
+            self.action_names, self.action_dim = ("base_velocity", "grip"), 3
+        else:
+            self.action_names = REARRANGE_ACTION_NAMES
+            self.num_actions = len(REARRANGE_ACTION_NAMES)
+
+        # the key sets come from one fresh state (the role of the JAX
+        # package's eval_shape): declared keys are validated against what the
+        # env really emits, so the two cannot drift
+        self.sensor_keys = tuple(sensor_keys) if sensor_keys is not None else None
+        self.measure_keys = tuple(measure_keys) if measure_keys is not None else None
+        fresh = self._fresh(self.order[:, 0])
+        shapes = {k: (tuple(v.shape[1:]), v.dtype) for k, v in self._state_observations(fresh).items()}
+        if self.with_visual:
+            h, w = render_size
+            shapes["robot_head_depth"] = ((h, w, 1), torch.float32)
+            shapes["robot_head_rgb"] = ((h, w, 3), torch.uint8)
+        if self.sensor_keys is not None:
+            bad = [k for k in self.sensor_keys if k not in shapes]
+            if bad:
+                raise ValueError(f"declared sensors {bad} are not available on this env (task={task}); "
+                                 f"available: {sorted(shapes)}")
+            shapes = {k: v for k, v in shapes.items() if k in self.sensor_keys}
+        self.observation_shapes = shapes
+        if self.measure_keys is not None:
+            avail = set(self._measures(fresh)) | set(self._posthoc_measure_keys())
+            bad = [k for k in self.measure_keys if k not in avail]
+            if bad:
+                raise ValueError(f"declared measures {bad} are not available on this env (task={task}); "
+                                 f"available: {sorted(avail)}")
+
+    # ------------------------------------------------------------------
+    def _build_dynamic_constants(self):
+        """The render's per-triangle semantics and colours (objects, then
+        articulated objects, Spot's legs, the arm links), fixed per env:
+        built once here, the palette from ``default_rng(7)``."""
+        dev, n = self.device, self.num_envs
+        n_dyn = self.num_objects + self.num_art
+        palette = torch.as_tensor(np.random.default_rng(7).uniform(0.3, 1.0, (n_dyn, 3)), dtype=torch.float32,
+                                  device=dev)
+        sem = [(torch.arange(n_dyn, device=dev) + OBJ_SEM_BASE).to(torch.int32).repeat_interleave(12)]
+        color = [palette.repeat_interleave(12, 0)]
+        extra = []
+        if self.rparams.leg_joints > 0:
+            extra.append((96, 0.85))  # 8 leg segments of 12 triangles
+        if self._arm_mode():
+            extra.append((12 * self.n_joints, 0.55))
+        for count, grey in extra:
+            sem.append(torch.full((count,), OBJ_SEM_BASE - 1, dtype=torch.int32, device=dev))
+            color.append(torch.full((count, 3), grey, dtype=torch.float32, device=dev))
+        self._dyn_sem = torch.cat(sem)[None].expand(n, -1).contiguous()
+        self._dyn_color = torch.cat(color)[None].expand(n, -1, -1).contiguous()
+
+    def _sid(self, state: RearrangeState) -> torch.Tensor:
+        return self.table.nav.scene_idx[state.ep_idx].long()
+
+    def _arm_mode(self) -> bool:
+        return self.control in ("arm", "arm_ee")
+
+    def _posthoc_measure_keys(self) -> Tuple[str, ...]:
+        """Measure keys ``step_fn`` adds after ``_measures``."""
+        keys = ["constraint_violation", "did_violate_hold_constraint", "bad_called_terminate"]
+        if self.task in REWARD_KEYS:
+            keys.append(REWARD_KEYS[self.task])
+        if self.task == "rearrange":
+            keys.append("pddl_subgoal_reward")
+        return tuple(keys)
+
+    def _ee_local(self, joints: torch.Tensor) -> torch.Tensor:
+        """(N, J) joints -> (N, 3) EE in the agent frame."""
+        return kin.ee_position(self.rparams, joints) + self._arm_root
+
+    def _ee_pos(self, state: RearrangeState) -> torch.Tensor:
+        if self._arm_mode():
+            return state.pos + rotate_agent_to_world(self._ee_local(state.joints), state.yaw)
+        return state.pos + rotate_agent_to_world(self._ee_offset.expand(state.pos.shape), state.yaw)
+
+    def _target_obj(self, state: RearrangeState) -> torch.Tensor:
+        return self.table.pick_target[state.ep_idx]
+
+    def _door_dir(self, axis: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        """A door's direction after swinging by q about +Y from ``axis``."""
+        cq, sq = torch.cos(q), torch.sin(q)
+        return torch.stack([cq * axis[..., 0] + sq * axis[..., 2], axis[..., 1], -sq * axis[..., 0] + cq * axis[..., 2]],
+                           dim=-1)
+
+    def _handle_pos(self, state: RearrangeState) -> torch.Tensor:
+        """(N, 3) world position of the target's handle: the drawer's front
+        at its extension, or the door's free edge swung by q."""
+        a = self.table.art_target[state.ep_idx]
+        base = self.table.art_pos[state.ep_idx, a]
+        axis = self.table.art_axis[state.ep_idx, a]
+        q = state.art_q[self._env_ids, a]
+        prism = base + axis * (q[:, None] + 0.3)
+        rev = base + self._door_dir(axis, q) * DOOR_LEN
+        is_rev = self.table.art_is_revolute[state.ep_idx, a]
+        return add_y(torch.where(is_rev[:, None], rev, prism), 0.5)
+
+    def _obj_world(self, state: RearrangeState) -> torch.Tensor:
+        """(N, O, 3) object positions with the held one at the EE."""
+        is_held = self._o_lane == state.held[:, None]
+        return torch.where(is_held[..., None], self._ee_pos(state)[:, None, :], state.obj_pos)
+
+    # -- observations ---------------------------------------------------
+    def _state_observations(self, state: RearrangeState) -> Dict[str, torch.Tensor]:
+        """Every state sensor (reference rearrange_sensors.py:51-468), in the
+        agent frame where the reference transforms."""
+        tgt = self._target_obj(state)
+        objs = self._obj_world(state)
+        tgt_pos = objs[self._env_ids, tgt]
+        goal_pos = self.table.target_pos[state.ep_idx, tgt]
+        ee = self._ee_pos(state)
+
+        def rel(p):
+            return rotate_world_to_agent(p - state.pos, state.yaw)
+
+        def gps_compass(rel_p):
+            # polar (rho, -phi) of an agent-frame position; forward is -z
+            return torch.stack([_xz_norm(rel_p), -torch.atan2(rel_p[:, 0], -rel_p[:, 2])], dim=-1)
+
+        rel_start, rel_goal, rel_ee = rel(tgt_pos), rel(goal_pos), rel(ee)
+        obs = {
+            "obj_start_sensor": rel_start,
+            "obj_goal_sensor": rel_goal,
+            "abs_obj_start_sensor": tgt_pos,
+            "abs_obj_goal_sensor": goal_pos,
+            "joint": state.joints,
+            "joint_vel": state.joint_vel,
+            "is_holding": (state.held >= 0).float()[:, None],
+            "ee_pos": rel_ee,
+            "relative_resting_position": rel_ee - self._resting_ee_local,
+            "localization_sensor": torch.cat([state.pos, state.yaw[:, None]], dim=-1),
+            "obj_start_gps_compass": gps_compass(rel_start),
+            "obj_goal_gps_compass": gps_compass(rel_goal),
+        }
+        if "obj_goal_pos_sensor" in self._extra_sensors:
+            # the target in the EE frame, oriented as the base
+            obs["obj_goal_pos_sensor"] = rotate_world_to_agent(tgt_pos - ee, state.yaw)
+        if "initial_gps_compass_sensor" in self._extra_sensors:
+            st_pos = self.table.nav.start_pos[state.ep_idx]
+            st_yaw = self.table.nav.start_yaw[state.ep_idx]
+            obs["initial_gps_compass_sensor"] = gps_compass(rotate_world_to_agent(state.pos - st_pos, st_yaw))
+        if "nav_to_skill_sensor" in self._extra_sensors:
+            # pick (1) while nothing is held, place (2) after
+            skill = torch.where(state.held >= 0, 2, 1)
+            obs["nav_to_skill_sensor"] = torch.nn.functional.one_hot(skill, 8).float()
+        return obs
+
+    def _observations(self, state: RearrangeState) -> Dict[str, torch.Tensor]:
+        obs = self._state_observations(state)
+        if self.with_visual:
+            h, w = self.render_size
+            frames = render_batch(
+                self.pack, self._sid(state), add_y(state.pos, 1.25), state.yaw,
+                torch.full_like(state.yaw, -0.45),  # the head camera tilts down
+                height=h, width=w, dynamic=self._dynamic_geometry(state),
+            )
+            obs["robot_head_depth"] = frames["depth"]
+            obs["robot_head_rgb"] = frames["rgb"]
+        if self.sensor_keys is not None:
+            obs = {k: obs[k] for k in self.sensor_keys if k in obs}
+        return obs
+
+    def _arm_geometry(self, state: RearrangeState) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The arm's links as boxes of radius 4 cm: (N, J*12, 3, 3) world
+        triangles and (N, J*12) valid."""
+        N, J = self.num_envs, self.n_joints
+        corners, faces, _ = _box_tables(self.device)
+        pts_agent = kin.fk_positions(self.rparams, state.joints) + self._arm_root  # (N, J+1, 3)
+        pts_world = state.pos[:, None, :] + rotate_agent_to_world(pts_agent, state.yaw[:, None])
+        p0, p1 = pts_world[:, :-1], pts_world[:, 1:]
+        seg = p1 - p0
+        ln = norm(seg)[..., None]
+        u = seg / torch.clamp_min(ln, 1e-6)
+        vertical = u[..., 1].abs() > 0.9
+        ref = torch.stack([vertical, ~vertical, torch.zeros_like(vertical)], dim=-1).float()  # x or up
+        v = cross(u, ref)
+        v = v / torch.clamp_min(norm(v)[..., None], 1e-6)
+        w = cross(u, v)
+        r = 0.04
+        mid = 0.5 * (p0 + p1)
+        h = 0.5 * ln
+        box = (
+            mid[:, :, None, :]
+            + corners[None, None, :, 0:1] * u[:, :, None, :] * h[:, :, None, :]
+            + corners[None, None, :, 1:2] * v[:, :, None, :] * r
+            + corners[None, None, :, 2:3] * w[:, :, None, :] * r
+        )  # (N, J, 8, 3)
+        tris = box[:, :, faces, :].reshape(N, J * 12, 3, 3)
+        return tris, torch.ones((N, J * 12), dtype=torch.bool, device=self.device)
+
+    def _dynamic_geometry(self, state: RearrangeState) -> Dict[str, torch.Tensor]:
+        """Movable geometry for the render's dynamic pass: the objects as the
+        boxes the contact step uses, posed by their quaternions; the
+        articulated objects as 0.72 m boxes (drawers slide, doors swing);
+        Spot's leg segments; the arm links in the arm controls."""
+        N, A = self.num_envs, self.num_art
+        _, _, unit_tri = _box_tables(self.device)
+        ep = state.ep_idx
+        halves = self.table.obj_half[ep]  # (N, O, 3)
+        scaled = unit_tri[None, None] * halves[:, :, None, None, :]
+        obj_tri = torch.einsum("noij,noktj->nokti", rigid.quat_to_matrix(state.obj_quat), scaled)
+        center = add_y(self._obj_world(state), halves[..., 1])  # boxes sit on their bottoms
+        art_tri = unit_tri * OBJ_HALF * 3.0
+        axis = self.table.art_axis[ep]
+        q = state.art_q
+        is_rev = self.table.art_is_revolute[ep][..., None]
+        art_center = add_y(self.table.art_pos[ep] + torch.where(
+            is_rev, self._door_dir(axis, q) * (DOOR_LEN * 0.5), axis * q[..., None]), 0.4)
+        centers = torch.cat([center, art_center], dim=1)
+        tris_all = torch.cat([obj_tri, art_tri.expand(N, A, 12, 3, 3)], dim=1)
+        v = (centers[:, :, None, None, :] + tris_all).reshape(N, -1, 3, 3)
+        valid = torch.cat([self.table.obj_valid[ep], self.table.art_valid[ep]], dim=1).repeat_interleave(12, 1)
+        if self.rparams.leg_joints > 0:
+            leg_v, leg_valid = legs_mod.leg_segment_boxes(add_y(state.pos, 0.5), state.yaw, state.leg_q)
+            v = torch.cat([v, leg_v], dim=1)
+            valid = torch.cat([valid, leg_valid], dim=1)
+        if self._arm_mode():
+            arm_v, arm_valid = self._arm_geometry(state)
+            v = torch.cat([v, arm_v], dim=1)
+            valid = torch.cat([valid, arm_valid], dim=1)
+        return dict(v0=v[:, :, 0], e1=v[:, :, 1] - v[:, :, 0], e2=v[:, :, 2] - v[:, :, 0], valid=valid,
+                    color=self._dyn_color, sem=self._dyn_sem)
+
+    # -- measures ----------------------------------------------------------
+    def _measures(self, state: RearrangeState) -> Dict[str, torch.Tensor]:
+        n_idx, ep = self._env_ids, state.ep_idx
+        tgt = self._target_obj(state)
+        objs = self._obj_world(state)
+        tgt_pos = objs[n_idx, tgt]
+        goal = self.table.target_pos[ep, tgt]
+        ee = self._ee_pos(state)
+        all_d = norm(objs - self.table.target_pos[ep])
+        tmask = self.table.target_mask[ep]
+        at_goal = (all_d < self.at_goal_thresh) & tmask
+        frac_at_goal = at_goal.sum(1) / torch.clamp_min(tmask.sum(1), 1)
+        rel_ee = rotate_world_to_agent(ee - state.pos, state.yaw)
+        zeros = torch.zeros_like(state.yaw)
+        m = {
+            "object_to_goal_distance": norm(tgt_pos - goal),
+            "ee_to_object_distance": norm(tgt_pos - ee),
+            "ee_to_rest_distance": norm(rel_ee - self._resting_ee_local),
+            "ee_to_goal_distance": norm(goal - ee),
+            "base_to_object_distance": _xz_norm(tgt_pos - state.pos),
+            "did_pick_object": state.ever_held.float(),
+            "is_holding": (state.held >= 0).float(),
+            "obj_at_goal": at_goal[n_idx, tgt].float(),
+            "objects_at_goal_fraction": frac_at_goal,
+            "does_want_terminate": state.stop_called.float(),
+            "zero": zeros,
+            # the accumulated robot-object penetration force (reference
+            # RobotForce / ForceTerminate); zero in kinematic mode
+            "robot_force": state.accum_force,
+            "force_terminate": ((state.accum_force > self.max_accum_force) if self.max_accum_force > 0
+                                else torch.zeros_like(state.stop_called)).float(),
+            "robot_collisions": state.collision_count.float(),
+            "num_steps": state.step.float(),
+        }
+        m["articulated_agent_force"] = m["robot_force"]
+        if self.task in ("open", "close"):
+            q = state.art_q[n_idx, self.table.art_target[ep]]
+            m["art_obj_state"] = q
+            m["art_obj_at_desired_state"] = ((q - self.table.art_goal_q[ep]).abs() < 0.05).float()
+            m["ee_to_marker_dist"] = _xz_norm(self._handle_pos(state) - ee)
+            m["ee_dist_to_marker"] = m["ee_to_marker_dist"]
+            m["success"] = m["art_obj_at_desired_state"]
+            m["art_obj_success"] = m["success"]
+        elif self.task == "pick":
+            m["pick_success"] = (state.held == tgt).float()
+            m["success"] = m["pick_success"]
+        elif self.task == "place":
+            m["place_success"] = (at_goal[n_idx, tgt] & (state.held < 0) & state.ever_held).float()
+            m["success"] = m["place_success"]
+        elif self.task == "rearrange":
+            m["success"] = ((frac_at_goal >= 1.0) & (state.held < 0)).float()
+            m["pddl_success"] = m["success"]
+            m["pddl_stage_goals"] = frac_at_goal
+        elif self.task == "nav_to_obj":
+            d_xz = _xz_norm(tgt_pos - state.pos)
+            rel = rotate_world_to_agent(tgt_pos - state.pos, state.yaw)
+            ang = torch.atan2(rel[:, 0], -rel[:, 2]).abs()
+            m["rot_dist_to_goal"] = ang
+            m["dist_to_goal"] = d_xz
+            m["nav_to_obj_success"] = ((d_xz < 1.5) & (ang < 0.5) & state.stop_called).float()
+            m["nav_to_pos_success"] = (d_xz < 1.5).float()
+            m["success"] = m["nav_to_obj_success"]
+        else:  # empty
+            m["success"] = zeros
+        return m
+
+    def _reward(self, prev_m, m) -> torch.Tensor:
+        """Distance-delta shaping and the success bonus (reference
+        RearrangePickReward / PlaceReward structure)."""
+        r = torch.full((self.num_envs,), self.slack_reward, device=self.device)
+        s = self.dist_reward_scale
+        if self.task in ("open", "close"):
+            r = r + s * (prev_m["ee_to_marker_dist"] - m["ee_to_marker_dist"])
+            r = r + 2.0 * (m["art_obj_state"] - prev_m["art_obj_state"]).abs()
+        elif self.task == "pick":
+            r = r + s * (prev_m["ee_to_object_distance"] - m["ee_to_object_distance"])
+            r = r + 1.0 * (m["did_pick_object"] - prev_m["did_pick_object"])
+        elif self.task in ("place", "rearrange"):
+            if self.task == "rearrange":
+                # staged (reference MoveObjectsReward): EE to object until the
+                # first pick, a one-time pick bonus
+                not_picked = 1.0 - prev_m["did_pick_object"]
+                r = r + s * not_picked * (prev_m["ee_to_object_distance"] - m["ee_to_object_distance"])
+                r = r + 1.0 * torch.clamp_min(m["did_pick_object"] - prev_m["did_pick_object"], 0.0)
+            r = r + s * (prev_m["object_to_goal_distance"] - m["object_to_goal_distance"])
+        elif self.task == "nav_to_obj":
+            r = r + s * (prev_m["dist_to_goal"] - m["dist_to_goal"])
+            near = (m["dist_to_goal"] < 1.5).float()
+            r = r + 0.5 * near * (prev_m["rot_dist_to_goal"] - m["rot_dist_to_goal"])
+        return r + self.success_reward * torch.clamp_min(m["success"] - prev_m["success"], 0.0)
+
+    # -- lifecycle -----------------------------------------------------------
+    def _fresh(self, ep_idx: torch.Tensor) -> RearrangeState:
+        n, dev, t = self.num_envs, self.device, self.table
+        pos = t.nav.start_pos[ep_idx]
+
+        def flags():
+            return torch.zeros(n, dtype=torch.bool, device=dev)
+
+        def counts():
+            return torch.zeros(n, dtype=torch.int32, device=dev)
+
+        return RearrangeState(
+            ep_ptr=torch.zeros(n, dtype=torch.int64, device=dev),
+            ep_idx=ep_idx,
+            step=counts(),
+            pos=pos,
+            yaw=t.nav.start_yaw[ep_idx],
+            prev_pos=pos,
+            obj_pos=t.obj_init[ep_idx],
+            obj_vel=torch.zeros((n, self.num_objects, 3), device=dev),
+            obj_quat=rigid.quat_from_yaw(t.obj_yaw[ep_idx]),
+            obj_omega=torch.zeros((n, self.num_objects, 3), device=dev),
+            art_q=t.art_init_q[ep_idx][:, None].expand(n, self.num_art) * t.art_valid[ep_idx],
+            art_vel=torch.zeros((n, self.num_art), device=dev),
+            joints=self._resting.repeat(n, 1),
+            leg_q=self._leg_init.repeat(n, 1),
+            joint_vel=torch.zeros((n, self.n_joints), device=dev),
+            motor_target=self._resting.repeat(n, 1),
+            held=torch.full((n,), -1, dtype=torch.int64, device=dev),
+            ever_held=flags(),
+            accum_force=torch.zeros(n, device=dev),
+            stop_called=flags(),
+            collided=flags(),
+            collision_count=counts(),
+            last_action=torch.full((n,), -1, dtype=torch.int32, device=dev),
+            episode_over=flags(),
+            episode_count=counts(),
+        )
+
+    def reset_fn(self) -> Tuple[RearrangeState, Dict[str, torch.Tensor]]:
+        state = self._fresh(self.order[:, 0])
+        return state, self._observations(state)
+
+    def _controls(self, state: RearrangeState, actions: torch.Tensor):
+        """Actions -> (joints, joint_vel, motor_target, grip, logged action,
+        stop, yaw, move)."""
+        joints, joint_vel, motor = state.joints, state.joint_vel, state.motor_target
+        grip = None
+        if self._arm_mode():
+            acts = actions.float().clamp(-1.0, 1.0)
+            if self.control == "arm":
+                J = self.n_joints
+                dq = acts[:, :J] * self.max_joint_delta
+                if self.arm_dynamics:
+                    # the delta accumulates on the motor target; PD motors and
+                    # gravity integrate (reference ArmRelPosAction)
+                    motor = torch.clamp(state.motor_target + dq, min=self._joint_lo, max=self._joint_hi)
+                    joints, joint_vel = arm_dyn.step_arm(self.rparams, self._arm_dyn, state.joints, state.joint_vel,
+                                                         motor, dt=1.0 / 30.0, substeps=4)
+                else:
+                    # ArmRelPosKinematicAction: joints set directly
+                    joints = torch.clamp(state.joints + dq, min=self._joint_lo, max=self._joint_hi)
+                rest = acts[:, J:]
+            else:
+                # DLS-IK toward the displaced EE target (ArmEEAction)
+                target = self._ee_local(state.joints) - self._arm_root + acts[:, 0:3] * self.ee_delta
+                joints = kin.ik_solve(self.rparams, target, state.joints, iters=8)
+                rest = acts[:, 3:]
+            grip, lin, ang = rest[:, 0] > 0.0, rest[:, 1], rest[:, 2]
+        elif self.continuous:
+            acts = actions.float()
+            lin, ang, grip = acts[:, 0].clamp(-1.0, 1.0), acts[:, 1].clamp(-1.0, 1.0), acts[:, 2] > 0.0
+        if grip is not None:
+            a = torch.where(grip, A_GRAB, A_FWD).to(torch.int32)  # for the logs
+            return joints, joint_vel, motor, grip, a, state.stop_called, state.yaw + ang * self.turn, lin * self.fwd
+        a = actions.to(torch.int32)
+        stop = state.stop_called | (a == A_STOP)
+        yaw = state.yaw + torch.where(a == A_LEFT, self.turn, 0.0) - torch.where(a == A_RIGHT, self.turn, 0.0)
+        return joints, joint_vel, motor, None, a, stop, yaw, torch.where(a == A_FWD, self.fwd, 0.0)
+
+    def _articulate(self, state: RearrangeState, a: torch.Tensor) -> RearrangeState:
+        """Grabbing near the target's handle drives its joint toward the goal
+        state: a PD force against damping and friction under gravity or
+        contacts, a fixed rate (8 cm, 0.15 rad) when kinematic."""
+        n_idx, ep = self._env_ids, state.ep_idx
+        interact = a == A_GRAB
+        near = _xz_norm(self._handle_pos(state) - self._ee_pos(state)) <= self.grasp_distance
+        art_t = self.table.art_target[ep]
+        goal_q = self.table.art_goal_q[ep]
+        cur_q = state.art_q[n_idx, art_t]
+        is_rev = self.table.art_is_revolute[ep, art_t]
+        on_t = self._a_lane == art_t[:, None]
+        if self.dynamics in ("gravity", "contacts"):
+            dt = 0.1
+            inertia = torch.where(is_rev, 0.5, 1.0)
+            qd = state.art_vel[n_idx, art_t]
+            tau_max = inertia * 6.0
+            tau = torch.clamp(25.0 * (goal_q - cur_q) - 8.0 * qd, min=-tau_max, max=tau_max)
+            tau = torch.where(interact & near, tau, 0.0)
+            qd = qd + (tau - 1.0 * qd) / inertia * dt
+            # Coulomb friction: decelerate toward rest, never reverse
+            qd = torch.sign(qd) * torch.clamp_min(qd.abs() - 0.8 / inertia * dt, 0.0)
+            init_q = self.table.art_init_q[ep]
+            lo = torch.clamp_max(torch.minimum(init_q, goal_q), 0.0)
+            hi = torch.clamp_min(torch.maximum(init_q, goal_q), 0.0)
+            raw_q = cur_q + qd * dt
+            new_q = torch.minimum(torch.maximum(raw_q, lo), hi)
+            qd = torch.where((raw_q < lo) | (raw_q > hi), 0.0, qd)
+            return dataclasses.replace(state, art_q=torch.where(on_t, new_q[:, None], state.art_q),
+                                       art_vel=torch.where(on_t, qd[:, None], state.art_vel))
+        rate = torch.where(is_rev, 0.15, 0.08)
+        dq = torch.minimum(torch.maximum(goal_q - cur_q, -rate), rate)
+        new_q = torch.where(interact & near, cur_q + dq, cur_q)
+        return dataclasses.replace(state, art_q=torch.where(on_t, new_q[:, None], state.art_q))
+
+    def step_fn(self, state: RearrangeState, actions: torch.Tensor):
+        """One batched step with masked auto-reset of finished envs. Returns
+        (state, obs, reward, done, info); the input state is not modified."""
+        n_idx, ep = self._env_ids, state.ep_idx
+        prev_m = self._measures(state)
+        sid = self._sid(state)
+        joints, joint_vel, motor, grip, a, stop, yaw, move = self._controls(state, actions)
+
+        # base motion with wall sliding; movable objects block the base by a
+        # per-step disc test against their current positions (the reference
+        # recomputes its navmesh, rearrange_sim.py:465-492)
+        target = state.pos + yaw_to_forward(yaw) * move[:, None]
+        new_pos, collided = ng.try_step(self.pack, sid, state.pos, target)
+        not_held = self._o_lane != torch.where(state.held < 0, -1, state.held)[:, None]
+        blockers = self.table.obj_valid[ep] & not_held
+        half = self.table.obj_half[ep]
+        obj_rad = torch.maximum(half[..., 0], half[..., 2])
+        d_obj = _xz_norm(self._obj_world(state) - new_pos[:, None, :])
+        obj_hit = (blockers & (d_obj < (AGENT_RADIUS + obj_rad) * 0.9)).any(1)
+        new_pos = torch.where(obj_hit[:, None], state.pos, new_pos)
+        moved = move.abs() > 1e-6
+        collided = (collided | obj_hit) & moved
+        new_pos = torch.where(moved[:, None], new_pos, state.pos)
+        state = dataclasses.replace(
+            state, pos=new_pos, yaw=yaw, prev_pos=state.pos, joints=joints, joint_vel=joint_vel, motor_target=motor,
+            stop_called=stop, collided=collided, collision_count=state.collision_count + collided.to(torch.int32),
+            last_action=a, step=state.step + 1,
+        )
+        if self.task in ("open", "close"):
+            state = self._articulate(state, a)
+
+        # magic grasp and release (reference grip_actions.py:38-177)
+        ee = self._ee_pos(state)
+        d = norm(self._obj_world(state) - ee[:, None, :])
+        d = torch.where(self.table.obj_valid[ep], d, 1e6)
+        nearest = d.argmin(1)
+        near = d[n_idx, nearest] <= self.grasp_distance
+        if grip is not None:
+            # suction semantics: hold while grip > 0, release at <= 0
+            can_grab = grip & (state.held < 0) & near
+            do_release = ~grip & (state.held >= 0)
+        else:
+            grab = a == A_GRAB
+            can_grab = grab & (state.held < 0) & near
+            do_release = grab & (state.held >= 0)
+        # a released object drops under the EE (snapped to the nearest
+        # navigable cell off the grid); with physics it falls from the EE
+        floor = self.pack.floor_y[sid]
+        ee_floor = torch.stack([ee[:, 0], floor, ee[:, 2]], dim=-1)
+        drop = torch.where(ng.is_navigable(self.pack, sid, ee_floor)[:, None], ee_floor,
+                           ng.snap_to_navigable(self.pack, sid, ee))
+        if self.dynamics in ("gravity", "contacts"):
+            drop = torch.stack([drop[:, 0], ee[:, 1], drop[:, 2]], dim=-1)
+        released = do_release[:, None] & (self._o_lane == torch.clamp_min(state.held, 0)[:, None])
+        obj_pos = torch.where(released[..., None], drop[:, None, :], state.obj_pos)
+        held = torch.where(do_release, -1, state.held)
+        held = torch.where(can_grab, nearest, held)
+        ever_held = state.ever_held | (held == self._target_obj(state))
+
+        obj_vel, obj_quat, obj_omega = state.obj_vel, state.obj_quat, state.obj_omega
+        step_force = torch.zeros_like(state.accum_force)
+        free = self.table.obj_valid[ep] & (self._o_lane != torch.where(held < 0, -1, held)[:, None])
+        if self.dynamics == "gravity":
+            # semi-implicit Euler for free objects; the floor stops them
+            dt, g = 0.1, 9.8
+            rest_y = floor[:, None]
+            v = add_y(obj_vel, -g * dt)
+            p = obj_pos + v * dt
+            on_ground = p[..., 1] <= rest_y
+            p = torch.stack([p[..., 0], torch.where(on_ground, rest_y, p[..., 1]), p[..., 2]], dim=-1)
+            v = torch.where(on_ground[..., None], 0.0, v)
+            obj_pos = torch.where(free[..., None], p, obj_pos)
+            obj_vel = torch.where(free[..., None], v, 0.0)
+        elif self.dynamics == "contacts":
+            obj_pos, obj_vel, step_force, obj_quat, obj_omega = contact_step(
+                obj_pos, obj_vel, free, floor, state.pos, half=half, yaw_o=self.table.obj_yaw[ep],
+                quat=obj_quat, omega=obj_omega,
+            )
+
+        # grasp constraint: the held box (hanging bottom-anchored at the EE)
+        # penetrating the floor or another box violates the reference's rigid
+        # constraint: force, and per the task flags a drop or the episode's end
+        pen_floor = torch.clamp_min(floor - ee[:, 1], 0.0)
+        h_held = half[n_idx, torch.clamp_min(held, 0)]  # (N, 3)
+        c_held = add_y(ee, h_held[:, 1])
+        centers = add_y(obj_pos, half[..., 1])
+        o_other = self.table.obj_valid[ep] & (self._o_lane != torch.where(held < 0, -1, held)[:, None])
+        pen3 = (h_held[:, None] + half) - (c_held[:, None, :] - centers).abs()
+        pen_obj = torch.where(o_other & (pen3 > 0).all(-1), pen3.amin(-1), 0.0).amax(1)
+        violation = torch.where(held >= 0, pen_floor + pen_obj, 0.0)
+        step_force = step_force + FORCE_K * violation
+        if self.cv_drops_object:
+            broke = violation > 0.0
+            obj_pos = torch.where((broke[:, None] & (self._o_lane == held[:, None]))[..., None], ee[:, None, :],
+                                  obj_pos)
+            held = torch.where(broke, -1, held)
+        state = dataclasses.replace(
+            state, obj_pos=obj_pos, obj_vel=obj_vel, obj_quat=obj_quat, obj_omega=obj_omega, held=held,
+            ever_held=ever_held, accum_force=state.accum_force + step_force,
+        )
+
+        m = self._measures(state)
+        m["constraint_violation"] = (violation > 0.0).float()
+        episode_over = stop | (state.step >= self.max_episode_steps)
+        if self.max_accum_force > 0:
+            episode_over = episode_over | (m["force_terminate"] > 0)  # ForceTerminate
+        if self.cv_ends_episode:
+            episode_over = episode_over | (violation > 0.0)
+        done = episode_over | (m["success"] > 0)  # sub-tasks end on success
+        reward = self._reward(prev_m, m)
+        info = dict(m)
+        info["did_violate_hold_constraint"] = info["constraint_violation"]
+        # called stop without having succeeded (reference BadCalledTerminate)
+        info["bad_called_terminate"] = (state.stop_called & ~(m["success"] > 0)).float()
+        if self.task in REWARD_KEYS:
+            info[REWARD_KEYS[self.task]] = reward
+        if self.task == "rearrange":
+            info["pddl_subgoal_reward"] = reward
+        if self.measure_keys is not None:
+            info = {k: info[k] for k in self.measure_keys if k in info}
+
+        # masked auto-reset
+        ep_ptr = torch.where(done, state.ep_ptr + 1, state.ep_ptr)
+        ep_next = self.order[n_idx, ep_ptr % self._order_len]
+        fresh = self._fresh(ep_next)
+
+        def sel(new, old):
+            return torch.where(done.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)
+
+        state = RearrangeState(**{
+            k: sel(getattr(fresh, k), v) for k, v in _tensor_fields(state).items()
+            if k not in ("ep_ptr", "ep_idx", "episode_over", "episode_count")
+        }, ep_ptr=ep_ptr, ep_idx=torch.where(done, ep_next, state.ep_idx), episode_over=episode_over,
+            episode_count=state.episode_count + done.to(torch.int32))
+        return state, self._observations(state), reward, done, info

@@ -7,6 +7,8 @@ conftest imports JAX, which the card's machine lacks, so run them with
 This file imports no JAX.
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -1005,3 +1007,130 @@ def test_settle_objects_runs_on_the_card_by_default(card):
     got = rgen.settle_objects(init, valid, floor)
     assert isinstance(got, np.ndarray) and got.shape == init.shape and np.isfinite(got).all()
     assert (got[..., 1] >= floor[:, None] - 1e-6)[valid].all()
+
+
+# -- the rearrangement env on the card ---------------------------------------
+
+
+def _rearrange_envs(dynamics, with_visual=False, n=8):
+    """The same envs on the CPU and on the card, on the CPU env's table."""
+    env_c = rgen.make_rearrange_env(device="cpu", num_envs=n, task="pick", num_scenes=1, episodes_per_scene=8,
+                                    seed=0, with_visual=with_visual, render_size=(32, 32), dynamics=dynamics)
+    env_g = renv.RearrangeBatchedEnv(env_c.pack, env_c.table, env_c.order.numpy(), task="pick",
+                                     with_visual=with_visual, render_size=(32, 32), dynamics=dynamics,
+                                     device=torch.device("cuda"))
+    return env_c, env_g
+
+
+def _greedy(obs):
+    """Discrete greedy action toward the pick target (tests/test_rearrange.py:53-73)."""
+    rel = obs["obj_start_sensor"]
+    dist = torch.sqrt(rel[:, 0] ** 2 + rel[:, 2] ** 2)
+    ang = torch.atan2(-rel[:, 0], -rel[:, 2])
+    act = torch.where(ang.abs() < np.deg2rad(12), renv.A_FWD, torch.where(ang > 0, renv.A_LEFT, renv.A_RIGHT))
+    return torch.where(dist < 0.7, renv.A_GRAB, act).to(torch.int32)
+
+
+@pytest.mark.parametrize("dynamics", ["kinematic", "contacts"])
+def test_rearrange_step_on_card_matches_cpu(card, dynamics):
+    """One env step on the card from each state of a CPU greedy drive, on the
+    CPU env's own table: the same done and held; boxes within 1e-5 (6e-5 m
+    under contacts, the robot contact's own bound); observations, reward and
+    measures within 1e-5, except in the envs whose boxes the contact step
+    moved, where they follow the boxes (1e-5 plus twice the step's largest
+    box gap; the robot force at the contact gates' 1e-3 + 1e-4 relative)."""
+    env_c, env_g = _rearrange_envs(dynamics)
+    real_step = renv.contact_step
+    sc, oc = env_c.reset_fn()
+    for _ in range(30):
+        a = _greedy(oc)
+        moved = torch.zeros(sc.held.shape, dtype=torch.bool)
+
+        def contact_seen(*args, **kw):
+            out = real_step(*args, **kw)
+            moved.copy_(((out[0] != args[0]).any(-1) & args[2]).any(-1))
+            return out
+
+        with mock.patch.object(renv, "contact_step", contact_seen):
+            s1, o1, r1, d1, i1 = env_c.step_fn(sc, a)
+        sg, og, rg, dg, ig = env_g.step_fn(sc.to(card), a.to(card))
+        assert torch.equal(dg.cpu(), d1) and torch.equal(sg.held.cpu(), s1.held)
+        box_gap = (sg.obj_pos.cpu() - s1.obj_pos).abs().max().item()
+        assert box_gap <= (1e-5 if dynamics == "kinematic" else 6e-5)
+        tol = torch.where(moved, 1e-5 + 2 * box_gap, 1e-5)
+        for k, g, c in [("reward", rg, r1)] + [(k, og[k], o1[k]) for k in o1] + [(k, ig[k], i1[k]) for k in i1]:
+            d = (g.cpu() - c).abs().reshape(len(tol), -1).amax(-1)
+            allowed = tol
+            if k in ("robot_force", "articulated_agent_force"):
+                allowed = torch.where(moved, 1e-3 + 1e-4 * c.abs(), tol)
+            assert (d <= allowed).all(), (k, d, allowed)
+        sc, oc = s1, o1
+
+
+@pytest.mark.parametrize("dynamics", ["kinematic", "contacts"])
+def test_rearrange_step_makes_no_host_sync(card, dynamics):
+    """step_fn without the render never waits on the card: grasp, release,
+    the drop's snap to the navgrid and the contact step included."""
+    _, env = _rearrange_envs(dynamics, n=16)
+    st, obs = env.reset_fn()
+    for a in (_greedy(obs), torch.full((16,), renv.A_GRAB, dtype=torch.int32, device=card)):
+        env.step_fn(st, a)  # warm up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            st, obs, _, _, _ = env.step_fn(st, _greedy(obs))
+        env.step_fn(st, torch.full((16,), renv.A_GRAB, dtype=torch.int32, device=card))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_rearrange_step_with_the_render_makes_no_host_sync(card):
+    """The head render too: its scene tables, the sky colour and the
+    dynamic geometry's constants are made once per device."""
+    _, env = _rearrange_envs("kinematic", with_visual=True, n=16)
+    st, obs = env.reset_fn()
+    env.step_fn(st, _greedy(obs))  # warm up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            st, obs, _, _, _ = env.step_fn(st, _greedy(obs))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_navgrid_makes_no_host_sync(card):
+    from habitat_torch.ops import navgrid as ng
+
+    scenes, _ = rgen.make_procedural_rearrange(num_scenes=2, episodes_per_scene=1)
+    pack = pack_scenes(scenes).to(card)
+    rng = np.random.default_rng(0)
+    sid = torch.as_tensor(np.arange(64) % 2, device=card)
+    pos = torch.as_tensor(np.c_[rng.uniform(0, 8, 64), np.zeros(64), rng.uniform(0, 8, 64)].astype(np.float32),
+                          device=card)
+    ng.snap_to_navigable(pack, sid, pos)
+    ng.try_step(pack, sid, pos, pos + 0.25)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ng.snap_to_navigable(pack, sid, pos)
+        ng.try_step(pack, sid, pos, pos + 0.25)
+        ng.is_navigable(pack, sid, pos)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_rearrange_render_launches_the_index_kernel_twice(card):
+    """The head render with dynamic geometry: #3 on the static scene and on
+    the per-env pass, once each; frames equal the CPU's on >= 99.9% of
+    pixels."""
+    env_c, env_g = _rearrange_envs("kinematic", with_visual=True)
+    sc, oc = env_c.reset_fn()
+    before = rk.raycast_index_t.launches
+    og = env_g._observations(sc.to(card))
+    torch.cuda.synchronize()
+    assert rk.raycast_index_t.launches == before + 2
+    hit_c, hit_g = oc["robot_head_depth"] < 1.0, og["robot_head_depth"].cpu() < 1.0
+    assert (hit_c == hit_g).float().mean() >= 0.999
+    assert ((og["robot_head_rgb"].cpu().int() - oc["robot_head_rgb"].int()).abs() <= 1).all(-1).float().mean() >= 0.999

@@ -1,6 +1,7 @@
 """The port stands alone: nothing under habitat_torch/, nothing in
 chip_smoke.py and nothing in scripts/eval_flagship_torch.py imports JAX,
-Flax, Optax, Orbax or the habitat_tpu package."""
+Flax, Optax, Orbax, gymnasium (the card's machine has none) or the
+habitat_tpu package."""
 
 import ast
 import os
@@ -8,7 +9,7 @@ import os
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "habitat_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gymnasium", "habitat_tpu")
 
 
 def _port_files():
@@ -32,6 +33,9 @@ def test_port_files_found():
     files = _port_files()
     assert os.path.join(ROOT, "chip_smoke.py") in files
     assert len(files) > 15
+    for module in ("tasks/rearrange/rearrange_env.py", "tasks/rearrange/generator.py", "ops/navgrid.py",
+                   "models/policy.py", "baselines/ppo.py"):
+        assert os.path.join(ROOT, "habitat_torch", module) in files
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))

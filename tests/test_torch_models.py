@@ -107,6 +107,34 @@ def test_actor_critic_bf16_matches():
     _compare_policy(jpol, params, tpol, obs, hidden, prev, masks)
 
 
+def test_rearrange_policy_bf16_matches():
+    """Vision Pick's policy (resnet9, LSTM-128, no goal sensor): the head
+    cameras as rgb/depth and the six rearrangement state sensors, each
+    through its own Dense(32) in the JAX package's key order; keys the net
+    does not read ride along in the observations."""
+    from habitat_torch.models.policy import STATE_KEYS
+
+    rng = np.random.default_rng(3)
+    n, hw = 4, (64, 64)
+    img = _obs(rng, n, hw, keys=("rgb", "depth"))
+    obs = {"robot_head_rgb": img["rgb"], "robot_head_depth": img["depth"]}
+    widths = dict(obj_start_sensor=3, obj_goal_sensor=3, joint=7, is_holding=1, ee_pos=3,
+                  relative_resting_position=3, abs_obj_start_sensor=3, localization_sensor=4)
+    for k, w in widths.items():
+        obs[k] = rng.normal(0, 1, (n, w)).astype(np.float32)
+    hidden = jnp.asarray(rng.normal(0, 0.5, (n, 1, 2, 128)).astype(np.float32))
+    prev = np.array([0, 4, 2, 3], np.int32)
+    masks = np.array([1, 0, 1, 1], np.float32)
+    jpol = jax_policy(5, backbone="resnet9", hidden_size=128, goal_keys=())
+    params = jpol.init(jax.random.PRNGKey(4), obs, hidden, jnp.asarray(prev), jnp.asarray(masks))
+    params = {"params": _perturb_affine(params["params"], rng)}
+    state_keys = {k: widths[k] for k in reversed(STATE_KEYS)}  # declared in any order
+    tpol = make_pointnav_resnet_policy(5, backbone="resnet9", hidden_size=128, goal_keys=(), input_hw=hw,
+                                       state_keys=state_keys, device="cpu")
+    assert tpol.net.state_keys == STATE_KEYS
+    _compare_policy(jpol, params, tpol, obs, hidden, prev, masks)
+
+
 def test_flagship_checkpoint_converts():
     import orbax.checkpoint as ocp
 
