@@ -185,6 +185,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            float64 result as in [contacts]; held, done and success equal;
            the frames' hit/miss and semantics equal on >= PICK_FRAME_AGREE
            of pixels; #3 twice per render.
+14. config the user's entry point from YAML (CONFIG_*): (a) `python -m
+           habitat_torch.baselines.run --config-name=pointnav/
+           ppo_pointnav_example` through run.main at the config's own width
+           (16 envs, 128x128 depth, resnet18 + LSTM-512, T=32, 2 minibatches,
+           2 epochs), CONFIG_UPDATES updates on the card, with TensorBoard
+           output: #1 launched 1 + CONFIG_UPDATES x 32 times, #11 2 x 2 x
+           CONFIG_UPDATES, no plain version on a card tensor; (b) `--run-type
+           eval` from its `latest`: parameters bit-equal to the trained ones,
+           test_episode_count // 16 episodes per env counted, success and SPL,
+           #1 once per render; (c) env_from_config(pick_procgen.yaml,
+           num_envs=128) equal to the [pick-contacts] env built by hand, bit
+           for bit, at the reset and over CONFIG_GREEDY_STEPS greedy steps;
+           (d) a declared-actions env (arm with a suction grip, base, stop;
+           declared state sensors and measures) at N=128 under contacts:
+           CONFIG_SPEC_STEPS steps under torch.cuda.set_sync_debug_mode
+           ("error"), and CONFIG_SPEC_CHECKS of them against the CPU as in
+           [pick-contacts], then the suction grip against the CPU from placed
+           states: a held box kept and a box at the EE grabbed (the target
+           held after the step in every env), a held box released (held
+           nowhere after it, the contact step moving a box) and its fall over
+           PICK_DROP_STEPS steps. The TensorBoard events file must exist.
+           The phase must end within CONFIG_SECONDS.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
@@ -286,12 +308,14 @@ PICK = dict(num_envs=128, task="pick", num_scenes=8, episodes_per_scene=16, seed
 PICK_TRAIN = dict(num_steps=64, num_mini_batch=2, ppo_epoch=2, lr=2.5e-4)
 PICK_TRAIN_STEPS = 3
 PICK_GREEDY_STEPS = 150
-# [pick-contacts]: pick_procgen.yaml as habitat_tpu/core/construct.py:504-670
+# [pick-contacts]: pick_procgen.yaml as habitat_torch/core/construct.py
 # builds it (pick, discrete, Fetch, contacts, 128x128 head cameras, 2 scenes
 # x 16 episodes, 2 rooms per axis, 3 clutter, 3 objects, 300 steps, success
-# reward 10, slack -0.01) at the [contacts] scale N=128: the reset (with
+# reward 10, slack -0.01) at the [contacts] scale N=128, seeded 0 (the yaml's
+# habitat.seed is 100; [config] builds both with it): the reset (with
 # settling) and the greedy controller for PICK_CONTACTS_STEPS steps; the card
-# against the CPU at N=PICK_CHECK_ENVS
+# against the CPU at N=PICK_CHECK_ENVS, the greedy step that moved the most
+# boxes among the states compared (seed 0's greedy episode moves boxes)
 PICK_CONTACTS = dict(num_envs=128, task="pick", num_scenes=2, episodes_per_scene=16, seed=0, render_size=(128, 128),
                      n_rooms_per_axis=2, n_clutter=3, num_objects=3, max_episode_steps=300, success_reward=10.0,
                      slack_reward=-0.01, dynamics="contacts")
@@ -299,6 +323,32 @@ PICK_CONTACTS_STEPS = 64
 PICK_CHECK_ENVS = 8
 PICK_FRAME_AGREE = 0.999
 PICK_DROP_STEPS = 3  # teacher-forced steps from a release: the box leaves the EE, falls, lands
+# [config]: the user's entry point on the repo's example experiment at its own
+# width (ppo_pointnav_example.yaml: 16 envs, 128x128 depth, resnet18 +
+# LSTM-512, T=32, 2 minibatches, 2 epochs, test_episode_count 2), CONFIG_UPDATES
+# updates; pick_procgen.yaml's env built from the config against the
+# [pick-contacts] env built by hand over CONFIG_GREEDY_STEPS greedy steps; a
+# declared-actions env (arm, base and stop specs) at N=128 for
+# CONFIG_SPEC_STEPS steps without a host sync, CONFIG_SPEC_CHECKS of them
+# and the suction grip's hold, grab and release against the CPU
+CONFIG_EXPERIMENT = "pointnav/ppo_pointnav_example"
+CONFIG_UPDATES = 3
+CONFIG_GREEDY_STEPS = 3
+CONFIG_SPEC_DECLARED = ("habitat.task.actions.arm_action.type=ArmAction",
+                        "habitat.task.actions.arm_action.grip_controller=SuctionGraspAction",
+                        "habitat.task.actions.base_velocity.type=BaseVelAction",
+                        "habitat.task.actions.rearrange_stop.type=RearrangeStopAction",
+                        "habitat.task.lab_sensors.joint.type=JointSensor",
+                        "habitat.task.lab_sensors.ee_pos.type=EEPositionSensor",
+                        "habitat.task.lab_sensors.is_holding.type=IsHoldingSensor",
+                        "habitat.task.lab_sensors.target_start.type=TargetStartSensor",
+                        "habitat.task.measurements.ee_to_object.type=EndEffectorToObjectDistance",
+                        "habitat.task.measurements.pick_success.type=RearrangePickSuccess",
+                        "habitat.task.measurements.force.type=RobotForce")
+CONFIG_SPEC_STOP = 0.02  # the share of env steps whose rearrange_stop slot calls stop
+CONFIG_SPEC_STEPS = 16
+CONFIG_SPEC_CHECKS = (0, 7, 15)
+CONFIG_SECONDS = 60.0
 # in an env whose boxes the contact step moved, a state sensor or the reward
 # is held to 1e-5 plus this many times the card's largest box-position gap:
 # obj_start_sensor turns an xz offset (at most sqrt(2) of the largest
@@ -1077,7 +1127,8 @@ def env_like(env, device, idx=None, with_visual=None):
                                max_episode_steps=env.max_episode_steps,
                                with_visual=env.with_visual if with_visual is None else with_visual,
                                render_size=env.render_size, dynamics=env.dynamics, success_reward=env.success_reward,
-                               slack_reward=env.slack_reward, device=device)
+                               slack_reward=env.slack_reward, control=env.control, action_specs=env.action_specs,
+                               device=device)
 
 
 def state_rows(st, idx):
@@ -1370,7 +1421,8 @@ def step_against_cpu(tag, env_c, env_g, s, acts, dev):
     if not (hit >= PICK_FRAME_AGREE and sem >= PICK_FRAME_AGREE):
         fail(f"[pick-contacts] {tag}: frames agree on {hit} (hit/miss) and {sem} (semantics) of pixels")
     return dict(moved=int(moved.sum()), gap=gap, still=d[~near].max().item() if (~near).any() else 0.0,
-                near=d[near].max().item() if near.any() else 0.0, frames=min(hit, sem), next=sc)
+                near=d[near].max().item() if near.any() else 0.0, frames=min(hit, sem), next=sc,
+                success=ic["success"])
 
 
 def pick_contacts_phase(gpu, dev, zero_counts, path_counts):
@@ -1498,12 +1550,13 @@ def pick_contacts_phase(gpu, dev, zero_counts, path_counts):
         moved_envs.append(moved_boxes(calls["card"]).any(-1).nonzero().flatten().cpu())
     t_best = max(range(steps), key=lambda t: len(moved_envs[t]))
     greedy_moved = sum(len(m) for m in moved_envs)
-    if len(moved_envs[t_best]):
-        idx = moved_envs[t_best][:n]
-        s_, a_ = states[t_best]
-        checks[f"greedy step {t_best}"] = step_against_cpu(
-            f"greedy step {t_best}", env_like(env, "cpu", idx), env_like(env, dev, idx), state_rows(s_, idx).to("cpu"),
-            a_[idx.to(dev)].cpu(), dev)
+    if not len(moved_envs[t_best]):
+        fail("[pick-contacts] the greedy episode's contact steps moved no box: no greedy state to compare")
+    idx = moved_envs[t_best][:n]
+    s_, a_ = states[t_best]
+    checks[f"greedy step {t_best}"] = step_against_cpu(
+        f"greedy step {t_best}", env_like(env, "cpu", idx), env_like(env, dev, idx), state_rows(s_, idx).to("cpu"),
+        a_[idx.to(dev)].cpu(), dev)
     log(f"[pick-contacts] card vs CPU at N<={n} from the same states on the episode's table: held, done, success and "
         f"the grasp-constraint flag equal; state sensors and reward within 1e-5 where no box moved, within 1e-5 + "
         f"{MOVED_SENSOR_FACTOR} |dp| where one did; the contact step within its float64 gates; frames' hit/miss and "
@@ -1514,6 +1567,224 @@ def pick_contacts_phase(gpu, dev, zero_counts, path_counts):
         + f". The greedy episode's contact steps moved boxes in {greedy_moved} env-steps of {steps} x {N}; the "
         f"phase {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def same_tensors(tag, a, b):
+    """Fails unless the dicts or dataclasses of tensors ``a`` and ``b`` hold
+    the same keys and equal tensors, bit for bit."""
+    import dataclasses
+
+    import torch
+
+    if dataclasses.is_dataclass(a):
+        a, b = ({f.name: getattr(x, f.name) for f in dataclasses.fields(x)} for x in (a, b))
+    if set(a) != set(b):
+        fail(f"[config] {tag}: keys {sorted(a)} against {sorted(b)}")
+    for k in a:
+        if dataclasses.is_dataclass(a[k]):
+            same_tensors(f"{tag}.{k}", a[k], b[k])
+        elif not torch.equal(a[k], b[k]):
+            fail(f"[config] {tag}: {k} differs")
+
+
+def config_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card):
+    """[config]: the run entry point trains and evaluates
+    ppo_pointnav_example.yaml on the card; pick_procgen.yaml's env from the
+    config equals the one built by hand; a declared-actions env steps
+    without a host sync and agrees with the CPU, its suction grip holding,
+    grabbing and releasing. Returns the launch counts of the train and eval
+    runs."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from habitat_torch.baselines import run
+    from habitat_torch.config.default import get_config
+    from habitat_torch.core import construct
+    from habitat_torch.tasks.rearrange.generator import make_rearrange_env
+
+    t_phase = time.perf_counter()
+    trainers = []
+    build, build_env = construct.trainer_from_config, construct.env_from_config
+
+    def kept(*a, **k):
+        trainers.append(build(*a, **k))
+        return trainers[-1]
+
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.object(construct, "trainer_from_config", kept):
+        args = [f"--config-name={CONFIG_EXPERIMENT}", f"habitat_baselines.checkpoint_folder={tmp}/ckpt",
+                f"habitat_baselines.tensorboard_dir={tmp}/tb", "habitat_baselines.log_interval=1"]
+        cfg = get_config(CONFIG_EXPERIMENT + ".yaml")
+        hb = cfg.habitat_baselines
+        n, T = hb.num_environments, hb.rl.ppo.num_steps
+        steps = CONFIG_UPDATES * n * T
+        # (a) train: the reset's render and one per rollout step through #1,
+        # one max-pool backward per minibatch of each epoch
+        zero_counts()
+        for p in plain_watch:
+            p.start()
+        t0 = time.perf_counter()
+        metrics = run.main(args + [f"habitat_baselines.total_num_steps={steps}"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        for p in plain_watch:
+            p.stop()
+        train = path_counts("[config] run.main train", raycast_fused_sel_t=1 + CONFIG_UPDATES * T,
+                            max_pool_3x3s2_bwd=CONFIG_UPDATES * hb.rl.ppo.ppo_epoch * hb.rl.ppo.num_mini_batch)
+        trainer = trainers[-1]
+        enc = trainer.policy.net.encoder
+        if (trainer.env.device.type != dev.type or trainer.num_updates_done != CONFIG_UPDATES
+                or enc.visual_inputs != ("depth",) or trainer.policy.net.hidden_size != 512
+                or not all(v == v for v in metrics.values())):
+            fail(f"[config] the trained run: device {trainer.env.device}, {trainer.num_updates_done} updates, "
+                 f"inputs {enc.visual_inputs}, metrics {metrics}")
+        tb = os.listdir(os.path.join(tmp, "tb")) if os.path.isdir(os.path.join(tmp, "tb")) else []
+        if not any(f.startswith("events.out.tfevents") for f in tb):
+            fail(f"[config] tensorboard_dir holds no TensorBoard events file: {tb}")
+        final = {k: v.clone() for k, v in trainer.policy.state_dict().items()}
+        # (b) eval from that latest: one render per env step and the reset's
+        zero_counts()
+        for p in plain_watch:
+            p.start()
+        env_steps = []
+
+        def counted(env):
+            step = env.step_fn
+
+            def run_step(*a):
+                env_steps.append(1)
+                return step(*a)
+            env.step_fn = run_step
+            return env
+
+        with mock.patch.object(construct, "env_from_config", lambda *a, **k: counted(build_env(*a, **k))):
+            t0 = time.perf_counter()
+            ev = run.main(args + ["--run-type", "eval"])
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+        for p in plain_watch:
+            p.stop()
+        evl = path_counts("[config] run.main eval", raycast_fused_sel_t=1 + len(env_steps))
+        loaded = trainers[-1].policy.state_dict()
+        if not all(torch.equal(final[k], loaded[k]) for k in final):
+            fail("[config] the evaluated parameters differ from the trained ones")
+        per_env = max(1, hb.test_episode_count // n)
+        if ev.get("num_episodes") != per_env * n:
+            fail(f"[config] eval counted {ev.get('num_episodes')} episodes, want {per_env} x {n}")
+    if plain_on_card:
+        fail(f"[config]: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+    log(f"[config] {gpu}: python -m habitat_torch.baselines.run --config-name={CONFIG_EXPERIMENT} at its own width "
+        f"({n} envs, {hb.rl.ddppo.backbone} {list(enc.visual_inputs)} "
+        f"{trainer.env.observation_shapes['depth'][0]}, LSTM-{trainer.policy.net.hidden_size}, T={T}): "
+        f"{CONFIG_UPDATES} updates in {train_s:.1f} s with the set-up (losses/learner_loss "
+        f"{metrics['losses/learner_loss']:.4f}), launches #1 {train['raycast_fused_sel_t']} (1 + {CONFIG_UPDATES} x "
+        f"{T}) and #11 {train['max_pool_3x3s2_bwd']}; tensorboard files {len(tb)}; --run-type eval from latest "
+        f"(parameters bit-equal) in {eval_s:.1f} s: {ev['num_episodes']:.0f} episodes, success {ev['success']:.4f}, "
+        f"SPL {ev['spl']:.4f}, {len(env_steps)} env steps, #1 launches {evl['raycast_fused_sel_t']}; no plain "
+        f"version on a card tensor")
+
+    # (c) pick_procgen.yaml from the config against the [pick-contacts] env
+    t0 = time.perf_counter()
+    pick_cfg = get_config("benchmark/rearrange/pick_procgen.yaml")
+    zero_counts()
+    by_cfg = construct.env_from_config(pick_cfg, num_envs=PICK_CONTACTS["num_envs"])
+    by_hand = make_rearrange_env(with_visual=True, device=dev, **{**PICK_CONTACTS, "seed": pick_cfg.habitat.seed})
+    same_tensors("pick tables", by_cfg.table, by_hand.table)
+    same_tensors("pick orders", {"order": by_cfg.order}, {"order": by_hand.order})
+    # the yaml declares no lab sensor and no measure: the config's env emits
+    # the head frames and its bookkeeping measures, each equal to the hand
+    # env's; both take the greedy controller's actions on the hand env's
+    # state sensors
+    (sc, oc), (sh, oh) = by_cfg.reset_fn(), by_hand.reset_fn()
+    for t in range(CONFIG_GREEDY_STEPS + 1):
+        same_tensors(f"pick state {t}", sc, sh)
+        same_tensors(f"pick obs {t}", oc, {k: oh[k] for k in oc})
+        if t == CONFIG_GREEDY_STEPS:
+            break
+        act = greedy_pick(oh)
+        sc, oc, rc_, dc, ic = by_cfg.step_fn(sc, act)
+        sh, oh, rh, dh, ih = by_hand.step_fn(sh, act)
+        same_tensors(f"pick step {t}", dict(reward=rc_, done=dc, **ic), dict(reward=rh, done=dh, **{k: ih[k] for k in ic}))
+    renders = 2 * (1 + CONFIG_GREEDY_STEPS)
+    pick = path_counts("[config] pick_procgen env", raycast_index_t=2 * renders)
+    log(f"[config] env_from_config(pick_procgen.yaml, num_envs={by_cfg.num_envs}) equals the [pick-contacts] env "
+        f"built by hand bit for bit (tables, order, the reset and {CONFIG_GREEDY_STEPS} greedy steps: state, "
+        f"observations {sorted(oc)}, reward, done, info {sorted(ic)}), {time.perf_counter() - t0:.1f} s; #3 launches "
+        f"{pick['raycast_index_t']} (twice per render, {renders} renders)")
+
+    # (d) declared actions: arm (joint deltas + suction grip), base, stop;
+    # state sensors and measures declared
+    t0 = time.perf_counter()
+    spec_cfg = get_config("benchmark/rearrange/pick_procgen.yaml", list(CONFIG_SPEC_DECLARED))
+    env = construct.rearrange_env_from_config(spec_cfg, num_envs=PICK_CONTACTS["num_envs"], with_visual=False)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shape = (CONFIG_SPEC_STEPS, env.num_envs, env.action_dim)
+    acts = torch.rand(shape, generator=gen, device=dev) * 2 - 1
+    stop = torch.rand(shape[:2], generator=gen, device=dev) < CONFIG_SPEC_STOP
+    acts[..., -1] = torch.where(stop, 1.0, -1.0)
+    st, _ = env.reset_fn()
+    states = []
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(CONFIG_SPEC_STEPS):
+            states.append(st)
+            st, _, reward, done, _ = env.step_fn(st, acts[t])
+    except RuntimeError as e:
+        fail(f"[config] a declared-actions step synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    path_counts("[config] declared-actions steps")
+    idx = torch.arange(PICK_CHECK_ENVS)
+    env_c, env_g = env_like(env, "cpu", idx), env_like(env, dev, idx)
+    checks = {f"step {t}": step_against_cpu(f"[config] declared-actions step {t}", env_c, env_g,
+                                            state_rows(states[t], idx).to("cpu"), acts[t][idx.to(dev)].cpu(), dev)
+              for t in CONFIG_SPEC_CHECKS}
+    # the suction grip from placed states (random actions seldom bring the
+    # EE within grasp distance): each env's target box held and kept (grip
+    # slot > 0), the same box released (grip slot <= 0) and its fall
+    # teacher-forced, and the target box put at the EE and grabbed; the arm,
+    # base and stop slots idle
+    s0 = state_rows(states[0], idx).to("cpu")
+    target = env_c.table.pick_target[s0.ep_idx]
+    held = dataclasses.replace(s0, held=target)
+    at_ee = dataclasses.replace(s0, obj_pos=s0.obj_pos.index_put((torch.arange(len(idx)), target.long()),
+                                                                 env_c._ee_pos(s0)))
+    grip_at = sum(env._spec_dims[:list(env.action_names).index("arm_action") + 1]) - 1
+
+    def grip(g):
+        a = torch.zeros(len(idx), env.action_dim)
+        a[:, grip_at] = g
+        a[:, -1] = -1.0  # rearrange_stop: no stop
+        return a
+
+    for tag, s_, g in (("held box kept", held, 1.0), ("box at the EE grabbed", at_ee, 1.0)):
+        checks[tag] = step_against_cpu(f"[config] {tag}", env_c, env_g, s_, grip(g), dev)
+        if not (checks[tag]["success"] > 0).all():  # pick success: the target held after the step
+            fail(f"[config] {tag}: the target is held in {checks[tag]['success'].tolist()} of the envs")
+    s_ = held
+    for i in range(PICK_DROP_STEPS):
+        checks[f"release {i}"] = step_against_cpu(f"[config] release {i}", env_c, env_g, s_, grip(-1.0), dev)
+        s_ = checks[f"release {i}"]["next"]
+    if not (checks["release 0"]["next"].held < 0).all():
+        fail(f"[config] release 0: the suction grip released nothing, held {checks['release 0']['next'].held.tolist()}")
+    if not checks["release 0"]["moved"]:
+        fail("[config] release 0: the contact step moved no box")
+    dones = int(st.episode_count.sum().item())
+    log(f"[config] declared actions {list(env.action_names)} ({env.action_dim} floats, control {env.control}, "
+        f"{env.dynamics}), sensors {list(env.observation_shapes)}, measures {list(env.measure_keys)} at "
+        f"N={env.num_envs}: {CONFIG_SPEC_STEPS} steps under set_sync_debug_mode('error'), "
+        f"{dones} episodes ended by rearrange_stop, no launch; card vs CPU at N={PICK_CHECK_ENVS} from steps "
+        f"{list(CONFIG_SPEC_CHECKS)} and the grip's held, grab and release states: " + "; ".join(
+            f"{tag}: {c['moved']} boxes moved, |dp| {c['gap']['p']:.2e}, sensors/reward {c['still']:.2e} still / "
+            f"{c['near']:.2e} moved" for tag, c in checks.items()) + f"; {time.perf_counter() - t0:.1f} s")
+    wall = time.perf_counter() - t_phase
+    log(f"[config] the phase {wall:.1f} s")
+    if wall > CONFIG_SECONDS:
+        fail(f"[config] took {wall:.1f} s, more than {CONFIG_SECONDS} s")
+    return dict(train=train, eval=evl)
 
 
 def main():
@@ -2682,6 +2953,14 @@ def main():
     torch.cuda.empty_cache()
     pc_launches = pick_contacts_phase(gpu, dev, zero_counts, path_counts)
     index_row["pick_contacts_launches"] = pc_launches["raycast_index_t"]
+
+    # ---- 14. the config path: run.main, env_from_config, declared actions -
+    log(f"[config] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    cf_launches = config_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
+    sel["config_train_launches"] = cf_launches["train"]["raycast_fused_sel_t"]
+    sel["config_eval_launches"] = cf_launches["eval"]["raycast_fused_sel_t"]
+    pool_row["config_train_launches"] = cf_launches["train"]["max_pool_3x3s2_bwd"]
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 

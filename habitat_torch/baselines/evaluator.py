@@ -7,11 +7,13 @@ all envs run batched, and "pausing" a finished env is an accounting mask.
 Each env has an episode quota, its share of the eval set, and episodes it
 finishes beyond the quota are not counted.
 
+``evaluate_from_config`` is the config entry (``run.py --run-type eval``):
+the trainer's ``latest`` checkpoint, ``test_episode_count`` episodes.
+
 Not ported yet, and raising ``NotImplementedError``: Gaussian
 (continuous-action) policies, which need ``GaussianActorCritic`` (ROADMAP
 Queue 1 item 4); eval videos, TensorBoard output and the TopDownMap tracker
 (``video_option``, ``tb_writer``, ``map_tracker``; Queue 1 items 4 and 6).
-``evaluate_from_config`` waits for the config tree (Queue 1 item 6), so
 ``eval_checkpoint_loop`` takes its two settings as keywords.
 """
 
@@ -166,3 +168,27 @@ def eval_checkpoint_loop(
         with open(resume_path, "w") as f:
             json.dump({"prev_ckpt_ind": prev}, f)
     return results
+
+
+def evaluate_from_config(config, trainer) -> Dict[str, float]:
+    """Eval entry (reference BaseTrainer.eval, common/base_trainer.py:66):
+    loads the ``latest`` checkpoint of ``trainer`` when there is one and
+    ``habitat_baselines.eval.should_load_ckpt`` is set, then evaluates
+    ``test_episode_count // num_envs`` episodes per env (at least one; all of
+    each env's episodes when the count is not positive), sampling actions
+    from a generator seeded with ``habitat.seed``."""
+    env = trainer.env
+    latest = os.path.join(os.path.abspath(trainer.run_cfg.checkpoint_folder), "latest")
+    if os.path.exists(latest) and config.get_path("habitat_baselines.eval.should_load_ckpt", True):
+        trainer.load_checkpoint("latest")
+    count = int(config.get_path("habitat_baselines.test_episode_count", -1))
+    metrics = evaluate_agent(
+        env,
+        trainer.policy,
+        episodes_per_env=None if count <= 0 else max(1, count // env.num_envs),
+        evals_per_ep=int(config.get_path("habitat_baselines.eval.evals_per_ep", 1)),
+        deterministic=False,
+        seed=int(config.habitat.get("seed", 100)),
+    )
+    logger.info("eval: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items())))
+    return metrics

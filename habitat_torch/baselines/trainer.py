@@ -15,8 +15,13 @@ bookkeeping (common/base_trainer.py, rl/ppo/ppo_trainer.py):
   also requeues the SLURM job; ``train(resume=True)`` continues from
   ``.resume_state``.
 
-DD-PPO over several cards (``use_mesh``) and TensorBoard output
-(``tensorboard_dir``) are not ported yet and raise when set.
+- TensorBoard: with ``tensorboard_dir`` set, each update's metrics go to
+  ``utils/tb.TensorboardWriter`` at the step count (``metrics/<name>``
+  unless the name has a ``/``).
+
+Registered as the ``ppo`` trainer. DD-PPO over several cards
+(``use_mesh``, the ``ddppo`` trainer) and the ``ver`` trainer are not ported
+yet (ROADMAP Queue 1 item 5) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,7 +40,9 @@ import torch
 
 from habitat_torch.baselines.ppo import PPOConfig, PPOLearner, RolloutState
 from habitat_torch.core.batched_env import BatchedEnv, EnvState
+from habitat_torch.core.registry import registry
 from habitat_torch.models.policy import ActorCritic
+from habitat_torch.utils.tb import TensorboardWriter
 
 logger = logging.getLogger(__name__)
 
@@ -56,9 +63,7 @@ class TrainerConfig:
 
     def __post_init__(self):
         if self.use_mesh:
-            raise NotImplementedError("DD-PPO (use_mesh) is not ported to habitat_torch yet")
-        if self.tensorboard_dir:
-            raise NotImplementedError("tensorboard_dir is not ported to habitat_torch yet")
+            raise NotImplementedError("DD-PPO (use_mesh) is not ported to habitat_torch yet (ROADMAP Queue 1 item 5)")
 
 
 class EarlyStopper:
@@ -123,6 +128,7 @@ def _rollout_state_from_dict(d: Dict, dev: torch.device) -> RolloutState:
     return RolloutState(env_state=EnvState(**_to(d["env_state"], dev)), generator=gen, **fields)
 
 
+@registry.register_trainer(name="ppo")
 class PPOTrainer:
     def __init__(
         self,
@@ -208,6 +214,7 @@ class PPOTrainer:
         if resume and self.resume_state_exists():
             rs = self.load_checkpoint(".resume_state")
             logger.info("resumed at update %d, steps %d", self.num_updates_done, self.num_steps_done)
+        writer = TensorboardWriter(rc.tensorboard_dir) if rc.tensorboard_dir else None
         steps_per_update = self.ppo_cfg.num_steps * self.env.num_envs
         t_start = time.time()
         last_metrics: Dict[str, float] = {}
@@ -233,6 +240,9 @@ class PPOTrainer:
                     f"update {self.num_updates_done} steps {self.num_steps_done} fps {fps:.0f} "
                     + " ".join(f"{k}={v:.3f}" for k, v in sorted(last_metrics.items()))
                 )
+            if writer is not None:
+                for k, v in last_metrics.items():
+                    writer.add_scalar(k if "/" in k else f"metrics/{k}", v, self.num_steps_done)
             if self.should_checkpoint():
                 self.save_checkpoint(rs, f"ckpt.{self._ckpt_count}")
                 self.save_checkpoint(rs, "latest")
@@ -242,5 +252,18 @@ class PPOTrainer:
                 if stopper.should_requeue:
                     requeue_job()
                 break
+        if writer is not None:
+            writer.close()
         self.final_state = rs
         return last_metrics
+
+
+def _not_ported(name: str):
+    def build(*args, **kwargs):
+        raise NotImplementedError(f"the {name!r} trainer is not ported to habitat_torch yet (ROADMAP Queue 1 item 5)")
+
+    return build
+
+
+for _name in ("ddppo", "ver"):
+    registry.register_trainer(_not_ported(_name), name=_name)

@@ -34,6 +34,10 @@ from habitat_torch.tasks.nav import DepthSensor, VisualSensorSpec
 from habitat_torch.utils.geometry import yaw_to_forward
 
 
+# channels and dtype of each frame render_batch returns
+FRAME_LAYOUT = {"rgb": (3, torch.uint8), "depth": (1, torch.float32), "semantic": (1, torch.int32)}
+
+
 @dataclasses.dataclass
 class EnvState:
     """Batched env state (all N envs)."""
@@ -126,6 +130,22 @@ class BatchedEnv:
                 )
             )
 
+        # what the policy reads (the JAX package's action_space.n and
+        # observation_space): the state sensors' shapes from one fresh state,
+        # the frames' from their render groups, so building the env renders
+        # nothing
+        self.num_actions = len(self.actions)
+        ctx = self._make_ctx(self._fresh_state())
+        shapes = {}
+        for s in self.state_sensors:
+            v = s.compute(ctx)
+            shapes[s.uuid] = (tuple(v.shape[1:]), v.dtype)
+        for g in self._render_groups:
+            for uuid in g["uuids"]:
+                channels, dtype = FRAME_LAYOUT[uuid]
+                shapes[uuid] = ((g["h"], g["w"], channels), dtype)
+        self.observation_shapes = shapes
+
     # ------------------------------------------------------------------
 
     def _make_ctx(self, state: EnvState) -> StepContext:
@@ -174,13 +194,13 @@ class BatchedEnv:
         ctx = self._make_ctx(state)
         return {m.uuid: m.reset(ctx)[0] for m in self.measures}
 
-    def reset_fn(self) -> Tuple[EnvState, Dict[str, torch.Tensor]]:
+    def _fresh_state(self) -> EnvState:
+        """Every env at the start of its first episode, measures not reset."""
         n, dev = self.num_envs, self.device
-        ep_ptr = torch.zeros(n, dtype=torch.int32, device=dev)
         ep_idx = self.order[self._env_ids, 0]
         pos = self.table.start_pos[ep_idx]
-        state = EnvState(
-            ep_ptr=ep_ptr,
+        return EnvState(
+            ep_ptr=torch.zeros(n, dtype=torch.int32, device=dev),
             ep_idx=ep_idx,
             step=torch.zeros(n, dtype=torch.int32, device=dev),
             pos=pos,
@@ -195,6 +215,9 @@ class BatchedEnv:
             episode_count=torch.zeros(n, dtype=torch.int32, device=dev),
             measure_state={},
         )
+
+    def reset_fn(self) -> Tuple[EnvState, Dict[str, torch.Tensor]]:
+        state = self._fresh_state()
         state.measure_state = self._reset_measures(state)
         return state, self._observations(state)
 

@@ -1,0 +1,369 @@
+"""Config -> engine construction (port of ``habitat_tpu/core/construct.py``).
+
+Counterpart of the reference wiring: Env.__init__ (make_dataset/make_sim/
+make_task, core/env.py:70-137), EmbodiedTask._init_entities (registry-driven
+type resolution, core/embodied_task.py:275-292) and the baselines env factory
+(common/habitat_env_factory.py:19). Every ``type:`` string resolves through
+the registry under the JAX package's names, so the in-repo YAML composes
+into the port's envs, policy and trainer. Everything is built on ``device``
+(``None`` = cuda).
+
+Not ported yet, raising ``NotImplementedError`` (the ROADMAP Queue 1 item
+in the message): file datasets (PointNav-v1 episode archives on disk),
+ObjectNav and ImageNav; Gaussian (continuous-action) and
+``PointNavBaselinePolicy`` policies and ``normalize_visual_inputs``; the
+DD-PPO and VER trainers; hierarchical (HRL) and imitation (IL) trainers.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional
+
+import habitat_torch.models.policy  # noqa: F401  (registers the policies)
+import habitat_torch.tasks.nav  # noqa: F401  (registers the nav components)
+from habitat_torch.baselines.ppo import PPOConfig
+from habitat_torch.baselines.trainer import TrainerConfig
+from habitat_torch.config.omega import Config
+from habitat_torch.core.batched_env import BatchedEnv, RewardSpec
+from habitat_torch.core.dataset import build_env_episode_order, build_episode_table
+from habitat_torch.core.logging import logger
+from habitat_torch.core.registry import registry
+from habitat_torch.device import resolve_device
+from habitat_torch.models.policy import state_keys_of
+from habitat_torch.sims.scene import pack_scenes
+
+# the image-goal lab sensors of ImageNav (datasets/image_nav.py)
+IMAGE_GOAL_SENSORS = ("imagegoal", "instance_imagegoal", "instance_imagegoal_sensor")
+
+
+def load_dataset(ds_cfg: Config):
+    """Returns (scenes, episodes, precomputed_fields).
+
+    "PointNav-v1-Procedural" (or "PointNav-v1" whose ``data_path`` is not on
+    disk, with a warning, as the JAX package falls back): the built-in
+    procedural generator."""
+    from habitat_torch.datasets.pointnav import make_procedural_pointnav
+
+    ds_type = ds_cfg.get("type", "PointNav-v1")
+    proc = ds_cfg.get("procedural", Config())
+    data_path = (ds_cfg.get("data_path") or "").format(split=ds_cfg.get("split", "train"))
+
+    if ds_type.startswith("ObjectNav"):
+        raise NotImplementedError(
+            f"{ds_type} datasets wait for the port of datasets/object_nav.py (ROADMAP Queue 1 item 4)")
+    if ds_type == "PointNav-v1" and data_path and os.path.exists(data_path):
+        raise NotImplementedError(
+            f"episode files ({data_path}) wait for the port of datasets/pointnav.py::PointNavDatasetV1 and "
+            "sims/loaders.py (ROADMAP Queue 1 items 4 and 6)")
+    if ds_type == "PointNav-v1" and data_path:
+        logger.warning(f"dataset file {data_path!r} not found: falling back to the built-in procedural dataset")
+
+    return make_procedural_pointnav(
+        num_scenes=int(proc.get("num_scenes", 4)),
+        episodes_per_scene=int(proc.get("episodes_per_scene", 32)),
+        seed=int(proc.get("seed", 0)),
+        extent=float(proc.get("extent", 10.0)),
+        nav_res=float(proc.get("nav_res", 0.1)),
+        closest_dist_limit=float(proc.get("closest_dist_limit", 1.0)),
+        furthest_dist_limit=float(proc.get("furthest_dist_limit", 30.0)),
+        geodesic_to_euclid_ratio=float(proc.get("geodesic_to_euclid_ratio", 1.1)),
+    )
+
+
+def _sensor_instances(config: Config) -> List:
+    """Visual sensors from sim_sensors + lab sensors from task.lab_sensors."""
+    sensors = []
+    agents = config.habitat.simulator.get("agents", Config())
+    for agent_name in config.habitat.simulator.get("agents_order") or sorted(agents):
+        agent = agents[agent_name]
+        for _, s_cfg in sorted(agent.get("sim_sensors", Config()).items()):
+            sensors.append(registry.get_sensor(s_cfg["type"])(s_cfg))
+    for _, s_cfg in sorted(config.habitat.task.get("lab_sensors", Config()).items()):
+        sensors.append(registry.get_sensor(s_cfg["type"])(s_cfg))
+    return sensors
+
+
+def _measure_instances(config: Config) -> List:
+    """Declared measurement types resolve through the registry; an unknown
+    type raises (reference embodied_task.py:275-292)."""
+    return [registry.get_measure(m_cfg["type"])(m_cfg)
+            for _, m_cfg in sorted(config.habitat.task.get("measurements", Config()).items())]
+
+
+def _action_instances(config: Config) -> List:
+    sim = config.habitat.simulator
+    actions = []
+    for _, a_cfg in config.habitat.task.get("actions", Config()).items():
+        cls = registry.get_task_action(a_cfg["type"])
+        merged = Config(a_cfg.to_dict())
+        # nav actions read movement amounts from the simulator config
+        # (reference MoveForwardAction calls sim defaults)
+        merged["forward_step_size"] = sim.get("forward_step_size", 0.25)
+        merged["turn_angle"] = sim.get("turn_angle", 10)
+        merged["tilt_angle"] = sim.get("tilt_angle", 15)
+        actions.append(cls(merged))
+    # stable, reference-like ordering: stop first if present, then insertion
+    actions.sort(key=lambda a: not a.is_stop())
+    return actions
+
+
+def env_from_config(config: Config, num_envs: Optional[int] = None, device=None):
+    """The PointNav ``BatchedEnv``, or for ``Rearrange*`` task types the
+    ``RearrangeBatchedEnv``, that ``config`` describes, on ``device``."""
+    task_type = config.habitat.task.get("type", "Nav-v0")
+    if task_type.startswith("Rearrange"):
+        return rearrange_env_from_config(config, num_envs, device=device)
+    lab_sensors = config.habitat.task.get("lab_sensors", Config())
+    image_goals = [k for k in IMAGE_GOAL_SENSORS if k in lab_sensors]
+    if image_goals:
+        raise NotImplementedError(
+            f"image-goal sensors {image_goals} wait for the port of datasets/image_nav.py and ImageGoalSensor "
+            "(ROADMAP Queue 1 item 4)")
+    dev = resolve_device(device)
+    scenes, episodes, fields = load_dataset(config.habitat.dataset)
+    if num_envs is None:
+        num_envs = int(config.get_path("habitat_baselines.num_environments", 16))
+
+    task = config.habitat.task
+    reward_spec = RewardSpec(
+        reward_measure=task.get("reward_measure") or "distance_to_goal_reward",
+        success_measure=task.get("success_measure") or "success",
+        slack_reward=float(task.get("slack_reward", -0.01)),
+        success_reward=float(task.get("success_reward", 2.5)),
+        end_on_success=bool(task.get("end_on_success", False)),
+    )
+    scene_index = {s.scene_id: i for i, s in enumerate(scenes)}
+    table = build_episode_table(list(episodes), {s.scene_id: s for s in scenes}, scene_index,
+                                precomputed_fields=fields)
+    it_opts = config.habitat.environment.get("iterator_options", Config())
+    order = build_env_episode_order(
+        list(episodes),
+        num_envs,
+        group_by_scene=bool(it_opts.get("group_by_scene", True)),
+        shuffle=bool(it_opts.get("shuffle", True)),
+        seed=int(config.habitat.get("seed", 0)),
+    )
+    return BatchedEnv(
+        pack_scenes(list(scenes)),
+        table,
+        order,
+        _sensor_instances(config),
+        _measure_instances(config),
+        _action_instances(config),
+        device=dev,
+        max_episode_steps=int(config.habitat.environment.get("max_episode_steps", 500)),
+        reward_spec=reward_spec,
+        slide_substeps=int(config.habitat.simulator.get_path("tpu.slide_substeps", 4)),
+    )
+
+
+def policy_from_config(config: Config, env):
+    """The policy ``habitat_baselines.rl.policy.main_agent`` names, built for
+    ``env``'s actions, observations, frame size and device (the discrete
+    branch; a continuous-action env asks for ``GaussianResNetPolicy``)."""
+    hb = config.habitat_baselines
+    pol_cfg = hb.rl.policy.main_agent
+    shapes = env.observation_shapes
+    visual = tuple(k for k in ("rgb", "depth") if k in shapes or f"robot_head_{k}" in shapes)
+    if hb.get("force_blind_policy", False) or not visual:
+        raise NotImplementedError("blind policies (no rgb or depth input) are not ported yet (ROADMAP Queue 1 item 4)")
+    if not hasattr(env, "num_actions"):
+        # a Box action space (rearrange arm/base control): the gaussian head
+        return registry.get_policy("GaussianResNetPolicy")(env.action_dim)
+    if bool(pol_cfg.get("normalize_visual_inputs", False)):
+        raise NotImplementedError(
+            "normalize_visual_inputs waits for the port of models/running_mean_and_var.py (ROADMAP Queue 1 item 4)")
+    rnn_type = hb.rl.ddppo.get("rnn_type", "LSTM")
+    if rnn_type != "LSTM":
+        raise NotImplementedError(f"rnn_type={rnn_type!r}: the port has the LSTM state encoder only")
+    frame = next(shapes[k] for k in ("depth", "rgb", "robot_head_depth", "robot_head_rgb") if k in shapes)
+    goal_uuid = config.habitat.task.get("goal_sensor_uuid", "pointgoal_with_gps_compass")
+    builder = registry.get_policy(pol_cfg.get("name", "PointNavResNetPolicy"))
+    return builder(
+        env.num_actions,
+        visual_inputs=visual,
+        input_hw=tuple(frame[0][:2]),
+        backbone=hb.rl.ddppo.get("backbone", "resnet18"),
+        hidden_size=int(hb.rl.ppo.get("hidden_size", 512)),
+        num_recurrent_layers=int(hb.rl.ddppo.get("num_recurrent_layers", 1)),
+        goal_keys=(goal_uuid,) if goal_uuid in shapes else (),
+        state_keys=state_keys_of(shapes),
+        device=env.device,
+    )
+
+
+def hrl_trainer_from_config(config: Config, env):
+    raise NotImplementedError("hierarchical (HRL) trainers wait for the port of baselines/hrl/ (ROADMAP Queue 1 "
+                              "item 5)")
+
+
+def il_trainer_from_config(config: Config, trainer_name: str):
+    raise NotImplementedError(f"the imitation-learning trainer {trainer_name!r} waits for the port of baselines/il/ "
+                              "(ROADMAP Queue 1 item 5)")
+
+
+def trainer_from_config(config: Config, device=None):
+    """The trainer ``habitat_baselines.trainer_name`` names, with its env and
+    policy, on ``device``."""
+    hb = config.habitat_baselines
+    trainer_name = str(hb.get("trainer_name", "ppo"))
+    if trainer_name in ("eqa-cnn-pretrain", "vqa", "pacman"):
+        return il_trainer_from_config(config, trainer_name)
+    pol_main = hb.rl.policy.get("main_agent", Config()) or Config()
+    if str(hb.get("updater_name", "")).upper().startswith("HRL") or pol_main.get("hierarchical_policy", None):
+        return hrl_trainer_from_config(config, None)
+    trainer_cls = registry.get_trainer(trainer_name)
+    p = hb.rl.ppo
+    ppo_cfg = PPOConfig(
+        clip_param=float(p.clip_param),
+        ppo_epoch=int(p.ppo_epoch),
+        num_mini_batch=int(p.num_mini_batch),
+        value_loss_coef=float(p.value_loss_coef),
+        entropy_coef=float(p.entropy_coef),
+        lr=float(p.lr),
+        eps=float(p.eps),
+        max_grad_norm=float(p.max_grad_norm),
+        num_steps=int(p.num_steps),
+        gamma=float(p.gamma),
+        tau=float(p.tau),
+        use_clipped_value_loss=bool(p.get("use_clipped_value_loss", True)),
+        use_normalized_advantage=bool(p.get("use_normalized_advantage", False)),
+        use_adaptive_entropy_pen=bool(p.get("use_adaptive_entropy_pen", False)),
+    )
+    run_cfg = TrainerConfig(
+        total_num_steps=float(hb.get("total_num_steps", 1e6)),
+        checkpoint_folder=hb.get("checkpoint_folder", "data/checkpoints"),
+        tensorboard_dir=hb.get("tensorboard_dir", ""),
+        num_checkpoints=int(hb.get("num_checkpoints", 10)),
+        checkpoint_interval=int(hb.get("checkpoint_interval", -1)),
+        log_interval=int(hb.get("log_interval", 10)),
+        reward_window_size=int(p.get("reward_window_size", 50)),
+        use_mesh=trainer_name == "ddppo",
+        verbose=bool(hb.get("verbose", True)),
+    )
+    env = env_from_config(config, device=device)
+    return trainer_cls(env, policy_from_config(config, env), ppo_cfg, run_cfg)
+
+
+# rearrange task type -> the env's task (reference rearrange_task.py:32 + sub_tasks/)
+REARRANGE_TASKS = {
+    "RearrangePickTask-v0": "pick",
+    "RearrangePlaceTask-v0": "place",
+    "RearrangeEmptyTask-v0": "empty",
+    "RearrangeReachTask-v0": "reach",
+    "RearrangeCompositeTask-v0": "rearrange",
+    "RearrangePddlTask-v0": "rearrange",
+    "NavToObjTask-v0": "nav_to_obj",
+    "RearrangeOpenDrawerTask-v0": "open",
+    "RearrangeOpenFridgeTask-v0": "open",
+    "RearrangeCloseDrawerTask-v0": "close",
+    "RearrangeCloseFridgeTask-v0": "close",
+}
+
+
+def rearrange_env_from_config(
+    config: Config,
+    num_envs: Optional[int] = None,
+    with_visual: bool = True,
+    device=None,
+):
+    """Rearrange task types -> ``RearrangeBatchedEnv`` on ``device``.
+
+    Registry contract (reference core/embodied_task.py:275-292): every
+    declared ``lab_sensors``/``measurements``/``actions`` ``type:`` resolves
+    through the registry into the env's observations, measures and action
+    specs: an unknown type raises KeyError here, an unsupported one
+    ValueError at env construction, an unported one NotImplementedError."""
+    import habitat_torch.tasks.rearrange.sensors  # noqa: F401  (registrations)
+    from habitat_torch.tasks.rearrange.generator import make_rearrange_env
+    from habitat_torch.tasks.rearrange.task_actions import resolve_task_actions
+
+    if num_envs is None:
+        num_envs = int(config.get_path("habitat_baselines.num_environments", 16))
+    task_type = config.habitat.task.get("type", "RearrangePickTask-v0")
+    task = REARRANGE_TASKS.get(task_type, "pick")
+    # fridge tasks articulate a revolute door, drawer tasks a prismatic slide
+    art_joint = "revolute" if "Fridge" in task_type else "prismatic"
+    proc = config.habitat.dataset.get("procedural", Config())
+    # a declared arm_action maps onto the arm controller (reference ArmAction
+    # composite, actions.py:102: ArmRelPos* -> joint deltas, ArmEEAction ->
+    # IK)
+    actions_cfg = config.get_path("habitat.task.actions", Config()) or Config()
+    control = None
+    arm_cfg = actions_cfg.get("arm_action", None)
+    if arm_cfg is not None:
+        control = "arm_ee" if "EE" in str(arm_cfg.get("arm_controller", "ArmRelPosAction")) else "arm"
+    action_specs = None
+    if len(actions_cfg):
+        action_specs = resolve_task_actions(actions_cfg) or None
+    # count real agent entries: the composer flattens the default agent's
+    # fields (height/radius/...) into the agents dict; real agents are
+    # main_agent / agent_<i> nodes holding a config dict
+    agents = config.get_path("habitat.simulator.agents", Config()) or Config()
+    n_agents = sum(1 for k, v in agents.items() if hasattr(v, "get") and (k == "main_agent" or k.startswith("agent_")))
+    multi_agent = n_agents > 1
+    sensor_keys = None
+    lab_sensors = config.get_path("habitat.task.lab_sensors", None)
+    if lab_sensors is not None:
+        sensor_keys = []
+        for _, s_cfg in sorted(lab_sensors.items()):
+            sensor_keys.extend(getattr(registry.get_sensor(s_cfg["type"])(s_cfg), "keys", ()))
+        if with_visual:
+            sensor_keys.extend(["robot_head_depth", "robot_head_rgb"])
+        sensor_keys = None if multi_agent else tuple(dict.fromkeys(sensor_keys))
+    measure_keys = None
+    max_accum_force = -1.0
+    measurements = config.get_path("habitat.task.measurements", None)
+    if measurements is not None:
+        measure_keys = []
+        for _, m_cfg in sorted(measurements.items()):
+            measure_keys.extend(getattr(registry.get_measure(m_cfg["type"])(m_cfg), "keys", ()))
+            if m_cfg.get("type") == "ForceTerminate":
+                # live force semantics from the declared threshold
+                max_accum_force = float(m_cfg.get("max_accum_force", -1.0) or -1.0)
+        # the env's own bookkeeping keys stay available to wrappers
+        measure_keys.extend(["success", "num_steps"])
+        measure_keys = None if multi_agent else tuple(dict.fromkeys(measure_keys))
+    # the reference's default is Bullet dynamics (rearrange_sim.py:1017-1028):
+    # contacts unless habitat.simulator.tpu.dynamics says otherwise
+    dynamics = str(config.get_path("habitat.simulator.tpu.dynamics", None) or "contacts")
+    robot = "FetchRobot"
+    for _, ag in agents.items():
+        if not hasattr(ag, "get"):
+            continue
+        urdf = str(ag.get("articulated_agent_urdf", "") or "")
+        typ = str(ag.get("articulated_agent_type", "") or "")
+        for name in ("Spot", "Stretch", "Franka", "Fetch"):
+            if name.lower() in urdf.lower() or name in typ:
+                robot = f"{name}Robot"
+                break
+    return make_rearrange_env(
+        num_envs=num_envs,
+        task=task,
+        art_joint=art_joint,
+        num_scenes=int(proc.get("num_scenes", 2)),
+        episodes_per_scene=int(proc.get("episodes_per_scene", 16)),
+        n_rooms_per_axis=int(proc.get("n_rooms_per_axis", 2)),
+        n_clutter=int(proc.get("n_clutter", 3)),
+        num_objects=int(proc.get("num_objects", 3)),
+        seed=int(config.habitat.get("seed", 0)),
+        with_visual=with_visual,
+        render_size=(128, 128),
+        max_episode_steps=int(config.habitat.environment.get("max_episode_steps", 300)),
+        success_reward=float(config.habitat.task.get("success_reward", 10.0)),
+        slack_reward=float(config.habitat.task.get("slack_reward", -0.01)),
+        control=control,
+        robot=robot,
+        # reference RearrangeTask grasp-constraint flags
+        # (default_structured_configs.py:1489-1490)
+        constraint_violation_ends_episode=bool(config.habitat.task.get("constraint_violation_ends_episode", False)),
+        constraint_violation_drops_object=bool(config.habitat.task.get("constraint_violation_drops_object", False)),
+        sensor_keys=sensor_keys,
+        measure_keys=measure_keys,
+        action_specs=action_specs,
+        dynamics=dynamics,
+        max_accum_force=max_accum_force,
+        pddl_domain=str(config.get_path("habitat.task.pddl_domain_def", None) or "fp"),
+        device=device,
+    )

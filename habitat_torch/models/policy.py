@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from habitat_torch.core.registry import registry
 from habitat_torch.device import resolve_device
 from habitat_torch.models.resnet import ResNetEncoder
 from habitat_torch.models.rnn_state_encoder import RNNStateEncoder, initial_hidden_state
@@ -154,6 +155,7 @@ def evaluate_actions_stats(logits: torch.Tensor, actions: torch.Tensor) -> Tuple
     return act_logp, -(logp.exp() * logp).sum(-1)
 
 
+@registry.register_policy(name="PointNavResNetPolicy")
 def make_pointnav_resnet_policy(
     num_actions: int,
     *,
@@ -184,3 +186,16 @@ def make_pointnav_resnet_policy(
             dtype=dtype,
         )
     ).to(dev)
+
+
+def _not_ported(name: str):
+    def build(*args, **kwargs):
+        raise NotImplementedError(f"{name} is not ported to habitat_torch yet (ROADMAP Queue 1 item 4)")
+
+    return build
+
+
+# the reference's other policy names: SimpleCNN and the Gaussian
+# (continuous-action) actor-critic are not ported
+for _name in ("PointNavBaselinePolicy", "GaussianResNetPolicy"):
+    registry.register_policy(_not_ported(_name), name=_name)

@@ -28,12 +28,17 @@ boxes, articulated objects, Spot's legs and the arm links merged by closest
 hit (``render_batch(..., dynamic=...)``). ``step_fn`` makes no host sync:
 constants live on the env's device, built once.
 
-Not ported yet, each raising ``NotImplementedError`` at construction:
-registry-resolved task actions (``action_specs``, task_actions.py), the
-humanoid lane (a spec with ``agent_idx >= 1``), the PDDL predicate sensors
-(``all_predicates`` / ``multi_agent_all_predicates``, multi_task/pddl_yaml.py)
-and ``task="reach"``, whose per-episode goal the JAX package draws from its
-own RNG (``jax.random.fold_in``), which the port does not reproduce.
+``action_specs`` (registry-resolved task actions, task_actions.py) compose
+the flat action vector in declaration order; ``step_fn`` merges their
+commands (joint or EE deltas, grip, base velocity, stop, the base-or-arm
+selection, PDDL nav/pick/place postconditions).
+
+Not ported yet, each raising ``NotImplementedError`` at construction: the
+humanoid lane (a spec with ``agent_idx >= 1``, or a humanoid command), the
+PDDL predicate sensors (``all_predicates`` / ``multi_agent_all_predicates``,
+multi_task/pddl_yaml.py) and ``task="reach"``, whose per-episode goal the
+JAX package draws from its own RNG (``jax.random.fold_in``), which the port
+does not reproduce.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from habitat_torch.ops.raycast import render_batch
 from habitat_torch.sims.scene import ScenePack
 from habitat_torch.tasks.rearrange import rigid_body as rigid
 from habitat_torch.tasks.rearrange.rigid_body import add_y, cross, matvec, norm
+from habitat_torch.tasks.rearrange.task_actions import HumanoidAction, entity_positions
 from habitat_torch.utils.geometry import rotate_agent_to_world, rotate_world_to_agent, yaw_to_forward
 
 # fixed kinematic EE offset in the agent frame (forward, lifted; stands in
@@ -494,18 +500,23 @@ class RearrangeBatchedEnv:
         sensor_keys: Optional[Sequence[str]] = None,
         measure_keys: Optional[Sequence[str]] = None,
         action_specs: Optional[list] = None,
+        pddl_domain: str = "fp",
         device=None,
     ):
         if action_specs:
-            if any(getattr(s, "agent_idx", 0) >= 1 for s in action_specs):
+            if any(s.agent_idx >= 1 for s in action_specs):
                 raise NotImplementedError("the humanoid lane (agent_idx >= 1) is not ported to habitat_torch yet")
-            raise NotImplementedError("action_specs wait for the port of tasks/rearrange/task_actions.py")
+            humanoid = [type(s).__name__ for s in action_specs if isinstance(s, HumanoidAction)]
+            if humanoid:
+                raise NotImplementedError(f"{humanoid} (task_actions.py) drive the humanoid lane, which is not "
+                                          "ported to habitat_torch yet")
         if task == "reach":
             raise NotImplementedError(
                 "task='reach' waits for a port of JAX's threefry RNG: its goal comes from jax.random.fold_in")
         preds = [k for k in (sensor_keys or ()) if k in ("all_predicates", "multi_agent_all_predicates")]
         if preds:
-            raise NotImplementedError(f"{preds} wait for the port of tasks/rearrange/multi_task/pddl_yaml.py")
+            raise NotImplementedError(f"{preds} over the {pddl_domain!r} domain wait for the port of "
+                                      "tasks/rearrange/multi_task/pddl_yaml.py")
         if control is None:
             control = "continuous" if continuous else "discrete"
         for name, value, allowed in (("task", task, TASKS), ("control", control, CONTROLS),
@@ -561,7 +572,14 @@ class RearrangeBatchedEnv:
         self._extra_sensors = tuple(k for k in EXTRA_SENSORS if k in (sensor_keys or ()))
         self._build_dynamic_constants()
 
-        if control == "arm":
+        self.action_specs = list(action_specs) if action_specs else None
+        if self.action_specs is not None:
+            # composed registry-resolved actions: one flat float vector, each
+            # spec's slice in declaration order
+            self._spec_dims = tuple(s.dims(self) for s in self.action_specs)
+            self.action_dim = max(sum(self._spec_dims), 1)
+            self.action_names = tuple(s.name or type(s).__name__ for s in self.action_specs)
+        elif control == "arm":
             # [J joint deltas | grip | base lin | base ang] (reference
             # ArmRelPosAction + MagicGraspAction + BaseVelAction)
             self.action_names, self.action_dim = ("arm_action", "base_velocity"), self.n_joints + 3
@@ -624,6 +642,11 @@ class RearrangeBatchedEnv:
 
     def _sid(self, state: RearrangeState) -> torch.Tensor:
         return self.table.nav.scene_idx[state.ep_idx].long()
+
+    @property
+    def capabilities(self) -> Tuple[str, ...]:
+        """Capability tags the registry specs (sensors.py) check."""
+        return (self.task, self.control, self.dynamics)
 
     def _arm_mode(self) -> bool:
         return self.control in ("arm", "arm_ee")
@@ -927,30 +950,70 @@ class RearrangeBatchedEnv:
         state = self._fresh(self.order[:, 0])
         return state, self._observations(state)
 
-    def _controls(self, state: RearrangeState, actions: torch.Tensor):
-        """Actions -> (joints, joint_vel, motor_target, grip, logged action,
-        stop, yaw, move)."""
+    def _commands(self, state: RearrangeState, actions: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The action specs' merged commands: each spec reads its slice of
+        the flat action vector in declaration order."""
+        acts = actions.float()
+        cmd: Dict[str, torch.Tensor] = {}
+        off = 0
+        for spec, w in zip(self.action_specs, self._spec_dims):
+            spec.contribute(self, state, acts[:, off:off + w], cmd)
+            off += w
+        if "sel_arm" in cmd:
+            # SelectBaseOrArmAction (reference actions.py:74-99): base and arm
+            # may not move in the same step; the deselected group is gated
+            sel = cmd["sel_arm"]  # (N,) bool, True = arm
+            for k in ("dq", "ee_delta"):
+                if k in cmd:
+                    cmd[k] = torch.where(sel[:, None], cmd[k], 0.0)
+            for k in ("lin", "ang"):
+                if k in cmd:
+                    cmd[k] = torch.where(sel, 0.0, cmd[k])
+        return cmd
+
+    def _arm_step(self, state: RearrangeState, dq=None, ee_delta=None):
+        """(joints, joint_vel, motor_target) after joint deltas ``dq`` or an
+        EE displacement ``ee_delta`` (agent frame)."""
         joints, joint_vel, motor = state.joints, state.joint_vel, state.motor_target
+        if dq is not None:
+            if self.arm_dynamics:
+                # the delta accumulates on the motor target; PD motors and
+                # gravity integrate (reference ArmRelPosAction)
+                motor = torch.clamp(state.motor_target + dq, min=self._joint_lo, max=self._joint_hi)
+                joints, joint_vel = arm_dyn.step_arm(self.rparams, self._arm_dyn, state.joints, state.joint_vel,
+                                                     motor, dt=1.0 / 30.0, substeps=4)
+            else:
+                # ArmRelPosKinematicAction: joints set directly
+                joints = torch.clamp(state.joints + dq, min=self._joint_lo, max=self._joint_hi)
+        elif ee_delta is not None:
+            # DLS-IK toward the displaced EE target (ArmEEAction)
+            target = self._ee_local(state.joints) - self._arm_root + ee_delta
+            joints = kin.ik_solve(self.rparams, target, state.joints, iters=8)
+        return joints, joint_vel, motor
+
+    def _controls(self, state: RearrangeState, actions: torch.Tensor, cmd: Dict[str, torch.Tensor]):
+        """Actions (with action specs, their commands ``cmd``) -> (joints,
+        joint_vel, motor_target, grip, logged action, stop, yaw, move)."""
         grip = None
+        if self.action_specs is not None:
+            joints, joint_vel, motor = self._arm_step(state, cmd.get("dq"), cmd.get("ee_delta"))
+            no = torch.zeros_like(state.stop_called)
+            grip = cmd.get("grip", no)
+            zeros = torch.zeros_like(state.yaw)
+            lin = cmd.get("lin", zeros).clamp(-1.0, 1.0)
+            ang = cmd.get("ang", zeros).clamp(-1.0, 1.0)
+            a = torch.where(grip, A_GRAB, A_FWD).to(torch.int32)  # for the logs
+            stop = state.stop_called | cmd.get("stop", no)
+            return joints, joint_vel, motor, grip, a, stop, state.yaw + ang * self.turn, lin * self.fwd
+        joints, joint_vel, motor = state.joints, state.joint_vel, state.motor_target
         if self._arm_mode():
             acts = actions.float().clamp(-1.0, 1.0)
             if self.control == "arm":
                 J = self.n_joints
-                dq = acts[:, :J] * self.max_joint_delta
-                if self.arm_dynamics:
-                    # the delta accumulates on the motor target; PD motors and
-                    # gravity integrate (reference ArmRelPosAction)
-                    motor = torch.clamp(state.motor_target + dq, min=self._joint_lo, max=self._joint_hi)
-                    joints, joint_vel = arm_dyn.step_arm(self.rparams, self._arm_dyn, state.joints, state.joint_vel,
-                                                         motor, dt=1.0 / 30.0, substeps=4)
-                else:
-                    # ArmRelPosKinematicAction: joints set directly
-                    joints = torch.clamp(state.joints + dq, min=self._joint_lo, max=self._joint_hi)
+                joints, joint_vel, motor = self._arm_step(state, dq=acts[:, :J] * self.max_joint_delta)
                 rest = acts[:, J:]
             else:
-                # DLS-IK toward the displaced EE target (ArmEEAction)
-                target = self._ee_local(state.joints) - self._arm_root + acts[:, 0:3] * self.ee_delta
-                joints = kin.ik_solve(self.rparams, target, state.joints, iters=8)
+                joints, joint_vel, motor = self._arm_step(state, ee_delta=acts[:, 0:3] * self.ee_delta)
                 rest = acts[:, 3:]
             grip, lin, ang = rest[:, 0] > 0.0, rest[:, 1], rest[:, 2]
         elif self.continuous:
@@ -1005,7 +1068,8 @@ class RearrangeBatchedEnv:
         n_idx, ep = self._env_ids, state.ep_idx
         prev_m = self._measures(state)
         sid = self._sid(state)
-        joints, joint_vel, motor, grip, a, stop, yaw, move = self._controls(state, actions)
+        cmd = self._commands(state, actions) if self.action_specs is not None else {}
+        joints, joint_vel, motor, grip, a, stop, yaw, move = self._controls(state, actions, cmd)
 
         # base motion with wall sliding; movable objects block the base by a
         # per-step disc test against their current positions (the reference
@@ -1022,6 +1086,20 @@ class RearrangeBatchedEnv:
         moved = move.abs() > 1e-6
         collided = (collided | obj_hit) & moved
         new_pos = torch.where(moved[:, None], new_pos, state.pos)
+        if "pddl_apply" in cmd:
+            # PddlApplyAction nav(e): the postcondition puts the base on the
+            # navigable cell nearest the entity, facing it (reference
+            # pddl_actions.py:57-99)
+            ents, valid = entity_positions(self, state)
+            nav_arg = cmd["pddl_apply"][:, 0]
+            ne = ents.shape[1]
+            e_i = (nav_arg - 1).clamp(0, ne - 1)
+            do_nav = (nav_arg >= 1) & (nav_arg <= ne) & valid[n_idx, e_i]
+            tgt_e = ents[n_idx, e_i]
+            snap_e = ng.snap_to_navigable(self.pack, sid, tgt_e)
+            face = tgt_e - snap_e
+            new_pos = torch.where(do_nav[:, None], snap_e, new_pos)
+            yaw = torch.where(do_nav, torch.atan2(-face[:, 0], -face[:, 2]), yaw)
         state = dataclasses.replace(
             state, pos=new_pos, yaw=yaw, prev_pos=state.pos, joints=joints, joint_vel=joint_vel, motor_target=motor,
             stop_called=stop, collided=collided, collision_count=state.collision_count + collided.to(torch.int32),
@@ -1036,7 +1114,11 @@ class RearrangeBatchedEnv:
         d = torch.where(self.table.obj_valid[ep], d, 1e6)
         nearest = d.argmin(1)
         near = d[n_idx, nearest] <= self.grasp_distance
-        if grip is not None:
+        if self.action_specs is not None and "grip" not in cmd:
+            # no grip slice declared: the grasp changes only through
+            # PddlApplyAction below
+            can_grab = do_release = torch.zeros_like(state.stop_called)
+        elif grip is not None:
             # suction semantics: hold while grip > 0, release at <= 0
             can_grab = grip & (state.held < 0) & near
             do_release = ~grip & (state.held >= 0)
@@ -1044,6 +1126,21 @@ class RearrangeBatchedEnv:
             grab = a == A_GRAB
             can_grab = grab & (state.held < 0) & near
             do_release = grab & (state.held >= 0)
+        if "pddl_apply" in cmd:
+            # pick(o) snaps object o to the hand when nothing is held and the
+            # base is within 2 m of it; place(g) releases the held object at
+            # goal g (reference pddl_actions.py)
+            args, O = cmd["pddl_apply"], self.num_objects
+            objs = self._obj_world(state)
+            p_arg = args[:, 1]
+            p_obj = (p_arg - 1).clamp(0, O - 1)
+            p_ok = (p_arg >= 1) & (p_arg <= O) & self.table.obj_valid[ep][n_idx, p_obj]
+            p_do = p_ok & (_xz_norm(objs[n_idx, p_obj] - state.pos) <= 2.0) & (state.held < 0)
+            can_grab = can_grab | p_do
+            nearest = torch.where(p_do, p_obj, nearest)
+            pl_arg = args[:, 2]
+            pddl_place = (pl_arg >= O + 1) & (pl_arg <= 2 * O) & (state.held >= 0)
+            do_release = do_release | pddl_place
         # a released object drops under the EE (snapped to the nearest
         # navigable cell off the grid); with physics it falls from the EE
         floor = self.pack.floor_y[sid]
@@ -1052,6 +1149,9 @@ class RearrangeBatchedEnv:
                            ng.snap_to_navigable(self.pack, sid, ee))
         if self.dynamics in ("gravity", "contacts"):
             drop = torch.stack([drop[:, 0], ee[:, 1], drop[:, 2]], dim=-1)
+        if "pddl_apply" in cmd:  # place(g): the object lands at the goal
+            goal = self.table.target_pos[ep][n_idx, (pl_arg - 1 - O).clamp(0, O - 1)]
+            drop = torch.where(pddl_place[:, None], goal, drop)
         released = do_release[:, None] & (self._o_lane == torch.clamp_min(state.held, 0)[:, None])
         obj_pos = torch.where(released[..., None], drop[:, None, :], state.obj_pos)
         held = torch.where(do_release, -1, state.held)

@@ -1,7 +1,9 @@
 """The port stands alone: nothing under habitat_torch/, nothing in
 chip_smoke.py and nothing in scripts/eval_flagship_torch.py imports JAX,
 Flax, Optax, Orbax, gymnasium (the card's machine has none) or the
-habitat_tpu package."""
+habitat_tpu package. The config path's modules, imported one by one in a
+fresh interpreter, load none of them, and ``habitat_torch.config`` composes
+the in-repo YAML tree (read as data) without them either."""
 
 import ast
 import os
@@ -42,3 +44,46 @@ def test_port_files_found():
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+# the modules of the config path, imported in this order in one fresh
+# interpreter (this process has JAX loaded by the conftest)
+CONFIG_PATH_MODULES = (
+    "habitat_torch.config.omega", "habitat_torch.config.structured", "habitat_torch.config.default",
+    "habitat_torch.core.registry", "habitat_torch.core.logging", "habitat_torch.utils.tb",
+    "habitat_torch.tasks.rearrange.sensors", "habitat_torch.tasks.rearrange.task_actions",
+    "habitat_torch.core.construct", "habitat_torch.baselines.evaluator", "habitat_torch.baselines.run",
+)
+_PROBE = """
+import json, sys
+def bad():
+    return sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
+out = {{}}
+for name in {modules!r}:
+    __import__(name)
+    out[name] = bad()
+from habitat_torch.config.default import get_config
+cfg = get_config("benchmark/rearrange/pick_procgen.yaml", ["habitat.seed=3"])
+out["get_config"] = bad() + ([] if cfg.habitat.seed == 3 and cfg.habitat.task.type == "RearrangePickTask-v0" else ["?"])
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def config_path_imports():
+    """{module: the forbidden modules loaded once it is imported}, and under
+    "get_config" those loaded once the port composed an in-repo config."""
+    import json
+    import subprocess
+    import sys
+
+    code = _PROBE.format(forbidden=FORBIDDEN, modules=CONFIG_PATH_MODULES)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr[-2000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", CONFIG_PATH_MODULES + ("get_config",))
+def test_config_path_loads_no_jax(config_path_imports, module):
+    assert config_path_imports[module] == [], f"{module}: {config_path_imports[module]}"

@@ -52,6 +52,7 @@ from habitat_torch.ops import raycast as trc
 from habitat_torch.sims.scene import pack_scenes
 from habitat_torch.tasks.rearrange import generator as tgen
 from habitat_torch.tasks.rearrange import rearrange_env as tre
+from habitat_torch.tasks.rearrange.task_actions import HumanoidJointAction
 
 ATOL = 1e-5
 N = 4
@@ -470,7 +471,8 @@ class _Spec:
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(action_specs=[_Spec(0)]), NotImplementedError, "task_actions.py"),
+    (dict(action_specs=[HumanoidJointAction(None, name="humanoid_joint_action")]), NotImplementedError,
+     "task_actions.py"),
     (dict(action_specs=[_Spec(0), _Spec(1)]), NotImplementedError, "humanoid"),
     (dict(sensor_keys=("all_predicates",)), NotImplementedError, "pddl_yaml.py"),
     (dict(sensor_keys=("multi_agent_all_predicates",)), NotImplementedError, "pddl_yaml.py"),

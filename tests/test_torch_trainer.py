@@ -27,6 +27,7 @@ from habitat_tpu.models.policy import make_pointnav_resnet_policy as jax_policy
 from habitat_torch.baselines.ppo import PPOConfig
 from habitat_torch.baselines.trainer import PPOTrainer, TrainerConfig
 from habitat_torch.core.env_factory import make_nav_env
+from habitat_torch.core.registry import registry
 from habitat_torch.datasets.pointnav import make_procedural_pointnav
 from habitat_torch.models.policy import make_pointnav_resnet_policy
 
@@ -136,5 +137,7 @@ def test_checkpoint_schedule(tmp_path):
 def test_unported_settings_raise():
     with pytest.raises(NotImplementedError, match="use_mesh"):
         TrainerConfig(use_mesh=True)
-    with pytest.raises(NotImplementedError, match="tensorboard_dir"):
-        TrainerConfig(tensorboard_dir="tb")
+    assert TrainerConfig(tensorboard_dir="tb").tensorboard_dir == "tb"  # writes through utils/tb.py
+    for name in ("ddppo", "ver"):
+        with pytest.raises(NotImplementedError, match=name):
+            registry.get_trainer(name)()
