@@ -208,6 +208,41 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            PICK_DROP_STEPS steps. The TensorBoard events file must exist.
            The phase must end within CONFIG_SECONDS.
 
+15. objectnav  (a) env_from_config(objectnav_procgen.yaml, num_envs=16) at
+           the yaml's widths (128x128 RGB + depth + semantic, 6 actions, 4
+           scenes x 16 episodes): reset and ONAV_ENV["steps"] steps of
+           ONAV_SCHEDULE (look_up and look_down among them); objectgoal, gps
+           and compass held to the same env's state sensors on the CPU, step
+           by step from the card's state, within NAV_OBS_ATOL; #1 launched
+           once per render; #1 on 4 envs of the last state (nonzero pitch)
+           against its plain version at the [kernel] gates. (b) the ObjectNav
+           train recipe (ONAV_RECIPE: 16 scenes x 16 episodes, extent 8, N=128,
+           64x64 depth, objectgoal, compass, gps, resnet9 + LSTM-192,
+           RECIPE_PPO) for RECIPE_UPDATES updates: seconds per update,
+           env-steps/s, rollout / update split, finite losses; #1 1 + 3 x 64,
+           #11 3 x 2 x 2; an env step's ms, idle share and launches.
+    imagenav  (a) env_from_config(imagenav_procgen.yaml, num_envs=16): the
+           table's 128 goal images (128x128) in one #1 launch; their closest
+           hit against #1's plain version on the same inputs; their RGB equal
+           to the plain render on the CPU on >= GOAL_RGB_AGREE of pixels; the
+           goal image constant over 4 steps and unlike each start view. (b)
+           the ImageNav recipe (INAV_RECIPE: 8 scenes x 24 episodes, N=128,
+           64x64 RGB and goal image, compass, gps, goal_keys=()): as (a) of
+           [objectnav]; #1 1 (goal table) + 1 + 3 x 64, #11 twice per
+           minibatch (the observation and the goal encoder).
+    pick-arm  (a) the blind arm-Pick recipe (ARM_RECIPE: N=128, 8 scenes x
+           16 episodes, one room, no clutter, 120 steps, arm control; the
+           Gaussian resnet9 net without an encoder, LSTM-128) for
+           RECIPE_UPDATES updates, no kernel launched; one float32 update (one
+           epoch, one minibatch) from the rollout's start, card against CPU:
+           losses within LOSS_RTOL, parameters within 2 lr. (b) the visual
+           Gaussian policy policy_from_config builds for pick_procgen.yaml +
+           ARM_OVERRIDES at N=32 (resnet18, LSTM-512, 128x128 head cameras,
+           contacts): ARM_VISUAL["updates"] updates of T=32 (#3 twice per
+           render, #11 once per minibatch), then evaluate_agent over 8
+           deterministic episodes of an N=8 env from the same config (at most
+           ARM_EVAL["max_steps"] steps; #3 twice per render).
+
 Prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
@@ -373,6 +408,35 @@ FLOOR_SINK = 0.01
 # sag |c|/kp) and the IK's final error on reachable targets
 ARM_TRACK = 0.1
 IK_MEDIAN_ERR, IK_MAX_ERR = 0.02, 0.1
+
+
+# [objectnav] (a): objectnav_procgen.yaml at its own widths, N=16, a fixed
+# schedule of ONAV_STEPS env steps that looks up and down (actions: stop,
+# forward, left, right, look_up, look_down), held to the CPU step by step
+ONAV_ENV = dict(num_envs=16, steps=48, check_envs=4)
+ONAV_SCHEDULE = (1, 4, 1, 2, 5, 5, 1, 3, 4, 1, 1, 2, 5, 1, 3, 4, 5, 1, 2, 1, 4, 5, 3, 1)
+# the three train recipes (the repo's scripts/train_{objectnav,imagenav,
+# pick_arm}_tpu.py at their widths), each run for RECIPE_UPDATES updates
+RECIPE_PPO = dict(num_steps=64, num_mini_batch=2, ppo_epoch=2, lr=2.5e-4)
+RECIPE_UPDATES = 3
+ONAV_RECIPE = dict(num_scenes=16, episodes_per_scene=16, seed=0, extent=8.0, num_envs=128, max_episode_steps=200,
+                   hw=64, hidden_size=192)
+INAV_RECIPE = dict(num_scenes=8, episodes_per_scene=24, seed=0, extent=8.0, num_envs=128, max_episode_steps=200,
+                   hw=64, hidden_size=192)
+INAV_ENV = dict(num_envs=16, steps=4)  # [imagenav] (a): imagenav_procgen.yaml, then 4 steps without stop
+ARM_RECIPE = dict(num_envs=128, task="pick", num_scenes=8, episodes_per_scene=16, seed=0, with_visual=False,
+                  n_rooms_per_axis=1, n_clutter=0, max_episode_steps=120, control="arm")
+# [pick-arm] (b): pick_procgen.yaml with ArmAction and BaseVelAction, the
+# visual Gaussian policy of policy_from_config at N=32 (its defaults:
+# resnet18, LSTM-512, 128x128 head cameras, contacts), 2 updates of T=32,
+# then 8 deterministic episodes of at most ARM_EVAL["max_steps"] steps
+ARM_OVERRIDES = ("habitat.task.actions.arm_action.type=ArmAction",
+                 "habitat.task.actions.base_velocity.type=BaseVelAction")
+ARM_VISUAL = dict(num_envs=32, updates=2, ppo=dict(num_steps=32, num_mini_batch=2, ppo_epoch=2, lr=2.5e-4))
+ARM_EVAL = dict(num_envs=8, max_steps=40)
+NAV_OBS_ATOL = 1e-5  # card - CPU state sensors (tests/test_torch_env.py's bound)
+GOAL_RGB_AGREE = 0.999  # goal RGB equal to the CPU's (tests/test_torch_raycast.py:188-189)
+LOSS_RTOL = 1e-4  # card - CPU float32 update losses, relative to max(1, |loss|)
 
 
 def log(msg):
@@ -1581,7 +1645,7 @@ def same_tensors(tag, a, b):
     if set(a) != set(b):
         fail(f"[config] {tag}: keys {sorted(a)} against {sorted(b)}")
     for k in a:
-        if dataclasses.is_dataclass(a[k]):
+        if dataclasses.is_dataclass(a[k]) or isinstance(a[k], dict):
             same_tensors(f"{tag}.{k}", a[k], b[k])
         elif not torch.equal(a[k], b[k]):
             fail(f"[config] {tag}: {k} differs")
@@ -1784,6 +1848,463 @@ def config_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
     log(f"[config] the phase {wall:.1f} s")
     if wall > CONFIG_SECONDS:
         fail(f"[config] took {wall:.1f} s, more than {CONFIG_SECONDS} s")
+    return dict(train=train, eval=evl)
+
+
+def sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def wall_ms(dev, fn, reps):
+    """ms per call of fn() over ``reps`` synced calls after one warm-up."""
+    fn()
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync(dev)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def state_to(st, dev):
+    """A nav ``EnvState`` (measure states included) copied to ``dev``."""
+    import dataclasses
+
+    import torch
+
+    def move(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(dev)
+        return {m: {k: x.to(dev) for k, x in d.items()} for m, d in v.items()}
+
+    return dataclasses.replace(st, **{f.name: move(getattr(st, f.name)) for f in dataclasses.fields(st)})
+
+
+def recipe_run(tag, lrn, updates, dev):
+    """lrn.init(seed=0) and ``updates`` train steps, each timed with its
+    rollout / update split; fails on a non-finite metric. Returns (rollout
+    state, wall seconds per update, rollout ms, update ms, last metrics)."""
+    import numpy as np
+
+    split = {"rollout": [], "update": []}
+
+    def timed(name, fn):
+        def run(*args):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*args)
+            sync(dev)
+            split[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    lrn.collect_rollout, lrn.update = timed("rollout", lrn.collect_rollout), timed("update", lrn.update)
+    rs, walls = lrn.init(seed=0), []
+    for _ in range(updates):
+        sync(dev)
+        t0 = time.perf_counter()
+        rs, metrics = lrn.train_step(rs)
+        metrics = {k: v.item() for k, v in metrics.items()}
+        walls.append(time.perf_counter() - t0)
+        if not all(np.isfinite(v) for v in metrics.values()):
+            fail(f"{tag} non-finite metrics {metrics}")
+    del lrn.collect_rollout, lrn.update
+    return rs, walls, split["rollout"], split["update"], metrics
+
+
+def recipe_text(n, T, walls, roll, upd, metrics):
+    rates = [n * T / w for w in walls]
+    return (f"{len(walls)} updates of {n} x {T} env steps: seconds per update {[round(w, 3) for w in walls]} "
+            f"(the first with cuDNN's and the allocator's warm-up), env-steps/s {[round(r, 1) for r in rates]}; "
+            f"rollout ms {[round(x, 1) for x in roll]}, update ms {[round(x, 1) for x in upd]}; last losses "
+            + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items() if k.startswith("losses/")))
+
+
+def idle_text(dev, env, st, act, n_prof=3):
+    """``n_prof`` env steps from ``st`` under torch.profiler (after the gated
+    path; a whole train step, ~100,000 launches, takes about a minute
+    there): ms, device ms, idle share and launches per env step."""
+    if dev.type != "cuda":
+        return "not profiled off the card"
+    step_ms = wall_ms(dev, lambda: env.step_fn(st, act), 5)
+    _, dev_ms, n_launch, _ = device_time_and_launches(lambda: [env.step_fn(st, act) for _ in range(n_prof)])
+    return (f"env step {step_ms:.3f} ms, device {dev_ms / n_prof:.3f} ms (idle share "
+            f"{1 - dev_ms / (n_prof * step_ms):.3f}), {n_launch / n_prof:.0f} launches per env step")
+
+
+def objectnav_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card, env_size=ONAV_ENV,
+                    recipe=ONAV_RECIPE, updates=RECIPE_UPDATES, ppo=RECIPE_PPO):
+    """[objectnav]: (a) objectnav_procgen.yaml's env at its own widths on
+    ``dev``, a look_up/look_down schedule with its state sensors held to the
+    CPU and #1 held to its plain version at nonzero pitch; (b) the ObjectNav
+    train recipe for ``updates`` updates. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from habitat_torch.baselines.ppo import PPOConfig, PPOLearner
+    from habitat_torch.config.default import get_config
+    from habitat_torch.core import construct
+    from habitat_torch.core.batched_env import BatchedEnv
+    from habitat_torch.core.env_factory import make_nav_env
+    from habitat_torch.datasets.object_nav import make_procedural_objectnav
+    from habitat_torch.models.policy import make_pointnav_resnet_policy, obs_inputs_of
+    from habitat_torch.ops import raycast as rc
+    from habitat_torch.ops import raycast_kernels as rk
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    cfg = get_config("benchmark/nav/objectnav/objectnav_procgen.yaml")
+    n, steps = env_size["num_envs"], env_size["steps"]
+    zero_counts()
+    for p in plain_watch:
+        p.start()
+    env = construct.env_from_config(cfg, num_envs=n, device=dev)
+    shapes = env.observation_shapes
+    want = {"rgb": ((128, 128, 3), torch.uint8), "depth": ((128, 128, 1), torch.float32),
+            "semantic": ((128, 128, 1), torch.int32), "objectgoal": ((1,), torch.int32),
+            "compass": ((1,), torch.float32), "gps": ((2,), torch.float32)}
+    if shapes != want or env.num_actions != 6 or env.table.num_episodes != 64 or env.pack.num_scenes != 4:
+        fail(f"[objectnav] the yaml's env: {shapes}, {env.num_actions} actions, {env.table.num_episodes} episodes")
+    # the same env's state sensors on the CPU: each step starts from the card
+    # state moved over
+    cpu_env = BatchedEnv(env.pack, env.table, env.order.cpu().numpy(), env.state_sensors, env.measures, env.actions,
+                         device=cpu, max_episode_steps=env.max_episode_steps, reward_spec=env.reward_spec,
+                         slide_substeps=env.slide_substeps)
+    keys = ("objectgoal", "gps", "compass")
+    st, obs = env.reset_fn()
+    _, obs_c = cpu_env.reset_fn()
+    worst, tilted = 0.0, 0
+    for t in range(steps + 1):
+        for k in keys:
+            err = (obs[k].cpu().double() - obs_c[k].double()).abs().max().item()
+            worst = max(worst, err)
+            if err > NAV_OBS_ATOL or obs[k].dtype != obs_c[k].dtype:
+                fail(f"[objectnav] {k} at step {t}: card - CPU {err}")
+        if t == steps:
+            break
+        acts = torch.tensor([ONAV_SCHEDULE[(t + i) % len(ONAV_SCHEDULE)] for i in range(n)], dtype=torch.int32)
+        st_c, obs_c, _, done_c, _ = cpu_env.step_fn(state_to(st, cpu), acts)
+        st, obs, _, done, _ = env.step_fn(st, acts.to(dev))
+        if not torch.equal(done.cpu(), done_c):
+            fail(f"[objectnav] done at step {t}: card {done.tolist()}, CPU {done_c.tolist()}")
+        tilted += int((st.pitch.abs() > 0.1).sum().item())
+    sync(dev)
+    groups = len(env._render_groups)
+    env_launches = path_counts("[objectnav] yaml env", raycast_fused_sel_t=groups * (1 + steps))
+    # #1 at nonzero pitch: the last state's render on check_envs envs
+    m = env_size["check_envs"]
+    ctx = env._make_ctx(st)
+    g = env._render_groups[0]
+    pitch = st.pitch[:m]
+    if not (pitch.abs() > 0.1).all():
+        fail(f"[objectnav] the checked envs' pitch {pitch.tolist()} should all be nonzero")
+    kernel, args, kwargs, _ = rc.closest_hit_call(env.pack, ctx.sid[:m], st.pos[:m] + g["cam_offset"], st.yaw[:m],
+                                                 pitch, height=g["h"], width=g["w"])
+    if kernel is not rk.raycast_fused_sel_t:
+        fail("[objectnav] the yaml's frames should take the frustum-selected kernel")
+    hit_a, idx_a, dt = agreement("[objectnav] raycast_fused_sel_t at nonzero pitch", kernel(*args, **kwargs),
+                                 kernel.plain(*args, **kwargs))
+    for p in plain_watch:
+        p.stop()
+    log(f"[objectnav] {gpu}: objectnav_procgen.yaml at its widths (N={n}, 128x128 RGB + depth + semantic, 6 actions, "
+        f"{env.pack.num_scenes} scenes x {env.table.num_episodes // env.pack.num_scenes} episodes): reset + {steps} "
+        f"steps with look_up/look_down ({tilted} env-steps at |pitch| > 0.1); objectgoal, gps, compass card - CPU "
+        f"max {worst:.3g} (gate {NAV_OBS_ATOL}); #1 launches {env_launches['raycast_fused_sel_t']} = {groups} render "
+        f"group x (1 reset + {steps} steps); raycast_fused_sel_t on {m} envs at pitch "
+        f"{[round(x, 3) for x in pitch.tolist()]} against its plain version: hit {hit_a:.6f} idx {idx_a:.6f} |dt| "
+        f"{dt:.3g}")
+    yaml_step = idle_text(dev, env, st, acts.to(dev))
+
+    # (b) the train recipe
+    t0 = time.perf_counter()
+    scenes, episodes, fields = make_procedural_objectnav(
+        num_scenes=recipe["num_scenes"], episodes_per_scene=recipe["episodes_per_scene"], seed=recipe["seed"],
+        extent=recipe["extent"])
+    gen_s = time.perf_counter() - t0
+    hw, N, T = recipe["hw"], recipe["num_envs"], ppo["num_steps"]
+    zero_counts()
+    for p in plain_watch:
+        p.start()
+    env = make_nav_env(scenes, episodes, num_envs=N, precomputed_fields=fields,
+                       max_episode_steps=recipe["max_episode_steps"], device=dev,
+                       sensor_specs=(("HabitatSimDepthSensor", {"height": hw, "width": hw}), ("ObjectGoalSensor", None),
+                                     ("CompassSensor", None), ("GPSSensor", None)))
+    torch.manual_seed(0)
+    policy = make_pointnav_resnet_policy(env.num_actions, visual_inputs=("depth",), input_hw=(hw, hw),
+                                         backbone="resnet9", hidden_size=recipe["hidden_size"], goal_keys=(),
+                                         **obs_inputs_of(env.observation_shapes), device=dev)
+    lrn = PPOLearner(env, policy, PPOConfig(**ppo))
+    rs, walls, roll, upd, metrics = recipe_run("[objectnav] recipe", lrn, updates, dev)
+    sync(dev)
+    for p in plain_watch:
+        p.stop()
+    # one render per env step and the reset's; one pool backward per
+    # minibatch of each epoch (one encoder)
+    mb = ppo["ppo_epoch"] * ppo["num_mini_batch"]
+    train = path_counts("[objectnav] recipe", raycast_fused_sel_t=1 + updates * T, max_pool_3x3s2_bwd=updates * mb)
+    if plain_on_card:
+        fail(f"[objectnav]: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+    if not policy.net.objectgoal_embed or policy.net.state_keys != ("gps", "compass"):
+        fail(f"[objectnav] the recipe's net embeds {policy.net.state_keys}, objectgoal {policy.net.objectgoal_embed}")
+    act = torch.ones(N, dtype=torch.int32, device=dev)
+    log(f"[objectnav] {gpu}: scripts/train_objectnav_tpu.py's recipe ({recipe['num_scenes']} scenes x "
+        f"{recipe['episodes_per_scene']} episodes generated in {gen_s:.1f} s, N={N}, {hw}x{hw} depth + objectgoal "
+        f"embedding + compass + gps, resnet9 + LSTM-{recipe['hidden_size']}, 4 actions, PPO T={T}): "
+        + recipe_text(N, T, walls, roll, upd, metrics)
+        + f"; launches #1 {train['raycast_fused_sel_t']} = 1 + {updates} x {T}, #11 {train['max_pool_3x3s2_bwd']} = "
+        f"{updates} x {ppo['ppo_epoch']} epochs x {ppo['num_mini_batch']} minibatches; no plain version on a card "
+        f"tensor; " + idle_text(dev, env, rs.env_state, act)
+        + f"; the yaml env (N={n}, 128x128 RGB + depth + semantic): {yaml_step}; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return dict(env=env_launches, train=train)
+
+
+def imagenav_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card, env_size=INAV_ENV,
+                   recipe=INAV_RECIPE, updates=RECIPE_UPDATES, ppo=RECIPE_PPO):
+    """[imagenav]: (a) imagenav_procgen.yaml's env on ``dev``: the goal
+    images rendered at table build through #1, held to the plain render on
+    the CPU; constant within an episode and not the start view; (b) the
+    ImageNav train recipe (two encoders). Returns the launch counts."""
+    import torch
+
+    from habitat_torch.baselines.ppo import PPOConfig, PPOLearner
+    from habitat_torch.config.default import get_config
+    from habitat_torch.core import construct
+    from habitat_torch.core import dataset as tds
+    from habitat_torch.core.env_factory import make_nav_env
+    from habitat_torch.datasets.pointnav import make_procedural_pointnav
+    from habitat_torch.models.policy import make_pointnav_resnet_policy, obs_inputs_of
+    from habitat_torch.ops import raycast as rc
+    from habitat_torch.ops import raycast_kernels as rk
+
+    t_phase = time.perf_counter()
+    cfg = get_config("benchmark/nav/imagenav/imagenav_procgen.yaml")
+    n = env_size["num_envs"]
+    zero_counts()
+    for p in plain_watch:
+        p.start()
+    t0 = time.perf_counter()
+    env = construct.env_from_config(cfg, num_envs=n, device=dev)
+    sync(dev)
+    build_s = time.perf_counter() - t0
+    table_launches = path_counts("[imagenav] table build", raycast_fused_sel_t=1)
+    E, size = env.table.num_episodes, cfg.habitat.task.lab_sensors.imagegoal.width
+    if E != 128 or tuple(env.table.goal_image.shape) != (E, size, size, 3) or env.table.goal_image.device.type != dev.type:
+        fail(f"[imagenav] goal table {tuple(env.table.goal_image.shape)} on {env.table.goal_image.device}")
+    # the goal renders' closest hit against #1's plain version on the same
+    # inputs, and the goal images against the plain render on the CPU
+    scenes, episodes, _ = construct.load_dataset(cfg.habitat.dataset)
+    views = [tds.goal_view(e) for e in episodes]
+    index = {s.scene_id: i for i, s in enumerate(scenes)}
+    sids = torch.tensor([index[e.scene_id] for e in episodes], dtype=torch.int32, device=dev)
+    cam = torch.tensor([v[0].tolist() for v in views], device=dev)
+    yaws = torch.tensor([v[1] for v in views], device=dev)
+    kernel, args, kwargs, _ = rc.closest_hit_call(env.pack, sids, cam, yaws, torch.zeros_like(yaws), height=size,
+                                                 width=size)
+    for p in plain_watch:
+        p.stop()
+    if kernel is not rk.raycast_fused_sel_t:
+        fail("[imagenav] the goal renders should take the frustum-selected kernel")
+    hit_a, idx_a, dt = agreement("[imagenav] raycast_fused_sel_t on the goal renders", kernel(*args, **kwargs),
+                                 kernel.plain(*args, **kwargs))
+    t0 = time.perf_counter()
+    cpu_goals = tds._render_goal_images(episodes, {s.scene_id: s for s in scenes}, index, size, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    rgb_eq = share((env.table.goal_image.cpu() == cpu_goals).all(-1))
+    if rgb_eq < GOAL_RGB_AGREE:
+        fail(f"[imagenav] goal images equal to the CPU's on {rgb_eq} of pixels (gate {GOAL_RGB_AGREE})")
+    # constant within an episode, and not the start view
+    zero_counts()
+    for p in plain_watch:
+        p.start()
+    st, obs = env.reset_fn()
+    g0, rgb0 = obs["imagegoal"].clone(), obs["rgb"].clone()
+    for t in range(env_size["steps"]):
+        st, obs, _, done, _ = env.step_fn(st, torch.full((n,), 1 + t % 3, dtype=torch.int32, device=dev))
+        if done.any() or not torch.equal(obs["imagegoal"], g0):
+            fail(f"[imagenav] the goal image changed within an episode at step {t}")
+    sync(dev)
+    for p in plain_watch:
+        p.stop()
+    env_launches = path_counts("[imagenav] yaml env", raycast_fused_sel_t=1 + env_size["steps"])
+    same_view = [i for i in range(n) if torch.equal(g0[i], rgb0[i])]
+    if same_view:
+        fail(f"[imagenav] envs {same_view}: the goal image is the start view")
+    log(f"[imagenav] {gpu}: imagenav_procgen.yaml (N={n}, 128x128 RGB and goal images): {E} goal renders in "
+        f"{table_launches['raycast_fused_sel_t']} #1 launch at table build ({build_s:.1f} s with the env); their "
+        f"closest hit against #1's plain version: hit {hit_a:.6f} idx {idx_a:.6f} |dt| {dt:.3g}; goal RGB equal to "
+        f"the plain render on the CPU on {rgb_eq:.6f} of pixels (gate {GOAL_RGB_AGREE}; the CPU render {cpu_s:.1f} s); "
+        f"the goal image constant over {env_size['steps']} steps and unlike every start view; #1 launches "
+        f"{env_launches['raycast_fused_sel_t']} = 1 reset + {env_size['steps']} steps")
+
+    # (b) the train recipe: the rgb encoder and the goal encoder
+    scenes, episodes, fields = make_procedural_pointnav(
+        num_scenes=recipe["num_scenes"], episodes_per_scene=recipe["episodes_per_scene"], seed=recipe["seed"],
+        extent=recipe["extent"])
+    hw, N, T = recipe["hw"], recipe["num_envs"], ppo["num_steps"]
+    zero_counts()
+    for p in plain_watch:
+        p.start()
+    env = make_nav_env(scenes, episodes, num_envs=N, precomputed_fields=fields,
+                       max_episode_steps=recipe["max_episode_steps"], goal_image_size=hw, device=dev,
+                       sensor_specs=(("HabitatSimRGBSensor", {"height": hw, "width": hw}),
+                                     ("ImageGoalSensor", {"height": hw, "width": hw}),
+                                     ("CompassSensor", None), ("GPSSensor", None)))
+    torch.manual_seed(0)
+    policy = make_pointnav_resnet_policy(env.num_actions, visual_inputs=("rgb",), input_hw=(hw, hw),
+                                         backbone="resnet9", hidden_size=recipe["hidden_size"], goal_keys=(),
+                                         **obs_inputs_of(env.observation_shapes), device=dev)
+    lrn = PPOLearner(env, policy, PPOConfig(**ppo))
+    rs, walls, roll, upd, metrics = recipe_run("[imagenav] recipe", lrn, updates, dev)
+    sync(dev)
+    for p in plain_watch:
+        p.stop()
+    # the goal table's render, the reset's and one per env step; one pool
+    # backward per encoder (observation, goal) per minibatch of each epoch
+    mb = ppo["ppo_epoch"] * ppo["num_mini_batch"]
+    train = path_counts("[imagenav] recipe", raycast_fused_sel_t=2 + updates * T,
+                        max_pool_3x3s2_bwd=2 * updates * mb)
+    if plain_on_card:
+        fail(f"[imagenav]: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+    if policy.net.image_goal_keys != ("imagegoal",):
+        fail(f"[imagenav] the recipe's net encodes goals {policy.net.image_goal_keys}")
+    act = torch.ones(N, dtype=torch.int32, device=dev)
+    log(f"[imagenav] {gpu}: scripts/train_imagenav_tpu.py's recipe ({recipe['num_scenes']} scenes x "
+        f"{recipe['episodes_per_scene']} episodes, N={N}, {hw}x{hw} RGB + {hw}x{hw} goal image through a second "
+        f"encoder + compass + gps, resnet9 + LSTM-{recipe['hidden_size']}, goal_keys=(), PPO T={T}): "
+        + recipe_text(N, T, walls, roll, upd, metrics)
+        + f"; launches #1 {train['raycast_fused_sel_t']} = 1 goal table + 1 + {updates} x {T}, #11 "
+        f"{train['max_pool_3x3s2_bwd']} = 2 encoders x {updates} x {ppo['ppo_epoch']} epochs x "
+        f"{ppo['num_mini_batch']} minibatches; no plain version on a card tensor; "
+        + idle_text(dev, env, rs.env_state, act)
+        + f"; the phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(table=table_launches, env=env_launches, train=train)
+
+
+def pick_arm_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card, recipe=ARM_RECIPE,
+                   updates=RECIPE_UPDATES, ppo=RECIPE_PPO, visual=ARM_VISUAL, evaluation=ARM_EVAL):
+    """[pick-arm]: (a) the blind arm-Pick recipe with the Gaussian policy
+    (no kernel), one float32 update held to the CPU; (b) the visual
+    Gaussian policy policy_from_config builds for pick_procgen.yaml with
+    ArmAction/BaseVelAction, trained and evaluated. Returns the launch
+    counts of (b)."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    import torch
+
+    from habitat_torch.baselines.evaluator import evaluate_agent
+    from habitat_torch.baselines.ppo import PPOConfig, PPOLearner, RolloutBatch
+    from habitat_torch.config.default import get_config
+    from habitat_torch.core import construct
+    from habitat_torch.models.policy import GaussianActorCritic, make_gaussian_resnet_policy, state_keys_of
+    from habitat_torch.tasks.rearrange.generator import make_rearrange_env
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    zero_counts()
+    for p in plain_watch:
+        p.start()
+    env = make_rearrange_env(device=dev, **recipe)
+    N, T, A = recipe["num_envs"], ppo["num_steps"], env.action_dim
+    keys = state_keys_of(env.observation_shapes)
+
+    def blind_policy(device, dtype=torch.bfloat16):
+        return make_gaussian_resnet_policy(A, backbone="resnet9", hidden_size=128, has_visual=False, goal_keys=(),
+                                           state_keys=keys, dtype=dtype, device=device)
+
+    torch.manual_seed(0)
+    policy = blind_policy(dev)
+    lrn = PPOLearner(env, policy, PPOConfig(**ppo), action_type="gaussian", measure_keys=("success", "pick_success"))
+    rs, walls, roll, upd, metrics = recipe_run("[pick-arm] recipe", lrn, updates, dev)
+    sync(dev)
+    for p in plain_watch:
+        p.stop()
+    path_counts("[pick-arm] blind recipe")  # no kernel, as in the JAX package (with_visual=False)
+    # one update from a fixed start and batch, card against CPU, float32,
+    # one epoch of one minibatch (no permutation to draw)
+    rs, batch, lv, h0, _ = lrn.collect_rollout(rs)
+    start = {k: v.detach().clone() for k, v in policy.state_dict().items()}
+    check = PPOConfig(**{**ppo, "ppo_epoch": 1, "num_mini_batch": 1})
+
+    def one_update(device):
+        pol = blind_policy(device, torch.float32)
+        pol.load_state_dict(start)
+        stub = SimpleNamespace(num_envs=N, device=device, action_dim=A)
+        lr_ = PPOLearner(stub, pol, check, action_type="gaussian")
+        b = RolloutBatch(**{k: ({o: x.to(device) for o, x in v.items()} if k == "obs" else v.to(device))
+                            for k, v in batch._asdict().items()})
+        m = lr_.update(torch.Generator(device=device).manual_seed(0), b, lv.to(device), h0.to(device))
+        return {k: v.item() for k, v in m.items()}, {k: v.cpu() for k, v in pol.state_dict().items()}
+
+    m_card, p_card = one_update(dev)
+    m_cpu, p_cpu = one_update(cpu)
+    loss_err = {k: abs(m_card[k] - m_cpu[k]) / max(1.0, abs(m_cpu[k])) for k in m_cpu}
+    param_err = max((p_card[k] - p_cpu[k]).abs().max().item() for k in p_cpu)
+    if max(loss_err.values()) > LOSS_RTOL or param_err > 2 * ppo["lr"]:
+        fail(f"[pick-arm] the float32 update, card against CPU: losses {loss_err}, parameters {param_err}")
+    act = torch.zeros(N, A, device=dev)
+    log(f"[pick-arm] {gpu}: scripts/train_pick_arm_tpu.py's recipe (N={N}, pick, {recipe['num_scenes']} scenes x "
+        f"{recipe['episodes_per_scene']} episodes, blind, arm control, {A} continuous actions, Gaussian resnet9 net "
+        f"without an encoder + LSTM-128 over {list(keys)}, PPO T={T}): " + recipe_text(N, T, walls, roll, upd, metrics)
+        + f"; no kernel launched; one float32 update (1 epoch, 1 minibatch) from the rollout's start, card - CPU: "
+        f"losses max rel {max(loss_err.values()):.3g} (gate {LOSS_RTOL}), parameters max {param_err:.3g} (gate "
+        f"{2 * ppo['lr']}); log_std {policy.action_head.log_std.detach().mean().item():.4f}; "
+        + idle_text(dev, env, rs.env_state, act))
+
+    # (b) the visual Gaussian policy from the config
+    cfg = get_config("benchmark/rearrange/pick_procgen.yaml", list(ARM_OVERRIDES))
+    n, Tv, vu = visual["num_envs"], visual["ppo"]["num_steps"], visual["updates"]
+    zero_counts()
+    for p in plain_watch:
+        p.start()
+    env = construct.env_from_config(cfg, num_envs=n, device=dev)
+    torch.manual_seed(0)
+    policy = construct.policy_from_config(cfg, env)
+    if not isinstance(policy, GaussianActorCritic) or policy.net.encoder is None or env.action_dim != A:
+        fail(f"[pick-arm] policy_from_config built {type(policy).__name__} for a {env.action_dim}-wide action")
+    lrn = PPOLearner(env, policy, PPOConfig(**visual["ppo"]), action_type="gaussian",
+                     measure_keys=("success", "pick_success"))
+    rs, walls, roll, upd, metrics = recipe_run("[pick-arm] visual", lrn, vu, dev)
+    sync(dev)
+    mb = visual["ppo"]["ppo_epoch"] * visual["ppo"]["num_mini_batch"]
+    train = path_counts("[pick-arm] visual train", raycast_index_t=2 * (1 + vu * Tv), max_pool_3x3s2_bwd=vu * mb)
+    # 8 deterministic episodes, one per env of an N=8 env from the same config
+    ecfg = get_config("benchmark/rearrange/pick_procgen.yaml",
+                      list(ARM_OVERRIDES) + [f"habitat.environment.max_episode_steps={evaluation['max_steps']}"])
+    eval_env = construct.env_from_config(ecfg, num_envs=evaluation["num_envs"], device=dev)
+    env_steps, step = [], eval_env.step_fn
+
+    def counted(*a):
+        env_steps.append(1)
+        return step(*a)
+
+    eval_env.step_fn = counted
+    zero_counts()
+    t0 = time.perf_counter()
+    ev = evaluate_agent(eval_env, policy, episodes_per_env=1, deterministic=True, measure_keys=("success",))
+    sync(dev)
+    eval_s = time.perf_counter() - t0
+    for p in plain_watch:
+        p.stop()
+    evl = path_counts("[pick-arm] visual eval", raycast_index_t=2 * (1 + len(env_steps)))
+    if plain_on_card:
+        fail(f"[pick-arm]: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+    if ev.get("num_episodes") != evaluation["num_envs"]:
+        fail(f"[pick-arm] eval counted {ev.get('num_episodes')} episodes, want {evaluation['num_envs']}")
+    h, w = env.observation_shapes["robot_head_depth"][0][:2]
+    log(f"[pick-arm] {gpu}: policy_from_config for pick_procgen.yaml + ArmAction/BaseVelAction (N={n}, {h}x{w} head "
+        f"depth + RGB, {env.capabilities[-1]}, {len(policy.net.encoder.backbone.blocks)}-block ResNet + "
+        f"LSTM-{policy.net.hidden_size}, "
+        f"Gaussian over {A}): " + recipe_text(n, Tv, walls, roll, upd, metrics)
+        + f"; launches #3 {train['raycast_index_t']} = 2 per render x (1 + {vu} x {Tv}), #11 "
+        f"{train['max_pool_3x3s2_bwd']} = {vu} x {mb}; evaluate_agent, deterministic (mu), N={evaluation['num_envs']}: "
+        f"{ev['num_episodes']:.0f} episodes in {len(env_steps)} env steps, {eval_s:.1f} s, success {ev['success']:.3f}, "
+        f"#3 {evl['raycast_index_t']} = 2 x (1 + {len(env_steps)}); no plain version on a card tensor; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
     return dict(train=train, eval=evl)
 
 
@@ -2961,6 +3482,25 @@ def main():
     sel["config_train_launches"] = cf_launches["train"]["raycast_fused_sel_t"]
     sel["config_eval_launches"] = cf_launches["eval"]["raycast_fused_sel_t"]
     pool_row["config_train_launches"] = cf_launches["train"]["max_pool_3x3s2_bwd"]
+
+    # ---- 15. ObjectNav, ImageNav and the Gaussian actor-critic -------------
+    for tag, phase in (("objectnav", objectnav_phase), ("imagenav", imagenav_phase), ("pick-arm", pick_arm_phase)):
+        log(f"[{tag}] starts {time.perf_counter() - t_start:.1f} s after the start")
+        torch.cuda.empty_cache()
+        got = phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
+        if tag == "objectnav":
+            sel["objectnav_env_launches"] = got["env"]["raycast_fused_sel_t"]
+            sel["objectnav_train_launches"] = got["train"]["raycast_fused_sel_t"]
+            pool_row["objectnav_train_launches"] = got["train"]["max_pool_3x3s2_bwd"]
+        elif tag == "imagenav":
+            sel["imagenav_goal_table_launches"] = got["table"]["raycast_fused_sel_t"]
+            sel["imagenav_env_launches"] = got["env"]["raycast_fused_sel_t"]
+            sel["imagenav_train_launches"] = got["train"]["raycast_fused_sel_t"]
+            pool_row["imagenav_train_launches"] = got["train"]["max_pool_3x3s2_bwd"]
+        else:
+            index_row["pick_arm_train_launches"] = got["train"]["raycast_index_t"]
+            index_row["pick_arm_eval_launches"] = got["eval"]["raycast_index_t"]
+            pool_row["pick_arm_train_launches"] = got["train"]["max_pool_3x3s2_bwd"]
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 

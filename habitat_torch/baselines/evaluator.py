@@ -10,10 +10,12 @@ finishes beyond the quota are not counted.
 ``evaluate_from_config`` is the config entry (``run.py --run-type eval``):
 the trainer's ``latest`` checkpoint, ``test_episode_count`` episodes.
 
-Not ported yet, and raising ``NotImplementedError``: Gaussian
-(continuous-action) policies, which need ``GaussianActorCritic`` (ROADMAP
-Queue 1 item 4); eval videos, TensorBoard output and the TopDownMap tracker
-(``video_option``, ``tb_writer``, ``map_tracker``; Queue 1 items 4 and 6).
+A Gaussian (continuous-action) policy starts from a zero previous action
+(N, ``num_outputs``) and acts with mu when ``deterministic``.
+
+Not ported yet, and raising ``NotImplementedError``: eval videos,
+TensorBoard output and the TopDownMap tracker (``video_option``,
+``tb_writer``, ``map_tracker``; ROADMAP Queue 1 items 4 and 6).
 ``eval_checkpoint_loop`` takes its two settings as keywords.
 """
 
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from habitat_torch.core.batched_env import BatchedEnv
-from habitat_torch.models.policy import ActorCritic, sample_action
+from habitat_torch.models.policy import ActorCritic, sample_action, sample_gaussian_action
 
 logger = logging.getLogger(__name__)
 
@@ -58,8 +60,6 @@ def evaluate_agent(
     seeded with ``seed``. Returns the mean over counted episodes of each
     measure in ``measure_keys`` that the env reports and of the episode
     ``reward``, and ``num_episodes``; {} if no episode finished."""
-    if not getattr(policy.net, "discrete_actions", True):
-        raise NotImplementedError("Gaussian (continuous-action) policies are not ported yet (ROADMAP Queue 1 item 4)")
     if video_option or tb_writer is not None or map_tracker is not None:
         raise NotImplementedError(
             "eval videos, TensorBoard output and the TopDownMap tracker are not ported yet (ROADMAP Queue 1 items "
@@ -74,7 +74,11 @@ def evaluate_agent(
 
     generator = torch.Generator(device=dev).manual_seed(seed)
     hidden = policy.initial_hidden(n)
-    prev_action = torch.zeros((n,), dtype=torch.int32, device=dev)
+    continuous = not getattr(policy.net, "discrete_actions", True)
+    if continuous:
+        prev_action = torch.zeros((n, int(policy.num_outputs)), device=dev)
+    else:
+        prev_action = torch.zeros((n,), dtype=torch.int32, device=dev)
     not_done = torch.zeros((n,), device=dev)
     state, obs = env.reset_fn()
     counted = np.zeros((n,), np.int64)
@@ -83,8 +87,11 @@ def evaluate_agent(
     total_eps = 0
     with torch.no_grad():
         for _ in range(max_steps):
-            logits, _, hidden = policy(obs, hidden, prev_action, not_done)
-            action, _ = sample_action(logits, generator, deterministic=deterministic)
+            dist, _, hidden = policy(obs, hidden, prev_action, not_done)
+            if continuous:
+                action, _ = sample_gaussian_action(*dist, generator, deterministic=deterministic)
+            else:
+                action, _ = sample_action(dist, generator, deterministic=deterministic)
             state, obs, reward, done, info = env.step_fn(state, action)
             keys = [k for k in measure_keys if k in info]
             # one transfer per step: dones, rewards and the measures

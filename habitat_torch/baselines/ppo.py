@@ -1,4 +1,5 @@
-"""PPO for the categorical policy (port of ``habitat_tpu/baselines/ppo.py``).
+"""PPO for the categorical and the Gaussian policy (port of
+``habitat_tpu/baselines/ppo.py``).
 
 ``PPOLearner.train_step`` is one rollout and one update:
 
@@ -17,6 +18,12 @@ rearrangement ``RearrangeBatchedEnv`` (whose Pick users pass
 ``measure_keys=("success", "pick_success")``). Float image observations are
 stored in bfloat16; state sensors stay float32.
 
+``action_type="gaussian"`` (a ``GaussianActorCritic`` on an env with a
+continuous ``action_dim``) stores (T, N, A) float32 actions and previous
+actions, samples mu + std * N(0, 1) from the rollout state's generator and
+scores stored actions by the diagonal Gaussian's log prob and entropy; the
+previous action at an episode's start is zeros (N, A).
+
 Math (reference rl/ppo/ppo.py, common/rollout_storage.py):
 - GAE: delta = r + gamma*V'*nd - V;  A = delta + gamma*tau*nd*A'
 - policy loss: -mean(min(ratio*A, clip(ratio, 1-c, 1+c)*A))
@@ -31,7 +38,13 @@ from typing import Any, Dict, List, NamedTuple, Protocol, Tuple
 
 import torch
 
-from habitat_torch.models.policy import ActorCritic, evaluate_actions_stats, sample_action
+from habitat_torch.models.policy import (
+    ActorCritic,
+    evaluate_actions_stats,
+    evaluate_gaussian_actions,
+    sample_action,
+    sample_gaussian_action,
+)
 
 
 class BatchedEnvLike(Protocol):
@@ -81,13 +94,13 @@ class PPOConfig:
 
 class RolloutBatch(NamedTuple):
     obs: Dict[str, torch.Tensor]  # (T, N, ...)
-    actions: torch.Tensor  # (T, N)
+    actions: torch.Tensor  # (T, N), or (T, N, A) float32 for a Gaussian policy
     log_probs: torch.Tensor  # (T, N)
     values: torch.Tensor  # (T, N)
     rewards: torch.Tensor  # (T, N)
     dones: torch.Tensor  # (T, N) — done AFTER step t
     masks: torch.Tensor  # (T, N) — 1 - done BEFORE step t ("not done" input mask)
-    prev_actions: torch.Tensor  # (T, N)
+    prev_actions: torch.Tensor  # (T, N), or (T, N, A)
 
 
 @dataclasses.dataclass
@@ -98,7 +111,7 @@ class RolloutState:
     env_state: Any  # the env's state: EnvState or RearrangeState
     obs: Dict[str, torch.Tensor]
     hidden: torch.Tensor  # (N, L, 2, H)
-    prev_action: torch.Tensor  # (N,) int32
+    prev_action: torch.Tensor  # (N,) int32, or (N, A) float32
     not_done: torch.Tensor  # (N,) float 1.0 = episode continues
     generator: torch.Generator
     ep_return_acc: torch.Tensor  # (N,) running return of the current episode
@@ -140,16 +153,35 @@ class PPOLearner:
         cfg: PPOConfig = PPOConfig(),
         *,
         measure_keys: Tuple[str, ...] = ("success", "spl", "distance_to_goal"),
+        action_type: str = "categorical",
     ):
         if env.num_envs % cfg.num_mini_batch:
             raise ValueError(f"{env.num_envs} envs do not split into {cfg.num_mini_batch} minibatches")
+        if action_type not in ("categorical", "gaussian"):
+            raise ValueError(f"action_type {action_type!r}: categorical or gaussian")
         self.env = env
         self.policy = policy
         self.cfg = cfg
         self.measure_keys = measure_keys
+        self.action_type = action_type
         # the JAX package's optax chain: clip by global norm, then Adam;
         # ``update`` clips with ``clip_by_global_norm_`` before each step
         self.optimizer = torch.optim.Adam(policy.parameters(), lr=cfg.lr, eps=cfg.eps)
+
+    def _zero_action(self, n: int, dev) -> torch.Tensor:
+        if self.action_type == "gaussian":
+            return torch.zeros((n, self.env.action_dim), device=dev)
+        return torch.zeros(n, dtype=torch.int32, device=dev)
+
+    def _sample(self, dist, generator):
+        if self.action_type == "gaussian":
+            return sample_gaussian_action(*dist, generator)
+        return sample_action(dist, generator)
+
+    def _evaluate(self, dist, actions):
+        if self.action_type == "gaussian":
+            return evaluate_gaussian_actions(*dist, actions)
+        return evaluate_actions_stats(dist, actions)
 
     def init(self, seed: int = 0) -> RolloutState:
         """Reset the envs; zero hidden state, previous action and not_done;
@@ -162,7 +194,7 @@ class PPOLearner:
             env_state=env_state,
             obs=obs,
             hidden=self.policy.initial_hidden(n),
-            prev_action=torch.zeros(n, dtype=torch.int32, device=dev),
+            prev_action=self._zero_action(n, dev),
             not_done=torch.zeros(n, device=dev),
             generator=gen,
             ep_return_acc=torch.zeros(n, device=dev),
@@ -187,8 +219,8 @@ class PPOLearner:
         for k in self.measure_keys:
             stats[f"m_{k}"] = torch.zeros((), device=dev)
         for _ in range(cfg.num_steps):
-            logits, value, new_hidden = self.policy(obs, hidden, prev_action, not_done)
-            action, logp = sample_action(logits, rs.generator)
+            dist, value, new_hidden = self.policy(obs, hidden, prev_action, not_done)
+            action, logp = self._sample(dist, rs.generator)
             env_state, new_obs, reward, done, info = self.env.step_fn(env_state, action)
             done_f = done.float()
             ep_ret = ep_ret + reward
@@ -238,8 +270,8 @@ class PPOLearner:
         """Clipped-surrogate loss of one minibatch: ``mb`` holds (T, n)
         leaves (obs leaves (T, n, ...)), ``h0_mb`` (n, L, 2, H)."""
         cfg = self.cfg
-        logits, values, _ = self.policy(mb["obs"], h0_mb, mb["prev_actions"], mb["masks"])
-        logp, entropy = evaluate_actions_stats(logits, mb["actions"])
+        dist, values, _ = self.policy(mb["obs"], h0_mb, mb["prev_actions"], mb["masks"])
+        logp, entropy = self._evaluate(dist, mb["actions"])
         ratio = torch.exp(logp - mb["log_probs"])
         adv = mb["advantages"]
         surr1 = ratio * adv

@@ -19,6 +19,9 @@ bookkeeping (common/base_trainer.py, rl/ppo/ppo_trainer.py):
   ``utils/tb.TensorboardWriter`` at the step count (``metrics/<name>``
   unless the name has a ``/``).
 
+A continuous-action env (``action_dim``, no ``num_actions``) trains the
+Gaussian policy (``PPOLearner(action_type="gaussian")``).
+
 Registered as the ``ppo`` trainer. DD-PPO over several cards
 (``use_mesh``, the ``ddppo`` trainer) and the ``ver`` trainer are not ported
 yet (ROADMAP Queue 1 item 5) and raise ``NotImplementedError``.
@@ -142,7 +145,13 @@ class PPOTrainer:
         self.policy = policy
         self.ppo_cfg = ppo_cfg
         self.run_cfg = run_cfg
-        self.learner = PPOLearner(env, policy, ppo_cfg, measure_keys=measure_keys)
+        # a continuous action space (an ``action_dim`` and no
+        # ``num_actions``) takes the Gaussian head, as the reference picks
+        # its action distribution from the action space
+        continuous = hasattr(env, "action_dim") and not hasattr(env, "num_actions")
+        self.learner = PPOLearner(
+            env, policy, ppo_cfg, measure_keys=measure_keys, action_type="gaussian" if continuous else "categorical"
+        )
         self.num_steps_done = 0
         self.num_updates_done = 0
         self._windows: Dict[str, deque] = defaultdict(lambda: deque(maxlen=run_cfg.reward_window_size))

@@ -9,10 +9,14 @@ into the port's envs, policy and trainer. Everything is built on ``device``
 (``None`` = cuda).
 
 Not ported yet, raising ``NotImplementedError`` (the ROADMAP Queue 1 item
-in the message): file datasets (PointNav-v1 episode archives on disk),
-ObjectNav and ImageNav; Gaussian (continuous-action) and
-``PointNavBaselinePolicy`` policies and ``normalize_visual_inputs``; the
-DD-PPO and VER trainers; hierarchical (HRL) and imitation (IL) trainers.
+in the message): file datasets (PointNav-v1 and ObjectNav-v1 episode
+archives on disk); the GRU state encoder; the DD-PPO and VER trainers;
+hierarchical (HRL) and imitation (IL) trainers.
+
+Image-goal observations feed the policy's goal encoders and are never put
+in ``goal_keys``: the JAX package's ``policy_from_config`` passes
+``goal_sensor_uuid`` "imagegoal" there, where its net feeds the raw goal
+image through a Dense layer and fails to initialise.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from habitat_torch.core.dataset import build_env_episode_order, build_episode_ta
 from habitat_torch.core.logging import logger
 from habitat_torch.core.registry import registry
 from habitat_torch.device import resolve_device
-from habitat_torch.models.policy import state_keys_of
+from habitat_torch.models.policy import IMAGE_GOAL_KEYS, obs_inputs_of
 from habitat_torch.sims.scene import pack_scenes
 
 # the image-goal lab sensors of ImageNav (datasets/image_nav.py)
@@ -42,7 +46,8 @@ def load_dataset(ds_cfg: Config):
 
     "PointNav-v1-Procedural" (or "PointNav-v1" whose ``data_path`` is not on
     disk, with a warning, as the JAX package falls back): the built-in
-    procedural generator."""
+    procedural generator. "ObjectNav*" whose ``data_path`` is not on disk:
+    the procedural ObjectNav generator."""
     from habitat_torch.datasets.pointnav import make_procedural_pointnav
 
     ds_type = ds_cfg.get("type", "PointNav-v1")
@@ -50,8 +55,18 @@ def load_dataset(ds_cfg: Config):
     data_path = (ds_cfg.get("data_path") or "").format(split=ds_cfg.get("split", "train"))
 
     if ds_type.startswith("ObjectNav"):
-        raise NotImplementedError(
-            f"{ds_type} datasets wait for the port of datasets/object_nav.py (ROADMAP Queue 1 item 4)")
+        from habitat_torch.datasets.object_nav import make_procedural_objectnav
+
+        if data_path and os.path.exists(data_path):
+            raise NotImplementedError(
+                f"episode files ({data_path}) wait for the port of sims/loaders.py (ROADMAP Queue 1 item 4)")
+        return make_procedural_objectnav(
+            num_scenes=int(proc.get("num_scenes", 4)),
+            episodes_per_scene=int(proc.get("episodes_per_scene", 32)),
+            seed=int(proc.get("seed", 0)),
+            extent=float(proc.get("extent", 10.0)),
+            nav_res=float(proc.get("nav_res", 0.1)),
+        )
     if ds_type == "PointNav-v1" and data_path and os.path.exists(data_path):
         raise NotImplementedError(
             f"episode files ({data_path}) wait for the port of datasets/pointnav.py::PointNavDatasetV1 and "
@@ -114,12 +129,6 @@ def env_from_config(config: Config, num_envs: Optional[int] = None, device=None)
     task_type = config.habitat.task.get("type", "Nav-v0")
     if task_type.startswith("Rearrange"):
         return rearrange_env_from_config(config, num_envs, device=device)
-    lab_sensors = config.habitat.task.get("lab_sensors", Config())
-    image_goals = [k for k in IMAGE_GOAL_SENSORS if k in lab_sensors]
-    if image_goals:
-        raise NotImplementedError(
-            f"image-goal sensors {image_goals} wait for the port of datasets/image_nav.py and ImageGoalSensor "
-            "(ROADMAP Queue 1 item 4)")
     dev = resolve_device(device)
     scenes, episodes, fields = load_dataset(config.habitat.dataset)
     if num_envs is None:
@@ -133,9 +142,13 @@ def env_from_config(config: Config, num_envs: Optional[int] = None, device=None)
         success_reward=float(task.get("success_reward", 2.5)),
         end_on_success=bool(task.get("end_on_success", False)),
     )
+    # an image-goal sensor: goal views rendered once at its width, on dev
+    lab_sensors = task.get("lab_sensors", Config())
+    goal_image_size = next(
+        (int(lab_sensors[k].get("width", 128)) for k in IMAGE_GOAL_SENSORS if k in lab_sensors), None)
     scene_index = {s.scene_id: i for i, s in enumerate(scenes)}
     table = build_episode_table(list(episodes), {s.scene_id: s for s in scenes}, scene_index,
-                                precomputed_fields=fields)
+                                precomputed_fields=fields, goal_image_size=goal_image_size, device=dev)
     it_opts = config.habitat.environment.get("iterator_options", Config())
     order = build_env_episode_order(
         list(episodes),
@@ -160,36 +173,41 @@ def env_from_config(config: Config, num_envs: Optional[int] = None, device=None)
 
 def policy_from_config(config: Config, env):
     """The policy ``habitat_baselines.rl.policy.main_agent`` names, built for
-    ``env``'s actions, observations, frame size and device (the discrete
-    branch; a continuous-action env asks for ``GaussianResNetPolicy``)."""
-    hb = config.habitat_baselines
-    pol_cfg = hb.rl.policy.main_agent
+    ``env``'s actions, observations, frame size and device; a
+    continuous-action env (``action_dim``, no ``num_actions``) gets
+    ``GaussianResNetPolicy``. Blind (no rgb or depth, or
+    ``force_blind_policy``) builds no visual encoder."""
+    def hb(path, default):
+        return config.get_path(f"habitat_baselines.{path}", default)
+
     shapes = env.observation_shapes
     visual = tuple(k for k in ("rgb", "depth") if k in shapes or f"robot_head_{k}" in shapes)
-    if hb.get("force_blind_policy", False) or not visual:
-        raise NotImplementedError("blind policies (no rgb or depth input) are not ported yet (ROADMAP Queue 1 item 4)")
-    if not hasattr(env, "num_actions"):
-        # a Box action space (rearrange arm/base control): the gaussian head
-        return registry.get_policy("GaussianResNetPolicy")(env.action_dim)
-    if bool(pol_cfg.get("normalize_visual_inputs", False)):
-        raise NotImplementedError(
-            "normalize_visual_inputs waits for the port of models/running_mean_and_var.py (ROADMAP Queue 1 item 4)")
-    rnn_type = hb.rl.ddppo.get("rnn_type", "LSTM")
+    has_visual = bool(visual) and not hb("force_blind_policy", False)
+    rnn_type = hb("rl.ddppo.rnn_type", "LSTM")
     if rnn_type != "LSTM":
         raise NotImplementedError(f"rnn_type={rnn_type!r}: the port has the LSTM state encoder only")
-    frame = next(shapes[k] for k in ("depth", "rgb", "robot_head_depth", "robot_head_rgb") if k in shapes)
     goal_uuid = config.habitat.task.get("goal_sensor_uuid", "pointgoal_with_gps_compass")
-    builder = registry.get_policy(pol_cfg.get("name", "PointNavResNetPolicy"))
-    return builder(
-        env.num_actions,
-        visual_inputs=visual,
-        input_hw=tuple(frame[0][:2]),
-        backbone=hb.rl.ddppo.get("backbone", "resnet18"),
-        hidden_size=int(hb.rl.ppo.get("hidden_size", 512)),
-        num_recurrent_layers=int(hb.rl.ddppo.get("num_recurrent_layers", 1)),
-        goal_keys=(goal_uuid,) if goal_uuid in shapes else (),
-        state_keys=state_keys_of(shapes),
+    # image goals go through the goal encoders, never through goal_fc
+    goal_keys = (goal_uuid,) if goal_uuid in shapes and goal_uuid not in IMAGE_GOAL_KEYS else ()
+    kw = dict(
+        backbone=hb("rl.ddppo.backbone", "resnet18"),
+        hidden_size=int(hb("rl.ppo.hidden_size", 512)),
+        num_recurrent_layers=int(hb("rl.ddppo.num_recurrent_layers", 1)),
+        has_visual=has_visual,
+        goal_keys=goal_keys,
         device=env.device,
+        **obs_inputs_of(shapes),
+    )
+    if has_visual:
+        frame = next(shapes[k] for k in ("depth", "rgb", "robot_head_depth", "robot_head_rgb") if k in shapes)
+        kw.update(visual_inputs=visual, input_hw=tuple(frame[0][:2]))
+    if not hasattr(env, "num_actions"):
+        # a Box action space (rearrange arm/base control): the Gaussian head
+        return registry.get_policy("GaussianResNetPolicy")(env.action_dim, **kw)
+    builder = registry.get_policy(hb("rl.policy.main_agent.name", "PointNavResNetPolicy"))
+    return builder(
+        env.num_actions, normalize_visual_inputs=bool(hb("rl.policy.main_agent.normalize_visual_inputs", False)),
+        **kw,
     )
 
 

@@ -3,7 +3,8 @@
 Port of the parts of ``habitat_tpu/core/dataset.py`` the PointNav rollout
 uses: the episode dataclasses, ``EpisodeTable`` (all episodes packed as
 tensors, indexed by episode id on the device) built by
-``build_episode_table`` (no goal images), and the per-env episode schedule
+``build_episode_table`` (with ImageNav's goal views rendered once, at table
+build, when ``goal_image_size`` is given), and the per-env episode schedule
 ``build_env_episode_order``.
 """
 
@@ -69,16 +70,18 @@ class EpisodeTable:
     geodesic_start: torch.Tensor  # (E,) f32 — start-to-goal geodesic (SPL denom)
     dist_field: torch.Tensor  # (E,NX,NZ) f16 — geodesic distance-to-goal
     object_category: torch.Tensor  # (E,) int32 — objectnav goal category (-1: n/a)
+    goal_image: torch.Tensor  # (E,Hg,Wg,3) u8 — imagegoal renders ((E,1,1,3) if unused)
+    # task-specific per-episode tensors (e.g. "instance_hfov"); sensors
+    # index extras[key][ep_idx]
+    extras: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
     @property
     def num_episodes(self) -> int:
         return int(self.scene_idx.shape[0])
 
     def to(self, device) -> "EpisodeTable":
-        return dataclasses.replace(
-            self,
-            **{f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)},
-        )
+        moved = {f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self) if f.name != "extras"}
+        return dataclasses.replace(self, extras={k: v.to(device) for k, v in self.extras.items()}, **moved)
 
 
 def build_episode_table(
@@ -88,11 +91,16 @@ def build_episode_table(
     grid_shape: Optional[tuple] = None,
     max_goals: int = MAX_GOALS_DEFAULT,
     precomputed_fields: Optional[Dict[str, np.ndarray]] = None,
+    goal_image_size: Optional[int] = None,
+    device=None,
 ) -> EpisodeTable:
     """Pack episodes + per-episode geodesic fields (host, CPU tensors).
 
     precomputed_fields: optional episode_id -> field map (e.g. from the
     procedural generator, which already ran the geodesic solve).
+    goal_image_size: render each episode's goal view at that square size
+    on ``device`` (``None`` = cuda; only read when rendering) into
+    ``goal_image``; without it ``goal_image`` is (E, 1, 1, 3) zeros.
     """
     from habitat_torch.sims.scene import geodesic_field
 
@@ -139,6 +147,11 @@ def build_episode_table(
         if cat is not None:
             obj_cat[i] = cat
 
+    if goal_image_size:
+        goal_imgs = _render_goal_images(episodes, scenes, scene_index, goal_image_size, device).cpu()
+    else:
+        goal_imgs = torch.zeros((E, 1, 1, 3), dtype=torch.uint8)
+
     t = torch.from_numpy
     return EpisodeTable(
         scene_idx=t(scene_idx),
@@ -149,7 +162,47 @@ def build_episode_table(
         geodesic_start=t(geo_start),
         dist_field=t(fields).to(torch.float16),
         object_category=t(obj_cat),
+        goal_image=goal_imgs,
     )
+
+
+def goal_view(episode) -> tuple:
+    """(camera position (3,) float32, yaw) of an episode's goal view: an
+    InstanceImageNav episode's stored camera (position and the yaw of its
+    rotation quaternion); otherwise the goal point + 1.25 m at a heading
+    drawn from ``RandomState(abs(hash(episode_id)) % 2**31)``, the
+    reference ImageGoalSensor's rule. Python salts ``hash`` of a ``str``
+    per process, so these headings repeat within a process and only across
+    processes that share ``PYTHONHASHSEED``."""
+    g = episode.goals[0] if episode.goals else None
+    img_goals = getattr(g, "image_goals", None)
+    if img_goals:
+        p = img_goals[int(getattr(episode, "goal_image_id", 0)) % len(img_goals)]
+        x, y, z, w = p.rotation
+        yaw = float(np.arctan2(2 * (w * y + x * z), 1 - 2 * (y * y + x * x)))
+        return np.asarray(p.position, np.float32), yaw
+    gp = np.asarray(g.position, np.float32)
+    yaw = np.random.RandomState(abs(hash(episode.episode_id)) % (2**31)).uniform(0, 2 * np.pi)
+    return gp + np.array([0.0, 1.25, 0.0], np.float32), float(yaw)
+
+
+def _render_goal_images(episodes, scenes, scene_index, size: int, device=None) -> torch.Tensor:
+    """(E, size, size, 3) uint8 goal views, rendered once through
+    ``render_batch`` at pitch 0 on ``device`` (``None`` = cuda; on the card
+    the pinhole route's kernel)."""
+    from habitat_torch.device import resolve_device
+    from habitat_torch.ops.raycast import render_batch
+    from habitat_torch.sims.scene import pack_scenes
+
+    dev = resolve_device(device)
+    scene_list = sorted(scene_index, key=lambda k: scene_index[k])
+    pack = pack_scenes([scenes[sid] for sid in scene_list]).to(dev)
+    views = [goal_view(e) for e in episodes]
+    sids = torch.tensor([scene_index[e.scene_id] for e in episodes], dtype=torch.int32, device=dev)
+    cam = torch.from_numpy(np.stack([v[0] for v in views])).to(dev)
+    yaws = torch.tensor([v[1] for v in views], dtype=torch.float32, device=dev)
+    pitch = torch.zeros(len(episodes), device=dev)
+    return render_batch(pack, sids, cam, yaws, pitch, height=size, width=size)["rgb"]
 
 
 def build_env_episode_order(

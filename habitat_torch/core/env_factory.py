@@ -48,16 +48,20 @@ def make_nav_env(
     reward_spec: RewardSpec = RewardSpec(),
     precomputed_fields: Optional[Dict[str, np.ndarray]] = None,
     seed: int = 0,
+    goal_image_size: Optional[int] = None,
     device=None,
 ) -> BatchedEnv:
-    """Build a batched PointNav env from host scenes + episodes on
-    ``device`` (``None`` = cuda)."""
+    """Build a batched PointNav-style env (PointNav, ObjectNav, ImageNav by
+    its sensors) from host scenes + episodes on ``device`` (``None`` =
+    cuda). ``goal_image_size`` renders each episode's goal view at that
+    size on ``device``, for ImageGoalSensor."""
     dev = resolve_device(device)
     scene_index = {s.scene_id: i for i, s in enumerate(scenes)}
     scene_map = {s.scene_id: s for s in scenes}
     pack = pack_scenes(list(scenes))
     table = build_episode_table(
-        list(episodes), scene_map, scene_index, precomputed_fields=precomputed_fields
+        list(episodes), scene_map, scene_index, precomputed_fields=precomputed_fields,
+        goal_image_size=goal_image_size, device=dev,
     )
     order = build_env_episode_order(list(episodes), num_envs, seed=seed)
 

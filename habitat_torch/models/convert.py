@@ -6,6 +6,10 @@ under "/"-joined paths (a leading "params/" is accepted), as
 
 - Conv kernels HWIO -> OIHW; Dense kernels (in, out) -> Linear (out, in);
 - GroupNorm scale/bias -> weight/bias; Embed embedding -> weight;
+- the image-goal encoders ``goal_encoder_<key>`` map as the observation
+  encoder ``ResNetEncoder_0`` does, under ``net.goal_encoder.<key>``; the
+  Gaussian head's Dense and ``log_std`` -> ``action_head`` (a Linear with a
+  ``log_std`` parameter);
 - ``OptimizedLSTMCell`` gates: input kernels ii/if/ig/io (no bias) and
   recurrent kernels hi/hf/hg/ho (with bias) -> ``nn.LSTMCell`` weight_ih /
   weight_hh / bias_hh in torch's i, f, g, o order, bias_ih = 0.
@@ -47,41 +51,51 @@ def _conv(prefix: str, v: np.ndarray) -> Dict[str, np.ndarray]:
     return {f"{prefix}.weight": v.transpose(3, 2, 0, 1)}
 
 
+def _encoder(rest: str, enc: str, v: np.ndarray) -> Dict[str, np.ndarray]:
+    """A ResNetEncoder's parameter (its Flax path ``rest`` below the
+    encoder) -> the port's, under the encoder's port prefix ``enc``."""
+    res = f"{enc}.backbone"
+    if rest == "Conv_0/kernel":
+        return _conv(f"{enc}.compression", v)
+    m = re.fullmatch(r"GroupNorm_0/(scale|bias)", rest)
+    if m:
+        return _norm(f"{enc}.compression_norm", m[1], v)
+    if rest == "ResNet_0/Conv_0/kernel":
+        return _conv(f"{res}.stem", v)
+    m = re.fullmatch(r"ResNet_0/GroupNorm_0/(scale|bias)", rest)
+    if m:
+        return _norm(f"{res}.stem_norm", m[1], v)
+    m = re.fullmatch(r"ResNet_0/BasicBlock_(\d+)/Conv_(\d)/kernel", rest)
+    if m:
+        return _conv(f"{res}.blocks.{m[1]}.{_BLOCK_CONVS[int(m[2])]}", v)
+    m = re.fullmatch(r"ResNet_0/BasicBlock_(\d+)/GroupNorm_(\d)/(scale|bias)", rest)
+    if m:
+        return _norm(f"{res}.blocks.{m[1]}.{_BLOCK_NORMS[int(m[2])]}", m[3], v)
+    raise KeyError(f"no port counterpart for encoder parameter {rest!r} of {enc}")
+
+
 def _convert_one(path, v):
-    enc, res = "net.encoder", "net.encoder.backbone"
     p = "/".join(path)
     m = re.fullmatch(r"(action_head|critic)/Dense_0/(kernel|bias)", p)
     if m:
         return _dense(m[1], m[2], v)
+    if p == "action_head/log_std":
+        return {"action_head.log_std": v}
     m = re.fullmatch(r"net/Dense_0/(kernel|bias)", p)
     if m:
         return _dense("net.visual_fc", m[1], v)
-    m = re.fullmatch(r"net/goal_fc_(\w+)/(kernel|bias)", p)
+    m = re.fullmatch(r"net/(goal_fc|state_fc|goal_visual_fc)_(\w+)/(kernel|bias)", p)
     if m:
-        return _dense(f"net.goal_fc.{m[1]}", m[2], v)
-    m = re.fullmatch(r"net/state_fc_(\w+)/(kernel|bias)", p)
+        return _dense(f"net.{m[1]}.{m[2]}", m[3], v)
+    m = re.fullmatch(r"net/prev_action_fc/(kernel|bias)", p)
     if m:
-        return _dense(f"net.state_fc.{m[1]}", m[2], v)
-    if p == "net/prev_action_embed/embedding":
-        return {"net.prev_action_embed.weight": v}
-    m = re.fullmatch(r"net/ResNetEncoder_0/Conv_0/kernel", p)
+        return _dense("net.prev_action_fc", m[1], v)
+    m = re.fullmatch(r"net/(prev_action_embed|objectgoal_embed)/embedding", p)
     if m:
-        return _conv(f"{enc}.compression", v)
-    m = re.fullmatch(r"net/ResNetEncoder_0/GroupNorm_0/(scale|bias)", p)
+        return {f"net.{m[1]}.weight": v}
+    m = re.fullmatch(r"net/(ResNetEncoder_0|goal_encoder_(imagegoal|instance_imagegoal))/(.*)", p)
     if m:
-        return _norm(f"{enc}.compression_norm", m[1], v)
-    m = re.fullmatch(r"net/ResNetEncoder_0/ResNet_0/Conv_0/kernel", p)
-    if m:
-        return _conv(f"{res}.stem", v)
-    m = re.fullmatch(r"net/ResNetEncoder_0/ResNet_0/GroupNorm_0/(scale|bias)", p)
-    if m:
-        return _norm(f"{res}.stem_norm", m[1], v)
-    m = re.fullmatch(r"net/ResNetEncoder_0/ResNet_0/BasicBlock_(\d+)/Conv_(\d)/kernel", p)
-    if m:
-        return _conv(f"{res}.blocks.{m[1]}.{_BLOCK_CONVS[int(m[2])]}", v)
-    m = re.fullmatch(r"net/ResNetEncoder_0/ResNet_0/BasicBlock_(\d+)/GroupNorm_(\d)/(scale|bias)", p)
-    if m:
-        return _norm(f"{res}.blocks.{m[1]}.{_BLOCK_NORMS[int(m[2])]}", m[3], v)
+        return _encoder(m[3], "net.encoder" if m[2] is None else f"net.goal_encoder.{m[2]}", v)
     raise KeyError(f"no port counterpart for Flax parameter {p!r}")
 
 

@@ -1,16 +1,28 @@
-"""PointNav actor-critic (port of the PointNavResNetPolicy parts of
-``habitat_tpu/models/policy.py``).
+"""Actor-critic policies (port of ``habitat_tpu/models/policy.py``).
 
-The net concatenates visual_fc | goal_fc | state_fc | prev_action_embed and
-feeds the LSTM; the pointgoal (rho, phi) enters as (rho, cos(-phi),
-sin(-phi)), each state sensor through its own Linear(width, 32), and the
-previous action as index + 1, or 0 at an episode start. The rearrangement
-head cameras ``robot_head_rgb`` / ``robot_head_depth`` are read as the
-encoder's rgb / depth."""
+The net concatenates, in the JAX net's order: visual_fc (unless blind) |
+goal_visual_fc per image goal (a second ResNetEncoder over the goal RGB) |
+goal_fc per goal sensor | state_fc per state sensor | objectgoal_embed |
+the previous action; the LSTM reads the concatenation. The pointgoal
+(rho, phi) enters as (rho, cos(-phi), sin(-phi)) and the objectgoal id as
+one float; each state sensor goes through its own Linear(width, 32). A
+discrete previous action enters as index + 1, or 0 at an episode start,
+through an embedding; a continuous one through Linear(A, 32), unmasked.
+The rearrangement head cameras ``robot_head_rgb`` / ``robot_head_depth``
+are read as the encoder's rgb / depth.
+
+Heads: ``ActorCritic`` gives logits (categorical); ``GaussianActorCritic``
+gives (mu, log_std) of a diagonal Gaussian whose log std is one parameter
+per action dimension, clipped to [-5, 2]. Unlike Flax, a torch module
+declares its input widths at construction: ``obs_inputs_of`` reads the
+state sensors, the image goals and the object goal from an env's
+``observation_shapes``.
+"""
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence, Tuple
+import math
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,17 +34,34 @@ from habitat_torch.models.resnet import ResNetEncoder
 from habitat_torch.models.rnn_state_encoder import RNNStateEncoder, initial_hidden_state
 
 POINTGOAL_KEYS = ("pointgoal_with_gps_compass", "pointgoal")
-# the rearrangement state sensors the net embeds, in the JAX package's fixed
-# concatenation order (its other state keys, gps/compass/heading/proximity
-# and the VLN/EQA tables, are not ported)
+# goal sensors the net embeds through goal_fc, with their input widths
+GOAL_WIDTHS = {"pointgoal_with_gps_compass": 3, "pointgoal": 3, "objectgoal": 1}
+# image goals, each through its own RGB encoder, in the JAX net's order
+IMAGE_GOAL_KEYS = ("imagegoal", "instance_imagegoal")
+# the state sensors the net embeds, in the JAX package's fixed concatenation
+# order: the nav ones, then the rearrangement ones (its VLN/EQA tables are
+# not ported)
+NAV_STATE_KEYS = ("gps", "compass", "heading", "proximity")
 STATE_KEYS = ("obj_start_sensor", "obj_goal_sensor", "joint", "is_holding", "ee_pos", "relative_resting_position")
+EMBED_ORDER = NAV_STATE_KEYS + STATE_KEYS
 
 
 def state_keys_of(observation_shapes: Mapping[str, Tuple[Tuple[int, ...], torch.dtype]]) -> Dict[str, int]:
     """{key: width} of the state sensors an env emits, from its
-    ``observation_shapes``, in ``STATE_KEYS`` order: what the JAX package's
-    net embeds when those keys are in its observations."""
-    return {k: int(observation_shapes[k][0][0]) for k in STATE_KEYS if k in observation_shapes}
+    ``observation_shapes``, in ``EMBED_ORDER``: what the JAX package's net
+    embeds when those keys are in its observations."""
+    return {k: int(observation_shapes[k][0][0]) for k in EMBED_ORDER if k in observation_shapes}
+
+
+def obs_inputs_of(observation_shapes: Mapping[str, Tuple[Tuple[int, ...], torch.dtype]]) -> Dict:
+    """The net's keyword arguments that an env's observations decide:
+    ``state_keys``, ``image_goals`` ({key: (H, W)}) and
+    ``objectgoal_embed`` (whether ``objectgoal`` is observed)."""
+    return dict(
+        state_keys=state_keys_of(observation_shapes),
+        image_goals={k: tuple(observation_shapes[k][0][:2]) for k in IMAGE_GOAL_KEYS if k in observation_shapes},
+        objectgoal_embed="objectgoal" in observation_shapes,
+    )
 
 
 class PointNavResNetNet(nn.Module):
@@ -47,34 +76,58 @@ class PointNavResNetNet(nn.Module):
         num_recurrent_layers: int = 1,
         base_planes: int = 32,
         ngroups: int = 16,
+        normalize_visual_inputs: bool = False,
+        has_visual: bool = True,
         goal_keys: Sequence[str] = ("pointgoal_with_gps_compass",),
         state_keys: Mapping[str, int] = (),
+        image_goals: Mapping[str, Tuple[int, int]] = (),
+        objectgoal_embed: bool = False,
+        discrete_actions: bool = True,
         dtype=torch.bfloat16,
     ):
+        """``num_actions``: the action count of a discrete policy, the
+        action's width of a continuous one (``discrete_actions=False``)."""
         super().__init__()
         for k in goal_keys:
-            if k not in POINTGOAL_KEYS:
-                raise ValueError(f"goal sensor {k!r} not ported; have {POINTGOAL_KEYS}")
-        state_keys = dict(state_keys)
+            if k not in GOAL_WIDTHS:
+                raise ValueError(f"goal sensor {k!r} not ported; have {tuple(GOAL_WIDTHS)}")
+        state_keys, image_goals = dict(state_keys), dict(image_goals)
         for k in state_keys:
-            if k not in STATE_KEYS:
-                raise ValueError(f"state sensor {k!r} not ported; have {STATE_KEYS}")
+            if k not in EMBED_ORDER:
+                raise ValueError(f"state sensor {k!r} not ported; have {EMBED_ORDER}")
+        for k in image_goals:
+            if k not in IMAGE_GOAL_KEYS:
+                raise ValueError(f"image goal {k!r} not ported; have {IMAGE_GOAL_KEYS}")
         self.num_actions = num_actions
+        self.discrete_actions = discrete_actions
         self.hidden_size = hidden_size
         self.num_recurrent_layers = num_recurrent_layers
-        self.encoder = ResNetEncoder(
-            visual_inputs, input_hw, backbone, base_planes, ngroups, dtype=dtype
-        )
-        self.visual_fc = nn.Linear(self.encoder.output_dim, hidden_size)
+        enc_kw = dict(backbone=backbone, base_planes=base_planes, ngroups=ngroups, dtype=dtype,
+                      normalize_visual_inputs=normalize_visual_inputs)
+        self.encoder = self.visual_fc = None
+        if has_visual:
+            self.encoder = ResNetEncoder(visual_inputs, input_hw, **enc_kw)
+            self.visual_fc = nn.Linear(self.encoder.output_dim, hidden_size)
+        self.image_goal_keys = tuple(k for k in IMAGE_GOAL_KEYS if k in image_goals)
+        self.goal_encoder = nn.ModuleDict(
+            {k: ResNetEncoder(("rgb",), image_goals[k], **enc_kw) for k in self.image_goal_keys})
+        self.goal_visual_fc = nn.ModuleDict(
+            {k: nn.Linear(self.goal_encoder[k].output_dim, hidden_size) for k in self.image_goal_keys})
         self.goal_keys = tuple(goal_keys)
-        self.goal_fc = nn.ModuleDict({k: nn.Linear(3, 32) for k in self.goal_keys})
-        # declared as {key: width}, embedded in STATE_KEYS order
-        self.state_keys = tuple(k for k in STATE_KEYS if k in state_keys)
+        self.goal_fc = nn.ModuleDict({k: nn.Linear(GOAL_WIDTHS[k], 32) for k in self.goal_keys})
+        # declared as {key: width}, embedded in EMBED_ORDER
+        self.state_keys = tuple(k for k in EMBED_ORDER if k in state_keys)
         self.state_fc = nn.ModuleDict({k: nn.Linear(state_keys[k], 32) for k in self.state_keys})
-        self.prev_action_embed = nn.Embedding(num_actions + 1, 32)
-        self.rnn = RNNStateEncoder(
-            hidden_size + 32 * (len(self.goal_keys) + len(self.state_keys)) + 32, hidden_size, num_recurrent_layers
+        self.objectgoal_embed = nn.Embedding(64, 32) if objectgoal_embed else None
+        if discrete_actions:
+            self.prev_action_embed = nn.Embedding(num_actions + 1, 32)
+        else:
+            self.prev_action_fc = nn.Linear(num_actions, 32)
+        width = (
+            hidden_size * (has_visual + len(self.image_goal_keys))
+            + 32 * (len(self.goal_keys) + len(self.state_keys) + objectgoal_embed + 1)
         )
+        self.rnn = RNNStateEncoder(width, hidden_size, num_recurrent_layers)
 
     def forward(
         self,
@@ -83,10 +136,11 @@ class PointNavResNetNet(nn.Module):
         prev_actions: torch.Tensor,
         masks: torch.Tensor,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """obs leaves (N, ...), prev_actions and masks (N,) for one step, or
-        obs leaves (T, N, ...), prev_actions and masks (T, N) for the update's
-        sequence mode; hidden (N, L, 2, H). Returns (features (N, H) or
-        (T, N, H), the final hidden state)."""
+        """obs leaves (N, ...), prev_actions (N,) or (N, A) and masks (N,)
+        for one step, or obs leaves (T, N, ...), prev_actions (T, N) or
+        (T, N, A) and masks (T, N) for the update's sequence mode; hidden
+        (N, L, 2, H). Returns (features (N, H) or (T, N, H), the final
+        hidden state)."""
         seq = masks.dim() == 2
 
         def flat(v):
@@ -96,16 +150,25 @@ class PointNavResNetNet(nn.Module):
         for k in ("rgb", "depth"):
             if f"robot_head_{k}" in obs:
                 obs[k] = obs[f"robot_head_{k}"]
-        parts = [F.relu(self.visual_fc(self.encoder(obs)))]
+        parts = []
+        if self.encoder is not None:
+            parts.append(F.relu(self.visual_fc(self.encoder(obs))))
+        for k in self.image_goal_keys:
+            parts.append(F.relu(self.goal_visual_fc[k](self.goal_encoder[k]({"rgb": obs[k]}))))
         for k in self.goal_keys:
             g = obs[k].float()
-            if g.shape[-1] == 2:
+            if k in POINTGOAL_KEYS and g.shape[-1] == 2:
                 g = torch.stack([g[..., 0], torch.cos(-g[..., 1]), torch.sin(-g[..., 1])], dim=-1)
             parts.append(self.goal_fc[k](g))
         for k in self.state_keys:
             parts.append(self.state_fc[k](obs[k].float()))
-        pa_idx = torch.where(flat(masks) > 0, flat(prev_actions).long() + 1, 0)
-        parts.append(self.prev_action_embed(pa_idx))
+        if self.objectgoal_embed is not None:
+            parts.append(self.objectgoal_embed(obs["objectgoal"][..., 0].long()))
+        pa = flat(prev_actions)
+        if self.discrete_actions:
+            parts.append(self.prev_action_embed(torch.where(flat(masks) > 0, pa.long() + 1, 0)))
+        else:
+            parts.append(self.prev_action_fc(pa.float()))
         x = torch.cat(parts, dim=-1)
         if seq:
             x = x.reshape(*masks.shape, -1)
@@ -113,15 +176,18 @@ class PointNavResNetNet(nn.Module):
 
 
 class ActorCritic(nn.Module):
-    """net -> (logits, value), per step or over a (T, N) sequence."""
+    """net -> (the action head's output, value), per step or over a (T, N)
+    sequence; the head is the categorical logits' Linear unless given."""
 
-    def __init__(self, net: PointNavResNetNet):
+    def __init__(self, net: PointNavResNetNet, action_head: Optional[nn.Module] = None):
         super().__init__()
         self.net = net
-        self.action_head = nn.Linear(net.hidden_size, net.num_actions)
+        if action_head is None:
+            action_head = nn.Linear(net.hidden_size, net.num_actions)
+            nn.init.orthogonal_(action_head.weight, gain=0.01)
+            nn.init.zeros_(action_head.bias)
+        self.action_head = action_head
         self.critic = nn.Linear(net.hidden_size, 1)
-        nn.init.orthogonal_(self.action_head.weight, gain=0.01)
-        nn.init.zeros_(self.action_head.bias)
         nn.init.orthogonal_(self.critic.weight, gain=1.0)
         nn.init.zeros_(self.critic.bias)
 
@@ -132,8 +198,34 @@ class ActorCritic(nn.Module):
     def initial_hidden(self, batch: int) -> torch.Tensor:
         return initial_hidden_state(
             batch, self.net.hidden_size, self.net.num_recurrent_layers,
-            device=self.action_head.weight.device,
+            device=self.critic.weight.device,
         )
+
+
+class GaussianHead(nn.Linear):
+    """mu = Linear(x) (orthogonal(0.01) weight, zero bias) and a
+    state-independent ``log_std`` parameter, clipped to [min_log_std,
+    max_log_std] and broadcast to mu's shape."""
+
+    def __init__(self, in_features: int, num_outputs: int, std_init: float = 0.0,
+                 min_log_std: float = -5.0, max_log_std: float = 2.0):
+        super().__init__(in_features, num_outputs)
+        nn.init.orthogonal_(self.weight, gain=0.01)
+        nn.init.zeros_(self.bias)
+        self.log_std = nn.Parameter(torch.full((num_outputs,), float(std_init)))
+        self.min_log_std, self.max_log_std = min_log_std, max_log_std
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        mu = super().forward(x)
+        return mu, self.log_std.clamp(self.min_log_std, self.max_log_std).expand_as(mu)
+
+
+class GaussianActorCritic(ActorCritic):
+    """Continuous-control actor-critic: (mu, log_std), value, hidden."""
+
+    def __init__(self, net: PointNavResNetNet, num_outputs: int, std_init: float = 0.0):
+        super().__init__(net, GaussianHead(net.hidden_size, num_outputs, std_init))
+        self.num_outputs = num_outputs
 
 
 def sample_action(
@@ -155,6 +247,35 @@ def evaluate_actions_stats(logits: torch.Tensor, actions: torch.Tensor) -> Tuple
     return act_logp, -(logp.exp() * logp).sum(-1)
 
 
+_LOG_2PI = math.log(2 * math.pi)
+
+
+def _gaussian_logp(mu, log_std, actions):
+    return -0.5 * (((actions - mu) / torch.exp(log_std)) ** 2 + 2 * log_std + _LOG_2PI).sum(-1)
+
+
+def sample_gaussian_action(
+    mu: torch.Tensor, log_std: torch.Tensor, generator: torch.Generator, deterministic: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """mu + std * N(0, 1) drawn from ``generator`` (mu itself when
+    ``deterministic``) and its log prob, in float32."""
+    mu, log_std = mu.float(), log_std.float()
+    if deterministic:
+        act = mu
+    else:
+        act = mu + torch.exp(log_std) * torch.randn(mu.shape, generator=generator, device=mu.device)
+    return act, _gaussian_logp(mu, log_std, act)
+
+
+def evaluate_gaussian_actions(
+    mu: torch.Tensor, log_std: torch.Tensor, actions: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(log prob of stored continuous ``actions``, entropy), in float32."""
+    mu, log_std = mu.float(), log_std.float()
+    entropy = (log_std + 0.5 * math.log(2 * math.pi * math.e)).sum(-1)
+    return _gaussian_logp(mu, log_std, actions.float()), entropy
+
+
 @registry.register_policy(name="PointNavResNetPolicy")
 def make_pointnav_resnet_policy(
     num_actions: int,
@@ -164,14 +285,19 @@ def make_pointnav_resnet_policy(
     backbone: str = "resnet18",
     hidden_size: int = 512,
     num_recurrent_layers: int = 1,
+    normalize_visual_inputs: bool = False,
+    has_visual: bool = True,
     goal_keys: Sequence[str] = ("pointgoal_with_gps_compass",),
     state_keys: Mapping[str, int] = (),
+    image_goals: Mapping[str, Tuple[int, int]] = (),
+    objectgoal_embed: bool = False,
     dtype=torch.bfloat16,
     device=None,
 ) -> ActorCritic:
     """PointNavResNetPolicy on ``device`` (``None`` = cuda). ``state_keys``
-    maps each embedded state sensor to its width (``state_keys_of`` reads
-    them from an env's ``observation_shapes``)."""
+    maps each embedded state sensor to its width and ``image_goals`` each
+    image goal to its (H, W) (``obs_inputs_of`` reads them from an env's
+    ``observation_shapes``)."""
     dev = resolve_device(device)
     return ActorCritic(
         PointNavResNetNet(
@@ -181,21 +307,60 @@ def make_pointnav_resnet_policy(
             backbone=backbone,
             hidden_size=hidden_size,
             num_recurrent_layers=num_recurrent_layers,
+            normalize_visual_inputs=normalize_visual_inputs,
+            has_visual=has_visual,
             goal_keys=goal_keys,
             state_keys=state_keys,
+            image_goals=image_goals,
+            objectgoal_embed=objectgoal_embed,
             dtype=dtype,
         )
     ).to(dev)
 
 
-def _not_ported(name: str):
-    def build(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported to habitat_torch yet (ROADMAP Queue 1 item 4)")
+@registry.register_policy(name="PointNavBaselinePolicy")
+def make_pointnav_baseline_policy(num_actions: int, hidden_size: int = 512, **kw) -> ActorCritic:
+    """The reference's SimpleCNN baseline name, built as the JAX package
+    builds it: the resnet9 PointNavResNetPolicy (a ``backbone`` given is
+    overridden)."""
+    return make_pointnav_resnet_policy(num_actions, hidden_size=hidden_size, **{**kw, "backbone": "resnet9"})
 
-    return build
 
-
-# the reference's other policy names: SimpleCNN and the Gaussian
-# (continuous-action) actor-critic are not ported
-for _name in ("PointNavBaselinePolicy", "GaussianResNetPolicy"):
-    registry.register_policy(_not_ported(_name), name=_name)
+@registry.register_policy(name="GaussianResNetPolicy")
+def make_gaussian_resnet_policy(
+    num_outputs: int,
+    *,
+    visual_inputs: Sequence[str] = ("rgb", "depth"),
+    input_hw: Tuple[int, int] = (128, 128),
+    backbone: str = "resnet18",
+    hidden_size: int = 512,
+    num_recurrent_layers: int = 1,
+    has_visual: bool = True,
+    goal_keys: Sequence[str] = (),
+    state_keys: Mapping[str, int] = (),
+    image_goals: Mapping[str, Tuple[int, int]] = (),
+    objectgoal_embed: bool = False,
+    std_init: float = 0.0,
+    dtype=torch.bfloat16,
+    device=None,
+) -> GaussianActorCritic:
+    """The continuous-control policy on ``device`` (``None`` = cuda): the
+    same net, its previous action (N, ``num_outputs``) through
+    ``prev_action_fc``, and the Gaussian head."""
+    dev = resolve_device(device)
+    net = PointNavResNetNet(
+        num_outputs,
+        visual_inputs=visual_inputs,
+        input_hw=input_hw,
+        backbone=backbone,
+        hidden_size=hidden_size,
+        num_recurrent_layers=num_recurrent_layers,
+        has_visual=has_visual,
+        goal_keys=goal_keys,
+        state_keys=state_keys,
+        image_goals=image_goals,
+        objectgoal_embed=objectgoal_embed,
+        discrete_actions=False,
+        dtype=dtype,
+    )
+    return GaussianActorCritic(net, num_outputs, std_init).to(dev)

@@ -141,7 +141,10 @@ class ResNet(nn.Module):
 class ResNetEncoder(nn.Module):
     """rgb/255 then depth -> resnet -> 3x3 compression conv + GroupNorm +
     ReLU -> flat (N, h*w*c) float32 in H, W, C order. ``input_hw`` fixes the
-    compression width (~``output_size`` features)."""
+    compression width (~``output_size`` features). With
+    ``normalize_visual_inputs`` each image is standardised over all its
+    pixels and channels in float32 first, (x - mean) / sqrt(var + 1e-5), as
+    the JAX package stands in for the reference's RunningMeanAndVar."""
 
     def __init__(
         self,
@@ -152,8 +155,10 @@ class ResNetEncoder(nn.Module):
         ngroups: int = 16,
         output_size: int = 2048,
         dtype=torch.bfloat16,
+        normalize_visual_inputs: bool = False,
     ):
         super().__init__()
+        self.normalize_visual_inputs = normalize_visual_inputs
         if backbone not in SPECS:
             raise ValueError(f"backbone {backbone!r} not ported; have {sorted(SPECS)}")
         unknown = set(visual_inputs) - {"rgb", "depth"}
@@ -177,7 +182,12 @@ class ResNetEncoder(nn.Module):
             imgs.append(obs["rgb"].float() / 255.0)
         if "depth" in self.visual_inputs:
             imgs.append(obs["depth"].float())
-        x = torch.cat(imgs, dim=-1).permute(0, 3, 1, 2)
+        x = torch.cat(imgs, dim=-1)
+        if self.normalize_visual_inputs:
+            mean = x.mean(dim=(1, 2, 3), keepdim=True)
+            var = ((x - mean) ** 2).mean(dim=(1, 2, 3), keepdim=True)
+            x = (x - mean) / torch.sqrt(var + 1e-5)
+        x = x.permute(0, 3, 1, 2)
         feat = self.backbone(x)
         y = F.relu(self.compression_norm(self.compression(feat)))
         return y.permute(0, 2, 3, 1).reshape(y.shape[0], -1).float()

@@ -1,15 +1,23 @@
 """Navigation task: sensors, measures, actions, batched over envs (port of
-the PointNav parts of ``habitat_tpu/tasks/nav.py``, under the same
-registered names).
+``habitat_tpu/tasks/nav.py``, under the same registered names).
 
-- sensors: PointGoalWithGPSCompassSensor, HabitatSimRGBSensor,
-  HabitatSimDepthSensor, HabitatSimSemanticSensor and their equirect and
-  fisheye versions (HabitatSimEquirectangular*Sensor,
+- sensors: PointGoalSensor, PointGoalWithGPSCompassSensor, HeadingSensor,
+  CompassSensor, GPSSensor, ProximitySensor, ObjectGoalSensor,
+  ImageGoalSensor, InstanceImageGoalSensor, InstanceImageGoalHFOVSensor,
+  HabitatSimRGBSensor, HabitatSimDepthSensor, HabitatSimSemanticSensor and
+  their equirect and fisheye versions (HabitatSimEquirectangular*Sensor,
   HabitatSimFisheye*Sensor); the visual ones are rendered once per step and
-  camera model by the env;
+  camera model by the env, the goal images once per episode at table build;
 - measures: DistanceToGoal, Success, SPL, SoftSPL, Collisions,
   DistanceToGoalReward, NumSteps;
-- actions: stop / move_forward / turn_left / turn_right.
+- actions: stop / move_forward / turn_left / turn_right / look_up /
+  look_down.
+
+Not ported yet, registered under their names as raising
+``NotImplementedError`` so that a config naming one says so: the host-side
+measures TopDownMap, RuntimePerfStats and GfxReplayMeasure, and the
+parameterised actions TeleportAction and VelocityAction (ROADMAP Queue 1
+item 4).
 """
 
 from __future__ import annotations
@@ -44,6 +52,14 @@ def table_distance_at(ctx: StepContext, pos: torch.Tensor) -> torch.Tensor:
     )
 
 
+def scene_field_at(fields: torch.Tensor, sid, lo, res, pos: torch.Tensor) -> torch.Tensor:
+    """A per-scene field (S,NX,NZ) at world pos (N,3), nearest cell
+    (rounded half to even, as ``jnp.round``)."""
+    nx, nz = fields.shape[-2], fields.shape[-1]
+    c = torch.round((pos[:, [0, 2]] - lo) / res).long()
+    return fields[sid, c[:, 0].clamp(0, nx - 1), c[:, 1].clamp(0, nz - 1)]
+
+
 # ---------------------------------------------------------------------------
 # Sensors
 # ---------------------------------------------------------------------------
@@ -65,11 +81,11 @@ def _pointgoal_obs(source_pos, source_yaw, goal_pos, goal_format: str, dimension
     return dva
 
 
-@registry.register_sensor("PointGoalWithGPSCompassSensor")
-class IntegratedPointGoalGPSAndCompassSensor(FunctionalSensor):
-    """Pointgoal in the CURRENT agent frame."""
+@registry.register_sensor("PointGoalSensor")
+class PointGoalSensor(FunctionalSensor):
+    """Pointgoal in the episode-start frame."""
 
-    uuid = "pointgoal_with_gps_compass"
+    uuid = "pointgoal"
 
     def __init__(self, config=None):
         super().__init__(config)
@@ -78,8 +94,135 @@ class IntegratedPointGoalGPSAndCompassSensor(FunctionalSensor):
 
     def compute(self, ctx: StepContext) -> torch.Tensor:
         return _pointgoal_obs(
+            ctx.start_pos, ctx.start_yaw, ctx.goal_pos[:, 0], self.goal_format, self.dimensionality
+        ).float()
+
+
+@registry.register_sensor("PointGoalWithGPSCompassSensor")
+class IntegratedPointGoalGPSAndCompassSensor(PointGoalSensor):
+    """Pointgoal in the CURRENT agent frame."""
+
+    uuid = "pointgoal_with_gps_compass"
+
+    def compute(self, ctx: StepContext) -> torch.Tensor:
+        return _pointgoal_obs(
             ctx.pos, ctx.yaw, ctx.goal_pos[:, 0], self.goal_format, self.dimensionality
         ).float()
+
+
+def _wrap(a: torch.Tensor) -> torch.Tensor:
+    """An angle wrapped to [-pi, pi] as (N, 1) float32."""
+    return torch.atan2(torch.sin(a), torch.cos(a))[:, None].float()
+
+
+@registry.register_sensor("HeadingSensor")
+class HeadingSensor(FunctionalSensor):
+    """World-frame heading: the yaw (about +y, forward -z) wrapped."""
+
+    uuid = "heading"
+
+    def compute(self, ctx: StepContext) -> torch.Tensor:
+        return _wrap(ctx.yaw)
+
+
+@registry.register_sensor("CompassSensor")
+class EpisodicCompassSensor(FunctionalSensor):
+    """Heading relative to the episode start, wrapped."""
+
+    uuid = "compass"
+
+    def compute(self, ctx: StepContext) -> torch.Tensor:
+        return _wrap(ctx.yaw - ctx.start_yaw)
+
+
+@registry.register_sensor("GPSSensor")
+class EpisodicGPSSensor(FunctionalSensor):
+    """Position in the episode-start frame; 2-D gives [-z, x] of it."""
+
+    uuid = "gps"
+
+    def __init__(self, config=None):
+        super().__init__(config)
+        self.dimensionality = _cfg(config, "dimensionality", 2)
+
+    def compute(self, ctx: StepContext) -> torch.Tensor:
+        rel = rotate_world_to_agent(ctx.pos - ctx.start_pos, ctx.start_yaw)
+        if self.dimensionality == 2:
+            return torch.stack([-rel[:, 2], rel[:, 0]], dim=-1).float()
+        return rel.float()
+
+
+@registry.register_sensor("ProximitySensor")
+class ProximitySensor(FunctionalSensor):
+    """Distance to the closest obstacle, from the scene's obstacle-distance
+    field, clipped to ``max_detection_radius``."""
+
+    uuid = "proximity"
+
+    def __init__(self, config=None):
+        super().__init__(config)
+        self.max_detection_radius = _cfg(config, "max_detection_radius", 2.0)
+
+    def compute(self, ctx: StepContext) -> torch.Tensor:
+        d = scene_field_at(ctx.pack.obst_dist, ctx.sid, ctx.pack.nav_lo[ctx.sid], ctx.pack.nav_res, ctx.pos)
+        return d.clamp(0.0, self.max_detection_radius)[:, None].float()
+
+
+@registry.register_sensor("ObjectGoalSensor")
+class ObjectGoalSensor(FunctionalSensor):
+    """The episode's goal category id, (N, 1) int32 (-1 read as 0)."""
+
+    uuid = "objectgoal"
+
+    def __init__(self, config=None):
+        super().__init__(config)
+        self.goal_spec_max_val = _cfg(config, "goal_spec_max_val", 50)
+
+    def compute(self, ctx: StepContext) -> torch.Tensor:
+        return ctx.table.object_category[ctx.ep_idx].clamp(min=0)[:, None].to(torch.int32)
+
+
+@registry.register_sensor("ImageGoalSensor")
+class ImageGoalSensor(FunctionalSensor):
+    """The episode's goal view, (N, H, W, 3) uint8, gathered from the
+    table's ``goal_image`` (rendered once at table build, see
+    ``core.dataset.goal_view``)."""
+
+    uuid = "imagegoal"
+
+    def __init__(self, config=None):
+        super().__init__(config)
+        self.height = _cfg(config, "height", 128)
+        self.width = _cfg(config, "width", 128)
+
+    def compute(self, ctx: StepContext) -> torch.Tensor:
+        img = ctx.table.goal_image
+        if img.shape[1] != self.height or img.shape[2] != self.width:
+            raise ValueError(
+                "EpisodeTable was built without goal images of the right size; pass goal_image_size to "
+                f"build_episode_table (table {tuple(img.shape)} vs sensor {(self.height, self.width)})")
+        return img[ctx.ep_idx]
+
+
+@registry.register_sensor("InstanceImageGoalSensor")
+class InstanceImageGoalSensor(ImageGoalSensor):
+    """The goal instance's stored view, from the same table."""
+
+    uuid = "instance_imagegoal"
+
+
+@registry.register_sensor("InstanceImageGoalHFOVSensor")
+class InstanceImageGoalHFOVSensor(FunctionalSensor):
+    """The goal view's HFOV: the table's ``extras["instance_hfov"]``, else
+    90 degrees."""
+
+    uuid = "instance_imagegoal_hfov"
+
+    def compute(self, ctx: StepContext) -> torch.Tensor:
+        extras = ctx.table.extras
+        if "instance_hfov" in extras:
+            return extras["instance_hfov"][ctx.ep_idx][:, None].float()
+        return torch.full((ctx.pos.shape[0], 1), 90.0, device=ctx.pos.device)
 
 
 class VisualSensorSpec(FunctionalSensor):
@@ -301,3 +444,32 @@ class TurnRightAction(FunctionalAction):
 
     def turn_amount(self):
         return -float(np.deg2rad(_cfg(self.config, "turn_angle", 10.0)))
+
+
+@registry.register_task_action("LookUpAction")
+class LookUpAction(FunctionalAction):
+    name = "look_up"
+
+    def tilt_amount(self):
+        return float(np.deg2rad(_cfg(self.config, "tilt_angle", 15.0)))
+
+
+@registry.register_task_action("LookDownAction")
+class LookDownAction(FunctionalAction):
+    name = "look_down"
+
+    def tilt_amount(self):
+        return -float(np.deg2rad(_cfg(self.config, "tilt_angle", 15.0)))
+
+
+def _not_ported(name: str):
+    def build(*args, **kwargs):
+        raise NotImplementedError(f"{name} is not ported to habitat_torch yet (ROADMAP Queue 1 item 4)")
+
+    return build
+
+
+for _name in ("TopDownMap", "RuntimePerfStats", "GfxReplayMeasure"):
+    registry.register_measure(_not_ported(_name), name=_name)
+for _name in ("TeleportAction", "VelocityAction"):
+    registry.register_task_action(_not_ported(_name), name=_name)

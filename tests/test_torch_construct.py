@@ -39,6 +39,7 @@ import habitat_torch.tasks.rearrange.generator as tgen
 from habitat_torch.articulated_agents.params import ROBOTS
 from habitat_torch.baselines import run
 from habitat_torch.config.default import get_config
+from habitat_torch.config.omega import read_write
 from tests.test_trainer import OVERRIDES
 
 ATOL = 1e-5
@@ -198,24 +199,34 @@ def _small_pick(extra=()):
         "habitat.simulator.tpu.dynamics=kinematic", "habitat_baselines.num_environments=2", *extra])
 
 
-@pytest.mark.parametrize("case", ["objectnav", "imagenav", "ddppo", "gaussian", "hrl", "il"])
-def test_unported_raise_not_implemented(case):
-    if case == "objectnav":
-        call, match = lambda: tcons.env_from_config(
-            get_config("benchmark/nav/objectnav/objectnav_procgen.yaml"), device="cpu"), "object_nav.py"
-    elif case == "imagenav":
-        call, match = lambda: tcons.env_from_config(
-            get_config("benchmark/nav/imagenav/imagenav_procgen.yaml"), device="cpu"), "image_nav.py"
+ARM_PICK = ["habitat.task.actions.arm_action.type=ArmAction", "habitat.task.actions.base_velocity.type=BaseVelAction"]
+
+
+@pytest.mark.parametrize("case", ["objectnav_file", "gru", "ddppo", "adaptive_entropy", "hrl", "il"])
+def test_unported_raise_not_implemented(case, tmp_path):
+    if case == "objectnav_file":
+        # an ObjectNav-v1 episode file on disk waits for sims/loaders.py
+        path = tmp_path / "val.json"
+        path.write_text('{"episodes": [], "goals_by_category": {}}')
+        cfg = get_config("benchmark/nav/objectnav/objectnav_procgen.yaml", [
+            "habitat.dataset.type=ObjectNav-v1", f"habitat.dataset.data_path={path}"])
+        call, match = lambda: tcons.env_from_config(cfg, num_envs=2, device="cpu"), "loaders.py"
+    elif case == "gru":
+        cfg = get_config("pointnav/ppo_pointnav_example.yaml", ["habitat_baselines.rl.ddppo.rnn_type=GRU"])
+        env = types.SimpleNamespace(observation_shapes={"depth": ((32, 32, 1), torch.float32)}, num_actions=4,
+                                    device=torch.device("cpu"))
+        call, match = lambda: tcons.policy_from_config(cfg, env), "GRU"
     elif case == "ddppo":
         call, match = lambda: tcons.trainer_from_config(
             get_config("pointnav/ddppo_pointnav.yaml"), device="cpu"), "DD-PPO"
-    elif case == "gaussian":
-        cfg = _small_pick(["habitat.task.actions.arm_action.type=ArmAction",
-                           "habitat.task.actions.base_velocity.type=BaseVelAction",
-                           "habitat_baselines.rl.policy.main_agent.name=PointNavResNetPolicy"])
-        env = tcons.env_from_config(cfg, device="cpu")
-        assert env.action_dim == 7 + 1 + 2 and not hasattr(env, "num_actions")
-        call, match = lambda: tcons.policy_from_config(cfg, env), "GaussianResNetPolicy"
+    elif case == "adaptive_entropy":
+        # the arm Pick config, trained by the Gaussian learner, with the
+        # example experiment's trainer settings and the adaptive entropy
+        cfg = _small_pick(ARM_PICK)
+        with read_write(cfg):
+            cfg["habitat_baselines"] = get_config("pointnav/ppo_pointnav_example.yaml", [
+                "habitat_baselines.rl.ppo.use_adaptive_entropy_pen=True"]).habitat_baselines
+        call, match = lambda: tcons.trainer_from_config(cfg, device="cpu"), "use_adaptive_entropy_pen"
     elif case == "hrl":
         call, match = lambda: tcons.trainer_from_config(
             get_config("pointnav/ppo_pointnav_example.yaml", ["habitat_baselines.updater_name=HRLPPO"]),
@@ -226,6 +237,66 @@ def test_unported_raise_not_implemented(case):
             device="cpu"), "vqa"
     with pytest.raises(NotImplementedError, match=match):
         call()
+
+
+# -- ObjectNav, ImageNav and the Gaussian policy from config -------------------
+
+
+def test_objectnav_and_imagenav_policies_from_config():
+    """The policy each package's ``policy_from_config`` builds for the two
+    YAMLs (the JAX one with its policy settings from the example
+    experiment): ObjectNav's keeps goal_fc_objectgoal and objectgoal_embed;
+    ImageNav's feeds the goal image to a second encoder, where the JAX
+    package's passes "imagegoal" into goal_keys and its net fails to
+    initialise (ROADMAP Queue 3)."""
+    from tests.test_torch_nav_tasks import IMAGENAV_32, OBJECTNAV_32
+
+    hb = get_config("pointnav/ppo_pointnav_example.yaml").habitat_baselines
+    for path, ov in (("benchmark/nav/objectnav/objectnav_procgen.yaml", OBJECTNAV_32),
+                     ("benchmark/nav/imagenav/imagenav_procgen.yaml", IMAGENAV_32)):
+        cfg = get_config(path, ov)
+        with read_write(cfg):
+            cfg["habitat_baselines"] = hb
+        env = tcons.env_from_config(cfg, num_envs=2, device="cpu")
+        pol = tcons.policy_from_config(cfg, env)
+        net = pol.net
+        names = {k.split(".")[1] for k in pol.state_dict() if k.startswith("net.")}
+        if "objectnav" in path:
+            assert net.goal_keys == ("objectgoal",) and net.objectgoal_embed is not None
+            assert net.state_keys == ("gps", "compass") and net.encoder.visual_inputs == ("rgb", "depth")
+            assert pol.action_head.out_features == 6 and not net.image_goal_keys
+        else:
+            assert net.goal_keys == () and net.image_goal_keys == ("imagegoal",)
+            assert {"goal_encoder", "goal_visual_fc"} <= names and net.encoder.visual_inputs == ("rgb",)
+        st, obs = env.reset_fn()
+        with torch.no_grad():
+            logits, value, _ = pol(obs, pol.initial_hidden(2), torch.zeros(2, dtype=torch.int32), torch.zeros(2))
+        assert logits.shape == (2, env.num_actions) and torch.isfinite(value).all()
+
+
+def test_gaussian_policy_from_config():
+    """pick_procgen.yaml with ArmAction and BaseVelAction: a 10-wide
+    continuous action space gets GaussianResNetPolicy (visual: the head
+    cameras), as the JAX package builds it; blind with
+    force_blind_policy; PPOTrainer trains it with the Gaussian learner."""
+    from habitat_torch.models.policy import GaussianActorCritic
+
+    cfg = _small_pick(ARM_PICK + ["habitat_baselines.rl.ddppo.backbone=resnet9",
+                                  "habitat_baselines.rl.ppo.hidden_size=64"])
+    env = tcons.env_from_config(cfg, device="cpu")
+    assert env.action_dim == 7 + 1 + 2 and not hasattr(env, "num_actions")
+    pol = tcons.policy_from_config(cfg, env)
+    assert isinstance(pol, GaussianActorCritic) and pol.num_outputs == 10 and pol.net.encoder is not None
+    assert pol.net.hidden_size == 64 and pol.net.encoder.output_dim > 0
+    with read_write(cfg):
+        cfg.habitat_baselines["force_blind_policy"] = True
+    blind = tcons.policy_from_config(cfg, env)
+    assert blind.net.encoder is None and "net.visual_fc.weight" not in blind.state_dict()
+    # the trainer picks the Gaussian learner from the action space
+    from habitat_torch.baselines.ppo import PPOConfig
+    from habitat_torch.baselines.trainer import PPOTrainer
+
+    assert PPOTrainer(env, blind, PPOConfig(num_steps=2, num_mini_batch=1)).learner.action_type == "gaussian"
 
 
 # -- run.main --------------------------------------------------------------------

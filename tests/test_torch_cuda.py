@@ -1134,3 +1134,66 @@ def test_rearrange_render_launches_the_index_kernel_twice(card):
     hit_c, hit_g = oc["robot_head_depth"] < 1.0, og["robot_head_depth"].cpu() < 1.0
     assert (hit_c == hit_g).float().mean() >= 0.999
     assert ((og["robot_head_rgb"].cpu().int() - oc["robot_head_rgb"].int()).abs() <= 1).all(-1).float().mean() >= 0.999
+
+
+# -- ObjectNav, ImageNav and the Gaussian policy on the card -------------------
+
+
+def test_goal_images_on_card_match_plain(cuda):
+    """ImageNav's goal views rendered at table build through #1 on the card
+    against the same render on the CPU: RGB equal on >= 99.9% of pixels,
+    one #1 launch for the whole table."""
+    from habitat_torch.core import dataset as ds
+
+    scenes, episodes, _ = make_procedural_pointnav(num_scenes=2, episodes_per_scene=4, seed=0)
+    args = (episodes, {s.scene_id: s for s in scenes}, {s.scene_id: i for i, s in enumerate(scenes)}, 64)
+    before = rk.raycast_fused_sel_t.launches
+    got = ds._render_goal_images(*args, device=cuda)
+    torch.cuda.synchronize()
+    assert rk.raycast_fused_sel_t.launches == before + 1
+    ref = ds._render_goal_images(*args, device="cpu")
+    assert got.is_cuda and got.shape == ref.shape == (8, 64, 64, 3)
+    assert (got.cpu() == ref).all(-1).float().mean().item() >= 0.999
+
+
+def test_objectnav_step_at_pitch_matches_cpu(cuda):
+    """One ObjectNav env step after a look_down (nonzero pitch), card
+    against CPU: objectgoal, gps and compass within 1e-5, the frames by the
+    frame rule."""
+    from habitat_torch.config.default import get_config
+    from habitat_torch.core import construct
+
+    cfg = get_config("benchmark/nav/objectnav/objectnav_procgen.yaml", [
+        "habitat.dataset.procedural.num_scenes=2", "habitat.dataset.procedural.episodes_per_scene=4"])
+    envs = [construct.env_from_config(cfg, num_envs=4, device=d) for d in ("cpu", cuda)]
+    outs = []
+    for env in envs:
+        st, obs = env.reset_fn()
+        for a in ([5, 5, 4, 1], [1, 5, 2, 3]):
+            st, obs, *_ = env.step_fn(st, torch.tensor(a, dtype=torch.int32, device=env.device))
+        outs.append((st, obs))
+    (sc, oc), (sg, og) = outs
+    assert (sg.pitch.abs() > 0.2).any()
+    for k in ("objectgoal", "gps", "compass"):
+        assert (og[k].cpu().double() - oc[k].double()).abs().max() <= 1e-5, k
+    assert ((og["rgb"].cpu() == oc["rgb"]).all(-1).float().mean() >= 0.999).item()
+    assert ((og["depth"].cpu() - oc["depth"]).abs() < 1e-4).float().mean().item() >= 0.999
+
+
+def test_gaussian_sampling_with_a_cuda_generator(cuda):
+    """sample_gaussian_action draws on the card from a CUDA generator: the
+    same seed repeats, mu + std * noise has the std asked for, and the log
+    prob agrees with evaluate_gaussian_actions."""
+    from habitat_torch.models.policy import evaluate_gaussian_actions, sample_gaussian_action
+
+    mu = torch.linspace(-1, 1, 10, device=cuda).expand(4096, 10).contiguous()
+    log_std = torch.full_like(mu, -1.0)
+    draws = [sample_gaussian_action(mu, log_std, torch.Generator(device=cuda).manual_seed(3)) for _ in range(2)]
+    (a, logp), (b, _) = draws
+    assert a.is_cuda and torch.equal(a, b)
+    std = (a - mu).std(0)
+    assert ((std - np.exp(-1.0)).abs() < 0.02).all()
+    ref, _ = evaluate_gaussian_actions(mu, log_std, a)
+    assert (logp - ref).abs().max().item() < 1e-4
+    det, _ = sample_gaussian_action(mu, log_std, torch.Generator(device=cuda), deterministic=True)
+    assert torch.equal(det, mu)

@@ -290,15 +290,63 @@ def test_eval_checkpoint_loop_resumes(tmp_path, envs):
     assert json.loads((eval_dir / ".eval_resume_state").read_text()) == {"prev_ckpt_ind": 1}
 
 
-@pytest.mark.parametrize("option", ["video_option", "tb_writer", "map_tracker", "gaussian"])
+@pytest.mark.parametrize("option", ["video_option", "tb_writer", "map_tracker"])
 def test_unported_options_raise(envs, option):
     env, policy = envs[1](), _TorchStub()
     kw = {"video_option": dict(video_option=("disk",)), "tb_writer": dict(tb_writer=object()),
-          "map_tracker": dict(map_tracker=object()), "gaussian": {}}[option]
-    if option == "gaussian":
-        policy.net.discrete_actions = False
+          "map_tracker": dict(map_tracker=object())}[option]
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         tev.evaluate_agent(env, policy, **kw)
+
+
+class _GaussianStub(nn.Module):
+    """A continuous controller called as GaussianActorCritic is: mu from
+    the joints and the previous action, a fixed log_std."""
+
+    def __init__(self, num_outputs):
+        super().__init__()
+        self.net = SimpleNamespace(discrete_actions=False)
+        self.num_outputs = num_outputs
+        self.seen = []
+
+    def initial_hidden(self, n):
+        return torch.zeros(n, 1, 2, 4)
+
+    def forward(self, obs, hidden, prev_action, masks):
+        self.seen.append(prev_action.clone())
+        mu = 0.1 * torch.tanh(obs["joint"].sum(-1, keepdim=True) + prev_action)
+        return (mu, torch.full_like(mu, -1.0)), torch.zeros(mu.shape[0]), hidden
+
+
+def test_gaussian_policy_evaluates():
+    """The Gaussian branch on the blind arm-Pick env (N=2, 3-step episodes,
+    2 per env): the first previous action is zeros (N, num_outputs), each
+    next one the action taken; deterministic acts with mu, sampling draws
+    from the generator; the quota counts 4 episodes."""
+    from habitat_torch.tasks.rearrange.generator import make_rearrange_env
+
+    env = make_rearrange_env(num_envs=2, task="pick", num_scenes=1, episodes_per_scene=4, seed=0, with_visual=False,
+                             n_rooms_per_axis=1, n_clutter=0, max_episode_steps=3, control="arm", device="cpu")
+    acted = []
+    step = env.step_fn
+
+    def spy(state, action):
+        acted.append(action.clone())
+        return step(state, action)
+
+    env.step_fn = spy
+    policy = _GaussianStub(env.action_dim)
+    out = tev.evaluate_agent(env, policy, episodes_per_env=2, deterministic=True, measure_keys=("success",))
+    assert out["num_episodes"] == 4.0 and 0.0 <= out["success"] <= 1.0
+    assert len(acted) == 6 and all(a.shape == (2, 10) and a.dtype == torch.float32 for a in acted)
+    assert torch.equal(policy.seen[0], torch.zeros(2, 10))
+    for prev, a in zip(policy.seen[1:], acted):
+        assert torch.equal(prev, a)
+    # deterministic: the action is mu, within the stub's 0.1 * tanh
+    assert acted[0].abs().max() > 0 and (acted[0].abs() <= 0.1).all()
+    env.step_fn = step
+    sampled = tev.evaluate_agent(env, _GaussianStub(env.action_dim), episodes_per_env=2, seed=1)
+    assert sampled["num_episodes"] == 4.0
 
 
 def test_device_none_needs_the_card(envs):

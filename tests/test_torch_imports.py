@@ -36,7 +36,7 @@ def test_port_files_found():
     assert os.path.join(ROOT, "chip_smoke.py") in files
     assert len(files) > 15
     for module in ("tasks/rearrange/rearrange_env.py", "tasks/rearrange/generator.py", "ops/navgrid.py",
-                   "models/policy.py", "baselines/ppo.py"):
+                   "models/policy.py", "baselines/ppo.py", "datasets/object_nav.py", "datasets/image_nav.py"):
         assert os.path.join(ROOT, "habitat_torch", module) in files
 
 
@@ -53,6 +53,7 @@ CONFIG_PATH_MODULES = (
     "habitat_torch.core.registry", "habitat_torch.core.logging", "habitat_torch.utils.tb",
     "habitat_torch.tasks.rearrange.sensors", "habitat_torch.tasks.rearrange.task_actions",
     "habitat_torch.core.construct", "habitat_torch.baselines.evaluator", "habitat_torch.baselines.run",
+    "habitat_torch.datasets.object_nav", "habitat_torch.datasets.image_nav",
 )
 _PROBE = """
 import json, sys

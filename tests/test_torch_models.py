@@ -17,6 +17,7 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from flax import traverse_util
 
@@ -154,3 +155,156 @@ def test_flagship_checkpoint_converts():
     params = ocp.StandardCheckpointer().restore(CKPT, abstract)
     tpol = make_pointnav_resnet_policy(4, visual_inputs=("depth",), input_hw=hw, device="cpu")
     _compare_policy(jpol, params, tpol, obs, hidden, prev, masks)
+
+
+# -- ObjectNav, ImageNav and the Gaussian actor-critic -----------------------
+
+
+def _state_obs(rng, n, widths):
+    return {k: rng.normal(0, 1, (n, w)).astype(np.float32) for k, w in widths.items()}
+
+
+def _compare_gaussian(jpol, params, tpol, obs, hidden, prev, masks, atol):
+    """mu, log_std, value and hidden state within ``atol``."""
+    (ref_mu, ref_log_std), ref_values, ref_hidden = jpol.apply(params, obs, hidden, prev, masks)
+    tpol.load_state_dict(params_from_jax(_flat_np(params["params"])))
+    with torch.no_grad():
+        (mu, log_std), values, new_hidden = tpol(
+            _torch_obs(obs), torch.from_numpy(np.array(hidden)), torch.from_numpy(prev), torch.from_numpy(masks),
+        )
+    for name, got, ref in (("mu", mu, ref_mu), ("log_std", log_std, ref_log_std), ("value", values, ref_values),
+                           ("hidden", new_hidden, ref_hidden)):
+        assert tuple(got.shape) == np.asarray(ref).shape, name
+        assert np.abs(got.numpy() - np.asarray(ref)).max() < atol, name
+    return np.asarray(ref_mu), np.asarray(ref_log_std)
+
+
+def _perturbed(jpol, obs, hidden, prev, masks, rng, seed):
+    params = jpol.init(jax.random.PRNGKey(seed), obs, hidden, jnp.asarray(prev), jnp.asarray(masks))
+    return {"params": _perturb_affine(params["params"], rng)}
+
+
+def test_objectnav_policy_bf16_matches():
+    """ObjectNav's net: rgb + depth, the objectgoal id through goal_fc (its
+    one float) and through objectgoal_embed, gps and compass through
+    state_fc ahead of the rearrangement keys, 6 actions."""
+    rng = np.random.default_rng(5)
+    n, hw = 4, (64, 64)
+    obs = _obs(rng, n, hw, keys=("rgb", "depth"))
+    obs.update(_state_obs(rng, n, dict(gps=2, compass=1)))
+    obs["objectgoal"] = np.array([[0], [5], [21], [7]], np.int32)
+    hidden = jnp.asarray(rng.normal(0, 0.5, (n, 1, 2, 128)).astype(np.float32))
+    prev, masks = np.array([0, 5, 4, 3], np.int32), np.array([1, 1, 0, 1], np.float32)
+    jpol = jax_policy(6, backbone="resnet9", hidden_size=128, goal_keys=("objectgoal",))
+    params = _perturbed(jpol, obs, hidden, prev, masks, rng, 6)
+    assert {"goal_fc_objectgoal", "objectgoal_embed", "state_fc_gps", "state_fc_compass"} <= set(params["params"]["net"])
+    tpol = make_pointnav_resnet_policy(6, backbone="resnet9", hidden_size=128, goal_keys=("objectgoal",), input_hw=hw,
+                                       state_keys={"compass": 1, "gps": 2}, objectgoal_embed=True, device="cpu")
+    assert tpol.net.state_keys == ("gps", "compass")
+    _compare_policy(jpol, params, tpol, obs, hidden, prev, masks)
+
+
+def test_imagenav_policy_bf16_matches():
+    """ImageNav's net: the rgb encoder and a second encoder over the goal
+    image (goal_encoder_imagegoal + goal_visual_fc_imagegoal), no goal_fc
+    (the recipe's goal_keys=()), gps and compass."""
+    rng = np.random.default_rng(6)
+    n, hw = 4, (64, 64)
+    obs = _obs(rng, n, hw, keys=("rgb",))
+    obs["imagegoal"] = rng.integers(0, 256, (n, *hw, 3)).astype(np.uint8)
+    obs.update(_state_obs(rng, n, dict(gps=2, compass=1)))
+    hidden = jnp.asarray(rng.normal(0, 0.5, (n, 1, 2, 128)).astype(np.float32))
+    prev, masks = np.array([3, 0, 2, 1], np.int32), np.array([0, 1, 1, 1], np.float32)
+    jpol = jax_policy(4, backbone="resnet9", hidden_size=128, goal_keys=())
+    params = _perturbed(jpol, obs, hidden, prev, masks, rng, 7)
+    assert {"goal_encoder_imagegoal", "goal_visual_fc_imagegoal"} <= set(params["params"]["net"])
+    tpol = make_pointnav_resnet_policy(4, backbone="resnet9", hidden_size=128, goal_keys=(), input_hw=hw,
+                                       visual_inputs=("rgb",), image_goals={"imagegoal": hw},
+                                       state_keys={"gps": 2, "compass": 1}, device="cpu")
+    _compare_policy(jpol, params, tpol, obs, hidden, prev, masks)
+
+
+ARM_WIDTHS = dict(joint=7, ee_pos=3, is_holding=1, obj_start_sensor=3, relative_resting_position=3)
+
+
+@pytest.mark.parametrize("visual", [False, True], ids=["blind", "visual"])
+def test_gaussian_policy_matches(visual):
+    """The Gaussian actor-critic: the blind arm-Pick net (state sensors
+    only; no bf16 layer, so within 1e-5) and the visual one (head cameras;
+    BF16_ATOL); the previous (N, 10) action through prev_action_fc,
+    unmasked; log_std perturbed beyond the clip, mu's kernel scaled up 100x
+    so that mu spreads as logits do."""
+    from habitat_tpu.models.policy import make_gaussian_resnet_policy as jax_gaussian
+
+    from habitat_torch.models.policy import GaussianActorCritic, make_gaussian_resnet_policy
+
+    rng = np.random.default_rng(7 + visual)
+    n, hw, A = 4, (32, 32), 10
+    obs = _state_obs(rng, n, ARM_WIDTHS)
+    if visual:
+        img = _obs(rng, n, hw, keys=("rgb", "depth"))
+        obs.update(robot_head_rgb=img["rgb"], robot_head_depth=img["depth"])
+    hidden = jnp.asarray(rng.normal(0, 0.5, (n, 1, 2, 128)).astype(np.float32))
+    prev = rng.uniform(-1, 1, (n, A)).astype(np.float32)
+    masks = np.array([1, 0, 1, 1], np.float32)
+    jpol = jax_gaussian(A, backbone="resnet9", hidden_size=128, has_visual=visual)
+    params = _perturbed(jpol, obs, hidden, prev, masks, rng, 8)
+    flat = traverse_util.flatten_dict(params["params"], sep="/")
+    flat["action_head/log_std"] = jnp.asarray(np.linspace(-6.0, 2.5, A).astype(np.float32))
+    flat["action_head/Dense_0/kernel"] = flat["action_head/Dense_0/kernel"] * 100.0
+    params = {"params": traverse_util.unflatten_dict(flat, sep="/")}
+    assert ("net/Dense_0/kernel" in flat) == visual and "net/prev_action_fc/kernel" in flat
+    tpol = make_gaussian_resnet_policy(A, backbone="resnet9", hidden_size=128, has_visual=visual, input_hw=hw,
+                                       state_keys=ARM_WIDTHS, device="cpu")
+    assert isinstance(tpol, GaussianActorCritic) and (tpol.net.encoder is not None) == visual
+    mu, log_std = _compare_gaussian(jpol, params, tpol, obs, hidden, prev, masks, BF16_ATOL if visual else 1e-5)
+    assert log_std.min() == -5.0 and log_std.max() == 2.0 and np.ptp(mu) > 10 * BF16_ATOL
+
+
+def test_normalize_visual_inputs_f32_matches():
+    """Per-image standardisation before the ResNet, float32 on both sides."""
+    rng = np.random.default_rng(9)
+    obs = _obs(rng, 2, (64, 64), keys=("rgb", "depth"))
+    enc = JaxEncoder(backbone="resnet9", normalize_visual_inputs=True, dtype=jnp.float32)
+    params = _perturb_affine(enc.init(jax.random.PRNGKey(0), obs)["params"], rng)
+    ref = np.asarray(enc.apply({"params": params}, obs))
+    flat = {f"net/ResNetEncoder_0/{k}": v for k, v in _flat_np(params).items()}
+    sd = {k[len("net.encoder."):]: v for k, v in params_from_jax(flat).items()}
+    port = ResNetEncoder(("rgb", "depth"), (64, 64), backbone="resnet9", dtype=torch.float32,
+                         normalize_visual_inputs=True)
+    port.load_state_dict(sd)
+    with torch.no_grad():
+        got = port(_torch_obs(obs)).numpy()
+    plain = ResNetEncoder(("rgb", "depth"), (64, 64), backbone="resnet9", dtype=torch.float32)
+    plain.load_state_dict(sd)
+    with torch.no_grad():
+        assert np.abs(plain(_torch_obs(obs)).numpy() - got).max() > 1e-2 * np.abs(ref).max()
+    assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+def test_gaussian_log_prob_and_entropy_match():
+    """float32 at atol 1e-5: evaluate_gaussian_actions, and the log prob of
+    sample_gaussian_action's own draw (and of mu when deterministic)."""
+    from habitat_tpu.models.policy import evaluate_gaussian_actions as jax_evaluate
+    from habitat_tpu.models.policy import sample_gaussian_action as jax_sample
+
+    from habitat_torch.models.policy import evaluate_gaussian_actions, sample_gaussian_action
+
+    rng = np.random.default_rng(10)
+    mu = rng.normal(0, 1, (2, 8, 10)).astype(np.float32)
+    log_std = np.broadcast_to(rng.uniform(-5, 2, 10).astype(np.float32), mu.shape).copy()
+    actions = (mu + rng.normal(0, 2, mu.shape)).astype(np.float32)
+    ref = jax_evaluate(jnp.asarray(mu), jnp.asarray(log_std), jnp.asarray(actions))
+    got = evaluate_gaussian_actions(*(torch.from_numpy(a) for a in (mu, log_std, actions)))
+    for g, r in zip(got, ref):
+        assert tuple(g.shape) == (2, 8)
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-6, atol=1e-5)
+    gen = torch.Generator().manual_seed(0)
+    for det in (False, True):
+        act, logp = sample_gaussian_action(torch.from_numpy(mu[0]), torch.from_numpy(log_std[0]), gen, det)
+        assert act.dtype == torch.float32 and torch.equal(act, torch.from_numpy(mu[0])) == det
+        _, ref_logp = jax_sample(jnp.asarray(mu[0]), jnp.asarray(log_std[0]), jax.random.PRNGKey(0), True)
+        want = np.asarray(jax_evaluate(jnp.asarray(mu[0]), jnp.asarray(log_std[0]), jnp.asarray(act.numpy()))[0])
+        np.testing.assert_allclose(logp.numpy(), want, rtol=1e-6, atol=1e-5)
+        if det:
+            np.testing.assert_allclose(logp.numpy(), np.asarray(ref_logp), rtol=1e-6, atol=1e-5)

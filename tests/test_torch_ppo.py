@@ -477,3 +477,64 @@ def test_initial_hidden_state_follows_the_device_rule():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             initial_hidden_state(2, 8)
+
+
+# ---- the Gaussian update -----------------------------------------------------------
+
+
+def test_gaussian_update_matches_jax():
+    """One float32 update of the blind arm-Pick Gaussian policy (resnet9
+    net without an encoder, LSTM-128, the five arm state sensors, 10
+    continuous actions) on a rollout of the port's arm-control Pick env at
+    N=4, T=4, through JAX's update and the port's from the same converted
+    weights, compared as the discrete update is. The rollout's (T, N, 10)
+    actions and previous actions are float32; log_std trains too."""
+    from habitat_tpu.models.policy import make_gaussian_resnet_policy as jax_gaussian
+
+    from habitat_torch.models.policy import make_gaussian_resnet_policy, state_keys_of
+    from habitat_torch.tasks.rearrange.generator import make_rearrange_env
+
+    env = make_rearrange_env(num_envs=N, task="pick", num_scenes=1, episodes_per_scene=4, seed=0, with_visual=False,
+                             n_rooms_per_axis=1, n_clutter=0, max_episode_steps=3, control="arm", device="cpu")
+    A_ = env.action_dim
+    assert A_ == 10 and not hasattr(env, "num_actions")
+    state_keys = state_keys_of(env.observation_shapes)
+    jpol = jax_gaussian(A_, backbone="resnet9", hidden_size=128, has_visual=False)
+    obs0 = {k: jnp.zeros((N, w)) for k, w in state_keys.items()}
+    params = jax.jit(jpol.init)(jax.random.PRNGKey(3), obs0, jnp.zeros((N, 1, 2, 128)), jnp.zeros((N, A_)),
+                                jnp.zeros(N))
+    params = {"params": _perturb_affine(params["params"], np.random.default_rng(3))}
+    sd = params_from_jax(_flat(params["params"]))
+
+    def port_learner():
+        pol = make_gaussian_resnet_policy(A_, backbone="resnet9", hidden_size=128, has_visual=False,
+                                          state_keys=state_keys, dtype=torch.float32, device="cpu")
+        pol.load_state_dict(sd)
+        return PPOLearner(env, pol, PPOConfig(**UPDATE_CFG), action_type="gaussian", measure_keys=("success",))
+
+    learner = port_learner()
+    rs = learner.init(seed=0)
+    rs, *_ = learner.collect_rollout(rs)  # episodes of 3 steps end inside the next rollout
+    _, batch, lv, h0, _ = learner.collect_rollout(rs)
+    assert batch.actions.shape == batch.prev_actions.shape == (T, N, A_) and batch.actions.dtype == torch.float32
+    assert batch.dones.any() and (batch.prev_actions[0] != 0).any()
+    b = {k: v.numpy() for k, v in batch._asdict().items() if k != "obs"}
+    b["obs"] = {k: v.numpy().copy() for k, v in batch.obs.items() if k in state_keys}
+    # nothing is held within 8 random steps: mark some steps holding, so
+    # that state_fc_is_holding gets a gradient to compare as well
+    assert not b["obs"]["is_holding"].any()
+    b["obs"]["is_holding"][1:3, :2] = 1.0
+
+    jlearner = JaxPPOLearner(SimpleNamespace(num_envs=N), jpol, JaxPPOConfig(**UPDATE_CFG), action_type="gaussian")
+    ts = TrainState(
+        params=params, opt_state=jlearner.optimizer.init(params), env_state=None, obs=None, hidden=None,
+        prev_action=None, not_done=None, key=jax.random.PRNGKey(0), update_idx=jnp.int32(0),
+        ep_return_acc=None, ep_len_acc=None, log_alpha=jnp.float32(np.log(0.01)),
+    )
+    new_ts, ref_m = jax.jit(jlearner._update)(ts, _jax_batch(b), jnp.asarray(lv.numpy()), jnp.asarray(h0.numpy()))
+    ref = params_from_jax(_flat(new_ts.params["params"]))
+    port = port_learner()
+    got_m = port.update(torch.Generator().manual_seed(0), _torch_batch(b), lv, h0)
+    _check_update(sd, port.policy.state_dict(), ref, {k: v.item() for k, v in got_m.items()},
+                  {k: float(v) for k, v in ref_m.items()})
+    assert "action_head.log_std" in sd
