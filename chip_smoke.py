@@ -243,6 +243,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            deterministic episodes of an N=8 env from the same config (at most
            ARM_EVAL["max_steps"] steps; #3 twice per render).
 
+16. ddppo  (a) `python -m habitat_torch.baselines.run --config-name=
+           pointnav/ddppo_pointnav.yaml` through run.main at the recipe's
+           widths (resnet50 base 32 / 16 groups, LSTM-512 x 2, 128x128
+           depth, T=128, 2 epochs of 2 minibatches) and N=DDPPO["num_envs"]
+           under a process group of one rank over NCCL (overrides: N,
+           total_num_steps for DDPPO["updates"] updates, a temporary
+           checkpoint folder, no TensorBoard): ms per update, rollout /
+           update split, train env-steps/s, peak memory; #1 launched 1 +
+           updates x 128 times, #11 updates x 4, no plain version on a card
+           tensor; finite losses.
+    ddppo-2rank  two processes on the card over gloo (card tensors), each
+           with N/2 envs of DDPPO_2RANK (resnet18 or blind + LSTM-128,
+           64x64 depth, float32, cuDNN deterministic): one train step held
+           to the same step in one process on the card (ranks bit-equal;
+           every element within DDPPO_RTOL / DDPPO_ATOL; every trained
+           tensor moved).
+    ppo-switches  one float32 update on the card against the CPU from the
+           same start, batch and permutations (loss terms within
+           SWITCH_RTOL): normalized advantage + linear LR decay, the
+           Gaussian arm-Pick learner's adaptive entropy (log_alpha moves,
+           clamped, equal), CPC|A on a GRU policy.
+
 Prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
@@ -437,6 +459,16 @@ ARM_EVAL = dict(num_envs=8, max_steps=40)
 NAV_OBS_ATOL = 1e-5  # card - CPU state sensors (tests/test_torch_env.py's bound)
 GOAL_RGB_AGREE = 0.999  # goal RGB equal to the CPU's (tests/test_torch_raycast.py:188-189)
 LOSS_RTOL = 1e-4  # card - CPU float32 update losses, relative to max(1, |loss|)
+DDPPO_EXPERIMENT = "pointnav/ddppo_pointnav.yaml"
+# [ddppo]: the recipe's N (the phase peaks at 72.5 GiB on the H100 when run
+# alone) for 1 warm-up + 3 updates
+DDPPO = dict(num_envs=64, updates=4)
+# [ddppo-2rank]: a small resnet18 PointNav config, N=8 over 2 ranks of 4
+DDPPO_2RANK = dict(num_envs=8, hw=64, hidden=128, ppo=dict(num_steps=8, ppo_epoch=2, num_mini_batch=2))
+DDPPO_RTOL, DDPPO_ATOL = 2e-4, 2e-5  # 2 ranks vs 1 (the JAX package's sharded-vs-single test)
+# [ppo-switches]: N=8, T=8, 64x64 depth; card vs CPU loss terms
+SWITCH_ENV = dict(num_envs=8, hw=64, hidden=128, ppo=dict(num_steps=8, ppo_epoch=2, num_mini_batch=2))
+SWITCH_RTOL = 1e-5
 
 
 def log(msg):
@@ -2308,6 +2340,314 @@ def pick_arm_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_car
     return dict(train=train, eval=evl)
 
 
+
+def small_nav_env(dev, n, hw, rows=slice(None)):
+    """2 procedural scenes x 8 episodes, ``hw`` x ``hw`` depth + pointgoal,
+    episodes of at most 6 steps (some end inside an 8-step rollout);
+    ``rows`` of the ``n`` envs."""
+    from habitat_torch.core.env_factory import make_nav_env
+    from habitat_torch.datasets.pointnav import make_procedural_pointnav
+
+    scenes, episodes, fields = make_procedural_pointnav(num_scenes=2, episodes_per_scene=8, seed=0)
+    return make_nav_env(scenes, episodes, num_envs=n, device=dev, precomputed_fields=fields, max_episode_steps=6,
+                        sensor_specs=(("HabitatSimDepthSensor", {"height": hw, "width": hw}),
+                                      ("PointGoalWithGPSCompassSensor", None)), rows=rows)
+
+
+def ddppo_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card, n=DDPPO["num_envs"],
+                updates=DDPPO["updates"], overrides=()):
+    """[ddppo]: run.main on ddppo_pointnav.yaml (resnet50 + LSTM-512x2,
+    128x128 depth, T=128, 2 epochs of 2 minibatches) at N=``n`` under a
+    process group of one rank (NCCL on the card, gloo on the CPU), for
+    ``updates`` updates: seconds per update, rollout / update split,
+    env-steps/s, peak memory; #1 and #11 launched exactly; finite losses.
+    Returns the launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from habitat_torch.baselines import run
+    from habitat_torch.config.default import get_config
+    from habitat_torch.core import construct
+    from habitat_torch.models.resnet import Bottleneck
+    from habitat_torch.parallel import distributed
+
+    t_phase = time.perf_counter()
+    cfg = get_config(DDPPO_EXPERIMENT, list(overrides))
+    p = cfg.habitat_baselines.rl.ppo
+    T, mb = int(p.num_steps), int(p.ppo_epoch) * int(p.num_mini_batch)
+    trainers, split = [], {"rollout": [], "update": []}
+    build = construct.trainer_from_config
+
+    def timed(name, fn):
+        def call(*a, **k):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sync(dev)
+            split[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    def kept(*a, **k):
+        tr = build(*a, **k)
+        tr.learner.collect_rollout = timed("rollout", tr.learner.collect_rollout)
+        tr.learner.update = timed("update", tr.learner.update)
+        trainers.append(tr)
+        return tr
+
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.object(construct, "trainer_from_config", kept):
+        distributed.init_distributed(f"file://{tmp}/store", 1, 0, device=dev)
+        try:
+            w = distributed.world()
+            backend = torch.distributed.get_backend()
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            for pw in plain_watch:
+                pw.start()
+            t0 = time.perf_counter()
+            args = [f"--config-name={DDPPO_EXPERIMENT}", *(["--device", "cpu"] if dev.type == "cpu" else []),
+                    *overrides, f"habitat_baselines.num_environments={n}",
+                    f"habitat_baselines.total_num_steps={updates * n * T}",
+                    f"habitat_baselines.checkpoint_folder={tmp}/ckpt", "habitat_baselines.tensorboard_dir=",
+                    "habitat_baselines.log_interval=1"]
+            metrics = run.main(args)
+            sync(dev)
+            wall = time.perf_counter() - t0
+            for pw in plain_watch:
+                pw.stop()
+            got = path_counts("[ddppo] run.main", raycast_fused_sel_t=1 + updates * T,
+                              max_pool_3x3s2_bwd=updates * mb)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else float("nan")
+        finally:
+            distributed.abort()
+    if plain_on_card:
+        fail(f"[ddppo]: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+    tr = trainers[-1]
+    net = tr.policy.net
+    if not (w.active and w.size == 1 and tr.run_cfg.use_mesh and len(net.encoder.backbone.blocks) == 16
+            and isinstance(net.encoder.backbone.blocks[0], Bottleneck) and net.num_recurrent_layers == 2
+            and net.hidden_size == 512 and tr.num_updates_done == updates):
+        fail(f"[ddppo] built or ran something else: world {w}, {tr.num_updates_done} updates")
+    losses = {k: v for k, v in metrics.items() if k.startswith("losses/")}
+    if not losses or not all(np.isfinite(v) for v in losses.values()):
+        fail(f"[ddppo] losses {losses}")
+    roll, upd = split["rollout"], split["update"]
+    per_update = [(r + u) / 1e3 for r, u in zip(roll, upd)]
+    rates = [n * T / s for s in per_update]
+    h, w_ = tr.env.observation_shapes["depth"][0][:2]
+    log(f"[ddppo] {gpu}: run.main {DDPPO_EXPERIMENT} under {backend} at world size 1, N={n} ({h}x{w_} depth, "
+        f"resnet50 base 32 / 16 groups, LSTM-512 x 2, T={T}, {mb} minibatch steps per update): {updates} updates "
+        f"in {wall:.1f} s; ms per update (rollout + update; the first with the warm-up) "
+        f"{[round(x * 1e3, 1) for x in per_update]}, rollout ms {[round(x, 1) for x in roll]}, update ms "
+        f"{[round(x, 1) for x in upd]}; train env-steps/s {[round(r, 1) for r in rates]}; peak memory "
+        f"{peak:.2f} GiB; launches #1 {got['raycast_fused_sel_t']} = 1 + {updates} x {T}, #11 "
+        f"{got['max_pool_3x3s2_bwd']} = {updates} x {mb}; no plain version on a card tensor; last losses "
+        + ", ".join(f"{k} {v:.4f}" for k, v in losses.items()) + f"; the phase {time.perf_counter() - t_phase:.1f} s")
+    return got
+
+
+def two_rank_policy(dev, visual):
+    import torch
+
+    from habitat_torch.models.policy import make_pointnav_resnet_policy
+
+    c = DDPPO_2RANK
+    torch.manual_seed(0)
+    return make_pointnav_resnet_policy(4, visual_inputs=("depth",), input_hw=(c["hw"], c["hw"]), backbone="resnet18",
+                                       hidden_size=c["hidden"], has_visual=visual, dtype=torch.float32, device=dev)
+
+
+def two_rank_step(dev, visual):
+    """``init(seed=0)`` and one train step of the [ddppo-2rank] config on
+    this process's rows (all of them without a group): the parameters."""
+    import torch
+
+    from habitat_torch.baselines.ppo import PPOConfig, PPOLearner
+    from habitat_torch.parallel import distributed
+
+    c = DDPPO_2RANK
+    rows = distributed.env_rows(c["num_envs"])
+    lrn = PPOLearner(small_nav_env(dev, c["num_envs"], c["hw"], rows.slice), two_rank_policy(dev, visual),
+                     PPOConfig(**c["ppo"]), rows=rows)
+    with cudnn_deterministic(True):
+        lrn.train_step(lrn.init(seed=0))
+    return {k: v.detach().cpu() for k, v in lrn.policy.state_dict().items()}
+
+
+def ddppo_rank_main(rank, folder, device):
+    """One rank of [ddppo-2rank] (``chip_smoke.py --ddppo-rank RANK FOLDER
+    DEVICE``): gloo over DEVICE's tensors (cuda:0 on the card), through a
+    file store in FOLDER; the kernels load from the parent's build."""
+    import torch
+
+    from habitat_torch.parallel import distributed
+
+    dev = distributed.init_distributed(f"file://{folder}/store", 2, rank, device=device, backend="gloo",
+                                       timeout_s=300)
+    out = {kind: two_rank_step(dev, kind == "visual") for kind in ("blind", "visual")}
+    torch.save(out, os.path.join(folder, f"rank{rank}.pt"))
+    distributed.abort()
+    return 0
+
+
+def ddppo_two_rank_phase(gpu, dev):
+    """[ddppo-2rank]: two processes on the card over gloo, each with N/2
+    envs of a small resnet18 PointNav config (64x64 depth, LSTM-128,
+    float32, cuDNN deterministic), one train step, held to the same step in
+    one process on the card: the ranks' parameters bit-equal; every element
+    of both nets within DDPPO_RTOL / DDPPO_ATOL; every trained tensor
+    moved."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    c = DDPPO_2RANK
+    steps = c["ppo"]["ppo_epoch"] * c["ppo"]["num_mini_batch"]
+    with tempfile.TemporaryDirectory() as tmp:
+        where = "cuda:0" if dev.type == "cuda" else "cpu"
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--ddppo-rank", str(r), tmp, where],
+                                  cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        if any(p.returncode for p in procs):
+            fail(f"[ddppo-2rank] ranks exited {[p.returncode for p in procs]}: "
+                 + " | ".join(err[-1500:] for _, err in outs))
+        two = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True) for r in range(2)]
+    worker_s = time.perf_counter() - t_phase
+    text = []
+    for kind in ("blind", "visual"):
+        one = two_rank_step(dev, kind == "visual")
+        start = {k: v.detach().cpu() for k, v in two_rank_policy(dev, kind == "visual").state_dict().items()}
+        a, b = two[0][kind], two[1][kind]
+        if not all(torch.equal(a[k], b[k]) for k in a):
+            fail(f"[ddppo-2rank] {kind}: the ranks' parameters differ")
+        # every trained tensor moved (the LSTM's bias_ih is frozen, as in Flax)
+        still = [k for k in one if not k.endswith("bias_ih") and torch.equal(one[k], start[k])]
+        d = torch.cat([(a[k] - v).abs().flatten() for k, v in one.items()])
+        out = d > DDPPO_ATOL + DDPPO_RTOL * torch.cat([v.abs().flatten() for v in one.values()])
+        worst, bad = d.max().item(), int(out.sum())
+        if still or bad:
+            fail(f"[ddppo-2rank] {kind}: max |2 ranks - 1| {worst:.3g}, {bad} of {d.numel()} elements beyond "
+                 f"rtol {DDPPO_RTOL} / atol {DDPPO_ATOL}, unmoved {still}")
+        text.append(f"{kind}: {len(one)} tensors, max |2 ranks - 1| {worst:.3g}, {bad} of {d.numel()} elements "
+                    f"beyond rtol/atol")
+    log(f"[ddppo-2rank] {gpu}: 2 processes on {where} over gloo, N={c['num_envs']} as 2 x "
+        f"{c['num_envs'] // 2}, {c['hw']}x{c['hw']} depth, resnet18 / blind + LSTM-{c['hidden']}, float32, one train "
+        f"step (T={c['ppo']['num_steps']}, {steps} Adam steps) against one process on {where}: ranks bit-equal; "
+        + "; ".join(text) + f"; workers {worker_s:.1f} s, the phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def ppo_switches_phase(gpu, dev, n_env=SWITCH_ENV["num_envs"]):
+    """[ppo-switches]: one update on the card against the same update on the
+    CPU (float32, the same start, batch and permutations), loss terms within
+    SWITCH_RTOL of max(1, |x|), parameters within 2 lr per Adam step:
+    (a) normalized advantage + linear LR decay (total_updates=2); (b) the
+    blind Gaussian arm-Pick net with the adaptive entropy coefficient
+    (log_alpha moves, inside [log 1e-4, 0], equal on both); (c) CPC|A on a
+    GRU policy (resnet9 over depth, GRU-128)."""
+    import math
+    from types import SimpleNamespace
+
+    import torch
+
+    from habitat_torch.baselines.aux_losses import CPCA
+    from habitat_torch.baselines.ppo import PPOConfig, PPOLearner, RolloutBatch
+    from habitat_torch.models.policy import make_gaussian_resnet_policy, make_pointnav_resnet_policy, state_keys_of
+    from habitat_torch.tasks.rearrange.generator import make_rearrange_env
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    c = SWITCH_ENV
+    T, E, M = c["ppo"]["num_steps"], c["ppo"]["ppo_epoch"], c["ppo"]["num_mini_batch"]
+    g = torch.Generator().manual_seed(0)
+    perms = torch.stack([torch.randperm(n_env, generator=g) for _ in range(E)])
+    time_perms = torch.stack([torch.stack([torch.randperm(T, generator=g) for _ in range(M)]) for _ in range(E)])
+    nav = small_nav_env(dev, n_env, c["hw"])
+    arm = make_rearrange_env(num_envs=n_env, task="pick", num_scenes=1, episodes_per_scene=8, seed=0,
+                             with_visual=False, n_rooms_per_axis=1, n_clutter=0, max_episode_steps=6, control="arm",
+                             device=dev)
+    arm_keys = state_keys_of(arm.observation_shapes)
+    A = arm.action_dim
+    cases = {
+        "normalized advantage + linear LR decay": dict(
+            env=nav, cfg=dict(use_normalized_advantage=True, use_linear_lr_decay=True), total_updates=2,
+            policy=lambda d: make_pointnav_resnet_policy(4, visual_inputs=("depth",), input_hw=(c["hw"], c["hw"]),
+                                                         backbone="resnet9", hidden_size=c["hidden"],
+                                                         dtype=torch.float32, device=d)),
+        "adaptive entropy (Gaussian arm Pick)": dict(
+            env=arm, cfg=dict(use_adaptive_entropy_pen=True, entropy_target_factor=-2.0), action_type="gaussian",
+            policy=lambda d: make_gaussian_resnet_policy(A, backbone="resnet9", hidden_size=c["hidden"],
+                                                         has_visual=False, state_keys=arm_keys, dtype=torch.float32,
+                                                         device=d)),
+        "CPC|A on a GRU policy": dict(
+            env=nav, cfg={}, aux=True,
+            policy=lambda d: make_pointnav_resnet_policy(4, visual_inputs=("depth",), input_hw=(c["hw"], c["hw"]),
+                                                         backbone="resnet9", hidden_size=c["hidden"], rnn_type="GRU",
+                                                         dtype=torch.float32, device=d)),
+    }
+    text = []
+    for name, case in cases.items():
+        cfg = PPOConfig(**c["ppo"], **case["cfg"])
+        at = case.get("action_type", "categorical")
+
+        def learner(d, policy=None):
+            torch.manual_seed(0)
+            pol = policy or case["policy"](d)
+            aux = CPCA(c["hidden"], c["hidden"]).to(d) if case.get("aux") else None
+            env = case["env"] if d == dev else SimpleNamespace(num_envs=n_env, device=d,
+                                                                action_dim=getattr(case["env"], "action_dim", None))
+            return PPOLearner(env, pol, cfg, action_type=at, total_updates=case.get("total_updates"), aux_loss=aux)
+
+        lrn = learner(dev)
+        rs = lrn.init(seed=0)
+        _, batch, lv, h0, _ = lrn.collect_rollout(rs)
+        start = {k: v.detach().cpu().clone() for k, v in lrn.policy.state_dict().items()}
+        aux_start = {k: v.detach().cpu().clone() for k, v in lrn.aux_loss.state_dict().items()} if lrn.aux_loss else {}
+        res = {}
+        for d in (dev, cpu):
+            ld = learner(d)
+            ld.policy.load_state_dict(start)
+            if ld.aux_loss is not None:
+                ld.aux_loss.load_state_dict(aux_start)
+            la = torch.full((), math.log(cfg.entropy_coef), device=d)
+            b = RolloutBatch(**{k: ({o: x.to(d) for o, x in v.items()} if k == "obs" else v.to(d))
+                                for k, v in batch._asdict().items()})
+            with cudnn_deterministic(True):
+                m = ld.update(torch.Generator(device=d).manual_seed(0), b, lv.to(d), h0.to(d), log_alpha=la,
+                              perms=perms.to(d), time_perms=time_perms.to(d) if ld.aux_loss else None)
+            params = {k: v.cpu() for k, v in ld.policy.state_dict().items()}
+            if ld.aux_loss is not None:
+                params.update({f"aux.{k}": v.cpu() for k, v in ld.aux_loss.state_dict().items()})
+            res[d.type] = {k: v.item() for k, v in m.items()}, params, la.item(), ld
+        (m_card, p_card, la_card, l_card), (m_cpu, p_cpu, la_cpu, _) = res[dev.type], res["cpu"]
+        loss_err = {k: abs(m_card[k] - m_cpu[k]) / max(1.0, abs(m_cpu[k])) for k in m_cpu if k.startswith("losses/")}
+        param_err = max((p_card[k] - p_cpu[k]).abs().max().item() for k in p_cpu)
+        if max(loss_err.values()) > SWITCH_RTOL or param_err > 2 * cfg.lr * E * M:
+            fail(f"[ppo-switches] {name}, card against CPU: losses {loss_err}, parameters {param_err}")
+        extra = ""
+        if l_card.adaptive_ent:
+            lo = math.log(1e-4)
+            if not (abs(la_card - la_cpu) < 1e-6 and lo <= la_card <= 0.0
+                    and abs(la_card - math.log(cfg.entropy_coef)) > 1e-5 and "losses/entropy_coef" in m_card):
+                fail(f"[ppo-switches] {name}: log_alpha card {la_card} CPU {la_cpu} from {math.log(cfg.entropy_coef)}")
+            extra = f", log_alpha {math.log(cfg.entropy_coef):.6f} -> {la_card:.6f} (CPU {la_cpu:.6f})"
+        if l_card.lr_decay_steps:
+            extra += f", lr after {E * M} of {l_card.lr_decay_steps} steps {l_card.optimizer.param_groups[0]['lr']:.3g}"
+        if "losses/cpca" in m_card:
+            extra += f", cpca {m_card['losses/cpca']:.5f}"
+        text.append(f"{name}: losses max rel {max(loss_err.values()):.3g}, parameters max {param_err:.3g}{extra}")
+    log(f"[ppo-switches] {gpu}: one update (N={n_env}, T={T}, {E} x {M} Adam steps, float32) on the card against "
+        f"the CPU (gates: losses {SWITCH_RTOL} relative, parameters 2 lr per step): " + "; ".join(text)
+        + f"; the phase {time.perf_counter() - t_phase:.1f} s")
+
 def main():
     import torch
 
@@ -3502,6 +3842,17 @@ def main():
             index_row["pick_arm_eval_launches"] = got["eval"]["raycast_index_t"]
             pool_row["pick_arm_train_launches"] = got["train"]["max_pool_3x3s2_bwd"]
 
+    # ---- 16. DD-PPO (the ddppo_pointnav recipe), 2 ranks, the PPO switches -
+    log(f"[ddppo] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    dd = ddppo_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
+    sel["ddppo_launches"] = dd["raycast_fused_sel_t"]
+    pool_row["ddppo_launches"] = dd["max_pool_3x3s2_bwd"]
+    torch.cuda.empty_cache()
+    ddppo_two_rank_phase(gpu, dev)
+    zero_counts()
+    ppo_switches_phase(gpu, dev)
+
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -3512,4 +3863,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddppo-rank"]:
+        sys.path.insert(0, ROOT)
+        sys.exit(ddppo_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -4,10 +4,14 @@ habitat-baselines/habitat_baselines/run.py).
 Usage:
     python -m habitat_torch.baselines.run --config-name=pointnav/ppo_pointnav_example \\
         [habitat_baselines.total_num_steps=1e5 ...] [--run-type eval] [--device cpu]
+    torchrun --nproc_per_node=W -m habitat_torch.baselines.run --config-name=pointnav/ddppo_pointnav.yaml
 
 Trains (or, with ``--run-type eval`` or ``habitat_baselines.evaluate=true``,
 evaluates the ``latest`` checkpoint) on the card; ``--device cpu`` runs on
-the CPU.
+the CPU. Under torchrun or SLURM the process group is formed before
+anything is built (``parallel/distributed.init_distributed``: NCCL, a card
+per rank; gloo with ``--device cpu``) and the ``ddppo`` trainer trains over
+it; evaluation runs in one process.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 
 from habitat_torch.config.default import get_config
 from habitat_torch.core.logging import logger
+from habitat_torch.parallel import distributed
 
 
 def execute_exp(config, run_type: str, device=None) -> Dict[str, float]:
@@ -33,6 +38,8 @@ def execute_exp(config, run_type: str, device=None) -> Dict[str, float]:
 
     from habitat_torch.core.construct import trainer_from_config
 
+    if run_type == "eval" and distributed.world().size > 1:
+        raise ValueError("evaluate in one process, not under a process group")
     trainer = trainer_from_config(config, device=device)
     if run_type == "train":
         return trainer.train(seed=seed)
@@ -59,8 +66,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     run_type = args.run_type
     if config.get_path("habitat_baselines.evaluate", False):
         run_type = "eval"
-    metrics = execute_exp(config, run_type, device=args.device)
-    logger.info(f"done: {metrics}")
+    device = distributed.init_distributed(device=args.device)
+    metrics = execute_exp(config, run_type, device=device)
+    if distributed.rank0_only():
+        logger.info(f"done: {metrics}")
     return metrics
 
 

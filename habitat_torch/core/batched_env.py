@@ -76,12 +76,13 @@ class BatchedEnv:
         self,
         pack: ScenePack,
         table: EpisodeTable,
-        episode_order: np.ndarray,  # (N, L) int32 per-env episode schedule
+        episode_order: np.ndarray,  # (N, L) int32 per-env episode schedule (global N)
         sensors: Sequence[FunctionalSensor],
         measures: Sequence[FunctionalMeasure],
         actions: Sequence[FunctionalAction],
         *,
         device: torch.device,
+        rows: slice = slice(None),
         max_episode_steps: int = 500,
         reward_spec: RewardSpec = RewardSpec(),
         slide_substeps: int = 4,
@@ -89,6 +90,9 @@ class BatchedEnv:
         self.device = device
         self.pack = pack.to(device)
         self.table = table.to(device)
+        # the envs are ``rows`` of the global order (a DD-PPO rank's,
+        # parallel/distributed.py::env_rows; all by default)
+        episode_order = np.asarray(episode_order)[rows]
         self.order = torch.as_tensor(episode_order, dtype=torch.int64, device=device)
         self.num_envs = int(episode_order.shape[0])
         self._order_len = int(episode_order.shape[1])

@@ -8,10 +8,14 @@ the registry under the JAX package's names, so the in-repo YAML composes
 into the port's envs, policy and trainer. Everything is built on ``device``
 (``None`` = cuda).
 
+``trainer_name`` "ppo", "ddppo" (DD-PPO over the process group that
+``baselines/run.py`` forms) and "ver" build the port's trainers;
+``rl.ddppo.rnn_type`` (LSTM or GRU) and ``rl.ddppo.backbone`` (every
+backbone of ``models/resnet.py``) build the policy.
+
 Not ported yet, raising ``NotImplementedError`` (the ROADMAP Queue 1 item
 in the message): file datasets (PointNav-v1 and ObjectNav-v1 episode
-archives on disk); the GRU state encoder; the DD-PPO and VER trainers;
-hierarchical (HRL) and imitation (IL) trainers.
+archives on disk); hierarchical (HRL) and imitation (IL) trainers.
 
 Image-goal observations feed the policy's goal encoders and are never put
 in ``goal_keys``: the JAX package's ``policy_from_config`` passes
@@ -35,6 +39,7 @@ from habitat_torch.core.logging import logger
 from habitat_torch.core.registry import registry
 from habitat_torch.device import resolve_device
 from habitat_torch.models.policy import IMAGE_GOAL_KEYS, obs_inputs_of
+from habitat_torch.parallel import distributed
 from habitat_torch.sims.scene import pack_scenes
 
 # the image-goal lab sensors of ImageNav (datasets/image_nav.py)
@@ -123,12 +128,13 @@ def _action_instances(config: Config) -> List:
     return actions
 
 
-def env_from_config(config: Config, num_envs: Optional[int] = None, device=None):
+def env_from_config(config: Config, num_envs: Optional[int] = None, device=None, rows: slice = slice(None)):
     """The PointNav ``BatchedEnv``, or for ``Rearrange*`` task types the
-    ``RearrangeBatchedEnv``, that ``config`` describes, on ``device``."""
+    ``RearrangeBatchedEnv``, that ``config`` describes, on ``device``:
+    ``rows`` of its ``num_envs`` envs (a DD-PPO rank's; all by default)."""
     task_type = config.habitat.task.get("type", "Nav-v0")
     if task_type.startswith("Rearrange"):
-        return rearrange_env_from_config(config, num_envs, device=device)
+        return rearrange_env_from_config(config, num_envs, device=device, rows=rows)
     dev = resolve_device(device)
     scenes, episodes, fields = load_dataset(config.habitat.dataset)
     if num_envs is None:
@@ -165,6 +171,7 @@ def env_from_config(config: Config, num_envs: Optional[int] = None, device=None)
         _measure_instances(config),
         _action_instances(config),
         device=dev,
+        rows=rows,
         max_episode_steps=int(config.habitat.environment.get("max_episode_steps", 500)),
         reward_spec=reward_spec,
         slide_substeps=int(config.habitat.simulator.get_path("tpu.slide_substeps", 4)),
@@ -183,15 +190,13 @@ def policy_from_config(config: Config, env):
     shapes = env.observation_shapes
     visual = tuple(k for k in ("rgb", "depth") if k in shapes or f"robot_head_{k}" in shapes)
     has_visual = bool(visual) and not hb("force_blind_policy", False)
-    rnn_type = hb("rl.ddppo.rnn_type", "LSTM")
-    if rnn_type != "LSTM":
-        raise NotImplementedError(f"rnn_type={rnn_type!r}: the port has the LSTM state encoder only")
     goal_uuid = config.habitat.task.get("goal_sensor_uuid", "pointgoal_with_gps_compass")
     # image goals go through the goal encoders, never through goal_fc
     goal_keys = (goal_uuid,) if goal_uuid in shapes and goal_uuid not in IMAGE_GOAL_KEYS else ()
     kw = dict(
         backbone=hb("rl.ddppo.backbone", "resnet18"),
         hidden_size=int(hb("rl.ppo.hidden_size", 512)),
+        rnn_type=hb("rl.ddppo.rnn_type", "LSTM"),
         num_recurrent_layers=int(hb("rl.ddppo.num_recurrent_layers", 1)),
         has_visual=has_visual,
         goal_keys=goal_keys,
@@ -223,7 +228,9 @@ def il_trainer_from_config(config: Config, trainer_name: str):
 
 def trainer_from_config(config: Config, device=None):
     """The trainer ``habitat_baselines.trainer_name`` names, with its env and
-    policy, on ``device``."""
+    policy, on ``device``. Under a process group the env is this rank's
+    rows of the global N (``parallel/distributed.py::env_rows``), decided
+    here and handed to the env and the trainer."""
     hb = config.habitat_baselines
     trainer_name = str(hb.get("trainer_name", "ppo"))
     if trainer_name in ("eqa-cnn-pretrain", "vqa", "pacman"):
@@ -247,7 +254,9 @@ def trainer_from_config(config: Config, device=None):
         tau=float(p.tau),
         use_clipped_value_loss=bool(p.get("use_clipped_value_loss", True)),
         use_normalized_advantage=bool(p.get("use_normalized_advantage", False)),
+        reward_window_size=int(p.get("reward_window_size", 50)),
         use_adaptive_entropy_pen=bool(p.get("use_adaptive_entropy_pen", False)),
+        entropy_target_factor=float(p.get("entropy_target_factor", 0.0)),
     )
     run_cfg = TrainerConfig(
         total_num_steps=float(hb.get("total_num_steps", 1e6)),
@@ -260,8 +269,9 @@ def trainer_from_config(config: Config, device=None):
         use_mesh=trainer_name == "ddppo",
         verbose=bool(hb.get("verbose", True)),
     )
-    env = env_from_config(config, device=device)
-    return trainer_cls(env, policy_from_config(config, env), ppo_cfg, run_cfg)
+    rows = distributed.env_rows(int(hb.get("num_environments", 16)))
+    env = env_from_config(config, rows.n_global, device=device, rows=rows.slice)
+    return trainer_cls(env, policy_from_config(config, env), ppo_cfg, run_cfg, rows=rows)
 
 
 # rearrange task type -> the env's task (reference rearrange_task.py:32 + sub_tasks/)
@@ -285,8 +295,10 @@ def rearrange_env_from_config(
     num_envs: Optional[int] = None,
     with_visual: bool = True,
     device=None,
+    rows: slice = slice(None),
 ):
-    """Rearrange task types -> ``RearrangeBatchedEnv`` on ``device``.
+    """Rearrange task types -> ``RearrangeBatchedEnv`` on ``device``
+    (``rows`` of its envs, as in ``env_from_config``).
 
     Registry contract (reference core/embodied_task.py:275-292): every
     declared ``lab_sensors``/``measurements``/``actions`` ``type:`` resolves
@@ -384,4 +396,5 @@ def rearrange_env_from_config(
         max_accum_force=max_accum_force,
         pddl_domain=str(config.get_path("habitat.task.pddl_domain_def", None) or "fp"),
         device=device,
+        rows=rows,
     )

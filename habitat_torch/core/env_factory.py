@@ -50,11 +50,13 @@ def make_nav_env(
     seed: int = 0,
     goal_image_size: Optional[int] = None,
     device=None,
+    rows: slice = slice(None),
 ) -> BatchedEnv:
     """Build a batched PointNav-style env (PointNav, ObjectNav, ImageNav by
     its sensors) from host scenes + episodes on ``device`` (``None`` =
     cuda). ``goal_image_size`` renders each episode's goal view at that
-    size on ``device``, for ImageGoalSensor."""
+    size on ``device``, for ImageGoalSensor. ``rows`` of the ``num_envs``
+    envs' episode order are built (a DD-PPO rank's; all by default)."""
     dev = resolve_device(device)
     scene_index = {s.scene_id: i for i, s in enumerate(scenes)}
     scene_map = {s.scene_id: s for s in scenes}
@@ -77,6 +79,7 @@ def make_nav_env(
         measures,
         actions,
         device=dev,
+        rows=rows,
         max_episode_steps=max_episode_steps,
         reward_spec=reward_spec,
     )

@@ -12,7 +12,18 @@ under "/"-joined paths (a leading "params/" is accepted), as
   ``log_std`` parameter);
 - ``OptimizedLSTMCell`` gates: input kernels ii/if/ig/io (no bias) and
   recurrent kernels hi/hf/hg/ho (with bias) -> ``nn.LSTMCell`` weight_ih /
-  weight_hh / bias_hh in torch's i, f, g, o order, bias_ih = 0.
+  weight_hh / bias_hh in torch's i, f, g, o order, bias_ih = 0;
+- ``GRUCell`` kernels ir/iz/in (with bias) and hr/hz/hn (hn with bias) ->
+  the port's ``GRUCell`` weight_i / bias_i / weight_h in r, z, n order
+  and bias_hn;
+- the blocks of every backbone: ``BasicBlock_k`` convs 0-2 -> conv1, conv2,
+  down; ``Bottleneck_k`` convs 0-3 -> conv1, conv2 (grouped: HWIO's I is
+  Cin/groups, as torch's), conv3, down, with their GroupNorms alike, and
+  ``SEBlock_0/Dense_0|1`` -> se.fc1|fc2.
+
+``cpca_params_from_jax`` converts the parameters of CPC|A
+(``habitat_tpu/baselines/aux_losses.CPCA``: Embed, GRUCell, three Dense)
+to ``baselines/aux_losses.CPCA``'s state dict.
 
 ``load_policy_file`` reads such a state dict back without JAX, as
 ``scripts/export_flagship_torch.py`` writes it: the ``torch.save`` file and,
@@ -34,9 +45,11 @@ import torch
 from habitat_torch.device import resolve_device
 from habitat_torch.models.policy import make_pointnav_resnet_policy
 
-_BLOCK_CONVS = ("conv1", "conv2", "down")
-_BLOCK_NORMS = ("norm1", "norm2", "down_norm")
+_BLOCK_CONVS = {"BasicBlock": ("conv1", "conv2", "down"), "Bottleneck": ("conv1", "conv2", "conv3", "down")}
+_BLOCK_NORMS = {"BasicBlock": ("norm1", "norm2", "down_norm"),
+                "Bottleneck": ("norm1", "norm2", "norm3", "down_norm")}
 _GATES = "ifgo"
+_GRU_GATES = "rzn"
 
 
 def _dense(prefix: str, leaf: str, v: np.ndarray) -> Dict[str, np.ndarray]:
@@ -65,12 +78,15 @@ def _encoder(rest: str, enc: str, v: np.ndarray) -> Dict[str, np.ndarray]:
     m = re.fullmatch(r"ResNet_0/GroupNorm_0/(scale|bias)", rest)
     if m:
         return _norm(f"{res}.stem_norm", m[1], v)
-    m = re.fullmatch(r"ResNet_0/BasicBlock_(\d+)/Conv_(\d)/kernel", rest)
+    m = re.fullmatch(r"ResNet_0/(BasicBlock|Bottleneck)_(\d+)/Conv_(\d)/kernel", rest)
     if m:
-        return _conv(f"{res}.blocks.{m[1]}.{_BLOCK_CONVS[int(m[2])]}", v)
-    m = re.fullmatch(r"ResNet_0/BasicBlock_(\d+)/GroupNorm_(\d)/(scale|bias)", rest)
+        return _conv(f"{res}.blocks.{m[2]}.{_BLOCK_CONVS[m[1]][int(m[3])]}", v)
+    m = re.fullmatch(r"ResNet_0/(BasicBlock|Bottleneck)_(\d+)/GroupNorm_(\d)/(scale|bias)", rest)
     if m:
-        return _norm(f"{res}.blocks.{m[1]}.{_BLOCK_NORMS[int(m[2])]}", m[3], v)
+        return _norm(f"{res}.blocks.{m[2]}.{_BLOCK_NORMS[m[1]][int(m[3])]}", m[4], v)
+    m = re.fullmatch(r"ResNet_0/Bottleneck_(\d+)/SEBlock_0/Dense_(\d)/(kernel|bias)", rest)
+    if m:
+        return _dense(f"{res}.blocks.{m[1]}.se.fc{int(m[2]) + 1}", m[3], v)
     raise KeyError(f"no port counterpart for encoder parameter {rest!r} of {enc}")
 
 
@@ -99,27 +115,71 @@ def _convert_one(path, v):
     raise KeyError(f"no port counterpart for Flax parameter {p!r}")
 
 
-def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """Flattened Flax ActorCritic params -> ``ActorCritic.state_dict()``."""
-    out: Dict[str, np.ndarray] = {}
-    lstm: Dict[str, Dict[str, np.ndarray]] = {}
+def _gru(prefix: str, g: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """A Flax GRUCell's {"ir/kernel": ..., "hn/bias": ...} -> the port's
+    ``GRUCell`` under ``prefix``."""
+    return {
+        f"{prefix}.weight_i": np.concatenate([g[f"i{k}/kernel"].T for k in _GRU_GATES]),
+        f"{prefix}.bias_i": np.concatenate([g[f"i{k}/bias"] for k in _GRU_GATES]),
+        f"{prefix}.weight_h": np.concatenate([g[f"h{k}/kernel"].T for k in _GRU_GATES]),
+        f"{prefix}.bias_hn": g["hn/bias"],
+    }
+
+
+def _tensors(out: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
+
+
+def _leaves(flat: Dict[str, np.ndarray]):
+    """(path below a leading "params", float32 value) of each leaf."""
     for key, value in flat.items():
         path = key.split("/")
         if path[0] == "params":
             path = path[1:]
-        v = np.asarray(value, np.float32)
-        m = re.fullmatch(r"net/RNNStateEncoder_0/lstm_(\d+)/([ih][ifgo])/(kernel|bias)", "/".join(path))
+        yield "/".join(path), np.asarray(value, np.float32)
+
+
+def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flattened Flax ActorCritic params -> ``ActorCritic.state_dict()``."""
+    out: Dict[str, np.ndarray] = {}
+    cells: Dict[tuple, Dict[str, np.ndarray]] = {}
+    for p, v in _leaves(flat):
+        m = re.fullmatch(r"net/RNNStateEncoder_0/(lstm|gru)_(\d+)/([ih][ifgorzn])/(kernel|bias)", p)
         if m:
-            lstm.setdefault(m[1], {})[f"{m[2]}/{m[3]}"] = v
+            cells.setdefault((m[1], m[2]), {})[f"{m[3]}/{m[4]}"] = v
             continue
-        out.update(_convert_one(path, v))
-    for layer, g in sorted(lstm.items()):
+        out.update(_convert_one(p.split("/"), v))
+    for (kind, layer), g in sorted(cells.items()):
         prefix = f"net.rnn.cells.{layer}"
+        if kind == "gru":
+            out.update(_gru(prefix, g))
+            continue
         out[f"{prefix}.weight_ih"] = np.concatenate([g[f"i{k}/kernel"].T for k in _GATES])
         out[f"{prefix}.weight_hh"] = np.concatenate([g[f"h{k}/kernel"].T for k in _GATES])
         out[f"{prefix}.bias_hh"] = np.concatenate([g[f"h{k}/bias"] for k in _GATES])
         out[f"{prefix}.bias_ih"] = np.zeros_like(out[f"{prefix}.bias_hh"])
-    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in out.items()}
+    return _tensors(out)
+
+
+# CPC|A's Flax Dense modules in creation order: proj_in, target_proj, cls
+_CPCA_DENSE = ("proj_in", "target_proj", "cls")
+
+
+def cpca_params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flattened Flax CPCA params -> ``aux_losses.CPCA.state_dict()``."""
+    out: Dict[str, np.ndarray] = {}
+    gru: Dict[str, np.ndarray] = {}
+    for p, v in _leaves(flat):
+        if p == "Embed_0/embedding":
+            out["action_embed.weight"] = v
+        elif p.startswith("GRUCell_0/"):
+            gru[p[len("GRUCell_0/"):]] = v
+        elif (m := re.fullmatch(r"Dense_(\d)/(kernel|bias)", p)):
+            out.update(_dense(_CPCA_DENSE[int(m[1])], m[2], v))
+        else:
+            raise KeyError(f"no port counterpart for CPCA parameter {p!r}")
+    out.update(_gru("gru", gru))
+    return _tensors(out)
 
 
 def load_policy_file(path: str, device=None):

@@ -3,7 +3,8 @@
 The net concatenates, in the JAX net's order: visual_fc (unless blind) |
 goal_visual_fc per image goal (a second ResNetEncoder over the goal RGB) |
 goal_fc per goal sensor | state_fc per state sensor | objectgoal_embed |
-the previous action; the LSTM reads the concatenation. The pointgoal
+the previous action; the recurrent encoder (an LSTM, or a GRU with
+``rnn_type="GRU"``) reads the concatenation. The pointgoal
 (rho, phi) enters as (rho, cos(-phi), sin(-phi)) and the objectgoal id as
 one float; each state sensor goes through its own Linear(width, 32). A
 discrete previous action enters as index + 1, or 0 at an episode start,
@@ -73,6 +74,7 @@ class PointNavResNetNet(nn.Module):
         input_hw: Tuple[int, int] = (128, 128),
         backbone: str = "resnet18",
         hidden_size: int = 512,
+        rnn_type: str = "LSTM",
         num_recurrent_layers: int = 1,
         base_planes: int = 32,
         ngroups: int = 16,
@@ -101,6 +103,7 @@ class PointNavResNetNet(nn.Module):
         self.num_actions = num_actions
         self.discrete_actions = discrete_actions
         self.hidden_size = hidden_size
+        self.rnn_type = rnn_type.upper()
         self.num_recurrent_layers = num_recurrent_layers
         enc_kw = dict(backbone=backbone, base_planes=base_planes, ngroups=ngroups, dtype=dtype,
                       normalize_visual_inputs=normalize_visual_inputs)
@@ -127,7 +130,7 @@ class PointNavResNetNet(nn.Module):
             hidden_size * (has_visual + len(self.image_goal_keys))
             + 32 * (len(self.goal_keys) + len(self.state_keys) + objectgoal_embed + 1)
         )
-        self.rnn = RNNStateEncoder(width, hidden_size, num_recurrent_layers)
+        self.rnn = RNNStateEncoder(width, hidden_size, num_recurrent_layers, rnn_type)
 
     def forward(
         self,
@@ -135,12 +138,15 @@ class PointNavResNetNet(nn.Module):
         hidden: torch.Tensor,
         prev_actions: torch.Tensor,
         masks: torch.Tensor,
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        with_feats: bool = False,
+    ) -> Tuple[torch.Tensor, ...]:
         """obs leaves (N, ...), prev_actions (N,) or (N, A) and masks (N,)
         for one step, or obs leaves (T, N, ...), prev_actions (T, N) or
         (T, N, A) and masks (T, N) for the update's sequence mode; hidden
-        (N, L, 2, H). Returns (features (N, H) or (T, N, H), the final
-        hidden state)."""
+        (N, L, S, H). Returns (features (N, H) or (T, N, H), the final
+        hidden state), and with ``with_feats`` also the visual embedding
+        (the ReLU of ``visual_fc``, (N*T, H) in sequence mode; None when
+        blind), which the JAX net sows for auxiliary losses."""
         seq = masks.dim() == 2
 
         def flat(v):
@@ -151,8 +157,10 @@ class PointNavResNetNet(nn.Module):
             if f"robot_head_{k}" in obs:
                 obs[k] = obs[f"robot_head_{k}"]
         parts = []
+        visual = None
         if self.encoder is not None:
-            parts.append(F.relu(self.visual_fc(self.encoder(obs))))
+            visual = F.relu(self.visual_fc(self.encoder(obs)))
+            parts.append(visual)
         for k in self.image_goal_keys:
             parts.append(F.relu(self.goal_visual_fc[k](self.goal_encoder[k]({"rgb": obs[k]}))))
         for k in self.goal_keys:
@@ -172,7 +180,8 @@ class PointNavResNetNet(nn.Module):
         x = torch.cat(parts, dim=-1)
         if seq:
             x = x.reshape(*masks.shape, -1)
-        return self.rnn(x, hidden, masks)
+        feats, new_hidden = self.rnn(x, hidden, masks)
+        return (feats, new_hidden, visual) if with_feats else (feats, new_hidden)
 
 
 class ActorCritic(nn.Module):
@@ -191,14 +200,19 @@ class ActorCritic(nn.Module):
         nn.init.orthogonal_(self.critic.weight, gain=1.0)
         nn.init.zeros_(self.critic.bias)
 
-    def forward(self, obs, hidden, prev_actions, masks):
-        feats, new_hidden = self.net(obs, hidden, prev_actions, masks)
-        return self.action_head(feats), self.critic(feats)[..., 0], new_hidden
+    def forward(self, obs, hidden, prev_actions, masks, with_feats: bool = False):
+        """(head output, value, hidden); with ``with_feats`` also the visual
+        embedding and the RNN output (the beliefs), the two features the
+        JAX net sows for CPC|A."""
+        out = self.net(obs, hidden, prev_actions, masks, with_feats=with_feats)
+        feats = out[0]
+        head = (self.action_head(feats), self.critic(feats)[..., 0], out[1])
+        return head + (out[2], feats) if with_feats else head
 
     def initial_hidden(self, batch: int) -> torch.Tensor:
         return initial_hidden_state(
             batch, self.net.hidden_size, self.net.num_recurrent_layers,
-            device=self.critic.weight.device,
+            device=self.critic.weight.device, rnn_type=self.net.rnn_type,
         )
 
 
@@ -229,14 +243,22 @@ class GaussianActorCritic(ActorCritic):
 
 
 def sample_action(
-    logits: torch.Tensor, generator: torch.Generator, deterministic: bool = False
+    logits: torch.Tensor, generator: torch.Generator, deterministic: bool = False,
+    exponential: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Categorical sample (or argmax) + its log prob."""
+    """Categorical sample (or argmax) + its log prob. The sample is
+    ``torch.multinomial``'s own draw of one sample per row, argmax over the
+    actions of p / q with q ~ Exp(1) per (row, action): ``exponential``
+    (N, A), or drawn from ``generator``, which gives multinomial's numbers
+    from the same generator state. A row's action depends on its own q
+    only, so DD-PPO ranks draw q at the global batch and keep their rows."""
     logp = F.log_softmax(logits.float(), dim=-1)
     if deterministic:
         act = logits.argmax(dim=-1)
     else:
-        act = torch.multinomial(logp.exp(), 1, generator=generator)[:, 0]
+        p = logp.exp()
+        q = torch.empty_like(p).exponential_(1, generator=generator) if exponential is None else exponential
+        act = torch.argmax(p / q, dim=-1)
     return act.to(torch.int32), logp.gather(-1, act[:, None].long())[:, 0]
 
 
@@ -255,15 +277,19 @@ def _gaussian_logp(mu, log_std, actions):
 
 
 def sample_gaussian_action(
-    mu: torch.Tensor, log_std: torch.Tensor, generator: torch.Generator, deterministic: bool = False
+    mu: torch.Tensor, log_std: torch.Tensor, generator: torch.Generator, deterministic: bool = False,
+    normal: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """mu + std * N(0, 1) drawn from ``generator`` (mu itself when
-    ``deterministic``) and its log prob, in float32."""
+    """mu + std * N(0, 1), the noise ``normal`` (mu's shape) or drawn from
+    ``generator`` (mu itself when ``deterministic``), and its log prob, in
+    float32."""
     mu, log_std = mu.float(), log_std.float()
     if deterministic:
         act = mu
     else:
-        act = mu + torch.exp(log_std) * torch.randn(mu.shape, generator=generator, device=mu.device)
+        if normal is None:
+            normal = torch.randn(mu.shape, generator=generator, device=mu.device)
+        act = mu + torch.exp(log_std) * normal
     return act, _gaussian_logp(mu, log_std, act)
 
 
@@ -284,6 +310,7 @@ def make_pointnav_resnet_policy(
     input_hw: Tuple[int, int] = (128, 128),
     backbone: str = "resnet18",
     hidden_size: int = 512,
+    rnn_type: str = "LSTM",
     num_recurrent_layers: int = 1,
     normalize_visual_inputs: bool = False,
     has_visual: bool = True,
@@ -306,6 +333,7 @@ def make_pointnav_resnet_policy(
             input_hw=input_hw,
             backbone=backbone,
             hidden_size=hidden_size,
+            rnn_type=rnn_type,
             num_recurrent_layers=num_recurrent_layers,
             normalize_visual_inputs=normalize_visual_inputs,
             has_visual=has_visual,
@@ -334,6 +362,7 @@ def make_gaussian_resnet_policy(
     input_hw: Tuple[int, int] = (128, 128),
     backbone: str = "resnet18",
     hidden_size: int = 512,
+    rnn_type: str = "LSTM",
     num_recurrent_layers: int = 1,
     has_visual: bool = True,
     goal_keys: Sequence[str] = (),
@@ -354,6 +383,7 @@ def make_gaussian_resnet_policy(
         input_hw=input_hw,
         backbone=backbone,
         hidden_size=hidden_size,
+        rnn_type=rnn_type,
         num_recurrent_layers=num_recurrent_layers,
         has_visual=has_visual,
         goal_keys=goal_keys,

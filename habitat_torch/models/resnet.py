@@ -1,5 +1,9 @@
-"""GroupNorm ResNet visual encoder (port of ``habitat_tpu/models/resnet.py``,
-basic-block backbones).
+"""GroupNorm ResNet visual encoder (port of ``habitat_tpu/models/resnet.py``):
+every backbone of its ``SPECS``, basic-block (resnet9, resnet18) and
+bottleneck (resnet50, resneXt50, se_resnet50, se_resneXt50,
+se_resneXt101: 1x1, 3x3 strided and grouped by ``cardinality``, 1x1 x
+``expansion``, a GroupNorm after each, an optional squeeze-excitation, a
+projection shortcut when shape or stride changes).
 
 Public inputs stay in the JAX package's layout (NHWC observations) and the
 encoder output is flattened in H, W, C order, so converted Dense weights read
@@ -19,6 +23,7 @@ modules:
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Sequence, Tuple
 
@@ -28,8 +33,26 @@ from torch import nn
 
 from habitat_torch.ops.pool import max_pool_3x3s2
 
-# basic-block stage depths of the backbones the port supports
-SPECS = {"resnet9": (1, 1, 1, 1), "resnet18": (2, 2, 2, 2)}
+
+@dataclasses.dataclass(frozen=True)
+class ResNetSpec:
+    block: str  # "basic" | "bottleneck"
+    layers: Tuple[int, ...]
+    cardinality: int = 1
+    use_se: bool = False
+    expansion: int = 1
+
+
+# the JAX package's SPECS (base planes and groups come from the encoder)
+SPECS = {
+    "resnet9": ResNetSpec("basic", (1, 1, 1, 1)),
+    "resnet18": ResNetSpec("basic", (2, 2, 2, 2)),
+    "resnet50": ResNetSpec("bottleneck", (3, 4, 6, 3), expansion=4),
+    "resneXt50": ResNetSpec("bottleneck", (3, 4, 6, 3), cardinality=32, expansion=2),
+    "se_resnet50": ResNetSpec("bottleneck", (3, 4, 6, 3), use_se=True, expansion=4),
+    "se_resneXt50": ResNetSpec("bottleneck", (3, 4, 6, 3), cardinality=32, use_se=True, expansion=2),
+    "se_resneXt101": ResNetSpec("bottleneck", (3, 4, 23, 3), cardinality=32, use_se=True, expansion=2),
+}
 
 
 def _same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
@@ -55,17 +78,19 @@ def _lecun_normal_(w: torch.Tensor) -> None:
 
 
 class Conv2dSame(nn.Module):
-    """Bias-free convolution with XLA "SAME" padding; the float32 weight is
-    cast to the input's dtype."""
+    """Bias-free convolution with XLA "SAME" padding, in ``groups`` groups
+    (Flax's ``feature_group_count``); the float32 weight is cast to the
+    input's dtype."""
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1, groups: int = 1):
         super().__init__()
-        self.k, self.stride = k, stride
-        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
+        self.k, self.stride, self.groups = k, stride, groups
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, k, k))
         _lecun_normal_(self.weight)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(same_pad(x, self.k, self.stride), self.weight.to(x.dtype), stride=self.stride)
+        return F.conv2d(same_pad(x, self.k, self.stride), self.weight.to(x.dtype), stride=self.stride,
+                        groups=self.groups)
 
 
 class GroupNorm(nn.Module):
@@ -110,22 +135,78 @@ class BasicBlock(nn.Module):
         return F.relu(x + y)
 
 
+class SEBlock(nn.Module):
+    """Squeeze-excitation: per-image channel means (float32 sums) ->
+    Linear(C, max(C/16, 4)) -> ReLU -> Linear(C) -> sigmoid, scaling the
+    input's channels; the Linears run in the input's dtype, as Flax's
+    ``Dense(dtype=...)``."""
+
+    def __init__(self, channels: int, reduction: int = 16):
+        super().__init__()
+        self.fc1 = nn.Linear(channels, max(channels // reduction, 4))
+        self.fc2 = nn.Linear(max(channels // reduction, 4), channels)
+        for fc in (self.fc1, self.fc2):
+            _lecun_normal_(fc.weight)
+            nn.init.zeros_(fc.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        s = x.float().mean(dim=(2, 3)).to(dt)
+        s = F.relu(F.linear(s, self.fc1.weight.to(dt), self.fc1.bias.to(dt)))
+        s = torch.sigmoid(F.linear(s, self.fc2.weight.to(dt), self.fc2.bias.to(dt)))
+        return x * s[:, :, None, None]
+
+
+class Bottleneck(nn.Module):
+    def __init__(self, cin: int, planes: int, stride: int, ngroups: int, dtype, cardinality: int = 1,
+                 use_se: bool = False, expansion: int = 4):
+        super().__init__()
+        out = planes * expansion
+        self.conv1 = Conv2dSame(cin, planes, 1)
+        self.norm1 = GroupNorm(ngroups, planes, out_dtype=dtype)
+        self.conv2 = Conv2dSame(planes, planes, 3, stride, groups=cardinality)
+        self.norm2 = GroupNorm(ngroups, planes, out_dtype=dtype)
+        self.conv3 = Conv2dSame(planes, out, 1)
+        self.norm3 = GroupNorm(ngroups, out, out_dtype=dtype)
+        self.se = SEBlock(out) if use_se else None
+        self.down = None
+        if cin != out or stride != 1:
+            self.down = Conv2dSame(cin, out, 1, stride)
+            self.down_norm = GroupNorm(ngroups, out, out_dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.norm1(self.conv1(x)))
+        y = F.relu(self.norm2(self.conv2(y)))
+        y = self.norm3(self.conv3(y))
+        if self.se is not None:
+            y = self.se(y)
+        if self.down is not None:
+            x = self.down_norm(self.down(x))
+        return F.relu(x + y)
+
+
 class ResNet(nn.Module):
     """Stem (7x7/2 conv + GroupNorm + ReLU + 3x3/2 max pool) and four stages
-    of basic blocks; returns the final NCHW feature map."""
+    of ``spec``'s blocks; returns the final NCHW feature map of
+    ``out_channels`` (the JAX package's ``final_channels``)."""
 
-    def __init__(self, in_channels: int, layers: Sequence[int], base_planes: int, ngroups: int, dtype):
+    def __init__(self, in_channels: int, spec: ResNetSpec, base_planes: int, ngroups: int, dtype):
         super().__init__()
         self.dtype = dtype
         self.stem = Conv2dSame(in_channels, base_planes, 7, 2)
         self.stem_norm = GroupNorm(ngroups, base_planes, out_dtype=dtype)
         blocks = []
         cin, planes = base_planes, base_planes
-        for i, n_blocks in enumerate(layers):
+        for i, n_blocks in enumerate(spec.layers):
             for b in range(n_blocks):
                 stride = 2 if (i > 0 and b == 0) else 1
-                blocks.append(BasicBlock(cin, planes, stride, ngroups, dtype))
-                cin = planes
+                if spec.block == "basic":
+                    blocks.append(BasicBlock(cin, planes, stride, ngroups, dtype))
+                    cin = planes
+                else:
+                    blocks.append(Bottleneck(cin, planes, stride, ngroups, dtype, spec.cardinality, spec.use_se,
+                                             spec.expansion))
+                    cin = planes * spec.expansion
             planes *= 2
         self.blocks = nn.ModuleList(blocks)
         self.out_channels = cin
@@ -168,7 +249,7 @@ class ResNetEncoder(nn.Module):
         in_ch = 3 * ("rgb" in visual_inputs) + ("depth" in visual_inputs)
         self.backbone = ResNet(in_ch, SPECS[backbone], base_planes, ngroups, dtype)
         h, w = input_hw
-        for _ in range(2 + len(SPECS[backbone]) - 1):  # stem, pool, 3 strided stages
+        for _ in range(2 + len(SPECS[backbone].layers) - 1):  # stem, pool, 3 strided stages
             h, w = -(-h // 2), -(-w // 2)
         comp = max(output_size // (h * w), 1)
         comp = ((comp + 7) // 8) * 8

@@ -473,7 +473,7 @@ class RearrangeBatchedEnv:
         self,
         pack: ScenePack,
         table: RearrangeTable,
-        episode_order: np.ndarray,  # (N, L) per-env episode schedule
+        episode_order: np.ndarray,  # (N, L) per-env episode schedule (global N)
         *,
         task: str = "pick",
         max_episode_steps: int = 300,
@@ -502,6 +502,7 @@ class RearrangeBatchedEnv:
         action_specs: Optional[list] = None,
         pddl_domain: str = "fp",
         device=None,
+        rows: slice = slice(None),
     ):
         if action_specs:
             if any(s.agent_idx >= 1 for s in action_specs):
@@ -527,7 +528,9 @@ class RearrangeBatchedEnv:
         self.device = dev
         self.pack = pack.to(dev)
         self.table = table.to(dev)
-        self.order = torch.as_tensor(np.asarray(episode_order), dtype=torch.int64, device=dev)
+        # the envs are ``rows`` of the global order (a DD-PPO rank's; all by default)
+        episode_order = np.asarray(episode_order)[rows]
+        self.order = torch.as_tensor(episode_order, dtype=torch.int64, device=dev)
         self.num_envs = int(episode_order.shape[0])
         self._order_len = int(episode_order.shape[1])
         self._env_ids = torch.arange(self.num_envs, device=dev)

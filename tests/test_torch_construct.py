@@ -145,6 +145,7 @@ def test_rearrange_env_arguments_match(monkeypatch, root, declared):
     want = _recorded(monkeypatch, jgen, jcons, jcfg, num_envs=8)
     got = _recorded(monkeypatch, tgen, tcons, tcfg, num_envs=8, device="cpu")
     assert got.pop("device") == "cpu"
+    assert got.pop("rows") == slice(None)  # all envs: no process group
     assert got == want
     if declared:
         assert any(want[k] is not None for k in ("sensor_keys", "measure_keys", "action_specs"))
@@ -202,7 +203,7 @@ def _small_pick(extra=()):
 ARM_PICK = ["habitat.task.actions.arm_action.type=ArmAction", "habitat.task.actions.base_velocity.type=BaseVelAction"]
 
 
-@pytest.mark.parametrize("case", ["objectnav_file", "gru", "ddppo", "adaptive_entropy", "hrl", "il"])
+@pytest.mark.parametrize("case", ["objectnav_file", "hrl", "il"])
 def test_unported_raise_not_implemented(case, tmp_path):
     if case == "objectnav_file":
         # an ObjectNav-v1 episode file on disk waits for sims/loaders.py
@@ -211,22 +212,6 @@ def test_unported_raise_not_implemented(case, tmp_path):
         cfg = get_config("benchmark/nav/objectnav/objectnav_procgen.yaml", [
             "habitat.dataset.type=ObjectNav-v1", f"habitat.dataset.data_path={path}"])
         call, match = lambda: tcons.env_from_config(cfg, num_envs=2, device="cpu"), "loaders.py"
-    elif case == "gru":
-        cfg = get_config("pointnav/ppo_pointnav_example.yaml", ["habitat_baselines.rl.ddppo.rnn_type=GRU"])
-        env = types.SimpleNamespace(observation_shapes={"depth": ((32, 32, 1), torch.float32)}, num_actions=4,
-                                    device=torch.device("cpu"))
-        call, match = lambda: tcons.policy_from_config(cfg, env), "GRU"
-    elif case == "ddppo":
-        call, match = lambda: tcons.trainer_from_config(
-            get_config("pointnav/ddppo_pointnav.yaml"), device="cpu"), "DD-PPO"
-    elif case == "adaptive_entropy":
-        # the arm Pick config, trained by the Gaussian learner, with the
-        # example experiment's trainer settings and the adaptive entropy
-        cfg = _small_pick(ARM_PICK)
-        with read_write(cfg):
-            cfg["habitat_baselines"] = get_config("pointnav/ppo_pointnav_example.yaml", [
-                "habitat_baselines.rl.ppo.use_adaptive_entropy_pen=True"]).habitat_baselines
-        call, match = lambda: tcons.trainer_from_config(cfg, device="cpu"), "use_adaptive_entropy_pen"
     elif case == "hrl":
         call, match = lambda: tcons.trainer_from_config(
             get_config("pointnav/ppo_pointnav_example.yaml", ["habitat_baselines.updater_name=HRLPPO"]),
@@ -334,3 +319,70 @@ def test_run_main_trains_then_evaluates(tmp_path, monkeypatch):
         shared = {f.name for f in dataclasses.fields(ours)} & {f.name for f in dataclasses.fields(theirs)}
         assert len(shared) >= 9
         assert {k: getattr(ours, k) for k in shared} == {k: getattr(theirs, k) for k in shared}
+
+
+# -- the DD-PPO recipe ----------------------------------------------------------
+
+DDPPO_SMALL = ["habitat_baselines.num_environments=4", "habitat_baselines.rl.ppo.num_steps=4",
+               "habitat_baselines.tensorboard_dir=", *NAV_32]
+
+
+@pytest.mark.parametrize("variant", ["recipe", "gru", "ver", "adaptive_entropy"])
+def test_ddppo_pointnav_builds(variant, tmp_path):
+    """``pointnav/ddppo_pointnav.yaml`` (at 32x32 and N=4): the ``ddppo``
+    trainer (``use_mesh``) with the resnet50 encoder (16 bottleneck blocks,
+    base 32, 16 groups, 1024 final channels) and an LSTM-512 of 2 layers, its PPO
+    settings those of the JAX trainer from the same config; with
+    ``rnn_type=GRU`` a GRU of 2 layers and (N, 2, 1, 512) hidden states;
+    with ``trainer_name=ver`` the ``VERTrainer``. The arm-Pick config with
+    ``use_adaptive_entropy_pen`` and ``entropy_target_factor`` builds the
+    Gaussian learner with the JAX threshold."""
+    from habitat_torch.baselines.trainer import PPOTrainer, VERTrainer
+    from habitat_torch.models.resnet import Bottleneck
+
+    if variant == "adaptive_entropy":
+        cfg = _small_pick(ARM_PICK + ["habitat_baselines.rl.ddppo.backbone=resnet9",
+                                      "habitat_baselines.rl.ppo.hidden_size=64"])
+        with read_write(cfg):
+            cfg["habitat_baselines"] = get_config("pointnav/ppo_pointnav_example.yaml", [
+                "habitat_baselines.rl.ppo.use_adaptive_entropy_pen=True",
+                "habitat_baselines.rl.ppo.entropy_target_factor=0.5",
+                "habitat_baselines.rl.ppo.num_mini_batch=1"]).habitat_baselines
+        trainer = tcons.trainer_from_config(cfg, device="cpu")
+        assert trainer.learner.adaptive_ent and trainer.learner.ent_threshold == -0.5 * 10
+        assert trainer.ppo_cfg.entropy_target_factor == 0.5
+        return
+    extra = {"recipe": [], "gru": ["habitat_baselines.rl.ddppo.rnn_type=GRU"],
+             "ver": ["habitat_baselines.trainer_name=ver"]}[variant]
+    args = [*DDPPO_SMALL, f"habitat_baselines.checkpoint_folder={tmp_path}", *extra]
+    trainer = tcons.trainer_from_config(get_config("pointnav/ddppo_pointnav.yaml", args), device="cpu")
+    # use_mesh as the JAX package sets it: for the ddppo name
+    assert type(trainer) is (VERTrainer if variant == "ver" else PPOTrainer)
+    assert trainer.run_cfg.use_mesh == (variant != "ver")
+    net = trainer.policy.net
+    blocks = net.encoder.backbone.blocks
+    assert len(blocks) == 16 and all(isinstance(b, Bottleneck) for b in blocks)
+    assert net.encoder.backbone.out_channels == 32 * 8 * 4 and net.encoder.backbone.stem.weight.shape[0] == 32
+    assert blocks[0].norm1.num_groups == 16
+    assert net.hidden_size == 512 and net.num_recurrent_layers == 2 and len(net.rnn.cells) == 2
+    assert net.rnn_type == ("GRU" if variant == "gru" else "LSTM")
+    assert tuple(trainer.policy.initial_hidden(4).shape) == (4, 2, 1 if variant == "gru" else 2, 512)
+    if variant == "recipe":
+        jtrainer = jcons.trainer_from_config(jax_get_config("pointnav/ddppo_pointnav.yaml", args))
+        assert jtrainer.policy.net.backbone == "resnet50" and jtrainer.policy.net.num_recurrent_layers == 2
+        ours, theirs = trainer.ppo_cfg, jtrainer.ppo_cfg
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+        shared = {f.name for f in dataclasses.fields(trainer.run_cfg)} & {f.name for f in
+                                                                         dataclasses.fields(jtrainer.run_cfg)}
+        assert {k: getattr(trainer.run_cfg, k) for k in shared} == {k: getattr(jtrainer.run_cfg, k) for k in shared}
+
+
+def test_run_main_trains_the_ddppo_recipe(tmp_path):
+    """``run.main`` on ``ddppo_pointnav.yaml`` in one process (no group):
+    one update of resnet50 + LSTM-512x2 at 32x32, N=4, T=4, finite losses,
+    ``latest`` written."""
+    args = ["--config-name=pointnav/ddppo_pointnav.yaml", "--device", "cpu", *DDPPO_SMALL,
+            f"habitat_baselines.checkpoint_folder={tmp_path}", "habitat_baselines.total_num_steps=16"]
+    metrics = run.main(args)
+    assert np.isfinite(metrics["losses/learner_loss"]) and np.isfinite(metrics["grad_norm"])
+    assert "latest" in os.listdir(tmp_path)

@@ -1197,3 +1197,110 @@ def test_gaussian_sampling_with_a_cuda_generator(cuda):
     assert (logp - ref).abs().max().item() < 1e-4
     det, _ = sample_gaussian_action(mu, log_std, torch.Generator(device=cuda), deterministic=True)
     assert torch.equal(det, mu)
+
+
+# -- the GRU, the bottleneck backbones and DD-PPO's collectives on the card ------
+
+
+def test_gru_encoder_on_card_matches_cpu(card):
+    """The GRU state encoder (2 layers, Flax's cell) in sequence mode with
+    episode starts inside the sequence, float32: outputs and final state
+    within 1e-5 of the CPU's."""
+    from habitat_torch.models.rnn_state_encoder import RNNStateEncoder
+
+    torch.manual_seed(0)
+    enc = RNNStateEncoder(48, 64, num_layers=2, rnn_type="GRU")
+    x, h = torch.randn(6, 8, 48), torch.randn(8, 2, 1, 64)
+    masks = (torch.rand(6, 8) > 0.3).float()
+    want = enc(x, h, masks)
+    got = enc.to(card)(x.to(card), h.to(card), masks.to(card))
+    for g, w in zip(got, want):
+        assert (g.cpu() - w).abs().max() < 1e-5
+
+
+@pytest.mark.parametrize("backbone", ["resnet50", "se_resneXt50"])
+def test_bottleneck_stage_on_card_matches_cpu(card, backbone):
+    """A bottleneck encoder on the card against the CPU, the same weights:
+    in float32 (TF32 off, as the port sets it) the whole net and its first
+    block within 1e-4 of the output's scale. In bf16 each of them no
+    further from the CPU's bf16 output than 1.5 times that output's own
+    distance from the float32 one (tests/test_torch_ppo.py's
+    BF16_NOISE_FACTOR): bf16 rounds at every conv and norm, on both
+    devices in different orders."""
+    from habitat_torch.models.resnet import ResNetEncoder
+
+    obs = {"depth": torch.rand(4, 64, 64, 1, generator=torch.Generator().manual_seed(0))}
+    stage_in = torch.randn(4, 32, 16, 16, generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        torch.manual_seed(0)  # the same weights in both dtypes
+        enc = ResNetEncoder(("depth",), (64, 64), backbone=backbone, dtype=dtype)
+        with torch.no_grad():
+            cpu = enc(obs), enc.backbone.blocks[0](stage_in.to(dtype)).float()
+            enc = enc.to(card)
+            got = enc({"depth": obs["depth"].to(card)}).cpu(), enc.backbone.blocks[0](
+                stage_in.to(dtype).to(card)).float().cpu()
+        out[dtype] = cpu, got
+    (want32, stage32), (got32, stage_got32) = out[torch.float32]
+    assert (got32 - want32).abs().max() <= 1e-4 * want32.abs().max()
+    assert (stage_got32 - stage32).abs().max() <= 1e-4 * stage32.abs().max()
+    (want16, stage16), (got16, stage_got16) = out[torch.bfloat16]
+    for got, want, ref in ((got16, want16, want32), (stage_got16, stage16, stage32)):
+        noise = (want - ref).abs().max()
+        assert (got - want).abs().max() <= 1.5 * noise, ((got - want).abs().max(), noise)
+
+
+def test_categorical_draw_is_multinomials_on_card(card):
+    """On the card too, ``sample_action`` draws what ``torch.multinomial``
+    draws from the same generator state (one sample: argmax of p / q,
+    q ~ Exp(1)), so one-process rollouts keep their actions."""
+    from habitat_torch.models.policy import sample_action
+
+    logits = torch.randn(256, 4, device=card)
+    g = torch.Generator(device=card).manual_seed(0)
+    g_ref = torch.Generator(device=card).manual_seed(0)
+    act, _ = sample_action(logits, g)
+    ref = torch.multinomial(torch.softmax(logits, -1), 1, generator=g_ref)[:, 0]
+    assert torch.equal(act.long(), ref) and torch.equal(g.get_state(), g_ref.get_state())
+
+
+_GLOO_RANK = """
+import sys, torch
+sys.path.insert(0, {root!r})
+from habitat_torch.parallel import distributed
+r = int(sys.argv[1])
+dev = distributed.init_distributed({store!r}, 2, r, device="cuda:0", backend="gloo", timeout_s=120)
+lin = torch.nn.Linear(8, 4).to(dev)
+torch.manual_seed(r)  # each rank its own data
+lin(torch.randn(16, 8, device=dev)).square().sum().backward()
+grads = [p.grad.clone() for p in lin.parameters()]
+distributed.all_reduce_sum_([p.grad for p in lin.parameters()])
+flags = distributed.gather_rows(torch.tensor([r == 1], device=dev))
+torch.save(dict(local=[g.cpu() for g in grads], summed=[p.grad.cpu() for p in lin.parameters()],
+                flags=flags.cpu(), device=str(lin.weight.grad.device)), {out!r}.format(r))
+distributed.abort()
+"""
+
+
+def test_gloo_all_reduce_of_card_gradients(card, tmp_path):
+    """Two processes on the one card over gloo: each rank's gradients of a
+    Linear on cuda:0, summed by ``all_reduce_sum_`` in place, equal the sum
+    of both ranks' local gradients on both; ``gather_rows`` joins a bool
+    row."""
+    import subprocess
+    import sys
+
+    root = __file__.rsplit("/tests/", 1)[0]
+    code = _GLOO_RANK.format(root=root, store=f"file://{tmp_path}/store", out=str(tmp_path / "rank{}.pt"))
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)]) for r in range(2)]
+    try:
+        assert [p.wait(timeout=180) for p in procs] == [0, 0]
+    finally:
+        for p in procs:
+            p.kill()
+    out = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    for o in out:
+        assert o["device"].startswith("cuda") and o["flags"].tolist() == [False, True]
+        for s, a, b in zip(o["summed"], out[0]["local"], out[1]["local"]):
+            assert torch.allclose(s, a + b, rtol=1e-6, atol=1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(out[0]["summed"], out[1]["summed"]))

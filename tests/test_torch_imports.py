@@ -36,7 +36,8 @@ def test_port_files_found():
     assert os.path.join(ROOT, "chip_smoke.py") in files
     assert len(files) > 15
     for module in ("tasks/rearrange/rearrange_env.py", "tasks/rearrange/generator.py", "ops/navgrid.py",
-                   "models/policy.py", "baselines/ppo.py", "datasets/object_nav.py", "datasets/image_nav.py"):
+                   "models/policy.py", "baselines/ppo.py", "datasets/object_nav.py", "datasets/image_nav.py",
+                   "parallel/distributed.py", "baselines/aux_losses.py"):
         assert os.path.join(ROOT, "habitat_torch", module) in files
 
 
@@ -54,6 +55,7 @@ CONFIG_PATH_MODULES = (
     "habitat_torch.tasks.rearrange.sensors", "habitat_torch.tasks.rearrange.task_actions",
     "habitat_torch.core.construct", "habitat_torch.baselines.evaluator", "habitat_torch.baselines.run",
     "habitat_torch.datasets.object_nav", "habitat_torch.datasets.image_nav",
+    "habitat_torch.parallel.distributed", "habitat_torch.baselines.aux_losses",
 )
 _PROBE = """
 import json, sys

@@ -308,3 +308,125 @@ def test_gaussian_log_prob_and_entropy_match():
         np.testing.assert_allclose(logp.numpy(), want, rtol=1e-6, atol=1e-5)
         if det:
             np.testing.assert_allclose(logp.numpy(), np.asarray(ref_logp), rtol=1e-6, atol=1e-5)
+
+
+# -- bottleneck backbones, the GRU state encoder, the sown features ---------------
+
+
+def _random_tree(shapes, rng):
+    """Values for a Flax parameter tree of ``shapes`` (from
+    ``jax.eval_shape`` of the module's init; compiling every bottleneck
+    backbone's init would cost a minute): kernels normal with variance
+    1/fan_in, GroupNorm scales 1 + N(0, 0.1), biases N(0, 0.1)."""
+    flat = traverse_util.flatten_dict(shapes, sep="/")
+    out = {}
+    for k, s in flat.items():
+        if k.endswith("kernel"):
+            out[k] = rng.normal(0, 1 / np.sqrt(np.prod(s.shape[:-1])), s.shape)
+        elif k.endswith("scale"):
+            out[k] = 1 + rng.normal(0, 0.1, s.shape)
+        else:
+            out[k] = rng.normal(0, 0.1, s.shape)
+    return traverse_util.unflatten_dict({k: jnp.asarray(v, jnp.float32) for k, v in out.items()}, sep="/")
+
+
+@pytest.mark.parametrize("backbone", ["resnet50", "resneXt50", "se_resnet50", "se_resneXt50", "se_resneXt101"])
+def test_bottleneck_backbone_f32_matches(backbone):
+    """Every bottleneck spec of the JAX package (Bottleneck blocks, 32-way
+    grouped 3x3 convs, squeeze-excitation), its parameter tree converted,
+    in float32 on both sides at 32x32: relative error 1e-4 of the output's
+    scale, as the basic-block encoder's."""
+    from habitat_tpu.models.resnet import SPECS as JAX_SPECS
+
+    from habitat_torch.models.resnet import SPECS
+
+    rng = np.random.default_rng(9)
+    obs = _obs(rng, 2, (32, 32), keys=("depth",))
+    enc = JaxEncoder(backbone=backbone, base_planes=32, ngroups=8, dtype=jnp.float32)
+    params = _random_tree(jax.eval_shape(enc.init, jax.random.PRNGKey(0), obs)["params"], rng)
+    ref = np.asarray(jax.jit(enc.apply)({"params": params}, obs))
+    flat = {f"net/ResNetEncoder_0/{k}": v for k, v in _flat_np(params).items()}
+    sd = {k[len("net.encoder."):]: v for k, v in params_from_jax(flat).items()}
+    port = ResNetEncoder(("depth",), (32, 32), backbone=backbone, base_planes=32, ngroups=8, dtype=torch.float32)
+    port.load_state_dict(sd)  # strict: every port parameter has its Flax counterpart
+    spec = JAX_SPECS[backbone]
+    assert SPECS[backbone].layers == spec.layers and port.backbone.out_channels == 256 * spec.expansion
+    with torch.no_grad():
+        got = port(_torch_obs(obs)).numpy()
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("layers", [1, 2])
+def test_gru_policy_matches(layers):
+    """rnn_type="GRU": Flax's GRUCell (biases on ir, iz, in and hn) per
+    layer, hidden state (N, L, 1, H), in the act step and in sequence mode
+    with episode starts inside the sequence; blind, so float32 throughout
+    (within 1e-5)."""
+    from habitat_tpu.models.rnn_state_encoder import initial_hidden_state as jax_hidden
+
+    rng = np.random.default_rng(10 + layers)
+    n, T, H = 4, 5, 64
+    jpol = jax_policy(4, backbone="resnet9", hidden_size=H, rnn_type="GRU", num_recurrent_layers=layers,
+                      has_visual=False)
+    obs1 = _obs(rng, n, (8, 8), keys=("pointgoal_with_gps_compass",))
+    hidden = jnp.asarray(rng.normal(0, 0.5, (n, layers, 1, H)).astype(np.float32))
+    assert jax_hidden(n, H, layers, "GRU").shape == hidden.shape
+    prev, masks = np.array([0, 1, 2, 3], np.int32), np.array([1, 0, 1, 1], np.float32)
+    params = _perturbed(jpol, obs1, hidden, prev, masks, rng, 11)
+    assert {f"gru_{l}" for l in range(layers)} == set(params["params"]["net"]["RNNStateEncoder_0"])
+    tpol = make_pointnav_resnet_policy(4, backbone="resnet9", hidden_size=H, rnn_type="GRU",
+                                       num_recurrent_layers=layers, has_visual=False, device="cpu")
+    assert tuple(tpol.initial_hidden(n).shape) == (n, layers, 1, H)
+    compare = _compare_policy_f32(jpol, params, tpol)
+    compare(obs1, hidden, prev, masks)
+    seq = {k: np.stack([_obs(rng, n, (8, 8), keys=(k,))[k] for _ in range(T)]) for k in obs1}
+    prev_s = rng.integers(0, 4, (T, n)).astype(np.int32)
+    masks_s = (rng.random((T, n)) > 0.3).astype(np.float32)
+    compare(seq, hidden, prev_s, masks_s)
+
+
+def _compare_policy_f32(jpol, params, tpol):
+    """A comparer of logits, values and hidden state within 1e-5."""
+    tpol.load_state_dict(params_from_jax(_flat_np(params["params"])))
+
+    def compare(obs, hidden, prev, masks):
+        ref = jpol.apply(params, obs, hidden, jnp.asarray(prev), jnp.asarray(masks))
+        with torch.no_grad():
+            got = tpol(_torch_obs(obs), torch.from_numpy(np.array(hidden)), torch.from_numpy(prev),
+                       torch.from_numpy(masks))
+        for name, g, r in zip(("logits", "values", "hidden"), got, ref):
+            assert tuple(g.shape) == np.asarray(r).shape, name
+            assert np.abs(g.numpy() - np.asarray(r)).max() < 1e-5, name
+
+    return compare
+
+
+def test_policy_returns_the_sown_features():
+    """``with_feats``: the visual embedding (Flax's sown ``visual_feats``,
+    (T*N, H) in sequence mode) and the RNN output (``rnn_feats``), each
+    equal to JAX's intermediates within the bf16 bound."""
+    from habitat_tpu.baselines.ppo import _find_sow
+
+    rng = np.random.default_rng(13)
+    T, n, hw, H = 3, 2, (32, 32), 128
+    obs = {k: np.stack([v] * T) for k, v in _obs(rng, n, hw).items()}
+    hidden = jnp.asarray(rng.normal(0, 0.5, (n, 1, 2, H)).astype(np.float32))
+    prev, masks = rng.integers(0, 4, (T, n)).astype(np.int32), np.ones((T, n), np.float32)
+    jpol = jax_policy(4, backbone="resnet9", hidden_size=H)
+    # initialised on one step (Flax cannot create parameters inside the sequence's scan)
+    params = jax.jit(jpol.init)(jax.random.PRNGKey(14), {k: v[0] for k, v in obs.items()}, hidden,
+                                jnp.asarray(prev[0]), jnp.asarray(masks[0]))
+    params = {"params": _perturb_affine(params["params"], rng)}
+    _, inter = jax.jit(lambda *a: jpol.apply(*a, mutable=["intermediates"]))(
+        params, obs, hidden, jnp.asarray(prev), jnp.asarray(masks))
+    tpol = make_pointnav_resnet_policy(4, backbone="resnet9", hidden_size=H, input_hw=hw, device="cpu")
+    tpol.load_state_dict(params_from_jax(_flat_np(params["params"])))
+    with torch.no_grad():
+        out = tpol(_torch_obs(obs), torch.from_numpy(np.array(hidden)), torch.from_numpy(prev),
+                   torch.from_numpy(masks), with_feats=True)
+    assert len(out) == 5
+    for got, name in ((out[3], "visual_feats"), (out[4], "rnn_feats")):
+        ref = np.asarray(_find_sow(inter, name))
+        assert tuple(got.shape) == ref.shape, name
+        assert np.abs(got.numpy() - ref).max() < BF16_ATOL, name

@@ -33,6 +33,12 @@ JAX policy's encoder is switched to float32 in this test only):
   gradient; in bf16 the sign of the smallest gradients is noise: 0.956 of
   elements lie within lr/10 between the port and JAX, and 0.958 between
   JAX's own bf16 and float32 updates, on the rollout batch below).
+- the PPOConfig switches (normalized advantage, linear LR decay, the inert
+  clip decay) and the Gaussian policy's adaptive entropy on blind nets in
+  float32, 2 epochs of 2 minibatches with JAX's permutations passed in:
+  parameters at rtol 2e-4 / atol 2e-5 of JAX's update (no conv, so no
+  tie for Adam to amplify); CPC|A alone (loss within 1e-6, gradients 1e-5
+  relative L2) and in the update of a GRU policy (the update rule above).
 """
 
 import contextlib
@@ -380,9 +386,10 @@ def _port_update(sd, b, h0, lv, env=None):
     return learner.policy.state_dict(), {k: v.item() for k, v in metrics.items()}
 
 
-def _check_update(start, got, ref, got_m, ref_m):
+def _check_update(start, got, ref, got_m, ref_m, moved=lambda k: True):
     """Metrics to ATOL["float32"]; every element within 2*lr per Adam step of
-    JAX's, >= 99% within lr/10; every trained tensor moved, bias_ih not."""
+    JAX's, >= 99% within lr/10; every trained tensor (those ``moved``
+    names) moved, bias_ih not."""
     assert set(got_m) == set(ref_m)
     for k in got_m:
         assert abs(got_m[k] - ref_m[k]) < ATOL["float32"] * max(1.0, abs(ref_m[k])), k
@@ -392,7 +399,7 @@ def _check_update(start, got, ref, got_m, ref_m):
         if k.endswith(FROZEN):
             assert torch.equal(p, start[k])
             continue
-        assert (ref[k] - start[k]).abs().max() > lr / 2, k
+        assert not moved(k) or (ref[k] - start[k]).abs().max() > lr / 2, k
         diff = (p - ref[k]).abs()
         assert diff.max() <= 2 * lr * UPDATE_CFG["ppo_epoch"], k
         close += int((diff <= lr / 10).sum())
@@ -443,9 +450,9 @@ def test_minibatches_follow_the_generator(model):
     seen = []
     loss_fn = learner._loss_fn
 
-    def spy(mb, h0_mb):
+    def spy(mb, h0_mb, **kw):
         seen.append((mb, h0_mb))
-        return loss_fn(mb, h0_mb)
+        return loss_fn(mb, h0_mb, **kw)
 
     learner._loss_fn = spy
     tb = _torch_batch(b)
@@ -461,10 +468,7 @@ def test_minibatches_follow_the_generator(model):
         assert torch.equal(mb["masks"], tb.masks[:, idx])
 
 
-def test_unported_options_raise():
-    for name in ("use_linear_lr_decay", "use_linear_clip_decay", "use_normalized_advantage", "use_adaptive_entropy_pen"):
-        with pytest.raises(NotImplementedError, match=name):
-            PPOConfig(**{name: True})
+def test_minibatch_split_is_checked():
     with pytest.raises(ValueError, match="minibatches"):
         PPOLearner(SimpleNamespace(num_envs=5), None, PPOConfig(num_mini_batch=2))
 
@@ -538,3 +542,267 @@ def test_gaussian_update_matches_jax():
     _check_update(sd, port.policy.state_dict(), ref, {k: v.item() for k, v in got_m.items()},
                   {k: float(v) for k, v in ref_m.items()})
     assert "action_head.log_std" in sd
+
+
+# ---- the PPOConfig switches and CPC|A ---------------------------------------------
+
+SW_N, SW_H = 4, 64
+SW_RTOL, SW_ATOL = 2e-4, 2e-5  # the blind update's parameters, port vs JAX
+
+
+def _jax_perms(key, n, epochs, update_idx=0):
+    """JAX's epoch permutations: fold_in(fold_in(key, update_idx), epoch)."""
+    return np.stack([np.asarray(jax.random.permutation(
+        jax.random.fold_in(jax.random.fold_in(key, update_idx), e), n)) for e in range(epochs)])
+
+
+def _train_state(params, jlearner, key, log_alpha=np.log(0.01)):
+    return TrainState(params=params, opt_state=jlearner.optimizer.init(params), env_state=None, obs=None,
+                      hidden=None, prev_action=None, not_done=None, key=key, update_idx=jnp.int32(0),
+                      ep_return_acc=None, ep_len_acc=None, log_alpha=jnp.float32(log_alpha))
+
+
+def _blind_batch(seed, gaussian_dim=None):
+    """A (T, N) batch of the blind nav net (pointgoal only), or with
+    ``gaussian_dim`` of the blind arm net (its five state sensors, float
+    actions)."""
+    b, h0, lv = _batch(seed)
+    rng = np.random.default_rng(seed + 100)
+    b["obs"] = {"pointgoal_with_gps_compass": b["obs"]["pointgoal_with_gps_compass"]}
+    if gaussian_dim:
+        from tests.test_torch_models import ARM_WIDTHS
+
+        b["obs"] = {k: rng.normal(0, 1, (T, N, w)).astype(np.float32) for k, w in ARM_WIDTHS.items()}
+        b["actions"] = rng.normal(0, 1, (T, N, gaussian_dim)).astype(np.float32)
+        b["prev_actions"] = np.concatenate([np.zeros((1, N, gaussian_dim)), b["actions"][:-1]]).astype(np.float32)
+        b["log_probs"] = (-14.0 + rng.normal(0, 1, (T, N))).astype(np.float32)
+    return b, rng.normal(0, 0.5, (N, 1, 2, SW_H)).astype(np.float32), lv
+
+
+def _close_params(got, ref):
+    for k, v in ref.items():
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=SW_RTOL, atol=SW_ATOL, err_msg=k)
+
+
+SWITCHES = {
+    "normalized_advantage": dict(use_normalized_advantage=True),
+    "linear_lr_decay": dict(use_linear_lr_decay=True),
+    "linear_clip_decay": dict(use_linear_clip_decay=True),
+}
+
+
+@pytest.mark.parametrize("switch", sorted(SWITCHES))
+def test_switched_update_matches_jax(switch):
+    """One update of the blind net (LSTM-64, float32) with a switch on, 2
+    epochs of 2 minibatches, JAX's permutations passed in: parameters at
+    rtol 2e-4 / atol 2e-5 and loss terms at 1e-5 of JAX's ``_update``.
+    Linear LR decay takes ``total_updates=2`` on both sides (8 Adam steps
+    to lr 0; JAX's trainer and YAML never pass it); the clip decay is
+    inert in JAX and in the port: the update equals the one without it."""
+    cfg = dict(num_steps=T, ppo_epoch=2, num_mini_batch=2, **SWITCHES[switch])
+    total = 2 if switch == "linear_lr_decay" else None
+    b, h0, lv = _blind_batch(20)
+    jpol = jax_policy(A, backbone="resnet9", hidden_size=SW_H, has_visual=False)
+    key = jax.random.PRNGKey(3)
+    obs0 = {k: jnp.asarray(v[0]) for k, v in b["obs"].items()}
+    params = jax.jit(jpol.init)(key, obs0, jnp.asarray(h0), jnp.zeros(N, jnp.int32), jnp.zeros(N))
+    params = {"params": _perturb_affine(params["params"], np.random.default_rng(21))}
+    jl = JaxPPOLearner(SimpleNamespace(num_envs=N), jpol, JaxPPOConfig(**cfg), total_updates=total)
+    new_ts, ref_m = jax.jit(jl._update)(_train_state(params, jl, key), _jax_batch(b), jnp.asarray(lv),
+                                        jnp.asarray(h0))
+    ref = params_from_jax(_flat(new_ts.params["params"]))
+    sd = params_from_jax(_flat(params["params"]))
+    perms = torch.from_numpy(_jax_perms(key, N, 2)).long()
+
+    def port(**over):
+        pol = make_pointnav_resnet_policy(A, hidden_size=SW_H, has_visual=False, dtype=torch.float32, device="cpu")
+        pol.load_state_dict(sd)
+        lrn = PPOLearner(SimpleNamespace(num_envs=N), pol, PPOConfig(**{**cfg, **over}), total_updates=total)
+        m = lrn.update(torch.Generator().manual_seed(0), _torch_batch(b), torch.from_numpy(lv), torch.from_numpy(h0),
+                       perms=perms)
+        return pol.state_dict(), {k: v.item() for k, v in m.items()}, lrn
+
+    got, got_m, lrn = port()
+    _close_params(got, ref)
+    for k, v in ref_m.items():
+        assert got_m[k] == pytest.approx(float(v), rel=1e-5, abs=1e-6), k
+    if switch == "linear_lr_decay":
+        assert lrn.optimizer.param_groups[0]["lr"] == pytest.approx(PPOConfig().lr * (1 - 3 / 8))  # the 4th step's
+    if switch == "linear_clip_decay":
+        plain, plain_m, _ = port(use_linear_clip_decay=False)
+        assert plain_m == got_m and all(torch.equal(plain[k], got[k]) for k in got)
+
+
+@pytest.mark.parametrize("case", ["moves", "clamped", "categorical"])
+def test_adaptive_entropy_matches_jax(case):
+    """use_adaptive_entropy_pen: the Gaussian blind arm net (10 actions),
+    log_alpha from log(entropy_coef), dual ascent with lr after each of the
+    4 minibatch steps toward the entropy threshold -factor * 10, clamped
+    to [log 1e-4, 0], the loss with exp(log_alpha) from before the step,
+    ``losses/entropy_coef`` in the metrics: parameters, loss terms and the
+    final log_alpha against JAX's. "moves": threshold above the entropy;
+    "clamped": entropy_coef 1e-4 and a threshold below it, so the first
+    step hits the lower bound. A categorical learner ignores the switch,
+    as JAX's does."""
+    A_ = 10
+    coef, factor = {"moves": (0.01, -2.0), "clamped": (1.00001e-4, 0.0), "categorical": (0.01, -2.0)}[case]
+    cfg = dict(num_steps=T, ppo_epoch=2, num_mini_batch=2, use_adaptive_entropy_pen=True, entropy_coef=coef,
+               entropy_target_factor=factor)
+    if case == "categorical":
+        b, h0, lv = _blind_batch(30)
+        pol = make_pointnav_resnet_policy(A, hidden_size=SW_H, has_visual=False, dtype=torch.float32, device="cpu")
+        lrn = PPOLearner(SimpleNamespace(num_envs=N), pol, PPOConfig(**cfg))
+        log_alpha = torch.tensor(np.log(coef), dtype=torch.float32)
+        m = lrn.update(torch.Generator().manual_seed(0), _torch_batch(b), torch.from_numpy(lv), torch.from_numpy(h0),
+                       log_alpha=log_alpha)
+        assert not lrn.adaptive_ent and "losses/entropy_coef" not in m
+        assert log_alpha.item() == torch.tensor(np.log(coef), dtype=torch.float32).item()  # untouched
+        return
+    from habitat_tpu.models.policy import make_gaussian_resnet_policy as jax_gaussian
+
+    from habitat_torch.models.policy import make_gaussian_resnet_policy
+    from tests.test_torch_models import ARM_WIDTHS
+
+    b, h0, lv = _blind_batch(31, gaussian_dim=A_)
+    jpol = jax_gaussian(A_, backbone="resnet9", hidden_size=SW_H, has_visual=False)
+    key = jax.random.PRNGKey(4)
+    obs0 = {k: jnp.asarray(v[0]) for k, v in b["obs"].items()}
+    params = jax.jit(jpol.init)(key, obs0, jnp.asarray(h0), jnp.zeros((N, A_)), jnp.zeros(N))
+    params = {"params": _perturb_affine(params["params"], np.random.default_rng(32))}
+    env_j = SimpleNamespace(num_envs=N, action_space=SimpleNamespace(shape=(A_,)))
+    jl = JaxPPOLearner(env_j, jpol, JaxPPOConfig(**cfg), action_type="gaussian")
+    new_ts, ref_m = jax.jit(jl._update)(_train_state(params, jl, key, np.log(coef)), _jax_batch(b),
+                                        jnp.asarray(lv), jnp.asarray(h0))
+    pol = make_gaussian_resnet_policy(A_, backbone="resnet9", hidden_size=SW_H, has_visual=False,
+                                      state_keys=ARM_WIDTHS, dtype=torch.float32, device="cpu")
+    pol.load_state_dict(params_from_jax(_flat(params["params"])))
+    lrn = PPOLearner(SimpleNamespace(num_envs=N, action_dim=A_), pol, PPOConfig(**cfg), action_type="gaussian")
+    assert lrn.ent_threshold == -factor * A_
+    log_alpha = torch.tensor(np.log(coef), dtype=torch.float32)
+    got_m = lrn.update(torch.Generator().manual_seed(0), _torch_batch(b), torch.from_numpy(lv), torch.from_numpy(h0),
+                       log_alpha=log_alpha, perms=torch.from_numpy(_jax_perms(key, N, 2)).long())
+    _close_params(pol.state_dict(), params_from_jax(_flat(new_ts.params["params"])))
+    assert set(got_m) == set(ref_m) and "losses/entropy_coef" in got_m
+    for k, v in ref_m.items():
+        assert got_m[k].item() == pytest.approx(float(v), rel=1e-5, abs=1e-7), k
+    assert log_alpha.item() == pytest.approx(float(new_ts.log_alpha), abs=1e-6)
+    if case == "clamped":
+        assert log_alpha.item() == pytest.approx(np.log(1e-4), abs=1e-6)
+    else:
+        assert abs(log_alpha.item() - np.log(coef)) > 1e-4
+
+
+# ---- CPC|A ---------------------------------------------------------------------------
+
+
+def _cpca_pair(T_, n, H, F, seed):
+    """The JAX CPCA module, its init, and the port's module converted."""
+    from habitat_tpu.baselines.aux_losses import CPCA as JaxCPCA
+
+    from habitat_torch.baselines.aux_losses import CPCA
+    from habitat_torch.models.convert import cpca_params_from_jax
+
+    jc = JaxCPCA(num_actions=A)
+    key = jax.random.PRNGKey(seed)
+    ps = jax.jit(jc.init)(key, jnp.zeros((T_, n, H)), jnp.zeros((T_, n, F)), jnp.zeros((T_, n), jnp.int32),
+                          jnp.ones((T_, n)), key)
+    ps = {"params": _perturb_affine(ps["params"], np.random.default_rng(seed))}
+    port = CPCA(H, F, num_actions=A)
+    port.load_state_dict(cpca_params_from_jax(_flat(ps["params"])))
+    return jc, ps, port
+
+
+def test_cpca_loss_and_gradients_match_jax():
+    """CPC|A alone on random beliefs (T=8, N=4, 64), visual embeddings (64),
+    actions and masks with episode starts, JAX's time permutation passed
+    in: the loss within 1e-6 relative; the gradients of every CPC|A
+    parameter and of the beliefs (the target side is detached in both)
+    within 1e-5 relative L2 norm."""
+    T_, n, H = 8, 4, 64
+    rng = np.random.default_rng(40)
+    beliefs = rng.normal(0, 1, (T_, n, H)).astype(np.float32)
+    visual = np.maximum(rng.normal(0, 1, (T_, n, H)), 0).astype(np.float32)
+    actions = rng.integers(0, A, (T_, n)).astype(np.int32)
+    masks = (rng.random((T_, n)) > 0.2).astype(np.float32)
+    jc, ps, port = _cpca_pair(T_, n, H, H, 41)
+    key = jax.random.PRNGKey(42)
+
+    def jloss(p, b):
+        return jc.apply(p, b, jnp.asarray(visual), jnp.asarray(actions), jnp.asarray(masks), key)
+
+    ref, (g_p, g_b) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1)))(ps, jnp.asarray(beliefs))
+    perm = torch.from_numpy(np.array(jax.random.permutation(key, T_))).long()
+    bt = torch.from_numpy(beliefs).requires_grad_(True)
+    num, den = port(bt, torch.from_numpy(visual), torch.from_numpy(actions), torch.from_numpy(masks), perm)
+    loss = num / torch.clamp(den, min=1.0)
+    loss.backward()
+    assert den.item() == port.count(torch.from_numpy(masks)).item() > 0
+    assert loss.item() == pytest.approx(float(ref), rel=1e-6)
+    from habitat_torch.models.convert import cpca_params_from_jax
+
+    want = cpca_params_from_jax(_flat(g_p["params"]))
+    got = {k: p.grad for k, p in port.named_parameters()}
+    assert set(got) == set(want)
+    errs = _rel_err(got, want)
+    errs["beliefs"] = (torch.linalg.vector_norm(bt.grad - torch.from_numpy(np.array(g_b)))
+                       / torch.linalg.vector_norm(torch.from_numpy(np.array(g_b)))).item()
+    assert max(errs.values()) < 1e-5, errs
+
+
+def test_cpca_update_matches_jax():
+    """The update with CPC|A (coefficient 0.5) on a GRU policy (resnet9 over
+    depth, GRU-64, float32 with the all-ties pool): the visual embedding
+    and the beliefs from ``with_feats``, the aux parameters in the
+    optimizer's second group, JAX's epoch and time permutations passed in.
+    Loss terms (``losses/cpca`` included) within 1e-4 and every parameter,
+    policy and CPC|A, by ``_check_update``'s rule."""
+    from habitat_tpu.baselines.aux_losses import CPCA as JaxCPCA
+
+    from habitat_torch.baselines.aux_losses import CPCA
+    from habitat_torch.models.convert import cpca_params_from_jax
+
+    H = SW_H
+    b, _, lv = _batch(50)
+    b["obs"] = {"depth": b["obs"]["depth"], "pointgoal_with_gps_compass": b["obs"]["pointgoal_with_gps_compass"]}
+    h0 = np.random.default_rng(51).normal(0, 0.5, (N, 1, 1, H)).astype(np.float32)
+    cfg = dict(num_steps=T, ppo_epoch=2, num_mini_batch=2)
+    jpol = jax_policy(A, backbone="resnet9", hidden_size=H, rnn_type="GRU")
+    key = jax.random.PRNGKey(5)
+    obs0 = {k: v[0] for k, v in _jax_obs(b["obs"]).items()}
+    jc = JaxCPCA(num_actions=A)
+    with _jax_as("float32", all_ties=True):
+        pp = jax.jit(jpol.init)(key, obs0, jnp.asarray(h0), jnp.zeros(N, jnp.int32), jnp.zeros(N))
+        ap = jax.jit(jc.init)(key, jnp.zeros((T, N, H)), jnp.zeros((T, N, H)), jnp.zeros((T, N), jnp.int32),
+                              jnp.ones((T, N)), key)
+        params = {"policy": {"params": _perturb_affine(pp["params"], np.random.default_rng(52))},
+                  "aux": {"params": _perturb_affine(ap["params"], np.random.default_rng(53))}}
+        jl = JaxPPOLearner(SimpleNamespace(num_envs=N), jpol, JaxPPOConfig(**cfg), aux_loss=jc, aux_loss_coef=0.5)
+        new_ts, ref_m = jax.jit(jl._update)(_train_state(params, jl, key), _jax_batch(b), jnp.asarray(lv),
+                                            jnp.asarray(h0))
+
+    def both(p):
+        out = params_from_jax(_flat(p["policy"]["params"]))
+        out.update({f"aux.{k}": v for k, v in cpca_params_from_jax(_flat(p["aux"]["params"])).items()})
+        return out
+
+    start, ref = both(params), both(new_ts.params)
+    pol = make_pointnav_resnet_policy(A, visual_inputs=("depth",), input_hw=(HW, HW), backbone="resnet9",
+                                      hidden_size=H, rnn_type="GRU", dtype=torch.float32, device="cpu")
+    pol.load_state_dict({k: v for k, v in start.items() if not k.startswith("aux.")})
+    aux = CPCA(H, H, num_actions=A)
+    aux.load_state_dict({k[4:]: v for k, v in start.items() if k.startswith("aux.")})
+    lrn = PPOLearner(SimpleNamespace(num_envs=N), pol, PPOConfig(**cfg), aux_loss=aux, aux_loss_coef=0.5)
+    assert len(lrn.optimizer.param_groups) == 2
+    kperm = [jax.random.fold_in(jax.random.fold_in(key, 0), e) for e in range(2)]
+    time_perms = torch.from_numpy(np.stack([[np.asarray(jax.random.permutation(jax.random.fold_in(k, i), T))
+                                             for i in range(2)] for k in kperm])).long()
+    got_m = lrn.update(torch.Generator().manual_seed(0), _torch_batch(b), torch.from_numpy(lv), torch.from_numpy(h0),
+                       perms=torch.from_numpy(_jax_perms(key, N, 2)).long(), time_perms=time_perms)
+    got = {**pol.state_dict(), **{f"aux.{k}": v for k, v in aux.state_dict().items()}}
+    got_m = {k: v.item() for k, v in got_m.items()}
+    assert "losses/cpca" in got_m and got_m["losses/cpca"] > 0
+    # on this batch the critic's bias ends within lr/2 of its start in JAX's
+    # update too (its gradient changes sign between steps): the CPC|A
+    # tensors must move
+    _check_update(start, got, ref, got_m, {k: float(v) for k, v in ref_m.items()},
+                  moved=lambda k: k.startswith("aux."))

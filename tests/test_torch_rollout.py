@@ -74,6 +74,34 @@ def test_sample_action_greedy_is_argmax():
     torch.testing.assert_close(logp, torch.log_softmax(logits, -1)[[0, 1], [1, 0]])
 
 
+def test_sample_action_is_multinomials_draw():
+    """The categorical draw is ``torch.multinomial``'s for one sample (argmax
+    of p / q, q ~ Exp(1)): the same actions from the same generator state,
+    the generator left where multinomial leaves it; never a
+    zero-probability action; a row's action depends on its own q only
+    (DD-PPO ranks keep their rows of the global draw)."""
+    probs = torch.tensor([0.2, 0.0, 0.5, 0.3])
+    logits = torch.log(probs).expand(2000, 4) + torch.randn(2000, 4, generator=torch.Generator().manual_seed(1))
+    logits[:, 1] = -float("inf")
+    g, g_ref = torch.Generator().manual_seed(0), torch.Generator().manual_seed(0)
+    act, logp = sample_action(logits, g)
+    ref = torch.multinomial(torch.softmax(logits, -1), 1, generator=g_ref)[:, 0]
+    assert torch.equal(act.long(), ref) and torch.equal(g.get_state(), g_ref.get_state())
+    assert not (act == 1).any()
+    torch.testing.assert_close(logp, torch.log_softmax(logits, -1).gather(-1, act[:, None].long())[:, 0])
+    q = torch.empty(2000, 4).exponential_(1, generator=torch.Generator().manual_seed(2))
+    whole = sample_action(logits, None, exponential=q)[0]
+    assert torch.equal(sample_action(logits[5:9], None, exponential=q[5:9])[0], whole[5:9])
+
+
+def test_rollout_stores_float32_when_asked(rollout):
+    """``obs_store_bf16=False`` keeps float visual observations in float32."""
+    learner = rollout[0]
+    lrn = PPOLearner(learner.env, learner.policy, PPOConfig(num_steps=2, obs_store_bf16=False))
+    _, batch, *_ = lrn.collect_rollout(lrn.init(seed=0))
+    assert batch.obs["depth"].dtype == torch.float32 and batch.obs["rgb"].dtype == torch.uint8
+
+
 def test_rollout_replays_through_jax_env(rollout):
     learner, rs0, rs1, batch, *_ = rollout
     sj, ej, fj = jax_pointnav(num_scenes=2, episodes_per_scene=4, seed=0)

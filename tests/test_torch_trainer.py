@@ -134,10 +134,16 @@ def test_checkpoint_schedule(tmp_path):
     assert trainer.should_checkpoint() and trainer.percent_done() == pytest.approx(0.1)
 
 
-def test_unported_settings_raise():
-    with pytest.raises(NotImplementedError, match="use_mesh"):
-        TrainerConfig(use_mesh=True)
+def test_trainer_names_and_use_mesh(tmp_path):
+    """``ddppo`` names the PPO trainer and ``ver`` its subclass, as in the
+    JAX package; ``use_mesh`` defaults to True as there, and either value
+    trains in one process (no group: one rank)."""
+    from habitat_torch.baselines.trainer import VERTrainer
+
+    assert registry.get_trainer("ddppo") is PPOTrainer and registry.get_trainer("ppo") is PPOTrainer
+    assert issubclass(registry.get_trainer("ver"), PPOTrainer) and registry.get_trainer("ver") is VERTrainer
+    assert TrainerConfig().use_mesh and JaxTrainerConfig().use_mesh
     assert TrainerConfig(tensorboard_dir="tb").tensorboard_dir == "tb"  # writes through utils/tb.py
-    for name in ("ddppo", "ver"):
-        with pytest.raises(NotImplementedError, match=name):
-            registry.get_trainer(name)()
+    trainer = _trainer(tmp_path, 1, use_mesh=False)
+    trainer.train(seed=0, resume=False)
+    assert trainer.num_updates_done == 1 and trainer.learner.n_global == N
