@@ -261,9 +261,39 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            tensor moved).
     ppo-switches  one float32 update on the card against the CPU from the
            same start, batch and permutations (loss terms within
-           SWITCH_RTOL): normalized advantage + linear LR decay, the
-           Gaussian arm-Pick learner's adaptive entropy (log_alpha moves,
-           clamped, equal), CPC|A on a GRU policy.
+           SWITCH_RTOL; each tensor's share of elements within lr/10 at
+           least UPDATE_TENSOR_SHARE, the tensors with elements beyond it
+           logged, and a fault planted in the CPU update's action-head
+           gradient must fail that rule): normalized advantage + linear LR
+           decay, the Gaussian arm-Pick learner's adaptive entropy
+           (log_alpha moves, clamped, equal), CPC|A on a GRU policy.
+
+17. bc     behavior cloning of the geodesic follower at the bench's widths
+           (BC: 4 procedural scenes x 16 episodes, N=128, T=32, 128x128
+           depth + RGB + pointgoal, resnet18 base 32 / 16 groups + LSTM-512,
+           bf16): a warm-up and BC_UPDATES timed updates (ms per update,
+           rollout (env + teacher) / update split, env-steps/s, peak memory,
+           the teacher's ms and launches per env step, idle share and
+           launches of one profiled update). Gates: #1 launched 1 + 32 per
+           update, #11 once per update, no plain version on a card tensor;
+           #11 bit-equal to its plain version on the last update's stem-pool
+           input; tests/test_il.py's learning gate from its initial weights
+           (BC_GATE, BC_GATE_WEIGHTS); one float32 update of a blind net
+           (BC_CHECK) on the card against the CPU: teachers equal, loss
+           within SWITCH_RTOL, parameters by [check]'s per-tensor share rule.
+    hrl    HRL-PPO at scripts/train_hrl_tpu.py's configuration (HRL_ENV,
+           HRL_PPO: N=128, 16 macro steps of 8 env steps, the four oracle
+           skills, no camera): a warm-up and HRL_UPDATES timed updates (ms,
+           env-steps/s; an env step's launches and idle share); no kernel
+           launched. Gates: the plan-table planner and the fixed plan complete
+           a successful episode in HRL_PLANNER / HRL_FIXED's shares of envs
+           on their tests' env (HRL_RULE_ENV), and at N=128 on [hrl]'s env
+           the planner solves the same envs on the card as on the CPU;
+           card against CPU at N=8 (HRL_CHECK): every step's skill index and
+           action of a 100-step planner rollout equal, one HRL-PPO update
+           with the same draws (losses, per-tensor share rule); run.main on
+           an HRL experiment config (pick_procgen.yaml + updater HRLPPO)
+           builds the trainer on the card and takes 2 updates.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
@@ -469,6 +499,41 @@ DDPPO_RTOL, DDPPO_ATOL = 2e-4, 2e-5  # 2 ranks vs 1 (the JAX package's sharded-v
 # [ppo-switches]: N=8, T=8, 64x64 depth; card vs CPU loss terms
 SWITCH_ENV = dict(num_envs=8, hw=64, hidden=128, ppo=dict(num_steps=8, ppo_epoch=2, num_mini_batch=2))
 SWITCH_RTOL = 1e-5
+# [bc]: behavior cloning at the bench's widths (bench.py:29-52: 4 procedural
+# scenes x 16 episodes, 128x128 depth + RGB + pointgoal, resnet18 base 32 /
+# 16 groups, LSTM-512, bf16) at N=128 and BCConfig's T=32, so 4,096 frames
+# per update (a bench PPO minibatch); a warm-up and BC_UPDATES timed updates
+BC = dict(num_envs=128, num_steps=32)
+BC_UPDATES = 3
+# tests/test_il.py:14-38's learning gate: 30 updates of the blind clone from
+# the JAX test's initial weights (habitat_torch/weights/bc_gate_init.pt,
+# scripts/export_bc_gate_torch.py)
+BC_GATE = dict(updates=30, rise=0.15, final=0.5, lr=2e-3)
+BC_GATE_WEIGHTS = "habitat_torch/weights/bc_gate_init.pt"
+# [bc]'s float32 update, card against CPU: the blind LSTM-512 pointgoal net
+# at N=8 (no frame enters it, so the check sees the update, not the render)
+BC_CHECK = dict(num_envs=8, hidden=512)
+# [hrl]: scripts/train_hrl_tpu.py's configuration; a warm-up and
+# HRL_UPDATES timed updates of HRL-PPO over the four oracle skills
+HRL_ENV = dict(num_envs=128, task="rearrange", num_scenes=8, episodes_per_scene=16, seed=0, with_visual=False,
+               n_rooms_per_axis=1, n_clutter=0, max_episode_steps=300)
+HRL_PPO = dict(num_macro_steps=16, hl_interval=8, hidden_size=64)
+HRL_UPDATES = 3
+# the planner's and the fixed plan's rules (tests/test_hrl_planner.py:28-51,
+# tests/test_hrl_pddl.py:59-71) on those tests' env (HRL_RULE_ENV): the share
+# of envs with a successful episode within the steps given; at N=128 on
+# [hrl]'s env (episodes of up to 400 steps) the planner's rollout on the card
+# and on the CPU, env by env
+HRL_RULE_ENV = dict(num_envs=4, task="rearrange", with_visual=False, seed=3, max_episode_steps=400,
+                    n_rooms_per_axis=1, n_clutter=0)
+HRL_PLANNER = dict(steps=400, share=0.75)
+HRL_FIXED = dict(steps=300, share=0.5)
+# card against CPU: a 100-step planner rollout and one HRL-PPO update at N=8
+HRL_CHECK = dict(num_envs=8, steps=100, ppo=dict(num_macro_steps=4, hl_interval=8, hidden_size=64))
+# the HRL experiment config ([hrl] (d)): pick_procgen.yaml + an HRL-PPO block,
+# 2 updates of N=16
+HRL_CONFIG_ENVS = 16
+HRL_CONFIG_SKILLS = ("nav_to_obj", "pick", "nav_to_goal", "place")
 
 
 def log(msg):
@@ -2545,14 +2610,378 @@ def ddppo_two_rank_phase(gpu, dev):
         + "; ".join(text) + f"; workers {worker_s:.1f} s, the phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def bench_nav_env(dev, n, hw=None, **kw):
+    """An env over the bench scenes (4 procedural scenes x 16 episodes, seed
+    0): hw x hw depth + RGB + pointgoal, or the pointgoal alone (hw None)."""
+    from habitat_torch.core.env_factory import make_nav_env
+    from habitat_torch.datasets.pointnav import make_procedural_pointnav
+
+    sensors = (("PointGoalWithGPSCompassSensor", None),)
+    if hw:
+        sensors = (("HabitatSimDepthSensor", {"height": hw, "width": hw}),
+                   ("HabitatSimRGBSensor", {"height": hw, "width": hw})) + sensors
+    scenes, episodes, fields = make_procedural_pointnav(num_scenes=4, episodes_per_scene=16, seed=0)
+    return make_nav_env(scenes, episodes, num_envs=n, precomputed_fields=fields, sensor_specs=sensors, device=dev,
+                        **kw)
+
+
+def bc_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card):
+    """[bc]: behavior cloning of the geodesic follower at the bench's widths
+    (BC) on the card: a warm-up and BC_UPDATES timed updates (ms split into
+    the rollout, env + teacher, and the update; env-steps/s; peak memory;
+    the teacher's ms and launches per env step; idle share and launches of
+    one profiled update). Gates: #1 launched 1 + T per update, #11 once per
+    update, no plain version on a card tensor; #11 bit-equal to its plain
+    version on the path's last stem-pool input; tests/test_il.py's learning
+    gate (BC_GATE) from its initial weights; one float32 update (BC_CHECK)
+    on the card against the CPU from the same weights and env state:
+    teacher actions equal at every env and step, losses within SWITCH_RTOL
+    relative, parameters by [check]'s per-tensor share rule at BC's lr.
+    Returns the train path's launch counts and the #11 check."""
+    import numpy as np
+    import torch
+
+    from habitat_torch.baselines.il.bc_trainer import BCConfig, BCLearner
+    from habitat_torch.core.env_factory import make_nav_env
+    from habitat_torch.datasets.pointnav import make_procedural_pointnav
+    from habitat_torch.models.convert import load_policy_file
+    from habitat_torch.models.policy import make_pointnav_resnet_policy
+    from habitat_torch.ops import pool
+
+    t_phase = time.perf_counter()
+    N, T = BC["num_envs"], BC["num_steps"]
+    env = bench_nav_env(dev, N, BENCH["height"], max_episode_steps=500)
+    torch.manual_seed(0)
+    policy = make_pointnav_resnet_policy(len(env.actions), backbone="resnet18", hidden_size=512,
+                                         input_hw=(BENCH["height"], BENCH["width"]), device=dev)
+    lrn = BCLearner(env, policy, BCConfig(num_steps=T))
+    split = {"rollout": [], "update": []}
+
+    def timed(name, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            split[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    lrn.collect_rollout = timed("rollout", lrn.collect_rollout)
+    lrn.update = timed("update", lrn.update)
+    updates = 1 + BC_UPDATES
+    pool_backward, last_bwd = pool._MaxPool3x3s2.backward, {}
+
+    def backward_seen(ctx, dy):
+        gx = pool_backward(ctx, dy)
+        if pool.max_pool_3x3s2_bwd.launches == updates:
+            x, y = ctx.saved_tensors
+            last_bwd["args"] = (x, y, dy.contiguous(memory_format=torch.channels_last))
+        return gx
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    for p in plain_watch:
+        p.start()
+    st = lrn.init()
+    walls = []
+    with mock.patch.object(pool._MaxPool3x3s2, "backward", staticmethod(backward_seen)):
+        for i in range(updates):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, metrics = lrn.train_step(st)
+            metrics = {k: v.item() for k, v in metrics.items()}
+            if i:
+                walls.append(time.perf_counter() - t0)
+            if not all(np.isfinite(v) for v in metrics.values()):
+                fail(f"[bc] non-finite metrics {metrics}")
+    torch.cuda.synchronize()
+    for p in plain_watch:
+        p.stop()
+    if plain_on_card:
+        fail(f"[bc]: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+    peak = torch.cuda.max_memory_allocated()
+    launches = path_counts("bc train path", raycast_fused_sel_t=1 + updates * T, max_pool_3x3s2_bwd=updates)
+    del lrn.collect_rollout, lrn.update
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    roll, upd = split["rollout"][1:], split["update"][1:]
+    rates = sorted(N * T / w for w in walls)
+    # the teacher alone on the last state: ms and launches per env step
+    teacher_ms = cuda_ms(lambda: lrn.teacher(st.env_state), 10)
+    _, t_dev_ms, t_launch, _ = device_time_and_launches(lambda: [lrn.teacher(st.env_state) for _ in range(3)])
+    # one profiled update: device time and launches; the idle share against
+    # the unprofiled updates' median wall (the profiler slows the host)
+    (st, _), dev_ms, n_launch, top = device_time_and_launches(lambda: lrn.train_step(st))
+    log(f"[bc] {gpu}: behavior cloning N={N} T={T} ({N * T} frames per update), {BENCH['height']}x{BENCH['width']} depth+RGB, resnet18 + "
+        f"LSTM-512 bf16: ms per update {[round(w * 1e3, 1) for w in walls]} (median {med(walls) * 1e3:.1f}) = "
+        f"rollout (env + teacher) {[round(x, 1) for x in roll]} + update {[round(x, 1) for x in upd]} (warm-up "
+        f"{split['rollout'][0]:.1f} + {split['update'][0]:.1f}); env-steps/s median {rates[len(rates) // 2]:.1f} "
+        f"(min {rates[0]:.1f}, max {rates[-1]:.1f}); peak memory {peak / 2**30:.2f} GiB; teacher {teacher_ms:.3f} ms "
+        f"and {t_launch / 3:.0f} launches per env step (device {t_dev_ms / 3:.3f} ms); one profiled update: device "
+        f"{dev_ms:.1f} ms, idle share {1 - dev_ms / (med(walls) * 1e3):.3f} of the median update, {n_launch} launches; "
+        f"last metrics " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+        + f"; launches {launches} (#1 1 + {T} per update, #11 one per update), no plain version on a card tensor")
+    for e in top[:4]:
+        log(f"[bc]   {device_us(e) / 1e3:8.3f} ms {e.count:5d}x  {e.key[:80]}")
+
+    # #11 on the path's own input: the stem output of the last update
+    x, y, dy = last_bwd.pop("args")
+    mb_shape = (N * T, 32, BENCH["height"] // 2, BENCH["width"] // 2)
+    if tuple(x.shape) != mb_shape or x.dtype != torch.bfloat16:
+        fail(f"[bc] the pool backward got {tuple(x.shape)} {x.dtype}, want {mb_shape} bfloat16")
+    _, pool_err = pool_check(f"[bc] update {mb_shape}", (x, y, dy))
+    del x, y, dy, lrn, policy, st
+    torch.cuda.empty_cache()
+
+    # tests/test_il.py's learning gate, from its initial weights
+    scenes, episodes, fields = make_procedural_pointnav(num_scenes=2, episodes_per_scene=6, seed=5, extent=8.0)
+    genv = make_nav_env(scenes, episodes, num_envs=8, precomputed_fields=fields, max_episode_steps=100, device=dev)
+    glrn = BCLearner(genv, load_policy_file(os.path.join(ROOT, BC_GATE_WEIGHTS), device=dev),
+                     BCConfig(num_steps=32, lr=BC_GATE["lr"]))
+    gst, match = glrn.init(), []
+    t0 = time.perf_counter()
+    for _ in range(BC_GATE["updates"]):
+        gst, m = glrn.train_step(gst)
+        match.append(m["teacher_match"].item())
+    first, last = float(np.mean(match[:5])), float(np.mean(match[-5:]))
+    gate_s = time.perf_counter() - t0
+    if not (last > first + BC_GATE["rise"] and last > BC_GATE["final"]):
+        fail(f"[bc] learning gate: teacher_match {first:.4f} over the first 5 updates, {last:.4f} over the last 5")
+
+    # one float32 update, card against CPU, from the same weights and state
+    res = {}
+    torch.manual_seed(0)
+    start = make_pointnav_resnet_policy(4, has_visual=False, hidden_size=BC_CHECK["hidden"], dtype=torch.float32,
+                                        device="cpu").state_dict()
+    for d in (dev, torch.device("cpu")):
+        e = bench_nav_env(d, BC_CHECK["num_envs"], max_episode_steps=20)
+        pol = make_pointnav_resnet_policy(4, has_visual=False, hidden_size=BC_CHECK["hidden"], dtype=torch.float32,
+                                          device=d)
+        pol.load_state_dict(start)
+        cl = BCLearner(e, pol, BCConfig(num_steps=T))
+        _, batch = cl.collect_rollout(cl.init())
+        m, _ = cl.update(batch)
+        res[d.type] = (batch["teacher"].cpu(), {k: v.item() for k, v in m.items()},
+                       {k: v.detach().cpu() for k, v in pol.state_dict().items()})
+    (t_card, m_card, p_card), (t_cpu, m_cpu, p_cpu) = res[dev.type], res["cpu"]
+    loss_err = abs(m_card["losses/bc_loss"] - m_cpu["losses/bc_loss"]) / max(1.0, abs(m_cpu["losses/bc_loss"]))
+    rows, bad = share_gate(start, p_card, p_cpu, BCConfig().lr)
+    if not torch.equal(t_card, t_cpu) or loss_err > SWITCH_RTOL or bad:
+        fail(f"[bc] float32 update, card against CPU: teachers differ at {int((t_card != t_cpu).sum())} of "
+             f"{t_cpu.numel()}, loss {loss_err:.3g} relative, tensors below the share: {bad} ({gap_trace(rows)})")
+    log(f"[bc] {gpu}: learning gate (tests/test_il.py, {BC_GATE['updates']} updates from {BC_GATE_WEIGHTS}): "
+        f"teacher_match {first:.4f} -> {last:.4f} (rise > {BC_GATE['rise']}, end > {BC_GATE['final']}) in "
+        f"{gate_s:.1f} s; #11 on the last update's own input bit-equal to its plain version; float32 update (blind "
+        f"LSTM-{BC_CHECK['hidden']}, N={BC_CHECK['num_envs']}, T={T}) card against CPU: teachers equal at all "
+        f"{t_cpu.numel()}, loss {loss_err:.3g} relative, least share {min(r[0] for r in rows.values()):.4f}, beyond "
+        f"lr/10: {gap_trace(rows)}; the phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, dict(shape=list(mb_shape), max_abs_err=pool_err)
+
+
+def hrl_rollout_success(env, hl, steps):
+    """(N,) bool: the envs with a successful episode within ``steps`` steps
+    of the hierarchy over ``hl``, on the CPU; and the seconds it took."""
+    import torch
+
+    from habitat_torch.baselines.hrl.hierarchical import HierarchicalPolicy
+
+    pol = HierarchicalPolicy(env, hl)
+    st, _ = env.reset_fn()
+    t0 = time.perf_counter()
+    _, _, _, _, succ = pol.rollout(st, pol.init_state(), steps)
+    solved = (succ.max(0).values > 0).cpu()
+    return solved, time.perf_counter() - t0
+
+
+def hrl_phase(gpu, dev, zero_counts, path_counts):
+    """[hrl]: HRL-PPO at scripts/train_hrl_tpu.py's configuration (HRL_ENV,
+    HRL_PPO, the four oracle skills) on the card: a warm-up and HRL_UPDATES
+    timed updates (ms per update, env-steps/s; launches, device time and
+    idle share per env step from 3 profiled env steps with the skills'
+    actions); no kernel launches (state only). Gates: on their tests' env
+    (HRL_RULE_ENV) the plan-table planner (HRL_PLANNER) and the fixed plan
+    (HRL_FIXED) complete a successful episode in their shares of envs; at
+    N=128 on [hrl]'s env the planner solves the same envs on the card as on
+    the CPU; at N=8 from one state the
+    card and the CPU agree on every step's skill index and action of a
+    100-step planner rollout, and one HRL-PPO train step with the same
+    draws gives losses within SWITCH_RTOL relative and parameters by the
+    per-tensor share rule; run.main on an HRL experiment config builds the
+    trainer on the card and takes 2 updates."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from habitat_torch.baselines import run
+    from habitat_torch.baselines.hrl.hierarchical import (
+        FixedHighLevelPolicy,
+        HierarchicalPolicy,
+        default_rearrange_plan,
+        skill_actions,
+    )
+    from habitat_torch.baselines.hrl.hrl_ppo import HrlPPOConfig, HrlPPOLearner, HrlTrainer
+    from habitat_torch.baselines.hrl.planner import PlannerHighLevelPolicy
+    from habitat_torch.core import construct
+    from habitat_torch.tasks.rearrange.generator import make_rearrange_env
+
+    t_phase = time.perf_counter()
+    N = HRL_ENV["num_envs"]
+    env = make_rearrange_env(device=dev, **HRL_ENV)
+    torch.manual_seed(0)
+    lrn = HrlPPOLearner(env, default_rearrange_plan(), HrlPPOConfig(**HRL_PPO))
+    per_update = N * HRL_PPO["num_macro_steps"] * HRL_PPO["hl_interval"]
+    zero_counts()
+    ts = lrn.init(seed=0)
+    walls = []
+    for i in range(1 + HRL_UPDATES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, metrics = lrn.train_step(ts)
+        metrics = {k: v.item() for k, v in metrics.items()}
+        if i:
+            walls.append(time.perf_counter() - t0)
+        if not all(np.isfinite(v) for v in metrics.values()):
+            fail(f"[hrl] non-finite metrics {metrics}")
+    path_counts("hrl train path")
+    # one env step with the skills' actions, profiled
+    skill = torch.zeros(N, dtype=torch.int64, device=dev)
+    st = ts.env_state
+
+    def env_step():
+        return env.step_fn(st, skill_actions(env, lrn.skills, st, skill))
+
+    step_ms = cuda_ms(env_step, 5)
+    _, dev_ms, n_launch, _ = device_time_and_launches(lambda: [env_step() for _ in range(3)])
+    rates = sorted(per_update / w for w in walls)
+    log(f"[hrl] {gpu}: HRL-PPO N={N}, {HRL_PPO['num_macro_steps']} macro steps x {HRL_PPO['hl_interval']} env "
+        f"steps, hidden {HRL_PPO['hidden_size']}: ms per update {[round(w * 1e3, 1) for w in walls]}, env-steps/s "
+        f"median {rates[len(rates) // 2]:.1f} (min {rates[0]:.1f}, max {rates[-1]:.1f}); an env step with the four "
+        f"skills' actions {step_ms:.3f} ms, {n_launch / 3:.0f} launches, device {dev_ms / 3:.3f} ms, idle share "
+        f"{1 - dev_ms / (3 * step_ms):.3f}; last metrics " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+        + "; no kernel launched")
+
+    # the planner's and the fixed plan's rules on their tests' env, then the
+    # planner at N=128 on the card against the CPU, env by env
+    solved, secs = {}, {}
+    genv = make_rearrange_env(device=dev, **HRL_RULE_ENV)
+    for name, hl, steps in (("planner", PlannerHighLevelPolicy(genv), HRL_PLANNER["steps"]),
+                            ("fixed", FixedHighLevelPolicy(genv, default_rearrange_plan()), HRL_FIXED["steps"])):
+        solved[name], secs[name] = hrl_rollout_success(genv, hl, steps)
+    for d in (dev.type, "cpu"):
+        genv = make_rearrange_env(device=d, **{**HRL_ENV, "max_episode_steps": HRL_PLANNER["steps"]})
+        solved[d], secs[d] = hrl_rollout_success(genv, PlannerHighLevelPolicy(genv), HRL_PLANNER["steps"])
+    rule = {name: share(solved[name]) for name in ("planner", "fixed")}
+    parted_envs = int((solved[dev.type] != solved["cpu"]).sum())
+    if rule["planner"] < HRL_PLANNER["share"] or rule["fixed"] < HRL_FIXED["share"] or parted_envs:
+        fail(f"[hrl] envs with a successful episode: the tests' rules {rule}; at N={N} the planner's card "
+             f"{share(solved[dev.type])}, CPU {share(solved['cpu'])}, {parted_envs} envs part")
+
+    # card against CPU at N=8 from one state
+    n = HRL_CHECK["num_envs"]
+    envs = {d: make_rearrange_env(device=d, **{**HRL_ENV, "num_envs": n}) for d in ("cpu", dev.type)}
+    pols = {d: HierarchicalPolicy(e, PlannerHighLevelPolicy(e)) for d, e in envs.items()}
+    sts = {d: e.reset_fn()[0] for d, e in envs.items()}
+    hls = {d: p.init_state() for d, p in pols.items()}
+    parted = []
+    for t in range(HRL_CHECK["steps"]):
+        out = {}
+        for d in envs:
+            act, hls[d] = pols[d].act(hls[d], sts[d])
+            sts[d], _, _, done, _ = envs[d].step_fn(sts[d], act)
+            out[d] = (act.cpu(), hls[d].skill_idx.cpu(), done.cpu())
+            hls[d].skill_idx = torch.where(done, 0, hls[d].skill_idx)
+        if not all(torch.equal(a, b) for a, b in zip(out["cpu"], out[dev.type])):
+            parted.append(t)
+    cfg = HrlPPOConfig(**HRL_CHECK["ppo"])
+    g = torch.Generator().manual_seed(0)
+    draws = torch.randint(0, 4, (cfg.num_macro_steps, n), generator=g)
+    torch.manual_seed(0)
+    start = HrlPPOLearner(envs["cpu"], default_rearrange_plan(), cfg).net.state_dict()
+    res = {}
+    for d, e in envs.items():
+        cl = HrlPPOLearner(e, default_rearrange_plan(), cfg)
+        cl.net.load_state_dict(start)
+        _, m = cl.train_step(cl.init(), skills=draws.to(e.device))
+        res[d] = {k: v.item() for k, v in m.items()}, {k: v.detach().cpu() for k, v in cl.net.state_dict().items()}
+    (m_card, p_card), (m_cpu, p_cpu) = res[dev.type], res["cpu"]
+    loss_err = {k: abs(m_card[k] - m_cpu[k]) / max(1.0, abs(m_cpu[k])) for k in m_cpu if k.startswith("losses/")}
+    rows, bad = share_gate(start, p_card, p_cpu, cfg.lr)
+    if parted or max(loss_err.values()) > SWITCH_RTOL or bad or m_card["done_count"] != m_cpu["done_count"]:
+        fail(f"[hrl] card against CPU: planner steps that part {parted}; HRL-PPO losses {loss_err}, done counts "
+             f"{m_card['done_count']} / {m_cpu['done_count']}, tensors below the share: {bad} ({gap_trace(rows)})")
+
+    # run.main on an HRL experiment config, 2 updates
+    trainers = []
+    build = construct.trainer_from_config
+
+    def kept(*a, **k):
+        trainers.append(build(*a, **k))
+        return trainers[-1]
+
+    steps = 2 * HRL_CONFIG_ENVS * 16 * 8
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.object(construct, "trainer_from_config", kept):
+        path = os.path.join(tmp, "rl_hierarchical.yaml")
+        with open(path, "w") as f:
+            f.write("# @package _global_\ndefaults:\n  - /benchmark/rearrange: pick_procgen\n"
+                    "  - /habitat_baselines: habitat_baselines_rl_config_base\n  - _self_\n"
+                    f"habitat_baselines:\n  updater_name: HRLPPO\n  num_environments: {HRL_CONFIG_ENVS}\n"
+                    f"  total_num_steps: {steps}\n  log_interval: 1\n  tensorboard_dir: ''\n"
+                    "  rl:\n    policy:\n      main_agent:\n        hierarchical_policy:\n"
+                    "          defined_skills:\n" + "".join(f"            {k}: {{}}\n" for k in HRL_CONFIG_SKILLS))
+        t0 = time.perf_counter()
+        cm = run.main([f"--config-name={path}", "habitat.simulator.tpu.dynamics=kinematic"])
+        torch.cuda.synchronize()
+        config_s = time.perf_counter() - t0
+    trainer = trainers[-1]
+    if (not isinstance(trainer, HrlTrainer) or trainer.env.device.type != dev.type or trainer.num_updates_done != 2
+            or trainer.env.control != "discrete" or not np.isfinite(cm["losses/hl_loss"])):
+        fail(f"[hrl] run.main on the HRL config: {type(trainer).__name__} on {trainer.env.device}, "
+             f"{getattr(trainer, 'num_updates_done', None)} updates, metrics {cm}")
+    log(f"[hrl] {gpu}: envs with a successful episode, the tests' rules (N={HRL_RULE_ENV['num_envs']}, seed "
+        f"{HRL_RULE_ENV['seed']}): plan-table planner {rule['planner']:.4f} in {HRL_PLANNER['steps']} steps (gate "
+        f"{HRL_PLANNER['share']}), fixed plan {rule['fixed']:.4f} in {HRL_FIXED['steps']} (gate {HRL_FIXED['share']}), "
+        f"{secs['planner']:.1f} + {secs['fixed']:.1f} s; the planner at N={N} on [hrl]'s env (episodes of up to "
+        f"{HRL_PLANNER['steps']} steps) {share(solved[dev.type]):.4f} in {secs[dev.type]:.1f} s, the same envs as the "
+        f"CPU's ({secs['cpu']:.1f} s); card against CPU at N={n}: skill index and action equal at "
+        f"all {HRL_CHECK['steps']} planner steps, one HRL-PPO update with the same draws: losses max rel "
+        f"{max(loss_err.values()):.3g}, least share {min(r[0] for r in rows.values()):.4f}, beyond lr/10: "
+        f"{gap_trace(rows)}; run.main on an HRL experiment (pick_procgen.yaml + updater HRLPPO, N={HRL_CONFIG_ENVS}): "
+        f"{trainer.num_updates_done} updates on the card in {config_s:.1f} s, skills "
+        f"{[type(s).__name__ for s in trainer.learner.skills]}; the phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def share_gate(start, a, b, lr):
+    """Parameters after the same update from ``start`` on two devices: per
+    tensor, (the share of elements whose changes agree within lr/10, how
+    many do not, its size, the largest gap); and the tensors whose share is
+    below UPDATE_TENSOR_SHARE."""
+    rows = {}
+    for k in start:
+        d = (a[k] - b[k]).abs()
+        rows[k] = (share(d <= lr / 10), int((d > lr / 10).sum().item()), d.numel(), d.max().item())
+    return rows, [k for k, r in rows.items() if r[0] < UPDATE_TENSOR_SHARE]
+
+
+def gap_trace(rows, top=4):
+    """The tensors with elements beyond lr/10, most first, for the log."""
+    worst = sorted((r for r in rows.items() if r[1][1]), key=lambda r: -r[1][1])[:top]
+    return ", ".join(f"{k} {r[1]}/{r[2]} beyond (max {r[3]:.3g}, share {r[0]:.4f})" for k, r in worst) or "none"
+
+
 def ppo_switches_phase(gpu, dev, n_env=SWITCH_ENV["num_envs"]):
     """[ppo-switches]: one update on the card against the same update on the
-    CPU (float32, the same start, batch and permutations), loss terms within
-    SWITCH_RTOL of max(1, |x|), parameters within 2 lr per Adam step:
+    CPU (float32, the same start, batch and permutations): loss terms within
+    SWITCH_RTOL of max(1, |x|), and each tensor's share of elements whose
+    change agrees within lr/10 at least UPDATE_TENSOR_SHARE ([check]'s rule);
     (a) normalized advantage + linear LR decay (total_updates=2); (b) the
     blind Gaussian arm-Pick net with the adaptive entropy coefficient
     (log_alpha moves, inside [log 1e-4, 0], equal on both); (c) CPC|A on a
-    GRU policy (resnet9 over depth, GRU-128)."""
+    GRU policy (resnet9 over depth, GRU-128). The tensors with elements
+    beyond lr/10 are logged. A planted fault, the CPU update again with
+    the action head's gradient perturbed by noise of its own scale, must
+    fail the share rule in each case."""
     import math
     from types import SimpleNamespace
 
@@ -2611,12 +3040,16 @@ def ppo_switches_phase(gpu, dev, n_env=SWITCH_ENV["num_envs"]):
         _, batch, lv, h0, _ = lrn.collect_rollout(rs)
         start = {k: v.detach().cpu().clone() for k, v in lrn.policy.state_dict().items()}
         aux_start = {k: v.detach().cpu().clone() for k, v in lrn.aux_loss.state_dict().items()} if lrn.aux_loss else {}
-        res = {}
-        for d in (dev, cpu):
+
+        def update(d, fault=False):
             ld = learner(d)
             ld.policy.load_state_dict(start)
             if ld.aux_loss is not None:
                 ld.aux_loss.load_state_dict(aux_start)
+            if fault:
+                noise = torch.Generator(device=d).manual_seed(1)
+                ld.policy.action_head.weight.register_hook(
+                    lambda grad: grad + torch.randn(grad.shape, generator=noise, device=d) * grad.std())
             la = torch.full((), math.log(cfg.entropy_coef), device=d)
             b = RolloutBatch(**{k: ({o: x.to(d) for o, x in v.items()} if k == "obs" else v.to(d))
                                 for k, v in batch._asdict().items()})
@@ -2626,12 +3059,21 @@ def ppo_switches_phase(gpu, dev, n_env=SWITCH_ENV["num_envs"]):
             params = {k: v.cpu() for k, v in ld.policy.state_dict().items()}
             if ld.aux_loss is not None:
                 params.update({f"aux.{k}": v.cpu() for k, v in ld.aux_loss.state_dict().items()})
-            res[d.type] = {k: v.item() for k, v in m.items()}, params, la.item(), ld
-        (m_card, p_card, la_card, l_card), (m_cpu, p_cpu, la_cpu, _) = res[dev.type], res["cpu"]
+            return {k: v.item() for k, v in m.items()}, params, la.item(), ld
+
+        (m_card, p_card, la_card, l_card), (m_cpu, p_cpu, la_cpu, _) = update(dev), update(cpu)
+        start_all = {**start, **{f"aux.{k}": v for k, v in aux_start.items()}}
         loss_err = {k: abs(m_card[k] - m_cpu[k]) / max(1.0, abs(m_cpu[k])) for k in m_cpu if k.startswith("losses/")}
-        param_err = max((p_card[k] - p_cpu[k]).abs().max().item() for k in p_cpu)
-        if max(loss_err.values()) > SWITCH_RTOL or param_err > 2 * cfg.lr * E * M:
-            fail(f"[ppo-switches] {name}, card against CPU: losses {loss_err}, parameters {param_err}")
+        rows, bad = share_gate(start_all, p_card, p_cpu, cfg.lr)
+        _, planted, _, _ = update(cpu, fault=True)
+        _, caught = share_gate(start_all, p_card, planted, cfg.lr)
+        param_err = max(r[3] for r in rows.values())
+        if max(loss_err.values()) > SWITCH_RTOL or bad:
+            fail(f"[ppo-switches] {name}, card against CPU: losses {loss_err}; tensors below the share "
+                 f"{UPDATE_TENSOR_SHARE}: {bad} ({gap_trace(rows)})")
+        if "action_head.weight" not in caught:
+            fail(f"[ppo-switches] {name}: the share rule flags {caught}, not action_head.weight, after a fault "
+                 "planted in its gradient")
         extra = ""
         if l_card.adaptive_ent:
             lo = math.log(1e-4)
@@ -2643,10 +3085,14 @@ def ppo_switches_phase(gpu, dev, n_env=SWITCH_ENV["num_envs"]):
             extra += f", lr after {E * M} of {l_card.lr_decay_steps} steps {l_card.optimizer.param_groups[0]['lr']:.3g}"
         if "losses/cpca" in m_card:
             extra += f", cpca {m_card['losses/cpca']:.5f}"
-        text.append(f"{name}: losses max rel {max(loss_err.values()):.3g}, parameters max {param_err:.3g}{extra}")
+        text.append(f"{name}: losses max rel {max(loss_err.values()):.3g}, parameters max {param_err:.3g}, least "
+                    f"share {min(r[0] for r in rows.values()):.4f} over {len(rows)} tensors, beyond lr/10: "
+                    f"{gap_trace(rows)}; a fault planted in action_head.weight's gradient fails the rule in {len(caught)} "
+                    f"tensors ({caught[:3]}){extra}")
     log(f"[ppo-switches] {gpu}: one update (N={n_env}, T={T}, {E} x {M} Adam steps, float32) on the card against "
-        f"the CPU (gates: losses {SWITCH_RTOL} relative, parameters 2 lr per step): " + "; ".join(text)
-        + f"; the phase {time.perf_counter() - t_phase:.1f} s")
+        f"the CPU (gates: losses {SWITCH_RTOL} relative, each tensor's share within lr/10 >= {UPDATE_TENSOR_SHARE}): "
+        + "; ".join(text) + f"; the phase {time.perf_counter() - t_phase:.1f} s")
+
 
 def main():
     import torch
@@ -3852,6 +4298,17 @@ def main():
     ddppo_two_rank_phase(gpu, dev)
     zero_counts()
     ppo_switches_phase(gpu, dev)
+
+    # ---- 17. behavior cloning and the hierarchical trainers ---------------
+    log(f"[bc] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    bc_launches, bc_pool = bc_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
+    sel["bc_launches"] = bc_launches["raycast_fused_sel_t"]
+    pool_row["bc_launches"] = bc_launches["max_pool_3x3s2_bwd"]
+    pool_row["bc_update_input"] = bc_pool
+    log(f"[hrl] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    hrl_phase(gpu, dev, zero_counts, path_counts)
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 

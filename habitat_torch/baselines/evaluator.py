@@ -15,7 +15,8 @@ A Gaussian (continuous-action) policy starts from a zero previous action
 
 Not ported yet, and raising ``NotImplementedError``: eval videos,
 TensorBoard output and the TopDownMap tracker (``video_option``,
-``tb_writer``, ``map_tracker``; ROADMAP Queue 1 items 4 and 6).
+``tb_writer``, ``map_tracker``; the message names the JAX modules they
+wait for).
 ``eval_checkpoint_loop`` takes its two settings as keywords.
 """
 
@@ -62,8 +63,8 @@ def evaluate_agent(
     ``reward``, and ``num_episodes``; {} if no episode finished."""
     if video_option or tb_writer is not None or map_tracker is not None:
         raise NotImplementedError(
-            "eval videos, TensorBoard output and the TopDownMap tracker are not ported yet (ROADMAP Queue 1 items "
-            "4 and 6)")
+            "eval videos, TensorBoard output and the TopDownMap tracker wait for the port of "
+            "utils/visualizations/ (utils.py, maps.py) and of baselines/evaluator.py's TensorBoard output")
     dev = env.device
     n = env.num_envs
     if episodes_per_env is None:

@@ -11,11 +11,15 @@ into the port's envs, policy and trainer. Everything is built on ``device``
 ``trainer_name`` "ppo", "ddppo" (DD-PPO over the process group that
 ``baselines/run.py`` forms) and "ver" build the port's trainers;
 ``rl.ddppo.rnn_type`` (LSTM or GRU) and ``rl.ddppo.backbone`` (every
-backbone of ``models/resnet.py``) build the policy.
+backbone of ``models/resnet.py``) build the policy. A hierarchical
+experiment (``updater_name`` HRL..., or a ``hierarchical_policy`` block)
+builds HRL-PPO over the oracle skills (``baselines/hrl``) on a
+rearrangement env in discrete control without the head camera.
 
-Not ported yet, raising ``NotImplementedError`` (the ROADMAP Queue 1 item
-in the message): file datasets (PointNav-v1 and ObjectNav-v1 episode
-archives on disk); hierarchical (HRL) and imitation (IL) trainers.
+Not ported yet, raising ``NotImplementedError`` (the message names the
+module it waits for): file datasets (PointNav-v1 and ObjectNav-v1 episode
+archives on disk); the EQA imitation trainers (``eqa-cnn-pretrain``,
+``vqa``, ``pacman``).
 
 Image-goal observations feed the policy's goal encoders and are never put
 in ``goal_keys``: the JAX package's ``policy_from_config`` passes
@@ -64,7 +68,7 @@ def load_dataset(ds_cfg: Config):
 
         if data_path and os.path.exists(data_path):
             raise NotImplementedError(
-                f"episode files ({data_path}) wait for the port of sims/loaders.py (ROADMAP Queue 1 item 4)")
+                f"episode files ({data_path}) wait for the port of sims/loaders.py")
         return make_procedural_objectnav(
             num_scenes=int(proc.get("num_scenes", 4)),
             episodes_per_scene=int(proc.get("episodes_per_scene", 32)),
@@ -75,7 +79,7 @@ def load_dataset(ds_cfg: Config):
     if ds_type == "PointNav-v1" and data_path and os.path.exists(data_path):
         raise NotImplementedError(
             f"episode files ({data_path}) wait for the port of datasets/pointnav.py::PointNavDatasetV1 and "
-            "sims/loaders.py (ROADMAP Queue 1 items 4 and 6)")
+            "sims/loaders.py")
     if ds_type == "PointNav-v1" and data_path:
         logger.warning(f"dataset file {data_path!r} not found: falling back to the built-in procedural dataset")
 
@@ -216,14 +220,71 @@ def policy_from_config(config: Config, env):
     )
 
 
+def _skill_for(name: str):
+    """The oracle skill a ``defined_skills`` entry grounds to, by its name."""
+    from habitat_torch.baselines.hrl import hierarchical as h
+
+    n = name.lower()
+    if "pick" in n:
+        return h.PickSkill()
+    if "place" in n:
+        return h.PlaceSkill()
+    if "nav_to_obj" in n or n == "nav":
+        return h.OracleNavSkill()
+    if "nav" in n:
+        return h.NavToGoalSkill()
+    if "open" in n or "close" in n or "art" in n:
+        return h.ArtObjSkill()
+    return h.WaitSkill()
+
+
 def hrl_trainer_from_config(config: Config, env):
-    raise NotImplementedError("hierarchical (HRL) trainers wait for the port of baselines/hrl/ (ROADMAP Queue 1 "
-                              "item 5)")
+    """Hierarchical experiments (reference rl_hierarchical.yaml: updater_name
+    HRLPPO and a ``hierarchical_policy`` block with ``defined_skills``):
+    HRL-PPO over the skills on ``env``. Each defined skill grounds by name
+    to an oracle skill, one per skill class (open_cab, open_fridge,
+    close_cab... all ground to ``ArtObjSkill``, and repeats would only
+    dilute the high level's exploration); no defined skill gives the
+    default plan's four. ``HrlPPOConfig`` comes from ``rl.ppo``, its hidden
+    width capped at 256."""
+    from habitat_torch.baselines.hrl.hierarchical import default_rearrange_plan
+    from habitat_torch.baselines.hrl.hrl_ppo import HrlPPOConfig, HrlPPOLearner, HrlTrainer
+
+    hb = config.habitat_baselines
+    pol = hb.rl.policy.get("main_agent", Config()) or Config()
+    defined = (pol.get("hierarchical_policy", Config()) or Config()).get("defined_skills", Config()) or Config()
+    skills, seen = [], set()
+    for name in defined.keys():
+        s = _skill_for(name)
+        if type(s) not in seen:
+            seen.add(type(s))
+            skills.append(s)
+    p = hb.rl.ppo
+    cfg = HrlPPOConfig(
+        hidden_size=min(int(p.get("hidden_size", 128)), 256),
+        lr=float(p.lr),
+        gamma=float(p.gamma),
+        tau=float(p.tau),
+        clip_param=float(p.clip_param),
+        ppo_epoch=max(1, int(p.ppo_epoch)),
+        num_mini_batch=int(p.num_mini_batch),
+        value_loss_coef=float(p.value_loss_coef),
+        entropy_coef=float(p.entropy_coef),
+        max_grad_norm=float(p.max_grad_norm),
+    )
+    return HrlTrainer(HrlPPOLearner(env, skills or default_rearrange_plan(), cfg),
+                      total_num_steps=float(hb.get("total_num_steps", 1e6)),
+                      log_interval=int(hb.get("log_interval", 10)))
+
+
+# the JAX modules each unported imitation trainer waits for
+IL_MODULES = {"eqa-cnn-pretrain": "baselines/il/eqa_trainers.py", "vqa": "baselines/il/eqa_trainers.py",
+              "pacman": "baselines/il/pacman.py"}
 
 
 def il_trainer_from_config(config: Config, trainer_name: str):
-    raise NotImplementedError(f"the imitation-learning trainer {trainer_name!r} waits for the port of baselines/il/ "
-                              "(ROADMAP Queue 1 item 5)")
+    raise NotImplementedError(f"the imitation-learning trainer {trainer_name!r} waits for the port of "
+                              f"{IL_MODULES[trainer_name]} and tasks/eqa.py")
 
 
 def trainer_from_config(config: Config, device=None):
@@ -233,11 +294,19 @@ def trainer_from_config(config: Config, device=None):
     here and handed to the env and the trainer."""
     hb = config.habitat_baselines
     trainer_name = str(hb.get("trainer_name", "ppo"))
-    if trainer_name in ("eqa-cnn-pretrain", "vqa", "pacman"):
+    if trainer_name in IL_MODULES:
         return il_trainer_from_config(config, trainer_name)
+    rows = distributed.env_rows(int(hb.get("num_environments", 16)))
     pol_main = hb.rl.policy.get("main_agent", Config()) or Config()
     if str(hb.get("updater_name", "")).upper().startswith("HRL") or pol_main.get("hierarchical_policy", None):
-        return hrl_trainer_from_config(config, None)
+        if distributed.world().size > 1:
+            raise ValueError("HRL-PPO trains in one process: run it without a process group")
+        # the oracle skills drive the discrete action set and read state
+        # sensors only, so the env is built in discrete control (whatever
+        # arm_action the YAML declares for neural skills) without the camera
+        env = rearrange_env_from_config(config, rows.n_global, force_control="discrete", with_visual=False,
+                                        device=device, rows=rows.slice)
+        return hrl_trainer_from_config(config, env)
     trainer_cls = registry.get_trainer(trainer_name)
     p = hb.rl.ppo
     ppo_cfg = PPOConfig(
@@ -269,7 +338,6 @@ def trainer_from_config(config: Config, device=None):
         use_mesh=trainer_name == "ddppo",
         verbose=bool(hb.get("verbose", True)),
     )
-    rows = distributed.env_rows(int(hb.get("num_environments", 16)))
     env = env_from_config(config, rows.n_global, device=device, rows=rows.slice)
     return trainer_cls(env, policy_from_config(config, env), ppo_cfg, run_cfg, rows=rows)
 
@@ -293,12 +361,15 @@ REARRANGE_TASKS = {
 def rearrange_env_from_config(
     config: Config,
     num_envs: Optional[int] = None,
+    force_control: Optional[str] = None,
     with_visual: bool = True,
     device=None,
     rows: slice = slice(None),
 ):
     """Rearrange task types -> ``RearrangeBatchedEnv`` on ``device``
-    (``rows`` of its envs, as in ``env_from_config``).
+    (``rows`` of its envs, as in ``env_from_config``). ``force_control``
+    sets the control mode and keeps the fixed action menu, whatever actions
+    the config declares (HRL's oracle skills take "discrete").
 
     Registry contract (reference core/embodied_task.py:275-292): every
     declared ``lab_sensors``/``measurements``/``actions`` ``type:`` resolves
@@ -325,7 +396,9 @@ def rearrange_env_from_config(
     if arm_cfg is not None:
         control = "arm_ee" if "EE" in str(arm_cfg.get("arm_controller", "ArmRelPosAction")) else "arm"
     action_specs = None
-    if len(actions_cfg):
+    if force_control is not None:
+        control = force_control
+    elif len(actions_cfg):
         action_specs = resolve_task_actions(actions_cfg) or None
     # count real agent entries: the composer flattens the default agent's
     # fields (height/radius/...) into the agents dict; real agents are

@@ -25,6 +25,11 @@ under "/"-joined paths (a leading "params/" is accepted), as
 (``habitat_tpu/baselines/aux_losses.CPCA``: Embed, GRUCell, three Dense)
 to ``baselines/aux_losses.CPCA``'s state dict.
 
+``high_level_params_from_jax`` converts HRL-PPO's ``HighLevelNet``
+(``habitat_tpu/baselines/hrl/hrl_ppo.py``: ``Dense_0``, ``Dense_1``,
+``actor``, ``critic``) to ``baselines/hrl/hrl_ppo.HighLevelNet``'s
+(``fc0``, ``fc1``, ``actor``, ``critic``).
+
 ``load_policy_file`` reads such a state dict back without JAX, as
 ``scripts/export_flagship_torch.py`` writes it: the ``torch.save`` file and,
 beside it with the suffix ``.json``, its sha256 and the policy's build
@@ -179,6 +184,20 @@ def cpca_params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]
         else:
             raise KeyError(f"no port counterpart for CPCA parameter {p!r}")
     out.update(_gru("gru", gru))
+    return _tensors(out)
+
+
+_HIGH_LEVEL = {"Dense_0": "fc0", "Dense_1": "fc1", "actor": "actor", "critic": "critic"}
+
+
+def high_level_params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flattened Flax HighLevelNet params -> ``HighLevelNet.state_dict()``."""
+    out: Dict[str, np.ndarray] = {}
+    for p, v in _leaves(flat):
+        m = re.fullmatch(r"(Dense_0|Dense_1|actor|critic)/(kernel|bias)", p)
+        if not m:
+            raise KeyError(f"no port counterpart for HighLevelNet parameter {p!r}")
+        out.update(_dense(_HIGH_LEVEL[m[1]], m[2], v))
     return _tensors(out)
 
 

@@ -115,3 +115,49 @@ def snap_to_navigable(
     bk = torch.gather(kk, 1, (flat % (2 * w + 1))[:, None])[:, 0]
     xz = torch.stack([bi, bk], dim=-1).float() * pack.nav_res + lo
     return torch.stack([xz[:, 0], pack.floor_y[sid], xz[:, 1]], dim=-1)
+
+
+# candidate headings of the greedy follower: a ring of 16, slot 0 straight ahead
+FOLLOWER_DIRS = 16
+
+
+def greedy_follower_step(
+    pack: ScenePack,
+    sid: torch.Tensor,  # (N,)
+    fields: torch.Tensor,  # (E,NX,NZ) distance-to-goal fields
+    field_idx: torch.Tensor,  # (N,) which field each env follows
+    pos: torch.Tensor,  # (N,3)
+    yaw: torch.Tensor,  # (N,)
+    *,
+    goal_radius: float,
+    forward_step: float,
+    turn_angle: float,
+) -> torch.Tensor:
+    """Greedy geodesic follower, batched over envs: (N,) int64 actions
+    {stop=0, fwd=1, left=2, right=3} (GreedyGeodesicFollower's role).
+
+    Each env evaluates ``FOLLOWER_DIRS`` candidate headings one
+    collision-resolved step ahead (``try_step`` on all N x 16 candidates at
+    once, sliding as executing the move would) and steers toward the one
+    with the lowest field value; slot 0 (straight ahead) gets a bias of half
+    a cell, which breaks left/right chatter at walls and doorways. Ties go
+    to the first candidate. The arithmetic is the JAX package's, in float32:
+    offsets i * float32(2 pi / 16), the arctan2(sin, cos) wrap, a forward
+    cone of max(0.99 * turn_angle, pi / 16), stop within ``goal_radius``."""
+    n, k, dev = pos.shape[0], FOLLOWER_DIRS, pos.device
+    nav_lo = pack.nav_lo[sid]
+    d_here = distance_at(fields, field_idx, nav_lo, pack.nav_res, pos)
+    offsets = torch.arange(k, dtype=torch.float32, device=dev) * float(np.float32(2 * np.pi / k))
+    cand_yaw = yaw[:, None] + offsets  # (N, 16)
+    fwd = torch.stack([-torch.sin(cand_yaw), torch.zeros_like(cand_yaw), -torch.cos(cand_yaw)], dim=-1)
+    start = pos[:, None, :].expand(n, k, 3)
+    targets = start + fwd * forward_step
+    rep = lambda x: x.repeat_interleave(k, dim=0)  # noqa: E731  (env-major, as targets flatten)
+    p2, _ = try_step(pack, rep(sid), start.reshape(-1, 3), targets.reshape(-1, 3))
+    d_cands = distance_at(fields, rep(field_idx), rep(nav_lo), pack.nav_res, p2).reshape(n, k)
+    bias = torch.where(torch.arange(k, device=dev) == 0, float(np.float32(-0.5 * pack.nav_res)), 0.0)
+    err = offsets[torch.argmin(d_cands + bias, dim=1)]
+    err = torch.atan2(torch.sin(err), torch.cos(err))
+    cone = float(np.float32(max(0.99 * turn_angle, np.pi / k)))
+    act = torch.where(err.abs() <= cone, 1, torch.where(err > 0, 2, 3))
+    return torch.where(d_here <= float(np.float32(goal_radius)), 0, act)

@@ -16,8 +16,8 @@
 Not ported yet, registered under their names as raising
 ``NotImplementedError`` so that a config naming one says so: the host-side
 measures TopDownMap, RuntimePerfStats and GfxReplayMeasure, and the
-parameterised actions TeleportAction and VelocityAction (ROADMAP Queue 1
-item 4).
+parameterised actions TeleportAction and VelocityAction (each message names
+the JAX module it waits for).
 """
 
 from __future__ import annotations
@@ -462,14 +462,18 @@ class LookDownAction(FunctionalAction):
         return -float(np.deg2rad(_cfg(self.config, "tilt_angle", 15.0)))
 
 
-def _not_ported(name: str):
+def _not_ported(name: str, module: str):
     def build(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported to habitat_torch yet (ROADMAP Queue 1 item 4)")
+        raise NotImplementedError(f"{name} is not ported to habitat_torch yet: it waits for the port of {module}")
 
     return build
 
 
-for _name in ("TopDownMap", "RuntimePerfStats", "GfxReplayMeasure"):
-    registry.register_measure(_not_ported(_name), name=_name)
+# the unported components and the JAX modules they wait for
+for _name, _module in (("TopDownMap", "tasks/nav.py::TopDownMap and utils/visualizations/maps.py"),
+                       ("RuntimePerfStats", "tasks/nav.py::RuntimePerfStats"),
+                       ("GfxReplayMeasure", "tasks/nav.py::GfxReplayMeasure and utils/gfx_replay.py")):
+    registry.register_measure(_not_ported(_name, _module), name=_name)
 for _name in ("TeleportAction", "VelocityAction"):
-    registry.register_task_action(_not_ported(_name), name=_name)
+    registry.register_task_action(
+        _not_ported(_name, f"tasks/nav.py::{_name} and core/batched_env.py's velocity path"), name=_name)

@@ -4,8 +4,8 @@
 ``torch.utils.tensorboard`` needs the ``tensorboard`` package: without it
 building the writer raises ImportError, so a run that asks for TensorBoard
 output never goes on without it. The W&B writer and eval videos
-(``add_video_from_np_images``) are not ported (ROADMAP Queue 1 items 4
-and 6)."""
+(``add_video_from_np_images``) are not ported: they wait for the port of
+utils/visualizations/utils.py."""
 
 from __future__ import annotations
 

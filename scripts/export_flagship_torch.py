@@ -55,23 +55,29 @@ def restore_flat(ckpt):
     return {k: np.asarray(v) for k, v in flatten_dict(params, sep="/").items()}
 
 
-def export(ckpt=CKPT, out=OUT):
-    """Write the state dict and its JSON; returns the JSON's content."""
+def write_export(state, out, source, policy):
+    """``torch.save`` the state dict to ``out`` and write its JSON (sha256,
+    source, the policy's build arguments) beside it; returns the JSON's
+    content."""
     import torch
 
-    sys.path.insert(0, ROOT)
-    from habitat_torch.models.convert import params_from_jax
-
-    state = params_from_jax(restore_flat(ckpt))
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     torch.save(state, out)
     with open(out, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()
-    meta = dict(sha256=digest, source=ckpt, policy=POLICY)
+    meta = dict(sha256=digest, source=source, policy=policy)
     with open(os.path.splitext(out)[0] + ".json", "w") as f:
         json.dump(meta, f, indent=1)
         f.write("\n")
     return meta
+
+
+def export(ckpt=CKPT, out=OUT):
+    """Write the state dict and its JSON; returns the JSON's content."""
+    sys.path.insert(0, ROOT)
+    from habitat_torch.models.convert import params_from_jax
+
+    return write_export(params_from_jax(restore_flat(ckpt)), out, ckpt, POLICY)
 
 
 if __name__ == "__main__":

@@ -1304,3 +1304,115 @@ def test_gloo_all_reduce_of_card_gradients(card, tmp_path):
         for s, a, b in zip(o["summed"], out[0]["local"], out[1]["local"]):
             assert torch.allclose(s, a + b, rtol=1e-6, atol=1e-6)
     assert all(torch.equal(a, b) for a, b in zip(out[0]["summed"], out[1]["summed"]))
+
+
+# -- the geodesic follower, behavior cloning and HRL-PPO (no kernel of their own) --
+
+
+def _bench_nav_env(device, n, **kw):
+    from habitat_torch.core.env_factory import make_nav_env
+
+    scenes, episodes, fields = make_procedural_pointnav(num_scenes=4, episodes_per_scene=16, seed=0)
+    return make_nav_env(scenes, episodes, num_envs=n, precomputed_fields=fields, device=device, **kw)
+
+
+def _tensor_shares(start, a, b, lr):
+    """Per tensor, the share of elements whose changes from ``start`` on the
+    two devices agree within lr/10 (chip_smoke.py's [check] rule)."""
+    return {k: ((a[k] - b[k]).abs() <= lr / 10).double().mean().item() for k in start}
+
+
+def test_greedy_follower_on_card_matches_cpu_without_host_sync(card):
+    """``greedy_follower_step`` on 1024 poses of the bench scenes (random
+    navigable cells, a sixth within 0.15 m of the goal): the card's actions
+    equal the CPU's, and a call makes no host sync."""
+    from habitat_torch.ops import navgrid as ng
+
+    env = _bench_nav_env("cpu", 8)
+    rng = np.random.default_rng(0)
+    m = 1024
+    ep = rng.integers(0, env.table.num_episodes, m)
+    sid = env.table.scene_idx[ep].long()
+    occ, lo, res = env.pack.nav_occ.numpy(), env.pack.nav_lo.numpy(), env.pack.nav_res
+    pos = np.zeros((m, 3), np.float32)
+    for i in range(m):
+        if i % 6 == 0:
+            xz = env.table.goal_pos[ep[i], 0].numpy()[[0, 2]] + rng.uniform(-0.1, 0.1, 2)
+        else:
+            cells = np.argwhere(occ[sid[i]])
+            xz = lo[sid[i]] + (cells[rng.integers(len(cells))] + rng.uniform(-0.5, 0.5, 2)) * res
+        pos[i] = [xz[0], env.pack.floor_y[sid[i]].item(), xz[1]]
+    args = (sid, env.table.dist_field, torch.from_numpy(ep), torch.from_numpy(pos),
+            torch.as_tensor(rng.uniform(-np.pi, np.pi, m), dtype=torch.float32))
+    kw = dict(goal_radius=0.2, forward_step=0.25, turn_angle=float(np.deg2rad(10.0)))
+    ref = ng.greedy_follower_step(env.pack, *args, **kw)
+    pack, cargs = env.pack.to(card), [a.to(card) for a in args]
+    ng.greedy_follower_step(pack, *cargs, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = ng.greedy_follower_step(pack, *cargs, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    parted = (got.cpu() != ref).nonzero()[:, 0].tolist()
+    assert not parted, f"{len(parted)} of {m} actions part: {parted[:10]}"
+    assert set(ref.unique().tolist()) == {0, 1, 2, 3}
+
+
+def test_bc_train_step_on_card_matches_cpu(card):
+    """One BC train step (blind LSTM-512, pointgoal, N=8, T=32, float32)
+    from the same weights and env state: teachers equal at every env and
+    step, the loss within 1e-5 relative, each tensor's parameters by the
+    share rule at BC's lr."""
+    from habitat_torch.baselines.il.bc_trainer import BCConfig, BCLearner
+    from habitat_torch.models.policy import make_pointnav_resnet_policy
+
+    torch.manual_seed(0)
+    start = make_pointnav_resnet_policy(4, has_visual=False, hidden_size=512, dtype=torch.float32,
+                                        device="cpu").state_dict()
+    out = {}
+    for d in ("cpu", card):
+        pol = make_pointnav_resnet_policy(4, has_visual=False, hidden_size=512, dtype=torch.float32, device=d)
+        pol.load_state_dict(start)
+        lrn = BCLearner(_bench_nav_env(d, 8, max_episode_steps=20), pol, BCConfig())
+        _, batch = lrn.collect_rollout(lrn.init())
+        m, _ = lrn.update(batch)
+        out[str(d)] = batch["teacher"].cpu(), m["losses/bc_loss"].item(), {k: v.cpu() for k, v in pol.state_dict().items()}
+    (t_cpu, l_cpu, p_cpu), (t_card, l_card, p_card) = out["cpu"], out[str(card)]
+    assert torch.equal(t_card, t_cpu)
+    assert abs(l_card - l_cpu) <= 1e-5 * max(1.0, abs(l_cpu))
+    shares = _tensor_shares(start, p_card, p_cpu, BCConfig().lr)
+    assert min(shares.values()) >= 0.99, min(shares.items(), key=lambda kv: kv[1])
+
+
+def test_hrl_ppo_train_step_on_card_matches_cpu(card):
+    """One HRL-PPO train step (the four oracle skills, N=8, 4 macro steps of
+    8 env steps, hidden 64) from the same weights and draws: macro rewards
+    within 1e-5, dones equal, losses within 1e-5 relative, each tensor's
+    parameters by the share rule."""
+    from habitat_torch.baselines.hrl.hierarchical import default_rearrange_plan
+    from habitat_torch.baselines.hrl.hrl_ppo import HrlPPOConfig, HrlPPOLearner
+
+    cfg = HrlPPOConfig(num_macro_steps=4, hl_interval=8, hidden_size=64)
+    kw = dict(num_envs=8, task="rearrange", num_scenes=2, episodes_per_scene=8, seed=0, with_visual=False,
+              n_rooms_per_axis=1, n_clutter=0, max_episode_steps=12)
+    draws = torch.randint(0, 4, (cfg.num_macro_steps, 8), generator=torch.Generator().manual_seed(0))
+    torch.manual_seed(0)
+    start = None
+    out = {}
+    for d in ("cpu", card):
+        lrn = HrlPPOLearner(rgen.make_rearrange_env(device=d, **kw), default_rearrange_plan(), cfg)
+        start = start or {k: v.clone() for k, v in lrn.net.state_dict().items()}
+        lrn.net.load_state_dict(start)
+        _, batch = lrn.collect_rollout(lrn.init(), skills=draws.to(d))
+        m = lrn.update(batch)
+        out[str(d)] = ({k: batch[k].cpu() for k in ("rewards", "dones")},
+                       {k: v.item() for k, v in m.items() if k.startswith("losses/")},
+                       {k: v.cpu() for k, v in lrn.net.state_dict().items()})
+    (b_cpu, l_cpu, p_cpu), (b_card, l_card, p_card) = out["cpu"], out[str(card)]
+    assert torch.equal(b_card["dones"], b_cpu["dones"]) and b_cpu["dones"].any()
+    torch.testing.assert_close(b_card["rewards"], b_cpu["rewards"], atol=1e-5, rtol=1e-5)
+    for k in l_cpu:
+        assert abs(l_card[k] - l_cpu[k]) <= 1e-5 * max(1.0, abs(l_cpu[k])), k
+    shares = _tensor_shares(start, p_card, p_cpu, cfg.lr)
+    assert min(shares.values()) >= 0.99, min(shares.items(), key=lambda kv: kv[1])

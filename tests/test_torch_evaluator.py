@@ -295,7 +295,7 @@ def test_unported_options_raise(envs, option):
     env, policy = envs[1](), _TorchStub()
     kw = {"video_option": dict(video_option=("disk",)), "tb_writer": dict(tb_writer=object()),
           "map_tracker": dict(map_tracker=object())}[option]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    with pytest.raises(NotImplementedError, match="utils/visualizations/"):
         tev.evaluate_agent(env, policy, **kw)
 
 

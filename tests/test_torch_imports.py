@@ -37,7 +37,9 @@ def test_port_files_found():
     assert len(files) > 15
     for module in ("tasks/rearrange/rearrange_env.py", "tasks/rearrange/generator.py", "ops/navgrid.py",
                    "models/policy.py", "baselines/ppo.py", "datasets/object_nav.py", "datasets/image_nav.py",
-                   "parallel/distributed.py", "baselines/aux_losses.py"):
+                   "parallel/distributed.py", "baselines/aux_losses.py", "tasks/shortest_path_follower.py",
+                   "baselines/il/bc_trainer.py", "tasks/rearrange/multi_task/pddl.py", "baselines/hrl/hierarchical.py",
+                   "baselines/hrl/planner.py", "baselines/hrl/hrl_ppo.py"):
         assert os.path.join(ROOT, "habitat_torch", module) in files
 
 
@@ -56,6 +58,9 @@ CONFIG_PATH_MODULES = (
     "habitat_torch.core.construct", "habitat_torch.baselines.evaluator", "habitat_torch.baselines.run",
     "habitat_torch.datasets.object_nav", "habitat_torch.datasets.image_nav",
     "habitat_torch.parallel.distributed", "habitat_torch.baselines.aux_losses",
+    "habitat_torch.tasks.shortest_path_follower", "habitat_torch.baselines.il.bc_trainer",
+    "habitat_torch.tasks.rearrange.multi_task.pddl", "habitat_torch.baselines.hrl",
+    "habitat_torch.baselines.hrl.hrl_ppo",
 )
 _PROBE = """
 import json, sys
