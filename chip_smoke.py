@@ -295,6 +295,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            an HRL experiment config (pick_procgen.yaml + updater HRLPPO)
            builds the trainer on the card and takes 2 updates.
 
+18. vln    VLN behavior cloning at scripts/train_vln_tpu.py's configuration
+           (VLN: N=128, 8 scenes x 16 episodes, 64x64 depth + instruction +
+           GPS + compass, no goal sensor, resnet9 + LSTM-192 bf16, T=32, lr
+           1.5e-3): a warm-up and VLN_UPDATES timed updates (ms, rollout /
+           update split, env-steps/s, peak memory, idle share and launches
+           of one profiled update). Gates: #1 1 + 32 per update, #11 once
+           per update and bit-equal to its plain version on the last
+           update's own input, no plain version on a card tensor;
+           tests/test_eqa_vln.py::test_vln_seq2seq_il's rule (VLN_RULE);
+           one float32 update of the blind net (VLN_CHECK) card against CPU:
+           teachers equal, loss within BC_LOSS_RTOL, [check]'s per-tensor
+           share rule.
+    eqa-il the EQA imitation trainers (eqa-cnn-pretrain, vqa, pacman)
+           through trainer_from_config on ppo_pointnav_example.yaml at
+           N=128 (64x64 frames): a warm-up and 3 timed updates each (PACMAN
+           after one collect_expert), ms per update and #1's exact count
+           (the goal table, the reset, one per walk or expert step). Gates:
+           the rules of test_eqa_cnn_pretrain_learns, test_vqa_learner and
+           test_pacman_bc_loss_decreases on the card; one float32 step of
+           each, card against CPU on the card's inputs.
+    eqa-referent  PPO on the referent-EQA env at
+           scripts/train_eqa_referent_tpu.py's widths (N=256, blind resnet9
+           + LSTM-96, T=12, 2 x 2 minibatch steps; the table cut to 4 x 256
+           episodes): a warm-up and EQA_REF_UPDATES timed train steps, no
+           kernel launched; one float32 update card against CPU.
+    agents PPOAgent from the flagship export, one observation at a time on
+           one flagship env (N=1) for one episode: its action equal to the
+           batched greedy policy's at every step, ms per act, success and
+           SPL; GoalFollower on the same env (logged) and in an open room
+           (AGENT_ROOM), where it must reach the goal.
+
 Prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
@@ -534,6 +565,28 @@ HRL_CHECK = dict(num_envs=8, steps=100, ppo=dict(num_macro_steps=4, hl_interval=
 # 2 updates of N=16
 HRL_CONFIG_ENVS = 16
 HRL_CONFIG_SKILLS = ("nav_to_obj", "pick", "nav_to_goal", "place")
+# [vln]: scripts/train_vln_tpu.py's configuration (BC of the follower, 64x64
+# depth, instruction + GPS + compass, resnet9 + LSTM-192, T=32, lr 1.5e-3)
+VLN = dict(num_envs=128, num_scenes=8, episodes_per_scene=16, max_episode_steps=200, hw=64, hidden=192,
+           num_steps=32, lr=1.5e-3)
+VLN_UPDATES = 3  # timed updates after the warm-up one
+# tests/test_eqa_vln.py::test_vln_seq2seq_il's rule: blind resnet18 + LSTM-128
+VLN_RULE = dict(num_envs=4, num_scenes=1, episodes_per_scene=8, max_episode_steps=100, hidden=128, num_steps=16,
+                lr=2e-3, updates=25)
+# the float32 card-vs-CPU BC update: [vln]'s net, blind, at N=8, T=8
+VLN_CHECK = dict(num_envs=8, num_scenes=1, episodes_per_scene=8, max_episode_steps=40, num_steps=8)
+BC_LOSS_RTOL = 1e-5
+# [eqa-il]: the three EQA imitation trainers through trainer_from_config
+EQA_IL_TRAINERS = ("eqa-cnn-pretrain", "vqa", "pacman")
+EQA_IL = dict(num_envs=128, updates=3)
+# [eqa-referent]: scripts/train_eqa_referent_tpu.py's widths; its table cut
+# from 4 x 4096 episodes to 4 x 256 for set-up time
+EQA_REF = dict(num_envs=256, num_scenes=4, episodes_per_scene=256, max_episode_steps=6)
+EQA_REF_PPO = dict(num_steps=12, num_mini_batch=2, ppo_epoch=2, lr=1e-3)
+EQA_REF_UPDATES = 3
+# [agents]: GoalFollower's open room (the flagship scenes' goals lie behind
+# walls, where a straight-line follower stalls)
+AGENT_ROOM = dict(num_scenes=1, episodes_per_scene=8, seed=91000, scene_kw={"n_rooms_per_axis": 1, "n_clutter": 0})
 
 
 def log(msg):
@@ -3094,6 +3147,535 @@ def ppo_switches_phase(gpu, dev, n_env=SWITCH_ENV["num_envs"]):
         + "; ".join(text) + f"; the phase {time.perf_counter() - t_phase:.1f} s")
 
 
+def to_device(x, dev):
+    """A tensor, or a dict / list of them, copied to ``dev``."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: to_device(v, dev) for k, v in x.items()}
+    return type(x)(to_device(v, dev) for v in x)
+
+
+def vln_env(dev, c, visual=True):
+    """make_vln_env at ``c``'s sizes (seed 0, no pointgoal), with
+    VLN["hw"]-square depth when ``visual``."""
+    from habitat_torch.tasks.vln import make_vln_env
+
+    specs = (("HabitatSimDepthSensor", {"height": VLN["hw"], "width": VLN["hw"]}),) if visual else ()
+    return make_vln_env(num_envs=c["num_envs"], num_scenes=c["num_scenes"], episodes_per_scene=c["episodes_per_scene"],
+                        seed=0, with_pointgoal=False, max_episode_steps=c["max_episode_steps"], visual_specs=specs,
+                        device=dev)
+
+
+def language_policy(env, dev, hidden, backbone="resnet9", dtype=None):
+    """The policy for ``env``'s observations (instruction or question, state
+    sensors, depth when observed), goal_keys=(), bf16 unless ``dtype``."""
+    import torch
+
+    from habitat_torch.models.policy import make_pointnav_resnet_policy, obs_inputs_of
+
+    shapes = env.observation_shapes
+    visual = "depth" in shapes
+    kw = dict(visual_inputs=("depth",), input_hw=tuple(shapes["depth"][0][:2])) if visual else {}
+    return make_pointnav_resnet_policy(env.num_actions, backbone=backbone, hidden_size=hidden, has_visual=visual,
+                                       goal_keys=(), dtype=dtype or torch.bfloat16, device=dev,
+                                       **obs_inputs_of(shapes), **kw)
+
+
+def vln_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card):
+    """[vln]: VLN behavior cloning at scripts/train_vln_tpu.py's configuration
+    (VLN) on the card: a warm-up and VLN_UPDATES timed updates (ms split into
+    the rollout, env + teacher, and the update; env-steps/s; peak memory;
+    idle share and launches of one profiled update). Gates: #1 launched 1 +
+    T per update, #11 once per update, no plain version on a card tensor;
+    #11 bit-equal to its plain version on the last update's stem-pool input;
+    tests/test_eqa_vln.py::test_vln_seq2seq_il's rule (VLN_RULE) on the
+    card; one float32 update of [vln]'s net without its encoder (VLN_CHECK)
+    on the card against the CPU: teachers equal, loss within BC_LOSS_RTOL
+    relative, parameters by [check]'s per-tensor share rule. Returns the path's launch counts
+    and the #11 check."""
+    import numpy as np
+    import torch
+
+    from habitat_torch.baselines.il.bc_trainer import BCConfig, BCLearner
+    from habitat_torch.ops import pool
+
+    t_phase = time.perf_counter()
+    N, T, hw = VLN["num_envs"], VLN["num_steps"], VLN["hw"]
+    zero_counts()
+    for p in plain_watch:
+        p.start()
+    env = vln_env(dev, VLN)
+    torch.manual_seed(0)
+    policy = language_policy(env, dev, VLN["hidden"])
+    lrn = BCLearner(env, policy, BCConfig(num_steps=T, lr=VLN["lr"]))
+    split = {"rollout": [], "update": []}
+
+    def timed(name, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            split[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    lrn.collect_rollout = timed("rollout", lrn.collect_rollout)
+    lrn.update = timed("update", lrn.update)
+    updates = 1 + VLN_UPDATES
+    pool_backward, last_bwd = pool._MaxPool3x3s2.backward, {}
+
+    def backward_seen(ctx, dy):
+        gx = pool_backward(ctx, dy)
+        if pool.max_pool_3x3s2_bwd.launches == updates:
+            x, y = ctx.saved_tensors
+            last_bwd["args"] = (x, y, dy.contiguous(memory_format=torch.channels_last))
+        return gx
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st = lrn.init()
+    walls = []
+    with mock.patch.object(pool._MaxPool3x3s2, "backward", staticmethod(backward_seen)):
+        for i in range(updates):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, metrics = lrn.train_step(st)
+            metrics = {k: v.item() for k, v in metrics.items()}
+            if i:
+                walls.append(time.perf_counter() - t0)
+            if not all(np.isfinite(v) for v in metrics.values()):
+                fail(f"[vln] non-finite metrics {metrics}")
+    torch.cuda.synchronize()
+    for p in plain_watch:
+        p.stop()
+    if plain_on_card:
+        fail(f"[vln]: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+    peak = torch.cuda.max_memory_allocated()
+    launches = path_counts("[vln] train path", raycast_fused_sel_t=1 + updates * T, max_pool_3x3s2_bwd=updates)
+    del lrn.collect_rollout, lrn.update
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    roll, upd = split["rollout"][1:], split["update"][1:]
+    rates = sorted(N * T / w for w in walls)
+    (st, _), dev_ms, n_launch, top = device_time_and_launches(lambda: lrn.train_step(st))
+    log(f"[vln] {gpu}: scripts/train_vln_tpu.py's VLN BC (N={N}, {VLN['num_scenes']} scenes x "
+        f"{VLN['episodes_per_scene']} episodes, T={T}, {hw}x{hw} depth + instruction (64 tokens) + GPS + compass, "
+        f"resnet9 + LSTM-{VLN['hidden']} bf16, lr {VLN['lr']}): ms per update "
+        f"{[round(w * 1e3, 1) for w in walls]} (median {med(walls) * 1e3:.1f}) = rollout (env + teacher) "
+        f"{[round(x, 1) for x in roll]} + update {[round(x, 1) for x in upd]} (warm-up {split['rollout'][0]:.1f} + "
+        f"{split['update'][0]:.1f}); env-steps/s median {rates[len(rates) // 2]:.1f} (min {rates[0]:.1f}, max "
+        f"{rates[-1]:.1f}); peak memory {peak / 2**30:.2f} GiB; one profiled update: device {dev_ms:.1f} ms, idle "
+        f"share {1 - dev_ms / (med(walls) * 1e3):.3f} of the median update, {n_launch} launches; last metrics "
+        + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+        + f"; launches {launches} (#1 1 + {T} per update, #11 one per update), no plain version on a card tensor")
+    for e in top[:4]:
+        log(f"[vln]   {device_us(e) / 1e3:8.3f} ms {e.count:5d}x  {e.key[:80]}")
+    x, y, dy = last_bwd.pop("args")
+    mb_shape = (N * T, 32, hw // 2, hw // 2)
+    if tuple(x.shape) != mb_shape or x.dtype != torch.bfloat16:
+        fail(f"[vln] the pool backward got {tuple(x.shape)} {x.dtype}, want {mb_shape} bfloat16")
+    _, pool_err = pool_check(f"[vln] update {mb_shape}", (x, y, dy))
+    del x, y, dy, lrn, policy, st, env
+    torch.cuda.empty_cache()
+
+    # tests/test_eqa_vln.py::test_vln_seq2seq_il's rule on the card
+    c = VLN_RULE
+    torch.manual_seed(0)
+    renv = vln_env(dev, c, visual=False)
+    rlrn = BCLearner(renv, language_policy(renv, dev, c["hidden"], backbone="resnet18"),
+                     BCConfig(num_steps=c["num_steps"], lr=c["lr"]))
+    rst, losses = rlrn.init(), []
+    t0 = time.perf_counter()
+    for _ in range(c["updates"]):
+        rst, m = rlrn.train_step(rst)
+        losses.append(m["losses/bc_loss"].item())
+    rule_s = time.perf_counter() - t0
+    if not (np.isfinite(losses[-1]) and losses[-1] < losses[0]):
+        fail(f"[vln] test_vln_seq2seq_il's rule: bc_loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+
+    # one float32 update of the blind net, card against CPU, from the same
+    # weights and env state, the CPU's on the card's batch. Blind, as [bc]'s:
+    # from a fresh Adam the step is sign(g) * lr, and the stem's near-zero
+    # gradients part in sign between cuDNN's and the CPU's float32
+    # convolutions (35 of 1,568 stem weights with the encoder)
+    cpu = torch.device("cpu")
+    c = VLN_CHECK
+    torch.manual_seed(0)
+    runs = []
+    for d in (dev, cpu):
+        e = vln_env(d, c, visual=False)
+        pol = language_policy(e, d, VLN["hidden"], dtype=torch.float32)
+        if not runs:
+            start = {k: v.detach().cpu().clone() for k, v in pol.state_dict().items()}
+        pol.load_state_dict(start)
+        cl = BCLearner(e, pol, BCConfig(num_steps=c["num_steps"], lr=VLN["lr"]))
+        runs.append((cl, pol, cl.collect_rollout(cl.init())[1]))
+    (cl_g, pol_g, b_g), (cl_c, pol_c, b_c) = runs
+    teach_equal = torch.equal(b_g["teacher"].cpu(), b_c["teacher"])
+    with cudnn_deterministic(True):
+        m_g, _ = cl_g.update(b_g)
+    m_c, _ = cl_c.update(to_device(b_g, cpu))
+    loss_err = abs(m_g["losses/bc_loss"].item() - m_c["losses/bc_loss"].item()) / max(
+        1.0, abs(m_c["losses/bc_loss"].item()))
+    rows, bad = share_gate(start, {k: v.cpu() for k, v in pol_g.state_dict().items()}, pol_c.state_dict(),
+                           VLN["lr"])
+    if not teach_equal or loss_err > BC_LOSS_RTOL or bad:
+        fail(f"[vln] float32 update, card against CPU: teachers equal {teach_equal}, loss {loss_err:.3g} relative, "
+             f"tensors below the share: {bad} ({gap_trace(rows)})")
+    log(f"[vln] {gpu}: test_vln_seq2seq_il's rule (N={VLN_RULE['num_envs']}, blind resnet18 + LSTM-"
+        f"{VLN_RULE['hidden']}, T={VLN_RULE['num_steps']}, {VLN_RULE['updates']} updates): bc_loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} in {rule_s:.1f} s; #11 on the last update's own input bit-equal to its plain version; "
+        f"float32 update ([vln]'s net, blind, N={c['num_envs']}, T={c['num_steps']}) card against CPU on the card's batch: "
+        f"teachers equal at all {b_c['teacher'].numel()} (each device's own rollout), loss {loss_err:.3g} relative, "
+        f"least share {min(r[0] for r in rows.values()):.4f}, beyond lr/10: {gap_trace(rows)}; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, dict(shape=list(mb_shape), max_abs_err=pool_err)
+
+
+def eqa_visual_env(dev, n=4, size=32):
+    """tests/test_eqa_il.py's env: 2 procedural scenes x 4 episodes (extent
+    6), ``size``-square RGB, depth and semantics, pointgoal."""
+    from habitat_torch.core.env_factory import make_nav_env
+    from habitat_torch.datasets.pointnav import make_procedural_pointnav
+
+    scenes, episodes, fields = make_procedural_pointnav(num_scenes=2, episodes_per_scene=4, seed=0, extent=6.0)
+    frame = {"height": size, "width": size}
+    return make_nav_env(scenes, episodes, num_envs=n, precomputed_fields=fields, max_episode_steps=50, device=dev,
+                        sensor_specs=(("HabitatSimRGBSensor", frame), ("HabitatSimDepthSensor", frame),
+                                      ("HabitatSimSemanticSensor", frame), ("PointGoalWithGPSCompassSensor", None)))
+
+
+def eqa_il_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card):
+    """[eqa-il]: the three EQA imitation trainers through trainer_from_config
+    on ppo_pointnav_example.yaml at num_environments=EQA_IL["num_envs"]:
+    a warm-up and EQA_IL["updates"] timed updates each (PACMAN: one
+    collect_expert first), ms per update and #1's launches, exact: the
+    CNN pretrain 1 (reset) + 1 per update, VQA 1 (goal table) + 1 (reset)
+    + 1 per update (the walk step, whose frame is the next update's),
+    PACMAN 1 (goal table) + 1 (reset) + 1 per expert env step and none per
+    update. Gates, each the rule of a JAX test, on the card:
+    test_eqa_cnn_pretrain_learns, test_vqa_learner,
+    test_pacman_bc_loss_decreases; for each trainer one float32 step card
+    against CPU (the card's frames or batch on both; given walk actions):
+    losses within BC_LOSS_RTOL relative, [check]'s per-tensor share rule.
+    Returns {trainer: #1 launches}."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from habitat_torch.baselines.il.eqa_trainers import EQACNNPretrainLearner, VQALearner
+    from habitat_torch.baselines.il.pacman import PacmanTrainer
+    from habitat_torch.config.default import get_config
+    from habitat_torch.core import construct
+    from habitat_torch.tasks.eqa import make_eqa_env
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    N, U = EQA_IL["num_envs"], EQA_IL["updates"]
+    counts, texts = {}, []
+    for name in EQA_IL_TRAINERS:
+        cfg = get_config(CONFIG_EXPERIMENT + ".yaml", [f"habitat_baselines.trainer_name={name}",
+                                                       f"habitat_baselines.num_environments={N}"])
+        zero_counts()
+        for p in plain_watch:
+            p.start()
+        t0 = time.perf_counter()
+        torch.manual_seed(0)
+        tr = construct.trainer_from_config(cfg, device=dev)
+        lrn, env = tr.learner, tr.env
+        extra, fixed = "", 1
+        # the renders no update reads, and the JAX package's
+        unread = "1, the reset's (JAX's init renders one for the model's shapes)"
+        if name == "eqa-cnn-pretrain":
+            box = [lrn.init(0)]
+
+            def update():
+                box[0], m = lrn.train_step(box[0])
+                return m
+        elif name == "vqa":
+            fixed = 2
+            unread = "1, the last walk step's (JAX renders each batch's frame inside its step and discards the walk's)"
+            gen = torch.Generator(device=dev).manual_seed(2)
+            box = list(env.reset_fn())
+
+            def update():
+                m = lrn.train_step(*box)
+                with torch.no_grad():
+                    box[:] = env.step_fn(box[0], torch.randint(0, 3, (N,), generator=gen, device=dev))[:2]
+                return m
+        else:
+            t1 = time.perf_counter()
+            batch = lrn.collect_expert(0)
+            sync(dev)
+            steps = int(batch[3].any(0).sum())
+            fixed = 2 + steps
+            unread = (f"all {fixed}: the features read the pointgoal, the frames nobody (JAX's collect_expert "
+                      f"renders them too)")
+            extra = (f"; collect_expert {time.perf_counter() - t1:.2f} s for {steps} env steps "
+                     f"({(time.perf_counter() - t1) * 1e3 / steps:.1f} ms each, a host copy per step)")
+            prepared = lrn.prepare_batch(batch)
+            lrn.init_fn(0, batch)
+
+            def update():
+                return lrn.train_step(prepared)
+        sync(dev)
+        build_s = time.perf_counter() - t0
+        ms = []
+        for i in range(1 + U):
+            sync(dev)
+            t0 = time.perf_counter()
+            m = {k: v.item() for k, v in update().items()}
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if not all(np.isfinite(v) for v in m.values()):
+                fail(f"[eqa-il] {name}: non-finite metrics {m}")
+        for p in plain_watch:
+            p.stop()
+        if plain_on_card:
+            fail(f"[eqa-il] {name}: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+        per_update = 0 if name == "pacman" else 1
+        got = path_counts(f"[eqa-il] {name}", raycast_fused_sel_t=fixed + per_update * (1 + U))
+        counts[name] = got["raycast_fused_sel_t"]
+        texts.append(f"{name}: set-up {build_s:.2f} s{extra}; ms per update {[round(x, 2) for x in ms[1:]]} (warm-up "
+                     f"{ms[0]:.1f}); #1 {got['raycast_fused_sel_t']} = {fixed} + {per_update} per update, renders read "
+                     f"by no update: {unread}; last "
+                     + ", ".join(f"{k} {v:.4f}" for k, v in m.items()))
+        del tr, lrn, env, update
+    log(f"[eqa-il] {gpu}: trainer_from_config({CONFIG_EXPERIMENT}.yaml, num_environments={N}), 64x64 frames, "
+        f"{1 + U} updates each: " + "; ".join(texts) + "; no plain version on a card tensor")
+    torch.cuda.empty_cache()
+
+    # the JAX tests' rules on the card
+    rules = {}
+    torch.manual_seed(0)
+    env = eqa_visual_env(dev)
+    cl = EQACNNPretrainLearner(env, num_classes=16)
+    st = cl.init(0)
+    st, m0 = cl.train_step(st)
+    for _ in range(10):
+        st, m = cl.train_step(st)
+    rules["cnn"] = (m0["losses/total"].item(), m["losses/total"].item())
+    if not (np.isfinite(rules["cnn"][1]) and rules["cnn"][1] < rules["cnn"][0] and st.update_idx == 11):
+        fail(f"[eqa-il] test_eqa_cnn_pretrain_learns' rule: total {rules['cnn']}, {st.update_idx} updates")
+    E = env.table.num_episodes
+    rng = np.random.default_rng(0)
+    env.table = dataclasses.replace(
+        env.table, goal_image=torch.as_tensor(rng.integers(0, 255, (E, 32, 32, 3), dtype=np.uint8), device=dev),
+        extras={**env.table.extras,
+                "question_tokens": torch.as_tensor(rng.integers(1, 50, (E, 6)).astype(np.int32), device=dev),
+                "answer_token": torch.as_tensor(rng.integers(0, 8, (E,)).astype(np.int32), device=dev)})
+    vl = VQALearner(env, vocab_size=64, num_answers=8)
+    es, _ = env.reset_fn()
+    vm = [vl.train_step(es)["losses/vqa"].item() for _ in range(16)]
+    rules["vqa"] = (vm[0], vm[-1])
+    if not (np.isfinite(vm[-1]) and vm[-1] < vm[0]):
+        fail(f"[eqa-il] test_vqa_learner's rule: loss {vm[0]:.4f} -> {vm[-1]:.4f}")
+    penv = make_eqa_env(num_envs=8, num_scenes=1, episodes_per_scene=4, seed=0, max_episode_steps=40, device=dev)
+    pt = PacmanTrainer(penv, max_T=24)
+    pbatch = pt.collect_expert(0)
+    pprep = pt.prepare_batch(pbatch)
+    pt.init_fn(0, pbatch)
+    pl = [pt.train_step(pprep)["loss"].item() for _ in range(12)]
+    rules["pacman"] = (pl[0], pl[-1])
+    if not (np.isfinite(pl).all() and pl[-1] < 0.85 * pl[0]):
+        fail(f"[eqa-il] test_pacman_bc_loss_decreases' rule: loss {pl[0]:.4f} -> {pl[-1]:.4f}")
+
+    # one float32 step of each, card against CPU, on the card's inputs
+    checks = {}
+
+    def held(name, lrn_g, lrn_c, step_g, step_c, lr):
+        start = {k: v.detach().cpu().clone() for k, v in lrn_g.model.state_dict().items()}
+        lrn_c.model.load_state_dict(start)
+        with cudnn_deterministic(True):
+            m_g = {k: v.item() for k, v in step_g().items()}
+        m_c = {k: v.item() for k, v in step_c().items()}
+        err = max(abs(m_g[k] - m_c[k]) / max(1.0, abs(m_c[k])) for k in m_c)
+        rows, bad = share_gate(start, {k: v.cpu() for k, v in lrn_g.model.state_dict().items()},
+                               lrn_c.model.state_dict(), lr)
+        if err > BC_LOSS_RTOL or bad:
+            fail(f"[eqa-il] {name} float32 step, card against CPU: losses {err:.3g} relative, tensors below the "
+                 f"share: {bad} ({gap_trace(rows)})")
+        checks[name] = f"{name} losses {err:.3g} relative, least share {min(r[0] for r in rows.values()):.4f}"
+
+    torch.manual_seed(1)
+    cg = EQACNNPretrainLearner(env, num_classes=16)
+    cc = EQACNNPretrainLearner(SimpleNamespace(device=cpu), num_classes=16)
+    walk = torch.as_tensor(np.random.default_rng(1).integers(1, 4, env.num_envs), device=dev)
+    frames = cg.frames(env.step_fn(env.reset_fn()[0], walk)[1])
+    held("eqa-cnn-pretrain", cg, cc, lambda: cg.update(*frames), lambda: cc.update(*to_device(frames, cpu)), 1e-3)
+    vg = VQALearner(env, vocab_size=64, num_answers=8)
+    vc = VQALearner(SimpleNamespace(device=cpu, observation_shapes=env.observation_shapes,
+                                    table=env.table.to(cpu)), vocab_size=64, num_answers=8)
+    obs = env._observations(es)
+    held("vqa", vg, vc, lambda: vg.train_step(es, obs),
+         lambda: vc.train_step(state_to(es, cpu), to_device({"rgb": obs["rgb"]}, cpu)), 3e-4)
+    pc = PacmanTrainer(SimpleNamespace(device=cpu), max_T=24)
+    pc.init_fn(1, pbatch)
+    pt.init_fn(1, pbatch)
+    held("pacman", pt, pc, lambda: pt.train_step(pprep), lambda: pc.train_step(pc.prepare_batch(pbatch)), 1e-3)
+    log(f"[eqa-il] {gpu}: the JAX tests' rules on the card: test_eqa_cnn_pretrain_learns total "
+        f"{rules['cnn'][0]:.4f} -> {rules['cnn'][1]:.4f} (11 steps), test_vqa_learner {rules['vqa'][0]:.4f} -> "
+        f"{rules['vqa'][1]:.4f} (16 steps), test_pacman_bc_loss_decreases {rules['pacman'][0]:.4f} -> "
+        f"{rules['pacman'][1]:.4f} (12 steps, gate < 0.85 x the first); float32 step card against CPU: "
+        + "; ".join(checks.values()) + f"; the phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def eqa_referent_phase(gpu, dev, zero_counts, path_counts):
+    """[eqa-referent]: PPO on the referent-EQA env at
+    scripts/train_eqa_referent_tpu.py's widths (N=256, blind resnet9 +
+    LSTM-96 over question + object table, T=12, 2 x 2 minibatch steps, lr
+    1e-3; the table cut to EQA_REF's 4 x 256 episodes): a warm-up and
+    EQA_REF_UPDATES timed train steps (env-steps/s, launches per env step,
+    idle share); no kernel launched. Gate: one float32 update (1 epoch, 1
+    minibatch) from the rollout's start, card against CPU: losses within
+    LOSS_RTOL of max(1, |x|), [check]'s per-tensor share rule."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from habitat_torch.baselines.ppo import PPOConfig, PPOLearner, RolloutBatch
+    from habitat_torch.tasks.eqa import make_referent_eqa_env
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    N, T = EQA_REF["num_envs"], EQA_REF_PPO["num_steps"]
+    zero_counts()
+    t0 = time.perf_counter()
+    env = make_referent_eqa_env(seed=0, device=dev, **EQA_REF)
+    setup_s = time.perf_counter() - t0
+    torch.manual_seed(0)
+    policy = language_policy(env, dev, 96)
+    lrn = PPOLearner(env, policy, PPOConfig(**EQA_REF_PPO), measure_keys=("answer_accuracy",))
+    rs, walls, roll, upd, metrics = recipe_run("[eqa-referent]", lrn, 1 + EQA_REF_UPDATES, dev)
+    sync(dev)
+    path_counts("[eqa-referent]")  # blind: no kernel, as in the JAX recipe
+    rs, batch, lv, h0, _ = lrn.collect_rollout(rs)
+    start = {k: v.detach().cpu().clone() for k, v in policy.state_dict().items()}
+    check = PPOConfig(**{**EQA_REF_PPO, "ppo_epoch": 1, "num_mini_batch": 1})
+
+    def one_update(device):
+        pol = language_policy(env, device, 96, dtype=torch.float32)
+        pol.load_state_dict(start)
+        lr_ = PPOLearner(SimpleNamespace(num_envs=N, device=device), pol, check)
+        b = RolloutBatch(**{k: to_device(v, device) for k, v in batch._asdict().items()})
+        m = lr_.update(torch.Generator(device=device).manual_seed(0), b, lv.to(device), h0.to(device))
+        return {k: v.item() for k, v in m.items()}, {k: v.detach().cpu() for k, v in pol.state_dict().items()}
+
+    m_card, p_card = one_update(dev)
+    m_cpu, p_cpu = one_update(cpu)
+    loss_err = max(abs(m_card[k] - m_cpu[k]) / max(1.0, abs(m_cpu[k])) for k in m_cpu)
+    rows, bad = share_gate(start, p_card, p_cpu, EQA_REF_PPO["lr"])
+    if loss_err > LOSS_RTOL or bad:
+        fail(f"[eqa-referent] float32 update, card against CPU: losses {loss_err:.3g} relative, tensors below the "
+             f"share: {bad} ({gap_trace(rows)})")
+    act = torch.zeros(N, dtype=torch.int64, device=dev)
+    log(f"[eqa-referent] {gpu}: scripts/train_eqa_referent_tpu.py's widths (N={N}, {EQA_REF['num_scenes']} scenes x "
+        f"{EQA_REF['episodes_per_scene']} episodes, cut from x 4096; episodes of {EQA_REF['max_episode_steps']} steps; "
+        f"blind resnet9 + LSTM-96 over question + eqa_objects; PPO T={T}, 2 x 2 minibatch steps; env set-up "
+        f"{setup_s:.1f} s): " + recipe_text(N, T, walls, roll, upd, metrics)
+        + f"; answer_accuracy {metrics['m_answer_accuracy'] / max(metrics['done_count'], 1.0):.4f} over the last "
+        f"rollout's {metrics['done_count']:.0f} episodes; no kernel launched; "
+        f"float32 update (1 epoch, 1 minibatch) card against CPU: losses {loss_err:.3g} relative, least share "
+        f"{min(r[0] for r in rows.values()):.4f}, beyond lr/10: {gap_trace(rows)}; "
+        + idle_text(dev, env, rs.env_state, act) + f"; the phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def agents_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card):
+    """[agents]: PPOAgent (deterministic) from the flagship export drives one
+    flagship env (N=1: its scenes, 128x128 depth + pointgoal, 200 steps) for
+    one episode, one observation at a time: ms per act, success and SPL.
+    Gates: at every step the agent's action equals the greedy action of the
+    same policy's batched forward on the same observation, carry and mask
+    (and the carries stay equal); #1 once per render; no plain version on a
+    card tensor. GoalFollower then drives the flagship env for one episode
+    (logged), and the open room AGENT_ROOM for one, where it must reach the
+    goal. Returns #1's launches."""
+    import torch
+
+    from habitat_torch.baselines.agents.ppo_agents import PPOAgent
+    from habitat_torch.baselines.agents.simple_agents import GoalFollower
+    from habitat_torch.baselines.flagship import PROTOCOL, WEIGHTS
+    from habitat_torch.core.env_factory import make_nav_env
+    from habitat_torch.datasets.pointnav import make_procedural_pointnav
+    from habitat_torch.models.convert import load_policy_file
+
+    t_phase = time.perf_counter()
+    p = PROTOCOL
+    flagship = make_procedural_pointnav(num_scenes=p["num_scenes"], episodes_per_scene=p["episodes_per_scene"],
+                                        seed=p["scene_seed"])
+
+    def nav_env(data, res=p["res"]):
+        scenes, episodes, fields = data
+        sensors = ((("HabitatSimDepthSensor", {"height": res, "width": res}),) if res else ()) + (
+            ("PointGoalWithGPSCompassSensor", None),)
+        return make_nav_env(scenes, episodes, num_envs=1, precomputed_fields=fields,
+                            max_episode_steps=p["max_episode_steps"], sensor_specs=sensors, device=dev)
+
+    def episode(env, agent, check=None):
+        st, obs = env.reset_fn()
+        agent.reset()
+        steps, act_ms = 0, []
+        while True:
+            sync(dev)
+            t0 = time.perf_counter()
+            a = agent.act({k: v[0] for k, v in obs.items()})
+            act_ms.append((time.perf_counter() - t0) * 1e3)
+            if check:
+                check(obs, a)
+            st, obs, _, done, info = env.step_fn(st, torch.tensor([a], device=dev))
+            steps += 1
+            if done[0]:
+                return steps, act_ms, {k: v[0].item() for k, v in info.items()}
+
+    env = nav_env(flagship)
+    policy = load_policy_file(WEIGHTS, device=dev)
+    agent = PPOAgent(policy, deterministic=True)
+    carry = dict(h=policy.initial_hidden(1), prev=torch.zeros(1, dtype=torch.int32, device=dev),
+                 mask=torch.zeros(1, device=dev))
+    bad = []
+
+    @torch.no_grad()
+    def batched(obs, a):
+        logits, _, carry["h"] = policy(obs, carry["h"], carry["prev"], carry["mask"])
+        b = int(logits.argmax(-1)[0])
+        if b != a or not torch.equal(carry["h"], agent.hidden):
+            bad.append((len(bad), a, b))
+        carry["prev"] = torch.tensor([b], dtype=torch.int32, device=dev)
+        carry["mask"] = torch.ones(1, device=dev)
+
+    zero_counts()
+    for q in plain_watch:
+        q.start()
+    steps, act_ms, info = episode(env, agent, batched)
+    sync(dev)
+    for q in plain_watch:
+        q.stop()
+    if plain_on_card:
+        fail(f"[agents]: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+    launches = path_counts("[agents] PPOAgent episode", raycast_fused_sel_t=1 + steps)
+    if bad:
+        fail(f"[agents] PPOAgent parts from the batched greedy policy at {len(bad)} of {steps} steps: {bad[:4]}")
+    act_ms = sorted(act_ms[1:])
+    g_steps, _, g_info = episode(nav_env(flagship, res=None), GoalFollower())
+    r_steps, _, r_info = episode(nav_env(make_procedural_pointnav(**AGENT_ROOM), res=None), GoalFollower())
+    if r_info["success"] != 1.0:
+        fail(f"[agents] GoalFollower in the open room: {r_info}")
+    log(f"[agents] {gpu}: PPOAgent (flagship export, resnet18 + LSTM-512, 128x128 depth + pointgoal, "
+        f"deterministic) on one flagship env: {steps} steps, success {info['success']:.0f}, SPL {info['spl']:.4f}; "
+        f"ms per act median {act_ms[len(act_ms) // 2]:.2f} (min {act_ms[0]:.2f}, max {act_ms[-1]:.2f}); the action "
+        f"and carry equal to the batched greedy policy's at every step; #1 {launches['raycast_fused_sel_t']} = 1 + "
+        f"{steps}; GoalFollower: the flagship env's first episode {g_steps} steps, success {g_info['success']:.0f}, "
+        f"collisions {g_info['collisions']:.0f} (its goal lies behind walls), the open room's {r_steps} steps, "
+        f"success {r_info['success']:.0f}, SPL {r_info['spl']:.4f}; the phase {time.perf_counter() - t_phase:.1f} s")
+    return launches["raycast_fused_sel_t"]
+
+
 def main():
     import torch
 
@@ -4309,6 +4891,23 @@ def main():
     log(f"[hrl] starts {time.perf_counter() - t_start:.1f} s after the start")
     torch.cuda.empty_cache()
     hrl_phase(gpu, dev, zero_counts, path_counts)
+
+    # ---- 18. EQA and VLN, the EQA imitation trainers, the agents -----------
+    log(f"[vln] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    vln_launches, vln_pool = vln_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
+    sel["vln_launches"] = vln_launches["raycast_fused_sel_t"]
+    pool_row["vln_launches"] = vln_launches["max_pool_3x3s2_bwd"]
+    pool_row["vln_update_input"] = vln_pool
+    log(f"[eqa-il] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    sel["eqa_il_launches"] = eqa_il_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
+    log(f"[eqa-referent] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    eqa_referent_phase(gpu, dev, zero_counts, path_counts)
+    log(f"[agents] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    sel["agents_launches"] = agents_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 

@@ -14,12 +14,13 @@ into the port's envs, policy and trainer. Everything is built on ``device``
 backbone of ``models/resnet.py``) build the policy. A hierarchical
 experiment (``updater_name`` HRL..., or a ``hierarchical_policy`` block)
 builds HRL-PPO over the oracle skills (``baselines/hrl``) on a
-rearrangement env in discrete control without the head camera.
+rearrangement env in discrete control without the head camera. The EQA
+imitation trainers (``eqa-cnn-pretrain``, ``vqa``, ``pacman``) build over
+their procedural envs (``il_trainer_from_config``).
 
 Not ported yet, raising ``NotImplementedError`` (the message names the
 module it waits for): file datasets (PointNav-v1 and ObjectNav-v1 episode
-archives on disk); the EQA imitation trainers (``eqa-cnn-pretrain``,
-``vqa``, ``pacman``).
+archives on disk).
 
 Image-goal observations feed the policy's goal encoders and are never put
 in ``goal_keys``: the JAX package's ``policy_from_config`` passes
@@ -32,8 +33,14 @@ from __future__ import annotations
 import os
 from typing import List, Optional
 
+import torch
+
+import habitat_torch.baselines.il.eqa_trainers  # noqa: F401  (registers the EQA trainers)
+import habitat_torch.baselines.il.pacman  # noqa: F401  (registers the PACMAN trainer)
 import habitat_torch.models.policy  # noqa: F401  (registers the policies)
+import habitat_torch.tasks.eqa  # noqa: F401  (registers the EQA components)
 import habitat_torch.tasks.nav  # noqa: F401  (registers the nav components)
+import habitat_torch.tasks.vln  # noqa: F401  (registers the VLN components)
 from habitat_torch.baselines.ppo import PPOConfig
 from habitat_torch.baselines.trainer import TrainerConfig
 from habitat_torch.config.omega import Config
@@ -277,14 +284,104 @@ def hrl_trainer_from_config(config: Config, env):
                       log_interval=int(hb.get("log_interval", 10)))
 
 
-# the JAX modules each unported imitation trainer waits for
-IL_MODULES = {"eqa-cnn-pretrain": "baselines/il/eqa_trainers.py", "vqa": "baselines/il/eqa_trainers.py",
-              "pacman": "baselines/il/pacman.py"}
+IL_TRAINERS = ("eqa-cnn-pretrain", "vqa", "pacman")
 
 
-def il_trainer_from_config(config: Config, trainer_name: str):
-    raise NotImplementedError(f"the imitation-learning trainer {trainer_name!r} waits for the port of "
-                              f"{IL_MODULES[trainer_name]} and tasks/eqa.py")
+class _ILFacade:
+    """``train(seed)`` of an imitation learner for ``run.py``: updates until
+    ``total_num_steps`` env steps (``steps_per_update`` each), a log line
+    every ``log_interval`` updates; returns the last metrics as floats."""
+
+    def __init__(self, learner, hb: Config, steps_per_update: int, update):
+        self.learner, self.env = learner, learner.env
+        self._hb, self._steps, self._update = hb, steps_per_update, update
+
+    def train(self, seed: int = 0):
+        total = float(self._hb.get("total_num_steps", 2e4))
+        log_every = int(self._hb.get("log_interval", 10))
+        step = self._update(seed)
+        done, u, m = 0, 0, {}
+        while done < total:
+            m = {k: v.item() for k, v in step().items()}
+            done += self._steps
+            u += 1
+            if u % log_every == 0:
+                logger.info(f"il update {u} steps {done}: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())))
+        return m
+
+
+def il_trainer_from_config(config: Config, trainer_name: str, device=None):
+    """The EQA imitation experiments (reference il_eqa_cnn_pretrain.yaml,
+    il_vqa.yaml, il_pacman_nav.yaml): the learner over its procedural env
+    on ``device``, behind a ``train(seed)`` facade. ``eqa-cnn-pretrain``:
+    ``make_nav_env`` on 2 x 8 procedural PointNav episodes with 64x64 RGB,
+    depth and semantics and the pointgoal; ``vqa`` and ``pacman``:
+    ``make_eqa_env(visual_size=64)``. ``num_environments`` (default 8),
+    ``habitat.seed``, ``total_num_steps``, ``log_interval`` and
+    ``il.num_epochs`` (PACMAN, default 10) are read as the JAX package
+    reads them."""
+    from habitat_torch.baselines.il.eqa_trainers import EQACNNPretrainLearner, VQALearner
+    from habitat_torch.baselines.il.pacman import PacmanTrainer
+    from habitat_torch.tasks.eqa import make_eqa_env
+
+    hb = config.habitat_baselines
+    num_envs = int(hb.get("num_environments", 8))
+    seed = int(config.habitat.get("seed", 0))
+    dev = resolve_device(device)
+    if trainer_name == "eqa-cnn-pretrain":
+        from habitat_torch.core.env_factory import make_nav_env
+        from habitat_torch.datasets.pointnav import make_procedural_pointnav
+
+        scenes, episodes, fields = make_procedural_pointnav(num_scenes=2, episodes_per_scene=8, seed=seed)
+        frame = {"height": 64, "width": 64}
+        env = make_nav_env(
+            scenes, episodes, num_envs=num_envs, precomputed_fields=fields, max_episode_steps=100, device=dev,
+            sensor_specs=(("HabitatSimRGBSensor", frame), ("HabitatSimDepthSensor", frame),
+                          ("HabitatSimSemanticSensor", frame), ("PointGoalWithGPSCompassSensor", None)))
+        learner = EQACNNPretrainLearner(env)
+
+        def pretrain(seed):
+            box = [learner.init(seed)]
+
+            def step():
+                box[0], m = learner.train_step(box[0])
+                return m
+            return step
+
+        return _ILFacade(learner, hb, num_envs, pretrain)
+    env = make_eqa_env(num_envs=num_envs, seed=seed, visual_size=64, device=dev)
+    if trainer_name == "vqa":
+        learner = VQALearner(env)
+
+        def vqa(seed):
+            # walk the envs for frame and episode variety (the reference
+            # samples its disk dataset per batch), actions in {0, 1, 2}; the
+            # step's frames are the next batch's
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed + 2)
+            box = list(env.reset_fn())
+
+            def step():
+                m = learner.train_step(*box)
+                acts = torch.randint(0, 3, (env.num_envs,), generator=gen, device=dev)
+                with torch.no_grad():
+                    box[:] = env.step_fn(box[0], acts)[:2]
+                return m
+            return step
+
+        return _ILFacade(learner, hb, num_envs, vqa)
+    if trainer_name == "pacman":
+        trainer = PacmanTrainer(env)
+
+        class _PacmanFacade:
+            def __init__(self):
+                self.learner, self.env = trainer, env
+
+            def train(self, seed: int = 0):
+                return trainer.train(num_epochs=int(hb.get("il", Config()).get("num_epochs", 10) or 10), seed=seed)
+
+        return _PacmanFacade()
+    raise KeyError(trainer_name)
 
 
 def trainer_from_config(config: Config, device=None):
@@ -294,8 +391,8 @@ def trainer_from_config(config: Config, device=None):
     here and handed to the env and the trainer."""
     hb = config.habitat_baselines
     trainer_name = str(hb.get("trainer_name", "ppo"))
-    if trainer_name in IL_MODULES:
-        return il_trainer_from_config(config, trainer_name)
+    if trainer_name in IL_TRAINERS:
+        return il_trainer_from_config(config, trainer_name, device=device)
     rows = distributed.env_rows(int(hb.get("num_environments", 16)))
     pol_main = hb.rl.policy.get("main_agent", Config()) or Config()
     if str(hb.get("updater_name", "")).upper().startswith("HRL") or pol_main.get("hierarchical_policy", None):

@@ -25,6 +25,22 @@ under "/"-joined paths (a leading "params/" is accepted), as
 (``habitat_tpu/baselines/aux_losses.CPCA``: Embed, GRUCell, three Dense)
 to ``baselines/aux_losses.CPCA``'s state dict.
 
+The language inputs of the policy: ``net/instruction_embed`` ->
+``net.instruction.embed`` and the OptimizedLSTMCell ``net/instruction_lstm``
+-> the ``nn.LSTM`` ``net.instruction.lstm`` (``*_l0``, bias_ih_l0 = 0);
+``state_fc_vln_candidates`` / ``state_fc_eqa_objects`` as every state_fc.
+
+``multitask_cnn_params_from_jax``, ``vqa_params_from_jax`` and
+``pacman_params_from_jax`` convert the EQA imitation models
+(``habitat_tpu/baselines/il/``: MultitaskCNN's ``enc<i>``, ``enc_gn<i>``,
+``<head>_dec<i>``, ``<head>_gn<i>``, ``<head>_out``; VqaModel's encoder
+``MultitaskCNN_0``, ``frame_proj``, ``q_embed``, ``q_lstm``, ``fc1``,
+``answer_head``; PacmanModel's ``cnn_fc``, ``q_rnn`` (Embed and
+OptimizedLSTMCell), ``ques_tr``, ``action_embed``, the planner's
+``GRUCell_0``, ``planner_head``, ``controller_fc0``, ``controller_head``)
+to the port's modules of ``baselines/il/eqa_trainers.py`` and
+``baselines/il/pacman.py``.
+
 ``high_level_params_from_jax`` converts HRL-PPO's ``HighLevelNet``
 (``habitat_tpu/baselines/hrl/hrl_ppo.py``: ``Dense_0``, ``Dense_1``,
 ``actor``, ``critic``) to ``baselines/hrl/hrl_ppo.HighLevelNet``'s
@@ -95,6 +111,19 @@ def _encoder(rest: str, enc: str, v: np.ndarray) -> Dict[str, np.ndarray]:
     raise KeyError(f"no port counterpart for encoder parameter {rest!r} of {enc}")
 
 
+def _lstm(prefix: str, g: Dict[str, np.ndarray], suffix: str = "") -> Dict[str, np.ndarray]:
+    """A Flax OptimizedLSTMCell's {"ii/kernel": ..., "hi/bias": ...} -> a
+    torch LSTM cell under ``prefix`` (``suffix`` "_l0" for ``nn.LSTM``):
+    i, f, g, o rows, the recurrent bias as bias_hh, bias_ih zero."""
+    out = {
+        f"{prefix}.weight_ih{suffix}": np.concatenate([g[f"i{k}/kernel"].T for k in _GATES]),
+        f"{prefix}.weight_hh{suffix}": np.concatenate([g[f"h{k}/kernel"].T for k in _GATES]),
+        f"{prefix}.bias_hh{suffix}": np.concatenate([g[f"h{k}/bias"] for k in _GATES]),
+    }
+    out[f"{prefix}.bias_ih{suffix}"] = np.zeros_like(out[f"{prefix}.bias_hh{suffix}"])
+    return out
+
+
 def _convert_one(path, v):
     p = "/".join(path)
     m = re.fullmatch(r"(action_head|critic)/Dense_0/(kernel|bias)", p)
@@ -114,6 +143,8 @@ def _convert_one(path, v):
     m = re.fullmatch(r"net/(prev_action_embed|objectgoal_embed)/embedding", p)
     if m:
         return {f"net.{m[1]}.weight": v}
+    if p == "net/instruction_embed/embedding":
+        return {"net.instruction.embed.weight": v}
     m = re.fullmatch(r"net/(ResNetEncoder_0|goal_encoder_(imagegoal|instance_imagegoal))/(.*)", p)
     if m:
         return _encoder(m[3], "net.encoder" if m[2] is None else f"net.goal_encoder.{m[2]}", v)
@@ -148,21 +179,90 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """Flattened Flax ActorCritic params -> ``ActorCritic.state_dict()``."""
     out: Dict[str, np.ndarray] = {}
     cells: Dict[tuple, Dict[str, np.ndarray]] = {}
+    instruction: Dict[str, np.ndarray] = {}
     for p, v in _leaves(flat):
         m = re.fullmatch(r"net/RNNStateEncoder_0/(lstm|gru)_(\d+)/([ih][ifgorzn])/(kernel|bias)", p)
         if m:
             cells.setdefault((m[1], m[2]), {})[f"{m[3]}/{m[4]}"] = v
             continue
+        m = re.fullmatch(r"net/instruction_lstm/([ih][ifgo]/(?:kernel|bias))", p)
+        if m:
+            instruction[m[1]] = v
+            continue
         out.update(_convert_one(p.split("/"), v))
     for (kind, layer), g in sorted(cells.items()):
         prefix = f"net.rnn.cells.{layer}"
-        if kind == "gru":
-            out.update(_gru(prefix, g))
-            continue
-        out[f"{prefix}.weight_ih"] = np.concatenate([g[f"i{k}/kernel"].T for k in _GATES])
-        out[f"{prefix}.weight_hh"] = np.concatenate([g[f"h{k}/kernel"].T for k in _GATES])
-        out[f"{prefix}.bias_hh"] = np.concatenate([g[f"h{k}/bias"] for k in _GATES])
-        out[f"{prefix}.bias_ih"] = np.zeros_like(out[f"{prefix}.bias_hh"])
+        out.update(_gru(prefix, g) if kind == "gru" else _lstm(prefix, g))
+    if instruction:
+        out.update(_lstm("net.instruction.lstm", instruction, "_l0"))
+    return _tensors(out)
+
+
+def _cnn_one(p: str, v: np.ndarray, prefix: str) -> Dict[str, np.ndarray]:
+    """One MultitaskCNN parameter (its Flax path ``p``) -> the port's."""
+    m = re.fullmatch(r"(?:enc(\d)|(rgb|depth|seg)_(dec(\d)|out))/(kernel|bias)", p)
+    if m:
+        name = (f"enc.{m[1]}" if m[1] is not None
+                else f"out.{m[2]}" if m[3] == "out" else f"dec.{m[2]}.{m[4]}")
+        return _conv(prefix + name, v) if m[5] == "kernel" else {f"{prefix}{name}.bias": v}
+    m = re.fullmatch(r"(?:enc_gn(\d)|(rgb|depth|seg)_gn(\d))/(scale|bias)", p)
+    if m:
+        return _norm(prefix + (f"enc_gn.{m[1]}" if m[1] is not None else f"dec_gn.{m[2]}.{m[3]}"), m[4], v)
+    raise KeyError(f"no port counterpart for MultitaskCNN parameter {p!r}")
+
+
+def multitask_cnn_params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flattened Flax MultitaskCNN params -> ``MultitaskCNN.state_dict()``
+    (conv kernels HWIO -> OIHW)."""
+    out: Dict[str, np.ndarray] = {}
+    for p, v in _leaves(flat):
+        out.update(_cnn_one(p, v, ""))
+    return _tensors(out)
+
+
+def _split_cells(flat: Dict[str, np.ndarray], cells):
+    """(the other leaves, {cell: {"ii/kernel": ...}}) for the Flax cell
+    paths ``cells``."""
+    rest, found = {}, {c: {} for c in cells}
+    for p, v in _leaves(flat):
+        for c in cells:
+            if p.startswith(c + "/"):
+                found[c][p[len(c) + 1:]] = v
+                break
+        else:
+            rest[p] = v
+    return rest, found
+
+
+def vqa_params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flattened Flax VqaModel params -> ``VqaModel.state_dict()``."""
+    rest, cells = _split_cells(flat, ("q_lstm",))
+    out = _lstm("q_lstm", cells["q_lstm"])
+    for p, v in rest.items():
+        if p.startswith("MultitaskCNN_0/"):
+            out.update(_cnn_one(p[len("MultitaskCNN_0/"):], v, "cnn."))
+        elif p == "q_embed/embedding":
+            out["q_embed.weight"] = v
+        elif (m := re.fullmatch(r"(frame_proj|fc1|answer_head)/(kernel|bias)", p)):
+            out.update(_dense(m[1], m[2], v))
+        else:
+            raise KeyError(f"no port counterpart for VqaModel parameter {p!r}")
+    return _tensors(out)
+
+
+def pacman_params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flattened Flax PacmanModel params -> ``PacmanModel.state_dict()``."""
+    rest, cells = _split_cells(flat, ("q_rnn/OptimizedLSTMCell_0", "GRUCell_0"))
+    out = {**_lstm("q_rnn.lstm", cells["q_rnn/OptimizedLSTMCell_0"], "_l0"), **_gru("planner_gru", cells["GRUCell_0"])}
+    for p, v in rest.items():
+        if p == "q_rnn/Embed_0/embedding":
+            out["q_rnn.embed.weight"] = v
+        elif p == "action_embed/embedding":
+            out["action_embed.weight"] = v
+        elif (m := re.fullmatch(r"(cnn_fc|ques_tr|planner_head|controller_fc0|controller_head)/(kernel|bias)", p)):
+            out.update(_dense(m[1], m[2], v))
+        else:
+            raise KeyError(f"no port counterpart for PacmanModel parameter {p!r}")
     return _tensors(out)
 
 

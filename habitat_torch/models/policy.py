@@ -3,21 +3,25 @@
 The net concatenates, in the JAX net's order: visual_fc (unless blind) |
 goal_visual_fc per image goal (a second ResNetEncoder over the goal RGB) |
 goal_fc per goal sensor | state_fc per state sensor | objectgoal_embed |
-the previous action; the recurrent encoder (an LSTM, or a GRU with
-``rnn_type="GRU"``) reads the concatenation. The pointgoal
+the instruction encoder | the previous action; the recurrent encoder (an
+LSTM, or a GRU with ``rnn_type="GRU"``) reads the concatenation. The pointgoal
 (rho, phi) enters as (rho, cos(-phi), sin(-phi)) and the objectgoal id as
 one float; each state sensor goes through its own Linear(width, 32). A
 discrete previous action enters as index + 1, or 0 at an episode start,
 through an embedding; a continuous one through Linear(A, 32), unmasked.
 The rearrangement head cameras ``robot_head_rgb`` / ``robot_head_depth``
-are read as the encoder's rgb / depth.
+are read as the encoder's rgb / depth. The instruction encoder reads the
+VLN ``instruction`` tokens, or else the EQA ``question``: Embedding(128, 32),
+then an LSTM-128 over the padded tokens from a zero state, keeping its
+output at the last valid position (length = the count of tokens > 0, at
+least 1).
 
 Heads: ``ActorCritic`` gives logits (categorical); ``GaussianActorCritic``
 gives (mu, log_std) of a diagonal Gaussian whose log std is one parameter
 per action dimension, clipped to [-5, 2]. Unlike Flax, a torch module
 declares its input widths at construction: ``obs_inputs_of`` reads the
-state sensors, the image goals and the object goal from an env's
-``observation_shapes``.
+state sensors, the image goals, the object goal and the language input
+from an env's ``observation_shapes``.
 """
 
 from __future__ import annotations
@@ -40,11 +44,14 @@ GOAL_WIDTHS = {"pointgoal_with_gps_compass": 3, "pointgoal": 3, "objectgoal": 1}
 # image goals, each through its own RGB encoder, in the JAX net's order
 IMAGE_GOAL_KEYS = ("imagegoal", "instance_imagegoal")
 # the state sensors the net embeds, in the JAX package's fixed concatenation
-# order: the nav ones, then the rearrangement ones (its VLN/EQA tables are
-# not ported)
+# order: the nav ones, the rearrangement ones, then the referent VLN and EQA
+# tables
 NAV_STATE_KEYS = ("gps", "compass", "heading", "proximity")
 STATE_KEYS = ("obj_start_sensor", "obj_goal_sensor", "joint", "is_holding", "ee_pos", "relative_resting_position")
-EMBED_ORDER = NAV_STATE_KEYS + STATE_KEYS
+LANGUAGE_TABLE_KEYS = ("vln_candidates", "eqa_objects")
+EMBED_ORDER = NAV_STATE_KEYS + STATE_KEYS + LANGUAGE_TABLE_KEYS
+# the token inputs the instruction encoder reads, the first present
+LANGUAGE_KEYS = ("instruction", "question")
 
 
 def state_keys_of(observation_shapes: Mapping[str, Tuple[Tuple[int, ...], torch.dtype]]) -> Dict[str, int]:
@@ -56,13 +63,36 @@ def state_keys_of(observation_shapes: Mapping[str, Tuple[Tuple[int, ...], torch.
 
 def obs_inputs_of(observation_shapes: Mapping[str, Tuple[Tuple[int, ...], torch.dtype]]) -> Dict:
     """The net's keyword arguments that an env's observations decide:
-    ``state_keys``, ``image_goals`` ({key: (H, W)}) and
-    ``objectgoal_embed`` (whether ``objectgoal`` is observed)."""
+    ``state_keys``, ``image_goals`` ({key: (H, W)}),
+    ``objectgoal_embed`` (whether ``objectgoal`` is observed) and
+    ``instruction_encoder`` (whether ``instruction`` or ``question`` is)."""
     return dict(
         state_keys=state_keys_of(observation_shapes),
         image_goals={k: tuple(observation_shapes[k][0][:2]) for k in IMAGE_GOAL_KEYS if k in observation_shapes},
         objectgoal_embed="objectgoal" in observation_shapes,
+        instruction_encoder=any(k in observation_shapes for k in LANGUAGE_KEYS),
     )
+
+
+class InstructionEncoder(nn.Module):
+    """Embedding(128, 32) and an LSTM-128 over (B, L) padded tokens from a
+    zero state; returns the LSTM's output at each row's last valid position
+    (the count of tokens > 0, at least 1). The LSTM has the one bias of
+    Flax's OptimizedLSTMCell, ``bias_hh_l0``; ``bias_ih_l0`` stays zero and
+    untrained."""
+
+    def __init__(self, vocab: int = 128, embed: int = 32, hidden: int = 128):
+        super().__init__()
+        self.embed = nn.Embedding(vocab, embed)
+        self.lstm = nn.LSTM(embed, hidden, batch_first=True)
+        nn.init.zeros_(self.lstm.bias_ih_l0)
+        self.lstm.bias_ih_l0.requires_grad_(False)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        tokens = tokens.long()
+        hs, _ = self.lstm(self.embed(tokens))  # (B, L, H)
+        last = (tokens > 0).sum(-1).clamp(min=1) - 1
+        return hs[torch.arange(hs.shape[0], device=hs.device), last]
 
 
 class PointNavResNetNet(nn.Module):
@@ -84,11 +114,13 @@ class PointNavResNetNet(nn.Module):
         state_keys: Mapping[str, int] = (),
         image_goals: Mapping[str, Tuple[int, int]] = (),
         objectgoal_embed: bool = False,
+        instruction_encoder: bool = False,
         discrete_actions: bool = True,
         dtype=torch.bfloat16,
     ):
         """``num_actions``: the action count of a discrete policy, the
-        action's width of a continuous one (``discrete_actions=False``)."""
+        action's width of a continuous one (``discrete_actions=False``);
+        ``instruction_encoder`` reads ``instruction`` (or ``question``)."""
         super().__init__()
         for k in goal_keys:
             if k not in GOAL_WIDTHS:
@@ -122,6 +154,7 @@ class PointNavResNetNet(nn.Module):
         self.state_keys = tuple(k for k in EMBED_ORDER if k in state_keys)
         self.state_fc = nn.ModuleDict({k: nn.Linear(state_keys[k], 32) for k in self.state_keys})
         self.objectgoal_embed = nn.Embedding(64, 32) if objectgoal_embed else None
+        self.instruction = InstructionEncoder() if instruction_encoder else None
         if discrete_actions:
             self.prev_action_embed = nn.Embedding(num_actions + 1, 32)
         else:
@@ -129,6 +162,7 @@ class PointNavResNetNet(nn.Module):
         width = (
             hidden_size * (has_visual + len(self.image_goal_keys))
             + 32 * (len(self.goal_keys) + len(self.state_keys) + objectgoal_embed + 1)
+            + 128 * instruction_encoder
         )
         self.rnn = RNNStateEncoder(width, hidden_size, num_recurrent_layers, rnn_type)
 
@@ -172,6 +206,8 @@ class PointNavResNetNet(nn.Module):
             parts.append(self.state_fc[k](obs[k].float()))
         if self.objectgoal_embed is not None:
             parts.append(self.objectgoal_embed(obs["objectgoal"][..., 0].long()))
+        if self.instruction is not None:
+            parts.append(self.instruction(next(obs[k] for k in LANGUAGE_KEYS if k in obs)))
         pa = flat(prev_actions)
         if self.discrete_actions:
             parts.append(self.prev_action_embed(torch.where(flat(masks) > 0, pa.long() + 1, 0)))
@@ -318,6 +354,7 @@ def make_pointnav_resnet_policy(
     state_keys: Mapping[str, int] = (),
     image_goals: Mapping[str, Tuple[int, int]] = (),
     objectgoal_embed: bool = False,
+    instruction_encoder: bool = False,
     dtype=torch.bfloat16,
     device=None,
 ) -> ActorCritic:
@@ -341,6 +378,7 @@ def make_pointnav_resnet_policy(
             state_keys=state_keys,
             image_goals=image_goals,
             objectgoal_embed=objectgoal_embed,
+            instruction_encoder=instruction_encoder,
             dtype=dtype,
         )
     ).to(dev)
@@ -369,6 +407,7 @@ def make_gaussian_resnet_policy(
     state_keys: Mapping[str, int] = (),
     image_goals: Mapping[str, Tuple[int, int]] = (),
     objectgoal_embed: bool = False,
+    instruction_encoder: bool = False,
     std_init: float = 0.0,
     dtype=torch.bfloat16,
     device=None,
@@ -390,6 +429,7 @@ def make_gaussian_resnet_policy(
         state_keys=state_keys,
         image_goals=image_goals,
         objectgoal_embed=objectgoal_embed,
+        instruction_encoder=instruction_encoder,
         discrete_actions=False,
         dtype=dtype,
     )

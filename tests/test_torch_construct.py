@@ -203,7 +203,7 @@ def _small_pick(extra=()):
 ARM_PICK = ["habitat.task.actions.arm_action.type=ArmAction", "habitat.task.actions.base_velocity.type=BaseVelAction"]
 
 
-@pytest.mark.parametrize("case", ["objectnav_file", "pacman", "il"])
+@pytest.mark.parametrize("case", ["objectnav_file", "eval_video", "reach"])
 def test_unported_raise_not_implemented(case, tmp_path):
     if case == "objectnav_file":
         # an ObjectNav-v1 episode file on disk waits for sims/loaders.py
@@ -212,15 +212,15 @@ def test_unported_raise_not_implemented(case, tmp_path):
         cfg = get_config("benchmark/nav/objectnav/objectnav_procgen.yaml", [
             "habitat.dataset.type=ObjectNav-v1", f"habitat.dataset.data_path={path}"])
         call, match = lambda: tcons.env_from_config(cfg, num_envs=2, device="cpu"), "loaders.py"
-    elif case == "pacman":
-        # the EQA imitation trainers wait for tasks/eqa.py and their modules
-        call, match = lambda: tcons.trainer_from_config(
-            get_config("pointnav/ppo_pointnav_example.yaml", ["habitat_baselines.trainer_name=pacman"]),
-            device="cpu"), "pacman.py"
+    elif case == "eval_video":
+        # eval videos wait for utils/visualizations/
+        from habitat_torch.baselines.evaluator import evaluate_agent
+
+        call, match = lambda: evaluate_agent(None, None, video_option=("disk",)), "utils/visualizations"
     else:
-        call, match = lambda: tcons.trainer_from_config(
-            get_config("pointnav/ppo_pointnav_example.yaml", ["habitat_baselines.trainer_name=vqa"]),
-            device="cpu"), "vqa"
+        # the reach task's goal comes from JAX's threefry RNG
+        call, match = lambda: tgen.make_rearrange_env(num_envs=2, task="reach", with_visual=False,
+                                                      device="cpu"), "threefry"
     with pytest.raises(NotImplementedError, match=match):
         call()
 

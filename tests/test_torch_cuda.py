@@ -1416,3 +1416,125 @@ def test_hrl_ppo_train_step_on_card_matches_cpu(card):
         assert abs(l_card[k] - l_cpu[k]) <= 1e-5 * max(1.0, abs(l_cpu[k])), k
     shares = _tensor_shares(start, p_card, p_cpu, cfg.lr)
     assert min(shares.values()) >= 0.99, min(shares.items(), key=lambda kv: kv[1])
+
+
+def _vln_env(device, n=8, depth=32):
+    from habitat_torch.tasks.vln import make_vln_env
+
+    specs = (("HabitatSimDepthSensor", {"height": depth, "width": depth}),) if depth else ()
+    return make_vln_env(num_envs=n, num_scenes=1, episodes_per_scene=8, seed=0, with_pointgoal=False,
+                        max_episode_steps=40, visual_specs=specs, device=device)
+
+
+def _language_policy(env, device, hidden=64):
+    from habitat_torch.models.policy import make_pointnav_resnet_policy, obs_inputs_of
+
+    shapes = env.observation_shapes
+    kw = dict(visual_inputs=("depth",), input_hw=tuple(shapes["depth"][0][:2])) if "depth" in shapes else {}
+    return make_pointnav_resnet_policy(env.num_actions, backbone="resnet9", hidden_size=hidden,
+                                       has_visual="depth" in shapes, goal_keys=(), dtype=torch.float32, device=device,
+                                       **obs_inputs_of(shapes), **kw)
+
+
+def test_vln_bc_update_on_card_matches_cpu(card):
+    """One VLN BC update (instruction + GPS + compass, blind as
+    test_bc_train_step_on_card_matches_cpu's: a fresh Adam step is sign(g)
+    * lr, and the stem's near-zero gradients part in sign between cuDNN's
+    and the CPU's convolutions; LSTM-64, N=8, T=8, float32) from the same
+    weights: teachers of each device's rollout equal, and on the card's
+    batch the loss within 1e-5 relative and each tensor by the share rule
+    at BC's lr."""
+    from habitat_torch.baselines.il.bc_trainer import BCConfig, BCLearner
+
+    torch.manual_seed(0)
+    start = _language_policy(_vln_env("cpu", depth=None), "cpu").state_dict()
+    out = {}
+    for d in (card, "cpu"):
+        env = _vln_env(d, depth=None)
+        pol = _language_policy(env, d)
+        pol.load_state_dict(start)
+        lrn = BCLearner(env, pol, BCConfig(num_steps=8))
+        _, batch = lrn.collect_rollout(lrn.init())
+        out[str(d)] = lrn, pol, batch
+    (l_card, p_card, b_card), (l_cpu, p_cpu, b_cpu) = out[str(card)], out["cpu"]
+    assert torch.equal(b_card["teacher"].cpu(), b_cpu["teacher"])
+    m_card, _ = l_card.update(b_card)
+    on_cpu = {k: ({o: x.cpu() for o, x in v.items()} if isinstance(v, dict) else v.cpu()) for k, v in b_card.items()}
+    m_cpu, _ = l_cpu.update(on_cpu)
+    a, b = m_card["losses/bc_loss"].item(), m_cpu["losses/bc_loss"].item()
+    assert abs(a - b) <= 1e-5 * max(1.0, abs(b))
+    shares = _tensor_shares(start, {k: v.cpu() for k, v in p_card.state_dict().items()}, p_cpu.state_dict(),
+                            BCConfig().lr)
+    assert min(shares.values()) >= 0.99, min(shares.items(), key=lambda kv: kv[1])
+
+
+def test_language_policy_on_card_matches_cpu(card):
+    """The policy with instruction tokens (padded, an all-pad row) and the
+    referent candidates, blind, float32: logits, values and hidden state on
+    the card within 1e-5 of the CPU's."""
+    env = _vln_env("cpu", n=4, depth=None)
+    torch.manual_seed(0)
+    pol = _language_policy(env, "cpu")
+    rng = np.random.default_rng(0)
+    toks = np.zeros((5, 64), np.int32)
+    for i in range(4):
+        k = int(rng.integers(1, 64))
+        toks[i, :k] = rng.integers(1, 128, k)
+    obs = {"instruction": torch.as_tensor(toks), "gps": torch.randn(5, 2), "compass": torch.randn(5, 1)}
+    args = (pol.initial_hidden(5), torch.tensor([0, 1, 2, 3, 0]), torch.tensor([0.0, 1, 1, 0, 1]))
+    with torch.no_grad():
+        ref = pol(obs, *args)
+        card_pol = _language_policy(env, card)
+        card_pol.load_state_dict(pol.state_dict())
+        got = card_pol({k: v.to(card) for k, v in obs.items()}, *(a.to(card) for a in args))
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.cpu(), r, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("trainer", ["eqa-cnn-pretrain", "vqa", "pacman"])
+def test_eqa_learner_step_on_card_matches_cpu(card, trainer):
+    """One step of each EQA learner (float32 models) from the same weights on
+    the card's inputs (the CNN pretrain walk's frames, VQA's frame and goal
+    table, PACMAN's expert batch): losses within 1e-5 relative, each tensor
+    by the share rule at the learner's lr."""
+    from types import SimpleNamespace
+
+    from habitat_torch.baselines.il.eqa_trainers import EQACNNPretrainLearner, VQALearner
+    from habitat_torch.baselines.il.pacman import PacmanTrainer
+    from habitat_torch.tasks.eqa import make_eqa_env
+
+    cpu = torch.device("cpu")
+    torch.manual_seed(0)
+    if trainer == "eqa-cnn-pretrain":
+        from habitat_torch.core.env_factory import make_nav_env
+
+        scenes, episodes, fields = make_procedural_pointnav(num_scenes=2, episodes_per_scene=4, seed=0, extent=6.0)
+        frame = {"height": 32, "width": 32}
+        env = make_nav_env(scenes, episodes, num_envs=4, precomputed_fields=fields, device=card,
+                           sensor_specs=(("HabitatSimRGBSensor", frame), ("HabitatSimDepthSensor", frame),
+                                         ("HabitatSimSemanticSensor", frame)))
+        g, c, lr = EQACNNPretrainLearner(env, 16), EQACNNPretrainLearner(SimpleNamespace(device=cpu), 16), 1e-3
+        frames = g.frames(env.step_fn(env.reset_fn()[0], torch.tensor([1, 2, 3, 1], device=card))[1])
+        step_g, step_c = (lambda: g.update(*frames)), (lambda: c.update(*(f.cpu() for f in frames)))
+    elif trainer == "vqa":
+        env = make_eqa_env(num_envs=4, num_scenes=1, episodes_per_scene=4, visual_size=32, device=card)
+        g, lr = VQALearner(env, vocab_size=64, num_answers=10), 3e-4
+        c = VQALearner(SimpleNamespace(device=cpu, observation_shapes=env.observation_shapes, table=env.table.to(cpu)),
+                       vocab_size=64, num_answers=10)
+        st, obs = env.reset_fn()
+        cpu_st = type(st)(**{f: (v.cpu() if isinstance(v, torch.Tensor) else v) for f, v in vars(st).items()})
+        step_g, step_c = (lambda: g.train_step(st, obs)), (lambda: c.train_step(cpu_st, {"rgb": obs["rgb"].cpu()}))
+    else:
+        env = make_eqa_env(num_envs=8, num_scenes=1, episodes_per_scene=4, max_episode_steps=40, device=card)
+        g, c, lr = PacmanTrainer(env, max_T=24), PacmanTrainer(SimpleNamespace(device=cpu), max_T=24), 1e-3
+        batch = g.collect_expert(0)
+        g.init_fn(0, batch)
+        c.init_fn(0, batch)
+        step_g, step_c = (lambda: g.train_step(g.prepare_batch(batch))), (lambda: c.train_step(c.prepare_batch(batch)))
+    start = {k: v.detach().cpu().clone() for k, v in g.model.state_dict().items()}
+    c.model.load_state_dict(start)
+    m_g, m_c = step_g(), step_c()
+    for k in m_c:
+        assert abs(m_g[k].item() - m_c[k].item()) <= 1e-5 * max(1.0, abs(m_c[k].item())), k
+    shares = _tensor_shares(start, {k: v.cpu() for k, v in g.model.state_dict().items()}, c.model.state_dict(), lr)
+    assert min(shares.values()) >= 0.99, min(shares.items(), key=lambda kv: kv[1])

@@ -39,7 +39,9 @@ def test_port_files_found():
                    "models/policy.py", "baselines/ppo.py", "datasets/object_nav.py", "datasets/image_nav.py",
                    "parallel/distributed.py", "baselines/aux_losses.py", "tasks/shortest_path_follower.py",
                    "baselines/il/bc_trainer.py", "tasks/rearrange/multi_task/pddl.py", "baselines/hrl/hierarchical.py",
-                   "baselines/hrl/planner.py", "baselines/hrl/hrl_ppo.py"):
+                   "baselines/hrl/planner.py", "baselines/hrl/hrl_ppo.py", "tasks/eqa.py", "tasks/vln.py",
+                   "baselines/il/eqa_trainers.py", "baselines/il/pacman.py", "core/agent.py",
+                   "baselines/agents/simple_agents.py", "baselines/agents/ppo_agents.py", "baselines/tensor_dict.py"):
         assert os.path.join(ROOT, "habitat_torch", module) in files
 
 
@@ -60,7 +62,10 @@ CONFIG_PATH_MODULES = (
     "habitat_torch.parallel.distributed", "habitat_torch.baselines.aux_losses",
     "habitat_torch.tasks.shortest_path_follower", "habitat_torch.baselines.il.bc_trainer",
     "habitat_torch.tasks.rearrange.multi_task.pddl", "habitat_torch.baselines.hrl",
-    "habitat_torch.baselines.hrl.hrl_ppo",
+    "habitat_torch.baselines.hrl.hrl_ppo", "habitat_torch.tasks.eqa", "habitat_torch.tasks.vln",
+    "habitat_torch.baselines.il.eqa_trainers", "habitat_torch.baselines.il.pacman", "habitat_torch.core.agent",
+    "habitat_torch.baselines.agents.simple_agents", "habitat_torch.baselines.agents.ppo_agents",
+    "habitat_torch.baselines.tensor_dict",
 )
 _PROBE = """
 import json, sys
