@@ -326,6 +326,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            SPL; GoalFollower on the same env (logged) and in an open room
            (AGENT_ROOM), where it must reach the goal.
 
+19. env-api  the single-env API (ENV_API): (a)
+           Benchmark(pointnav_procgen.yaml).local_evaluate of PPOAgent from
+           the flagship export (deterministic) over 4 episodes at 128x128
+           depth + pointgoal: success, SPL, ms per Env.step and per act, #1
+           once per render, 3 profiled Env.steps (device ms, idle share,
+           launches); (b) Env on the mini on-disk dataset
+           (tests/assets/mini_dataset: PointNav-v1 episodes, a glb stage)
+           with TopDownMap, RuntimePerfStats and GfxReplayMeasure, the same
+           agent for all 8 episodes (at most 200 steps each), a
+           BatchedEnv(N=1, auto_reset_done=False) stepped beside it from
+           reset_to_fn with the same actions: observations, metrics, reward
+           and done equal at every reset and step, the fog never shrinks,
+           each episode's replay parses with steps + 1 keyframes, #1
+           exactly 2 x (resets + steps) + 1 (Env.render()), no plain
+           version on a card tensor, #1 on one step's frame and on a blind
+           Env's 256x256 Env.render() frame against its plain version at
+           the [kernel] gates; (c) the velocity path at N=128 on the bench
+           scenes (128x128 depth + RGB, 32 steps of fixed commands, 16 envs
+           auto-stopped): each step against the same env's state sensors
+           on the CPU from the card's state (positions within
+           VEL_POS_ATOL, dones equal), ms per step, #1 1 + 32.
+
 Prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
@@ -587,6 +609,16 @@ EQA_REF_UPDATES = 3
 # [agents]: GoalFollower's open room (the flagship scenes' goals lie behind
 # walls, where a straight-line follower stalls)
 AGENT_ROOM = dict(num_scenes=1, episodes_per_scene=8, seed=91000, scene_kw={"n_rooms_per_axis": 1, "n_clutter": 0})
+# [env-api]: Benchmark episodes of pointnav_procgen.yaml; the mini on-disk
+# dataset's episodes (all 8) under a step limit cut from the yaml's 500; the
+# velocity path's envs, steps and envs auto-stopped at step 20
+ENV_API = dict(bench_episodes=4, mini_episodes=8, mini_max_steps=200, vel_envs=128, vel_steps=32, vel_hw=128,
+               vel_stops=16)
+ENV_API_CONFIG = "benchmark/nav/pointnav/pointnav_procgen.yaml"
+MINI_DATASET = ("habitat.dataset.type=PointNav-v1", "habitat.dataset.split=val",
+                "habitat.dataset.data_path={root}/tests/assets/mini_dataset/pointnav/v1/{{split}}/{{split}}.json.gz",
+                "habitat.dataset.scenes_dir={root}/tests/assets")
+VEL_POS_ATOL = 1e-4  # card - CPU positions after one velocity step from the same state
 
 
 def log(msg):
@@ -3676,6 +3708,255 @@ def agents_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
     return launches["raycast_fused_sel_t"]
 
 
+def timed_calls(fn, ms):
+    """fn, appending each call's wall ms to ``ms`` (the card synchronised
+    after it; Env.step and PPOAgent.act already wait for a host copy)."""
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return run
+
+
+def ms_text(ms):
+    ms = sorted(ms)
+    return f"median {ms[len(ms) // 2]:.2f} (min {ms[0]:.2f}, max {ms[-1]:.2f})"
+
+
+def env_api_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card, size=ENV_API):
+    """[env-api]: the single-env API at the flagship's width. (a)
+    Benchmark(pointnav_procgen.yaml).local_evaluate(PPOAgent(flagship
+    export, deterministic)) over size["bench_episodes"] episodes (128x128
+    depth + pointgoal): success, SPL, ms per Env.step and per act, #1 once
+    per render, then 3 profiled Env.steps (device ms, idle share, launches).
+    (b) Env on the mini on-disk dataset with TopDownMap, RuntimePerfStats and
+    GfxReplayMeasure, the same agent for all its episodes, a
+    BatchedEnv(N=1, auto_reset_done=False) stepped beside it from
+    reset_to_fn with the same actions. Gates: observations equal, metrics,
+    reward and done equal at every reset and step; the fog never shrinks;
+    each episode's replay parses with steps + 1 keyframes; #1 launched
+    exactly once per render of either env and per Env.render(); no plain
+    version on a card tensor; #1 on one step's inputs and on Env.render()'s
+    256x256 frame (a blind Env on the same dataset) against its plain
+    version at the [kernel] gates. (c) The velocity path at N=size["vel_envs"]
+    on the bench scenes (128x128 depth, size["vel_steps"] steps of fixed
+    commands, size["vel_stops"] envs auto-stopped at step 20): each step
+    against the same env's state sensors on the CPU from the card's state
+    (positions within VEL_POS_ATOL, dones equal), ms per step, #1 once per
+    render. Returns #1's launches in (a) + (b) + (c)."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from habitat_torch.baselines.agents.ppo_agents import PPOAgent
+    from habitat_torch.baselines.flagship import WEIGHTS
+    from habitat_torch.config.default import get_config
+    from habitat_torch.config.omega import Config, read_write
+    from habitat_torch.core.batched_env import BatchedEnv
+    from habitat_torch.core.benchmark import Benchmark
+    from habitat_torch.core.env import Env
+    from habitat_torch.models.convert import load_policy_file
+    from habitat_torch.ops import raycast as rc
+    from habitat_torch.ops import raycast_kernels as rk
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    agent = PPOAgent(load_policy_file(WEIGHTS, device=dev), deterministic=True)
+
+    def watched(tag, fn):
+        for p in plain_watch:
+            p.start()
+        try:
+            return fn()
+        finally:
+            sync(dev)
+            for p in plain_watch:
+                p.stop()
+            if plain_on_card:
+                fail(f"[env-api] {tag}: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+
+    def kernel_check(tag, env, st, h, w):
+        """#1 on the render inputs of ``st`` at h x w against its plain
+        version (launches made here are not the path's)."""
+        ctx = env._make_ctx(st)
+        kernel, args, kwargs, _ = rc.closest_hit_call(env.pack, ctx.sid, st.pos + torch.tensor(
+            [0.0, 1.25, 0.0], device=dev), st.yaw, st.pitch, height=h, width=w)
+        if kernel is not rk.raycast_fused_sel_t:
+            fail(f"[env-api] {tag} should take the frustum-selected kernel")
+        return agreement(f"[env-api] {tag}", kernel(*args, **kwargs), kernel.plain(*args, **kwargs))
+
+    # (a) Benchmark.local_evaluate with the flagship agent
+    zero_counts()
+    bench = Benchmark(ENV_API_CONFIG, device=dev)
+    env = bench._env
+    step_ms, act_ms, resets = [], [], []
+    env.step, agent.act = timed_calls(env.step, step_ms), timed_calls(agent.act, act_ms)
+    env.reset = timed_calls(env.reset, resets)
+    bm = watched("Benchmark", lambda: bench.local_evaluate(agent, num_episodes=size["bench_episodes"]))
+    bench_launches = path_counts("[env-api] Benchmark", raycast_fused_sel_t=len(resets) + len(step_ms))
+    if not (len(resets) == size["bench_episodes"] and 0.0 <= bm["success"] <= 1.0 and np.isfinite(bm["spl"])):
+        fail(f"[env-api] Benchmark: {len(resets)} resets, metrics {bm}")
+    del env.step, env.reset, agent.act  # the classes' methods again
+    env.reset()
+    _, dev_ms, n_launch, _ = device_time_and_launches(lambda: [env.step(1) for _ in range(3)])
+    prof_ms = sorted(step_ms)[len(step_ms) // 2]
+    log(f"[env-api] {gpu}: Benchmark({ENV_API_CONFIG}).local_evaluate(PPOAgent(flagship export, deterministic)), "
+        f"{size['bench_episodes']} episodes ({env.number_of_episodes} in the dataset, 128x128 depth + pointgoal): "
+        f"success {bm['success']:.4f}, SPL {bm['spl']:.4f}, distance to goal {bm['distance_to_goal']:.3f}; "
+        f"{len(step_ms)} Env.steps, ms per Env.step {ms_text(step_ms)}, ms per act {ms_text(act_ms)}; "
+        f"#1 {bench_launches['raycast_fused_sel_t']} = {len(resets)} resets + {len(step_ms)} steps, no plain version "
+        f"on a card tensor; 3 profiled Env.steps: device {dev_ms / 3:.3f} ms per step (idle share "
+        f"{1 - dev_ms / (3 * prof_ms):.3f} against the median step), {n_launch / 3:.0f} launches per Env.step")
+
+    # (b) Env on the mini on-disk dataset with the host measures, a batched
+    # env beside it
+    overrides = [o.format(root=ROOT) for o in MINI_DATASET] + [
+        f"habitat.environment.max_episode_steps={size['mini_max_steps']}"]
+    cfg = get_config(ENV_API_CONFIG, overrides)
+    with read_write(cfg) as c:
+        for name, kind in (("top_down_map", "TopDownMap"), ("runtime_perf_stats", "RuntimePerfStats"),
+                           ("gfx_replay", "GfxReplayMeasure")):
+            c.habitat.task.measurements[name] = Config({"type": kind})
+    zero_counts()
+    env = Env(cfg, device=dev)
+    inner = env.sim
+    beside = BatchedEnv(inner.pack, inner.table, np.zeros((1, 1), np.int32), inner.sensors, inner.measures,
+                        inner.actions, device=dev, max_episode_steps=inner.max_episode_steps,
+                        reward_spec=inner.reward_spec, slide_substeps=inner.slide_substeps, auto_reset_done=False)
+    device_keys = {m.uuid for m in inner.measures} | {"is_collision"}
+
+    def same(tag, obs, bobs, values, reward_done=None, bstep=None):
+        for k in bobs:
+            if not torch.equal(obs[k], bobs[k][0]):
+                fail(f"[env-api] {tag}: {k} differs from the batched env's by "
+                     f"{(obs[k].double() - bobs[k][0].double()).abs().max().item()}")
+        m = env.get_metrics()
+        got = {k: float(m[k]) for k in m if k in device_keys}
+        want = {k: v[0].item() for k, v in values.items()}
+        if got != want:
+            fail(f"[env-api] {tag}: metrics {got} against the batched env's {want}")
+        if bstep is not None:
+            br, bd, bst = bstep
+            if reward_done != (br[0].item(), bool(bd[0])) or env.episode_over != bool(bst.episode_over[0]):
+                fail(f"[env-api] {tag}: reward, done {reward_done}, over {env.episode_over} against {br}, {bd}")
+
+    mini = dict(steps=0, episodes=[], ms=[], acts=[], check=None)
+
+    def mini_run():
+        for e in range(size["mini_episodes"]):
+            obs = env.reset()
+            agent.reset()
+            idx = env._ep_index[env.current_episode.episode_id]
+            bs, bobs = beside.reset_to_fn(torch.tensor([idx], device=dev))
+            same(f"episode {e} reset", obs, bobs, beside.measure_values(bs))
+            fog, n = env.get_metrics()["top_down_map"]["fog_of_war_mask"], 0
+            while not env.episode_over:
+                a = agent.act(obs)
+                t0 = time.perf_counter()
+                obs = env.step(a)
+                mini["ms"].append((time.perf_counter() - t0) * 1e3)
+                bs, bobs, br, bd, binfo = beside.step_fn(bs, torch.tensor([a], device=dev))
+                n += 1
+                same(f"episode {e} step {n}", obs, bobs, binfo, env._last_reward_done, (br, bd, bs))
+                m = env.get_metrics()
+                if (m["top_down_map"]["fog_of_war_mask"] < fog).any():
+                    fail(f"[env-api] episode {e} step {n}: the fog of war came back")
+                fog = m["top_down_map"]["fog_of_war_mask"]
+                if mini["check"] is None:
+                    mini["check"] = env._state  # a step's state (steps make new states)
+                if not env.episode_over and m["gfx_replay_keyframes_string"] != "":
+                    fail(f"[env-api] episode {e} step {n}: a replay string before the episode's end")
+            replay = json.loads(m["gfx_replay_keyframes_string"])["keyframes"]
+            if len(replay) != n + 1:
+                fail(f"[env-api] episode {e}: {len(replay)} keyframes after {n} steps")
+            mini["steps"] += n
+            mini["episodes"].append((env.current_episode.episode_id, n, float(m["success"]), float(m["spl"]),
+                                     float(m["habitat_perf"]["step_ms"])))
+        frame = env.render()
+        if frame.shape != (inner._render_groups[0]["h"], inner._render_groups[0]["w"], 3):
+            fail(f"[env-api] Env.render() of the depth config: {frame.shape}")
+
+    watched("mini Env", mini_run)
+    renders = 2 * (size["mini_episodes"] + mini["steps"]) + 1
+    mini_launches = path_counts("[env-api] mini Env", raycast_fused_sel_t=renders)
+    step_agree = kernel_check("one step's 128x128 frame", inner, mini["check"], 128, 128)
+    ids = [x[0] for x in mini["episodes"]]
+    if sorted(ids) != [str(i) for i in range(size["mini_episodes"])]:
+        fail(f"[env-api] the mini Env played episodes {ids}")
+    # Env.render()'s debug frame: a blind Env on the same dataset
+    blind = get_config(ENV_API_CONFIG, overrides)
+    with read_write(blind) as c:
+        del c.habitat.simulator.agents.main_agent.sim_sensors["depth_sensor"]
+    benv = Env(blind, device=dev)
+    benv.reset()
+    benv.step(2)
+    zero_counts()
+    frame = watched("Env.render()", benv.render)
+    path_counts("[env-api] Env.render()", raycast_fused_sel_t=1)
+    if frame.shape != (256, 256, 3) or frame.dtype != np.uint8:
+        fail(f"[env-api] Env.render() without a visual sensor: {frame.shape} {frame.dtype}")
+    render_agree = kernel_check("Env.render()'s 256x256 frame", benv.sim, benv._state, 256, 256)
+    log(f"[env-api] {gpu}: Env on the mini on-disk dataset (PointNav-v1, 8 episodes, the 66-triangle glb stage, "
+        f"85x85 navgrid; max_episode_steps {size['mini_max_steps']}) with TopDownMap, RuntimePerfStats and "
+        f"GfxReplayMeasure, the flagship agent: {mini['steps']} steps over episodes (id, steps, success, SPL, "
+        f"last step_ms) {[(i, n, s, round(spl, 4), round(ms, 2)) for i, n, s, spl, ms in mini['episodes']]}; ms per "
+        f"Env.step {ms_text(mini['ms'])} with the host measures; observations, metrics, reward and done equal to a "
+        f"BatchedEnv(N=1, auto_reset_done=False) beside it at every reset and step; the fog never shrank; every "
+        f"replay parsed with steps + 1 keyframes; #1 {mini_launches['raycast_fused_sel_t']} = 2 x ("
+        f"{size['mini_episodes']} resets + {mini['steps']} steps) + 1 Env.render(), no plain version on a card "
+        f"tensor; #1 against its plain version on one step's frame: hit {step_agree[0]:.6f} idx {step_agree[1]:.6f} "
+        f"|dt| {step_agree[2]:.3g}, on Env.render()'s 256x256 frame (blind Env, 1 launch): hit {render_agree[0]:.6f} "
+        f"idx {render_agree[1]:.6f} |dt| {render_agree[2]:.3g}")
+
+    # (c) the velocity path at N=vel_envs on the bench scenes, against the
+    # same env's state sensors on the CPU
+    n, steps = size["vel_envs"], size["vel_steps"]
+    venv = bench_nav_env(dev, n, size["vel_hw"], action_names=("VelocityAction",))
+    cpu_env = BatchedEnv(venv.pack, venv.table, venv.order.cpu().numpy(), venv.state_sensors, venv.measures,
+                         venv.actions, device=cpu, max_episode_steps=venv.max_episode_steps,
+                         reward_spec=venv.reward_spec, slide_substeps=venv.slide_substeps)
+    t = torch.arange(steps, dtype=torch.float32)[:, None]
+    i = torch.arange(n, dtype=torch.float32)[None, :]
+    cmds = torch.stack([0.6 + 0.4 * torch.sin(0.3 * t + i), torch.sin(0.2 * t + 0.5 * i)], dim=-1)
+    cmds[20, :size["vel_stops"]] = torch.tensor([-1.0, 0.0])  # under both minimums: auto-stop
+    vel = dict(ms=[], worst=0.0, done=0, collided=0)
+
+    def vel_run():
+        st, _ = venv.reset_fn()
+        for k in range(steps):
+            st_c, _, _, done_c, _ = cpu_env.step_fn(state_to(st, cpu), cmds[k])
+            sync(dev)
+            t0 = time.perf_counter()
+            st, obs, _, done, info = venv.step_fn(st, cmds[k].to(dev))
+            sync(dev)
+            vel["ms"].append((time.perf_counter() - t0) * 1e3)
+            if not torch.equal(done.cpu(), done_c):
+                fail(f"[env-api] velocity step {k}: done card {done.tolist()}, CPU {done_c.tolist()}")
+            err = (st.pos.cpu() - st_c.pos).abs().max().item()
+            vel["worst"] = max(vel["worst"], err)
+            if err > VEL_POS_ATOL:
+                fail(f"[env-api] velocity step {k}: positions card - CPU {err}")
+            vel["done"] += int(done_c.sum())
+            vel["collided"] += int(info["is_collision"].sum().item())
+        if obs["depth"].shape != (n, size["vel_hw"], size["vel_hw"], 1):
+            fail(f"[env-api] velocity env depth {tuple(obs['depth'].shape)}")
+
+    zero_counts()
+    watched("velocity", vel_run)
+    vel_launches = path_counts("[env-api] velocity", raycast_fused_sel_t=1 + steps)
+    if vel["done"] < size["vel_stops"]:
+        fail(f"[env-api] velocity: {vel['done']} episodes ended, the {size['vel_stops']} auto-stops among them")
+    log(f"[env-api] {gpu}: the velocity path (VelocityAction, 4 rotate-then-translate sub-moves a step) at N={n} on "
+        f"the bench scenes, {size['vel_hw']}x{size['vel_hw']} depth + RGB + pointgoal, {steps} steps of fixed "
+        f"commands: ms per step {ms_text(vel['ms'])}; positions card - CPU (each step from the card's state) max "
+        f"{vel['worst']:.3g} (gate {VEL_POS_ATOL}), dones equal ({vel['done']} episodes ended, {size['vel_stops']} by "
+        f"auto-stop at step 20), {vel['collided']} colliding env-steps; #1 {vel_launches['raycast_fused_sel_t']} = 1 "
+        f"+ {steps}; the phase {time.perf_counter() - t_phase:.1f} s")
+    return sum(x["raycast_fused_sel_t"] for x in (bench_launches, mini_launches, vel_launches))
+
+
 def main():
     import torch
 
@@ -4908,6 +5189,9 @@ def main():
     log(f"[agents] starts {time.perf_counter() - t_start:.1f} s after the start")
     torch.cuda.empty_cache()
     sel["agents_launches"] = agents_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
+    log(f"[env-api] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    sel["env_api_launches"] = env_api_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 

@@ -14,9 +14,9 @@ A Gaussian (continuous-action) policy starts from a zero previous action
 (N, ``num_outputs``) and acts with mu when ``deterministic``.
 
 Not ported yet, and raising ``NotImplementedError``: eval videos,
-TensorBoard output and the TopDownMap tracker (``video_option``,
-``tb_writer``, ``map_tracker``; the message names the JAX modules they
-wait for).
+TensorBoard output and the map frames drawn into them (``video_option``,
+``tb_writer``, ``map_tracker``; they write through imageio, and the
+message names the JAX modules they wait for).
 ``eval_checkpoint_loop`` takes its two settings as keywords.
 """
 
@@ -63,8 +63,9 @@ def evaluate_agent(
     ``reward``, and ``num_episodes``; {} if no episode finished."""
     if video_option or tb_writer is not None or map_tracker is not None:
         raise NotImplementedError(
-            "eval videos, TensorBoard output and the TopDownMap tracker wait for the port of "
-            "utils/visualizations/ (utils.py, maps.py) and of baselines/evaluator.py's TensorBoard output")
+            "eval videos, TensorBoard frames and the evaluator's TopDownMap frames wait for the port of "
+            "utils/visualizations/utils.py and utils/common.py::generate_video, which write through imageio "
+            "(not on the card's machine), and of baselines/evaluator.py's TensorBoard output")
     dev = env.device
     n = env.num_envs
     if episodes_per_env is None:

@@ -1,10 +1,18 @@
-"""Batched functional environment (port of ``habitat_tpu/core/batched_env.py``,
-discrete-action path).
+"""Batched functional environment (port of ``habitat_tpu/core/batched_env.py``).
 
 All N envs are one set of tensors: ``EnvState`` holds (N, ...) tensors on the
 env's device, ``reset_fn``/``step_fn`` compute every env at once, auto-reset
-of finished envs is masking, and scene switching is indexing into the packed
-scene table.
+of finished envs is masking (``auto_reset_done=True``, the default), and
+scene switching is indexing into the packed scene table. Without auto-reset
+a finished env keeps its final state until ``reset_to_fn`` starts the
+episodes given to it (the single-env ``core/env.py::Env`` path).
+
+Actions are discrete (an index into the action list) unless the task
+declares ``velocity_control`` (``tasks/nav.py::VelocityAction``): then each
+env takes a (linear, angular) command in [-1, 1]^2, mapped onto the
+action's speed ranges and integrated over its ``time_step`` as
+``slide_substeps`` rotate-then-translate sub-moves, each one collision
+step; both speeds under their minimums stop the episode.
 
 Reward/done composition matches RLTaskEnv:
 ``reward = slack + reward_measure (+ success_reward if success)``,
@@ -14,7 +22,7 @@ Reward/done composition matches RLTaskEnv:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -86,6 +94,7 @@ class BatchedEnv:
         max_episode_steps: int = 500,
         reward_spec: RewardSpec = RewardSpec(),
         slide_substeps: int = 4,
+        auto_reset_done: bool = True,
     ):
         self.device = device
         self.pack = pack.to(device)
@@ -104,6 +113,7 @@ class BatchedEnv:
         self.max_episode_steps = int(max_episode_steps)
         self.reward_spec = reward_spec
         self.slide_substeps = slide_substeps
+        self.auto_reset_done = auto_reset_done
 
         def table_of(fn, dtype):
             return torch.tensor([fn(a) for a in self.actions], dtype=dtype, device=device)
@@ -134,11 +144,20 @@ class BatchedEnv:
                 )
             )
 
-        # what the policy reads (the JAX package's action_space.n and
-        # observation_space): the state sensors' shapes from one fresh state,
-        # the frames' from their render groups, so building the env renders
-        # nothing
-        self.num_actions = len(self.actions)
+        # velocity control: continuous (lin, ang) commands; the policy side
+        # reads ``action_dim`` (no ``num_actions``), as for the rearrange
+        # envs' continuous control
+        self._vel_ctrl = next((a for a in self.actions if a.name == "velocity_control"), None)
+        if self._vel_ctrl is not None:
+            self.action_dim = 2
+            self.action_shape: Tuple[int, ...] = (2,)
+        else:
+            self.num_actions = len(self.actions)
+            self.action_shape = ()
+
+        # what the policy reads (the JAX package's observation_space): the
+        # state sensors' shapes from one fresh state, the frames' from their
+        # render groups, so building the env renders nothing
         ctx = self._make_ctx(self._fresh_state())
         shapes = {}
         for s in self.state_sensors:
@@ -198,10 +217,12 @@ class BatchedEnv:
         ctx = self._make_ctx(state)
         return {m.uuid: m.reset(ctx)[0] for m in self.measures}
 
-    def _fresh_state(self) -> EnvState:
-        """Every env at the start of its first episode, measures not reset."""
+    def _fresh_state(self, ep_idx: Optional[torch.Tensor] = None) -> EnvState:
+        """Every env at the start of episode ``ep_idx`` (default: its first
+        in the order), measures not reset."""
         n, dev = self.num_envs, self.device
-        ep_idx = self.order[self._env_ids, 0]
+        if ep_idx is None:
+            ep_idx = self.order[self._env_ids, 0]
         pos = self.table.start_pos[ep_idx]
         return EnvState(
             ep_ptr=torch.zeros(n, dtype=torch.int32, device=dev),
@@ -225,25 +246,71 @@ class BatchedEnv:
         state.measure_state = self._reset_measures(state)
         return state, self._observations(state)
 
+    def reset_to_fn(self, ep_idx) -> Tuple[EnvState, Dict[str, torch.Tensor]]:
+        """Every env at the start of the episode ``ep_idx`` (N,) names, with
+        fresh measures and its observations (one render); nothing of an
+        earlier state carries over."""
+        state = self._fresh_state(torch.as_tensor(ep_idx, device=self.device).long())
+        state.measure_state = self._reset_measures(state)
+        return state, self._observations(state)
+
+    def measure_values(self, state: EnvState) -> Dict[str, torch.Tensor]:
+        """The measures' current values, without stepping (what
+        ``Env.get_metrics`` reports after a reset)."""
+        ctx = self._make_ctx(state)
+        values: Dict[str, torch.Tensor] = {}
+        for m in self.measures:
+            values[m.uuid] = m.update(state.measure_state[m.uuid], ctx, values)[1]
+        return values
+
+    def _velocity_move(self, state: EnvState, sid: torch.Tensor, actions: torch.Tensor):
+        """(stop, yaw, new_pos, collided) of a velocity command per env:
+        the JAX package's arithmetic, in float32."""
+        vc = self._vel_ctrl
+        acts = actions.float().clamp(-1.0, 1.0)
+        lo_l, hi_l = float(vc.lin_vel_range[0]), float(vc.lin_vel_range[1])
+        lo_a, hi_a = float(vc.ang_vel_range[0]), float(vc.ang_vel_range[1])
+        lin_v = lo_l + (acts[:, 0] + 1.0) * 0.5 * (hi_l - lo_l)
+        ang_v_rad = torch.deg2rad(lo_a + (acts[:, 1] + 1.0) * 0.5 * (hi_a - lo_a))
+        dt = float(vc.time_step)
+        auto_stop = (lin_v.abs() < float(vc.min_abs_lin_speed)) & (
+            ang_v_rad.abs() < float(np.deg2rad(float(vc.min_abs_ang_speed))))
+        nsub = max(self.slide_substeps, 1)
+        yaw, new_pos = state.yaw, state.pos
+        collided = torch.zeros(self.num_envs, dtype=torch.bool, device=self.device)
+        for _ in range(nsub):
+            yaw = yaw + ang_v_rad * (dt / nsub)
+            target = new_pos + yaw_to_forward(yaw) * (lin_v * dt / nsub)[:, None]
+            new_pos, c = ng.try_step(self.pack, sid, new_pos, target, 1)
+            collided = collided | c
+        collided = collided & (lin_v.abs() * dt > 1e-6)
+        return state.stop_called | auto_stop, yaw, new_pos, collided
+
     def step_fn(
         self, state: EnvState, actions: torch.Tensor
     ) -> Tuple[EnvState, Dict[str, torch.Tensor], torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
-        """One batched step with auto-reset of done envs. Returns (state, obs,
-        reward, done, info); the input state is not modified."""
+        """One batched step, with auto-reset of done envs when
+        ``auto_reset_done``. Returns (state, obs, reward, done, info); the
+        input state is not modified."""
         sid = self.table.scene_idx[state.ep_idx].long()
-        a = actions.long()
-        stop = state.stop_called | self._stop_flag[a]
-        yaw = state.yaw + self._turn_amt[a]
-        pitch = (state.pitch + self._tilt_amt[a]).clamp(-np.pi / 2, np.pi / 2)
-        move = self._move_amt[a]
-        target = state.pos + yaw_to_forward(yaw) * move[:, None]
-        new_pos, collided = ng.try_step(self.pack, sid, state.pos, target, self.slide_substeps)
-        moved = move > 0
-        collided = collided & moved
-        new_pos = torch.where(moved[:, None], new_pos, state.pos)
+        if self._vel_ctrl is not None:
+            stop, yaw, new_pos, collided = self._velocity_move(state, sid, actions)
+            pitch = state.pitch
+            a32 = torch.zeros(self.num_envs, dtype=torch.int32, device=self.device)
+        else:
+            a = actions.long()
+            stop = state.stop_called | self._stop_flag[a]
+            yaw = state.yaw + self._turn_amt[a]
+            pitch = (state.pitch + self._tilt_amt[a]).clamp(-np.pi / 2, np.pi / 2)
+            move = self._move_amt[a]
+            target = state.pos + yaw_to_forward(yaw) * move[:, None]
+            new_pos, collided = ng.try_step(self.pack, sid, state.pos, target, self.slide_substeps)
+            moved = move > 0
+            collided = collided & moved
+            new_pos = torch.where(moved[:, None], new_pos, state.pos)
+            a32 = a.to(torch.int32)
 
         step = state.step + 1
-        a32 = a.to(torch.int32)
         state = dataclasses.replace(
             state,
             pos=new_pos,
@@ -279,6 +346,10 @@ class BatchedEnv:
         info = dict(values)
         info["is_collision"] = collided.float()
 
+        if not self.auto_reset_done:
+            state = dataclasses.replace(state, episode_over=episode_over, measure_state=new_mstate)
+            return state, self._observations(state), reward, done, info
+
         # ---- auto-reset done envs ----
         ep_ptr = torch.where(done, state.ep_ptr + 1, state.ep_ptr)
         ep_idx = self.order[self._env_ids, (ep_ptr % self._order_len).long()]
@@ -312,3 +383,18 @@ class BatchedEnv:
             for uuid, rms in reset_ms.items()
         }
         return state, self._observations(state), reward, done, info
+
+    # ------------------------------------------------------------------
+    # host conveniences
+
+    def reset(self, seed: int = 0):
+        """``reset_fn()``; ``seed`` is accepted for the JAX package's
+        signature (no nav component draws from a key)."""
+        return self.reset_fn()
+
+    def step(self, state: EnvState, actions):
+        return self.step_fn(state, torch.as_tensor(actions, device=self.device))
+
+    def get_metrics(self, info) -> Dict[str, np.ndarray]:
+        """Host view of the last info dict."""
+        return {k: v.cpu().numpy() for k, v in info.items()}

@@ -18,10 +18,6 @@ rearrangement env in discrete control without the head camera. The EQA
 imitation trainers (``eqa-cnn-pretrain``, ``vqa``, ``pacman``) build over
 their procedural envs (``il_trainer_from_config``).
 
-Not ported yet, raising ``NotImplementedError`` (the message names the
-module it waits for): file datasets (PointNav-v1 and ObjectNav-v1 episode
-archives on disk).
-
 Image-goal observations feed the policy's goal encoders and are never put
 in ``goal_keys``: the JAX package's ``policy_from_config`` passes
 ``goal_sensor_uuid`` "imagegoal" there, where its net feeds the raw goal
@@ -58,24 +54,27 @@ IMAGE_GOAL_SENSORS = ("imagegoal", "instance_imagegoal", "instance_imagegoal_sen
 
 
 def load_dataset(ds_cfg: Config):
-    """Returns (scenes, episodes, precomputed_fields).
+    """Returns (scenes, episodes, precomputed_fields or None).
 
-    "PointNav-v1-Procedural" (or "PointNav-v1" whose ``data_path`` is not on
-    disk, with a warning, as the JAX package falls back): the built-in
-    procedural generator. "ObjectNav*" whose ``data_path`` is not on disk:
+    "PointNav-v1" or "ObjectNav*" whose ``data_path`` is on disk: the
+    reference-format episode file and the scene meshes its episodes name
+    (found as given or under ``scenes_dir``), each scene under the id its
+    episodes use. "PointNav-v1-Procedural" (or "PointNav-v1" whose
+    ``data_path`` is not on disk, with a warning, as the JAX package falls
+    back): the built-in procedural generator. "ObjectNav*" without a file:
     the procedural ObjectNav generator."""
-    from habitat_torch.datasets.pointnav import make_procedural_pointnav
+    from habitat_torch.datasets.pointnav import PointNavDatasetV1, make_procedural_pointnav
 
     ds_type = ds_cfg.get("type", "PointNav-v1")
     proc = ds_cfg.get("procedural", Config())
     data_path = (ds_cfg.get("data_path") or "").format(split=ds_cfg.get("split", "train"))
+    on_disk = bool(data_path) and os.path.exists(data_path)
 
     if ds_type.startswith("ObjectNav"):
-        from habitat_torch.datasets.object_nav import make_procedural_objectnav
+        from habitat_torch.datasets.object_nav import ObjectNavDatasetV1, make_procedural_objectnav
 
-        if data_path and os.path.exists(data_path):
-            raise NotImplementedError(
-                f"episode files ({data_path}) wait for the port of sims/loaders.py")
+        if on_disk:
+            return _with_scenes(ObjectNavDatasetV1(ds_cfg), ds_cfg)
         return make_procedural_objectnav(
             num_scenes=int(proc.get("num_scenes", 4)),
             episodes_per_scene=int(proc.get("episodes_per_scene", 32)),
@@ -83,10 +82,8 @@ def load_dataset(ds_cfg: Config):
             extent=float(proc.get("extent", 10.0)),
             nav_res=float(proc.get("nav_res", 0.1)),
         )
-    if ds_type == "PointNav-v1" and data_path and os.path.exists(data_path):
-        raise NotImplementedError(
-            f"episode files ({data_path}) wait for the port of datasets/pointnav.py::PointNavDatasetV1 and "
-            "sims/loaders.py")
+    if ds_type == "PointNav-v1" and on_disk:
+        return _with_scenes(PointNavDatasetV1(ds_cfg), ds_cfg)
     if ds_type == "PointNav-v1" and data_path:
         logger.warning(f"dataset file {data_path!r} not found: falling back to the built-in procedural dataset")
 
@@ -100,6 +97,21 @@ def load_dataset(ds_cfg: Config):
         furthest_dist_limit=float(proc.get("furthest_dist_limit", 30.0)),
         geodesic_to_euclid_ratio=float(proc.get("geodesic_to_euclid_ratio", 1.1)),
     )
+
+
+def _with_scenes(dataset, ds_cfg: Config):
+    """(scenes, episodes, None) of an episode file: each scene its episodes
+    name, loaded from disk and keyed by that name. (The JAX package keys a
+    loaded scene by its file name, which differs from the path its episodes
+    name, so its episode table cannot find it.)"""
+    from habitat_torch.sims.loaders import load_scene
+
+    scenes = []
+    for sid in dataset.scene_ids:
+        scene = load_scene(sid, scenes_dir=ds_cfg.get("scenes_dir", ""))
+        scene.scene_id = sid
+        scenes.append(scene)
+    return scenes, dataset.episodes, None
 
 
 def _sensor_instances(config: Config) -> List:
@@ -151,21 +163,10 @@ def env_from_config(config: Config, num_envs: Optional[int] = None, device=None,
     if num_envs is None:
         num_envs = int(config.get_path("habitat_baselines.num_environments", 16))
 
-    task = config.habitat.task
-    reward_spec = RewardSpec(
-        reward_measure=task.get("reward_measure") or "distance_to_goal_reward",
-        success_measure=task.get("success_measure") or "success",
-        slack_reward=float(task.get("slack_reward", -0.01)),
-        success_reward=float(task.get("success_reward", 2.5)),
-        end_on_success=bool(task.get("end_on_success", False)),
-    )
-    # an image-goal sensor: goal views rendered once at its width, on dev
-    lab_sensors = task.get("lab_sensors", Config())
-    goal_image_size = next(
-        (int(lab_sensors[k].get("width", 128)) for k in IMAGE_GOAL_SENSORS if k in lab_sensors), None)
     scene_index = {s.scene_id: i for i, s in enumerate(scenes)}
     table = build_episode_table(list(episodes), {s.scene_id: s for s in scenes}, scene_index,
-                                precomputed_fields=fields, goal_image_size=goal_image_size, device=dev)
+                                precomputed_fields=fields, goal_image_size=goal_image_size(config.habitat.task),
+                                device=dev)
     it_opts = config.habitat.environment.get("iterator_options", Config())
     order = build_env_episode_order(
         list(episodes),
@@ -184,9 +185,27 @@ def env_from_config(config: Config, num_envs: Optional[int] = None, device=None,
         device=dev,
         rows=rows,
         max_episode_steps=int(config.habitat.environment.get("max_episode_steps", 500)),
-        reward_spec=reward_spec,
+        reward_spec=reward_spec_of(config.habitat.task),
         slide_substeps=int(config.habitat.simulator.get_path("tpu.slide_substeps", 4)),
     )
+
+
+def reward_spec_of(task: Config) -> RewardSpec:
+    """The RLTaskEnv reward composition a task config names."""
+    return RewardSpec(
+        reward_measure=task.get("reward_measure") or "distance_to_goal_reward",
+        success_measure=task.get("success_measure") or "success",
+        slack_reward=float(task.get("slack_reward", -0.01)),
+        success_reward=float(task.get("success_reward", 2.5)),
+        end_on_success=bool(task.get("end_on_success", False)),
+    )
+
+
+def goal_image_size(task: Config) -> Optional[int]:
+    """The width of the task's image-goal sensor (its goal views are
+    rendered once at that size), or None without one."""
+    lab_sensors = task.get("lab_sensors", Config())
+    return next((int(lab_sensors[k].get("width", 128)) for k in IMAGE_GOAL_SENSORS if k in lab_sensors), None)
 
 
 def policy_from_config(config: Config, env):

@@ -1,20 +1,27 @@
-"""Episodes and the device episode table.
+"""Episodes, datasets, iterators and the device episode table.
 
-Port of the parts of ``habitat_tpu/core/dataset.py`` the PointNav rollout
-uses: the episode dataclasses, ``EpisodeTable`` (all episodes packed as
-tensors, indexed by episode id on the device) built by
-``build_episode_table`` (with ImageNav's goal views rendered once, at table
-build, when ``goal_image_size`` is given), and the per-env episode schedule
-``build_env_episode_order``.
+Port of ``habitat_tpu/core/dataset.py``: the episode dataclasses, the host
+``Dataset`` (splits, filtering) and ``EpisodeIterator`` (the single-env
+``Env``'s episode scheduler: cycle / shuffle / group-by-scene /
+max-scene-repeat, every draw from one ``numpy.random.Generator`` in the JAX
+package's order, so a seed gives the same episode sequence in both),
+``EpisodeTable`` (all episodes packed as tensors, indexed by episode id on
+the device) built by ``build_episode_table`` (with ImageNav's goal views
+rendered once, at table build, when ``goal_image_size`` is given), and the
+per-env episode schedule ``build_env_episode_order``.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence
+from collections import deque
+from typing import Any, Callable, Dict, Generic, Iterator, List, Optional, Sequence, TypeVar
 
 import numpy as np
 import torch
+
+ALL_SCENES_MASK = "*"
 
 
 @dataclasses.dataclass
@@ -50,6 +57,190 @@ class NavigationEpisode(Episode):
     goals: List[NavigationGoal] = dataclasses.field(default_factory=list)
     start_room: Optional[str] = None
     shortest_paths: Optional[List[Any]] = None
+
+
+T = TypeVar("T", bound=Episode)
+
+
+class Dataset(Generic[T]):
+    """Collection of episodes + splits/filtering (reference dataset.py:111)."""
+
+    episodes: List[T]
+
+    def __init__(self, episodes: Optional[List[T]] = None) -> None:
+        self.episodes = episodes or []
+
+    @property
+    def scene_ids(self) -> List[str]:
+        return sorted({episode.scene_id for episode in self.episodes})
+
+    def scene_from_scene_path(self, scene_path: str) -> str:
+        return scene_path.split("/")[-1].split(".")[0]
+
+    def get_scene_episodes(self, scene_id: str) -> List[T]:
+        return [e for e in self.episodes if e.scene_id == scene_id]
+
+    def get_episodes(self, indexes: Sequence[int]) -> List[T]:
+        return [self.episodes[i] for i in indexes]
+
+    def filter_episodes(self, filter_fn: Callable[[T], bool]) -> "Dataset":
+        """A copy holding the episodes that pass ``filter_fn``."""
+        new = copy.copy(self)
+        new.episodes = [e for e in self.episodes if filter_fn(e)]
+        return new
+
+    def get_splits(
+        self,
+        num_splits: int,
+        episodes_allowed: Optional[Sequence[str]] = None,
+        collate_scene_ids: bool = True,
+        sort_by_episode_id: bool = False,
+        allow_uneven_splits: bool = False,
+    ) -> List["Dataset"]:
+        """``num_splits`` datasets dealt round-robin from the (allowed,
+        scene-sorted) episodes; without ``allow_uneven_splits`` each holds
+        the same count and the remainder is dropped."""
+        if episodes_allowed is not None:
+            allowed = set(episodes_allowed)
+            eps = [e for e in self.episodes if e.episode_id in allowed]
+        else:
+            eps = list(self.episodes)
+        if collate_scene_ids:
+            eps.sort(key=lambda e: e.scene_id)
+        if sort_by_episode_id:
+            eps.sort(key=lambda e: e.episode_id)
+        n = len(eps)
+        if not allow_uneven_splits:
+            n = (n // num_splits) * num_splits
+        splits: List[Dataset] = []
+        for i in range(num_splits):
+            new = copy.copy(self)
+            new.episodes = eps[i:n:num_splits]
+            splits.append(new)
+        return splits
+
+    def get_scenes_to_load(self) -> List[str]:
+        return self.scene_ids
+
+    def get_episode_iterator(self, *args, **kwargs) -> "EpisodeIterator":
+        return EpisodeIterator(self.episodes, *args, **kwargs)
+
+
+class EpisodeIterator(Iterator[T]):
+    """Cycling episode scheduler with scene-grouped ordering and forced
+    scene rotation (reference core/dataset.py:329-584 semantics). The
+    pending order of the current cycle is an explicit ``deque``, and every
+    draw comes from one private ``numpy.random.Generator``:
+
+    * episodes are (optionally) shuffled each cycle, then stably reordered
+      so that each scene's episodes form one contiguous block, blocks in
+      order of first appearance;
+    * after ``max_scene_repeat_episodes`` consecutive episodes, or once
+      ``max_scene_repeat_steps`` env steps (jittered by
+      ``±step_repetition_range`` and drawn again after every forced switch)
+      have been taken in one scene, the leading run of same-scene episodes
+      still pending moves to the back of the deque, so the next episode
+      comes from another scene;
+    * pulling an episode of another scene than the previous pull resets
+      both counters: the budgets are per contiguous scene run.
+    """
+
+    def __init__(
+        self,
+        episodes: Sequence[T],
+        cycle: bool = True,
+        shuffle: bool = False,
+        group_by_scene: bool = True,
+        max_scene_repeat_episodes: int = -1,
+        max_scene_repeat_steps: int = -1,
+        num_episode_sample: int = -1,
+        step_repetition_range: float = 0.2,
+        seed: Optional[int] = None,
+    ) -> None:
+        self._rng = np.random.default_rng(seed)
+        pool = list(episodes)
+        if num_episode_sample >= 0:
+            if num_episode_sample > len(pool):
+                raise ValueError(f"num_episode_sample {num_episode_sample} > episode count {len(pool)}")
+            picks = self._rng.choice(len(pool), num_episode_sample, replace=False)
+            pool = [pool[i] for i in picks]
+        self.cycle = cycle
+        self.shuffle = shuffle
+        self.group_by_scene = group_by_scene
+        self.max_scene_repetition_episodes = max_scene_repeat_episodes
+        self.max_scene_repetition_steps = max_scene_repeat_steps
+        self.step_repetition_range = step_repetition_range
+        # the current cycle's base order (reordered at construction and at
+        # each cycle boundary); forced switches reorder only the deque
+        self.episodes: List[T] = self._ordered(pool, shuffle=shuffle)
+        self._pending: deque = deque(self.episodes)
+        self._scene_now: Optional[str] = None
+        self._episodes_in_scene = 0
+        self._steps_in_scene = 0
+        self._draw_step_quota()
+
+    def _ordered(self, pool: Sequence[T], shuffle: bool) -> List[T]:
+        out = list(pool)
+        if shuffle:
+            out = [out[i] for i in self._rng.permutation(len(out))]
+        if self.group_by_scene:
+            first_seen: Dict[str, int] = {}
+            for e in out:
+                first_seen.setdefault(e.scene_id, len(first_seen))
+            out.sort(key=lambda e: first_seen[e.scene_id])  # stable
+        return out
+
+    def _rotate_leading_run(self) -> None:
+        """Move the pending deque's leading same-scene run to its back."""
+        if not self._pending:
+            return
+        lead = self._pending[0].scene_id
+        run: List[T] = []
+        while self._pending and self._pending[0].scene_id == lead:
+            run.append(self._pending.popleft())
+        if self._pending:
+            self._pending.extend(run)
+        else:
+            self._pending.extendleft(reversed(run))  # single scene: no-op
+
+    def __iter__(self) -> "EpisodeIterator":
+        return self
+
+    def __next__(self) -> T:
+        if self._quota_hit():
+            self._rotate_leading_run()
+            self._draw_step_quota()
+        if not self._pending:
+            if not self.cycle:
+                raise StopIteration
+            if self.shuffle:
+                self.episodes = self._ordered(self.episodes, shuffle=True)
+            self._pending = deque(self.episodes)
+            if not self._pending:
+                raise StopIteration
+        ep = self._pending.popleft()
+        if self._scene_now is not None and ep.scene_id != self._scene_now:
+            self._episodes_in_scene = 0
+            self._steps_in_scene = 0
+        self._scene_now = ep.scene_id
+        self._episodes_in_scene += 1
+        return ep
+
+    def _quota_hit(self) -> bool:
+        if self.max_scene_repetition_episodes > 0 and self._episodes_in_scene >= self.max_scene_repetition_episodes:
+            return True
+        return self._step_quota is not None and self._steps_in_scene >= self._step_quota
+
+    def _draw_step_quota(self) -> None:
+        """(Re)draw the jittered step budget for the upcoming scene run."""
+        if self.max_scene_repetition_steps > 0:
+            v, r = self.max_scene_repetition_steps, self.step_repetition_range
+            self._step_quota: Optional[int] = int(self._rng.integers(int(v * (1 - r)), int(v * (1 + r)) + 1))
+        else:
+            self._step_quota = None
+
+    def step_taken(self) -> None:
+        self._steps_in_scene += 1
 
 
 MAX_GOALS_DEFAULT = 1

@@ -105,6 +105,10 @@ class FunctionalAction:
         return False
 
 
+class Metrics(dict):
+    """Flat dict of measure values (reference embodied_task.py:129)."""
+
+
 def order_measures(measures: Sequence[FunctionalMeasure]) -> Tuple[FunctionalMeasure, ...]:
     """Topological sort by declared deps."""
     by_uuid = {m.uuid: m for m in measures}

@@ -18,11 +18,11 @@ import dataclasses
 import gzip
 import json
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from habitat_torch.core.dataset import Episode, NavigationGoal
+from habitat_torch.core.dataset import Dataset, Episode, NavigationGoal
 from habitat_torch.core.registry import registry
 from habitat_torch.datasets.pointnav import _yaw_to_quat_coeffs
 from habitat_torch.sims.scene import INF_DIST, SceneData, geodesic_field
@@ -47,12 +47,12 @@ class ObjectGoalNavEpisode(Episode):
 
 
 @registry.register_dataset(name="ObjectNav-v1")
-class ObjectNavDatasetV1:
+class ObjectNavDatasetV1(Dataset):
     """Episodes of a reference ObjectNav JSON(.gz) file (``config.data_path``
     with ``{split}`` filled from ``config.split``), or of ``from_json``."""
 
     def __init__(self, config=None) -> None:
-        self.episodes: List[ObjectGoalNavEpisode] = []
+        super().__init__()
         self.category_to_task_category_id: Dict[str, int] = {}
         self.goals_by_category: Dict[str, list] = {}
         if config is None:
@@ -61,10 +61,6 @@ class ObjectNavDatasetV1:
         opener = gzip.open if data_path.endswith(".gz") else open
         with opener(data_path, "rt") as f:
             self.from_json(f.read())
-
-    @property
-    def scene_ids(self) -> List[str]:
-        return sorted({e.scene_id for e in self.episodes})
 
     def from_json(self, json_str: str, scenes_dir: Optional[str] = None) -> None:
         data = json.loads(json_str)

@@ -1,19 +1,84 @@
-"""PointNav procedural episode generator (host, numpy).
+"""PointNav dataset: the reference-format loader and the procedural episode
+generator (host, numpy; port of ``habitat_tpu/datasets/pointnav.py``).
 
-Port of ``generate_pointnav_episode`` / ``make_procedural_pointnav`` from
-``habitat_tpu/datasets/pointnav.py``: episodes are sampled on the navgrid
-with the precomputed geodesic field, under the reference generator's
-admissibility constraints (distance band, geodesic/euclidean ratio).
+- ``PointNavDatasetV1`` (registered "PointNav-v1") reads the reference's
+  episode JSON(.gz) schema (habitat-lab/habitat/datasets/pointnav/
+  pointnav_dataset.py: ``{data_path}`` and its ``content/{scene}.json.gz``
+  shards; episodes with start_position, start_rotation quaternion [x, y, z,
+  w], goals, info.geodesic_distance) and writes it back with ``to_json``.
+- ``generate_pointnav_episode`` / ``make_procedural_pointnav`` sample
+  episodes on the navgrid with the precomputed geodesic field, under the
+  reference generator's admissibility constraints (distance band,
+  geodesic/euclidean ratio).
 """
 
 from __future__ import annotations
 
+import gzip
+import json
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from habitat_torch.core.dataset import NavigationEpisode, NavigationGoal
+from habitat_torch.core.dataset import ALL_SCENES_MASK, Dataset, NavigationEpisode, NavigationGoal
+from habitat_torch.core.registry import registry
 from habitat_torch.sims.scene import INF_DIST, SceneData, geodesic_field
+
+
+@registry.register_dataset(name="PointNav-v1")
+class PointNavDatasetV1(Dataset):
+    """Episodes of ``config.data_path`` (``{split}`` filled from
+    ``config.split``) and of the ``content/`` shards beside it that
+    ``config.content_scenes`` names (all by default), or of ``from_json``."""
+
+    def __init__(self, config=None) -> None:
+        super().__init__()
+        if config is None:
+            return
+        data_path = config.data_path.format(split=config.split)
+        self._load_file(data_path)
+        content_dir = os.path.join(os.path.dirname(data_path), "content")
+        if os.path.isdir(content_dir):
+            wanted = getattr(config, "content_scenes", [ALL_SCENES_MASK])
+            for fn in sorted(os.listdir(content_dir)):
+                if not fn.endswith(".json.gz"):
+                    continue
+                scene = fn[: -len(".json.gz")]
+                if ALL_SCENES_MASK in wanted or scene in wanted:
+                    self._load_file(os.path.join(content_dir, fn))
+
+    def _load_file(self, fname: str) -> None:
+        opener = gzip.open if fname.endswith(".gz") else open
+        with opener(fname, "rt") as f:
+            self.from_json(f.read())
+
+    def from_json(self, json_str: str, scenes_dir: Optional[str] = None) -> None:
+        for ep in json.loads(json_str).get("episodes", []):
+            self.episodes.append(
+                NavigationEpisode(
+                    episode_id=str(ep["episode_id"]),
+                    scene_id=ep["scene_id"],
+                    start_position=list(ep["start_position"]),
+                    start_rotation=list(ep["start_rotation"]),
+                    info=ep.get("info", {}),
+                    goals=[NavigationGoal(position=list(g["position"]), radius=g.get("radius"))
+                           for g in ep.get("goals", [])],
+                )
+            )
+
+    def to_json(self) -> str:
+        return json.dumps({"episodes": [
+            {
+                "episode_id": e.episode_id,
+                "scene_id": e.scene_id,
+                "start_position": list(map(float, e.start_position)),
+                "start_rotation": list(map(float, e.start_rotation)),
+                "info": e.info,
+                "goals": [{"position": list(map(float, g.position)), "radius": g.radius} for g in e.goals],
+            }
+            for e in self.episodes
+        ]})
 
 
 def _yaw_to_quat_coeffs(yaw: float) -> List[float]:

@@ -9,18 +9,20 @@
   HabitatSimFisheye*Sensor); the visual ones are rendered once per step and
   camera model by the env, the goal images once per episode at table build;
 - measures: DistanceToGoal, Success, SPL, SoftSPL, Collisions,
-  DistanceToGoalReward, NumSteps;
+  DistanceToGoalReward, NumSteps, and the host-side TopDownMap,
+  RuntimePerfStats and GfxReplayMeasure (``host_side``: the batched step
+  reports zeros for them, and the single-env ``core/env.py::Env`` updates
+  them on the host after each step, from the agent's pose);
 - actions: stop / move_forward / turn_left / turn_right / look_up /
-  look_down.
-
-Not ported yet, registered under their names as raising
-``NotImplementedError`` so that a config naming one says so: the host-side
-measures TopDownMap, RuntimePerfStats and GfxReplayMeasure, and the
-parameterised actions TeleportAction and VelocityAction (each message names
-the JAX module it waits for).
+  look_down, velocity_control (continuous commands, integrated by the
+  batched env) and teleport (no pose change in the batched env, as in the
+  JAX package, whose parameterised teleport runs only on its host sim).
 """
 
 from __future__ import annotations
+
+import json
+import time
 
 import numpy as np
 import torch
@@ -462,18 +464,134 @@ class LookDownAction(FunctionalAction):
         return -float(np.deg2rad(_cfg(self.config, "tilt_angle", 15.0)))
 
 
-def _not_ported(name: str, module: str):
-    def build(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported to habitat_torch yet: it waits for the port of {module}")
+@registry.register_task_action("TeleportAction")
+class TeleportAction(FunctionalAction):
+    """Teleport to a given pose (reference nav.py:1121): in the batched env
+    it contributes no pose change."""
 
-    return build
+    name = "teleport"
 
 
-# the unported components and the JAX modules they wait for
-for _name, _module in (("TopDownMap", "tasks/nav.py::TopDownMap and utils/visualizations/maps.py"),
-                       ("RuntimePerfStats", "tasks/nav.py::RuntimePerfStats"),
-                       ("GfxReplayMeasure", "tasks/nav.py::GfxReplayMeasure and utils/gfx_replay.py")):
-    registry.register_measure(_not_ported(_name, _module), name=_name)
-for _name in ("TeleportAction", "VelocityAction"):
-    registry.register_task_action(
-        _not_ported(_name, f"tasks/nav.py::{_name} and core/batched_env.py's velocity path"), name=_name)
+@registry.register_task_action("VelocityAction")
+class VelocityAction(FunctionalAction):
+    """Velocity control (reference nav.py:1170): a (linear, angular) command
+    in [-1, 1]^2 mapped onto ``lin_vel_range`` (m/s) and ``ang_vel_range``
+    (degrees/s) and integrated over ``time_step`` seconds by the batched
+    env; both speeds under ``min_abs_lin_speed`` / ``min_abs_ang_speed``
+    stop the episode."""
+
+    name = "velocity_control"
+
+    def __init__(self, config=None):
+        super().__init__(config)
+        self.lin_vel_range = _cfg(config, "lin_vel_range", [0.0, 0.25])
+        self.ang_vel_range = _cfg(config, "ang_vel_range", [-10.0, 10.0])
+        self.min_abs_lin_speed = _cfg(config, "min_abs_lin_speed", 0.025)
+        self.min_abs_ang_speed = _cfg(config, "min_abs_ang_speed", 1.0)
+        self.time_step = _cfg(config, "time_step", 1.0)
+
+
+class HostMeasure(FunctionalMeasure):
+    """A measure the single-env ``Env`` computes on the host: ``host_reset``
+    at an episode's start and ``host_update`` after each step, from the
+    agent's (3,) position and yaw. In a batched env it reports zeros."""
+
+    host_side = True
+
+    def reset(self, ctx):
+        return {}, torch.zeros(ctx.pos.shape[0], device=ctx.pos.device)
+
+    def update(self, state, ctx, measures):
+        return {}, torch.zeros(ctx.pos.shape[0], device=ctx.pos.device)
+
+
+@registry.register_measure("TopDownMap")
+class TopDownMap(HostMeasure):
+    """Top-down map (reference nav.py:678): the scene's occupancy map with
+    the goals stamped, the fog of war the agent has lifted and its pose, as
+    {map, fog_of_war_mask, agent_map_coord, agent_angle}
+    (``utils/visualizations/maps.py::TopDownMapTracker``)."""
+
+    uuid = "top_down_map"
+
+    def __init__(self, config=None):
+        super().__init__(config)
+        self._tracker = None
+
+    def host_reset(self, scene, episode, pos, yaw):
+        from habitat_torch.utils.visualizations.maps import TopDownMapTracker
+
+        fog, draw_path = True, True
+        if self.config is not None and hasattr(self.config, "get"):
+            fow = self.config.get("fog_of_war", None)
+            if hasattr(fow, "get"):
+                fog = bool(fow.get("draw", True))
+            draw_path = bool(self.config.get("draw_shortest_path", True))
+        goals = None
+        if episode is not None and getattr(episode, "goals", None):
+            goals = np.array([g.position for g in episode.goals], np.float32)
+        self._tracker = TopDownMapTracker(scene, draw_shortest_path=draw_path, fog_of_war=fog)
+        self._tracker.reset(goal_positions=goals)
+        self._tracker.update(np.asarray(pos), float(yaw))
+        return self.host_value()
+
+    def host_update(self, pos, yaw, episode_over=False):
+        self._tracker.update(np.asarray(pos), float(yaw))
+        return self.host_value()
+
+    def host_value(self):
+        t = self._tracker
+        c, yaw = t._last_pose
+        return {"map": t.map, "fog_of_war_mask": t.fog_mask, "agent_map_coord": (int(c[0]), int(c[1])),
+                "agent_angle": float(yaw)}
+
+
+@registry.register_measure("RuntimePerfStats")
+class RuntimePerfStats(HostMeasure):
+    """Step timing (reference rearrange_sensors.py:1166, uuid
+    "habitat_perf"): ``step_ms``, the wall-clock ms since the previous
+    update (or the reset), and ``utils/timing.py::g_timer``'s means in ms."""
+
+    uuid = "habitat_perf"
+
+    def __init__(self, config=None):
+        super().__init__(config)
+        self._t_prev = None
+
+    def host_reset(self, scene, episode, pos, yaw):
+        self._t_prev = time.time()
+        return {}
+
+    def host_update(self, pos, yaw, episode_over=False):
+        from habitat_torch.utils.timing import g_timer
+
+        now = time.time()
+        out = {"step_ms": (now - self._t_prev) * 1e3}
+        self._t_prev = now
+        for k, v in g_timer.todict().items():
+            out[k] = v * 1e3
+        return out
+
+
+@registry.register_measure("GfxReplayMeasure")
+class GfxReplayMeasure(HostMeasure):
+    """gfx-replay keyframes (reference rearrange_sensors.py:500, uuid
+    "gfx_replay_keyframes_string"): one keyframe of the agent's pose at the
+    reset and one per step; "" while the episode runs, the JSON replay
+    {"keyframes": [...]} at its end."""
+
+    uuid = "gfx_replay_keyframes_string"
+
+    def host_reset(self, scene, episode, pos, yaw):
+        self._kfs = []
+        self._scene_id = getattr(scene, "scene_id", "scene")
+        self._append(pos, yaw)
+        return ""
+
+    def _append(self, pos, yaw):
+        self._kfs.append({"agent": {"position": [float(x) for x in np.asarray(pos)], "yaw": float(yaw)},
+                          "index": len(self._kfs), "scene": self._scene_id})
+
+    def host_update(self, pos, yaw, episode_over=False):
+        self._append(pos, yaw)
+        return json.dumps({"keyframes": self._kfs}) if episode_over else ""

@@ -203,15 +203,18 @@ def _small_pick(extra=()):
 ARM_PICK = ["habitat.task.actions.arm_action.type=ArmAction", "habitat.task.actions.base_velocity.type=BaseVelAction"]
 
 
-@pytest.mark.parametrize("case", ["objectnav_file", "eval_video", "reach"])
+@pytest.mark.parametrize("case", ["gym_env", "remote_evaluate", "eval_video", "reach"])
 def test_unported_raise_not_implemented(case, tmp_path):
-    if case == "objectnav_file":
-        # an ObjectNav-v1 episode file on disk waits for sims/loaders.py
-        path = tmp_path / "val.json"
-        path.write_text('{"episodes": [], "goals_by_category": {}}')
-        cfg = get_config("benchmark/nav/objectnav/objectnav_procgen.yaml", [
-            "habitat.dataset.type=ObjectNav-v1", f"habitat.dataset.data_path={path}"])
-        call, match = lambda: tcons.env_from_config(cfg, num_envs=2, device="cpu"), "loaders.py"
+    if case == "gym_env":
+        # the gym wrappers wait for gym/ and core/spaces.py (gymnasium)
+        from habitat_torch.core.environments import get_env_class
+
+        call, match = lambda: get_env_class("GymHabitatEnv")(None), "core/spaces.py"
+    elif case == "remote_evaluate":
+        # the evalai protocol waits for core/evalai_remote.py (grpc)
+        from habitat_torch.core.benchmark import Benchmark
+
+        call, match = lambda: Benchmark(eval_remote=True).evaluate(None), "evalai_remote.py"
     elif case == "eval_video":
         # eval videos wait for utils/visualizations/
         from habitat_torch.baselines.evaluator import evaluate_agent

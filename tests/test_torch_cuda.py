@@ -1538,3 +1538,83 @@ def test_eqa_learner_step_on_card_matches_cpu(card, trainer):
         assert abs(m_g[k].item() - m_c[k].item()) <= 1e-5 * max(1.0, abs(m_c[k].item())), k
     shares = _tensor_shares(start, {k: v.cpu() for k, v in g.model.state_dict().items()}, c.model.state_dict(), lr)
     assert min(shares.values()) >= 0.99, min(shares.items(), key=lambda kv: kv[1])
+
+
+SMALL_NAV = ["habitat.dataset.procedural.num_scenes=2", "habitat.dataset.procedural.episodes_per_scene=3",
+             "habitat.environment.max_episode_steps=20"]
+
+
+def test_env_step_at_128_launches_fused_sel_and_matches_plain(cuda):
+    """The single-env Env at pointnav_procgen.yaml's 128x128 depth on the
+    card: #1 launched once per render (the reset, each step, each
+    render()), no plain version on a card tensor; its frames and metrics
+    against the same Env on the CPU (plain versions): depth within 1e-4 on
+    >= 99.9% of pixels, metrics within 1e-5."""
+    from habitat_torch.config.default import get_config
+    from habitat_torch.core.env import Env
+
+    cfg = get_config("benchmark/nav/pointnav/pointnav_procgen.yaml", SMALL_NAV)
+    ge, ce = Env(cfg, device=cuda), Env(cfg, device="cpu")
+    plain, orig = [], rk.raycast_fused_sel_t_plain
+    with mock.patch.object(rk, "raycast_fused_sel_t_plain", side_effect=lambda *a, **k: plain.append(a) or orig(*a, **k)):
+        before = rk.raycast_fused_sel_t.launches
+        go = ge.reset()
+        for a in (1, 2, 1):
+            go = ge.step(a)
+        frame = ge.render()
+        torch.cuda.synchronize()
+        assert rk.raycast_fused_sel_t.launches == before + 5 and not plain
+    co = ce.reset()
+    for a in (1, 2, 1):
+        co = ce.step(a)
+    assert go["depth"].is_cuda and go["depth"].shape == (128, 128, 1)
+    assert ((go["depth"].cpu() - co["depth"]).abs() < 1e-4).float().mean().item() >= 0.999
+    gm, cm = ge.get_metrics(), ce.get_metrics()
+    assert set(gm) == set(cm) and all(abs(float(gm[k]) - float(cm[k])) <= 1e-5 for k in cm)
+    assert frame.shape == (128, 128, 3) and (np.abs(frame.astype(int) - ce.render().astype(int)) <= 1).mean() >= 0.999
+
+
+def test_velocity_step_on_card_matches_cpu(card):
+    """One velocity-control step at N=8 (4 sub-moves), card against CPU:
+    positions and yaws within 1e-5, dones equal."""
+    from habitat_torch.config.default import get_config
+    from habitat_torch.config.omega import Config, read_write
+    from habitat_torch.core.construct import env_from_config
+
+    cfg = get_config("benchmark/nav/pointnav/pointnav_procgen.yaml", SMALL_NAV + [
+        "habitat.simulator.agents.main_agent.sim_sensors.depth_sensor.width=32",
+        "habitat.simulator.agents.main_agent.sim_sensors.depth_sensor.height=32"])
+    with read_write(cfg) as c:
+        c.habitat.task.actions = Config({"velocity_control": Config({"type": "VelocityAction"})})
+    acts = torch.as_tensor(np.random.default_rng(0).uniform(-1, 1, (8, 2)), dtype=torch.float32)
+    acts[0] = torch.tensor([-1.0, 0.0])  # under both minimums: auto-stop
+    outs = []
+    for dev in ("cpu", card):
+        env = env_from_config(cfg, num_envs=8, device=dev)
+        st, _ = env.reset_fn()
+        outs.append(env.step_fn(st, acts.to(dev)))
+    (sc, _, _, dc, _), (sg, _, _, dg, _) = outs
+    assert torch.equal(dg.cpu(), dc) and bool(dc[0])
+    for name in ("pos", "yaw"):
+        assert (getattr(sg, name).cpu() - getattr(sc, name)).abs().max() <= 1e-5, name
+
+
+def test_render_keyframe_launches_fused_sel_and_matches_plain(cuda):
+    """A gfx-replay keyframe rendered at 256x256 through #1 on the card
+    against the plain version on the CPU: RGB equal on >= 99.9% of pixels,
+    one launch."""
+    from habitat_torch.core.env_factory import make_nav_env
+    from habitat_torch.utils.gfx_replay import render_keyframe
+
+    scenes, episodes, fields = make_procedural_pointnav(num_scenes=1, episodes_per_scene=2, seed=0)
+    kf = {"agent": {"position": [float(x) for x in episodes[0].start_position], "yaw": 0.7}}
+    frames = []
+    for dev in ("cpu", cuda):
+        env = make_nav_env(scenes, episodes, 1, precomputed_fields=fields, device=dev)
+        before = rk.raycast_fused_sel_t.launches
+        frames.append(render_keyframe(env, kf))
+        torch.cuda.synchronize()
+        assert rk.raycast_fused_sel_t.launches == before + (dev != "cpu")
+    ref, got = frames
+    assert got["rgb"].is_cuda and got["rgb"].shape == (256, 256, 3)
+    assert (got["rgb"].cpu() == ref["rgb"]).all(-1).float().mean().item() >= 0.999

@@ -1,7 +1,7 @@
 """The port stands alone: nothing under habitat_torch/, nothing in
 chip_smoke.py and nothing in scripts/eval_flagship_torch.py imports JAX,
-Flax, Optax, Orbax, gymnasium (the card's machine has none) or the
-habitat_tpu package. The config path's modules, imported one by one in a
+Flax, Optax, Orbax, gymnasium, OpenCV, imageio, grpc (the card's machine has
+none of them) or the habitat_tpu package. The config path's modules, imported one by one in a
 fresh interpreter, load none of them, and ``habitat_torch.config`` composes
 the in-repo YAML tree (read as data) without them either."""
 
@@ -11,7 +11,7 @@ import os
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gymnasium", "habitat_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gymnasium", "cv2", "imageio", "grpc", "habitat_tpu")
 
 
 def _port_files():
@@ -41,7 +41,10 @@ def test_port_files_found():
                    "baselines/il/bc_trainer.py", "tasks/rearrange/multi_task/pddl.py", "baselines/hrl/hierarchical.py",
                    "baselines/hrl/planner.py", "baselines/hrl/hrl_ppo.py", "tasks/eqa.py", "tasks/vln.py",
                    "baselines/il/eqa_trainers.py", "baselines/il/pacman.py", "core/agent.py",
-                   "baselines/agents/simple_agents.py", "baselines/agents/ppo_agents.py", "baselines/tensor_dict.py"):
+                   "baselines/agents/simple_agents.py", "baselines/agents/ppo_agents.py", "baselines/tensor_dict.py",
+                   "core/env.py", "core/environments.py", "core/benchmark.py", "datasets/registration.py",
+                   "sims/loaders.py", "utils/timing.py", "utils/gfx_replay.py", "utils/visualizations/maps.py",
+                   "utils/visualizations/fog_of_war.py"):
         assert os.path.join(ROOT, "habitat_torch", module) in files
 
 
@@ -65,7 +68,10 @@ CONFIG_PATH_MODULES = (
     "habitat_torch.baselines.hrl.hrl_ppo", "habitat_torch.tasks.eqa", "habitat_torch.tasks.vln",
     "habitat_torch.baselines.il.eqa_trainers", "habitat_torch.baselines.il.pacman", "habitat_torch.core.agent",
     "habitat_torch.baselines.agents.simple_agents", "habitat_torch.baselines.agents.ppo_agents",
-    "habitat_torch.baselines.tensor_dict",
+    "habitat_torch.baselines.tensor_dict", "habitat_torch.sims.loaders", "habitat_torch.datasets.registration",
+    "habitat_torch.utils.timing", "habitat_torch.utils.visualizations.fog_of_war",
+    "habitat_torch.utils.visualizations.maps", "habitat_torch.utils.gfx_replay", "habitat_torch.core.env",
+    "habitat_torch.core.environments", "habitat_torch.core.benchmark",
 )
 _PROBE = """
 import json, sys

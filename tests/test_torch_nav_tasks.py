@@ -324,10 +324,17 @@ def test_image_goal_size_mismatch_raises(pointnav_both):
     ("TopDownMap", "measure"), ("RuntimePerfStats", "measure"), ("GfxReplayMeasure", "measure"),
     ("TeleportAction", "task_action"), ("VelocityAction", "task_action"),
 ])
-def test_unported_nav_components_raise(name, kind):
-    """Registered under the JAX names, raising at construction."""
+def test_host_measures_and_actions_registered(name, kind):
+    """Registered under the JAX names, built with the same uuid (measures,
+    both host-side) or action name and settings as the JAX package's."""
     from habitat_torch.core.registry import registry
 
-    getattr(jcons.registry, f"get_{kind}")(name)  # the JAX package has it
-    with pytest.raises(NotImplementedError, match=name):
-        getattr(registry, f"get_{kind}")(name)(None)
+    cfg = {"lin_vel_range": [0.0, 0.5], "min_abs_ang_speed": 2.0}
+    j = getattr(jcons.registry, f"get_{kind}")(name)(cfg)
+    t = getattr(registry, f"get_{kind}")(name)(cfg)
+    if kind == "measure":
+        assert (t.uuid, t.host_side) == (j.uuid, j.host_side) and t.host_side
+    else:
+        assert t.name == j.name
+        assert {k: v for k, v in vars(t).items() if k != "config"} == {
+            k: v for k, v in vars(j).items() if k != "config"}
