@@ -140,15 +140,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 12. contacts  rearrangement physics at the Pick configuration's scale (N=128
            envs, 3 boxes each; PyTorch ops, no kernel of the port's):
            settle_objects (30 contacts-v3 steps, every valid box on or above
-           its floor), then a 300-step episode of the v6 contact_step (dt
-           0.1, 4 substeps) with boxes of 0.05-0.20 m half-extents spawned
-           overlapping, floating and tipped and the robot driven through
-           them: ms per step (median and range of the episode's three runs
-           of 100 steps), launches per step and the idle share from 3
-           profiled steps, no host sync in a step. Gates: one step on the
+           its floor), then 150 steps (half the env's 300-step episode) of
+           the v6 contact_step (dt 0.1, 4 substeps) with boxes of
+           0.05-0.20 m half-extents spawned overlapping, floating and tipped
+           and the robot driven through them: ms per step (median and range
+           of three runs of 50 steps), launches per step and the idle share
+           from 1 profiled step, no host sync in a step. Gates: one step on the
            card against the CPU from the same states (steps 0 and 30), held
            to the CPU's float64 result (PHYS_ATOL, PHYS_W_RTOL, FORCE_ATOL,
-           FORCE_RTOL, plus twice the CPU float32 error); after 300 steps
+           FORCE_RTOL, plus twice the CPU float32 error); after 150 steps
            the shares of boxes asleep and tipped within SHARE_GAP of the
            CPU's episode and no corner FLOOR_SINK below its floor.
     arm    Fetch's step_arm (7 joints, the env's motors, dt 1/30, 4
@@ -348,6 +348,47 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            on the CPU from the card's state (positions within
            VEL_POS_ATOL, dones equal), ms per step, #1 1 + 32.
 
+20. social  scripts/train_social_tpu.py's three modes at their widths
+           (SOCIAL: N=128, 8 scenes x 16 episodes, seed 0): (a) single, a
+           blind resnet9 + LSTM-128, T=64, 2 x 2 minibatch steps, the
+           recipe's three measure keys; (b) vision, 64x64 head depth + RGB
+           with the humanoid's 24 triangles as the render's dynamic pass, a
+           visual resnet9, T=32; (c) two, TwoAgentPPOLearner with two blind
+           resnet9 policies, T=64, one minibatch, 2 epochs. A warm-up and
+           SOCIAL_UPDATES timed updates each (s per update, env-steps/s,
+           rollout / update split, an env step's ms, launches and idle
+           share). Gates: #3 exactly twice per render in (b) and nowhere
+           else, #11 once per minibatch step in (b), no plain version on a
+           card tensor; #11 bit-equal to its plain version on (b)'s last
+           minibatch input; #3 on a (b) frame with the humanoid 1.2 m ahead
+           against its plain version ([kernel] gates) and the humanoid on its
+           pixels; (a)'s and (c)'s envs stepped SOCIAL_CHECK_STEPS steps on
+           the card, each step also from the same state on the CPU env:
+           state, observations, reward, done and measures within
+           SOCIAL_ATOL; the rules of tests/test_social_nav.py::
+           test_social_nav_visual_humanoid_visible and
+           ::test_seek_success_reachable_by_scripted_follow and of
+           tests/test_two_agent.py::test_both_agents_params_update; one
+           float32 update of (a) and of both agents of (c), card against CPU
+           on the card's rollout (the same permutations), from weights
+           trained SOCIAL_START_UPDATES updates on the CPU: losses within
+           LOSS_RTOL, [check]'s per-tensor share rule.
+    hab3   Habitat 3.0's two-agent rearrangement from the config path:
+           pick_procgen.yaml with a Spot main_agent and a humanoid agent_1
+           (HAB3_OVERRIDES: the robot's arm and base velocity; the
+           humanoid's oracle navigation, PDDL apply, joint action and pick;
+           the multi-agent predicate sensor), N=128, contacts, the 128x128
+           head render: HAB3_STEPS steps of a schedule driving every
+           agent-1 action, each also from the same state on a CPU env
+           without the camera (state, every non-visual observation and the
+           predicates, reward, done, measures within SOCIAL_ATOL), #3
+           exactly twice per render, no plain version on a card tensor, #3
+           on one step's render against its plain version; ms per env step,
+           launches, idle share; the assertions of tests/test_task_actions.py::
+           test_hab3_two_agent_declared_actions and
+           ::test_humanoid_joint_action_sets_root on the card at N=2 (as
+           tests/test_torch_hab3.py applies them).
+
 Prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
@@ -427,10 +468,11 @@ FLOPS_PER_CULL_TRI = 83
 FLAGSHIP = dict(episodes=256, success=0.9414, spl=0.8919, tol=0.03)
 # [contacts]: the Pick configuration's scale (N=128, scripts/train_rearrange_tpu.py:23;
 # 3 boxes, generator.py:405), the env's step (dt 0.1, 4 substeps,
-# rearrange_env.py:2225) over an episode of max_episode_steps 300, timed in
-# `runs` runs of 100 consecutive steps; settling as the generator runs it
+# rearrange_env.py:2225) over the first half of an episode of
+# max_episode_steps 300 (cut to 150 steps for the script's time limit), timed
+# in `runs` runs of 50 consecutive steps; settling as the generator runs it
 # (30 contacts-v3 steps)
-CONTACTS = dict(num_envs=128, objects=3, steps=300, dt=0.1, substeps=4, warmup=5, runs=3, profile_steps=3,
+CONTACTS = dict(num_envs=128, objects=3, steps=150, dt=0.1, substeps=4, warmup=5, runs=3, profile_steps=1,
                 settle_steps=30, robot_steps=60)
 # [arm]: Fetch's 7 joints under the env's motors (kp 300, kd 30,
 # rearrange_env.py:765) at the env's rate (dt 1/30, 4 substeps, :1742), 300
@@ -446,7 +488,7 @@ ARM = dict(num_envs=128, steps=300, dt=1.0 / 30.0, substeps=4, kp=300.0, kd=30.0
 PICK = dict(num_envs=128, task="pick", num_scenes=8, episodes_per_scene=16, seed=0, render_size=(64, 64),
             n_rooms_per_axis=1, n_clutter=0, max_episode_steps=120)
 PICK_TRAIN = dict(num_steps=64, num_mini_batch=2, ppo_epoch=2, lr=2.5e-4)
-PICK_TRAIN_STEPS = 3
+PICK_TRAIN_STEPS = 2
 PICK_GREEDY_STEPS = 150
 # [pick-contacts]: pick_procgen.yaml as habitat_torch/core/construct.py
 # builds it (pick, discrete, Fetch, contacts, 128x128 head cameras, 2 scenes
@@ -504,7 +546,7 @@ MOVED_SENSOR_FACTOR = 2.0
 PHYS_ATOL = 1e-5
 PHYS_W_RTOL = 1e-5
 FORCE_ATOL, FORCE_RTOL = 1e-3, 1e-4
-# after the 300-step episode: the shares of free boxes asleep and tipped
+# after the 150-step episode: the shares of free boxes asleep and tipped
 # (body up axis below 0.9 of world up), card against CPU, and every box's
 # lowest corner above its floor less this sink
 SHARE_GAP = 0.05
@@ -544,8 +586,8 @@ GOAL_RGB_AGREE = 0.999  # goal RGB equal to the CPU's (tests/test_torch_raycast.
 LOSS_RTOL = 1e-4  # card - CPU float32 update losses, relative to max(1, |loss|)
 DDPPO_EXPERIMENT = "pointnav/ddppo_pointnav.yaml"
 # [ddppo]: the recipe's N (the phase peaks at 72.5 GiB on the H100 when run
-# alone) for 1 warm-up + 3 updates
-DDPPO = dict(num_envs=64, updates=4)
+# alone) for 1 warm-up + 1 update (cut from 3 for the script's time limit)
+DDPPO = dict(num_envs=64, updates=2)
 # [ddppo-2rank]: a small resnet18 PointNav config, N=8 over 2 ranks of 4
 DDPPO_2RANK = dict(num_envs=8, hw=64, hidden=128, ppo=dict(num_steps=8, ppo_epoch=2, num_mini_batch=2))
 DDPPO_RTOL, DDPPO_ATOL = 2e-4, 2e-5  # 2 ranks vs 1 (the JAX package's sharded-vs-single test)
@@ -571,7 +613,7 @@ BC_CHECK = dict(num_envs=8, hidden=512)
 HRL_ENV = dict(num_envs=128, task="rearrange", num_scenes=8, episodes_per_scene=16, seed=0, with_visual=False,
                n_rooms_per_axis=1, n_clutter=0, max_episode_steps=300)
 HRL_PPO = dict(num_macro_steps=16, hl_interval=8, hidden_size=64)
-HRL_UPDATES = 3
+HRL_UPDATES = 2
 # the planner's and the fixed plan's rules (tests/test_hrl_planner.py:28-51,
 # tests/test_hrl_pddl.py:59-71) on those tests' env (HRL_RULE_ENV): the share
 # of envs with a successful episode within the steps given; at N=128 on
@@ -619,6 +661,34 @@ MINI_DATASET = ("habitat.dataset.type=PointNav-v1", "habitat.dataset.split=val",
                 "habitat.dataset.data_path={root}/tests/assets/mini_dataset/pointnav/v1/{{split}}/{{split}}.json.gz",
                 "habitat.dataset.scenes_dir={root}/tests/assets")
 VEL_POS_ATOL = 1e-4  # card - CPU positions after one velocity step from the same state
+# [social]: scripts/train_social_tpu.py's configurations
+SOCIAL = dict(num_envs=128, num_scenes=8, episodes_per_scene=16, seed=0)
+SOCIAL_MEASURES = ("nav_seek_success", "did_agents_collide", "found_human_rate")
+SOCIAL_PPO = dict(single=dict(num_steps=64, num_mini_batch=2, ppo_epoch=2, lr=2.5e-4),
+                  vision=dict(num_steps=32, num_mini_batch=2, ppo_epoch=2, lr=2.5e-4),
+                  two=dict(num_steps=64, num_mini_batch=1, ppo_epoch=2, lr=2.5e-4))
+SOCIAL_HW = (64, 64)  # (b)'s head camera
+SOCIAL_UPDATES = 2  # timed updates after the warm-up one
+SOCIAL_CHECK_STEPS = 64  # card steps each also taken on the CPU from the same state
+SOCIAL_ATOL = 1e-5  # + 1e-5 relative: card - CPU from the same state
+SOCIAL_START_UPDATES = 4  # CPU float32 updates (N=16, T=16) before the card-vs-CPU update
+SOCIAL_CHECK_ENVS = 32
+# [hab3]: pick_procgen.yaml with two agents (tests/test_torch_hab3.py's HAB3 at the config's own size)
+HAB3_OVERRIDES = ("habitat.simulator.agents.main_agent.articulated_agent_type=SpotRobot",
+                  "habitat.simulator.agents.agent_1.articulated_agent_type=KinematicHumanoid",
+                  "habitat.task.actions.agent_0_arm_action.type=ArmAction",
+                  "habitat.task.actions.agent_0_base_velocity.type=BaseVelAction",
+                  "habitat.task.actions.agent_1_oracle_nav_action.type=OracleNavAction",
+                  "habitat.task.actions.agent_1_pddl_apply_action.type=PddlApplyAction",
+                  "habitat.task.actions.agent_1_humanoidjoint_action.type=HumanoidJointAction",
+                  "habitat.task.actions.agent_1_humanoid_pick_action.type=HumanoidPickAction",
+                  "habitat.task.lab_sensors.multi_agent_all_predicates.type=MultiAgentGlobalPredicatesSensor")
+HAB3_RULE_SIZE = ("habitat.dataset.procedural.num_scenes=1", "habitat.dataset.procedural.episodes_per_scene=4")
+HAB3 = dict(num_envs=128, steps=32)
+# card - CPU from the same state under contacts: (atol, rtol) of the box
+# fields and the robot force (tests/test_torch_rearrange_env.py's bounds)
+HAB3_BOX_BOUND = dict(obj_pos=(6e-5, 0.0), obj_vel=(6e-4, 0.0), obj_quat=(1.2e-4, 0.0), obj_omega=(3e-3, 0.0),
+                      accum_force=(1e-3, 1e-4), robot_force=(1e-3, 1e-4), articulated_agent_force=(1e-3, 1e-4))
 
 
 def log(msg):
@@ -1123,7 +1193,7 @@ def no_host_sync(tag, what, fn):
 
 def contacts_phase(gpu, dev):
     """[contacts]: settle_objects at E=128 x O=3, then the v6 contact step
-    over a 300-step episode on ``dev``: ms per step, launches per step, the
+    over CONTACTS["steps"] steps on ``dev``: ms per step, launches per step, the
     device's idle share, and the gates against the CPU."""
     import numpy as np
     import torch
@@ -1210,7 +1280,7 @@ def contacts_phase(gpu, dev):
         + f", force rel {one[(s, 'force')]['rel']:.2e}" for s in kept)
         + " (each within its float64 gate)")
 
-    # gate 2: the 300-step episode on the CPU from the same start
+    # gate 2: the episode on the CPU from the same start
     t0 = time.perf_counter()
     cpu_end, cpu_force, _, _ = episode(cpu)
     cpu_s = time.perf_counter() - t0
@@ -3957,6 +4027,576 @@ def env_api_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card
     return sum(x["raycast_fused_sel_t"] for x in (bench_launches, mini_launches, vel_launches))
 
 
+def outputs_agree(tag, out_g, out_c, skip=("robot_head_depth", "robot_head_rgb"), box_bound=None):
+    """One step's outputs on the card against the CPU's from the same state:
+    every state field, the observations the CPU env has (but ``skip``),
+    reward, done and measures. Integer and boolean fields equal; floats
+    within SOCIAL_ATOL + SOCIAL_ATOL * |cpu|. With ``box_bound`` (contacts)
+    the box fields it names meet its bounds instead, and an env's
+    observations, reward and measures get MOVED_SENSOR_FACTOR times its
+    largest box-position gap on top. Returns (the largest float gap of the
+    rest, the largest box-position gap)."""
+    import dataclasses
+
+    import torch
+
+    (sg, og, rg, dg, ig), (sc, oc, rc_, dc, ic) = out_g, out_c
+    n = dc.shape[0]
+    box_gap = torch.zeros(n)
+    if box_bound:
+        box_gap = (sg.obj_pos.cpu() - sc.obj_pos).abs().reshape(n, -1).amax(-1)
+    worst = 0.0
+    for name, g, c, per_env in (
+            [(f"state {f.name}", getattr(sg, f.name), getattr(sc, f.name), False) for f in dataclasses.fields(sc)]
+            + [(f"obs {k}", og[k], oc[k], True) for k in oc if not k.endswith(skip)]
+            + [("reward", rg, rc_, True), ("done", dg, dc, True)] + [(f"info {k}", ig[k], ic[k], True) for k in ic]):
+        g = g.cpu()
+        if not c.is_floating_point():
+            if not torch.equal(g, c):
+                fail(f"{tag} {name}: {int((g != c).sum())} elements differ from the CPU's")
+            continue
+        gap = (g - c).abs()
+        field = name.split(" ")[-1]
+        if box_bound and field in box_bound:
+            atol, rtol = box_bound[field]
+            tol = atol + rtol * c.abs()
+        else:
+            extra = MOVED_SENSOR_FACTOR * box_gap.reshape((n,) + (1,) * (c.dim() - 1)) if per_env else 0.0
+            tol = SOCIAL_ATOL + SOCIAL_ATOL * c.abs() + extra
+            worst = max(worst, gap.max().item() if gap.numel() else 0.0)
+        if (gap > tol).any():
+            fail(f"{tag} {name}: {int((gap > tol).sum())} elements beyond the bound, max |d| {gap.max().item():.3g}")
+    return worst, box_gap.max().item()
+
+
+def card_vs_cpu_steps(tag, env_g, env_c, actions, **kw):
+    """The card env stepped through ``actions`` (CPU tensors, one per step)
+    from its reset; each step also taken on the CPU env from the card's
+    state, held by ``outputs_agree``. Returns (largest gap, largest box gap,
+    dones)."""
+    import torch
+
+    st, _ = env_g.reset_fn()
+    worst, box, dones = 0.0, 0.0, 0
+    for t, a in enumerate(actions):
+        out_g = env_g.step_fn(st, a.to(env_g.device))
+        out_c = env_c.step_fn(st.to(torch.device("cpu")), a)
+        w, b = outputs_agree(f"{tag} step {t}", out_g, out_c, **kw)
+        worst, box, dones = max(worst, w), max(box, b), dones + int(out_c[3].sum())
+        st = out_g[0]
+    return worst, box, dones
+
+
+def social_env_like(env, device, n=None, **kw):
+    """A SocialNavBatchedEnv with ``env``'s pack, table and settings on
+    ``device``: its first ``n`` envs (all by default); ``kw`` overrides."""
+    from habitat_torch.tasks.rearrange.social_nav import SocialNavBatchedEnv
+
+    args = dict(max_episode_steps=env.max_episode_steps, human_speed=env.human_speed, robot_step=env.fwd,
+                two_agent=env.two_agent, with_visual=env.with_visual, render_size=env.render_size)
+    order = env.order[:n] if n else env.order
+    return SocialNavBatchedEnv(env.pack, env.table, order.cpu().numpy(), device=device, **{**args, **kw})
+
+
+def social_policy(env, dev, i=None, visual=False, hidden=128, dtype=None):
+    """scripts/train_social_tpu.py's policy: resnet9, hidden ``hidden``, no
+    goal sensor, the env's (or agent i's) state sensors."""
+    import torch
+
+    from habitat_torch.models.policy import make_pointnav_resnet_policy, state_keys_of
+
+    shapes = env.observation_shapes if i is None else env.agent_observation_shapes(i)
+    return make_pointnav_resnet_policy(env.num_actions, has_visual=visual, hidden_size=hidden, goal_keys=(),
+                                       backbone="resnet9", input_hw=env.render_size,
+                                       state_keys=state_keys_of(shapes), dtype=dtype or torch.bfloat16, device=dev)
+
+
+def social_actions(env, steps, seed):
+    """``steps`` (N,) or (N, 2) action tensors: mostly forward, stop rarely."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    shape = (env.num_envs, 2) if env.two_agent else (env.num_envs,)
+    return [torch.as_tensor(rng.choice(4, shape, p=[0.01, 0.59, 0.2, 0.2])) for _ in range(steps)]
+
+
+def social_rules(dev):
+    """tests/test_social_nav.py::test_social_nav_visual_humanoid_visible
+    and ::test_seek_success_reachable_by_scripted_follow, and
+    tests/test_two_agent.py::test_both_agents_params_update, on ``dev``.
+    Returns their readings."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from habitat_torch.baselines.multi_agent import TwoAgentPPOLearner
+    from habitat_torch.baselines.ppo import PPOConfig
+    from habitat_torch.tasks.rearrange.social_nav import make_social_nav_env
+
+    env = make_social_nav_env(num_envs=2, with_visual=True, render_size=(32, 32), device=dev)
+    st, obs = env.reset_fn()
+    if obs["robot_head_rgb"].shape != (2, 32, 32, 3) or obs["robot_head_depth"].shape != (2, 32, 32, 1):
+        fail(f"[social] visual observations {obs['robot_head_rgb'].shape} {obs['robot_head_depth'].shape}")
+    fwd = torch.stack([-torch.sin(st.yaw), torch.zeros_like(st.yaw), -torch.cos(st.yaw)], -1)
+    st = dataclasses.replace(st, human_pos=st.pos + fwd * 1.2)
+    _, obs, *_ = env.step_fn(st, torch.ones(2, dtype=torch.int64, device=dev))
+    img = obs["robot_head_rgb"].float()
+    redness = (img[..., 0] > 1.5 * (img[..., 1] + 1)).float().mean().item()
+    if not redness > 0.01:
+        fail(f"[social] test_social_nav_visual_humanoid_visible's rule: redness {redness}")
+
+    env = make_social_nav_env(num_envs=8, num_scenes=2, episodes_per_scene=8, seed=3, device=dev)
+    st, obs = env.reset_fn()
+    succ, stuck = np.zeros(8, bool), np.zeros(8, int)
+    prev = st.pos.cpu().numpy()
+    for t in range(300):
+        rel = obs["humanoid_detector_sensor"].cpu().numpy()[:, 1:4]
+        beta = np.arctan2(rel[:, 0], -rel[:, 2])
+        dist = np.linalg.norm(rel[:, [0, 2]], axis=-1)
+        turn = np.where(beta > 0, 3, 2)
+        a = np.where(np.abs(beta) > 0.3, turn, np.where(dist > 1.4, 1, turn))
+        a = np.where(stuck > 0, 3, a)
+        stuck = np.maximum(stuck - 1, 0)
+        st, obs, _, _, info = env.step_fn(st, torch.as_tensor(a, device=dev))
+        pos = st.pos.cpu().numpy()
+        stuck = np.where((a == 1) & (np.linalg.norm(pos - prev, axis=-1) < 1e-4), 5, stuck)
+        prev = pos
+        succ |= info["nav_seek_success"].cpu().numpy() > 0
+        if succ.all():
+            break
+    if succ.mean() < 0.5:
+        fail(f"[social] test_seek_success_reachable_by_scripted_follow's rule: {succ}")
+
+    env = make_social_nav_env(num_envs=4, num_scenes=1, episodes_per_scene=4, seed=2, two_agent=True, device=dev)
+    pols = [social_policy(env, dev, i, hidden=32) for i in range(2)]
+    before = [[p.detach().clone() for p in pol.parameters()] for pol in pols]
+    lrn = TwoAgentPPOLearner(env, pols, PPOConfig(num_steps=8, num_mini_batch=1, ppo_epoch=1))
+    _, m = lrn.train_step(lrn.init(seed=0))
+    losses = [m[f"losses/agent{i}_loss"].item() for i in range(2)]
+    moved = [sum(not torch.equal(a, b) for a, b in zip(bef, pol.parameters())) for bef, pol in zip(before, pols)]
+    if not (all(np.isfinite(losses)) and all(moved)):
+        fail(f"[social] test_both_agents_params_update's rule: losses {losses}, tensors moved {moved}")
+    return dict(redness=redness, follow=float(succ.mean()), follow_steps=t + 1, two_losses=losses, moved=moved)
+
+
+def batch_to(batch, dev):
+    """A RolloutBatch or TwoAgentBatch copied to ``dev``."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(batch):
+        return dataclasses.replace(batch, **{f.name: to_device(getattr(batch, f.name), dev)
+                                             for f in dataclasses.fields(batch)})
+    return type(batch)(*(to_device(v, dev) for v in batch))
+
+
+def social_float32_checks(dev, env_a, env_c):
+    """One float32 update of (a)'s learner and of (c)'s two agents on the
+    card against the CPU, on the card's rollout (SOCIAL_CHECK_ENVS envs,
+    the recipe's T) and the same minibatch permutations, from weights
+    trained SOCIAL_START_UPDATES updates on the CPU (N=16, T=16). Returns
+    the readings."""
+    import torch
+
+    from habitat_torch.baselines.multi_agent import TwoAgentPPOLearner
+    from habitat_torch.baselines.ppo import PPOConfig, PPOLearner
+
+    cpu, f32, out = torch.device("cpu"), torch.float32, {}
+    start_cfg = dict(num_steps=16, num_mini_batch=2, ppo_epoch=2, lr=2.5e-4)
+    # (a): start, the card's rollout and update, the CPU's update on it
+    torch.manual_seed(0)
+    pol0 = social_policy(env_a, cpu, dtype=f32)
+    l0 = PPOLearner(social_env_like(env_a, cpu, 16), pol0, PPOConfig(**start_cfg), measure_keys=SOCIAL_MEASURES)
+    rs0 = l0.init(seed=1)
+    for _ in range(SOCIAL_START_UPDATES):
+        rs0, _ = l0.train_step(rs0)
+    start = {k: v.detach().clone() for k, v in pol0.state_dict().items()}
+    cfg = PPOConfig(**SOCIAL_PPO["single"])
+    perms = torch.stack([torch.randperm(SOCIAL_CHECK_ENVS, generator=torch.Generator().manual_seed(e))
+                         for e in range(cfg.ppo_epoch)])
+    res = {}
+    for d in (dev, cpu):
+        pol = social_policy(env_a, d, dtype=f32)
+        pol.load_state_dict(start)
+        lrn = PPOLearner(social_env_like(env_a, d, SOCIAL_CHECK_ENVS), pol, cfg, measure_keys=SOCIAL_MEASURES)
+        if d == dev:
+            rs = lrn.init(seed=0)
+            rs, batch, last_v, h0, _ = lrn.collect_rollout(rs)
+            args = (batch, last_v, h0, rs.log_alpha)
+        with cudnn_deterministic(True):
+            m = lrn.update(torch.Generator(device=d), *(batch_to(args[0], d),) + tuple(x.to(d) for x in args[1:]),
+                           perms=perms.to(d))
+        res[d.type] = ({k: v.item() for k, v in m.items()}, {k: v.detach().cpu() for k, v in pol.state_dict().items()})
+    (m_g, p_g), (m_c, p_c) = res[dev.type], res["cpu"]
+    loss_err = max(abs(m_g[k] - m_c[k]) / max(1.0, abs(m_c[k])) for k in m_c if k.startswith("losses/"))
+    rows, bad = share_gate(start, p_g, p_c, cfg.lr)
+    if loss_err > LOSS_RTOL or bad:
+        fail(f"[social] (a) float32 update, card against CPU: losses {loss_err:.3g} relative, tensors below the "
+             f"share: {bad} ({gap_trace(rows)})")
+    out["single"] = dict(loss_err=loss_err, least_share=min(r[0] for r in rows.values()), gaps=gap_trace(rows))
+
+    # (c): both agents
+    torch.manual_seed(0)
+    pols0 = [social_policy(env_c, cpu, i, dtype=f32) for i in range(2)]
+    l0 = TwoAgentPPOLearner(social_env_like(env_c, cpu, 16), pols0, PPOConfig(**{**start_cfg, "num_mini_batch": 1}))
+    ts0 = l0.init(seed=1)
+    for _ in range(SOCIAL_START_UPDATES):
+        ts0, _ = l0.train_step(ts0)
+    starts = [{k: v.detach().clone() for k, v in p.state_dict().items()} for p in pols0]
+    cfg = PPOConfig(**SOCIAL_PPO["two"])
+    res = {}
+    for d in (dev, cpu):
+        pols = [social_policy(env_c, d, i, dtype=f32) for i in range(2)]
+        for p, s in zip(pols, starts):
+            p.load_state_dict(s)
+        lrn = TwoAgentPPOLearner(social_env_like(env_c, d, SOCIAL_CHECK_ENVS), pols, cfg)
+        if d == dev:
+            _, batch, last_v, h0, _ = lrn.collect_rollout(lrn.init(seed=0))
+        with cudnn_deterministic(True):
+            m = lrn.update(batch_to(batch, d), [v.to(d) for v in last_v], [h.to(d) for h in h0])
+        res[d.type] = ({k: v.item() for k, v in m.items()},
+                       [{k: v.detach().cpu() for k, v in p.state_dict().items()} for p in pols])
+    (m_g, p_g), (m_c, p_c) = res[dev.type], res["cpu"]
+    for i in range(2):
+        k = f"losses/agent{i}_loss"
+        loss_err = abs(m_g[k] - m_c[k]) / max(1.0, abs(m_c[k]))
+        rows, bad = share_gate(starts[i], p_g[i], p_c[i], cfg.lr)
+        if loss_err > LOSS_RTOL or bad:
+            fail(f"[social] (c) agent {i} float32 update, card against CPU: loss {loss_err:.3g} relative, tensors "
+                 f"below the share: {bad} ({gap_trace(rows)})")
+        out[f"agent{i}"] = dict(loss_err=loss_err, least_share=min(r[0] for r in rows.values()),
+                                gaps=gap_trace(rows))
+    return out
+
+
+def social_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card):
+    """[social]: scripts/train_social_tpu.py's three modes on ``dev`` and
+    their gates (the module docstring's 20). Returns (b)'s launch counts and
+    the readings of #3's and #11's checks on its inputs."""
+    import dataclasses
+
+    import torch
+
+    from habitat_torch.baselines.multi_agent import TwoAgentPPOLearner
+    from habitat_torch.baselines.ppo import PPOConfig, PPOLearner
+    from habitat_torch.ops import pool
+    from habitat_torch.ops import raycast as rc
+    from habitat_torch.ops import raycast_kernels as rk
+    from habitat_torch.tasks.rearrange.social_nav import HUMANOID_SEM, make_social_nav_env
+
+    t_phase = time.perf_counter()
+    N, U = SOCIAL["num_envs"], 1 + SOCIAL_UPDATES
+    cpu = torch.device("cpu")
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+
+    def watched(tag, fn):
+        zero_counts()
+        for p in plain_watch:
+            p.start()
+        try:
+            out = fn()
+        finally:
+            for p in plain_watch:
+                p.stop()
+        if plain_on_card:
+            fail(f"{tag}: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+        return out
+
+    def report(tag, env, rs, act, walls, roll, upd, metrics, T, launches):
+        rates = sorted(N * T / w for w in walls[1:])
+        log(f"[social] {tag} {gpu}: " + recipe_text(N, T, walls, roll, upd, metrics)
+            + f"; train env-steps/s median {med(rates):.1f} (min {rates[0]:.1f}, max {rates[-1]:.1f}) after the "
+            f"warm-up; rollout {med(roll[1:]) / T:.2f} ms per env step with the policy; {idle_text(dev, env, rs, act)}; "
+            f"episodes done {metrics.get('done_count', 0):.0f}; launches {launches}")
+
+    # (a) single: blind resnet9
+    env_a = make_social_nav_env(device=dev, **SOCIAL)
+    log(f"[social] setup {time.perf_counter() - t_phase:.1f} s: {len(env_a.table.scene_idx)} episodes, pack "
+        f"{tuple(env_a.pack.tri_mat.shape)}")
+    torch.manual_seed(0)
+    lrn = PPOLearner(env_a, social_policy(env_a, dev), PPOConfig(**SOCIAL_PPO["single"]), measure_keys=SOCIAL_MEASURES)
+    rs, walls, roll, upd, metrics = watched("[social] (a)", lambda: recipe_run("[social] (a)", lrn, U, dev))
+    fwd = torch.ones(N, dtype=torch.int64, device=dev)
+    T = SOCIAL_PPO["single"]["num_steps"]
+    report(f"(a) single, blind resnet9 + LSTM-128, T={T}", env_a, rs.env_state, fwd, walls, roll, upd, metrics, T,
+           path_counts("[social] (a) train path"))
+    for k in SOCIAL_MEASURES:
+        if f"m_{k}" not in metrics:
+            fail(f"[social] (a): the learner summed no {k}")
+
+    # (b) vision: 64x64 head depth + RGB, the humanoid as the dynamic pass
+    env_b = make_social_nav_env(device=dev, with_visual=True, render_size=SOCIAL_HW, **SOCIAL)
+    h, w = SOCIAL_HW
+    if rc.render_route(env_b.pack, h, w, "pinhole", dynamic=True) != "index":
+        fail("[social] (b): the head camera should take the index route")
+    c = SOCIAL_PPO["vision"]
+    T = c["num_steps"]
+    renders, pool_steps = 1 + U * T, U * c["ppo_epoch"] * c["num_mini_batch"]
+    pool_backward, last_bwd = pool._MaxPool3x3s2.backward, {}
+
+    def backward_seen(ctx, dy):
+        gx = pool_backward(ctx, dy)
+        if pool.max_pool_3x3s2_bwd.launches == pool_steps:
+            x, y = ctx.saved_tensors
+            last_bwd["args"] = (x, y, dy.contiguous(memory_format=torch.channels_last))
+        return gx
+
+    torch.manual_seed(0)
+    lrn = PPOLearner(env_b, social_policy(env_b, dev, visual=True), PPOConfig(**c), measure_keys=SOCIAL_MEASURES)
+    with mock.patch.object(pool._MaxPool3x3s2, "backward", staticmethod(backward_seen)):
+        rs, walls, roll, upd, metrics = watched("[social] (b)", lambda: recipe_run("[social] (b)", lrn, U, dev))
+    launches = path_counts("[social] (b) train path", raycast_index_t=2 * renders, max_pool_3x3s2_bwd=pool_steps)
+    report(f"(b) vision, {h}x{w} depth + RGB, resnet9 + LSTM-128, T={T}", env_b, rs.env_state, fwd, walls, roll,
+           upd, metrics, T, f"{launches} (#3 twice per render: 1 + {U} x {T} renders; #11 once per minibatch step)")
+    x, y, dy = last_bwd.pop("args")
+    mb_shape = (N * T // c["num_mini_batch"], 32, h // 2, w // 2)
+    if tuple(x.shape) != mb_shape or x.dtype != torch.bfloat16:
+        fail(f"[social] (b): the pool backward got {tuple(x.shape)} {x.dtype}, want {mb_shape} bfloat16")
+    _, pool_err = pool_check(f"[social] (b) minibatch {mb_shape}", (x, y, dy))
+    del x, y, dy, lrn
+    # #3 on a frame with the humanoid 1.2 m ahead of every robot
+    st = rs.env_state
+    ahead = torch.stack([-torch.sin(st.yaw), torch.zeros_like(st.yaw), -torch.cos(st.yaw)], -1) * 1.2
+    st = dataclasses.replace(st, human_pos=st.pos + ahead)
+    index_calls = []
+
+    def index_seen(*a, **k):
+        index_calls.append((a, k))
+        return rk.raycast_index_t(*a, **k)
+
+    with mock.patch.object(rc, "raycast_index_t", index_seen):
+        frames = env_b.render(st)
+    if len(index_calls) != 2:
+        fail(f"[social] (b): the head render made {len(index_calls)} raycast_index_t calls, want 2")
+    index_check = {}
+    for what, (a, k) in zip(("static", "dynamic"), index_calls):
+        got, ref = rk.raycast_index_t(*a, **k), rk.raycast_index_t.plain(*a, **k)
+        hit_a, idx_a, dt = agreement(f"[social] raycast_index_t on the humanoid frame's {what} pass", got, ref)
+        index_check[what] = dict(matrix=list(a[0].shape), rays=a[2].numel() // 16, hit_agree=hit_a,
+                                 idx_agree=idx_a, max_abs_err=dt)
+    with mock.patch.object(rc, "raycast_index_t", rk.raycast_index_t.plain):
+        frames_p = env_b.render(st)
+    hit_f = share((frames["depth"] < 1.0) == (frames_p["depth"] < 1.0))
+    sem_f = share(frames["semantic"] == frames_p["semantic"])
+    seen = (frames["semantic"] == HUMANOID_SEM).reshape(N, -1).float().mean(-1)
+    if not (hit_f >= PICK_FRAME_AGREE and sem_f >= PICK_FRAME_AGREE and (seen > 0).float().mean() >= 0.5):
+        fail(f"[social] (b) humanoid frame: hit/miss {hit_f}, semantics {sem_f} equal to the plain version's; the "
+             f"humanoid on pixels in {(seen > 0).float().mean().item()} of envs")
+    del frames, frames_p, index_calls
+    log(f"[social] (b) the path's own kernel inputs: max_pool_3x3s2_bwd on the last minibatch {mb_shape} bf16 "
+        f"channels-last bit-equal to its plain version; raycast_index_t on the head render with the humanoid 1.2 m "
+        f"ahead (N={N}, {h}x{w}) against its plain version: " + "; ".join(
+            f"{what} {r['matrix']} x {r['rays']} rays hit {r['hit_agree']:.6f} idx {r['idx_agree']:.6f} |dt| "
+            f"{r['max_abs_err']:.3g}" for what, r in index_check.items())
+        + f"; frames' hit/miss {hit_f:.6f} and semantics {sem_f:.6f} equal to the plain version's; the humanoid "
+        f"covers {seen.mean().item():.4f} of the pixels, on {int((seen > 0).sum())} of {N} frames")
+    del env_b
+    torch.cuda.empty_cache()
+
+    # (c) two: two blind resnet9 policies trained jointly
+    env_c = make_social_nav_env(device=dev, two_agent=True, **SOCIAL)
+    torch.manual_seed(0)
+    lrn = TwoAgentPPOLearner(env_c, [social_policy(env_c, dev, i) for i in range(2)], PPOConfig(**SOCIAL_PPO["two"]))
+    rs, walls, roll, upd, metrics = watched("[social] (c)", lambda: recipe_run("[social] (c)", lrn, U, dev))
+    T = SOCIAL_PPO["two"]["num_steps"]
+    report(f"(c) two agents, 2 x blind resnet9 + LSTM-128, T={T}", env_c, rs.env_state,
+           torch.ones((N, 2), dtype=torch.int64, device=dev), walls, roll, upd, metrics, T,
+           path_counts("[social] (c) train path"))
+
+    # the card's env steps against the CPU's from the same state, (a) and (c)
+    t0 = time.perf_counter()
+    agree = {}
+    for tag, env in (("(a)", env_a), ("(c)", env_c)):
+        agree[tag] = card_vs_cpu_steps(f"[social] {tag}", env, social_env_like(env, cpu),
+                                       social_actions(env, SOCIAL_CHECK_STEPS, seed=len(tag)))
+    rules = watched("[social] rules", lambda: social_rules(dev))
+    path_counts("[social] rules", raycast_index_t=4)  # the visible rule's reset and step, two passes each
+    checks = social_float32_checks(dev, env_a, env_c)
+    log(f"[social] {gpu}: card against CPU, {SOCIAL_CHECK_STEPS} steps at N={N} each from the card's state: "
+        + "; ".join(f"{tag} largest gap {g:.3g} ({d} episodes ended)" for tag, (g, _, d) in agree.items())
+        + f" (bound {SOCIAL_ATOL} + {SOCIAL_ATOL} relative; integer and boolean fields equal); the JAX tests' rules: "
+        f"redness {rules['redness']:.4f} (> 0.01), scripted follow succeeded in {rules['follow']:.3f} of 8 envs in "
+        f"{rules['follow_steps']} steps (>= 0.5), two-agent losses {[round(x, 4) for x in rules['two_losses']]} and "
+        f"tensors moved {rules['moved']}; float32 updates card against CPU on the card's rollout (N="
+        f"{SOCIAL_CHECK_ENVS}) from {SOCIAL_START_UPDATES} CPU updates: " + "; ".join(
+            f"{k} loss {r['loss_err']:.3g} relative, least share {r['least_share']:.4f}, beyond lr/10: {r['gaps']}"
+            for k, r in checks.items()) + f"; checks {time.perf_counter() - t0:.1f} s, the phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, dict(index=index_check, pool=dict(shape=list(mb_shape), max_abs_err=pool_err))
+
+
+def hab3_schedule(env, t, obj_pos):
+    """Step t's flat actions (CPU) for the two-agent env: the robot drives,
+    turns and moves its arm; the humanoid cycles through oracle navigation to
+    entity 2, PDDL nav(object 1) / pick(1) / nav(goal 1) / place(goal 2), a
+    pick target at object 2 and a joint action."""
+    import torch
+
+    offs, off = {}, 0
+    for spec in env.action_specs:
+        offs[spec.name] = off
+        off += spec.dims(env)
+    O, n, k = env.num_objects, env.num_envs, t % 12
+    a = torch.zeros((n, off))
+    b = offs["agent_0_base_velocity"]
+    a[:, b], a[:, b + 1] = 0.6, 0.3
+    a[:, offs["agent_0_arm_action"]] = 0.5
+    op, oh = offs["agent_1_pddl_apply_action"], offs["agent_1_humanoid_pick_action"]
+    if k < 4:
+        a[:, offs["agent_1_oracle_nav_action"]] = 2.0
+    elif k < 8:
+        a[:, op:op + 3] = torch.tensor(([1, 0, 0], [0, 1, 0], [O + 1, 0, 0], [0, 0, O + 2])[k - 4], dtype=a.dtype)
+    elif k == 8:
+        a[:, oh:oh + 3] = obj_pos[:, 2].cpu() + torch.tensor([0.0, 0.1, 0.0])
+    else:
+        a[:, offs["agent_1_humanoidjoint_action"]:oh] = 0.25
+    return a, offs
+
+
+def hab3_rules(dev):
+    """tests/test_task_actions.py::test_hab3_two_agent_declared_actions' and
+    ::test_humanoid_joint_action_sets_root's assertions on ``dev``, as
+    tests/test_torch_hab3.py applies them (N=2, one scene of 4 episodes;
+    oracle navigation to entity 2; the root set 0.5 m away on a navigable
+    point). Returns their readings."""
+    import numpy as np
+    import torch
+
+    from habitat_torch.config.default import get_config
+    from habitat_torch.core.construct import rearrange_env_from_config
+    from habitat_torch.ops import navgrid as ng
+
+    cfg = get_config("benchmark/rearrange/pick_procgen.yaml", list(HAB3_OVERRIDES + HAB3_RULE_SIZE))
+    env = rearrange_env_from_config(cfg, num_envs=2, with_visual=False, device=dev)
+    _, offs = hab3_schedule(env, 0, torch.zeros((2, 3, 3)))
+    dims = env.action_dim
+    st, obs = env.reset_fn()
+    ok = [any(n.startswith("agent_1_") for n in env.action_names), "agent_0_joint" in obs,
+          "agent_1_localization_sensor" in obs, "agent_0_other_agent_gps" in obs, "agent_1_other_agent_gps" in obs,
+          set(obs) == set(env.observation_shapes)]
+    hp0, rp0 = st.human_pos.clone(), st.pos.clone()
+    a = torch.zeros((2, dims), device=dev)
+    a[:, offs["agent_1_oracle_nav_action"]] = 2.0
+    for _ in range(20):
+        st, obs, _, _, info = env.step_fn(st, a)
+    walked = torch.linalg.vector_norm(st.human_pos - hp0, dim=-1).min().item()
+    ok += [walked > 0.3, torch.allclose(st.pos, rp0), "did_agents_collide" in info]
+    op = offs["agent_1_pddl_apply_action"]
+    for col in (op, op + 1):
+        a = torch.zeros((2, dims), device=dev)
+        a[:, col] = 1.0
+        st, obs, *_ = env.step_fn(st, a)
+    ok += [bool((st.human_held == 0).all()), bool((obs["agent_1_is_holding"] > 0).all())]
+    rp1, hp1 = st.pos.clone(), st.human_pos.clone()
+    a = torch.zeros((2, dims), device=dev)
+    a[:, offs["agent_0_base_velocity"]] = 1.0
+    st, *_ = env.step_fn(st, a)
+    ok += [torch.linalg.vector_norm(st.pos - rp1, dim=-1).min().item() > 0.05, torch.equal(st.human_pos, hp1)]
+
+    single = get_config("benchmark/rearrange/pick_procgen.yaml", [
+        "habitat.task.actions.humanoid_joint_action.type=HumanoidJointAction",
+        "habitat.task.actions.humanoid_joint_action.num_joints=17"])
+    env = rearrange_env_from_config(single, num_envs=2, with_visual=False, device=dev)
+    st, _ = env.reset_fn()
+    p0 = st.pos.clone()
+    st, *_ = env.step_fn(st, torch.zeros((2, 100), device=dev))
+    ok += [env.action_dim == 100, torch.allclose(st.pos, p0)]
+    dirs = np.float32([[1, 0, 0], [-1, 0, 0], [0, 0, 1], [0, 0, -1]]) * 0.5
+    nav = np.stack([ng.is_navigable(env.pack, env._sid(st), p0 + torch.as_tensor(v, device=dev)).cpu().numpy()
+                    for v in dirs], 1)
+    T = np.tile(np.eye(4, dtype=np.float32)[None], (2, 1, 1))
+    T[:, 3, 0:3] = p0.cpu().numpy() + dirs[nav.argmax(1)]
+    act = np.zeros((2, 100), np.float32)
+    act[:, -16:] = T.reshape(2, 16)
+    act[:, -32:-16] = np.eye(4, dtype=np.float32).reshape(16)
+    st, *_ = env.step_fn(st, torch.as_tensor(act, device=dev))
+    moved = torch.linalg.vector_norm((st.pos - p0)[:, ::2], dim=-1).min().item()
+    ok.append(moved > 0.1)
+    if not all(ok):
+        fail(f"[hab3] the JAX tests' assertions on the card: {ok} (humanoid walked {walked:.3f} m, root moved "
+             f"{moved:.3f} m)")
+    return dict(walked=walked, root_moved=moved, assertions=len(ok))
+
+
+def hab3_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card):
+    """[hab3]: the two-agent pick_procgen.yaml env at N=128 with the head
+    render (the module docstring's 20). Returns its launch counts and #3's
+    check on one step's render."""
+    import torch
+
+    from habitat_torch.config.default import get_config
+    from habitat_torch.core.construct import rearrange_env_from_config
+    from habitat_torch.ops import raycast as rc
+    from habitat_torch.ops import raycast_kernels as rk
+
+    t_phase = time.perf_counter()
+    N, steps = HAB3["num_envs"], HAB3["steps"]
+    cfg = get_config("benchmark/rearrange/pick_procgen.yaml", list(HAB3_OVERRIDES))
+    env = rearrange_env_from_config(cfg, num_envs=N, device=dev)
+    env_c = rearrange_env_from_config(cfg, num_envs=N, with_visual=False, device="cpu")
+    h, w = env.render_size
+    if not (env.with_humanoid and env.dynamics == "contacts"
+            and rc.render_route(env.pack, h, w, "pinhole", dynamic=True) == "index"):
+        fail(f"[hab3] the env: humanoid {env.with_humanoid}, dynamics {env.dynamics}")
+    setup_s = time.perf_counter() - t_phase
+    # the schedule's actions, from the card's states as they come
+    zero_counts()
+    for p in plain_watch:
+        p.start()
+    st, _ = env.reset_fn()
+    worst, box, dones, held, ms = 0.0, 0.0, 0, 0, []
+    for t in range(steps):
+        a, _ = hab3_schedule(env, t, st.obj_pos)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_g = env.step_fn(st, a.to(dev))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out_c = env_c.step_fn(st.to(torch.device("cpu")), a)
+        g, b = outputs_agree(f"[hab3] step {t}", out_g, out_c, skip=("robot_head_depth", "robot_head_rgb"),
+                             box_bound=HAB3_BOX_BOUND)
+        worst, box, dones = max(worst, g), max(box, b), dones + int(out_c[3].sum())
+        held += int((out_c[0].human_held >= 0).sum())
+        st = out_g[0]
+    for p in plain_watch:
+        p.stop()
+    if plain_on_card:
+        fail(f"[hab3]: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+    launches = path_counts("[hab3] path", raycast_index_t=2 * (1 + steps))
+    if not held:
+        fail("[hab3] the humanoid never held an object")
+    # #3 on the last step's render against its plain version
+    index_calls = []
+
+    def index_seen(*args, **k):
+        index_calls.append((args, k))
+        return rk.raycast_index_t(*args, **k)
+
+    with mock.patch.object(rc, "raycast_index_t", index_seen):
+        env._observations(st)
+    index_check = {}
+    for what, (args, k) in zip(("static", "dynamic"), index_calls):
+        got, ref = rk.raycast_index_t(*args, **k), rk.raycast_index_t.plain(*args, **k)
+        hit_a, idx_a, dt = agreement(f"[hab3] raycast_index_t on the head render's {what} pass", got, ref)
+        index_check[what] = dict(matrix=list(args[0].shape), rays=args[2].numel() // 16, hit_agree=hit_a,
+                                 idx_agree=idx_a, max_abs_err=dt)
+    a, _ = hab3_schedule(env, 0, st.obj_pos)
+    rules = hab3_rules(dev)
+    log(f"[hab3] {gpu}: pick_procgen.yaml with a Spot and a humanoid (N={N}, contacts, {h}x{w} head render, "
+        f"{len(env._grounded_preds)} predicates, {env.action_dim} action dims over {len(env.action_names)} specs; "
+        f"set-up {setup_s:.1f} s): {steps} scheduled steps, ms per env step {[round(x, 1) for x in ms]} (median "
+        f"{sorted(ms)[len(ms) // 2]:.2f}); {idle_text(dev, env, st, a.to(dev))}; every step from the card's state on "
+        f"the CPU (no camera): largest gap {worst:.3g}, boxes {box:.3g} (bounds {HAB3_BOX_BOUND}), {dones} episodes "
+        f"ended, humanoid holding in {held} env-steps; launches {launches} (#3 twice per render), no plain version on "
+        f"a card tensor; raycast_index_t on the last step's render against its plain version: " + "; ".join(
+            f"{what} {r['matrix']} x {r['rays']} rays hit {r['hit_agree']:.6f} idx {r['idx_agree']:.6f} |dt| "
+            f"{r['max_abs_err']:.3g}" for what, r in index_check.items())
+        + f"; the JAX tests' {rules['assertions']} assertions at N=2 (the humanoid walked {rules['walked']:.3f} m, the "
+        f"root moved {rules['root_moved']:.3f} m); the phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, index_check
+
+
 def main():
     import torch
 
@@ -5192,6 +5832,20 @@ def main():
     log(f"[env-api] starts {time.perf_counter() - t_start:.1f} s after the start")
     torch.cuda.empty_cache()
     sel["env_api_launches"] = env_api_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
+
+    # ---- 20. social navigation, two-agent PPO, the hab3 humanoid lane -------
+    log(f"[social] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    social_launches, social_checks = social_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
+    index_row["social_vision_launches"] = social_launches["raycast_index_t"]
+    index_row["social_humanoid_frame"] = social_checks["index"]
+    pool_row["social_vision_launches"] = social_launches["max_pool_3x3s2_bwd"]
+    pool_row["social_vision_minibatch"] = social_checks["pool"]
+    log(f"[hab3] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    hab3_launches, hab3_index = hab3_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
+    index_row["hab3_launches"] = hab3_launches["raycast_index_t"]
+    index_row["hab3_head_render"] = hab3_index
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 

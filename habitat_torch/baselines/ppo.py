@@ -165,6 +165,13 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Te
     return norm
 
 
+def make_optimizer(params, cfg: PPOConfig) -> torch.optim.Adam:
+    """The JAX package's optax chain without its clip: Adam at ``cfg.lr``
+    and ``cfg.eps`` over ``params`` (tensors or param groups); callers clip
+    the gradients with ``clip_by_global_norm_`` before each step."""
+    return torch.optim.Adam(params, lr=cfg.lr, eps=cfg.eps)
+
+
 class PPOLearner:
     """One rollout and one update at a time (``train_step``).
 
@@ -222,12 +229,11 @@ class PPOLearner:
         self.action_type = action_type
         self.aux_loss = aux_loss
         self.aux_loss_coef = aux_loss_coef
-        # the JAX package's optax chain: clip by global norm, then Adam;
         # ``update`` clips with ``clip_by_global_norm_`` before each step
         groups = [{"params": list(policy.parameters())}]
         if aux_loss is not None:
             groups.append({"params": list(aux_loss.parameters())})
-        self.optimizer = torch.optim.Adam(groups, lr=cfg.lr, eps=cfg.eps)
+        self.optimizer = make_optimizer(groups, cfg)
         self.lr_decay_steps = (
             total_updates * cfg.ppo_epoch * cfg.num_mini_batch if cfg.use_linear_lr_decay and total_updates else None
         )

@@ -46,6 +46,13 @@ to the port's modules of ``baselines/il/eqa_trainers.py`` and
 ``actor``, ``critic``) to ``baselines/hrl/hrl_ppo.HighLevelNet``'s
 (``fc0``, ``fc1``, ``actor``, ``critic``).
 
+``two_agent_params_from_jax`` converts ``TwoAgentPPOLearner``'s two
+parameter sets (``ts["params"]`` of ``habitat_tpu/baselines/multi_agent.py``,
+each flattened) to the two policies' state dicts, and
+``population_params_from_jax`` a stacked population (leaves with a leading
+population axis K, ``stack_params``) to the port's stacked state dict, each
+set converted as ``params_from_jax`` converts one.
+
 ``load_policy_file`` reads such a state dict back without JAX, as
 ``scripts/export_flagship_torch.py`` writes it: the ``torch.save`` file and,
 beside it with the suffix ``.json``, its sha256 and the policy's build
@@ -196,6 +203,23 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     if instruction:
         out.update(_lstm("net.instruction.lstm", instruction, "_l0"))
     return _tensors(out)
+
+
+def two_agent_params_from_jax(flats) -> list:
+    """The two agents' flattened Flax ActorCritic params -> their
+    ``ActorCritic.state_dict()``s, in agent order."""
+    return [params_from_jax(flat) for flat in flats]
+
+
+def population_params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """A flattened stacked population (each leaf (K, ...)) -> the port's
+    stacked state dict (each tensor (K, ...))."""
+    leaves = {k: np.asarray(v) for k, v in flat.items()}
+    k_sets = {v.shape[0] for v in leaves.values()}
+    if len(k_sets) != 1:
+        raise ValueError(f"population leaves disagree on the population size: {sorted(k_sets)}")
+    sets = [params_from_jax({k: v[i] for k, v in leaves.items()}) for i in range(k_sets.pop())]
+    return {k: torch.stack([s[k] for s in sets]) for k in sets[0]}
 
 
 def _cnn_one(p: str, v: np.ndarray, prefix: str) -> Dict[str, np.ndarray]:

@@ -113,7 +113,10 @@ def snap_to_navigable(
     flat = dist2.flatten(1).argmin(1)
     bi = torch.gather(ii, 1, (flat // (2 * w + 1))[:, None])[:, 0]
     bk = torch.gather(kk, 1, (flat % (2 * w + 1))[:, None])[:, 0]
-    xz = torch.stack([bi, bk], dim=-1).float() * pack.nav_res + lo
+    # the cell centre index * res + lo rounded once, as the fused multiply-add
+    # of XLA's compiled step computes it: in float64 the product is exact
+    res = float(np.float32(pack.nav_res))
+    xz = (torch.stack([bi, bk], dim=-1).double() * res + lo.double()).float()
     return torch.stack([xz[:, 0], pack.floor_y[sid], xz[:, 1]], dim=-1)
 
 

@@ -31,14 +31,28 @@ constants live on the env's device, built once.
 ``action_specs`` (registry-resolved task actions, task_actions.py) compose
 the flat action vector in declaration order; ``step_fn`` merges their
 commands (joint or EE deltas, grip, base velocity, stop, the base-or-arm
-selection, PDDL nav/pick/place postconditions).
+selection, PDDL nav/pick/place postconditions, a root teleport, a pick
+target).
 
-Not ported yet, each raising ``NotImplementedError`` at construction: the
-humanoid lane (a spec with ``agent_idx >= 1``, or a humanoid command), the
-PDDL predicate sensors (``all_predicates`` / ``multi_agent_all_predicates``,
-multi_task/pddl_yaml.py) and ``task="reach"``, whose per-episode goal the
-JAX package draws from its own RNG (``jax.random.fold_in``), which the port
-does not reproduce.
+Habitat 3.0's second agent: a spec named ``agent_1_*`` turns on the
+humanoid lane (``with_humanoid``). The humanoid is a kinematic agent that
+spawns 2 m behind the robot's start, snapped to the navgrid, moves by its
+own specs' base velocity, oracle navigation and PDDL nav, and grasps by its
+PDDL pick and place or a pick target (an object it holds rides at its hand).
+The observations then carry the reference's per-agent prefixes
+(``agent_0_<robot sensor>``, ``agent_1_localization_sensor``, ...,
+``other_agent_gps`` and ``agents_within_threshold`` for both), and the
+measures ``did_agents_collide`` / ``num_agents_collide``.
+
+The PDDL predicate sensors (``all_predicates``, and per agent
+``multi_agent_all_predicates``) ground every type-compatible predicate of
+the ``pddl_domain`` YAML (``multi_task/pddl_yaml.py``) over the env's
+entities once, at construction, when a predicate sensor is declared or the
+humanoid lane is on; the step evaluates them all on the device.
+
+Not ported, raising ``NotImplementedError`` at construction:
+``task="reach"``, whose per-episode goal the JAX package draws from its own
+RNG (``jax.random.fold_in``), which the port does not reproduce.
 """
 
 from __future__ import annotations
@@ -61,7 +75,7 @@ from habitat_torch.ops.raycast import render_batch
 from habitat_torch.sims.scene import ScenePack
 from habitat_torch.tasks.rearrange import rigid_body as rigid
 from habitat_torch.tasks.rearrange.rigid_body import add_y, cross, matvec, norm
-from habitat_torch.tasks.rearrange.task_actions import HumanoidAction, entity_positions
+from habitat_torch.tasks.rearrange.task_actions import entity_positions
 from habitat_torch.utils.geometry import rotate_agent_to_world, rotate_world_to_agent, yaw_to_forward
 
 # fixed kinematic EE offset in the agent frame (forward, lifted; stands in
@@ -354,6 +368,7 @@ TASKS = ("pick", "place", "rearrange", "nav_to_obj", "open", "close", "empty")
 CONTROLS = ("discrete", "continuous", "arm", "arm_ee")
 DYNAMICS = ("kinematic", "gravity", "contacts")
 EXTRA_SENSORS = ("obj_goal_pos_sensor", "initial_gps_compass_sensor", "nav_to_skill_sensor")
+PREDICATE_SENSORS = ("all_predicates", "multi_agent_all_predicates")
 # the task's reward under its reference reward-measure uuid
 REWARD_KEYS = {
     "pick": "pick_reward",
@@ -441,6 +456,10 @@ class RearrangeState:
     motor_target: torch.Tensor  # (N, J) accumulated PD motor targets
     held: torch.Tensor  # (N,) i64, -1 = none
     ever_held: torch.Tensor  # (N,) bool: picked the target at least once
+    # the second agent, the humanoid (with_humanoid; carried along otherwise)
+    human_pos: torch.Tensor  # (N, 3)
+    human_yaw: torch.Tensor  # (N,)
+    human_held: torch.Tensor  # (N,) i64, -1 = none
     accum_force: torch.Tensor  # (N,) running contact force on the robot
     stop_called: torch.Tensor  # (N,) bool
     collided: torch.Tensor  # (N,) bool
@@ -451,6 +470,21 @@ class RearrangeState:
 
     def to(self, device) -> "RearrangeState":
         return RearrangeState(**{k: v.to(device) for k, v in _tensor_fields(self).items()})
+
+
+class _ObjectsOnce:
+    """The env as the grounded predicates read it, with one state's object
+    positions computed once for all of them."""
+
+    def __init__(self, env, state):
+        self._env = env
+        self._objs = env._obj_world(state)
+
+    def __getattr__(self, name):
+        return getattr(self._env, name)
+
+    def _obj_world(self, state):
+        return self._objs
 
 
 class RearrangeBatchedEnv:
@@ -504,20 +538,9 @@ class RearrangeBatchedEnv:
         device=None,
         rows: slice = slice(None),
     ):
-        if action_specs:
-            if any(s.agent_idx >= 1 for s in action_specs):
-                raise NotImplementedError("the humanoid lane (agent_idx >= 1) is not ported to habitat_torch yet")
-            humanoid = [type(s).__name__ for s in action_specs if isinstance(s, HumanoidAction)]
-            if humanoid:
-                raise NotImplementedError(f"{humanoid} (task_actions.py) drive the humanoid lane, which is not "
-                                          "ported to habitat_torch yet")
         if task == "reach":
             raise NotImplementedError(
                 "task='reach' waits for a port of JAX's threefry RNG: its goal comes from jax.random.fold_in")
-        preds = [k for k in (sensor_keys or ()) if k in ("all_predicates", "multi_agent_all_predicates")]
-        if preds:
-            raise NotImplementedError(f"{preds} over the {pddl_domain!r} domain wait for the port of "
-                                      "tasks/rearrange/multi_task/pddl_yaml.py")
         if control is None:
             control = "continuous" if continuous else "discrete"
         for name, value, allowed in (("task", task, TASKS), ("control", control, CONTROLS),
@@ -576,6 +599,14 @@ class RearrangeBatchedEnv:
         self._build_dynamic_constants()
 
         self.action_specs = list(action_specs) if action_specs else None
+        # Habitat 3.0's second agent: agent_1_* specs drive the humanoid lane
+        # (reference hssd_spot_human.yaml's per-agent prefixed actions)
+        self.with_humanoid = bool(self.action_specs) and any(s.agent_idx >= 1 for s in self.action_specs)
+        # the predicate sensors' universe, grounded once; always on the
+        # two-agent env (reference plan_pop.yaml declares all_predicates)
+        self._grounded_preds = None
+        if self.with_humanoid or any(k in PREDICATE_SENSORS for k in (sensor_keys or ())):
+            self._grounded_preds = self._ground_all_predicates(pddl_domain)
         if self.action_specs is not None:
             # composed registry-resolved actions: one flat float vector, each
             # spec's slice in declaration order
@@ -602,17 +633,24 @@ class RearrangeBatchedEnv:
         self.sensor_keys = tuple(sensor_keys) if sensor_keys is not None else None
         self.measure_keys = tuple(measure_keys) if measure_keys is not None else None
         fresh = self._fresh(self.order[:, 0])
-        shapes = {k: (tuple(v.shape[1:]), v.dtype) for k, v in self._state_observations(fresh).items()}
+
+        def shapes_of(obs):
+            return {k: (tuple(v.shape[1:]), v.dtype) for k, v in obs.items()}
+
+        shapes = shapes_of(self._state_observations(fresh))
         if self.with_visual:
             h, w = render_size
             shapes["robot_head_depth"] = ((h, w, 1), torch.float32)
             shapes["robot_head_rgb"] = ((h, w, 3), torch.uint8)
+        if self.with_humanoid:
+            shapes = self._prefixed(shapes, shapes_of(self._agent_1_observations(fresh)))
         if self.sensor_keys is not None:
             bad = [k for k in self.sensor_keys if k not in shapes]
             if bad:
                 raise ValueError(f"declared sensors {bad} are not available on this env (task={task}); "
                                  f"available: {sorted(shapes)}")
-            shapes = {k: v for k, v in shapes.items() if k in self.sensor_keys}
+            if not self.with_humanoid:  # the two-agent env keeps its own layout
+                shapes = {k: v for k, v in shapes.items() if k in self.sensor_keys}
         self.observation_shapes = shapes
         if self.measure_keys is not None:
             avail = set(self._measures(fresh)) | set(self._posthoc_measure_keys())
@@ -642,6 +680,40 @@ class RearrangeBatchedEnv:
             color.append(torch.full((count, 3), grey, dtype=torch.float32, device=dev))
         self._dyn_sem = torch.cat(sem)[None].expand(n, -1).contiguous()
         self._dyn_color = torch.cat(color)[None].expand(n, -1, -1).contiguous()
+
+    def _ground_all_predicates(self, pddl_domain: str):
+        """Every type-compatible grounding of the domain's predicates over
+        the env's entities, sorted by compact_str (the reference's
+        GlobalPredicatesSensor universe, pddl_domain.py:420-439): the O
+        movable targets, their goals, the articulated receptacles (fridges
+        when revolute and the domain has the type, else cabinets), the
+        robot and, with the humanoid, ``robot_1``. Objects come before
+        robots, so (object, robot) signatures ground."""
+        from habitat_torch.tasks.rearrange.multi_task import pddl_yaml as py
+
+        dom = py.YamlPddlDomain.from_yaml(py.domain_path(pddl_domain))
+        O = self.num_objects
+        ents = {f"any_targets|{i}": py.PddlEntity(f"any_targets|{i}", py.MOVABLE_TYPE) for i in range(O)}
+        ents.update({f"TARGET_any_targets|{i}": py.PddlEntity(f"TARGET_any_targets|{i}", py.GOAL_TYPE)
+                     for i in range(O)})
+        revolute = self.table.art_is_revolute.cpu().numpy()  # read once, at construction
+        for j in range(self.num_art):
+            t = "fridge_type" if revolute[:, j].any() else "cab_type"
+            if t == "fridge_type" and not dom.types.is_subtype(t, "art_receptacle_entity_type"):
+                t = "cab_type"
+            ents[f"art_{j}"] = py.PddlEntity(f"art_{j}", t)
+            dom.art_slots.setdefault(f"art_{j}", j)
+        ents["robot_0"] = py.PddlEntity("robot_0", py.ROBOT_TYPE)
+        if self.with_humanoid:
+            ents["robot_1"] = py.PddlEntity("robot_1", py.ROBOT_TYPE)
+        self.target_order = py.target_order(self.table.target_mask)  # read by every movable-entity predicate
+        return tuple(dom.get_possible_predicates(ents))
+
+    def _predicate_vector(self, state: RearrangeState) -> torch.Tensor:
+        """(N, P) float32 truth of each grounded predicate; the object
+        positions are computed once for all of them."""
+        view = _ObjectsOnce(self, state)
+        return torch.stack([p.is_true(view, state).float() for p in self._grounded_preds], dim=-1)
 
     def _sid(self, state: RearrangeState) -> torch.Tensor:
         return self.table.nav.scene_idx[state.ep_idx].long()
@@ -694,9 +766,14 @@ class RearrangeBatchedEnv:
         return add_y(torch.where(is_rev[:, None], rev, prism), 0.5)
 
     def _obj_world(self, state: RearrangeState) -> torch.Tensor:
-        """(N, O, 3) object positions with the held one at the EE."""
+        """(N, O, 3) object positions with the held one at the EE and the
+        humanoid's at its hand (0.8 m up, 0.3 m ahead)."""
         is_held = self._o_lane == state.held[:, None]
-        return torch.where(is_held[..., None], self._ee_pos(state)[:, None, :], state.obj_pos)
+        out = torch.where(is_held[..., None], self._ee_pos(state)[:, None, :], state.obj_pos)
+        if self.with_humanoid:
+            hand = add_y(state.human_pos, 0.8) + yaw_to_forward(state.human_yaw) * 0.3
+            out = torch.where((self._o_lane == state.human_held[:, None])[..., None], hand[:, None, :], out)
+        return out
 
     # -- observations ---------------------------------------------------
     def _state_observations(self, state: RearrangeState) -> Dict[str, torch.Tensor]:
@@ -730,6 +807,11 @@ class RearrangeBatchedEnv:
             "obj_start_gps_compass": gps_compass(rel_start),
             "obj_goal_gps_compass": gps_compass(rel_goal),
         }
+        if self._grounded_preds is not None:
+            # GlobalPredicatesSensor (pddl_sensors.py:25-57); the per-agent
+            # MultiAgentGlobalPredicatesSensor (multi_agent_sensors.py
+            # :121-156) reads the same universe
+            obs["all_predicates"] = obs["multi_agent_all_predicates"] = self._predicate_vector(state)
         if "obj_goal_pos_sensor" in self._extra_sensors:
             # the target in the EE frame, oriented as the base
             obs["obj_goal_pos_sensor"] = rotate_world_to_agent(tgt_pos - ee, state.yaw)
@@ -754,9 +836,52 @@ class RearrangeBatchedEnv:
             )
             obs["robot_head_depth"] = frames["depth"]
             obs["robot_head_rgb"] = frames["rgb"]
+        if self.with_humanoid:
+            return self._prefixed(obs, self._agent_1_observations(state))
         if self.sensor_keys is not None:
             obs = {k: obs[k] for k in self.sensor_keys if k in obs}
         return obs
+
+    def _agent_1_observations(self, state: RearrangeState) -> Dict[str, torch.Tensor]:
+        """The humanoid's sensors and the two agents' mutual ones: its
+        localization, the target and its goal in its frame, whether it
+        holds, each agent's GPS of the other (forward, right) in its own
+        frame, and whether they are within 2 m."""
+        tgt = self._target_obj(state)
+        tgt_pos = self._obj_world(state)[self._env_ids, tgt]
+        goal_pos = self.table.target_pos[state.ep_idx, tgt]
+
+        def gps(p_self, yaw_self, p_other):
+            rel = rotate_world_to_agent(p_other - p_self, yaw_self)
+            return torch.stack([-rel[:, 2], rel[:, 0]], dim=-1)
+
+        within = (_xz_norm(state.human_pos - state.pos) < 2.0).float()[:, None]
+        return {
+            "agent_1_localization_sensor": torch.cat([state.human_pos, state.human_yaw[:, None]], dim=-1),
+            "agent_1_obj_start_sensor": rotate_world_to_agent(tgt_pos - state.human_pos, state.human_yaw),
+            "agent_1_obj_goal_sensor": rotate_world_to_agent(goal_pos - state.human_pos, state.human_yaw),
+            "agent_1_is_holding": (state.human_held >= 0).float()[:, None],
+            "agent_0_other_agent_gps": gps(state.pos, state.yaw, state.human_pos),
+            "agent_1_other_agent_gps": gps(state.human_pos, state.human_yaw, state.pos),
+            "agent_0_agents_within_threshold": within,
+            "agent_1_agents_within_threshold": within,
+        }
+
+    @staticmethod
+    def _prefixed(obs: Dict, agent_1: Dict) -> Dict:
+        """The reference's multi-agent layout (rearrange_sim.py:68-82): the
+        robot's sensors under ``agent_0_``, ``all_predicates`` task-level
+        and ``multi_agent_all_predicates`` under both prefixes, then
+        ``agent_1``'s entries."""
+        obs = dict(obs)
+        preds = obs.pop("all_predicates", None)
+        obs.pop("multi_agent_all_predicates", None)
+        out = {f"agent_0_{k}": v for k, v in obs.items()}
+        if preds is not None:
+            out["all_predicates"] = out["agent_0_multi_agent_all_predicates"] = preds
+            out["agent_1_multi_agent_all_predicates"] = preds
+        out.update(agent_1)
+        return out
 
     def _arm_geometry(self, state: RearrangeState) -> Tuple[torch.Tensor, torch.Tensor]:
         """The arm's links as boxes of radius 4 cm: (N, J*12, 3, 3) world
@@ -854,6 +979,10 @@ class RearrangeBatchedEnv:
             "num_steps": state.step.float(),
         }
         m["articulated_agent_force"] = m["robot_force"]
+        if self.with_humanoid:
+            # reference DidAgentsCollide / NumAgentsCollide (multi_agent_sensors.py:18)
+            m["did_agents_collide"] = (_xz_norm(state.human_pos - state.pos) < 0.5).float()
+            m["num_agents_collide"] = m["did_agents_collide"]
         if self.task in ("open", "close"):
             q = state.art_q[n_idx, self.table.art_target[ep]]
             m["art_obj_state"] = q
@@ -940,6 +1069,12 @@ class RearrangeBatchedEnv:
             motor_target=self._resting.repeat(n, 1),
             held=torch.full((n,), -1, dtype=torch.int64, device=dev),
             ever_held=flags(),
+            # the humanoid spawns 2 m behind the robot, snapped to the navgrid
+            # (the generator has no humanoid start; hab3 episodes carry one)
+            human_pos=ng.snap_to_navigable(self.pack, t.nav.scene_idx[ep_idx].long(),
+                                           pos + yaw_to_forward(t.nav.start_yaw[ep_idx] + np.pi) * 2.0),
+            human_yaw=t.nav.start_yaw[ep_idx],
+            human_held=torch.full((n,), -1, dtype=torch.int64, device=dev),
             accum_force=torch.zeros(n, device=dev),
             stop_called=flags(),
             collided=flags(),
@@ -953,14 +1088,20 @@ class RearrangeBatchedEnv:
         state = self._fresh(self.order[:, 0])
         return state, self._observations(state)
 
-    def _commands(self, state: RearrangeState, actions: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The action specs' merged commands: each spec reads its slice of
-        the flat action vector in declaration order."""
+    def _commands(self, state: RearrangeState, actions: torch.Tensor):
+        """The action specs' merged commands, the robot's and the humanoid's
+        (agent_1_* specs, steering the humanoid's pose): each spec reads its
+        slice of the flat action vector in declaration order."""
         acts = actions.float()
         cmd: Dict[str, torch.Tensor] = {}
+        cmd1: Dict[str, torch.Tensor] = {}
         off = 0
         for spec, w in zip(self.action_specs, self._spec_dims):
-            spec.contribute(self, state, acts[:, off:off + w], cmd)
+            x = acts[:, off:off + w]
+            if self.with_humanoid and spec.agent_idx >= 1:
+                spec.contribute(self, state, x, cmd1, pose=(state.human_pos, state.human_yaw))
+            else:
+                spec.contribute(self, state, x, cmd)
             off += w
         if "sel_arm" in cmd:
             # SelectBaseOrArmAction (reference actions.py:74-99): base and arm
@@ -972,7 +1113,7 @@ class RearrangeBatchedEnv:
             for k in ("lin", "ang"):
                 if k in cmd:
                     cmd[k] = torch.where(sel, 0.0, cmd[k])
-        return cmd
+        return cmd, cmd1
 
     def _arm_step(self, state: RearrangeState, dq=None, ee_delta=None):
         """(joints, joint_vel, motor_target) after joint deltas ``dq`` or an
@@ -1065,13 +1206,81 @@ class RearrangeBatchedEnv:
         new_q = torch.where(interact & near, cur_q + dq, cur_q)
         return dataclasses.replace(state, art_q=torch.where(on_t, new_q[:, None], state.art_q))
 
+    def _pddl_nav(self, state, sid, nav_arg, pos, yaw):
+        """PddlApplyAction nav(e): the postcondition puts the agent on the
+        navigable cell nearest entity e (1-based; objects, then goals),
+        facing it (reference pddl_actions.py:57-99). Returns (pos, yaw)."""
+        n_idx = self._env_ids
+        ents, valid = entity_positions(self, state)
+        ne = ents.shape[1]
+        e_i = (nav_arg - 1).clamp(0, ne - 1)
+        do_nav = (nav_arg >= 1) & (nav_arg <= ne) & valid[n_idx, e_i]
+        tgt_e = ents[n_idx, e_i]
+        snap_e = ng.snap_to_navigable(self.pack, sid, tgt_e)
+        face = tgt_e - snap_e
+        return (torch.where(do_nav[:, None], snap_e, pos),
+                torch.where(do_nav, torch.atan2(-face[:, 0], -face[:, 2]), yaw))
+
+    def _pddl_grasp(self, state, objs, args, agent_pos, agent_held):
+        """PddlApplyAction pick(o) and place(g) for an agent: (pick it does,
+        the object, place it does, the place argument)."""
+        n_idx, O = self._env_ids, self.num_objects
+        p_arg = args[:, 1]
+        p_obj = (p_arg - 1).clamp(0, O - 1)
+        p_ok = (p_arg >= 1) & (p_arg <= O) & self.table.obj_valid[state.ep_idx][n_idx, p_obj]
+        p_do = p_ok & (_xz_norm(objs[n_idx, p_obj] - agent_pos) <= 2.0) & (agent_held < 0)
+        pl_arg = args[:, 2]
+        return p_do, p_obj, (pl_arg >= O + 1) & (pl_arg <= 2 * O) & (agent_held >= 0), pl_arg
+
+    def _goal_arg(self, state, pl_arg):
+        """(N, 3) the goal a place argument names."""
+        O = self.num_objects
+        return self.table.target_pos[state.ep_idx][self._env_ids, (pl_arg - 1 - O).clamp(0, O - 1)]
+
+    def _pick_target(self, state, objs, pick, agent_pos, agent_held):
+        """HumanoidPickAction for an agent: the valid object nearest the
+        target, grasped when within 0.4 m of it, the target within 1.5 m of
+        the agent and nothing held. Returns (grasp, the object)."""
+        active, target = pick
+        d = torch.where(self.table.obj_valid[state.ep_idx], norm(objs - target[:, None, :]), 1e6)
+        obj = d.argmin(1)
+        near = (d[self._env_ids, obj] <= 0.4) & (_xz_norm(target - agent_pos) <= 1.5)
+        return active & near & (agent_held < 0), obj
+
+    def _humanoid_grasp(self, state, sid, objs, cmd1, held, obj_pos):
+        """The humanoid's grasp lane: its pick target and PDDL pick grasp
+        (never the object the robot holds); its PDDL place drops the held
+        object at the goal, otherwise at its feet. Returns (obj_pos,
+        human_held)."""
+        grab = torch.zeros_like(state.stop_called)
+        obj = torch.zeros_like(held)
+        release = torch.zeros_like(grab)
+        floor = self.pack.floor_y[sid]
+        drop = torch.stack([state.human_pos[:, 0], floor, state.human_pos[:, 2]], dim=-1)
+        if "humanoid_pick" in cmd1:
+            g, cand = self._pick_target(state, objs, cmd1["humanoid_pick"], state.human_pos, state.human_held)
+            grab = grab | g
+            obj = torch.where(g, cand, obj)
+        if "pddl_apply" in cmd1:
+            g, p_obj, place, pl_arg = self._pddl_grasp(state, objs, cmd1["pddl_apply"], state.human_pos,
+                                                       state.human_held)
+            grab = grab | g
+            obj = torch.where(g, p_obj, obj)
+            release = release | place
+            drop = torch.where(place[:, None], self._goal_arg(state, pl_arg), drop)
+        grab = grab & (obj != held)
+        dropped = release[:, None] & (self._o_lane == torch.clamp_min(state.human_held, 0)[:, None])
+        obj_pos = torch.where(dropped[..., None], drop[:, None, :], obj_pos)
+        human_held = torch.where(release, -1, state.human_held)
+        return obj_pos, torch.where(grab, obj, human_held)
+
     def step_fn(self, state: RearrangeState, actions: torch.Tensor):
         """One batched step with masked auto-reset of finished envs. Returns
         (state, obs, reward, done, info); the input state is not modified."""
         n_idx, ep = self._env_ids, state.ep_idx
         prev_m = self._measures(state)
         sid = self._sid(state)
-        cmd = self._commands(state, actions) if self.action_specs is not None else {}
+        cmd, cmd1 = self._commands(state, actions) if self.action_specs is not None else ({}, {})
         joints, joint_vel, motor, grip, a, stop, yaw, move = self._controls(state, actions, cmd)
 
         # base motion with wall sliding; movable objects block the base by a
@@ -1089,32 +1298,37 @@ class RearrangeBatchedEnv:
         moved = move.abs() > 1e-6
         collided = (collided | obj_hit) & moved
         new_pos = torch.where(moved[:, None], new_pos, state.pos)
+        if "base_pos_override" in cmd:
+            # HumanoidJointAction's base transform: the root is set, snapped
+            # to the navgrid (the reference's step_filter)
+            ov_set, ov_pos, ov_yaw = cmd["base_pos_override"]
+            new_pos = torch.where(ov_set[:, None], ng.snap_to_navigable(self.pack, sid, ov_pos), new_pos)
+            yaw = torch.where(ov_set, ov_yaw, yaw)
         if "pddl_apply" in cmd:
-            # PddlApplyAction nav(e): the postcondition puts the base on the
-            # navigable cell nearest the entity, facing it (reference
-            # pddl_actions.py:57-99)
-            ents, valid = entity_positions(self, state)
-            nav_arg = cmd["pddl_apply"][:, 0]
-            ne = ents.shape[1]
-            e_i = (nav_arg - 1).clamp(0, ne - 1)
-            do_nav = (nav_arg >= 1) & (nav_arg <= ne) & valid[n_idx, e_i]
-            tgt_e = ents[n_idx, e_i]
-            snap_e = ng.snap_to_navigable(self.pack, sid, tgt_e)
-            face = tgt_e - snap_e
-            new_pos = torch.where(do_nav[:, None], snap_e, new_pos)
-            yaw = torch.where(do_nav, torch.atan2(-face[:, 0], -face[:, 2]), yaw)
+            new_pos, yaw = self._pddl_nav(state, sid, cmd["pddl_apply"][:, 0], new_pos, yaw)
+        h_pos, h_yaw = state.human_pos, state.human_yaw
+        if self.with_humanoid:
+            # the humanoid's lane: the same base motion on its own pose
+            zeros = torch.zeros_like(state.yaw)
+            h_lin = cmd1.get("lin", zeros).clamp(-1.0, 1.0)
+            h_yaw = state.human_yaw + cmd1.get("ang", zeros).clamp(-1.0, 1.0) * self.turn
+            stop = stop | cmd1.get("stop", torch.zeros_like(stop))
+            h_pos, _ = ng.try_step(self.pack, sid, state.human_pos,
+                                   state.human_pos + yaw_to_forward(h_yaw) * (h_lin * self.fwd)[:, None])
+            if "pddl_apply" in cmd1:
+                h_pos, h_yaw = self._pddl_nav(state, sid, cmd1["pddl_apply"][:, 0], h_pos, h_yaw)
         state = dataclasses.replace(
             state, pos=new_pos, yaw=yaw, prev_pos=state.pos, joints=joints, joint_vel=joint_vel, motor_target=motor,
-            stop_called=stop, collided=collided, collision_count=state.collision_count + collided.to(torch.int32),
-            last_action=a, step=state.step + 1,
+            human_pos=h_pos, human_yaw=h_yaw, stop_called=stop, collided=collided,
+            collision_count=state.collision_count + collided.to(torch.int32), last_action=a, step=state.step + 1,
         )
         if self.task in ("open", "close"):
             state = self._articulate(state, a)
 
         # magic grasp and release (reference grip_actions.py:38-177)
         ee = self._ee_pos(state)
-        d = norm(self._obj_world(state) - ee[:, None, :])
-        d = torch.where(self.table.obj_valid[ep], d, 1e6)
+        objs = self._obj_world(state)
+        d = torch.where(self.table.obj_valid[ep], norm(objs - ee[:, None, :]), 1e6)
         nearest = d.argmin(1)
         near = d[n_idx, nearest] <= self.grasp_distance
         if self.action_specs is not None and "grip" not in cmd:
@@ -1129,20 +1343,18 @@ class RearrangeBatchedEnv:
             grab = a == A_GRAB
             can_grab = grab & (state.held < 0) & near
             do_release = grab & (state.held >= 0)
+        if "humanoid_pick" in cmd:
+            # HumanoidPickAction: grasp the object nearest the target
+            hp_grab, hp_obj = self._pick_target(state, objs, cmd["humanoid_pick"], state.pos, state.held)
+            can_grab = can_grab | hp_grab
+            nearest = torch.where(hp_grab, hp_obj, nearest)
         if "pddl_apply" in cmd:
             # pick(o) snaps object o to the hand when nothing is held and the
             # base is within 2 m of it; place(g) releases the held object at
             # goal g (reference pddl_actions.py)
-            args, O = cmd["pddl_apply"], self.num_objects
-            objs = self._obj_world(state)
-            p_arg = args[:, 1]
-            p_obj = (p_arg - 1).clamp(0, O - 1)
-            p_ok = (p_arg >= 1) & (p_arg <= O) & self.table.obj_valid[ep][n_idx, p_obj]
-            p_do = p_ok & (_xz_norm(objs[n_idx, p_obj] - state.pos) <= 2.0) & (state.held < 0)
+            p_do, p_obj, pddl_place, pl_arg = self._pddl_grasp(state, objs, cmd["pddl_apply"], state.pos, state.held)
             can_grab = can_grab | p_do
             nearest = torch.where(p_do, p_obj, nearest)
-            pl_arg = args[:, 2]
-            pddl_place = (pl_arg >= O + 1) & (pl_arg <= 2 * O) & (state.held >= 0)
             do_release = do_release | pddl_place
         # a released object drops under the EE (snapped to the nearest
         # navigable cell off the grid); with physics it falls from the EE
@@ -1153,17 +1365,20 @@ class RearrangeBatchedEnv:
         if self.dynamics in ("gravity", "contacts"):
             drop = torch.stack([drop[:, 0], ee[:, 1], drop[:, 2]], dim=-1)
         if "pddl_apply" in cmd:  # place(g): the object lands at the goal
-            goal = self.table.target_pos[ep][n_idx, (pl_arg - 1 - O).clamp(0, O - 1)]
-            drop = torch.where(pddl_place[:, None], goal, drop)
+            drop = torch.where(pddl_place[:, None], self._goal_arg(state, pl_arg), drop)
         released = do_release[:, None] & (self._o_lane == torch.clamp_min(state.held, 0)[:, None])
         obj_pos = torch.where(released[..., None], drop[:, None, :], state.obj_pos)
         held = torch.where(do_release, -1, state.held)
         held = torch.where(can_grab, nearest, held)
         ever_held = state.ever_held | (held == self._target_obj(state))
+        human_held = state.human_held
+        free = self.table.obj_valid[ep] & (self._o_lane != torch.where(held < 0, -1, held)[:, None])
+        if self.with_humanoid:
+            obj_pos, human_held = self._humanoid_grasp(state, sid, objs, cmd1, held, obj_pos)
+            free = free & (self._o_lane != torch.where(human_held < 0, -1, human_held)[:, None])
 
         obj_vel, obj_quat, obj_omega = state.obj_vel, state.obj_quat, state.obj_omega
         step_force = torch.zeros_like(state.accum_force)
-        free = self.table.obj_valid[ep] & (self._o_lane != torch.where(held < 0, -1, held)[:, None])
         if self.dynamics == "gravity":
             # semi-implicit Euler for free objects; the floor stops them
             dt, g = 0.1, 9.8
@@ -1200,7 +1415,7 @@ class RearrangeBatchedEnv:
             held = torch.where(broke, -1, held)
         state = dataclasses.replace(
             state, obj_pos=obj_pos, obj_vel=obj_vel, obj_quat=obj_quat, obj_omega=obj_omega, held=held,
-            ever_held=ever_held, accum_force=state.accum_force + step_force,
+            ever_held=ever_held, human_held=human_held, accum_force=state.accum_force + step_force,
         )
 
         m = self._measures(state)

@@ -10,10 +10,20 @@ capability check against the env. Construction
 (core/construct.rearrange_env_from_config) resolves the declared lists,
 raises on unknown types (KeyError from the registry) or unsupported ones
 (ValueError from ``check`` or the env), and the env then emits exactly the
-declared keys. Every reference type is registered; a type whose consumer
-the port lacks raises where the env meets it: the PDDL predicate sensors
-(``NotImplementedError``) and the humanoid and multi-agent types (their keys
-are not on a single-agent env: ``ValueError``).
+declared keys. Every reference type is registered. The multi-agent and
+social-navigation types take their values from the envs that own those
+layouts: the two-agent rearrangement env (``agent_1_*`` actions; its
+observations are prefixed per agent and not filtered by key) emits
+``other_agent_gps``, ``agents_within_threshold``, the predicate vectors and
+``did_agents_collide`` / ``num_agents_collide``; the social-nav env
+(``tasks/rearrange/social_nav.py``) emits ``humanoid_detector_sensor``,
+``other_agent_gps``, ``nav_seek_success``, ``did_agents_collide`` and
+SocialNavStats as ``social_nav_stats.<field>``. On a single-agent
+rearrangement env ``GlobalPredicatesSensor`` and
+``MultiAgentGlobalPredicatesSensor`` are emitted when declared; the other
+multi-agent keys are not there and raise ``ValueError``. As in the JAX
+package no env emits ``humanoid_joint_sensor`` or
+``has_finished_human_pick``: the humanoid lane keeps no joint pose.
 
 Reference type names + uuids: habitat-lab/habitat/tasks/rearrange/
 rearrange_sensors.py (cls_uuid declarations), sub_tasks/pick_sensors.py,
@@ -149,8 +159,9 @@ _spec("measure", "MoveObjectsReward", ["move_objects_reward"], ["rearrange"])
 _spec("measure", "CompositeSuccess", ["pddl_success"], ["rearrange"])
 
 # --- hab3 / multi-agent types (social_nav_sensors.py, multi_agent_sensors.py,
-# humanoid sensors). Registered so every reference type resolves; their
-# consumers, the multi-agent envs, are not ported.
+# humanoid sensors). The multi-agent envs emit them in their own fixed
+# layouts (construct.rearrange_env_from_config declares no key filter for a
+# multi-agent config).
 _spec("sensor", "AreAgentsWithinThreshold", ["agents_within_threshold"])
 _spec("sensor", "OtherAgentGps", ["other_agent_gps"])
 _spec("sensor", "HumanoidJointSensor", ["humanoid_joint_sensor"])
@@ -164,8 +175,8 @@ _spec("sensor", "TargetCurrentSensor", ["obj_goal_pos_sensor"])
 _spec("sensor", "InitialGpsCompassSensor", ["initial_gps_compass_sensor"])
 _spec("sensor", "NavToSkillSensor", ["nav_to_skill_sensor"])
 # PDDL predicate truth vectors (multi_task/pddl_sensors.py:25-57 and
-# multi_agent_sensors.py:121-156): the env raises NotImplementedError on
-# them until multi_task/pddl_yaml.py is ported
+# multi_agent_sensors.py:121-156): every predicate of the env's domain
+# grounded once by multi_task/pddl_yaml.py, evaluated in the step
 _spec("sensor", "GlobalPredicatesSensor", ["all_predicates"])
 _spec(
     "sensor",

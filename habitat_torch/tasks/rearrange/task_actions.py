@@ -31,10 +31,18 @@ Reference behaviors implemented:
   holds (nav teleports next to the entity, pick snaps the object to the EE,
   place releases at the goal).
 
-HumanoidJointAction (actions.py:801) and HumanoidPickAction
-(humanoid_actions.py:24) are registered with their slice widths; their
-commands drive the humanoid lane, which is not ported, so an env given
-either raises ``NotImplementedError``.
+- HumanoidJointAction (actions.py:801): (4*num_joints + 32) pose and
+  transforms; a nonzero base transform teleports the acting agent's root
+  (snapped to the navgrid), all-zero keeps the pose.
+- HumanoidPickAction (humanoid_actions.py:24): an (x, y, z) target; the
+  acting agent grasps the valid object nearest it when the target is within
+  0.4 m of that object and 1.5 m of the agent, all-zero is a no-op.
+
+A spec named ``agent_<i>_...`` acts for agent i: the env gives the specs of
+agent 1 (the humanoid lane of the two-agent env) their own command dict and
+the humanoid's (pos, yaw) as ``pose``, which the steering actions steer. As
+in the JAX package, that lane reads the base velocity, stop, PDDL and pick
+commands; a base transform given to agent 1 moves nothing.
 """
 
 from __future__ import annotations
@@ -67,8 +75,9 @@ class BatchedTaskAction:
     def dims(self, env) -> int:
         raise NotImplementedError
 
-    def contribute(self, env, state, x, cmd) -> None:
-        """x: (N, dims) float32 slice. Mutates cmd in place."""
+    def contribute(self, env, state, x, cmd, pose=None) -> None:
+        """x: (N, dims) float32 slice; ``pose`` the acting agent's (pos,
+        yaw), the robot's when None. Mutates cmd in place."""
         raise NotImplementedError
 
     def _get(self, key, default):
@@ -104,7 +113,7 @@ class ArmAction(BatchedTaskAction):
         arm = 3 if self._is_ee() else env.n_joints
         return arm + (1 if self._has_grip() else 0)
 
-    def contribute(self, env, state, x, cmd) -> None:
+    def contribute(self, env, state, x, cmd, pose=None) -> None:
         x = x.clamp(-1.0, 1.0)
         if self._is_ee():
             cmd["ee_delta"] = x[:, 0:3] * env.ee_delta
@@ -121,7 +130,7 @@ class BaseVelAction(BatchedTaskAction):
     def dims(self, env) -> int:
         return 2
 
-    def contribute(self, env, state, x, cmd) -> None:
+    def contribute(self, env, state, x, cmd, pose=None) -> None:
         x = x.clamp(-1.0, 1.0)
         lin = x[:, 0] if bool(self._get("allow_back", True)) else x[:, 0].clamp_min(0.0)
         cmd["lin"] = cmd.get("lin", 0.0) + lin
@@ -141,7 +150,7 @@ class RearrangeStopAction(BatchedTaskAction):
     def dims(self, env) -> int:
         return 1
 
-    def contribute(self, env, state, x, cmd) -> None:
+    def contribute(self, env, state, x, cmd, pose=None) -> None:
         stop = x[:, 0] > 0.0
         cmd["stop"] = cmd["stop"] | stop if "stop" in cmd else stop
 
@@ -155,7 +164,7 @@ class SelectBaseOrArmAction(BatchedTaskAction):
     def dims(self, env) -> int:
         return 1
 
-    def contribute(self, env, state, x, cmd) -> None:
+    def contribute(self, env, state, x, cmd, pose=None) -> None:
         cmd["sel_arm"] = x[:, 0] > 0.0
 
 
@@ -166,7 +175,7 @@ class EmptyAction(BatchedTaskAction):
     def dims(self, env) -> int:
         return 0
 
-    def contribute(self, env, state, x, cmd) -> None:
+    def contribute(self, env, state, x, cmd, pose=None) -> None:
         return None
 
 
@@ -182,7 +191,7 @@ def entity_positions(env, state) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.cat([objs, goals], dim=1), torch.cat([valid, valid], dim=1)
 
 
-def _steer_to_target(env, state, target, active, cfg_get):
+def _steer_to_target(env, state, target, active, cfg_get, pose=None):
     """Greedy collision-resolved steering toward target (N, 3).
 
     Batched equivalent of the reference's navmesh-path follower
@@ -196,7 +205,7 @@ def _steer_to_target(env, state, target, active, cfg_get):
     turn_v = float(cfg_get("turn_velocity", 1.0))
 
     sid = env._sid(state)
-    a_pos, a_yaw = state.pos, state.yaw
+    a_pos, a_yaw = pose if pose is not None else (state.pos, state.yaw)
     rel_xz = (target - a_pos)[:, 0::2]
     dist = torch.linalg.vector_norm(rel_xz, dim=-1)
     ang_to_obj = _wrap(_angle_to(rel_xz) - a_yaw)
@@ -240,14 +249,14 @@ class OracleNavAction(BatchedTaskAction):
     def dims(self, env) -> int:
         return 1
 
-    def contribute(self, env, state, x, cmd) -> None:
+    def contribute(self, env, state, x, cmd, pose=None) -> None:
         idx = torch.round(x[:, 0]).to(torch.int64)
         ents, valid = entity_positions(env, state)
         ne = ents.shape[1]
         safe = (idx - 1).clamp(0, ne - 1)
         n_idx = torch.arange(ents.shape[0], device=ents.device)
         active = (idx >= 1) & (idx <= ne) & valid[n_idx, safe]
-        _add_steering(cmd, *_steer_to_target(env, state, ents[n_idx, safe], active, self._get))
+        _add_steering(cmd, *_steer_to_target(env, state, ents[n_idx, safe], active, self._get, pose))
 
 
 @registry.register_task_action(name="OracleNavCoordinateAction")
@@ -258,10 +267,10 @@ class OracleNavCoordinateAction(BatchedTaskAction):
     def dims(self, env) -> int:
         return 3
 
-    def contribute(self, env, state, x, cmd) -> None:
+    def contribute(self, env, state, x, cmd, pose=None) -> None:
         target = x[:, 0:3]
         active = (target.abs() > 1e-6).any(-1)
-        _add_steering(cmd, *_steer_to_target(env, state, target, active, self._get))
+        _add_steering(cmd, *_steer_to_target(env, state, target, active, self._get, pose))
 
 
 @registry.register_task_action(name="OracleNavWithBackingUpAction")
@@ -287,31 +296,41 @@ class PddlApplyAction(BatchedTaskAction):
     def dims(self, env) -> int:
         return self.N_SCHEMAS
 
-    def contribute(self, env, state, x, cmd) -> None:
+    def contribute(self, env, state, x, cmd, pose=None) -> None:
         cmd["pddl_apply"] = torch.round(x).to(torch.int64)  # (N, 3)
 
 
-class HumanoidAction(BatchedTaskAction):
-    """A humanoid command: it drives the humanoid lane, which is not ported,
-    so an env that meets one raises NotImplementedError."""
-
-
 @registry.register_task_action(name="HumanoidJointAction")
-class HumanoidJointAction(HumanoidAction):
-    """(4*num_joints + 32) pose + base/offset transforms (reference
-    actions.py:801-880); drives the humanoid lane (not ported)."""
+class HumanoidJointAction(BatchedTaskAction):
+    """(4*num_joints + 32) joint quaternions, then the offset and base
+    transforms as column-major 4x4 matrices (reference actions.py:801-880).
+    A base transform with any nonzero entry in the last 32 sets the root:
+    its translation is the position, its rotated x axis the forward
+    (``base_pos_override``); all-zero keeps the pose."""
 
     def dims(self, env) -> int:
         return 4 * int(self._get("num_joints", 17)) + 32
 
+    def contribute(self, env, state, x, cmd, pose=None) -> None:
+        base_t = x[:, -16:].reshape(-1, 4, 4)
+        is_set = (x[:, -32:].abs() > 1e-8).any(-1)
+        fwd = base_t[:, 0, 0:3]
+        cmd["base_pos_override"] = (is_set, base_t[:, 3, 0:3], torch.atan2(-fwd[:, 0], -fwd[:, 2]))
+        cmd["humanoid_joints"] = x[:, :-32]
+
 
 @registry.register_task_action(name="HumanoidPickAction")
-class HumanoidPickAction(HumanoidAction):
-    """(x,y,z) pick target (reference humanoid_actions.py:24); drives the
-    humanoid lane (not ported)."""
+class HumanoidPickAction(BatchedTaskAction):
+    """(x, y, z) pick target (reference humanoid_actions.py:24): the acting
+    agent grasps the object nearest the target when it is within reach;
+    all-zero is a no-op."""
 
     def dims(self, env) -> int:
         return 3
+
+    def contribute(self, env, state, x, cmd, pose=None) -> None:
+        target = x[:, 0:3]
+        cmd["humanoid_pick"] = ((target.abs() > 1e-6).any(-1), target)
 
 
 def resolve_task_actions(actions_cfg):

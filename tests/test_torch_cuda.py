@@ -1618,3 +1618,84 @@ def test_render_keyframe_launches_fused_sel_and_matches_plain(cuda):
     ref, got = frames
     assert got["rgb"].is_cuda and got["rgb"].shape == (256, 256, 3)
     assert (got["rgb"].cpu() == ref["rgb"]).all(-1).float().mean().item() >= 0.999
+
+
+def test_visual_social_step_on_card_matches_cpu(cuda):
+    """A visual social-nav step at N=4, 32x32: the head render launches #3
+    twice (the scene and the humanoid's dynamic pass) and runs no plain
+    version; state and state sensors equal the CPU env's within 1e-5,
+    frames' hit/miss on >= 99.9% of pixels."""
+    from habitat_torch.tasks.rearrange.social_nav import make_social_nav_env
+
+    kw = dict(num_envs=4, num_scenes=1, episodes_per_scene=4, seed=2, with_visual=True, render_size=(32, 32))
+    acts = torch.tensor([1, 2, 3, 1])
+    outs = []
+    for dev in ("cpu", cuda):
+        env = make_social_nav_env(device=dev, **kw)
+        st, _ = env.reset_fn()
+        before = rk.raycast_index_t.launches
+        if dev == "cpu":
+            outs.append(env.step_fn(st, acts))
+        else:
+            with mock.patch.object(rk.raycast_index_t, "plain", side_effect=AssertionError("plain on a card tensor")):
+                outs.append(env.step_fn(st, acts.to(dev)))
+        torch.cuda.synchronize()
+        assert rk.raycast_index_t.launches == before + 2 * (dev != "cpu")
+    (sc, oc, rc_, dc, _), (sg, og, rg, dg, _) = outs
+    assert torch.equal(dg.cpu(), dc) and (rg.cpu() - rc_).abs().max() <= 1e-5
+    for name in ("pos", "yaw", "human_pos"):
+        assert (getattr(sg, name).cpu() - getattr(sc, name)).abs().max() <= 1e-5, name
+    for k in ("gps", "compass", "humanoid_detector_sensor", "other_agent_gps"):
+        assert (og[k].cpu() - oc[k]).abs().max() <= 1e-5, k
+    assert ((og["robot_head_depth"].cpu() < 1.0) == (oc["robot_head_depth"] < 1.0)).float().mean() >= 0.999
+
+
+def test_two_agent_update_on_card(cuda):
+    """One TwoAgentPPOLearner train step on the card (N=4, T=4, two blind
+    resnet9 policies): finite losses and both policies' weights moved."""
+    from habitat_torch.baselines.multi_agent import TwoAgentPPOLearner
+    from habitat_torch.baselines.ppo import PPOConfig
+    from habitat_torch.models.policy import make_pointnav_resnet_policy, state_keys_of
+    from habitat_torch.tasks.rearrange.social_nav import make_social_nav_env
+
+    env = make_social_nav_env(num_envs=4, num_scenes=1, episodes_per_scene=4, seed=2, two_agent=True, device=cuda)
+    pols = [make_pointnav_resnet_policy(env.num_actions, has_visual=False, hidden_size=32, goal_keys=(),
+                                        backbone="resnet9", state_keys=state_keys_of(env.agent_observation_shapes(i)),
+                                        device=cuda) for i in range(2)]
+    before = [{k: v.clone() for k, v in p.state_dict().items()} for p in pols]
+    lrn = TwoAgentPPOLearner(env, pols, PPOConfig(num_steps=4, num_mini_batch=1, ppo_epoch=2))
+    ts, m = lrn.train_step(lrn.init(seed=0))
+    assert all(np.isfinite(v.item()) for v in m.values())
+    for p, b in zip(pols, before):
+        assert any(not torch.equal(v, b[k]) for k, v in p.state_dict().items())
+
+
+def test_hab3_step_on_card_matches_cpu(cuda):
+    """The two-agent pick_procgen.yaml env (Spot + humanoid, contacts, the
+    128x128 head render) one step on the card against the CPU: #3 launched
+    twice, the agents' state sensors and predicates equal within 1e-5."""
+    from habitat_torch.config.default import get_config
+    from habitat_torch.core.construct import rearrange_env_from_config
+
+    cfg = get_config("benchmark/rearrange/pick_procgen.yaml", [
+        "habitat.simulator.agents.main_agent.articulated_agent_type=SpotRobot",
+        "habitat.simulator.agents.agent_1.articulated_agent_type=KinematicHumanoid",
+        "habitat.task.actions.agent_0_base_velocity.type=BaseVelAction",
+        "habitat.task.actions.agent_1_oracle_nav_action.type=OracleNavAction",
+        "habitat.task.actions.agent_1_pddl_apply_action.type=PddlApplyAction",
+        "habitat.task.lab_sensors.multi_agent_all_predicates.type=MultiAgentGlobalPredicatesSensor"])
+    outs = []
+    for dev in ("cpu", cuda):
+        env = rearrange_env_from_config(cfg, num_envs=4, device=dev)
+        st, _ = env.reset_fn()
+        a = torch.zeros((4, env.action_dim), device=dev)
+        a[:, 0], a[:, 2], a[:, 4] = 1.0, 2.0, 1.0  # robot forward, humanoid to entity 2, pddl pick(object 1)
+        before = rk.raycast_index_t.launches
+        outs.append(env.step_fn(st, a))
+        torch.cuda.synchronize()
+        assert rk.raycast_index_t.launches == before + 2 * (dev != "cpu")
+    (sc, oc, _, dc, _), (sg, og, _, dg, _) = outs
+    assert torch.equal(dg.cpu(), dc) and torch.equal(sg.human_held.cpu(), sc.human_held)
+    for k in ("agent_0_localization_sensor", "agent_1_localization_sensor", "all_predicates",
+              "agent_1_other_agent_gps"):
+        assert (og[k].cpu() - oc[k]).abs().max() <= 1e-5, k

@@ -44,7 +44,9 @@ def test_port_files_found():
                    "baselines/agents/simple_agents.py", "baselines/agents/ppo_agents.py", "baselines/tensor_dict.py",
                    "core/env.py", "core/environments.py", "core/benchmark.py", "datasets/registration.py",
                    "sims/loaders.py", "utils/timing.py", "utils/gfx_replay.py", "utils/visualizations/maps.py",
-                   "utils/visualizations/fog_of_war.py"):
+                   "utils/visualizations/fog_of_war.py", "tasks/rearrange/social_nav.py",
+                   "baselines/multi_agent.py", "articulated_agents/humanoid.py",
+                   "tasks/rearrange/multi_task/pddl_yaml.py"):
         assert os.path.join(ROOT, "habitat_torch", module) in files
 
 
@@ -71,7 +73,9 @@ CONFIG_PATH_MODULES = (
     "habitat_torch.baselines.tensor_dict", "habitat_torch.sims.loaders", "habitat_torch.datasets.registration",
     "habitat_torch.utils.timing", "habitat_torch.utils.visualizations.fog_of_war",
     "habitat_torch.utils.visualizations.maps", "habitat_torch.utils.gfx_replay", "habitat_torch.core.env",
-    "habitat_torch.core.environments", "habitat_torch.core.benchmark",
+    "habitat_torch.core.environments", "habitat_torch.core.benchmark", "habitat_torch.tasks.rearrange.social_nav",
+    "habitat_torch.baselines.multi_agent", "habitat_torch.articulated_agents.humanoid",
+    "habitat_torch.tasks.rearrange.multi_task.pddl_yaml",
 )
 _PROBE = """
 import json, sys

@@ -52,7 +52,6 @@ from habitat_torch.ops import raycast as trc
 from habitat_torch.sims.scene import pack_scenes
 from habitat_torch.tasks.rearrange import generator as tgen
 from habitat_torch.tasks.rearrange import rearrange_env as tre
-from habitat_torch.tasks.rearrange.task_actions import HumanoidJointAction
 
 ATOL = 1e-5
 N = 4
@@ -61,7 +60,7 @@ GEN = dict(num_scenes=1, episodes_per_scene=4, seed=0)
 # the robot force (100 N per metre of penetration)
 REACHED_BOUND = dict(obj_pos=6e-5, obj_vel=6e-4, obj_quat=1.2e-4, obj_omega=3e-3)
 FORCE_RTOL, FORCE_ATOL = 1e-4, 1e-3
-DISCRETE_FIELDS = ("ep_ptr", "ep_idx", "step", "held", "ever_held", "stop_called", "collided", "collision_count",
+DISCRETE_FIELDS = ("ep_ptr", "ep_idx", "step", "held", "human_held", "ever_held", "stop_called", "collided", "collision_count",
                    "last_action", "episode_over", "episode_count")
 STATE_FIELDS = tuple(f.name for f in dataclasses.fields(tre.RearrangeState))
 
@@ -103,12 +102,11 @@ def _np(x):
 
 
 def to_port_state(js) -> tre.RearrangeState:
-    """A JAX RearrangeState as the port's (its humanoid fields and key
-    dropped)."""
+    """A JAX RearrangeState as the port's (its key dropped)."""
     out = {}
     for name in STATE_FIELDS:
         x = torch.as_tensor(np.array(getattr(js, name)))
-        out[name] = x.long() if name in ("ep_ptr", "ep_idx", "held") else x
+        out[name] = x.long() if name in ("ep_ptr", "ep_idx", "held", "human_held") else x
     return tre.RearrangeState(**out)
 
 
@@ -465,17 +463,7 @@ def test_pick_train_step_on_cpu():
 # -- what the slice leaves out ------------------------------------------------
 
 
-class _Spec:
-    def __init__(self, agent_idx):
-        self.agent_idx = agent_idx
-
-
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(action_specs=[HumanoidJointAction(None, name="humanoid_joint_action")]), NotImplementedError,
-     "task_actions.py"),
-    (dict(action_specs=[_Spec(0), _Spec(1)]), NotImplementedError, "humanoid"),
-    (dict(sensor_keys=("all_predicates",)), NotImplementedError, "pddl_yaml.py"),
-    (dict(sensor_keys=("multi_agent_all_predicates",)), NotImplementedError, "pddl_yaml.py"),
     (dict(task="reach"), NotImplementedError, "threefry"),
     (dict(art_urdf="some.urdf"), NotImplementedError, "loaders.py"),
     (dict(sensor_keys=("robot_head_depth",)), ValueError, "declared sensors"),
@@ -488,6 +476,79 @@ class _Spec:
 def test_left_out_branches_raise(kw, exc, match):
     with pytest.raises(exc, match=match):
         tgen.make_rearrange_env(**{**GEN, "num_envs": 2, "with_visual": False, "device": "cpu", **kw})
+
+
+# the humanoid lane and the predicate sensors: name -> (action specs as
+# (type, name), sensor keys)
+HUMANOID_CASES = {
+    "humanoid_joint_action": ((("HumanoidJointAction", "humanoid_joint_action"),), None),
+    "agent_0_and_agent_1": ((("BaseVelAction", "agent_0_base_velocity"), ("BaseVelAction", "agent_1_base_velocity")),
+                            None),
+    "all_predicates": (None, ("all_predicates",)),
+    "multi_agent_all_predicates": (None, ("multi_agent_all_predicates",)),
+}
+
+
+def _case_actions(te, js, t):
+    """Step t's actions for a humanoid case: discrete without specs; with
+    them, base velocities, and for HumanoidJointAction a root 0.3 m along +x
+    at step 1 (all-zero, the pose kept, otherwise)."""
+    if te.action_specs is None:
+        return np.full((2,), (tre.A_FWD, tre.A_LEFT, tre.A_FWD)[t], np.int32)
+    a = np.zeros((2, te.action_dim), np.float32)
+    if te.action_names == ("humanoid_joint_action",):
+        if t == 1:
+            T = np.tile(np.eye(4, dtype=np.float32)[None], (2, 1, 1))
+            T[:, 3, 0:3] = _np(js.pos) + np.array([0.3, 0.0, 0.0], np.float32)
+            a[:, -16:] = T.reshape(2, 16)
+            a[:, -32:-16] = np.eye(4, dtype=np.float32).reshape(16)
+    else:
+        a[:] = [[1.0, 0.5, 0.8, -0.3], [0.6, -0.2, 1.0, 0.4]][:2]
+    return a
+
+
+@pytest.mark.parametrize("case", list(HUMANOID_CASES))
+def test_humanoid_lane_and_predicates_match_jax(case):
+    """The humanoid lane (a spec acting for agent 1, or HumanoidJointAction
+    on the robot) and the predicate sensors against the JAX env at N=2: the
+    reset's observations and state, then three teacher-forced steps."""
+    from habitat_tpu.config.omega import Config as JConfig
+    from habitat_tpu.tasks.rearrange import task_actions as jta
+
+    from habitat_torch.config.omega import Config as TConfig
+    from habitat_torch.tasks.rearrange import task_actions as tta
+
+    specs, sensor_keys = HUMANOID_CASES[case]
+    kw = {**GEN, "num_envs": 2, "with_visual": False, "sensor_keys": sensor_keys}
+    jkw, tkw = dict(kw), dict(kw)
+    if specs:
+        decl = {name: {"type": typ} for typ, name in specs}
+        jkw["action_specs"] = jta.resolve_task_actions(JConfig(decl))
+        tkw["action_specs"] = tta.resolve_task_actions(TConfig(decl))
+    je, te = jgen.make_rearrange_env(**jkw), tgen.make_rearrange_env(device="cpu", **tkw)
+    assert te.with_humanoid == je.with_humanoid == (case == "agent_0_and_agent_1")
+    js, jo = jax.jit(je.reset_fn)(jax.random.PRNGKey(0))
+    ts, to = te.reset_fn()
+    assert set(jo) == set(to) == set(te.observation_shapes)
+    for k in jo:
+        np.testing.assert_allclose(to[k].numpy(), _np(jo[k]), atol=ATOL, err_msg=k)
+    for name in STATE_FIELDS:
+        np.testing.assert_allclose(getattr(ts, name).numpy(), _np(getattr(js, name)), atol=ATOL, err_msg=name)
+    if sensor_keys:
+        assert _np(jo[sensor_keys[0]]).shape[1] == len(te._grounded_preds) > 0
+    jstep = jax.jit(je.step_fn)
+    states = [js]
+    for t in range(3):
+        a = _case_actions(te, js, t)
+        jout = jstep(js, jnp.asarray(a))
+        _compare(jout, te.step_fn(to_port_state(js), torch.as_tensor(a)))
+        js = jout[0]
+        states.append(js)
+    if case == "humanoid_joint_action":  # an all-zero action keeps the root, the transform moves it
+        assert np.array_equal(_np(states[1].pos), _np(states[0].pos))
+        assert (np.linalg.norm(_np(states[2].pos - states[1].pos), axis=-1) > 0.1).all()
+    if case == "agent_0_and_agent_1":  # the humanoid walked
+        assert (np.linalg.norm(_np(js.human_pos) - _np(ts.human_pos), axis=-1) > 0.1).all()
 
 
 def test_generator_left_out_branches_raise():

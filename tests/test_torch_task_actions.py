@@ -20,8 +20,11 @@ YAML-style action configs through its own registry.
   goes through one port step with the same action. State, observations,
   reward, done and info within 1e-5 (tests/test_torch_rearrange_env.py's
   comparison), discrete fields equal.
-- Humanoid specs (a humanoid command, or any spec named ``agent_1_*``)
-  raise ``NotImplementedError``.
+- The humanoid specs: HumanoidJointAction's and HumanoidPickAction's
+  commands with the others above; teacher-forced steps of three spec sets
+  (a root teleport on the robot, a pick target beside a base velocity, a
+  base velocity acting for agent 1, which turns on the humanoid lane) at
+  the same tolerances.
 """
 
 import dataclasses
@@ -63,6 +66,8 @@ SPECS = {
     "oracle_nav_coordinate": ("OracleNavCoordinateAction", {}),
     "oracle_nav_with_backing_up_action": ("OracleNavWithBackingUpAction", {}),
     "pddl_apply_action": ("PddlApplyAction", {}),
+    "humanoid_joint_action": ("HumanoidJointAction", dict(num_joints=17)),
+    "humanoid_pick_obj_id_action": ("HumanoidPickAction", {}),
 }
 
 # teacher-forced spec sets: name -> (spec names, the control construct.py derives)
@@ -117,6 +122,11 @@ def _inputs(name, je, js, tgt, dims):
         x[:] = [ents[0, tgt[0]], pos[1] + [0.1, 0.0, 0.0], [0.0, 0.0, 0.0], ents[3, O]]  # far, at goal, no-op
     elif name == "pddl_apply_action":
         x[:] = [[tgt[0] + 1, 0, 0], [0, tgt[1] + 1, 0], [0, 0, O + tgt[2] + 1], [0.4, 1.6, 2 * O + 1]]
+    elif name == "humanoid_joint_action":
+        x[2:, -32:] = 0.0  # an all-zero transform keeps the pose
+    elif name == "humanoid_pick_obj_id_action":
+        x[:] = np.concatenate([_np(je._obj_world(js))[np.arange(N), tgt], np.zeros((N, 3), np.float32)])[
+            [0, 1, 4, 5]]  # two targets at an object, two no-ops
     return x
 
 
@@ -133,12 +143,16 @@ def test_spec_dims_and_contribute(shared, name):
     tspec.contribute(te, to_port_state(js), torch.as_tensor(x), tcmd)
     assert set(jcmd) == set(tcmd)
     for k in jcmd:
-        ref, got = _np(jcmd[k]), tcmd[k].numpy()
-        assert got.shape == ref.shape, k
-        if ref.dtype == bool or np.issubdtype(ref.dtype, np.integer):
-            assert np.array_equal(got, ref.astype(got.dtype)), k
-        else:
-            np.testing.assert_allclose(got, ref, atol=CMD_ATOL, err_msg=k)
+        # a command is a tensor or a tuple of them
+        refs, gots = (jcmd[k], tcmd[k]) if isinstance(jcmd[k], tuple) else ((jcmd[k],), (tcmd[k],))
+        assert len(refs) == len(gots), k
+        for ref, got in zip(refs, gots):
+            ref, got = _np(ref), got.numpy()
+            assert got.shape == ref.shape, k
+            if ref.dtype == bool or np.issubdtype(ref.dtype, np.integer):
+                assert np.array_equal(got, ref.astype(got.dtype)), k
+            else:
+                np.testing.assert_allclose(got, ref, atol=CMD_ATOL, err_msg=k)
     if name.startswith("oracle_nav"):
         # the steering moved or turned some env and left the no-op still
         assert np.abs(_np(jcmd["ang"])).max() > 0 and _np(jcmd["lin"])[2] == 0 and _np(jcmd["ang"])[2] == 0
@@ -190,11 +204,59 @@ def test_teacher_forced_episode(shared, name):
         assert (held[2, 2:] >= 0).all() and (held[3, 2:] < 0).all() and (held[:, 0] >= 0).all()
 
 
-@pytest.mark.parametrize("specs", [
-    [tta.HumanoidJointAction(None, name="humanoid_joint_action")],
-    [tta.BaseVelAction(None, name="base_velocity"), tta.HumanoidPickAction(None, name="humanoid_pick_obj_id_action")],
-    [tta.BaseVelAction(None, name="agent_1_base_velocity")],
-])
-def test_humanoid_specs_raise(specs):
-    with pytest.raises(NotImplementedError, match="humanoid"):
-        tgen.make_rearrange_env(action_specs=specs, device="cpu", **GEN)
+HUMANOID_SETS = {
+    "joint": (("HumanoidJointAction", "humanoid_joint_action"),),
+    "pick": (("BaseVelAction", "base_velocity"), ("HumanoidPickAction", "humanoid_pick_obj_id_action")),
+    "agent_1": (("BaseVelAction", "agent_1_base_velocity"),),
+}
+
+
+def _humanoid_actions(name, je, js, t, dims):
+    """Step t's flat actions for a humanoid spec set: a root 0.4 m along +x
+    at step 1 (the pose kept otherwise); a pick target at each env's target
+    object while the base turns; the humanoid driven forward and turning."""
+    a = np.zeros((N, dims), np.float32)
+    if name == "joint" and t == 1:
+        T = np.tile(np.eye(4, dtype=np.float32)[None], (N, 1, 1))
+        T[:, 3, 0:3] = _np(js.pos) + np.array([0.4, 0.0, 0.0], np.float32)
+        a[:, -16:] = T.reshape(N, 16)
+        a[:, -32:-16] = np.eye(4, dtype=np.float32).reshape(16)
+    elif name == "pick":
+        tgt = _np(je.table.pick_target)[_np(js.ep_idx)]
+        a[:, 1] = 0.5
+        a[:, 2:] = _np(je._obj_world(js))[np.arange(N), tgt]
+    elif name == "agent_1":
+        a[:] = [[1.0, 0.3], [1.0, -0.3], [0.5, 0.0], [0.0, 1.0]]
+    return a
+
+
+@pytest.mark.parametrize("specs", list(HUMANOID_SETS))
+def test_humanoid_specs_raise(shared, specs):
+    """The humanoid specs step as the JAX package's: each recorded JAX
+    state, converted, through one port step with the same action."""
+    from habitat_tpu.config.omega import Config as JC
+
+    decl = {name: {"type": typ} for typ, name in HUMANOID_SETS[specs]}
+    jspecs, tspecs = jta.resolve_task_actions(JC(decl)), tta.resolve_task_actions(TConfig(decl))
+    je = jgen.make_rearrange_env(action_specs=jspecs, **GEN)
+    te = tgen.make_rearrange_env(action_specs=tspecs, device="cpu", **GEN)
+    assert te.with_humanoid == je.with_humanoid == (specs == "agent_1")
+    dims = te.action_dim
+    js, _ = je.reset_fn(jax.random.PRNGKey(0))
+    if specs == "pick":  # each robot 1 m from its target object, within reach
+        tgt = _np(je.table.pick_target)[_np(js.ep_idx)]
+        near = _np(je._obj_world(js))[np.arange(N), tgt] + np.array([1.0, 0.0, 0.0], np.float32)
+        js = dataclasses.replace(js, pos=js.pos.at[:, jnp.array([0, 2])].set(jnp.asarray(near[:, [0, 2]])))
+    jstep = jax.jit(je.step_fn)
+    first = js
+    for t in range(3):
+        a = _humanoid_actions(specs, je, js, t, dims)
+        jout = jstep(js, jnp.asarray(a))
+        _compare(jout, te.step_fn(to_port_state(js), torch.as_tensor(a)))
+        js = jout[0]
+    if specs == "joint":
+        assert (np.linalg.norm(_np(js.pos - first.pos), axis=-1) > 0.1).all()
+    elif specs == "pick":
+        assert (_np(js.held) >= 0).all()
+    else:
+        assert (np.linalg.norm(_np(js.human_pos - first.human_pos), axis=-1) > 0.1).any()
