@@ -378,7 +378,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            (HAB3_OVERRIDES: the robot's arm and base velocity; the
            humanoid's oracle navigation, PDDL apply, joint action and pick;
            the multi-agent predicate sensor), N=128, contacts, the 128x128
-           head render: HAB3_STEPS steps of a schedule driving every
+           head render: HAB3['steps'] steps of a schedule driving every
            agent-1 action, each also from the same state on a CPU env
            without the camera (state, every non-visual observation and the
            predicates, reward, done, measures within SOCIAL_ATOL), #3
@@ -388,6 +388,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            test_hab3_two_agent_declared_actions and
            ::test_humanoid_joint_action_sets_root on the card at N=2 (as
            tests/test_torch_hab3.py applies them).
+
+21. art-scene  rearrangement's articulated scenes (ART_SCENE: N=128, 8
+           scenes x 16 episodes, one room per axis, 3 clutter boxes, 120
+           steps): receptacle goals, tests/test_samplers.py's AO-state
+           sampler and art_objs, the URDF cabinet through
+           build_rearrange_table(art_asset=load_articulated_object(...)),
+           task "open" with the 128x128 head render. Gates: a goal on a
+           receptacle, every art_init_q in the sampler's range, art_goal_q the
+           URDF's 0.42; tests/test_urdf_artobj.py's scripted opener opens a
+           drawer past 0.36 within 200 steps (run on to ART_TIMED_STEPS for
+           ms per env step);
+           #3 exactly twice per render,
+           no plain version on a card tensor; ART_CHECK_STEPS steps each also
+           taken on the CPU from the card's state (card_vs_cpu_steps); #3 on
+           a frame with each agent facing its cabinet against its plain
+           version, the cabinet on >= ART_VIEW_SHARE of some env's pixels. ms
+           per env step, launches, idle share.
+    reach  tests/test_rearrange.py::test_reach_task_trains_to_success's
+           recipe (N=32, arm control, blind Gaussian policy, hidden 64, T=16)
+           trained to its rule (success > 0.6 after update 20, within 60), ms
+           per update, no kernel launched; a step without host sync; the
+           goal table of 4,096 episodes card against CPU (offsets bit-equal,
+           goals within REACH_GOAL_ATOL); apply_relations,
+           apply_relations_rotating, batched_within and batched_ontop at
+           N=128 card against CPU.
 
 Prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
@@ -427,7 +452,7 @@ ROLLOUTS = 5  # timed bench rollouts after the warm-up one
 SCAN = dict(tess=0.04, n_clutter=40, cells=(0.08, 0.25, 0.6), bands=(1.2, 3.0, 8.0), triangles=859290)
 SCAN_ROLLOUTS = 5  # timed scan rollouts after the warm-up one
 TRAIN = dict(num_steps=32, num_mini_batch=2, ppo_epoch=2)  # bench.py's train step
-TRAIN_STEPS = 5  # timed bench train steps after the warm-up one
+TRAIN_STEPS = 3  # timed bench train steps after the warm-up one (cut from 5 to keep the script near 1,000 s)
 SCAN_TRAIN_STEPS = 2  # timed scan train steps after the warm-up one
 PANO = dict(height=128, width=256)  # the equirect depth+RGB pair of [pano] and [pano-scan]
 PANO_ROLLOUTS = 3  # timed panoramic rollouts after the warm-up one
@@ -617,12 +642,14 @@ HRL_UPDATES = 2
 # the planner's and the fixed plan's rules (tests/test_hrl_planner.py:28-51,
 # tests/test_hrl_pddl.py:59-71) on those tests' env (HRL_RULE_ENV): the share
 # of envs with a successful episode within the steps given; at N=128 on
-# [hrl]'s env (episodes of up to 400 steps) the planner's rollout on the card
-# and on the CPU, env by env
+# [hrl]'s env (episodes of up to HRL_PLANNER_N128 steps, cut from 400 to keep
+# the script near 1,000 s) the planner's rollout on the card and on the CPU,
+# env by env
 HRL_RULE_ENV = dict(num_envs=4, task="rearrange", with_visual=False, seed=3, max_episode_steps=400,
                     n_rooms_per_axis=1, n_clutter=0)
 HRL_PLANNER = dict(steps=400, share=0.75)
 HRL_FIXED = dict(steps=300, share=0.5)
+HRL_PLANNER_N128 = 200
 # card against CPU: a 100-step planner rollout and one HRL-PPO update at N=8
 HRL_CHECK = dict(num_envs=8, steps=100, ppo=dict(num_macro_steps=4, hl_interval=8, hidden_size=64))
 # the HRL experiment config ([hrl] (d)): pick_procgen.yaml + an HRL-PPO block,
@@ -669,7 +696,7 @@ SOCIAL_PPO = dict(single=dict(num_steps=64, num_mini_batch=2, ppo_epoch=2, lr=2.
                   two=dict(num_steps=64, num_mini_batch=1, ppo_epoch=2, lr=2.5e-4))
 SOCIAL_HW = (64, 64)  # (b)'s head camera
 SOCIAL_UPDATES = 2  # timed updates after the warm-up one
-SOCIAL_CHECK_STEPS = 64  # card steps each also taken on the CPU from the same state
+SOCIAL_CHECK_STEPS = 32  # card steps each also taken on the CPU from the same state (cut from 64)
 SOCIAL_ATOL = 1e-5  # + 1e-5 relative: card - CPU from the same state
 SOCIAL_START_UPDATES = 4  # CPU float32 updates (N=16, T=16) before the card-vs-CPU update
 SOCIAL_CHECK_ENVS = 32
@@ -684,11 +711,31 @@ HAB3_OVERRIDES = ("habitat.simulator.agents.main_agent.articulated_agent_type=Sp
                   "habitat.task.actions.agent_1_humanoid_pick_action.type=HumanoidPickAction",
                   "habitat.task.lab_sensors.multi_agent_all_predicates.type=MultiAgentGlobalPredicatesSensor")
 HAB3_RULE_SIZE = ("habitat.dataset.procedural.num_scenes=1", "habitat.dataset.procedural.episodes_per_scene=4")
-HAB3 = dict(num_envs=128, steps=32)
+HAB3 = dict(num_envs=128, steps=16)  # scheduled steps, cut from 32 to keep the script near 1,000 s
 # card - CPU from the same state under contacts: (atol, rtol) of the box
 # fields and the robot force (tests/test_torch_rearrange_env.py's bounds)
 HAB3_BOX_BOUND = dict(obj_pos=(6e-5, 0.0), obj_vel=(6e-4, 0.0), obj_quat=(1.2e-4, 0.0), obj_omega=(3e-3, 0.0),
                       accum_force=(1e-3, 1e-4), robot_force=(1e-3, 1e-4), articulated_agent_force=(1e-3, 1e-4))
+# [art-scene]: scripts/train_more_tpu.py's open-task widths (N=128, 8 scenes x
+# 16 episodes, 120 steps, one room per axis) with the generator's default 3
+# clutter boxes (the recipe's 0 leaves no receptacle), receptacle goals,
+# tests/test_samplers.py's AO-state sampler and art_objs, the URDF cabinet
+ART_SCENE = dict(num_envs=128, num_scenes=8, episodes_per_scene=16, seed=0, n_rooms_per_axis=1, n_clutter=3,
+                 max_episode_steps=120, render_size=(128, 128))
+ART_URDF = "tests/assets/mini_dataset/urdf/kitchen_cabinet.urdf"
+ART_URDF_OPEN = 0.42  # the cabinet's drawer travel (its upper limit)
+ART_OPEN = dict(steps=200, state=0.36)  # tests/test_urdf_artobj.py's rule
+ART_TIMED_STEPS = 64  # the opener runs on past its first opening to this many timed steps
+ART_CHECK_STEPS = 32  # card steps each also taken on the CPU from the card's state
+ART_VIEW_SHARE = 0.01  # the cabinet's pixels in the frame held to #3's plain version, at least
+# [reach]: tests/test_rearrange.py::test_reach_task_trains_to_success's configuration
+REACH_ENV = dict(num_envs=32, task="reach", with_visual=False, control="arm", n_rooms_per_axis=1, n_clutter=0,
+                 max_episode_steps=40, seed=0)
+REACH_PPO = dict(num_steps=16, num_mini_batch=2, ppo_epoch=2, lr=3e-4)
+REACH_RULE = dict(updates=60, after=20, success=0.6, hidden=64)
+REACH_GOALS = 4096  # episodes of the goal table held card against CPU
+REACH_GOAL_ATOL = 1e-6  # resting EE + offset, card - CPU (the offsets themselves bit-equal)
+RELATIONS = dict(num_envs=128, objects=8)  # the batched relations and predicates, card against CPU
 
 
 def log(msg):
@@ -3025,8 +3072,8 @@ def hrl_phase(gpu, dev, zero_counts, path_counts):
                             ("fixed", FixedHighLevelPolicy(genv, default_rearrange_plan()), HRL_FIXED["steps"])):
         solved[name], secs[name] = hrl_rollout_success(genv, hl, steps)
     for d in (dev.type, "cpu"):
-        genv = make_rearrange_env(device=d, **{**HRL_ENV, "max_episode_steps": HRL_PLANNER["steps"]})
-        solved[d], secs[d] = hrl_rollout_success(genv, PlannerHighLevelPolicy(genv), HRL_PLANNER["steps"])
+        genv = make_rearrange_env(device=d, **{**HRL_ENV, "max_episode_steps": HRL_PLANNER_N128})
+        solved[d], secs[d] = hrl_rollout_success(genv, PlannerHighLevelPolicy(genv), HRL_PLANNER_N128)
     rule = {name: share(solved[name]) for name in ("planner", "fixed")}
     parted_envs = int((solved[dev.type] != solved["cpu"]).sum())
     if rule["planner"] < HRL_PLANNER["share"] or rule["fixed"] < HRL_FIXED["share"] or parted_envs:
@@ -3098,7 +3145,7 @@ def hrl_phase(gpu, dev, zero_counts, path_counts):
         f"{HRL_RULE_ENV['seed']}): plan-table planner {rule['planner']:.4f} in {HRL_PLANNER['steps']} steps (gate "
         f"{HRL_PLANNER['share']}), fixed plan {rule['fixed']:.4f} in {HRL_FIXED['steps']} (gate {HRL_FIXED['share']}), "
         f"{secs['planner']:.1f} + {secs['fixed']:.1f} s; the planner at N={N} on [hrl]'s env (episodes of up to "
-        f"{HRL_PLANNER['steps']} steps) {share(solved[dev.type]):.4f} in {secs[dev.type]:.1f} s, the same envs as the "
+        f"{HRL_PLANNER_N128} steps) {share(solved[dev.type]):.4f} in {secs[dev.type]:.1f} s, the same envs as the "
         f"CPU's ({secs['cpu']:.1f} s); card against CPU at N={n}: skill index and action equal at "
         f"all {HRL_CHECK['steps']} planner steps, one HRL-PPO update with the same draws: losses max rel "
         f"{max(loss_err.values()):.3g}, least share {min(r[0] for r in rows.values()):.4f}, beyond lr/10: "
@@ -4597,6 +4644,246 @@ def hab3_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card):
     return launches, index_check
 
 
+def facing_cabinet(env, st, dist=1.5):
+    """``st`` with each agent ``dist`` in front of its cabinet's drawer,
+    facing it (the drawer slides along art_axis)."""
+    import dataclasses
+
+    import torch
+
+    a = env.table.art_target[st.ep_idx]
+    base = env.table.art_pos[st.ep_idx, a]
+    axis = env.table.art_axis[st.ep_idx, a]
+    pos = torch.stack([base[:, 0] + dist * axis[:, 0], st.pos[:, 1], base[:, 2] + dist * axis[:, 2]], dim=-1)
+    return dataclasses.replace(st, pos=pos, yaw=torch.atan2(axis[:, 0], axis[:, 2]))
+
+
+def art_scene_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card, size=ART_SCENE):
+    """[art-scene]: the open task on receptacle goals, sampled drawer states
+    and the URDF cabinet at N=128 with the 128x128 head render (the module
+    docstring's 21). Returns its launch counts and #3's check on a frame
+    with the cabinet in view."""
+    import numpy as np
+    import torch
+
+    from habitat_torch.ops import raycast as rc
+    from habitat_torch.ops import raycast_kernels as rk
+    from habitat_torch.tasks.rearrange.art_scene import ART_SAMPLER, art_scene_envs, opener_action
+
+    t_phase = time.perf_counter()
+    env, env_c, scenes, episodes = art_scene_envs(os.path.join(ROOT, ART_URDF), dev, **size)
+    N, O, A = env.num_envs, env.num_objects, env.num_art
+    h, w = env.render_size
+    if rc.render_route(env.pack, h, w, "pinhole", dynamic=True) != "index":
+        fail("[art-scene] the head render should take the index route")
+    # the episodes: goals on receptacles, sampled drawer states, the URDF's travel
+    floor = {s.scene_id: s.floor_y for s in scenes}
+    on_recep = sum(g[1] > floor[e.scene_id] for e in episodes for g in e.targets.values())
+    n_goals = sum(len(e.targets) for e in episodes)
+    init_q, goal_q = env_c.table.art_init_q.numpy(), env_c.table.art_goal_q.numpy()
+    lo, hi = ART_SAMPLER[2]
+    if not on_recep:
+        fail("[art-scene] no goal lies on a receptacle")
+    if not ((init_q >= lo) & (init_q <= hi)).all():
+        fail(f"[art-scene] art_init_q outside the sampler's {ART_SAMPLER[2]}: {init_q.min()}..{init_q.max()}")
+    if not np.allclose(goal_q, ART_URDF_OPEN) or env_c.table.art_is_revolute.any():
+        fail(f"[art-scene] art_goal_q {np.unique(goal_q)}, want the URDF's {ART_URDF_OPEN} (prismatic)")
+    setup_s = time.perf_counter() - t_phase
+    # the opener's run, counted: until the first opening (within ART_OPEN's
+    # steps) and at least ART_TIMED_STEPS steps
+    zero_counts()
+    for p in plain_watch:
+        p.start()
+    st, _ = env.reset_fn()
+    acts, ms, opened, q_open, n_open = [], [], None, 0.0, 0
+    for t in range(ART_OPEN["steps"]):
+        a = opener_action(env, st)
+        if t < ART_CHECK_STEPS:
+            acts.append(a.cpu())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, _, _, _, info = env.step_fn(st, a)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        now = info["art_obj_at_desired_state"] > 0
+        n_open += int(now.sum().item())
+        if opened is None and now.any().item():
+            opened, q_open = t + 1, info["art_obj_state"].max().item()
+        if opened is not None and t + 1 >= ART_TIMED_STEPS:
+            break
+    for p in plain_watch:
+        p.stop()
+    if plain_on_card:
+        fail(f"[art-scene]: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+    steps = len(ms)
+    launches = path_counts("[art-scene] path", raycast_index_t=2 * (1 + steps))
+    if opened is None or not q_open > ART_OPEN["state"]:
+        fail(f"[art-scene] no env opened its drawer within {ART_OPEN['steps']} steps (state {q_open:.4f})")
+    worst, _, dones = card_vs_cpu_steps("[art-scene]", env, env_c, acts)
+    # #3 on one frame with the cabinet in view, against its plain version
+    index_calls = []
+
+    def index_seen(*args, **k):
+        index_calls.append((args, k))
+        return rk.raycast_index_t(*args, **k)
+
+    view = facing_cabinet(env, st)
+    with mock.patch.object(rc, "raycast_index_t", index_seen):
+        env._observations(view)
+    index_check, passes = {}, {}
+    for what, (args, k) in zip(("static", "dynamic"), index_calls):
+        got, ref = rk.raycast_index_t(*args, **k), rk.raycast_index_t.plain(*args, **k)
+        hit_a, idx_a, dt = agreement(f"[art-scene] raycast_index_t on the cabinet frame's {what} pass", got, ref)
+        index_check[what] = dict(matrix=list(args[0].shape), rays=args[2].numel() // 16, hit_agree=hit_a,
+                                 idx_agree=idx_a, max_abs_err=dt)
+        passes[what] = ref
+    (t_s, _), (t_d, i_d) = passes["static"], passes["dynamic"]
+    cabinet = (i_d >= 12 * O) & (i_d < 12 * (O + A)) & (t_d < t_s)
+    view_share = cabinet.float().mean(1)
+    index_check["dynamic"]["cabinet_pixel_share_max"] = view_share.max().item()
+    if view_share.max().item() < ART_VIEW_SHARE:
+        fail(f"[art-scene] the cabinet covers {view_share.max().item():.4f} of the frame at most")
+    a = opener_action(env, st)
+    med = sorted(ms)[len(ms) // 2]
+    log(f"[art-scene] {gpu}: open task on {len(episodes)} episodes (N={N}, {h}x{w} head render, receptacle goals "
+        f"{on_recep} of {n_goals}, art_init_q {init_q.min():.4f}..{init_q.max():.4f} in {ART_SAMPLER[2]}, art_goal_q "
+        f"{ART_URDF_OPEN} from the URDF; set-up {setup_s:.1f} s): the scripted opener opened a drawer first at "
+        f"step {opened} (art_obj_state {q_open:.4f} > {ART_OPEN['state']}), {n_open} openings in {steps} steps; ms "
+        f"per env step {[round(x, 1) for x in ms[:8]]}... (median {med:.2f}, min {min(ms):.2f}, max {max(ms):.2f} "
+        f"over {steps}); {idle_text(dev, env, st, a)}; launches {launches} (#3 twice per "
+        f"render, 1 + {steps} renders), no plain version on a card tensor; {ART_CHECK_STEPS} steps from the card's "
+        f"state on the CPU (no camera): largest gap {worst:.3g}, {dones} episodes ended; raycast_index_t on the "
+        f"cabinet frame against its plain version: " + "; ".join(
+            f"{what} {r['matrix']} x {r['rays']} rays hit {r['hit_agree']:.6f} idx {r['idx_agree']:.6f} |dt| "
+            f"{r['max_abs_err']:.3g}" for what, r in index_check.items())
+        + f", the cabinet on {view_share.max().item():.4f} of an env's pixels at most "
+        f"(mean {view_share.mean().item():.4f}); the phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, index_check
+
+
+def table_rows(table, idx):
+    """The rearrange table of episodes ``idx`` (a LongTensor on its device)."""
+    import dataclasses
+
+    nav = table.nav
+    nav = dataclasses.replace(nav, extras={k: v[idx] for k, v in nav.extras.items()},
+                              **{f.name: getattr(nav, f.name)[idx] for f in dataclasses.fields(nav)
+                                 if f.name != "extras"})
+    return dataclasses.replace(table, nav=nav, **{f.name: getattr(table, f.name)[idx]
+                                                  for f in dataclasses.fields(table) if f.name != "nav"})
+
+
+def reach_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card, rule=REACH_RULE):
+    """[reach]: tests/test_rearrange.py's reach recipe trained on the card to
+    its rule, the goal table of REACH_GOALS episodes card against CPU, a
+    step without host sync, and the batched relations and predicates at
+    N=128 card against CPU. No kernel runs on this path."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from habitat_torch.baselines.ppo import PPOConfig, PPOLearner
+    from habitat_torch.models.policy import make_gaussian_resnet_policy, state_keys_of
+    from habitat_torch.sims import kinematic_relationship_manager as krm
+    from habitat_torch.sims import sim_utilities as su
+    from habitat_torch.tasks.rearrange.generator import make_rearrange_env
+    from habitat_torch.tasks.rearrange.rearrange_env import RearrangeBatchedEnv
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    zero_counts()
+    for p in plain_watch:
+        p.start()
+    env = make_rearrange_env(device=dev, **REACH_ENV)
+    torch.manual_seed(0)
+    policy = make_gaussian_resnet_policy(env.action_dim, has_visual=False, hidden_size=rule["hidden"],
+                                         state_keys=state_keys_of(env.observation_shapes), device=dev)
+    lrn = PPOLearner(env, policy, PPOConfig(**REACH_PPO),
+                     measure_keys=("rearrange_reach_success", "ee_to_resting_distance"), action_type="gaussian")
+    rs, succ, walls, trace = lrn.init(seed=0), 0.0, [], []
+    for u in range(rule["updates"]):
+        sync(dev)
+        t0 = time.perf_counter()
+        rs, m = lrn.train_step(rs)
+        sync(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        dc = m["done_count"].item()
+        if dc > 0:
+            succ = m["m_rearrange_reach_success"].item() / dc
+        trace.append(round(succ, 3))
+        if u > rule["after"] and succ > rule["success"]:
+            break
+    for p in plain_watch:
+        p.stop()
+    if plain_on_card:
+        fail(f"[reach]: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+    path_counts("[reach] path")
+    if not succ > rule["success"]:
+        fail(f"[reach] success {succ:.3f} after {len(walls)} updates, want > {rule['success']} after update "
+             f"{rule['after']}")
+    st, _ = env.reset_fn()
+    a = torch.zeros((env.num_envs, env.action_dim), device=dev)
+    env.step_fn(st, a)  # warm up
+    no_host_sync("reach", "an env step", lambda: env.step_fn(st, a))
+    # the goal table of REACH_GOALS episodes: the episode rows tiled
+    env_c = make_rearrange_env(device=cpu, **REACH_ENV)
+    E0 = int(env_c.table.obj_init.shape[0])
+    rows = torch.arange(REACH_GOALS) % E0
+    big_c = RearrangeBatchedEnv(env_c.pack, table_rows(env_c.table, rows), env_c.order.numpy(), task="reach",
+                                with_visual=False, control="arm", device=cpu)
+    big_g = RearrangeBatchedEnv(env_c.pack, table_rows(env_c.table, rows), env_c.order.numpy(), task="reach",
+                                with_visual=False, control="arm", device=dev)
+    if not torch.equal(big_g._reach_offsets.cpu(), big_c._reach_offsets):
+        fail("[reach] the card's goal offsets differ from the CPU's")
+    every = types.SimpleNamespace(ep_idx=torch.arange(REACH_GOALS))
+    goal_c = big_c._desired_rest(every)
+    goal_g = big_g._desired_rest(types.SimpleNamespace(ep_idx=every.ep_idx.to(dev))).cpu()
+    goal_gap = (goal_g - goal_c).abs().max().item()
+    goal_equal = share((goal_g == goal_c).all(-1))
+    if goal_gap > REACH_GOAL_ATOL:
+        fail(f"[reach] the card's goals part from the CPU's by {goal_gap:.3g}")
+    # the batched relations and predicates, card against CPU
+    rng = np.random.default_rng(0)
+    n, o = RELATIONS["num_envs"], RELATIONS["objects"]
+    parent = np.where(rng.random((n, o)) < 0.5, rng.integers(0, o, (n, o)), -1)
+    parent[np.arange(o)[None].repeat(n, 0) == parent] = -1
+    ins = [torch.as_tensor(x) for x in (rng.normal(size=(n, o, 3)).astype(np.float32), parent,
+                                        rng.normal(size=(n, o, 3)).astype(np.float32),
+                                        rng.normal(size=(n, o, 3)).astype(np.float32),
+                                        rng.uniform(-np.pi, np.pi, (n, o)).astype(np.float32))]
+    rel_gap = 0.0
+    for name, fn, args in (("apply_relations", krm.apply_relations, (ins[0], ins[1], ins[2])),
+                           ("apply_relations_rotating", krm.apply_relations_rotating, ins)):
+        c = fn(*args)
+        g = fn(*(x.to(dev) for x in args)).cpu()
+        rel_gap = max(rel_gap, (g - c).abs().max().item())
+        if (g - c).abs().max().item() > REACH_GOAL_ATOL:
+            fail(f"[reach] {name}: card - CPU {(g - c).abs().max().item():.3g}")
+    # boxes and the boxes they rest on (every other one moved 0.3 m off)
+    c3, s3 = ins[0].reshape(-1, 3), ins[2].reshape(-1, 3).abs() + 0.1
+    s_below = s3.roll(1, 0)
+    below = c3 - torch.stack([torch.zeros_like(c3[:, 0]), (s3[:, 1] + s_below[:, 1]) / 2, torch.zeros_like(c3[:, 0])],
+                             dim=-1)
+    below[::2, 0] += 0.3 + s3[::2, 0]
+    pred_agree = []
+    for name, fn, args in (("batched_within", su.batched_within, (c3, c3.new_tensor([-1.0, -1.0, -1.0]), s3)),
+                           ("batched_ontop", su.batched_ontop, (c3, s3, below, s_below))):
+        c, g = fn(*args), fn(*(x.to(dev) for x in args)).cpu()
+        if not torch.equal(c, g):
+            fail(f"[reach] {name}: {int((c != g).sum())} of {c.numel()} differ card against CPU")
+        pred_agree.append(f"{name} {int(c.sum())} of {c.numel()} true")
+    log(f"[reach] {gpu}: the reach recipe (N={REACH_ENV['num_envs']}, arm control, blind Gaussian policy hidden "
+        f"{rule['hidden']}, T={REACH_PPO['num_steps']}): success {succ:.3f} after {len(walls)} updates (> "
+        f"{rule['success']} after update {rule['after']}; trace {trace}); ms per update "
+        f"{[round(x, 1) for x in walls[:4]]}... (median {sorted(walls)[len(walls) // 2]:.1f}); no kernel on this "
+        f"path, no plain version on a card tensor; an env step makes no host sync; the goal table of {REACH_GOALS} "
+        f"episodes: offsets bit-equal card against CPU, goals equal on {goal_equal:.4f} of episodes, largest gap "
+        f"{goal_gap:.3g}; apply_relations / apply_relations_rotating at N={n} x {o}: card - CPU {rel_gap:.3g}; "
+        + ", ".join(pred_agree) + f" (equal card against CPU); the phase {time.perf_counter() - t_phase:.1f} s")
+    return succ
+
+
 def main():
     import torch
 
@@ -5846,6 +6133,16 @@ def main():
     hab3_launches, hab3_index = hab3_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
     index_row["hab3_launches"] = hab3_launches["raycast_index_t"]
     index_row["hab3_head_render"] = hab3_index
+
+    # ---- 21. articulated scenes (receptacles, AO states, URDF), the reach task -
+    log(f"[art-scene] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    art_launches, art_index = art_scene_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
+    index_row["art_scene_launches"] = art_launches["raycast_index_t"]
+    index_row["art_scene_cabinet_frame"] = art_index
+    log(f"[reach] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    reach_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 

@@ -101,6 +101,47 @@ _SEL_CHUNK = 32
 _RAY_TILE = 2048
 
 
+def _mt_chunk(o, d, v0, e1, e2, valid):
+    """Classic Möller–Trumbore: rays (R, 3) x one chunk of triangles (C, 3)
+    -> t (R, C), _TMAX where a ray misses."""
+    d_, o_ = d[:, None, :], o[:, None, :]
+    h = torch.linalg.cross(d_.expand(-1, e2.shape[0], -1), e2[None].expand(d.shape[0], -1, -1))
+    a = (e1[None] * h).sum(-1)
+    ok = a.abs() > _EPS
+    f = torch.where(ok, 1.0 / torch.where(ok, a, 1.0), 0.0)
+    s = o_ - v0[None]
+    u = f * (s * h).sum(-1)
+    q = torch.linalg.cross(s, e1[None].expand_as(s))
+    v = f * (d_ * q).sum(-1)
+    t = f * (e2[None] * q).sum(-1)
+    hit = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > _TMIN) & valid[None, :]
+    return torch.where(hit, t, _TMAX)
+
+
+def raycast_rays(tri_v0, tri_e1, tri_e2, tri_valid, origins, dirs, chunk: int = 128):
+    """The closest-hit oracle over every triangle (the XLA
+    ``habitat_tpu/ops/raycast.py::raycast_rays``; no kernel): (T, 3)
+    triangles, T a multiple of ``chunk``, and (R, 3) rays on one device ->
+    (t (R,), triangle index (R,) int64, -1 and _TMAX on a miss). Chunks run
+    in order and a later one wins only when strictly nearer, so ties keep
+    the lowest index."""
+    T, R = tri_v0.shape[0], origins.shape[0]
+    if T % chunk:
+        raise ValueError(f"{T} triangles is not a multiple of the chunk {chunk}")
+    valid = tri_valid.bool()
+    best_t = torch.full((R,), _TMAX, dtype=torch.float32, device=origins.device)
+    best_i = torch.full((R,), -1, dtype=torch.int64, device=origins.device)
+    for base in range(0, T, chunk):
+        sl = slice(base, base + chunk)
+        t = _mt_chunk(origins, dirs, tri_v0[sl], tri_e1[sl], tri_e2[sl], valid[sl])
+        tmin, imin = t.min(dim=1)
+        better = tmin < best_t
+        best_t = torch.where(better, tmin, best_t)
+        best_i = torch.where(better, imin + base, best_i)
+    miss = best_t >= _TMAX
+    return torch.where(miss, _TMAX, best_t), torch.where(miss, -1, best_i)
+
+
 def build_tri_matrix(tri_v0, tri_e1, tri_e2, tri_valid) -> np.ndarray:
     """(T,3) host arrays -> (10, 4, T) f32 coefficient matrix (see module
     doc). Padding (invalid) triangles get all-zero columns."""

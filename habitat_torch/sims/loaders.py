@@ -1,5 +1,5 @@
-"""Scene asset loading (host, one-time): mesh files -> SceneData (port of
-the scene half of ``habitat_tpu/sims/loaders.py``; the URDF half waits).
+"""Scene asset loading (host, one-time): mesh files -> SceneData, and
+articulated objects from URDF (port of ``habitat_tpu/sims/loaders.py``).
 
 Reads:
 - .obj (wavefront, triangulated on load)
@@ -10,16 +10,19 @@ Reads:
   semantic_ids (T,))
 
 and writes .npz, .glb and .gltf (+ .bin); ``resolve_scene_dataset`` finds a
-scene id through a habitat ``*.scene_dataset_config.json``. The navgrid is
-baked by ``sims/scene.py::rasterize_occupancy``.
+scene id through a habitat ``*.scene_dataset_config.json`` and
+``resolve_articulated_objects`` lists its URDFs, which
+``load_articulated_object`` reads. The navgrid is baked by
+``sims/scene.py::rasterize_occupancy``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import struct
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -476,3 +479,120 @@ def resolve_scene_dataset(
     raise FileNotFoundError(
         f"scene {scene_id!r} not found in dataset {config_path!r}"
     )
+
+
+# ---------------------------------------------------------------------------
+# Articulated objects from URDF
+# ---------------------------------------------------------------------------
+#
+# The reference loads articulated objects (cabinets, fridges) from URDF through
+# habitat-sim's ArticulatedObjectManager, listed by the scene dataset config
+# (habitat_simulator.py:299-311; rearrange_sim.py:209-233). Here the URDF's
+# kinematics parse through the agents' parser (articulated_agents/urdf.py) and
+# the links' collision boxes are read off the XML; the result feeds the
+# rearrange table's articulated lanes (tasks/rearrange/generator.py
+# build_rearrange_table).
+
+
+@dataclasses.dataclass
+class ArtJointSpec:
+    """One movable joint of an articulated object asset."""
+
+    name: str
+    joint_type: str  # "prismatic" | "revolute"
+    axis: np.ndarray  # (3,) unit, in the object frame
+    origin: np.ndarray  # (3,) joint origin in the object frame
+    lower: float
+    upper: float
+    child_link: str
+    # the moving link's collision box: half extents and center offset (joint frame)
+    box_half: np.ndarray  # (3,)
+    box_center: np.ndarray  # (3,)
+
+
+@dataclasses.dataclass
+class ArticulatedObjectAsset:
+    """Host-side articulated object: URDF kinematics and link boxes."""
+
+    name: str
+    urdf_path: str
+    joints: List[ArtJointSpec]
+    base_box_half: np.ndarray  # (3,) the base link's collision box half extents
+    base_box_center: np.ndarray  # (3,)
+
+    @property
+    def primary(self) -> ArtJointSpec:
+        return self.joints[0]
+
+
+def _link_box(link_el):
+    """A link's collision (else visual) <box size>: (half extents, center)."""
+    for kind in ("collision", "visual"):
+        sec = link_el.find(kind)
+        if sec is None:
+            continue
+        geo = sec.find("geometry")
+        box = geo.find("box") if geo is not None else None
+        if box is None:
+            continue
+        size = np.array([float(x) for x in box.get("size", "0 0 0").split()])
+        origin = sec.find("origin")
+        xyz = np.array([float(x) for x in origin.get("xyz", "0 0 0").split()]) if origin is not None else np.zeros(3)
+        return size.astype(np.float32) / 2.0, xyz.astype(np.float32)
+    return np.zeros(3, np.float32), np.zeros(3, np.float32)
+
+
+def load_articulated_object(urdf_path: str) -> ArticulatedObjectAsset:
+    """URDF file -> ArticulatedObjectAsset (its prismatic and revolute
+    joints and the links' boxes). A joint's origin is accumulated through
+    the joints from the root link, so ``origin`` is in the object frame."""
+    import xml.etree.ElementTree as ET
+
+    from habitat_torch.articulated_agents.urdf import parse_urdf
+
+    model = parse_urdf(urdf_path)
+    root = ET.parse(urdf_path).getroot()
+    link_els = {l.get("name", ""): l for l in root.findall("link")}
+
+    # each link's origin in the object frame, propagated from the root
+    # (furniture trees are shallow)
+    base = model.root_link
+    link_origin = {base: np.zeros(3, np.float32)}
+    for _ in range(len(model.joints) + 1):
+        for j in model.joints:
+            if j.parent in link_origin and j.child not in link_origin:
+                link_origin[j.child] = link_origin[j.parent] + j.origin_xyz.astype(np.float32)
+
+    joints: List[ArtJointSpec] = []
+    for j in model.joints:
+        if j.joint_type not in ("prismatic", "revolute"):
+            continue
+        half, center = _link_box(link_els.get(j.child, ET.Element("link")))
+        joints.append(ArtJointSpec(
+            name=j.name, joint_type=j.joint_type, axis=j.axis.astype(np.float32),
+            origin=link_origin.get(j.parent, np.zeros(3, np.float32)) + j.origin_xyz.astype(np.float32),
+            lower=float(j.lower), upper=float(j.upper), child_link=j.child, box_half=half, box_center=center,
+        ))
+    if not joints:
+        raise ValueError(f"{urdf_path}: no movable (prismatic/revolute) joints")
+    bhalf, bcenter = _link_box(link_els.get(base, ET.Element("link")))
+    return ArticulatedObjectAsset(name=model.name, urdf_path=urdf_path, joints=joints, base_box_half=bhalf,
+                                  base_box_center=bcenter)
+
+
+def resolve_articulated_objects(config_path: str) -> dict:
+    """The articulated-object URDFs a scene_dataset_config lists
+    (habitat-sim schema: ``articulated_objects: {paths: {".urdf": [globs]}}``,
+    relative to the config's directory): {file stem: absolute path}."""
+    import glob as _glob
+
+    base = os.path.dirname(os.path.abspath(config_path))
+    with open(config_path) as f:
+        cfg = json.load(f)
+    paths = (cfg.get("articulated_objects", {}) or {}).get("paths", {}) or {}
+    out = {}
+    for _ext, globs in paths.items():
+        for g in globs:
+            for hit in sorted(_glob.glob(os.path.join(base, g))):
+                out[os.path.splitext(os.path.basename(hit))[0]] = hit
+    return out

@@ -207,6 +207,37 @@ def generate_apartment(
     return scene
 
 
+def generate_empty_room(
+    extent: float = 6.0, nav_res: float = 0.1, scene_id: str = "procgen/empty_room"
+) -> SceneData:
+    """Single empty square room (floor and four walls 2.5 m high): analytic
+    ground truth for renderer and placement tests."""
+    tris, cols, sems = [], [], []
+
+    def add(t, color, sem):
+        tris.append(t)
+        cols.append(np.tile(np.asarray(color, np.float32), (len(t), 1)))
+        sems.append(np.full((len(t),), sem, np.int32))
+
+    e, h = extent, 2.5
+    add(_quad([0, 0, 0], [e, 0, 0], [e, 0, e], [0, 0, e]), [0.5, 0.5, 0.5], SEM_FLOOR)
+    for w in (
+        _wall_with_door(0, 0, e, 0, h, None, 0)
+        + _wall_with_door(e, 0, e, e, h, None, 0)
+        + _wall_with_door(e, e, 0, e, h, None, 0)
+        + _wall_with_door(0, e, 0, 0, h, None, 0)
+    ):
+        add(w, [0.7, 0.7, 0.7], SEM_WALL)
+    scene = SceneData(
+        scene_id=scene_id,
+        vertices=np.concatenate(tris, axis=0),
+        colors=np.concatenate(cols, axis=0),
+        semantic_ids=np.concatenate(sems, axis=0),
+    )
+    rasterize_occupancy(scene, res=nav_res)
+    return scene
+
+
 def scanify(
     scene: SceneData,
     tess: float = 0.08,

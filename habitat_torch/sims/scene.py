@@ -60,6 +60,12 @@ class SceneData:
     def cell_to_world(self, ij: np.ndarray) -> np.ndarray:
         return np.asarray(ij, dtype=np.float64) * self.nav_res + self.nav_lo
 
+    def is_navigable(self, pos: np.ndarray) -> bool:
+        """Whether a world position's navgrid cell is navigable (False off the grid)."""
+        i, k = self.world_to_cell(np.asarray(pos)[[0, 2]])
+        nx, nz = self.nav_occ.shape
+        return bool(0 <= i < nx and 0 <= k < nz and self.nav_occ[i, k])
+
     def sample_navigable_point(
         self, rng: np.random.Generator, largest_island_only: bool = False
     ) -> np.ndarray:

@@ -50,9 +50,10 @@ the ``pddl_domain`` YAML (``multi_task/pddl_yaml.py``) over the env's
 entities once, at construction, when a predicate sensor is declared or the
 humanoid lane is on; the step evaluates them all on the device.
 
-Not ported, raising ``NotImplementedError`` at construction:
-``task="reach"``, whose per-episode goal the JAX package draws from its own
-RNG (``jax.random.fold_in``), which the port does not reproduce.
+The reach task's per-episode goal is the JAX package's draw
+``fold_in(PRNGKey(4321), episode)``, computed for every episode of the
+table once, on the host (``utils/threefry.py``), and indexed by the episode
+in the step.
 """
 
 from __future__ import annotations
@@ -77,6 +78,7 @@ from habitat_torch.tasks.rearrange import rigid_body as rigid
 from habitat_torch.tasks.rearrange.rigid_body import add_y, cross, matvec, norm
 from habitat_torch.tasks.rearrange.task_actions import entity_positions
 from habitat_torch.utils.geometry import rotate_agent_to_world, rotate_world_to_agent, yaw_to_forward
+from habitat_torch.utils.threefry import reach_goal_offsets
 
 # fixed kinematic EE offset in the agent frame (forward, lifted; stands in
 # for the articulated arm's resting EE outside the arm controls)
@@ -364,7 +366,7 @@ def contact_step(
 A_STOP, A_FWD, A_LEFT, A_RIGHT, A_GRAB = 0, 1, 2, 3, 4
 REARRANGE_ACTION_NAMES = ("stop", "move_forward", "turn_left", "turn_right", "grab_release")
 
-TASKS = ("pick", "place", "rearrange", "nav_to_obj", "open", "close", "empty")
+TASKS = ("pick", "place", "reach", "rearrange", "nav_to_obj", "open", "close", "empty")
 CONTROLS = ("discrete", "continuous", "arm", "arm_ee")
 DYNAMICS = ("kinematic", "gravity", "contacts")
 EXTRA_SENSORS = ("obj_goal_pos_sensor", "initial_gps_compass_sensor", "nav_to_skill_sensor")
@@ -373,6 +375,7 @@ PREDICATE_SENSORS = ("all_predicates", "multi_agent_all_predicates")
 REWARD_KEYS = {
     "pick": "pick_reward",
     "place": "place_reward",
+    "reach": "rearrange_reach_reward",
     "open": "art_obj_reward",
     "close": "art_obj_reward",
     "nav_to_obj": "nav_to_obj_reward",
@@ -538,9 +541,6 @@ class RearrangeBatchedEnv:
         device=None,
         rows: slice = slice(None),
     ):
-        if task == "reach":
-            raise NotImplementedError(
-                "task='reach' waits for a port of JAX's threefry RNG: its goal comes from jax.random.fold_in")
         if control is None:
             control = "continuous" if continuous else "discrete"
         for name, value, allowed in (("task", task, TASKS), ("control", control, CONTROLS),
@@ -593,6 +593,12 @@ class RearrangeBatchedEnv:
         self._ee_offset = f32(EE_OFFSET)
         # resting EE in the agent frame (RelativeRestingPositionSensor origin)
         self._resting_ee_local = kin.ee_position(self.rparams, self._resting) + self._arm_root
+        # the reach task's goal less the resting EE, per episode of the table
+        # (reference RearrangeReachTask.reset, sub_tasks/reach_task.py:29-55)
+        self._reach_offsets = None
+        if task == "reach":
+            E = int(self.table.obj_init.shape[0])
+            self._reach_offsets = torch.from_numpy(reach_goal_offsets(E)).to(dev)
         if control in ("arm", "arm_ee"):
             self.grasp_distance = arm_grasp_distance
         self._extra_sensors = tuple(k for k in EXTRA_SENSORS if k in (sensor_keys or ()))
@@ -744,6 +750,13 @@ class RearrangeBatchedEnv:
             return state.pos + rotate_agent_to_world(self._ee_local(state.joints), state.yaw)
         return state.pos + rotate_agent_to_world(self._ee_offset.expand(state.pos.shape), state.yaw)
 
+    def _desired_rest(self, state: RearrangeState) -> torch.Tensor:
+        """The EE's desired rest in the agent frame: the resting pose, or
+        the reach task's per-episode workspace goal."""
+        if self._reach_offsets is None:
+            return self._resting_ee_local
+        return self._resting_ee_local + self._reach_offsets[state.ep_idx]
+
     def _target_obj(self, state: RearrangeState) -> torch.Tensor:
         return self.table.pick_target[state.ep_idx]
 
@@ -802,7 +815,7 @@ class RearrangeBatchedEnv:
             "joint_vel": state.joint_vel,
             "is_holding": (state.held >= 0).float()[:, None],
             "ee_pos": rel_ee,
-            "relative_resting_position": rel_ee - self._resting_ee_local,
+            "relative_resting_position": rel_ee - self._desired_rest(state),
             "localization_sensor": torch.cat([state.pos, state.yaw[:, None]], dim=-1),
             "obj_start_gps_compass": gps_compass(rel_start),
             "obj_goal_gps_compass": gps_compass(rel_goal),
@@ -961,7 +974,7 @@ class RearrangeBatchedEnv:
         m = {
             "object_to_goal_distance": norm(tgt_pos - goal),
             "ee_to_object_distance": norm(tgt_pos - ee),
-            "ee_to_rest_distance": norm(rel_ee - self._resting_ee_local),
+            "ee_to_rest_distance": norm(rel_ee - self._desired_rest(state)),
             "ee_to_goal_distance": norm(goal - ee),
             "base_to_object_distance": _xz_norm(tgt_pos - state.pos),
             "did_pick_object": state.ever_held.float(),
@@ -991,6 +1004,12 @@ class RearrangeBatchedEnv:
             m["ee_dist_to_marker"] = m["ee_to_marker_dist"]
             m["success"] = m["art_obj_at_desired_state"]
             m["art_obj_success"] = m["success"]
+        elif self.task == "reach":
+            # EE to the workspace goal (reference EndEffectorToRestDistance and
+            # RearrangeReachSuccess, sub_tasks/reach_sensors.py; succ_thresh 0.2)
+            m["ee_to_resting_distance"] = m["ee_to_rest_distance"]
+            m["rearrange_reach_success"] = (m["ee_to_resting_distance"] < 0.2).float()
+            m["success"] = m["rearrange_reach_success"]
         elif self.task == "pick":
             m["pick_success"] = (state.held == tgt).float()
             m["success"] = m["pick_success"]
@@ -1022,6 +1041,9 @@ class RearrangeBatchedEnv:
         if self.task in ("open", "close"):
             r = r + s * (prev_m["ee_to_marker_dist"] - m["ee_to_marker_dist"])
             r = r + 2.0 * (m["art_obj_state"] - prev_m["art_obj_state"]).abs()
+        elif self.task == "reach":
+            # dense EE-to-goal delta (reference RearrangeReachReward, diff mode)
+            r = r + s * (prev_m["ee_to_resting_distance"] - m["ee_to_resting_distance"])
         elif self.task == "pick":
             r = r + s * (prev_m["ee_to_object_distance"] - m["ee_to_object_distance"])
             r = r + 1.0 * (m["did_pick_object"] - prev_m["did_pick_object"])

@@ -203,27 +203,24 @@ def _small_pick(extra=()):
 ARM_PICK = ["habitat.task.actions.arm_action.type=ArmAction", "habitat.task.actions.base_velocity.type=BaseVelAction"]
 
 
-@pytest.mark.parametrize("case", ["gym_env", "remote_evaluate", "eval_video", "reach"])
+@pytest.mark.parametrize("case", ["gym_env", "gym_registry_env", "remote_evaluate", "eval_video"])
 def test_unported_raise_not_implemented(case, tmp_path):
-    if case == "gym_env":
+    if case in ("gym_env", "gym_registry_env"):
         # the gym wrappers wait for gym/ and core/spaces.py (gymnasium)
         from habitat_torch.core.environments import get_env_class
 
-        call, match = lambda: get_env_class("GymHabitatEnv")(None), "core/spaces.py"
+        name = "GymHabitatEnv" if case == "gym_env" else "GymRegistryEnv"
+        call, match = lambda: get_env_class(name)(None), "core/spaces.py"
     elif case == "remote_evaluate":
         # the evalai protocol waits for core/evalai_remote.py (grpc)
         from habitat_torch.core.benchmark import Benchmark
 
         call, match = lambda: Benchmark(eval_remote=True).evaluate(None), "evalai_remote.py"
-    elif case == "eval_video":
+    else:
         # eval videos wait for utils/visualizations/
         from habitat_torch.baselines.evaluator import evaluate_agent
 
         call, match = lambda: evaluate_agent(None, None, video_option=("disk",)), "utils/visualizations"
-    else:
-        # the reach task's goal comes from JAX's threefry RNG
-        call, match = lambda: tgen.make_rearrange_env(num_envs=2, task="reach", with_visual=False,
-                                                      device="cpu"), "threefry"
     with pytest.raises(NotImplementedError, match=match):
         call()
 

@@ -7,6 +7,7 @@ conftest imports JAX, which the card's machine lacks, so run them with
 This file imports no JAX.
 """
 
+import os
 from unittest import mock
 
 import numpy as np
@@ -1699,3 +1700,70 @@ def test_hab3_step_on_card_matches_cpu(cuda):
     for k in ("agent_0_localization_sensor", "agent_1_localization_sensor", "all_predicates",
               "agent_1_other_agent_gps"):
         assert (og[k].cpu() - oc[k]).abs().max() <= 1e-5, k
+
+
+# -- articulated scenes and the reach task on the card --------------------------
+
+
+def test_art_scene_step_on_card_matches_cpu(cuda):
+    """24 opener steps of the URDF cabinet env on the card from beside the
+    handles, each also taken on the CPU from the card's state: done and discrete fields equal, state,
+    state sensors, reward and measures within 1e-5 (+ 1e-5 relative); #3
+    launched exactly twice per render (the reset and each step)."""
+    import dataclasses
+
+    from habitat_torch.tasks.rearrange.art_scene import art_scene_envs, opener_action
+
+    # [art-scene]'s env at N=8: one scene of 8 episodes, 32x32 head render
+    urdf = os.path.join(os.path.dirname(__file__), "assets", "mini_dataset", "urdf", "kitchen_cabinet.urdf")
+    env_g, env_c, _, _ = art_scene_envs(urdf, cuda, num_envs=8, num_scenes=1, episodes_per_scene=8,
+                                        render_size=(32, 32))
+    before = rk.raycast_index_t.launches
+    st, _ = env_g.reset_fn()
+    h = env_g._handle_pos(st)  # start 0.4 m beside each handle, so that the opener pulls
+    st = dataclasses.replace(st, pos=torch.stack([h[:, 0] + 0.4, st.pos[:, 1], h[:, 2]], dim=-1))
+    moved = 0.0
+    for _ in range(24):
+        a = opener_action(env_g, st)
+        out_g = env_g.step_fn(st, a)
+        out_c = env_c.step_fn(st.to(torch.device("cpu")), a.cpu())
+        (sg, og, rg, dg, ig), (sc, oc, rc_, dc, ic) = out_g, out_c
+        assert torch.equal(dg.cpu(), dc)
+        for name, g, c in ([(f.name, getattr(sg, f.name), getattr(sc, f.name)) for f in dataclasses.fields(sc)]
+                           + [(k, og[k], oc[k]) for k in oc] + [("reward", rg, rc_)] + [(k, ig[k], ic[k]) for k in ic]):
+            g = g.cpu()
+            if c.is_floating_point():
+                assert ((g - c).abs() <= 1e-5 + 1e-5 * c.abs()).all(), name
+            else:
+                assert torch.equal(g, c), name
+        moved = max(moved, (sg.art_q - st.art_q).abs().max().item())
+        st = sg
+    torch.cuda.synchronize()
+    assert rk.raycast_index_t.launches == before + 2 * 25
+    assert moved > 0.01, "no drawer moved"
+
+
+def test_reach_goal_table_on_card(card):
+    """The reach env on the card: its goal offsets bit-equal to the CPU
+    env's (host draws, moved once), the goals within 1e-6, and a step
+    without host sync."""
+    import types
+
+    kw = dict(num_envs=8, task="reach", with_visual=False, control="arm", n_rooms_per_axis=1, n_clutter=0,
+              num_scenes=2, episodes_per_scene=8, seed=0)
+    env_c = rgen.make_rearrange_env(device="cpu", **kw)
+    env_g = rgen.make_rearrange_env(device=card, **kw)
+    assert torch.equal(env_g._reach_offsets.cpu(), env_c._reach_offsets)
+    ep = torch.arange(env_c._reach_offsets.shape[0])
+    goal_c = env_c._desired_rest(types.SimpleNamespace(ep_idx=ep))
+    goal_g = env_g._desired_rest(types.SimpleNamespace(ep_idx=ep.to(card))).cpu()
+    assert (goal_g - goal_c).abs().max() <= 1e-6
+    st, _ = env_g.reset_fn()
+    a = torch.full((8, env_g.action_dim), 0.3, device=card)
+    env_g.step_fn(st, a)  # warm up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        env_g.step_fn(st, a)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

@@ -24,6 +24,15 @@ MEASURES = ("distance_to_goal", "success", "spl", "soft_spl", "collisions",
             "distance_to_goal_reward", "num_steps")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """The tier-1 run puts several test processes on the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def envs():
     kw = dict(num_scenes=2, episodes_per_scene=4, seed=0)

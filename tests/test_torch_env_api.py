@@ -72,6 +72,15 @@ SCHEDULE = [1, 1, 2, 1, 3, 1, 1, 0] + [1, 2, 1, 1, 3] * 5 + [0] + [1, 3, 1, 2] *
 ATOL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """The tier-1 run puts several test processes on the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_keyed_by_episode_ids(monkeypatch):
     """The JAX loader, giving each scene the id its episodes name."""
     load = jloaders.load_scene

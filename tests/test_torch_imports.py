@@ -46,7 +46,10 @@ def test_port_files_found():
                    "sims/loaders.py", "utils/timing.py", "utils/gfx_replay.py", "utils/visualizations/maps.py",
                    "utils/visualizations/fog_of_war.py", "tasks/rearrange/social_nav.py",
                    "baselines/multi_agent.py", "articulated_agents/humanoid.py",
-                   "tasks/rearrange/multi_task/pddl_yaml.py"):
+                   "tasks/rearrange/multi_task/pddl_yaml.py", "sims/sim_utilities.py", "sims/receptacles.py",
+                   "tasks/rearrange/samplers.py", "sims/kinematic_relationship_manager.py",
+                   "sims/object_state_machine.py", "sims/procedural.py", "utils/threefry.py",
+                   "tasks/rearrange/art_scene.py"):
         assert os.path.join(ROOT, "habitat_torch", module) in files
 
 
@@ -75,7 +78,11 @@ CONFIG_PATH_MODULES = (
     "habitat_torch.utils.visualizations.maps", "habitat_torch.utils.gfx_replay", "habitat_torch.core.env",
     "habitat_torch.core.environments", "habitat_torch.core.benchmark", "habitat_torch.tasks.rearrange.social_nav",
     "habitat_torch.baselines.multi_agent", "habitat_torch.articulated_agents.humanoid",
-    "habitat_torch.tasks.rearrange.multi_task.pddl_yaml",
+    "habitat_torch.tasks.rearrange.multi_task.pddl_yaml", "habitat_torch.sims.sim_utilities",
+    "habitat_torch.sims.receptacles", "habitat_torch.tasks.rearrange.samplers",
+    "habitat_torch.sims.kinematic_relationship_manager", "habitat_torch.sims.object_state_machine",
+    "habitat_torch.utils.threefry", "habitat_torch.tasks.rearrange.generator",
+    "habitat_torch.tasks.rearrange.art_scene",
 )
 _PROBE = """
 import json, sys

@@ -33,6 +33,15 @@ CKPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BF16_ATOL = 3e-2
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """The tier-1 run puts several test processes on the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _obs(rng, n, hw, keys=("rgb", "depth", "pointgoal_with_gps_compass")):
     obs = {}
     if "rgb" in keys:

@@ -33,6 +33,15 @@ from habitat_torch.datasets.pointnav import make_procedural_pointnav as torch_po
 HFOV = 90.0
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """The tier-1 run puts several test processes on the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _poses(episodes, n, seed):
     rng = np.random.RandomState(seed)
     pos = np.stack([episodes[i % len(episodes)].start_position for i in range(n)]).astype(np.float32)

@@ -464,8 +464,8 @@ def test_pick_train_step_on_cpu():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(task="reach"), NotImplementedError, "threefry"),
-    (dict(art_urdf="some.urdf"), NotImplementedError, "loaders.py"),
+    (dict(task="reach", measure_keys=("rearrange_reach_success", "pick_success")), ValueError, "declared measures"),
+    (dict(art_urdf="some.urdf"), FileNotFoundError, "some.urdf"),
     (dict(sensor_keys=("robot_head_depth",)), ValueError, "declared sensors"),
     (dict(sensor_keys=("no_such_sensor",)), ValueError, "declared sensors"),
     (dict(measure_keys=("pick_success", "no_such_measure")), ValueError, "declared measures"),
@@ -549,16 +549,6 @@ def test_humanoid_lane_and_predicates_match_jax(case):
         assert (np.linalg.norm(_np(states[2].pos - states[1].pos), axis=-1) > 0.1).all()
     if case == "agent_0_and_agent_1":  # the humanoid walked
         assert (np.linalg.norm(_np(js.human_pos) - _np(ts.human_pos), axis=-1) > 0.1).all()
-
-
-def test_generator_left_out_branches_raise():
-    scenes, eps = tgen.make_procedural_rearrange(num_scenes=1, episodes_per_scene=1)
-    with pytest.raises(NotImplementedError, match="receptacles.py"):
-        tgen.make_procedural_rearrange(num_scenes=1, episodes_per_scene=1, use_receptacles=True)
-    with pytest.raises(NotImplementedError, match="samplers.py"):
-        tgen.make_procedural_rearrange(num_scenes=1, episodes_per_scene=1, ao_state_sampler=object())
-    with pytest.raises(NotImplementedError, match="loaders.py"):
-        tgen.build_rearrange_table(eps, {s.scene_id: s for s in scenes}, {scenes[0].scene_id: 0}, art_asset=object())
 
 
 def test_declared_keys_select_what_the_env_emits():

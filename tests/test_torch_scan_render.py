@@ -42,6 +42,15 @@ SCAN_KW = dict(seed=5, extent=6.0, n_rooms_per_axis=2, n_clutter=6, tess=0.35)
 N, H, W = 2, 32, 32
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """The tier-1 run puts several test processes on the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 

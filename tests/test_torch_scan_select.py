@@ -44,6 +44,15 @@ K_ALL = 64
 SCENE_FIELDS = ("vertices", "colors", "semantic_ids", "nav_occ", "obst_dist", "nav_lo")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """The tier-1 run puts several test processes on the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(x):
     return torch.from_numpy(np.array(x))
 

@@ -28,6 +28,15 @@ TABLE_FIELDS = (
 )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """The tier-1 run puts several test processes on the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def both():
     kw = dict(num_scenes=2, episodes_per_scene=4, seed=0)

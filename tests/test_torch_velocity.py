@@ -36,6 +36,15 @@ VELOCITY = {"type": "VelocityAction", "lin_vel_range": [0.0, 0.25], "ang_vel_ran
             "min_abs_lin_speed": 0.025, "min_abs_ang_speed": 1.0, "time_step": 1.0}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """The tier-1 run puts several test processes on the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _velocity(cfg, rw, config_cls, extra=()):
     with rw(cfg) as c:
         c.habitat.task.actions = config_cls({"velocity_control": config_cls(VELOCITY)})
