@@ -140,15 +140,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 12. contacts  rearrangement physics at the Pick configuration's scale (N=128
            envs, 3 boxes each; PyTorch ops, no kernel of the port's):
            settle_objects (30 contacts-v3 steps, every valid box on or above
-           its floor), then 150 steps (half the env's 300-step episode) of
+           its floor), then 90 steps (of the env's 300-step episode) of
            the v6 contact_step (dt 0.1, 4 substeps) with boxes of
            0.05-0.20 m half-extents spawned overlapping, floating and tipped
            and the robot driven through them: ms per step (median and range
-           of three runs of 50 steps), launches per step and the idle share
+           of three runs of 30 steps), launches per step and the idle share
            from 1 profiled step, no host sync in a step. Gates: one step on the
            card against the CPU from the same states (steps 0 and 30), held
            to the CPU's float64 result (PHYS_ATOL, PHYS_W_RTOL, FORCE_ATOL,
-           FORCE_RTOL, plus twice the CPU float32 error); after 150 steps
+           FORCE_RTOL, plus twice the CPU float32 error); after 90 steps
            the shares of boxes asleep and tipped within SHARE_GAP of the
            CPU's episode and no corner FLOOR_SINK below its floor.
     arm    Fetch's step_arm (7 joints, the env's motors, dt 1/30, 4
@@ -324,7 +324,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            one flagship env (N=1) for one episode: its action equal to the
            batched greedy policy's at every step, ms per act, success and
            SPL; GoalFollower on the same env (logged) and in an open room
-           (AGENT_ROOM), where it must reach the goal.
+           (AGENT_ROOM), where it must reach the goal; a sampling PPOAgent
+           (seed 0: JAX's Threefry key split at every act, categorical by
+           Gumbel noise) on the card beside the same agent on the CPU for
+           AGENT_SAMPLED_STEPS acts: the noise bit-equal, the actions equal
+           wherever the top two noisy logits lie more than twice the
+           card-vs-CPU logit gap apart, ms per act.
 
 19. env-api  the single-env API (ENV_API): (a)
            Benchmark(pointnav_procgen.yaml).local_evaluate of PPOAgent from
@@ -347,6 +352,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            auto-stopped): each step against the same env's state sensors
            on the CPU from the card's state (positions within
            VEL_POS_ATOL, dones equal), ms per step, #1 1 + 32.
+    sim-api  the single-env simulator (SIM_API): TpuSim on
+           generate_apartment(seed=0), 128x128 depth + RGB, walked by the
+           ShortestPathFollower to a sampled goal (tests/test_env_api.py's
+           rule: stop within 300 steps, within 0.6 m), then a teleport with a
+           rotation and 4 velocity_control steps, a CPU TpuSim taking the
+           same actions beside it (poses and collision flags equal, frames
+           by the frame rule); render_env against the N=1 render_batch; the
+           DebugVisualizer's 256x256 peek("scene") against the CPU's; #1
+           exactly once per render, no plain version on a card tensor, #1 on
+           the sim's rays against its plain version; sample_navigable_point
+           card against CPU for 4,096 keys; ms per TpuSim.step, launches
+           and idle share of 5 profiled steps.
+    obs-transforms  the observation transforms at the config store's
+           widths (OBS_TF: N=32 on the bench's 4 scenes): six 256x256 cube
+           faces through #1, the native 256x512 equirect and 256x256
+           fisheye through #3 (exact counts, no plain version on a card
+           tensor); CubeMap2Equirect, CubeMap2Fisheye, Equirect2CubeMap,
+           ResizeShortestEdge, CenterCropper and AddVirtualKeys on the
+           card against the CPU on the same frames, ms per transform;
+           tests/test_projections.py's rules at this size; #1 and #3 on these
+           rays against their plain versions.
 
 20. social  scripts/train_social_tpu.py's three modes at their widths
            (SOCIAL: N=128, 8 scenes x 16 episodes, seed 0): (a) single, a
@@ -450,7 +476,7 @@ BENCH = dict(num_envs=256, height=128, width=128, num_steps=32)
 MID = dict(num_envs=16, num_steps=4, extent=30.0, n_clutter=420)
 ROLLOUTS = 5  # timed bench rollouts after the warm-up one
 SCAN = dict(tess=0.04, n_clutter=40, cells=(0.08, 0.25, 0.6), bands=(1.2, 3.0, 8.0), triangles=859290)
-SCAN_ROLLOUTS = 5  # timed scan rollouts after the warm-up one
+SCAN_ROLLOUTS = 3  # timed scan rollouts after the warm-up one (cut from 5 to keep the script near 1,000 s)
 TRAIN = dict(num_steps=32, num_mini_batch=2, ppo_epoch=2)  # bench.py's train step
 TRAIN_STEPS = 3  # timed bench train steps after the warm-up one (cut from 5 to keep the script near 1,000 s)
 SCAN_TRAIN_STEPS = 2  # timed scan train steps after the warm-up one
@@ -493,11 +519,11 @@ FLOPS_PER_CULL_TRI = 83
 FLAGSHIP = dict(episodes=256, success=0.9414, spl=0.8919, tol=0.03)
 # [contacts]: the Pick configuration's scale (N=128, scripts/train_rearrange_tpu.py:23;
 # 3 boxes, generator.py:405), the env's step (dt 0.1, 4 substeps,
-# rearrange_env.py:2225) over the first half of an episode of
-# max_episode_steps 300 (cut to 150 steps for the script's time limit), timed
-# in `runs` runs of 50 consecutive steps; settling as the generator runs it
+# rearrange_env.py:2225) over the first 90 steps of an episode of
+# max_episode_steps 300 (cut to 90 steps for the script's time limit), timed
+# in `runs` runs of 30 consecutive steps; settling as the generator runs it
 # (30 contacts-v3 steps)
-CONTACTS = dict(num_envs=128, objects=3, steps=150, dt=0.1, substeps=4, warmup=5, runs=3, profile_steps=1,
+CONTACTS = dict(num_envs=128, objects=3, steps=90, dt=0.1, substeps=4, warmup=5, runs=3, profile_steps=1,
                 settle_steps=30, robot_steps=60)
 # [arm]: Fetch's 7 joints under the env's motors (kp 300, kd 30,
 # rearrange_env.py:765) at the env's rate (dt 1/30, 4 substeps, :1742), 300
@@ -514,7 +540,7 @@ PICK = dict(num_envs=128, task="pick", num_scenes=8, episodes_per_scene=16, seed
             n_rooms_per_axis=1, n_clutter=0, max_episode_steps=120)
 PICK_TRAIN = dict(num_steps=64, num_mini_batch=2, ppo_epoch=2, lr=2.5e-4)
 PICK_TRAIN_STEPS = 2
-PICK_GREEDY_STEPS = 150
+PICK_GREEDY_STEPS = 100
 # [pick-contacts]: pick_procgen.yaml as habitat_torch/core/construct.py
 # builds it (pick, discrete, Fetch, contacts, 128x128 head cameras, 2 scenes
 # x 16 episodes, 2 rooms per axis, 3 clutter, 3 objects, 300 steps, success
@@ -571,7 +597,7 @@ MOVED_SENSOR_FACTOR = 2.0
 PHYS_ATOL = 1e-5
 PHYS_W_RTOL = 1e-5
 FORCE_ATOL, FORCE_RTOL = 1e-3, 1e-4
-# after the 150-step episode: the shares of free boxes asleep and tipped
+# after the 90-step episode: the shares of free boxes asleep and tipped
 # (body up axis below 0.9 of world up), card against CPU, and every box's
 # lowest corner above its floor less this sink
 SHARE_GAP = 0.05
@@ -638,7 +664,7 @@ BC_CHECK = dict(num_envs=8, hidden=512)
 HRL_ENV = dict(num_envs=128, task="rearrange", num_scenes=8, episodes_per_scene=16, seed=0, with_visual=False,
                n_rooms_per_axis=1, n_clutter=0, max_episode_steps=300)
 HRL_PPO = dict(num_macro_steps=16, hl_interval=8, hidden_size=64)
-HRL_UPDATES = 2
+HRL_UPDATES = 1
 # the planner's and the fixed plan's rules (tests/test_hrl_planner.py:28-51,
 # tests/test_hrl_pddl.py:59-71) on those tests' env (HRL_RULE_ENV): the share
 # of envs with a successful episode within the steps given; at N=128 on
@@ -678,6 +704,25 @@ EQA_REF_UPDATES = 3
 # [agents]: GoalFollower's open room (the flagship scenes' goals lie behind
 # walls, where a straight-line follower stalls)
 AGENT_ROOM = dict(num_scenes=1, episodes_per_scene=8, seed=91000, scene_kw={"n_rooms_per_axis": 1, "n_clutter": 0})
+# [sim-api]: the single-env simulator on the card (generate_apartment(seed=0),
+# its default 128x128 depth + RGB), walked by the ShortestPathFollower to a
+# sampled goal as tests/test_env_api.py:120-138 walks it (seed 3, stop within
+# 300 steps and 0.6 m), then a teleport with a rotation and 4
+# velocity_control steps; a CPU TpuSim beside it takes the same actions
+SIM_API = dict(seed=3, goal_radius=0.3, max_steps=300, reach=0.6, velocity_steps=4, dbv=(256, 256),
+               sample_keys=4096, profile_steps=5)
+SIM_TELEPORT = dict(action="teleport", action_args=dict(position=[3.0, 0.0, 3.0], rotation=[0.0, 0.29552, 0.0,
+                                                                                              0.95534]))
+SIM_VELOCITY = dict(action="velocity_control", action_args=dict(lin_vel=0.5, ang_vel=20.0, time_step=0.5))
+# [obs-transforms]: the config store's widths (structured.py's cube_2_eq_base
+# 256x512 from 256x256 faces, eq_2_cube_base 256, cube_2_fish_base 256) at
+# N=32 on the bench's 4 procedural scenes, poses from the navigable-point
+# sampler; test_projections.py's rows 16-48 of 64 and 4-pixel border of 32
+# scale to rows 64-192 of 256 and a 32-pixel border of 256
+OBS_TF = dict(num_envs=32, face=256, eq=(256, 512), fish=(256, 256), resize=128, reps=5, key_seed=21)
+# [agents], stochastic: the flagship export as a PPOAgent(deterministic=False,
+# seed=0) on the card beside the same agent on the CPU, driving the card env
+AGENT_SAMPLED_STEPS = 40
 # [env-api]: Benchmark episodes of pointnav_procgen.yaml; the mini on-disk
 # dataset's episodes (all 8) under a step limit cut from the yaml's 500; the
 # velocity path's envs, steps and envs auto-stopped at step 20
@@ -3815,13 +3860,19 @@ def agents_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
     r_steps, _, r_info = episode(nav_env(make_procedural_pointnav(**AGENT_ROOM), res=None), GoalFollower())
     if r_info["success"] != 1.0:
         fail(f"[agents] GoalFollower in the open room: {r_info}")
+    s_steps, s_ruled, s_parted, s_gap, s_ms = sampled_agent_check(dev, nav_env(flagship))
     log(f"[agents] {gpu}: PPOAgent (flagship export, resnet18 + LSTM-512, 128x128 depth + pointgoal, "
         f"deterministic) on one flagship env: {steps} steps, success {info['success']:.0f}, SPL {info['spl']:.4f}; "
         f"ms per act median {act_ms[len(act_ms) // 2]:.2f} (min {act_ms[0]:.2f}, max {act_ms[-1]:.2f}); the action "
         f"and carry equal to the batched greedy policy's at every step; #1 {launches['raycast_fused_sel_t']} = 1 + "
         f"{steps}; GoalFollower: the flagship env's first episode {g_steps} steps, success {g_info['success']:.0f}, "
         f"collisions {g_info['collisions']:.0f} (its goal lies behind walls), the open room's {r_steps} steps, "
-        f"success {r_info['success']:.0f}, SPL {r_info['spl']:.4f}; the phase {time.perf_counter() - t_phase:.1f} s")
+        f"success {r_info['success']:.0f}, SPL {r_info['spl']:.4f}; sampling PPOAgent (seed 0, JAX's draws: the "
+        f"key split at every act, categorical = argmax of Gumbel noise + logits) on the card beside the same agent "
+        f"on the CPU for {s_steps} acts of the flagship env: the noise bit-equal card against CPU at every act, "
+        f"card-vs-CPU logit gap <= {s_gap:.3g}, the actions equal at all {s_ruled} acts whose top-two noisy logits "
+        f"lie more than twice that apart, parted at acts {s_parted}; card ms per act {ms_text(s_ms[1:])}; "
+        f"the phase {time.perf_counter() - t_phase:.1f} s")
     return launches["raycast_fused_sel_t"]
 
 
@@ -4882,6 +4933,334 @@ def reach_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card, 
         f"{goal_gap:.3g}; apply_relations / apply_relations_rotating at N={n} x {o}: card - CPU {rel_gap:.3g}; "
         + ", ".join(pred_agree) + f" (equal card against CPU); the phase {time.perf_counter() - t_phase:.1f} s")
     return succ
+
+
+def frame_rule(tag, got, want):
+    """tests/test_torch_raycast.py's frame rule on numpy frames: depth within
+    1e-4, RGB and semantic ids equal on >= 99.9% of pixels."""
+    import numpy as np
+
+    d = float(np.abs(got["depth"] - want["depth"]).max())
+    rgb = float((got["rgb"] == want["rgb"]).all(-1).mean())
+    sem = float((got["semantic"] == want["semantic"]).mean())
+    if not (d <= 1e-4 and rgb >= 0.999 and sem >= 0.999):
+        fail(f"{tag}: depth gap {d}, RGB equal {rgb}, ids equal {sem}")
+    return d, rgb
+
+
+def sim_api_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card, size=SIM_API):
+    """[sim-api]: the port's TpuSim on the card. Gates: the follower's rule;
+    every frame, pose and collision flag against a CPU TpuSim driven by the
+    same actions (poses bit-equal, the frame rule); #1 exactly once per
+    render (the reset, each step, render_env and its N=1 render_batch, the
+    DebugVisualizer's peek) and no plain version on a card tensor; #1 equal
+    to its plain version on the sim's own rays; render_env equal to the N=1
+    render_batch; the peek against the CPU's by the frame rule;
+    sample_navigable_point on the card equal to the CPU's for 4,096 keys.
+    Returns #1's launches."""
+    import numpy as np
+    import torch
+
+    from habitat_torch.ops import navgrid as ng
+    from habitat_torch.ops import raycast as rc
+    from habitat_torch.ops import raycast_kernels as rk
+    from habitat_torch.sims.debug_visualizer import DebugVisualizer
+    from habitat_torch.sims.procedural import generate_apartment
+    from habitat_torch.sims.tpu_sim import TpuSim, to_host
+    from habitat_torch.tasks.shortest_path_follower import ShortestPathFollower
+    from habitat_torch.utils import threefry
+
+    t_phase = time.perf_counter()
+    scene = generate_apartment(seed=0)
+    sim, cpu = TpuSim(None, scene=scene, device=dev), TpuSim(None, scene=scene, device="cpu")
+    setup_s = time.perf_counter() - t_phase
+    step_ms, gaps = [], []
+
+    def both(action):
+        t0 = time.perf_counter()
+        got = sim.step(action)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        want = cpu.step(action)
+        check(f"step {len(step_ms)}", got, want)
+
+    def check(tag, got, want):
+        if not (np.array_equal(sim._pos, cpu._pos) and sim._yaw == cpu._yaw and sim._pitch == cpu._pitch
+                and sim._collided == cpu._collided):
+            fail(f"[sim-api] {tag}: card pose {sim._pos} {sim._yaw} {sim._collided}, CPU {cpu._pos} {cpu._yaw} "
+                 f"{cpu._collided}")
+        gaps.append(frame_rule(f"[sim-api] {tag}", got, want))
+
+    zero_counts()
+    for p in plain_watch:
+        p.start()
+    sim.seed(size["seed"]), cpu.seed(size["seed"])
+    check("reset", sim.reset(), cpu.reset())
+    goal = np.asarray(sim.sample_navigable_point())
+    if goal.tolist() != cpu.sample_navigable_point():
+        fail("[sim-api] the card sim's goal differs from the CPU's")
+    follower = ShortestPathFollower(sim, goal_radius=size["goal_radius"], return_one_hot=False)
+    reached, steps = False, 0
+    for _ in range(size["max_steps"]):
+        a = follower.get_next_action(goal)
+        if a == 0:
+            reached = True
+            break
+        both(a)
+        steps += 1
+    end = float(np.linalg.norm((sim.get_agent_state().position - goal)[[0, 2]]))
+    if not (reached and end < size["reach"]):
+        fail(f"[sim-api] the follower did not stop at the goal: reached {reached} after {steps} steps, {end:.3f} m")
+    both(SIM_TELEPORT)
+    for _ in range(size["velocity_steps"]):
+        both(SIM_VELOCITY)
+    # render_env against the N=1 render_batch at the sim's pose
+    cam = torch.tensor(sim._pos + np.float32([0.0, 1.25, 0.0]), device=dev)
+    yaw = torch.full((1,), sim._yaw, dtype=torch.float32, device=dev)
+    pitch = torch.full((1,), sim._pitch, dtype=torch.float32, device=dev)
+    one = rc.render_env(sim.pack, 0, cam, yaw[0], pitch[0], height=128, width=128)
+    batch = rc.render_batch(sim.pack, torch.zeros(1, dtype=torch.int64, device=dev), cam[None], yaw, pitch,
+                            height=128, width=128)
+    if not all(torch.equal(one[k], v[0]) for k, v in batch.items()):
+        fail("[sim-api] render_env differs from the N=1 render_batch")
+    dbv = DebugVisualizer(sim.pack, resolution=size["dbv"], device=dev)
+    peek = dbv.peek("scene").obs_data
+    sync(dev)
+    for p in plain_watch:
+        p.stop()
+    if plain_on_card:
+        fail(f"[sim-api]: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+    n_render = 1 + steps + 1 + size["velocity_steps"] + 2 + 1
+    launches = path_counts("[sim-api] TpuSim", raycast_fused_sel_t=n_render)
+    cpu_peek = DebugVisualizer(cpu.pack, resolution=size["dbv"], device="cpu").peek("scene").obs_data
+    peek_eq = float((peek == cpu_peek).all(-1).mean())
+    if peek.shape != (*size["dbv"], 3) or peek_eq < 0.999:
+        fail(f"[sim-api] DebugVisualizer.peek: shape {peek.shape}, equal to the CPU's on {peek_eq}")
+    # #1 against its plain version on the sim's own rays (outside the count)
+    kernel, args, kwargs, _ = rc.closest_hit_call(sim.pack, torch.zeros(1, dtype=torch.int64, device=dev), cam[None],
+                                                  yaw, pitch, height=128, width=128)
+    if kernel is not rk.raycast_fused_sel_t:
+        fail(f"[sim-api] the sim's render takes {kernel.__name__}, not #1")
+    hit, idx_agree, dt = agreement("[sim-api] #1 on the sim's rays", kernel(*args, **kwargs),
+                                   kernel.plain(*args, **kwargs))
+    # the device-side sampler: card against CPU, 4,096 keys
+    keys = threefry.fold_in(threefry.prng_key(0), np.arange(size["sample_keys"]))
+    pts_g = ng.sample_navigable_point(sim.pack, 0, keys).cpu()
+    pts_c = ng.sample_navigable_point(cpu.pack, 0, keys)
+    if not torch.equal(pts_g, pts_c):
+        fail(f"[sim-api] sample_navigable_point: {int((pts_g != pts_c).any(-1).sum())} of {len(keys)} points differ")
+    # ms and idle share of a step (move_forward, turns) under the profiler
+    prof_acts = [1, 2, 1, 3, 1][:size["profile_steps"]]
+    t0 = time.perf_counter()
+    for a in prof_acts:
+        sim.step(a)
+    wall = (time.perf_counter() - t0) * 1e3
+    _, dev_ms, n_launch, _ = device_time_and_launches(lambda: [sim.step(a) for a in prof_acts])
+    n = len(prof_acts)
+    idle = 1 - dev_ms / wall
+    log(f"[sim-api] {gpu}: TpuSim on generate_apartment(seed=0) ({sim.pack.tri_attr.shape[1]} triangles padded), "
+        f"128x128 depth + RGB; the follower stopped after {steps} steps, {end:.3f} m from the goal (rule: within "
+        f"{size['max_steps']} steps, < {size['reach']} m); + a teleport and {size['velocity_steps']} velocity_control "
+        f"steps: ms per TpuSim.step {ms_text(step_ms)} over {len(step_ms)} steps (one host copy each); "
+        f"#1 {launches['raycast_fused_sel_t']} = 1 + {steps} + 1 + {size['velocity_steps']} + 2 (render_env, "
+        f"render_batch) + 1 (peek {size['dbv'][0]}x{size['dbv'][1]}), no plain version on a card tensor; "
+        f"{n} profiled steps: {dev_ms / n:.3f} ms on the device and {n_launch / n:.0f} launches per step, idle share "
+        f"{idle:.3f} of {wall / n:.3f} ms; every pose and collision flag equal to the CPU sim's, frames: depth gap "
+        f"<= {max(g[0] for g in gaps):.3g}, RGB equal on >= {min(g[1] for g in gaps):.5f}; #1 on the sim's rays: "
+        f"hit {hit:.6f}, winner {idx_agree:.6f}, |dt| {dt:.3g}; render_env equal to the N=1 render_batch; the peek "
+        f"equal to the CPU's on {peek_eq:.5f}; sample_navigable_point equal card against CPU for {len(keys)} keys; "
+        f"set-up {setup_s:.1f} s, the phase {time.perf_counter() - t_phase:.1f} s")
+    return launches["raycast_fused_sel_t"], dict(ms=step_ms, idle=idle, dev_ms=dev_ms / n, launches=n_launch / n)
+
+
+def transforms_agree(tag, got, want, nearest_ids):
+    """Card transform outputs against the CPU's on the same frames: float
+    within 1e-5, uint8 (and ids resampled bilinearly) within 1, ids taken by
+    nearest sample equal. Returns the largest float gap."""
+    import torch
+
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k].cpu()
+        if g.shape != w.shape or g.dtype != w.dtype:
+            fail(f"[obs-transforms] {tag} {k}: {tuple(g.shape)} {g.dtype} against {tuple(w.shape)} {w.dtype}")
+        gap = (g.double() - w.double()).abs().max().item() if g.numel() else 0.0
+        limit = 1e-5 if w.is_floating_point() else (0.0 if nearest_ids and w.dtype != torch.uint8 else 1.0)
+        if gap > limit:
+            fail(f"[obs-transforms] {tag} {k}: card against CPU gap {gap} > {limit}")
+        if w.is_floating_point():
+            worst = max(worst, gap)
+    return worst
+
+
+def obs_transforms_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card, size=OBS_TF):
+    """[obs-transforms]: six pinhole cube faces (#1, one render each), the
+    native equirect and fisheye frames (#3) at N=32, and the transforms on
+    them. Gates: exact launch counts and no plain version on a card tensor;
+    each transform on the card equal to the CPU's on the same frames;
+    test_projections.py's rules at this size; #1 and #3 equal to their plain
+    versions on these frames' rays. Returns ({kernel: launches}, checks)."""
+    import numpy as np
+    import torch
+
+    from habitat_torch.baselines import obs_transformers as T
+    from habitat_torch.datasets.pointnav import make_procedural_pointnav
+    from habitat_torch.ops import navgrid as ng
+    from habitat_torch.ops import raycast as rc
+    from habitat_torch.sims.scene import pack_scenes
+    from habitat_torch.utils import threefry
+
+    t_phase = time.perf_counter()
+    n, F = size["num_envs"], size["face"]
+    scenes, _, _ = make_procedural_pointnav(num_scenes=4, episodes_per_scene=16, seed=0)
+    pack = pack_scenes(scenes).to(dev)
+    sids = torch.arange(n, device=dev) % pack.num_scenes
+    keys = threefry.fold_in(threefry.prng_key(size["key_seed"]), np.arange(n))
+    cam = ng.sample_navigable_point(pack, sids, keys) + torch.tensor([0.0, 1.25, 0.0], device=dev)
+    zero = torch.zeros(n, device=dev)
+
+    def render(yaw, pitch, h, w, projection="pinhole"):
+        return rc.render_batch(pack, sids, cam, zero + yaw, zero + pitch, height=h, width=w, projection=projection)
+
+    zero_counts()
+    for p in plain_watch:
+        p.start()
+    faces = {f: render(*T._FACE_POSES[f], F, F) for f in T.CUBE_FACES}
+    eq = render(0.0, 0.0, *size["eq"], projection="equirect")
+    fish = render(0.0, 0.0, *size["fish"], projection="fisheye")
+    sync(dev)
+    for p in plain_watch:
+        p.stop()
+    if plain_on_card:
+        fail(f"[obs-transforms]: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+    launches = path_counts("[obs-transforms] renders", raycast_fused_sel_t=6, raycast_index_t=2)
+    keys3 = ("rgb", "depth", "semantic")
+    cube_obs = {f"{k}_{f.lower()}": faces[f][k] for f in T.CUBE_FACES for k in keys3}
+    uuids = [f"{k}_{f.lower()}" for k in keys3 for f in T.CUBE_FACES]
+    made = {
+        "CubeMap2Equirect": (lambda d: T.CubeMap2Equirect(uuids, size["eq"], device=d), cube_obs, True),
+        "CubeMap2Fisheye": (lambda d: T.CubeMap2Fisheye(uuids, size["fish"], device=d), cube_obs, True),
+        "Equirect2CubeMap": (lambda d: T.Equirect2CubeMap(list(keys3), (F, F), device=d), eq, False),
+        "ResizeShortestEdge": (lambda d: T.ResizeShortestEdge(size=size["resize"], device=d), eq, False),
+        "CenterCropper": (lambda d: T.CenterCropper(size["resize"], size["resize"], device=d), eq, False),
+        "AddVirtualKeys": (lambda d: T.AddVirtualKeys({"goal_to_agent_gps_compass": 2}, device=d), eq, False),
+    }
+    outs, ms, gaps = {}, {}, {}
+    for name, (make, obs, nearest) in made.items():
+        tr_g, tr_c = make(dev), make("cpu")
+        outs[name] = tr_g(dict(obs))
+        ms[name] = cuda_ms(lambda: tr_g(dict(obs)), size["reps"], warmup=1)
+        want = tr_c({k: v.cpu() for k, v in obs.items()})
+        gaps[name] = transforms_agree(name, outs[name], want, nearest)
+    # test_projections.py's rules at this size
+    c2e, native = outs["CubeMap2Equirect"]["rgb"].float(), eq["rgb"].float()
+    H = size["eq"][0]
+    mid = (c2e[:, H // 4:3 * H // 4] - native[:, H // 4:3 * H // 4]).abs().mean(-1)
+    med, under = mid.median().item(), share(mid < 30.0)
+    if not (med < 8.0 and under > 0.9):
+        fail(f"[obs-transforms] CubeMap2Equirect against the native equirect: median {med}, under 30 {under}")
+    b = F // 8
+    err = (outs["Equirect2CubeMap"]["depth_front"][:, b:F - b, b:F - b] - faces["FRONT"]["depth"][:, b:F - b, b:F - b])
+    e2c_med = err.abs().median().item()
+    if e2c_med >= 0.03:
+        fail(f"[obs-transforms] Equirect2CubeMap's front face against the native face: median {e2c_med}")
+    fimg = outs["CubeMap2Fisheye"]["rgb"]
+    fh, fw = size["fish"]
+    centre_ok = bool((fimg[:, fh // 2 - 1, fw // 2 - 1].sum(-1) > 0).all())
+    corners_zero = bool((fimg[:, 0, 0] == 0).all() and (fimg[:, -1, -1] == 0).all())
+    if not (centre_ok and corners_zero):
+        fail(f"[obs-transforms] CubeMap2Fisheye: centre valid {centre_ok}, corners masked {corners_zero}")
+    # the native fisheye (engine camera) beside the converted one, logged
+    fish_gap = (fimg.float() - fish["rgb"].float()).abs().mean().item()
+    # each kernel against its plain version on these frames' rays
+    checks = {}
+    for tag, (yaw, pitch, h, w, proj) in (("#1", (*T._FACE_POSES["FRONT"], F, F, "pinhole")),
+                                         ("#3", (0.0, 0.0, *size["eq"], "equirect"))):
+        kernel, args, kwargs, _ = rc.closest_hit_call(pack, sids, cam, zero + yaw, zero + pitch, height=h, width=w,
+                                                      projection=proj)
+        checks[tag] = agreement(f"[obs-transforms] {tag}", kernel(*args, **kwargs), kernel.plain(*args, **kwargs))
+    log(f"[obs-transforms] {gpu}: N={n} on the bench's 4 scenes (poses from sample_navigable_point): six {F}x{F} "
+        f"faces through #1 (6 launches), the native {size['eq'][0]}x{size['eq'][1]} equirect and "
+        f"{size['fish'][0]}x{size['fish'][1]} fisheye through #3 (2), no plain version on a card tensor; ms per "
+        f"transform (N={n}, rgb + depth + semantic): " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f"; card against CPU on the same frames: float gap <= {max(gaps.values()):.3g}, uint8 within 1; rules: "
+        f"CubeMap2Equirect against the native equirect median {med:.3f} (< 8), {under:.4f} under 30 (> 0.9); "
+        f"Equirect2CubeMap front depth median gap {e2c_med:.5f} (< 0.03); the fisheye's centre valid and corners "
+        f"masked; converted against the engine's fisheye camera mean RGB gap {fish_gap:.2f} (logged); "
+        + "; ".join(f"{t} on these rays: hit {c[0]:.6f}, winner {c[1]:.6f}, |dt| {c[2]:.3g}" for t, c in checks.items())
+        + f"; the phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, dict(ms=ms, checks=checks)
+
+
+class LogitsRecorder:
+    """A policy that keeps the logits of its last call (and is the policy
+    otherwise)."""
+
+    def __init__(self, policy):
+        self.policy, self.logits = policy, None
+
+    def __call__(self, *args, **kwargs):
+        out = self.policy(*args, **kwargs)
+        self.logits = out[0].float()
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.policy, name)
+
+
+def sampled_agent_check(dev, env, steps=AGENT_SAMPLED_STEPS):
+    """A sampling PPOAgent (flagship export, seed 0) on the card beside the
+    same agent on the CPU, both fed the card env's observations. Gates: the
+    Gumbel noise of every act bit-equal card against CPU (keys split on the
+    host, the (1, A) table copied over); while the two agents have taken the
+    same actions, the actions equal wherever the card's noisy logits' top two
+    lie more than twice the card-vs-CPU logit gap apart. Returns (steps,
+    steps under the rule, steps where the actions part, largest logit gap,
+    card ms per act)."""
+    import numpy as np
+    import torch
+
+    from habitat_torch.baselines.agents.ppo_agents import PPOAgent
+    from habitat_torch.baselines.flagship import WEIGHTS
+    from habitat_torch.models.convert import load_policy_file
+    from habitat_torch.utils import threefry
+
+    agents = [PPOAgent(load_policy_file(WEIGHTS, device=d), deterministic=False, seed=0) for d in (dev, "cpu")]
+    recs = [LogitsRecorder(a.policy) for a in agents]
+    for a, r in zip(agents, recs):
+        a.policy = r
+    st, obs = env.reset_fn()
+    n_act = agents[0].policy.net.num_actions
+    ruled, parted, worst, act_ms, together = 0, [], 0.0, [], True
+    for i in range(steps):
+        kg, kc = (threefry.split(a._key)[1] for a in agents)
+        noise_g = torch.from_numpy(threefry.gumbel(kg, (1, n_act))).to(dev)
+        noise_c = torch.from_numpy(threefry.gumbel(kc, (1, n_act)))
+        if not torch.equal(noise_g.cpu(), noise_c):
+            fail(f"[agents] the sampling agents' Gumbel noise differs card against CPU at act {i}")
+        o = {k: v[0] for k, v in obs.items()}
+        sync(dev)
+        t0 = time.perf_counter()
+        a_g = agents[0].act(o)
+        act_ms.append((time.perf_counter() - t0) * 1e3)
+        a_c = agents[1].act({k: v.cpu() for k, v in o.items()})
+        lg = recs[0].logits.cpu()
+        gap = (lg - recs[1].logits).abs().max().item()
+        worst = max(worst, gap)
+        top = np.sort((lg + noise_c)[0].numpy())
+        if together and top[-1] - top[-2] > 2 * gap:
+            ruled += 1
+            if a_g != a_c:
+                fail(f"[agents] the sampling agents part at act {i}: {a_g} against {a_c}, margin "
+                     f"{top[-1] - top[-2]:.3g}, logit gap {gap:.3g}")
+        if a_g != a_c:
+            parted.append(i)
+            together = False
+        st, obs, _, done, _ = env.step_fn(st, torch.tensor([a_g], device=dev))
+        if done[0]:
+            for a in agents:
+                a.reset()
+            together = True
+    return steps, ruled, parted, worst, act_ms
 
 
 def main():
@@ -6119,6 +6498,16 @@ def main():
     log(f"[env-api] starts {time.perf_counter() - t_start:.1f} s after the start")
     torch.cuda.empty_cache()
     sel["env_api_launches"] = env_api_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
+    log(f"[sim-api] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    sel["sim_api_launches"], _ = sim_api_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
+    log(f"[obs-transforms] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    tf_launches, tf_checks = obs_transforms_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
+    sel["obs_transforms_launches"] = tf_launches["raycast_fused_sel_t"]
+    sel["obs_transforms_faces"] = tf_checks["checks"]["#1"]
+    index_row["obs_transforms_launches"] = tf_launches["raycast_index_t"]
+    index_row["obs_transforms_equirect"] = tf_checks["checks"]["#3"]
 
     # ---- 20. social navigation, two-agent PPO, the hab3 humanoid lane -------
     log(f"[social] starts {time.perf_counter() - t_start:.1f} s after the start")

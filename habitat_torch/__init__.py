@@ -5,3 +5,11 @@ the same path. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"`` (see ``habitat_torch.device``). Kernels live in
 ``habitat_torch/csrc`` and are built at first use into ``habitat_torch/build``.
 """
+
+
+def __getattr__(name):  # lazy exports, as habitat_tpu has them
+    if name in ("Simulator", "SensorTypes", "Sensor", "SensorSuite", "AgentState"):
+        from habitat_torch.core import simulator as _s
+
+        return getattr(_s, name)
+    raise AttributeError(name)

@@ -22,14 +22,18 @@ import torch
 
 from habitat_torch.core.agent import Agent
 from habitat_torch.device import resolve_device
-from habitat_torch.models.policy import ActorCritic, make_pointnav_resnet_policy, sample_action
+from habitat_torch.models.policy import ActorCritic, make_pointnav_resnet_policy
+from habitat_torch.utils import threefry
 
 
 class PPOAgent(Agent):
     """Acts from ``policy``, or from a PointNavResNetPolicy built from the
     keyword arguments on ``device`` (``None`` = cuda); ``deterministic``
-    takes the argmax, else samples from its own generator seeded by
-    ``seed``."""
+    takes the argmax, else samples as the JAX agent does: a Threefry key
+    ``PRNGKey(seed)`` split at every act, the action
+    ``categorical(k, logits)`` (argmax of Gumbel noise plus logits). The
+    (1, A) noise is drawn on the host and copied without waiting on the
+    card."""
 
     def __init__(
         self,
@@ -53,8 +57,7 @@ class PPOAgent(Agent):
         self.policy = policy.eval()
         self.device = policy.critic.weight.device
         self.deterministic = deterministic
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
+        self._key = threefry.prng_key(seed)
         self.reset()
 
     def reset(self) -> None:
@@ -87,8 +90,13 @@ class PPOAgent(Agent):
         """The action for one observation (leaves without the batch axis,
         numpy or tensors)."""
         obs = {k: torch.as_tensor(v, device=self.device)[None] for k, v in observations.items()}
+        if not self.deterministic:
+            self._key, k = threefry.split(self._key)
+            noise = threefry.gumbel(k, (1, self.policy.net.num_actions))
+            noise = torch.from_numpy(noise).to(self.device, non_blocking=True)
         logits, _, self.hidden = self.policy(obs, self.hidden, self.prev_action, self.mask)
-        action, _ = sample_action(logits, self.generator, deterministic=self.deterministic)
+        logits = logits.float()
+        action = (logits if self.deterministic else logits + noise).argmax(-1).to(torch.int32)
         self.prev_action = action
         self.mask = torch.ones(1, device=self.device)
         return int(action[0])

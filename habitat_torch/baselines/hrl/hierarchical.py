@@ -23,11 +23,11 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from habitat_torch.models.policy import sample_action
 from habitat_torch.ops.navgrid import greedy_follower_step
 from habitat_torch.tasks.rearrange.multi_task.pddl import _target, _target_goal, _target_obj
 from habitat_torch.tasks.rearrange.rearrange_env import A_FWD, A_GRAB, A_LEFT, A_RIGHT, A_STOP, _xz_norm
 from habitat_torch.tasks.rearrange.rigid_body import norm
+from habitat_torch.utils import threefry
 from habitat_torch.utils.geometry import rotate_world_to_agent
 
 # the steering cone, float32 as jnp.deg2rad(12.0) computes it
@@ -249,9 +249,10 @@ class NnSkill(Skill):
     step, so it suits feed-forward or memoryless policies. ``obs_fn(env,
     state)`` gives its observations (the env's own by default).
 
-    Deterministic acts by argmax. Otherwise every call draws from a
-    generator seeded 0, as the JAX package draws from PRNGKey(0) at every
-    call: the same noise at every step, not JAX's numbers."""
+    Deterministic acts by argmax. Otherwise it samples as the JAX skill
+    does, ``categorical(PRNGKey(0), logits)`` at every call: the key never
+    changes, so the Gumbel noise is one (N, A) table, drawn once per batch
+    size on the host and kept on the env's device."""
 
     name = "nn_skill"
 
@@ -261,6 +262,13 @@ class NnSkill(Skill):
         self._obs_fn = obs_fn
         self.deterministic = deterministic
         self.name = name
+        self._noise = {}
+
+    def _gumbel(self, n: int, a: int, dev) -> torch.Tensor:
+        key = (n, a, str(dev))
+        if key not in self._noise:
+            self._noise[key] = torch.as_tensor(threefry.gumbel(threefry.prng_key(0), (n, a)), device=dev)
+        return self._noise[key]
 
     @torch.no_grad()
     def act(self, env, state):
@@ -268,8 +276,10 @@ class NnSkill(Skill):
         n, dev = env.num_envs, env.device
         logits, _, _ = self.policy(obs, self.policy.initial_hidden(n), torch.zeros(n, dtype=torch.int64, device=dev),
                                    torch.ones(n, device=dev))
-        act, _ = sample_action(logits, torch.Generator(device=dev).manual_seed(0), deterministic=self.deterministic)
-        return act.long()
+        logits = logits.float()
+        if not self.deterministic:
+            logits = logits + self._gumbel(n, logits.shape[-1], dev)
+        return logits.argmax(-1)
 
     def is_done(self, env, state):
         return self._done_fn(env, state)

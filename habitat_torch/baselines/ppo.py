@@ -52,6 +52,7 @@ from habitat_torch.models.policy import (
     sample_gaussian_action,
 )
 from habitat_torch.parallel import distributed
+from habitat_torch.utils.common import LagrangeInequalityCoefficient
 
 
 class BatchedEnvLike(Protocol):
@@ -241,6 +242,7 @@ class PPOLearner:
         self.adaptive_ent = cfg.use_adaptive_entropy_pen and action_type == "gaussian"
         if self.adaptive_ent:
             self.ent_threshold = -float(cfg.entropy_target_factor) * env.action_dim
+            self.ent_coef = LagrangeInequalityCoefficient(self.ent_threshold, alpha_min=1e-4, alpha_max=1.0)
 
     def _zero_action(self, n: int, dev) -> torch.Tensor:
         if self.action_type == "gaussian":
@@ -505,11 +507,9 @@ class PPOLearner:
                     self._set_lr(params)
                 self.optimizer.step()
                 if self.adaptive_ent:
-                    # dual ascent (reference LagrangeInequalityCoefficient,
-                    # greater_than=True), the main lr, clamped to [1e-4, 1]
+                    # dual ascent at the main lr, alpha clamped to [1e-4, 1]
                     aux["losses/entropy_coef"] = kw["ent_coef"]
-                    log_alpha.copy_(torch.clamp(log_alpha + cfg.lr * (self.ent_threshold - aux["losses/entropy"]),
-                                                math.log(1e-4), 0.0))
+                    log_alpha.copy_(self.ent_coef.ascend(log_alpha, aux["losses/entropy"], cfg.lr))
                 steps.append(aux)
         return {k: torch.stack([s[k] for s in steps]).mean() for k in steps[0]}
 

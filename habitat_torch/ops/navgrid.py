@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from habitat_torch.sims.scene import INF_DIST, ScenePack
+from habitat_torch.utils import threefry
 
 
 def world_to_cell_f(nav_lo: torch.Tensor, nav_res: float, xz: torch.Tensor) -> torch.Tensor:
@@ -118,6 +119,38 @@ def snap_to_navigable(
     res = float(np.float32(pack.nav_res))
     xz = (torch.stack([bi, bk], dim=-1).double() * res + lo.double()).float()
     return torch.stack([xz[:, 0], pack.floor_y[sid], xz[:, 1]], dim=-1)
+
+
+def sample_navigable_point(pack: ScenePack, sid, key, n_tries: int = 32) -> torch.Tensor:
+    """A uniform navigable point of scene ``sid`` by rejection over the
+    grid (PathFinder.get_random_navigable_point), JAX's draw for the same
+    Threefry key: ``n_tries`` cells from ``threefry.randint`` on the host,
+    the first navigable one, else the first try snapped to the nearest
+    navigable cell. ``key`` is (2,) -> (3,), or (..., 2) keys -> (..., 3)
+    points (``sid`` an int or broadcast over the keys); the occupancy
+    lookups and the snap run on the pack's device, after one copy there
+    that does not wait on the card."""
+    key = np.asarray(key, np.uint32)
+    lead = key.shape[:-1]
+    keys = key.reshape(-1, 2)
+    nx, nz = pack.nav_occ.shape[-2], pack.nav_occ.shape[-1]
+    k = threefry.split(keys)  # (K, 2, 2)
+    cells = np.stack([threefry.randint(k[:, 0], (n_tries,), 0, nx), threefry.randint(k[:, 1], (n_tries,), 0, nz)],
+                     axis=1).astype(np.int64)  # (K, 2, n_tries)
+    dev = pack.nav_lo.device
+    cells = torch.from_numpy(cells).to(dev, non_blocking=True)
+    sids = torch.as_tensor(sid, dtype=torch.int64).reshape(-1)
+    sids = sids.to(dev, non_blocking=True).expand(keys.shape[0])
+    ii, kk = cells[:, 0], cells[:, 1]
+    good = pack.nav_occ[sids[:, None], ii, kk]  # (K, n_tries)
+    j = good.to(torch.uint8).argmax(dim=1, keepdim=True)  # the first navigable try (0 if none)
+    cell = torch.stack([ii.gather(1, j)[:, 0], kk.gather(1, j)[:, 0]], dim=-1)
+    # index * res + lo rounded once, as XLA's compiled draw fuses it
+    res = float(np.float32(pack.nav_res))
+    xz = (cell.double() * res + pack.nav_lo[sids].double()).float()
+    p = torch.stack([xz[:, 0], pack.floor_y[sids], xz[:, 1]], dim=-1)
+    p = torch.where(good.any(dim=1)[:, None], p, snap_to_navigable(pack, sids, p))
+    return p.reshape(lead + (3,))
 
 
 # candidate headings of the greedy follower: a ring of 16, slot 0 straight ahead

@@ -1106,3 +1106,26 @@ def render_epilogue(
         t, hit, nrm, base, sem_val = _merge_dynamic(dynamic, cam_pos, dirs, t, hit, nrm, base, sem_val)
         nd = (nrm * dirs).sum(-1)
     return _frames(N, height, width, hit, _planar(t, dirs, yaw, pitch), nd, base, sem_val, sky, *depth_cfg)
+
+
+def render_env(
+    pack: ScenePack,
+    sid,
+    cam_pos,
+    yaw,
+    pitch,
+    **kw,
+) -> Dict[str, torch.Tensor]:
+    """One camera: ``render_batch`` at N=1, squeezed to (H, W, C) frames.
+    ``sid``, ``cam_pos`` (3,), ``yaw`` and ``pitch`` are tensors on the
+    pack's device or host numbers (copied there)."""
+    dev = pack.nav_lo.device
+
+    def one(x, dtype, shape):
+        return torch.as_tensor(x, dtype=dtype, device=dev).reshape(shape)
+
+    out = render_batch(
+        pack, one(sid, torch.int64, (1,)), one(cam_pos, torch.float32, (1, 3)), one(yaw, torch.float32, (1,)),
+        one(pitch, torch.float32, (1,)), **kw,
+    )
+    return {k: v[0] for k, v in out.items()}

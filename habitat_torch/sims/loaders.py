@@ -5,7 +5,9 @@ Reads:
 - .obj (wavefront, triangulated on load)
 - .glb / .gltf (embedded BIN, external buffers and data URIs: positions,
   indices, node transforms, COLOR_0, baseColorFactor, and baseColorTexture
-  baked to per-triangle colors at centroid UVs when PIL can decode it)
+  baked to per-triangle colors at centroid UVs; the JAX package decodes
+  textures with PIL, the port decodes 8-bit PNG itself (``decode_png``,
+  zlib) and bakes no other image format)
 - .npz (the packed scene format: vertices (T,3,3), colors (T,3),
   semantic_ids (T,))
 
@@ -22,11 +24,75 @@ import dataclasses
 import json
 import os
 import struct
+import zlib
 from typing import List, Optional
 
 import numpy as np
 
 from habitat_torch.sims.scene import SceneData, rasterize_occupancy
+
+
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples per pixel
+
+
+def decode_png(raw: bytes) -> Optional[np.ndarray]:
+    """(H, W, 3) float32 RGB in [0, 1] of an 8-bit, non-interlaced PNG
+    (grey, RGB, palette, grey + alpha or RGBA; alpha dropped), or None for
+    another format. The rows' filters are undone in numpy, per row."""
+    if raw[:8] != b"\x89PNG\r\n\x1a\n":
+        return None
+    at, idat, palette, head = 8, [], None, None
+    while at + 8 <= len(raw):
+        n, kind = struct.unpack(">I4s", raw[at:at + 8])
+        body = raw[at + 8:at + 8 + n]
+        at += 12 + n
+        if kind == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if head is None:
+        raise ValueError("PNG without IHDR")
+    w, h, depth, ctype, _, _, interlace = head
+    if depth != 8 or interlace or ctype not in _PNG_CHANNELS or (ctype == 3 and palette is None):
+        return None
+    c = _PNG_CHANNELS[ctype]
+    data = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * c)
+    out = np.zeros((h, w * c), np.uint8)
+    prev = np.zeros(w * c, np.int32)
+    for y in range(h):
+        f, row = data[y, 0], data[y, 1:].astype(np.int32)
+        if f == 1:  # Sub: running sum per channel
+            row = np.cumsum(row.reshape(w, c), axis=0).reshape(-1)
+        elif f == 2:  # Up
+            row = row + prev
+        elif f in (3, 4):  # Average, Paeth: each pixel after its left neighbour
+            row = row.copy()
+            for x in range(w * c):
+                a = row[x - c] & 255 if x >= c else 0
+                b = prev[x]
+                if f == 3:
+                    row[x] += (a + b) >> 1
+                else:
+                    cc = prev[x - c] if x >= c else 0
+                    p = a + b - cc
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - cc)
+                    row[x] += a if pa <= pb and pa <= pc else (b if pb <= pc else cc)
+        elif f != 0:
+            raise ValueError(f"PNG filter {f}")
+        out[y] = row & 255
+        prev = out[y].astype(np.int32)
+    px = out.reshape(h, w, c)
+    if ctype == 3:
+        rgb = palette[px[..., 0]]
+    elif c <= 2:
+        rgb = np.repeat(px[..., :1], 3, axis=-1)
+    else:
+        rgb = px[..., :3]
+    return rgb.astype(np.float32) / 255.0
 
 
 def save_scene_npz(scene: SceneData, path: str) -> None:
@@ -172,13 +238,8 @@ def _load_glb(path: str) -> SceneData:
         arr = None
         if raw is not None:
             try:
-                import io
-
-                from PIL import Image
-
-                with Image.open(io.BytesIO(raw)) as im:
-                    arr = np.asarray(im.convert("RGB"), np.float32) / 255.0
-            except Exception:
+                arr = decode_png(raw)
+            except (ValueError, zlib.error):
                 arr = None
         _image_cache[img_idx] = arr
         return arr

@@ -16,7 +16,8 @@
 - actions: stop / move_forward / turn_left / turn_right / look_up /
   look_down, velocity_control (continuous commands, integrated by the
   batched env) and teleport (no pose change in the batched env, as in the
-  JAX package, whose parameterised teleport runs only on its host sim).
+  JAX package; the parameterised teleport runs on the host simulator,
+  ``sims/tpu_sim.py``'s ``TpuSim.step``).
 """
 
 from __future__ import annotations
@@ -466,8 +467,10 @@ class LookDownAction(FunctionalAction):
 
 @registry.register_task_action("TeleportAction")
 class TeleportAction(FunctionalAction):
-    """Teleport to a given pose (reference nav.py:1121): in the batched env
-    it contributes no pose change."""
+    """Teleport to a given pose (reference nav.py:1121). The parameterised
+    action runs on the host simulator (``TpuSim.step({"action": "teleport",
+    "action_args": {"position", "rotation"}})``); in the batched env it
+    contributes no pose change."""
 
     name = "teleport"
 

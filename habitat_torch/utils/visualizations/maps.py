@@ -52,6 +52,37 @@ def get_topdown_map(scene, draw_border: bool = True) -> np.ndarray:
     return top_down_map
 
 
+def get_topdown_map_from_sim(sim, draw_border: bool = True, **kw) -> np.ndarray:
+    """``get_topdown_map`` of a ``TpuSim``'s scene (the reference samples the
+    navmesh instead, maps.py:326)."""
+    return get_topdown_map(sim._scene, draw_border=draw_border)
+
+
+def to_grid(realworld_x: float, realworld_y: float, grid_resolution: Tuple[int, int], lower_bound,
+            upper_bound) -> Tuple[int, int]:
+    """World xz -> grid cell of a map spanning [lower_bound, upper_bound]
+    (reference maps.py:186)."""
+    grid_size = (
+        (upper_bound[0] - lower_bound[0]) / grid_resolution[0],
+        (upper_bound[1] - lower_bound[1]) / grid_resolution[1],
+    )
+    grid_x = int((realworld_x - lower_bound[0]) / grid_size[0])
+    grid_y = int((realworld_y - lower_bound[1]) / grid_size[1])
+    return grid_x, grid_y
+
+
+def from_grid(grid_x: int, grid_y: int, grid_resolution: Tuple[int, int], lower_bound,
+              upper_bound) -> Tuple[float, float]:
+    """Grid cell -> world xz of its corner (reference maps.py:217)."""
+    grid_size = (
+        (upper_bound[0] - lower_bound[0]) / grid_resolution[0],
+        (upper_bound[1] - lower_bound[1]) / grid_resolution[1],
+    )
+    realworld_x = lower_bound[0] + grid_x * grid_size[0]
+    realworld_y = lower_bound[1] + grid_y * grid_size[1]
+    return realworld_x, realworld_y
+
+
 def colorize_topdown_map(top_down_map: np.ndarray, fog_of_war_mask: Optional[np.ndarray] = None,
                          fog_of_war_desat_amount: float = 0.5) -> np.ndarray:
     """(NX, NZ, 3) uint8 colors of a map; valid cells still under fog are

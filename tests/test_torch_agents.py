@@ -11,6 +11,13 @@ the CPU.
   pool crediting every tie, deterministic) gives the JAX ``PPOAgent``'s
   action at each of 10 observations, a reset between the fifth and sixth;
   its carry within 1e-5 of the JAX agent's at the end.
+- ``PPOAgent`` not deterministic, from the same weights and seed: JAX's
+  key is split at every act and its action drawn by ``categorical``; the
+  port draws the same Gumbel noise (``utils/threefry.py``) and so picks
+  JAX's action at every step of 30 env steps on a procedural scene (32x32
+  depth through the port's env, episodes ending by stop reset both
+  agents). Margin rule: a step may part only where the port's top two
+  noisy logits lie within 1e-5 (the float32 logit gap); none did.
 - ``load_checkpoint``: the flagship export (rebuilt from its JSON), a port
   trainer checkpoint (``{"policy": state_dict}``), and an orbax-style
   directory, which raises and names the export script.
@@ -100,6 +107,43 @@ def test_ppo_agent_matches_jax():
         got.append(ta.act(o))
     assert got == want and len(set(want)) > 1, (got, want)
     np.testing.assert_allclose(ta.hidden.numpy(), jhidden, atol=1e-5)
+
+
+def test_ppo_agent_samples_jax_draws():
+    from habitat_torch.core.env_factory import make_nav_env
+    from habitat_torch.datasets.pointnav import make_procedural_pointnav
+    from habitat_torch.utils import threefry
+
+    scenes, episodes, fields = make_procedural_pointnav(num_scenes=1, episodes_per_scene=4, seed=0)
+    env = make_nav_env(scenes, episodes, num_envs=1, precomputed_fields=fields, max_episode_steps=40, device="cpu",
+                       sensor_specs=(("HabitatSimDepthSensor", {"height": HW, "width": HW}),
+                                     ("PointGoalWithGPSCompassSensor", None)))
+    st, obs = env.reset_fn()
+    parted, actions = [], []
+    with _jax_as("float32", all_ties=True):
+        ja = jppo.PPOAgent(num_actions=4, backbone="resnet9", hidden_size=HIDDEN, deterministic=False, seed=3)
+        obs0 = {k: jnp.asarray(v[0].numpy())[None] for k, v in obs.items()}
+        ja.params = _random_params(ja.policy, obs0, ja.hidden, ja.prev_action, ja.mask, seed=5)
+        ta = PPOAgent(num_actions=4, visual_inputs=("depth",), input_hw=(HW, HW), backbone="resnet9",
+                      hidden_size=HIDDEN, deterministic=False, seed=3, dtype=torch.float32, device="cpu")
+        ta.policy.load_state_dict(params_from_jax(_flat(ja.params["params"])))
+        for _ in range(30):
+            o = {k: v[0].numpy() for k, v in obs.items()}
+            # the port's noisy logits for this act, for the margin rule
+            with torch.no_grad():
+                logits = ta.policy({k: torch.from_numpy(v)[None] for k, v in o.items()}, ta.hidden,
+                                   ta.prev_action, ta.mask)[0][0]
+            noisy = np.sort(logits.numpy() + threefry.gumbel(threefry.split(ta._key)[1], (1, 4))[0])
+            a_j, a_t = ja.act(o), ta.act(o)
+            actions.append(a_j)
+            if a_j != a_t:
+                parted.append(noisy[-1] - noisy[-2])
+            st, obs, _, done, _ = env.step_fn(st, torch.tensor([a_j]))
+            if done[0]:
+                ja.reset()
+                ta.reset()
+    assert all(m <= 1e-5 for m in parted), parted
+    assert not parted and len(set(actions)) == 4, (parted, actions)
 
 
 def test_ppo_agent_loads_exports_and_trainer_checkpoints(tmp_path):

@@ -1767,3 +1767,51 @@ def test_reach_goal_table_on_card(card):
         env_g.step_fn(st, a)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+# -- the single-env simulator and the sampling agents on the card ----------------
+
+
+def test_tpu_sim_frames_on_card_match_cpu(cuda):
+    """TpuSim on the card beside one on the CPU through the same actions:
+    poses and collision flags equal, frames by the frame rule (depth within
+    1e-4, RGB equal on >= 99.9% of pixels); #1 once per step; its frame at
+    the last pose held to #1's plain version on the same rays (``_agree``)."""
+    from habitat_torch.sims.tpu_sim import TpuSim
+
+    g, c = TpuSim(None, device=cuda), TpuSim(None, device="cpu")
+    before = rk.raycast_fused_sel_t.launches
+    acts = [1] * 6 + [2, 2, 1, 1, 4, 5, 3, 1]
+    for a in acts:
+        og, oc = g.step(a), c.step(a)
+        np.testing.assert_array_equal(g._pos, c._pos)
+        assert g._collided == c._collided
+        assert np.abs(og["depth"] - oc["depth"]).max() <= 1e-4
+        assert (og["rgb"] == oc["rgb"]).all(-1).mean() >= 0.999
+    torch.cuda.synchronize()
+    assert rk.raycast_fused_sel_t.launches == before + len(acts)
+    cam = torch.tensor(g._pos + np.float32([0.0, 1.25, 0.0]), device=cuda)[None]
+    yaw = torch.full((1,), g._yaw, dtype=torch.float32, device=cuda)
+    pitch = torch.full((1,), g._pitch, dtype=torch.float32, device=cuda)
+    kernel, args, kwargs, _ = rc.closest_hit_call(g.pack, torch.zeros(1, dtype=torch.int64, device=cuda), cam, yaw,
+                                                  pitch, height=128, width=128)
+    assert kernel is rk.raycast_fused_sel_t
+    got = kernel(*args, **kwargs)
+    _agree(rk.raycast_fused_sel_t_plain(*[a.cpu() for a in args], **kwargs), got)
+
+
+def test_gumbel_noise_on_card(cuda):
+    """The noise tables the agents draw on the host reach the card unchanged,
+    and PPOAgent's card act samples from them: noise + logits argmax."""
+    from habitat_torch.baselines.hrl.hierarchical import NnSkill
+    from habitat_torch.utils import threefry
+
+    skill = NnSkill(None, done_fn=None, deterministic=False)
+    table = skill._gumbel(128, 4, cuda)
+    assert table.device.type == "cuda"
+    assert torch.equal(table.cpu(), torch.from_numpy(threefry.gumbel(threefry.prng_key(0), (128, 4))))
+    assert skill._gumbel(128, 4, cuda) is table
+    logits = torch.randn(128, 4, device=cuda)
+    assert torch.equal((logits + table).argmax(-1).cpu(),
+                       torch.from_numpy(np.argmax(threefry.gumbel(threefry.prng_key(0), (128, 4))
+                                                  + logits.cpu().numpy(), -1)))

@@ -1,7 +1,7 @@
 """The port stands alone: nothing under habitat_torch/, nothing in
 chip_smoke.py and nothing in scripts/eval_flagship_torch.py imports JAX,
-Flax, Optax, Orbax, gymnasium, OpenCV, imageio, grpc (the card's machine has
-none of them) or the habitat_tpu package. The config path's modules, imported one by one in a
+Flax, Optax, Orbax, gymnasium, OpenCV, imageio, grpc, PIL (the card's machine
+has none of them) or the habitat_tpu package. The config path's modules, imported one by one in a
 fresh interpreter, load none of them, and ``habitat_torch.config`` composes
 the in-repo YAML tree (read as data) without them either."""
 
@@ -11,7 +11,7 @@ import os
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gymnasium", "cv2", "imageio", "grpc", "habitat_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gymnasium", "cv2", "imageio", "grpc", "PIL", "habitat_tpu")
 
 
 def _port_files():
@@ -49,7 +49,9 @@ def test_port_files_found():
                    "tasks/rearrange/multi_task/pddl_yaml.py", "sims/sim_utilities.py", "sims/receptacles.py",
                    "tasks/rearrange/samplers.py", "sims/kinematic_relationship_manager.py",
                    "sims/object_state_machine.py", "sims/procedural.py", "utils/threefry.py",
-                   "tasks/rearrange/art_scene.py"):
+                   "tasks/rearrange/art_scene.py", "sims/tpu_sim.py", "core/simulator.py",
+                   "sims/semantic_scene.py", "sims/debug_visualizer.py", "baselines/obs_transformers.py",
+                   "utils/common.py", "utils/info_dict.py", "utils/profiling_wrapper.py"):
         assert os.path.join(ROOT, "habitat_torch", module) in files
 
 
@@ -82,7 +84,9 @@ CONFIG_PATH_MODULES = (
     "habitat_torch.sims.receptacles", "habitat_torch.tasks.rearrange.samplers",
     "habitat_torch.sims.kinematic_relationship_manager", "habitat_torch.sims.object_state_machine",
     "habitat_torch.utils.threefry", "habitat_torch.tasks.rearrange.generator",
-    "habitat_torch.tasks.rearrange.art_scene",
+    "habitat_torch.tasks.rearrange.art_scene", "habitat_torch.core.simulator", "habitat_torch.sims.semantic_scene",
+    "habitat_torch.sims.tpu_sim", "habitat_torch.sims.debug_visualizer", "habitat_torch.baselines.obs_transformers",
+    "habitat_torch.utils.common", "habitat_torch.utils.info_dict", "habitat_torch.utils.profiling_wrapper",
 )
 _PROBE = """
 import json, sys

@@ -7,6 +7,11 @@ episodes).
   the navgrid (occupancy, obstacle distance, origin) equal to JAX's; the
   same after a save -> load round trip through npz, glb and gltf (+ .bin),
   each package reading its own file, and through a hand-written .obj.
+- A textured gltf (tests/test_scene.py:117's two triangles over a PNG
+  atlas, written by PIL): the port decodes the PNG without PIL
+  (``loaders.decode_png``) and bakes JAX's colors; the decoder undoes each
+  of the five PNG row filters (hand-filtered rows) and reads grey, grey +
+  alpha, palette and RGBA images as PIL does; a JPEG gives None.
 - ``resolve_scene_dataset`` on the mini config: the same stage path, the
   same error for an unknown id.
 - ``PointNavDatasetV1``: the 8 episodes equal field by field, and
@@ -154,3 +159,89 @@ def test_objectnav_file_on_disk_matches_jax(tmp_path):
         for s in ("rgb", "depth", "semantic") for d in ("width", "height")]), num_envs=2, device="cpu")
     _, obs = env.reset_fn()
     assert obs["objectgoal"].tolist() == [[3], [3]] and obs["depth"].shape == (2, 16, 16, 1)
+
+
+def _texture_gltf(path):
+    """tests/test_scene.py:117's asset: left half red, right half green."""
+    from PIL import Image
+
+    tex = np.zeros((8, 8, 3), np.uint8)
+    tex[:, :4, 0] = 255
+    tex[:, 4:, 1] = 255
+    Image.fromarray(tex).save(os.path.join(path, "atlas.png"))
+    pos = np.array([[0, 0, 0], [1, 0, 0], [0, 0, 1], [2, 0, 0], [3, 0, 0], [2, 0, 1]], np.float32)
+    uv = np.array([[0.0, 0.5], [0.2, 0.5], [0.1, 0.4], [0.8, 0.5], [0.9, 0.5], [0.85, 0.4]], np.float32)
+    blob = pos.tobytes() + uv.tobytes()
+    with open(os.path.join(path, "mesh.bin"), "wb") as f:
+        f.write(blob)
+    gltf = {
+        "asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": [0]}], "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": [{"attributes": {"POSITION": 0, "TEXCOORD_0": 1}, "material": 0, "mode": 4}]}],
+        "materials": [{"pbrMetallicRoughness": {"baseColorTexture": {"index": 0}}}],
+        "textures": [{"source": 0}], "images": [{"uri": "atlas.png"}],
+        "buffers": [{"uri": "mesh.bin", "byteLength": len(blob)}],
+        "bufferViews": [{"buffer": 0, "byteOffset": 0, "byteLength": pos.nbytes},
+                        {"buffer": 0, "byteOffset": pos.nbytes, "byteLength": uv.nbytes}],
+        "accessors": [{"bufferView": 0, "componentType": 5126, "count": 6, "type": "VEC3", "min": [0, 0, 0],
+                       "max": [3, 0, 1]},
+                      {"bufferView": 1, "componentType": 5126, "count": 6, "type": "VEC2"}],
+    }
+    with open(os.path.join(path, "mesh.gltf"), "w") as f:
+        json.dump(gltf, f)
+    return os.path.join(path, "mesh.gltf")
+
+
+def _png(pixels, ctype, filters, palette=None):
+    """A PNG of (H, W*C) uint8 rows, row y filtered with filters[y]."""
+    import struct
+    import zlib
+
+    h, wc = pixels.shape
+    c = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+    x = pixels.astype(np.int64)
+    rows = []
+    for y in range(h):
+        up = x[y - 1] if y else np.zeros(wc, np.int64)
+        left = np.concatenate([np.zeros(c, np.int64), x[y, :-c]])
+        ul = np.concatenate([np.zeros(c, np.int64), up[:-c]])
+        f = filters[y % len(filters)]
+        if f == 4:
+            p = left + up - ul
+            pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+        else:
+            pred = [np.zeros(wc, np.int64), left, up, (left + up) // 2][f]
+        rows.append(bytes([f]) + ((x[y] - pred) % 256).astype(np.uint8).tobytes())
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    out = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", wc // c, h, 8, ctype, 0, 0, 0))
+    if palette is not None:
+        out += chunk(b"PLTE", palette.tobytes())
+    return out + chunk(b"IDAT", zlib.compress(b"".join(rows))) + chunk(b"IEND", b"")
+
+
+def test_textured_gltf_and_png_decoder(tmp_path):
+    import io
+
+    from PIL import Image
+
+    path = _texture_gltf(str(tmp_path))
+    got, want = tload.load_scene(path), jload.load_scene(path)
+    np.testing.assert_array_equal(got.colors, want.colors)
+    np.testing.assert_allclose(got.colors[0], [1.0, 0.0, 0.0], atol=1e-2)
+    np.testing.assert_allclose(got.colors[1], [0.0, 1.0, 0.0], atol=1e-2)
+    rng = np.random.default_rng(0)
+    rgb = rng.integers(0, 256, (7, 9 * 3), dtype=np.uint8)
+    for filters in ([0], [1], [2], [3], [4], [4, 3, 2, 1, 0]):
+        np.testing.assert_array_equal(tload.decode_png(_png(rgb, 2, filters)), rgb.reshape(7, 9, 3) / np.float32(255))
+    for mode in ("L", "LA", "P", "RGBA"):
+        im = Image.fromarray(rng.integers(0, 256, (6, 10, 3), dtype=np.uint8)).convert(mode)
+        buf = io.BytesIO()
+        im.save(buf, format="PNG")
+        np.testing.assert_array_equal(tload.decode_png(buf.getvalue()),
+                                      np.asarray(im.convert("RGB"), np.float32) / 255.0, err_msg=mode)
+    buf = io.BytesIO()
+    Image.fromarray(rgb.reshape(7, 9, 3)).save(buf, format="JPEG")
+    assert tload.decode_png(buf.getvalue()) is None
