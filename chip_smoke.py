@@ -440,6 +440,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            apply_relations_rotating, batched_within and batched_ontop at
            N=128 card against CPU.
 
+22. vector-env  VEC_ENV: ThreadedVectorEnv and VectorEnv (forkserver) of 4
+           RLTaskEnv(pointnav_procgen.yaml) workers at its 128x128 depth
+           (worker i with habitat.seed 100 + i, the dataset cut to 4 x 4),
+           64 batched steps with stops: every worker's returns equal an
+           in-process card env's given the same actions; #1 once per render
+           (threads: counted here; processes: read from each worker with
+           call_at, the parent launching none); a worker whose step raises
+           makes the parent raise within 30 s; close() leaves no live worker.
+           ms per batched step for each variant.
+    eval-video  evaluate_agent with the flagship weights on the flagship
+           protocol's first 8 scenes at N=8, one greedy episode per env,
+           video_option=("disk",) with a TopDownMapTracker: metrics equal to
+           the same eval without video; #1 once per render; the GIF one
+           frame per recorded step at round(100 / fps) cs; every frame equal
+           to observations_to_image of its step's card observation; the
+           debug camera's make_debug_video over a card TpuSim and
+           DebugObservation.save (the PNG decodes to the image). ms per eval
+           step with and without recording.
+    clip   trainer_from_config for one update at N=16, T=32 of
+           resnet50_clip_attnpool on pointnav_procgen.yaml (depth) and
+           resnet50_clip_avgpool on objectnav_procgen.yaml (RGB + depth):
+           #1 1 + 32 per config, no plain version on a card tensor; the
+           trunk bit-unchanged, visual_fc moved; the first envs' features
+           card against CPU within 2**-6 of the largest. ms per rollout step
+           and update, launches and idle share of a rollout step.
+
 Prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
@@ -474,11 +500,11 @@ FLOPS_TILECULL_EPILOGUE = 18
 
 BENCH = dict(num_envs=256, height=128, width=128, num_steps=32)
 MID = dict(num_envs=16, num_steps=4, extent=30.0, n_clutter=420)
-ROLLOUTS = 5  # timed bench rollouts after the warm-up one
+ROLLOUTS = 3  # timed bench rollouts after the warm-up one (cut from 5 to keep the script under 1,050 s on a slow host)
 SCAN = dict(tess=0.04, n_clutter=40, cells=(0.08, 0.25, 0.6), bands=(1.2, 3.0, 8.0), triangles=859290)
 SCAN_ROLLOUTS = 3  # timed scan rollouts after the warm-up one (cut from 5 to keep the script near 1,000 s)
 TRAIN = dict(num_steps=32, num_mini_batch=2, ppo_epoch=2)  # bench.py's train step
-TRAIN_STEPS = 3  # timed bench train steps after the warm-up one (cut from 5 to keep the script near 1,000 s)
+TRAIN_STEPS = 2  # timed bench train steps after the warm-up one (cut from 5, then 3, for the script's time)
 SCAN_TRAIN_STEPS = 2  # timed scan train steps after the warm-up one
 PANO = dict(height=128, width=256)  # the equirect depth+RGB pair of [pano] and [pano-scan]
 PANO_ROLLOUTS = 3  # timed panoramic rollouts after the warm-up one
@@ -616,7 +642,7 @@ ONAV_SCHEDULE = (1, 4, 1, 2, 5, 5, 1, 3, 4, 1, 1, 2, 5, 1, 3, 4, 5, 1, 2, 1, 4, 
 # the three train recipes (the repo's scripts/train_{objectnav,imagenav,
 # pick_arm}_tpu.py at their widths), each run for RECIPE_UPDATES updates
 RECIPE_PPO = dict(num_steps=64, num_mini_batch=2, ppo_epoch=2, lr=2.5e-4)
-RECIPE_UPDATES = 3
+RECIPE_UPDATES = 2  # cut from 3 for the script's time
 ONAV_RECIPE = dict(num_scenes=16, episodes_per_scene=16, seed=0, extent=8.0, num_envs=128, max_episode_steps=200,
                    hw=64, hidden_size=192)
 INAV_RECIPE = dict(num_scenes=8, episodes_per_scene=24, seed=0, extent=8.0, num_envs=128, max_episode_steps=200,
@@ -781,6 +807,14 @@ REACH_RULE = dict(updates=60, after=20, success=0.6, hidden=64)
 REACH_GOALS = 4096  # episodes of the goal table held card against CPU
 REACH_GOAL_ATOL = 1e-6  # resting EE + offset, card - CPU (the offsets themselves bit-equal)
 RELATIONS = dict(num_envs=128, objects=8)  # the batched relations and predicates, card against CPU
+# [vector-env]: workers, batched steps, the dataset cut per worker, the deadline for a forwarded error
+VEC_ENV = dict(num_envs=4, steps=64, num_scenes=4, episodes_per_scene=4, error_s=30.0)
+# [eval-video]: the flagship protocol's first scenes at N=8, one episode per env; the debug camera's peeks
+EVAL_VIDEO = dict(num_envs=8, num_scenes=8, dbv=(128, 128),
+                  peeks=("scene", {"center": [3.0, 0.5, 3.0], "size": [1.0, 1.0, 1.0]},
+                         ([2.0, 0.0, 2.0], [4.0, 1.0, 4.0])))
+# [clip]: one update per config; the envs whose features are held card against CPU
+CLIP = dict(num_envs=16, num_steps=32, num_scenes=8, check_envs=4)
 
 
 def log(msg):
@@ -5263,6 +5297,411 @@ def sampled_agent_check(dev, env, steps=AGENT_SAMPLED_STEPS):
     return steps, ruled, parted, worst, act_ms
 
 
+def vector_env_worker(overrides, device):
+    """One [vector-env] worker's env (module level, so a forkserver child
+    imports it by name): RLTaskEnv(pointnav_procgen.yaml) with
+    ``overrides`` on ``device``; its ``kernel_launches()`` reads #1's count
+    in the worker's process and ``zero_launches()`` sets it to 0."""
+    from habitat_torch.config.default import get_config
+    from habitat_torch.core.environments import RLTaskEnv
+    from habitat_torch.ops import raycast_kernels as rk
+
+    env = RLTaskEnv(get_config(ENV_API_CONFIG, list(overrides)), device=device)
+    env.kernel_launches = lambda: rk.raycast_fused_sel_t.launches
+    env.zero_launches = lambda: setattr(rk.raycast_fused_sel_t, "launches", 0)
+    return env
+
+
+def vec_actions(size=VEC_ENV):
+    """(steps, N) actions: forward and turns, with stops at fixed steps."""
+    out = []
+    for t in range(size["steps"]):
+        row = []
+        for i in range(size["num_envs"]):
+            stop = t in (9 + 7 * i, 40 + 5 * i)
+            row.append(0 if stop else (1, 1, 2, 1, 3)[(t + i) % 5])
+        out.append(row)
+    return out
+
+
+def same_returns(tag, got, want):
+    """A worker's (obs, reward, done, info) equal to the in-process env's."""
+    import torch
+
+    (go, gr, gd, gi), (wo, wr, wd, wi) = got, want
+    if set(go) != set(wo) or not all(torch.equal(go[k], wo[k]) for k in wo):
+        fail(f"{tag}: observations differ from the in-process env's")
+    if (gr, gd) != (wr, wd) or dict(gi) != dict(wi):
+        fail(f"{tag}: reward/done/info {(gr, gd, dict(gi))}, in-process {(wr, wd, dict(wi))}")
+
+
+def vector_env_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card, size=VEC_ENV):
+    """[vector-env]: ThreadedVectorEnv and VectorEnv (forkserver) of
+    size['num_envs'] RLTaskEnv(pointnav_procgen.yaml) workers on the card at
+    its 128x128 depth (worker i with habitat.seed 100 + i, the dataset cut
+    to size['num_scenes'] x size['episodes_per_scene']). Gates: over
+    size['steps'] batched steps with stops (auto-resets), every worker's
+    returns equal an in-process card env's given the same actions; #1 once
+    per render (the reset, each step, each auto-reset), counted in this
+    process for the threads and, in each worker process, set to 0 with
+    call before the run and read with call_at after it; no plain version on a card tensor; a step that raises in
+    worker 0 makes the parent raise RuntimeError within size['error_s'], and
+    close() then leaves no live worker. Returns #1's launches {variant: n}."""
+    import torch
+
+    from habitat_torch.core.vector_env import ThreadedVectorEnv, VectorEnv
+
+    t_phase = time.perf_counter()
+    n = size["num_envs"]
+    overrides = [(f"habitat.seed={100 + i}", f"habitat.dataset.procedural.num_scenes={size['num_scenes']}",
+                  f"habitat.dataset.procedural.episodes_per_scene={size['episodes_per_scene']}") for i in range(n)]
+    actions = vec_actions(size)
+    out, launches = {}, {}
+    for name, cls, kw in (("threaded", ThreadedVectorEnv, {}),
+                          ("process", VectorEnv, dict(multiprocessing_start_method="forkserver"))):
+        t0 = time.perf_counter()
+        envs = cls(vector_env_worker, [(ov, dev.type) for ov in overrides], device=dev, **kw)
+        setup_s = time.perf_counter() - t0
+        zero_counts()
+        envs.call(["zero_launches"] * n)  # the worker processes' own counts
+        for p in plain_watch:
+            p.start()
+        first, steps, ms = envs.reset(), [], []
+        for a in actions:
+            t0 = time.perf_counter()
+            steps.append(envs.step(a))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        sync(dev)
+        for p in plain_watch:
+            p.stop()
+        if plain_on_card:
+            fail(f"[vector-env] {name}: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+        dones = sum(int(r[2]) for row in steps for r in row)
+        renders = n + n * len(actions) + dones
+        if name == "threaded":
+            launches[name] = path_counts("[vector-env] threaded", raycast_fused_sel_t=renders)["raycast_fused_sel_t"]
+        else:
+            path_counts("[vector-env] process (the parent)")
+            launches[name] = sum(envs.call_at(i, "kernel_launches") for i in range(n))
+            if launches[name] != renders:
+                fail(f"[vector-env] process: the workers launched #1 {launches[name]} times, want {renders}")
+        # a step that raises in worker 0: forwarded within the deadline
+        t0 = time.perf_counter()
+        try:
+            envs.step(["fly"] + [1] * (n - 1))
+            fail(f"[vector-env] {name}: a worker's error did not reach the parent")
+        except RuntimeError as e:
+            if "worker 0" not in str(e) or "'step'" not in str(e):
+                fail(f"[vector-env] {name}: the forwarded error does not name the worker and command: {e}")
+        err_s = time.perf_counter() - t0
+        if err_s > size["error_s"]:
+            fail(f"[vector-env] {name}: the error took {err_s:.1f} s to reach the parent")
+        envs.close()
+        live = [w.index for w in envs._workers if w.alive()]
+        if live:
+            fail(f"[vector-env] {name}: workers {live} still alive after close()")
+        out[name] = dict(ms=ms, setup_s=setup_s, err_s=err_s, dones=dones, first=first, steps=steps)
+    # every worker of both variants against an in-process card env given the same actions
+    for i in range(n):
+        ref = vector_env_worker(overrides[i], dev)
+        obs = ref.reset()
+        for name, run in out.items():
+            if not all(torch.equal(run["first"][i][k], obs[k]) for k in obs):
+                fail(f"[vector-env] {name} worker {i}: the reset differs from the in-process env's")
+        for t, a in enumerate(actions):
+            want = ref.step(a[i])
+            if want[2]:
+                want = (ref.reset(), *want[1:])
+            for name, run in out.items():
+                same_returns(f"[vector-env] {name} worker {i} step {t}", run["steps"][t][i], want)
+    log(f"[vector-env] {gpu}: {n} RLTaskEnv(pointnav_procgen.yaml) workers, 128x128 depth, {len(actions)} batched "
+        f"steps with stops: " + "; ".join(
+            f"{k}: ms per batched step {ms_text(v['ms'])}, #1 {launches[k]} = {n} + {n} x {len(actions)} + "
+            f"{v['dones']} auto-resets, set-up {v['setup_s']:.1f} s, a worker's error raised in the parent after "
+            f"{v['err_s']:.2f} s" for k, v in out.items())
+        + f"; every worker's returns equal an in-process card env's, no plain version on a card tensor, no live "
+        f"worker after close(); the phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def gif_frames(path):
+    """(frames, width, height, delays in cs) of a GIF, read block by block."""
+    import struct
+
+    raw = open(path, "rb").read()
+    if raw[:6] != b"GIF89a":
+        fail(f"{path} is not a GIF89a")
+    w, h, packed = struct.unpack("<HHB", raw[6:11])
+    at = 13 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
+    frames, delays = 0, []
+
+    def skip_sub_blocks(at):
+        while raw[at]:
+            at += raw[at] + 1
+        return at + 1
+
+    while raw[at] != 0x3B:
+        if raw[at] == 0x21:
+            if raw[at + 1] == 0xF9:
+                delays.append(struct.unpack("<H", raw[at + 4:at + 6])[0])
+            at = skip_sub_blocks(at + 2)
+        elif raw[at] == 0x2C:
+            flags = raw[at + 9]
+            at += 10 + (3 << ((flags & 7) + 1) if flags & 0x80 else 0)
+            at = skip_sub_blocks(at + 1)
+            frames += 1
+        else:
+            fail(f"{path}: unknown GIF block {raw[at]:#x} at {at}")
+    return frames, w, h, delays
+
+
+def eval_video_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card, size=EVAL_VIDEO):
+    """[eval-video]: evaluate_agent with the flagship policy on the flagship
+    env (its first size['num_scenes'] held-out scenes, 128x128 depth) at
+    N=size['num_envs'], one episode per env, greedy, video_option=("disk",)
+    with a TopDownMapTracker of env 0's scene. Gates: the metrics equal those
+    of the same eval without video; #1 once per render and no plain version
+    on a card tensor; the GIF holds one frame per recorded step, each
+    delayed round(100 / fps) cs; every frame given to generate_video equals
+    observations_to_image of that step's card observation and the tracker's
+    map (a run with a step recorder). Then DebugVisualizer.make_debug_video
+    over a card TpuSim (one GIF frame per peek, #1 once per peek) and
+    DebugObservation.save (the PNG decodes to the image). Returns #1's
+    launches of the recorded eval."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import habitat_torch.utils.common as common
+    from habitat_torch.baselines import flagship
+    from habitat_torch.baselines.evaluator import evaluate_agent
+    from habitat_torch.core.env_factory import make_nav_env
+    from habitat_torch.datasets.pointnav import make_procedural_pointnav
+    from habitat_torch.models.convert import load_policy_file
+    from habitat_torch.sims.debug_visualizer import DebugVisualizer
+    from habitat_torch.sims.loaders import decode_png
+    from habitat_torch.sims.procedural import generate_apartment
+    from habitat_torch.sims.tpu_sim import TpuSim
+    from habitat_torch.utils.visualizations.image_io import gif_delay_cs
+    from habitat_torch.utils.visualizations.maps import TopDownMapTracker
+    from habitat_torch.utils.visualizations.utils import observations_to_image
+
+    t_phase = time.perf_counter()
+    p = flagship.PROTOCOL
+    scenes, episodes, fields = make_procedural_pointnav(num_scenes=size["num_scenes"],
+                                                        episodes_per_scene=p["episodes_per_scene"],
+                                                        seed=p["scene_seed"])
+    env = make_nav_env(scenes, episodes, num_envs=size["num_envs"], precomputed_fields=fields,
+                       max_episode_steps=p["max_episode_steps"], device=dev,
+                       sensor_specs=(("HabitatSimDepthSensor", {"height": p["res"], "width": p["res"]}),
+                                     ("PointGoalWithGPSCompassSensor", None)))
+    policy = load_policy_file(flagship.WEIGHTS, device=dev)
+    st, _ = env.reset_fn()
+    scene0 = scenes[int(env.table.scene_idx[st.ep_idx[0]].item())]
+    kw = dict(episodes_per_env=1, deterministic=True)
+    step_fn, steps = env.step_fn, []
+
+    def counted(*a):
+        steps.append(1)
+        return step_fn(*a)
+
+    def timed(**extra):
+        env.step_fn = counted
+        steps.clear()
+        sync(dev)
+        t0 = time.perf_counter()
+        m = evaluate_agent(env, policy, **kw, **extra)
+        sync(dev)
+        env.step_fn = step_fn
+        return m, (time.perf_counter() - t0) * 1e3 / len(steps), len(steps)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        plain, plain_ms, n_steps = timed()
+        zero_counts()
+        for q in plain_watch:
+            q.start()
+        video, video_ms, n_video = timed(video_option=("disk",), video_dir=os.path.join(tmp, "a"),
+                                         map_tracker=TopDownMapTracker(scene0), checkpoint_idx=1)
+        sync(dev)
+        for q in plain_watch:
+            q.stop()
+        if plain_on_card:
+            fail(f"[eval-video]: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+        launches = path_counts("[eval-video] recorded eval", raycast_fused_sel_t=1 + n_video)
+        if video != plain or n_video != n_steps:
+            fail(f"[eval-video] metrics with video {video} ({n_video} steps), without {plain} ({n_steps})")
+        # the frames against observations_to_image of each step's card observation
+        frames, seen = [], []
+        generate = common.generate_video
+
+        def keep(video_option, video_dir, images, **k):
+            frames.extend(images)
+            return generate(video_option, video_dir, images, **k)
+
+        def record(state, action):
+            out = step_fn(state, action)
+            s, obs, _, done = out[:4]
+            seen.append((obs["depth"][0].cpu().numpy(), s.pos[0].cpu().numpy(), float(s.yaw[0]), bool(done[0])))
+            return out
+
+        env.step_fn = record
+        with mock.patch.object(common, "generate_video", keep):
+            evaluate_agent(env, policy, **kw, video_option=("disk",), video_dir=os.path.join(tmp, "b"),
+                           map_tracker=TopDownMapTracker(scene0), checkpoint_idx=1)
+        env.step_fn = step_fn
+        tracker = TopDownMapTracker(scene0)
+        n_rec = next(k for k, r in enumerate(seen) if r[3]) + 1  # env 0's quota closes at its first done
+        if len(frames) != n_rec:
+            fail(f"[eval-video] {len(frames)} frames for {n_rec} recorded steps")
+        for k, (depth, pos, yaw, done) in enumerate(seen[:n_rec]):
+            tracker.update(pos, yaw)
+            want = observations_to_image({"depth": depth}, {"top_down_map": tracker.frame()})
+            if not np.array_equal(frames[k], want):
+                fail(f"[eval-video] frame {k} differs from observations_to_image of the step's observation")
+            if done:
+                tracker.reset()
+        (name,) = os.listdir(os.path.join(tmp, "a"))
+        n_gif, gw, gh, delays = gif_frames(os.path.join(tmp, "a", name))
+        gif_bytes = os.path.getsize(os.path.join(tmp, "a", name))
+        if (n_gif, gh, gw) != (n_rec, *frames[0].shape[:2]) or set(delays) != {gif_delay_cs(10)}:
+            fail(f"[eval-video] {name}: {n_gif} frames of {gw}x{gh}, delays {set(delays)}; want {n_rec} of "
+                 f"{frames[0].shape[1]}x{frames[0].shape[0]}, {gif_delay_cs(10)} cs")
+        # the debug camera over a card TpuSim
+        sim = TpuSim(None, scene=generate_apartment(seed=0), device=dev)
+        dbv = DebugVisualizer(sim.pack, resolution=size["dbv"], device=dev)
+        zero_counts()
+        for subject in size["peeks"]:
+            dbv.peek(subject)
+        obs = dbv.get_observation(look_at=[3.0, 0.5, 3.0], look_from=[1.0, 1.5, 1.0])
+        path_counts("[eval-video] debug camera", raycast_fused_sel_t=len(size["peeks"]) + 1)
+        dbv.make_debug_video(tmp, prefix="dbv")
+        n_dbv = gif_frames(os.path.join(tmp, "dbv.gif"))[0]
+        obs.show_point(np.array([0.5, 0.5]))
+        png = obs.save(tmp, "dbg")
+        decoded = np.round(decode_png(open(png, "rb").read()) * 255).astype(np.uint8)
+        if n_dbv != len(size["peeks"]) or not np.array_equal(decoded, obs.get_image()):
+            fail(f"[eval-video] debug video {n_dbv} frames (want {len(size['peeks'])}), PNG equal to the image: "
+                 f"{np.array_equal(decoded, obs.get_image())}")
+    log(f"[eval-video] {gpu}: the flagship policy on {size['num_scenes']} flagship scenes, N={size['num_envs']}, one "
+        f"greedy episode per env: {n_steps} eval steps, ms per eval step {plain_ms:.3f} without recording and "
+        f"{video_ms:.3f} recording env 0 (its frame in the step's one host copy); metrics equal with and without "
+        f"video ({', '.join(f'{k} {v:.4f}' for k, v in sorted(plain.items()))}); #1 {launches['raycast_fused_sel_t']}"
+        f" = 1 + {n_video}, no plain version on a card tensor; {name}: {n_gif} frames of {gw}x{gh} "
+        f"({gif_bytes} bytes), each {delays[0]} cs, every frame equal to observations_to_image of its step's card "
+        f"observation; DebugVisualizer.make_debug_video over a card TpuSim: {n_dbv} frames of "
+        f"{size['dbv'][0]}x{size['dbv'][1]}, #1 once per peek; DebugObservation.save's PNG equal to its image; "
+        f"the phase {time.perf_counter() - t_phase:.1f} s")
+    return launches["raycast_fused_sel_t"]
+
+
+CLIP_YAML = """# @package _global_
+defaults:
+  - /benchmark/nav/{task}: {task}_procgen
+  - /habitat_baselines: habitat_baselines_rl_config_base
+  - _self_
+"""
+
+
+def clip_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card, size=CLIP):
+    """[clip]: PPO with the frozen CLIP-RN50 backbones through
+    trainer_from_config, one update at N=size['num_envs'], T=size['num_steps']
+    (PPO's 4 epochs x 2 minibatches), on pointnav_procgen.yaml with
+    resnet50_clip_attnpool (128x128 depth through the trunk) and on
+    objectnav_procgen.yaml with resnet50_clip_avgpool (128x128 RGB and depth,
+    the summed maps). Gates: finite losses; #1 once per render (1 + T) and
+    no plain version on a card tensor; the trunk's weights bit-unchanged
+    after the update while visual_fc moves; the encoder's features on the
+    first size['check_envs'] envs' reset observations equal the CPU port's
+    at the same weights within 2**-6 of the largest |feature| (the bf16 rule
+    of tests/test_torch_clip.py). Returns #1's launches {config: n}."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from habitat_torch.config.default import get_config
+    from habitat_torch.core import construct
+
+    t_phase = time.perf_counter()
+    launches, texts = {}, []
+    for task, backbone, sensors in (("pointnav", "resnet50_clip_attnpool", ("depth",)),
+                                    ("objectnav", "resnet50_clip_avgpool", ("rgb", "depth"))):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, f"{task}.yaml")
+            with open(path, "w") as f:
+                f.write(CLIP_YAML.format(task=task))
+            cfg = get_config(path, [f"habitat_baselines.rl.ddppo.backbone={backbone}",
+                                    f"habitat_baselines.num_environments={size['num_envs']}",
+                                    f"habitat_baselines.rl.ppo.num_steps={size['num_steps']}",
+                                    "habitat_baselines.tensorboard_dir=",
+                                    f"habitat_baselines.checkpoint_folder={tmp}/ckpt",
+                                    f"habitat.dataset.procedural.num_scenes={size['num_scenes']}"])
+            t0 = time.perf_counter()
+            trainer = construct.trainer_from_config(cfg, device=dev)
+            setup_s = time.perf_counter() - t0
+        policy, env, lrn = trainer.policy, trainer.env, trainer.learner
+        enc = policy.net.encoder
+        if type(enc).__name__ != "ResNetCLIPEncoder" or enc.visual_inputs != sensors:
+            fail(f"[clip] {task}: the policy's encoder is {type(enc).__name__} over {enc.visual_inputs}")
+        trunk0 = {k: v.clone() for k, v in enc.backbone.state_dict().items()}
+        fc0 = policy.net.visual_fc.weight.detach().clone()
+        zero_counts()
+        for q in plain_watch:
+            q.start()
+        rs, walls, roll, upd, metrics = recipe_run(f"[clip] {task}", lrn, 1, dev)
+        sync(dev)
+        for q in plain_watch:
+            q.stop()
+        if plain_on_card:
+            fail(f"[clip] {task}: plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+        launches[task] = path_counts(f"[clip] {task}",
+                                     raycast_fused_sel_t=1 + size["num_steps"])["raycast_fused_sel_t"]
+        if not all(torch.equal(v, trunk0[k]) for k, v in enc.backbone.state_dict().items()):
+            fail(f"[clip] {task}: the frozen trunk changed in the update")
+        if any(p.grad is not None for p in enc.backbone.parameters()):
+            fail(f"[clip] {task}: a gradient reached the frozen trunk")
+        if torch.equal(policy.net.visual_fc.weight, fc0):
+            fail(f"[clip] {task}: visual_fc did not move in the update")
+        # the features of the first envs' reset observations, card against CPU
+        _, obs = env.reset_fn()
+        k = size["check_envs"]
+        vis = {s: obs[s][:k] for s in sensors}
+        got = enc(vis).float().cpu().numpy()
+        want = copy.deepcopy(enc).cpu()({s: v.cpu() for s, v in vis.items()}).numpy()
+        gap, span = float(np.abs(got - want).max()), 2.0 ** -6 * float(np.abs(want).max())
+        if not gap <= span:
+            fail(f"[clip] {task}: card features {gap:.3g} from the CPU's, allowed {span:.3g}")
+        # one rollout step (policy act + env step) under the profiler
+        st, obs = env.reset_fn()
+        hidden = policy.initial_hidden(env.num_envs)
+        prev = torch.zeros(env.num_envs, dtype=torch.int32, device=dev)
+        masks = torch.zeros(env.num_envs, device=dev)
+
+        def act_step():
+            with torch.no_grad():
+                logits, _, _ = policy(obs, hidden, prev, masks)
+            return env.step_fn(st, logits.argmax(-1).to(torch.int32))
+
+        step_ms = wall_ms(dev, act_step, 3)
+        _, dev_ms, n_launch, _ = device_time_and_launches(lambda: [act_step() for _ in range(2)])
+        texts.append(
+            f"{task}_procgen.yaml + {backbone} ({'+'.join(sensors)} 128x128 through the trunk, visual_fc "
+            f"{policy.net.visual_fc.in_features} -> {policy.net.visual_fc.out_features}): rollout {roll[0]:.1f} ms "
+            f"({roll[0] / size['num_steps']:.2f} ms per rollout step), update {upd[0]:.1f} ms, losses "
+            + ", ".join(f"{m} {v:.4f}" for m, v in metrics.items() if m.startswith("losses/"))
+            + f"; a rollout step alone {step_ms:.2f} ms, {dev_ms / 2:.2f} ms on the device, idle share "
+            f"{1 - dev_ms / (2 * step_ms):.3f}, {n_launch / 2:.0f} launches; #1 {launches[task]} = 1 + "
+            f"{size['num_steps']}; trunk bit-unchanged, visual_fc moved; features card - CPU {gap:.3g} "
+            f"(allowed {span:.3g}) on {k} envs; set-up {setup_s:.1f} s")
+        del trainer, policy, env, lrn, rs
+        torch.cuda.empty_cache()
+    log(f"[clip] {gpu}: one update of N={size['num_envs']}, T={size['num_steps']} through trainer_from_config: "
+        + "; ".join(texts) + f"; no plain version on a card tensor; the phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     import torch
 
@@ -6532,6 +6971,21 @@ def main():
     log(f"[reach] starts {time.perf_counter() - t_start:.1f} s after the start")
     torch.cuda.empty_cache()
     reach_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
+
+    # ---- 22. vector envs, eval videos, the CLIP backbones ------------------
+    log(f"[vector-env] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    vec_launches = vector_env_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
+    sel["vector_env_threaded_launches"] = vec_launches["threaded"]
+    sel["vector_env_process_launches"] = vec_launches["process"]
+    log(f"[eval-video] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    sel["eval_video_launches"] = eval_video_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
+    log(f"[clip] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    clip_launches = clip_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
+    sel["clip_pointnav_launches"] = clip_launches["pointnav"]
+    sel["clip_objectnav_launches"] = clip_launches["objectnav"]
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 

@@ -13,11 +13,14 @@ the trainer's ``latest`` checkpoint, ``test_episode_count`` episodes.
 A Gaussian (continuous-action) policy starts from a zero previous action
 (N, ``num_outputs``) and acts with mu when ``deterministic``.
 
-Not ported yet, and raising ``NotImplementedError``: eval videos,
-TensorBoard output and the map frames drawn into them (``video_option``,
-``tb_writer``, ``map_tracker``; they write through imageio, and the
-message names the JAX modules they wait for).
-``eval_checkpoint_loop`` takes its two settings as keywords.
+Eval videos: with ``video_option`` ("disk" and/or "tensorboard") the frames
+of env ``video_env`` (``observations_to_image`` of its rgb, depth and
+semantic observations, with the ``map_tracker``'s top-down map when one is
+given) are kept while that env's quota is open and written at the end by
+``generate_video`` with the mean success and SPL (a GIF in ``video_dir``,
+frames to ``tb_writer``). The frame comes to the host in the step's one
+copy. The trainer's config path passes no ``video_option``, as in the JAX
+package. ``eval_checkpoint_loop`` takes its two settings as keywords.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import os
 import re
 import time
 from collections import defaultdict
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +40,8 @@ from habitat_torch.core.batched_env import BatchedEnv
 from habitat_torch.models.policy import ActorCritic, sample_action, sample_gaussian_action
 
 logger = logging.getLogger(__name__)
+# the observations a video frame shows
+_FRAME_KEYS = ("rgb", "depth", "semantic")
 
 
 def evaluate_agent(
@@ -50,7 +55,10 @@ def evaluate_agent(
     max_steps: Optional[int] = None,
     measure_keys: Tuple[str, ...] = ("success", "spl", "soft_spl", "distance_to_goal", "num_steps"),
     video_option: Tuple[str, ...] = (),
+    video_dir: Optional[str] = None,
+    video_env: int = 0,
     tb_writer=None,
+    checkpoint_idx: int = 0,
     map_tracker=None,
 ) -> Dict[str, float]:
     """Run ``policy`` on ``env`` (both on the env's device) until every env
@@ -60,12 +68,12 @@ def evaluate_agent(
     Actions are greedy (``deterministic``) or sampled from a generator
     seeded with ``seed``. Returns the mean over counted episodes of each
     measure in ``measure_keys`` that the env reports and of the episode
-    ``reward``, and ``num_episodes``; {} if no episode finished."""
-    if video_option or tb_writer is not None or map_tracker is not None:
-        raise NotImplementedError(
-            "eval videos, TensorBoard frames and the evaluator's TopDownMap frames wait for the port of "
-            "utils/visualizations/utils.py and utils/common.py::generate_video, which write through imageio "
-            "(not on the card's machine), and of baselines/evaluator.py's TensorBoard output")
+    ``reward``, and ``num_episodes``; {} if no episode finished. With
+    ``video_option`` the frames of env ``video_env`` become a video (the
+    module's docstring); ``map_tracker`` (a ``TopDownMapTracker`` of that
+    env's scene) follows its pose and is reset when its episode ends."""
+    from habitat_torch.utils.visualizations.utils import observations_to_image
+
     dev = env.device
     n = env.num_envs
     if episodes_per_env is None:
@@ -87,6 +95,8 @@ def evaluate_agent(
     sums: Dict[str, float] = defaultdict(float)
     reward_acc = np.zeros((n,), np.float64)
     total_eps = 0
+    record = bool(video_option)
+    frames: List[np.ndarray] = []
     with torch.no_grad():
         for _ in range(max_steps):
             dist, _, hidden = policy(obs, hidden, prev_action, not_done)
@@ -96,8 +106,22 @@ def evaluate_agent(
                 action, _ = sample_action(dist, generator, deterministic=deterministic)
             state, obs, reward, done, info = env.step_fn(state, action)
             keys = [k for k in measure_keys if k in info]
-            # one transfer per step: dones, rewards and the measures
-            host = torch.stack([done.float(), reward.float(), *(info[k].float() for k in keys)]).cpu().numpy()
+            # one transfer per step: dones, rewards and the measures (and
+            # the video env's frame and pose while it is recorded)
+            scalars = torch.stack([done.float(), reward.float(), *(info[k].float() for k in keys)])
+            if record and counted[video_env] < quota[video_env]:
+                seen = [k for k in obs if k in _FRAME_KEYS]
+                host, *rest = _one_copy([scalars, *(obs[k][video_env] for k in seen),
+                                         state.pos[video_env], state.yaw[video_env]])
+                if map_tracker is not None:
+                    map_tracker.update(rest[-2], float(rest[-1]))
+                if seen:
+                    frame_info = {"top_down_map": map_tracker.frame()} if map_tracker is not None else {}
+                    frames.append(observations_to_image(dict(zip(seen, rest)), frame_info))
+                if map_tracker is not None and host[0][video_env] > 0.5:
+                    map_tracker.reset()
+            else:
+                host = scalars.cpu().numpy()
             prev_action = action
             not_done = 1.0 - done.float()
             d = host[0] > 0.5
@@ -118,6 +142,30 @@ def evaluate_agent(
         return {}
     out = {k: v / total_eps for k, v in sums.items()}
     out["num_episodes"] = float(total_eps)
+    if record and frames:
+        from habitat_torch.utils.common import generate_video
+
+        generate_video(list(video_option), video_dir, frames, episode_id=f"env{video_env}",
+                       checkpoint_idx=checkpoint_idx, metrics={k: out.get(k, 0.0) for k in ("success", "spl")},
+                       tb_writer=tb_writer)
+    return out
+
+
+def _one_copy(tensors: List[torch.Tensor]) -> List[np.ndarray]:
+    """The tensors as numpy arrays, brought to the host in one copy (their
+    bytes side by side, each piece padded to 8 bytes so that every slice
+    starts aligned for its dtype)."""
+    flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
+    pieces = []
+    for f in flat:
+        pieces.append(f)
+        if f.numel() % 8:
+            pieces.append(f.new_zeros(8 - f.numel() % 8))
+    host = torch.cat(pieces).cpu()
+    out, at = [], 0
+    for t, f in zip(tensors, flat):
+        out.append(host[at:at + f.numel()].view(t.dtype).reshape(t.shape).numpy())
+        at += -(-f.numel() // 8) * 8
     return out
 
 

@@ -11,16 +11,23 @@ such as the top-down map or a replay, are not averaged).
 ``remote_evaluate`` (the evalai gRPC protocol) raises
 ``NotImplementedError``: it waits for the port of ``core/evalai_remote.py``,
 which needs grpc.
+
+``Challenge`` (reference core/challenge.py) is a ``Benchmark`` of the config
+named by the ``CHALLENGE_CONFIG_FILE`` environment variable (default
+``benchmark/nav/pointnav/pointnav_procgen.yaml``); ``submit(agent)``
+evaluates and logs each metric.
 """
 
 from __future__ import annotations
 
 import numbers
+import os
 from collections import defaultdict
 from typing import Dict, Optional, Sequence
 
 from habitat_torch.core.agent import Agent
 from habitat_torch.core.env import Env
+from habitat_torch.core.logging import logger
 
 DEFAULT_CONFIG = "benchmark/nav/pointnav/pointnav_procgen.yaml"
 
@@ -73,3 +80,17 @@ class Benchmark:
         if self._eval_remote:
             return self.remote_evaluate(agent, num_episodes)
         return self.local_evaluate(agent, num_episodes)
+
+
+class Challenge(Benchmark):
+    """reference core/challenge.py."""
+
+    def __init__(self, eval_remote: bool = False, device=None):
+        super().__init__(os.environ.get("CHALLENGE_CONFIG_FILE", DEFAULT_CONFIG), eval_remote=eval_remote,
+                         device=device)
+
+    def submit(self, agent: Agent) -> Dict[str, float]:
+        metrics = self.evaluate(agent)
+        for k, v in metrics.items():
+            logger.info(f"{k}: {v}")
+        return metrics

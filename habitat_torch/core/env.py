@@ -247,6 +247,7 @@ class RLEnv:
     def __init__(self, config: Config, dataset: Optional[Dataset] = None, device=None):
         self._env = Env(config, dataset, device=device)
         self.observation_shapes = self._env.observation_shapes
+        self.action_names = self._env.action_names
         self.number_of_episodes = self._env.number_of_episodes
         self.reward_range = (-float("inf"), float("inf"))
 

@@ -21,6 +21,15 @@ under "/"-joined paths (a leading "params/" is accepted), as
   Cin/groups, as torch's), conv3, down, with their GroupNorms alike, and
   ``SEBlock_0/Dense_0|1`` -> se.fc1|fc2.
 
+The CLIP trunk of a ``resnet50_clip_*`` policy, ``net/clip_encoder/backbone``,
+maps to ``net.encoder.backbone`` under OpenAI's names: conv kernels HWIO ->
+OIHW, each FrozenBatchNorm's scale / bias / mean / var -> weight / bias /
+running_mean / running_var, ``layer<s>_<b>`` -> ``layer<s>.<b>`` with
+``downsample_conv`` / ``downsample_bn`` -> ``downsample.0`` / ``.1``, and
+the attention pool's q/k/v/c_proj Dense kernels transposed, with its
+positional embedding as it is. ``simple_cnn_params_from_jax`` converts
+``SimpleCNN``'s ``Conv_0..2`` and ``Dense_0``.
+
 ``cpca_params_from_jax`` converts the parameters of CPC|A
 (``habitat_tpu/baselines/aux_losses.CPCA``: Embed, GRUCell, three Dense)
 to ``baselines/aux_losses.CPCA``'s state dict.
@@ -118,6 +127,29 @@ def _encoder(rest: str, enc: str, v: np.ndarray) -> Dict[str, np.ndarray]:
     raise KeyError(f"no port counterpart for encoder parameter {rest!r} of {enc}")
 
 
+_CLIP_BN = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def _clip(rest: str, pre: str, v: np.ndarray) -> Dict[str, np.ndarray]:
+    """A CLIPResNet parameter (its Flax path ``rest``) -> the port's, under
+    ``pre``."""
+    m = re.fullmatch(r"(?:(layer\d)_(\d+)/)?(conv\d|downsample_conv)/kernel", rest)
+    if m:
+        name = "downsample.0" if m[3] == "downsample_conv" else m[3]
+        return _conv(f"{pre}.{m[1]}.{m[2]}.{name}" if m[1] else f"{pre}.{name}", v)
+    m = re.fullmatch(r"(?:(layer\d)_(\d+)/)?(bn\d|downsample_bn)/(scale|bias|mean|var)", rest)
+    if m:
+        name = "downsample.1" if m[3] == "downsample_bn" else m[3]
+        at = f"{pre}.{m[1]}.{m[2]}.{name}" if m[1] else f"{pre}.{name}"
+        return {f"{at}.{_CLIP_BN[m[4]]}": v}
+    if rest == "attnpool/positional_embedding":
+        return {f"{pre}.attnpool.positional_embedding": v}
+    m = re.fullmatch(r"attnpool/([qkvc]_proj)/(kernel|bias)", rest)
+    if m:
+        return _dense(f"{pre}.attnpool.{m[1]}", m[2], v)
+    raise KeyError(f"no port counterpart for CLIP parameter {rest!r}")
+
+
 def _lstm(prefix: str, g: Dict[str, np.ndarray], suffix: str = "") -> Dict[str, np.ndarray]:
     """A Flax OptimizedLSTMCell's {"ii/kernel": ..., "hi/bias": ...} -> a
     torch LSTM cell under ``prefix`` (``suffix`` "_l0" for ``nn.LSTM``):
@@ -152,6 +184,9 @@ def _convert_one(path, v):
         return {f"net.{m[1]}.weight": v}
     if p == "net/instruction_embed/embedding":
         return {"net.instruction.embed.weight": v}
+    m = re.fullmatch(r"net/clip_encoder/backbone/(.*)", p)
+    if m:
+        return _clip(m[1], "net.encoder.backbone", v)
     m = re.fullmatch(r"net/(ResNetEncoder_0|goal_encoder_(imagegoal|instance_imagegoal))/(.*)", p)
     if m:
         return _encoder(m[3], "net.encoder" if m[2] is None else f"net.goal_encoder.{m[2]}", v)
@@ -202,6 +237,22 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         out.update(_gru(prefix, g) if kind == "gru" else _lstm(prefix, g))
     if instruction:
         out.update(_lstm("net.instruction.lstm", instruction, "_l0"))
+    return _tensors(out)
+
+
+def simple_cnn_params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flattened Flax ``SimpleCNN`` params -> ``policy.SimpleCNN``'s state
+    dict (``Conv_<i>`` -> ``convs.<i>``, ``Dense_0`` -> ``fc``)."""
+    out: Dict[str, np.ndarray] = {}
+    for p, v in _leaves(flat):
+        m = re.fullmatch(r"Conv_(\d)/(kernel|bias)", p)
+        if m:
+            out.update(_conv(f"convs.{m[1]}", v) if m[2] == "kernel" else {f"convs.{m[1]}.bias": v})
+            continue
+        m = re.fullmatch(r"Dense_0/(kernel|bias)", p)
+        if not m:
+            raise KeyError(f"no port counterpart for SimpleCNN parameter {p!r}")
+        out.update(_dense("fc", m[1], v))
     return _tensors(out)
 
 

@@ -16,6 +16,10 @@ then an LSTM-128 over the padded tokens from a zero state, keeping its
 output at the last valid position (length = the count of tokens > 0, at
 least 1).
 
+The ``resnet50_clip_{avgpool,attnpool}`` backbones encode the rgb and/or
+depth through the frozen CLIP-RN50 encoder (``models/clip_resnet.py``),
+whose features go through visual_fc as the ResNet's do.
+
 Heads: ``ActorCritic`` gives logits (categorical); ``GaussianActorCritic``
 gives (mu, log_std) of a diagonal Gaussian whose log std is one parameter
 per action dimension, clipped to [-5, 2]. Unlike Flax, a torch module
@@ -35,7 +39,7 @@ from torch import nn
 
 from habitat_torch.core.registry import registry
 from habitat_torch.device import resolve_device
-from habitat_torch.models.resnet import ResNetEncoder
+from habitat_torch.models.resnet import ResNetEncoder, _lecun_normal_, same_pad
 from habitat_torch.models.rnn_state_encoder import RNNStateEncoder, initial_hidden_state
 
 POINTGOAL_KEYS = ("pointgoal_with_gps_compass", "pointgoal")
@@ -95,6 +99,44 @@ class InstructionEncoder(nn.Module):
         return hs[torch.arange(hs.shape[0], device=hs.device), last]
 
 
+class SimpleCNN(nn.Module):
+    """3-conv baseline encoder (reference rl/models/simple_cnn.py; the JAX
+    package's ``SimpleCNN``): rgb/255 then depth, three convs with biases
+    and XLA "SAME" padding (32 8x8/4, 64 4x4/2, 32 3x3/1) each followed by a
+    ReLU, in ``dtype``, then the flat map in H, W, C order through a float32
+    Linear to ``output_size`` and a ReLU. Neither package's policies build
+    it: ``PointNavBaselinePolicy`` is the resnet9 policy."""
+
+    def __init__(self, visual_inputs: Sequence[str] = ("rgb", "depth"), input_hw: Tuple[int, int] = (128, 128),
+                 output_size: int = 512, dtype=torch.bfloat16):
+        super().__init__()
+        self.visual_inputs = tuple(k for k in ("rgb", "depth") if k in visual_inputs)
+        self.dtype = dtype
+        cin = 3 * ("rgb" in self.visual_inputs) + ("depth" in self.visual_inputs)
+        self.convs = nn.ModuleList()
+        h, w = input_hw
+        for cout, k, stride in ((32, 8, 4), (64, 4, 2), (32, 3, 1)):
+            conv = nn.Conv2d(cin, cout, k, stride)
+            _lecun_normal_(conv.weight)
+            nn.init.zeros_(conv.bias)
+            self.convs.append(conv)
+            cin, h, w = cout, -(-h // stride), -(-w // stride)
+        self.fc = nn.Linear(cin * h * w, output_size)
+
+    def forward(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        imgs = []
+        if "rgb" in self.visual_inputs:
+            imgs.append(obs["rgb"].float() / 255.0)
+        if "depth" in self.visual_inputs:
+            imgs.append(obs["depth"].float())
+        x = torch.cat(imgs, dim=-1).to(self.dtype).permute(0, 3, 1, 2)
+        for conv in self.convs:
+            k, s = conv.kernel_size[0], conv.stride[0]
+            x = F.relu(F.conv2d(same_pad(x, k, s), conv.weight.to(self.dtype), conv.bias.to(self.dtype), stride=s))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1).float()
+        return F.relu(self.fc(x))
+
+
 class PointNavResNetNet(nn.Module):
     def __init__(
         self,
@@ -140,7 +182,14 @@ class PointNavResNetNet(nn.Module):
         enc_kw = dict(backbone=backbone, base_planes=base_planes, ngroups=ngroups, dtype=dtype,
                       normalize_visual_inputs=normalize_visual_inputs)
         self.encoder = self.visual_fc = None
-        if has_visual:
+        if has_visual and backbone.startswith("resnet50_clip"):
+            from habitat_torch.models.clip_resnet import ResNetCLIPEncoder
+
+            pooling = backbone.split("_")[-1]
+            self.encoder = ResNetCLIPEncoder(pooling, visual_inputs)
+            self.visual_fc = nn.Linear(ResNetCLIPEncoder.output_dim(self.encoder.visual_inputs, pooling),
+                                       hidden_size)
+        elif has_visual:
             self.encoder = ResNetEncoder(visual_inputs, input_hw, **enc_kw)
             self.visual_fc = nn.Linear(self.encoder.output_dim, hidden_size)
         self.image_goal_keys = tuple(k for k in IMAGE_GOAL_KEYS if k in image_goals)

@@ -241,7 +241,9 @@ class ResNetEncoder(nn.Module):
         super().__init__()
         self.normalize_visual_inputs = normalize_visual_inputs
         if backbone not in SPECS:
-            raise ValueError(f"backbone {backbone!r} not ported; have {sorted(SPECS)}")
+            raise ValueError(f"backbone {backbone!r} is not a ResNet of {sorted(SPECS)}; the CLIP backbones "
+                             "resnet50_clip_{avgpool,attnpool} are models/clip_resnet.py's ResNetCLIPEncoder, "
+                             "which the policy builds")
         unknown = set(visual_inputs) - {"rgb", "depth"}
         if unknown or not visual_inputs:
             raise ValueError(f"visual inputs must be rgb and/or depth, got {visual_inputs}")

@@ -115,3 +115,11 @@ class RNNStateEncoder(nn.Module):
             out, hidden = self._step(x[t], hidden, masks[t])
             outs.append(out)
         return torch.stack(outs), hidden
+
+
+def build_rnn_state_encoder(input_size: int, hidden_size: int, rnn_type: str = "LSTM",
+                            num_layers: int = 1) -> RNNStateEncoder:
+    """Name-parity builder (reference rnn_state_encoder.py:430). A torch
+    module declares its input width, so ``input_size`` is passed on (the
+    JAX builder drops it: Flax infers it at init)."""
+    return RNNStateEncoder(input_size, hidden_size, num_layers, rnn_type)

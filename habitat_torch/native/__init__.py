@@ -1,13 +1,17 @@
 """ctypes bindings for the port's copy of the native host-side helpers
 (habitat_native.cpp): exact 16-connected geodesic Dijkstra and conservative
 triangle rasterization. Built with g++ at first use into
-``habitat_torch/build/``; a failed build raises."""
+``habitat_torch/build/``; a failed build raises. One process-wide lock
+covers the check, the build and the load, so threads that ask at once get one
+library; the build writes a file named by pid and thread id and moves it into
+place with ``os.replace``."""
 
 from __future__ import annotations
 
 import ctypes
 import os
 import subprocess
+import threading
 from typing import Optional
 
 import numpy as np
@@ -20,21 +24,39 @@ _SO = os.path.join(_BUILD, "libhabitat_native.so")
 # bit-identical fields and masks
 _CXXFLAGS = ["-O3", "-march=x86-64-v2", "-fPIC", "-shared", "-std=c++17"]
 _lib: Optional[ctypes.CDLL] = None
+_LOCK = threading.Lock()
+
+
+def _compile(out: str) -> None:
+    subprocess.run(["g++", *_CXXFLAGS, "-o", out, _SRC], check=True, capture_output=True, timeout=300)
+
+
+def ensure_built() -> None:
+    """Build the library if it is missing or older than its source."""
+    with _LOCK:
+        _ensure_built()
+
+
+def _ensure_built() -> None:
+    if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
+        os.makedirs(_BUILD, exist_ok=True)
+        tmp = f"{_SO}.{os.getpid()}.{threading.get_ident()}.tmp"
+        _compile(tmp)
+        os.replace(tmp, _SO)
 
 
 def get_lib() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-        os.makedirs(_BUILD, exist_ok=True)
-        tmp = f"{_SO}.{os.getpid()}.tmp"
-        subprocess.run(
-            ["g++", *_CXXFLAGS, "-o", tmp, _SRC],
-            check=True, capture_output=True, timeout=300,
-        )
-        os.replace(tmp, _SO)
-    lib = ctypes.CDLL(_SO)
+    with _LOCK:
+        if _lib is None:
+            _ensure_built()
+            _lib = _bind(ctypes.CDLL(_SO))
+    return _lib
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.geodesic_field.argtypes = [
         ctypes.POINTER(ctypes.c_uint8),
         ctypes.c_int64,
@@ -57,8 +79,7 @@ def get_lib() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_uint8),
     ]
     lib.rasterize_triangles.restype = None
-    _lib = lib
-    return _lib
+    return lib
 
 
 def geodesic_field_native(

@@ -16,6 +16,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, Sequence, Tuple
 
@@ -56,6 +57,9 @@ SOURCES = {
     },
 }
 _libs: Dict[str, ctypes.CDLL] = {}
+# check, build and load of a library, across the threads of the process
+_BUILD_LOCK = threading.RLock()
+_COUNT_LOCK = threading.Lock()
 
 
 def _src(name: str) -> str:
@@ -83,11 +87,16 @@ def _nvcc() -> str:
 def build(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, Tuple[float, str]]:
     """Compile the named kernel libraries, one nvcc per source, all started
     together; returns {name: (seconds, ptxas report)}."""
+    with _BUILD_LOCK:
+        return _build(names)
+
+
+def _build(names: Sequence[str]) -> Dict[str, Tuple[float, str]]:
     os.makedirs(_BUILD, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
     for name in names:
-        tmp = f"{_so(name)}.{os.getpid()}.tmp"
+        tmp = f"{_so(name)}.{os.getpid()}.{threading.get_ident()}.tmp"
         procs[name] = (tmp, subprocess.Popen(
             [_nvcc(), *_NVCC_FLAGS, "-o", tmp, _src(name)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -110,18 +119,42 @@ def build(names: Sequence[str] = tuple(SOURCES)) -> Dict[str, Tuple[float, str]]
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    if name in _libs:
-        return _libs[name]
+def _stale(name: str) -> bool:
     so = _so(name)
-    if not os.path.exists(so) or os.path.getmtime(so) < _newest_input(name):
-        build((name,))
-    lib = ctypes.CDLL(so)
-    for fn, argtypes in SOURCES[name].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = _I
-    _libs[name] = lib
-    return lib
+    return not os.path.exists(so) or os.path.getmtime(so) < _newest_input(name)
+
+
+def ensure_built(names: Sequence[str] = tuple(SOURCES)) -> None:
+    """Build the named libraries that are missing or stale, without loading
+    them (a parent does this before it starts worker processes, so they do
+    not each run nvcc)."""
+    with _BUILD_LOCK:
+        stale = [n for n in names if _stale(n)]
+        if stale:
+            build(stale)
+
+
+def load(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _BUILD_LOCK:
+        if name in _libs:
+            return _libs[name]
+        if _stale(name):
+            build((name,))
+        lib = ctypes.CDLL(_so(name))
+        for fn, argtypes in SOURCES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _I
+        _libs[name] = lib
+        return lib
+
+
+def count_launch(wrapper) -> None:
+    """One more launch of ``wrapper``'s kernel, safe across threads."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def raise_on(err: int, name: str) -> None:

@@ -115,7 +115,7 @@ def max_pool_3x3s2_bwd(x: torch.Tensor, y: torch.Tensor, dy: torch.Tensor) -> to
         N, C, H, W, int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
     )
     cuda_build.raise_on(err, "maxpool_bwd")
-    max_pool_3x3s2_bwd.launches += 1
+    cuda_build.count_launch(max_pool_3x3s2_bwd)
     return gx
 
 

@@ -503,7 +503,7 @@ def raycast_fused_sel_t(
         torch.cuda.current_stream(d_t.device).cuda_stream,
     )
     cuda_build.raise_on(err, "raycast_fused_sel")
-    raycast_fused_sel_t.launches += 1
+    cuda_build.count_launch(raycast_fused_sel_t)
     return t, idx
 
 
@@ -535,7 +535,7 @@ def raycast_fused_t(
         torch.cuda.current_stream(d_t.device).cuda_stream,
     )
     cuda_build.raise_on(err, "raycast_fused")
-    raycast_fused_t.launches += 1
+    cuda_build.count_launch(raycast_fused_t)
     return t, idx
 
 
@@ -570,7 +570,7 @@ def _stream_call(wrapper, name, tri_mat_c, sids, chunk_ids, cnt, d_t, Bt, ray_ti
         STREAM_WARP_RAYS, torch.cuda.current_stream(d_t.device).cuda_stream,
     )
     cuda_build.raise_on(err, name)
-    wrapper.launches += 1
+    cuda_build.count_launch(wrapper)
     return t, idx
 
 
@@ -661,7 +661,7 @@ def cullmask_t(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.raise_on(err, "cullmask")
-    cullmask_t.launches += 1
+    cuda_build.count_launch(cullmask_t)
     return out
 
 
@@ -711,7 +711,7 @@ def raycast_index_t(
         N, T, C, n_tiles, ray_tile, torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.raise_on(err, "raycast_index")
-    raycast_index_t.launches += 1
+    cuda_build.count_launch(raycast_index_t)
     return t, idx
 
 
@@ -757,7 +757,7 @@ def raycast_culled_t(
         N, T, tri_chunk, n_tiles, chunk_ids.shape[2], ray_tile, torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.raise_on(err, "raycast_culled")
-    raycast_culled_t.launches += 1
+    cuda_build.count_launch(raycast_culled_t)
     return t, attrs
 
 
@@ -805,7 +805,7 @@ def raycast_index(
         N, T, C, R, torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.raise_on(err, "raycast_index_rm")
-    raycast_index.launches += 1
+    cuda_build.count_launch(raycast_index)
     return t, idx
 
 
@@ -880,7 +880,7 @@ def raycast_culled(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.raise_on(err, "raycast_culled_rm")
-    raycast_culled.launches += 1
+    cuda_build.count_launch(raycast_culled)
     return t, attrs
 
 
@@ -993,7 +993,7 @@ def raycast_tilecull_t(
         N, T4, n_tiles, chunk_ids.shape[2], ray_tile, C, torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.raise_on(err, "raycast_tilecull")
-    raycast_tilecull_t.launches += 1
+    cuda_build.count_launch(raycast_tilecull_t)
     return t, attrs
 
 

@@ -12,13 +12,16 @@ habitat_simulator/debug_visualizer.py).
 Frames come from ``render_batch`` (N=1, kernel #1 on the card) at arbitrary
 look-at poses and are copied to the host once per render; the overlays are
 drawn there in numpy. ``DebugObservation`` keeps its frame as
-``obs_data``: its image methods and ``make_debug_video`` write through the
-image and video helpers of ``habitat_tpu/utils/visualizations/utils.py``
-(PIL, imageio), which the port lacks, and raise.
+``obs_data``; its image is the (H, W, 3) uint8 array the JAX package's PIL
+image holds, ``save`` writes it as a PNG and ``make_debug_video`` writes the
+single-view frames as a GIF, both through the port's own encoders
+(``utils/visualizations/image_io.py``).
 """
 
 from __future__ import annotations
 
+import os
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,10 +31,6 @@ from habitat_torch.device import resolve_device
 from habitat_torch.ops.raycast import render_batch
 from habitat_torch.sims.scene import ScenePack
 from habitat_torch.sims.tpu_sim import to_host
-
-_NOT_PORTED = ("waits for the port of habitat_tpu/utils/visualizations/utils.py (images and videos through PIL "
-               "and imageio)")
-
 
 def _lookat_yaw_pitch(eye: np.ndarray, target: np.ndarray) -> Tuple[float, float]:
     d = np.asarray(target, np.float64) - np.asarray(eye, np.float64)
@@ -101,23 +100,44 @@ def _draw_segment_px(frame: np.ndarray, p0, p1, color=(0, 255, 0),
 
 class DebugObservation:
     """A debug frame (reference DebugObservation:82): ``obs_data`` is the
-    (H, W, C) array. The image methods are not ported yet."""
+    (H, W, C) array; ``image`` its (H, W, 3) uint8 picture once made."""
 
     def __init__(self, obs_data: np.ndarray):
         self.obs_data = np.asarray(obs_data)
-        self.image = None
+        self.image: Optional[np.ndarray] = None
 
-    def create_image(self):
-        raise NotImplementedError(f"DebugObservation.create_image {_NOT_PORTED}")
+    def create_image(self) -> np.ndarray:
+        """uint8 as it is, floats scaled by 255 and clipped, one channel
+        repeated to three, a fourth dropped."""
+        data = self.obs_data
+        if data.dtype != np.uint8:
+            data = np.clip(data * 255, 0, 255).astype(np.uint8)
+        if data.ndim == 3 and data.shape[-1] == 1:
+            data = np.repeat(data, 3, axis=-1)
+        self.image = np.ascontiguousarray(data[..., :3])
+        return self.image
 
-    def get_image(self):
-        raise NotImplementedError(f"DebugObservation.get_image {_NOT_PORTED}")
+    def get_image(self) -> np.ndarray:
+        if self.image is None:
+            self.create_image()
+        return self.image
 
     def show_point(self, p_2d: np.ndarray, color=(255, 0, 0)) -> None:
-        raise NotImplementedError(f"DebugObservation.show_point {_NOT_PORTED}")
+        """Mark an image-fraction point with a ring (reference show_point:128)."""
+        img = np.array(self.get_image())
+        h, w = img.shape[:2]
+        _draw_circle_px(img, p_2d[0] * w, p_2d[1] * h, max(3.0, 0.01 * w), color)
+        self.image = img
 
     def save(self, output_path: str, prefix: str = "") -> str:
-        raise NotImplementedError(f"DebugObservation.save {_NOT_PORTED}")
+        """Write the image as ``<output_path>/<prefix><ms since epoch>.png``;
+        returns the path."""
+        from habitat_torch.utils.visualizations.image_io import write_png
+
+        os.makedirs(output_path, exist_ok=True)
+        path = os.path.join(output_path, f"{prefix}{int(time.time() * 1000)}.png")
+        write_png(path, self.get_image())
+        return path
 
 
 def draw_object_highlight(
@@ -139,8 +159,8 @@ def draw_object_highlight(
 
 
 class DebugVisualizer:
-    """dbv: point a camera anywhere, frame subjects by bounds, collect frames
-    (reference DebugVisualizer:227). ``pack`` is moved to ``device``
+    """dbv: point a camera anywhere, frame subjects by bounds, collect frames,
+    write them as a video (reference DebugVisualizer:227). ``pack`` is moved to ``device``
     (``None`` = cuda)."""
 
     def __init__(
@@ -280,7 +300,12 @@ class DebugVisualizer:
 
     # -- video ------------------------------------------------------------
     def make_debug_video(self, output_path: Optional[str] = None, prefix: str = "dbv") -> None:
-        raise NotImplementedError(f"DebugVisualizer.make_debug_video {_NOT_PORTED}")
+        """The single-view frames as ``<output_path>/<prefix>.gif``."""
+        from habitat_torch.utils.visualizations.utils import images_to_video
+
+        if not self._frames:
+            return
+        images_to_video(self._frames, output_path or self.output_path, prefix)
 
     def clear(self) -> None:
         self._frames = []

@@ -1,6 +1,8 @@
 """Baselines helpers (port of ``habitat_tpu/utils/common.py``; reference
 habitat-baselines/habitat_baselines/utils/common.py: batch_obs:315,
 generate_video:380, get_num_actions:729, LagrangeInequalityCoefficient:749).
+``generate_video`` writes eval videos through the port's own GIF encoder
+(``utils/visualizations/image_io.py``).
 
 The port has no gymnasium spaces: the action-space helpers read the action
 descriptors the port's envs expose, ``num_actions`` for discrete actions and
@@ -71,10 +73,21 @@ def generate_video(
     fps: int = 10,
     verbose: bool = True,
 ) -> None:
-    """Not ported yet: it writes through the video helpers of
-    ``habitat_tpu/utils/visualizations/utils.py``, which the port lacks."""
-    raise NotImplementedError(
-        "generate_video waits for the port of habitat_tpu/utils/visualizations/utils.py (eval videos)")
+    """Write an episode's frames (reference common.py:380): the name is
+    ``episode=<id>-ckpt=<idx>-`` followed by ``<metric>=<value:.2f>`` joined
+    by "-"; with "disk" in ``video_option`` a GIF goes to ``video_dir``
+    (``images_to_video``), with "tensorboard" the frames go to ``tb_writer``
+    under the tag ``episode<id>`` at step ``checkpoint_idx``."""
+    if len(images) < 1:
+        return
+    metric_strs = [f"{k}={v:.2f}" for k, v in metrics.items()]
+    video_name = f"episode={episode_id}-ckpt={checkpoint_idx}-" + "-".join(metric_strs)
+    if "disk" in video_option and video_dir is not None:
+        from habitat_torch.utils.visualizations.utils import images_to_video
+
+        images_to_video(images, video_dir, video_name, fps=fps, verbose=verbose)
+    if "tensorboard" in video_option and tb_writer is not None:
+        tb_writer.add_video_from_np_images(f"episode{episode_id}", checkpoint_idx, images, fps=fps)
 
 
 class LagrangeInequalityCoefficient:

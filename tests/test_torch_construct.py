@@ -217,10 +217,11 @@ def test_unported_raise_not_implemented(case, tmp_path):
 
         call, match = lambda: Benchmark(eval_remote=True).evaluate(None), "evalai_remote.py"
     else:
-        # eval videos wait for utils/visualizations/
-        from habitat_torch.baselines.evaluator import evaluate_agent
+        # eval videos are ported; of their helpers only the text overlay
+        # waits, for a port of OpenCV's Hershey font
+        from habitat_torch.utils.visualizations.utils import append_text_to_image
 
-        call, match = lambda: evaluate_agent(None, None, video_option=("disk",)), "utils/visualizations"
+        call, match = lambda: append_text_to_image(np.zeros((8, 8, 3), np.uint8), "text"), "cv2"
     with pytest.raises(NotImplementedError, match=match):
         call()
 

@@ -20,8 +20,11 @@ CPU.
 - The contracts of the port's evaluator: the quota counted exactly once
   (with ``evals_per_ep`` 1 and 2), ``poll_checkpoint_folder``,
   ``eval_checkpoint_loop`` resuming from ``.eval_resume_state`` over
-  checkpoints the port's trainer saved, ``NotImplementedError`` for what is
-  not ported, and ``device=None`` needing the card.
+  checkpoints the port's trainer saved, the options that once raised
+  (``video_option``, ``tb_writer``, ``map_tracker``: the frames of env
+  ``video_env`` while its quota is open, the map tracker following its pose
+  and reset at its dones; tests/test_torch_video.py holds them against
+  JAX), and ``device=None`` needing the card.
 """
 
 import contextlib
@@ -290,13 +293,50 @@ def test_eval_checkpoint_loop_resumes(tmp_path, envs):
     assert json.loads((eval_dir / ".eval_resume_state").read_text()) == {"prev_ckpt_ind": 1}
 
 
+class _Recorder:
+    """A TensorBoard writer and a map tracker that log their calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def add_video_from_np_images(self, name, step, images, fps=10):
+        self.calls.append(("video", name, step, len(images), images[0].shape))
+
+    def update(self, pos, yaw):
+        self.calls.append(("update", tuple(np.round(pos, 3)), round(yaw, 3)))
+
+    def frame(self):
+        return np.full((16, 16, 3), 7, np.uint8)
+
+    def reset(self):
+        self.calls.append(("reset",))
+
+
 @pytest.mark.parametrize("option", ["video_option", "tb_writer", "map_tracker"])
-def test_unported_options_raise(envs, option):
-    env, policy = envs[1](), _TorchStub()
-    kw = {"video_option": dict(video_option=("disk",)), "tb_writer": dict(tb_writer=object()),
-          "map_tracker": dict(map_tracker=object())}[option]
-    with pytest.raises(NotImplementedError, match="utils/visualizations/"):
-        tev.evaluate_agent(env, policy, **kw)
+def test_unported_options_raise(envs, option, tmp_path):
+    """Named for when these options raised: each now does its part."""
+    env, policy, rec = envs[1](), _TorchStub(), _Recorder()
+    kw = {"video_option": dict(video_option=("disk",), video_dir=str(tmp_path), video_env=1),
+          "tb_writer": dict(video_option=("tensorboard",), tb_writer=rec, checkpoint_idx=4),
+          "map_tracker": dict(video_option=("disk",), video_dir=str(tmp_path), map_tracker=rec)}[option]
+    dones = []
+    step = env.step_fn
+    env.step_fn = lambda s, a: (lambda out: dones.append(out[3].numpy().copy()) or out)(step(s, a))
+    tev.evaluate_agent(env, policy, episodes_per_env=QUOTA, deterministic=True, seed=7, **kw)
+    d = np.array(dones)
+    video_env = kw.get("video_env", 0)
+    # frames while the video env's quota is open: up to its QUOTA-th done
+    recorded = int(np.flatnonzero(d[:, video_env])[QUOTA - 1]) + 1
+    if option == "tb_writer":
+        assert rec.calls == [("video", "episodeenv0", 4, recorded, (HW, HW, 3))]
+        return
+    (name,) = os.listdir(tmp_path)
+    assert name.startswith(f"episode=env{video_env}-ckpt=0-success=") and name.endswith(".gif")
+    if option == "map_tracker":
+        kinds = [c[0] for c in rec.calls]
+        assert kinds.count("update") == recorded and kinds.count("reset") == QUOTA
+        assert [k for k, c in enumerate(kinds[:-1]) if c == "reset"] == [
+            k + i for i, k in enumerate(np.flatnonzero(d[:recorded, 0])[:QUOTA - 1] + 1)]
 
 
 class _GaussianStub(nn.Module):

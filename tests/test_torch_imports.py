@@ -1,7 +1,7 @@
 """The port stands alone: nothing under habitat_torch/, nothing in
 chip_smoke.py and nothing in scripts/eval_flagship_torch.py imports JAX,
-Flax, Optax, Orbax, gymnasium, OpenCV, imageio, grpc, PIL (the card's machine
-has none of them) or the habitat_tpu package. The config path's modules, imported one by one in a
+Flax, Optax, Orbax, gymnasium, OpenCV, imageio, grpc, PIL, moviepy (the
+card's machine has none of them) or the habitat_tpu package. The config path's modules, imported one by one in a
 fresh interpreter, load none of them, and ``habitat_torch.config`` composes
 the in-repo YAML tree (read as data) without them either."""
 
@@ -11,7 +11,8 @@ import os
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gymnasium", "cv2", "imageio", "grpc", "PIL", "habitat_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gymnasium", "cv2", "imageio", "grpc", "PIL", "moviepy",
+             "habitat_tpu")
 
 
 def _port_files():
@@ -51,7 +52,9 @@ def test_port_files_found():
                    "sims/object_state_machine.py", "sims/procedural.py", "utils/threefry.py",
                    "tasks/rearrange/art_scene.py", "sims/tpu_sim.py", "core/simulator.py",
                    "sims/semantic_scene.py", "sims/debug_visualizer.py", "baselines/obs_transformers.py",
-                   "utils/common.py", "utils/info_dict.py", "utils/profiling_wrapper.py"):
+                   "utils/common.py", "utils/info_dict.py", "utils/profiling_wrapper.py", "core/vector_env.py",
+                   "utils/visualizations/utils.py", "utils/visualizations/image_io.py", "utils/tb.py",
+                   "models/clip_resnet.py", "models/running_mean_and_var.py", "models/rnn_state_encoder.py"):
         assert os.path.join(ROOT, "habitat_torch", module) in files
 
 
@@ -87,6 +90,9 @@ CONFIG_PATH_MODULES = (
     "habitat_torch.tasks.rearrange.art_scene", "habitat_torch.core.simulator", "habitat_torch.sims.semantic_scene",
     "habitat_torch.sims.tpu_sim", "habitat_torch.sims.debug_visualizer", "habitat_torch.baselines.obs_transformers",
     "habitat_torch.utils.common", "habitat_torch.utils.info_dict", "habitat_torch.utils.profiling_wrapper",
+    "habitat_torch", "habitat_torch.core.vector_env", "habitat_torch.utils.visualizations.image_io",
+    "habitat_torch.utils.visualizations.utils", "habitat_torch.models.clip_resnet",
+    "habitat_torch.models.running_mean_and_var",
 )
 _PROBE = """
 import json, sys

@@ -23,7 +23,9 @@ habitat_tpu's on the CPU.
   subject on all axes and of the scene, held to JAX's by the frame rule
   (the overlays drawn where the frames agree); ``project_point``,
   ``draw_object_highlight`` and ``stitch_image_matrix`` equal; the image
-  methods raise and name the module they wait for.
+  of ``get_observation`` held to JAX's by the frame rule, ``show_point``
+  and ``save`` on it, and ``make_debug_video`` writing the single-view
+  frames as a GIF (tests/test_torch_video.py holds the encoders).
 - ``build_semantic_scene`` field by field against JAX's on
   tests/test_scene.py:186's apartment, with that test's rules.
 - ``core/simulator.py``'s suite and the lazy exports of ``habitat_torch``.
@@ -262,7 +264,7 @@ def _peeks(mod, dbv):
     return out, obs, hi, (dbv.eye.copy(), dbv.yaw, dbv.pitch, len(dbv._frames))
 
 
-def test_debug_visualizer_matches_jax():
+def test_debug_visualizer_matches_jax(tmp_path):
     jd = jdbv.DebugVisualizer(jpack([jproc.generate_empty_room(extent=6.0)]), resolution=(48, 48))
     td = tdbv.DebugVisualizer(tpack([tproc.generate_empty_room(extent=6.0)]), resolution=(48, 48), device="cpu")
     (jp, jobs, jhi, jstate), (tp, tobs, thi, tstate) = _peeks(jdbv, jd), _peeks(tdbv, td)
@@ -283,11 +285,16 @@ def test_debug_visualizer_matches_jax():
     frames = [tp[0], tp[2], tp[0]]
     np.testing.assert_array_equal(tdbv.stitch_image_matrix(frames, num_col=2),
                                   jdbv.stitch_image_matrix(frames, num_col=2))
-    obs = td.get_observation(look_at=[3, 0.5, 3])
-    for call in (obs.get_image, lambda: obs.save("unused"), lambda: obs.show_point(np.array([0.5, 0.5])),
-                 lambda: td.make_debug_video("unused")):
-        with pytest.raises(NotImplementedError, match="visualizations/utils.py"):
-            call()
+    obs, jobs_ = td.get_observation(look_at=[3, 0.5, 3]), jd.get_observation(look_at=[3, 0.5, 3])
+    img = obs.get_image()
+    assert img.shape == (48, 48, 3) and img.dtype == np.uint8
+    assert (img == np.asarray(jobs_.get_image())).all(-1).mean() >= 0.999
+    obs.show_point(np.array([0.5, 0.5]))
+    assert (obs.get_image() != img).any(-1).sum() > 0
+    path = obs.save(str(tmp_path), "dbg")
+    assert path.endswith(".png") and open(path, "rb").read(8) == b"\x89PNG\r\n\x1a\n"
+    td.make_debug_video(str(tmp_path))
+    assert open(tmp_path / "dbv.gif", "rb").read(6) == b"GIF89a"
 
 
 def _sem_fields(ss):

@@ -78,7 +78,7 @@ def test_batch_obs_matches_jax():
         tcommon.batch_obs(obs)
 
 
-def test_action_space_helpers():
+def test_action_space_helpers(tmp_path):
     from habitat_torch.core.env_factory import make_nav_env
     from habitat_torch.datasets.pointnav import make_procedural_pointnav
     from habitat_torch.tasks.rearrange.generator import make_rearrange_env
@@ -98,8 +98,8 @@ def test_action_space_helpers():
         tcommon.get_num_actions(object())
     with tcommon.inference_mode():
         assert torch.is_inference_mode_enabled()
-    with pytest.raises(NotImplementedError, match="visualizations/utils.py"):
-        tcommon.generate_video(["disk"], "unused", [np.zeros((4, 4, 3), np.uint8)], "0", 0, {"spl": 1.0})
+    tcommon.generate_video(["disk"], str(tmp_path), [np.zeros((4, 4, 3), np.uint8)], "0", 0, {"spl": 1.0})
+    assert os.listdir(tmp_path) == ["episode=0-ckpt=0-spl=1.00.gif"]
 
 
 @pytest.mark.parametrize("greater_than", [True, False])
