@@ -466,6 +466,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
            card against CPU within 2**-6 of the largest. ms per rollout step
            and update, launches and idle share of a rollout step.
 
+23. hitl   the HITL loop (habitat_torch/hitl/, habitat_torch/examples/):
+           (a) HitlDriver stepping Env(pointnav_procgen.yaml) on the card at
+           its 128x128 (+ an RGB camera of that size, one render), the
+           flagship export acting through BaselinesController, a debug
+           circle composited into every recorded frame, NetworkingServer in
+           Unity mode on a free loopback port with two port clients (B joins
+           after HITL['late_join_s']): HITL['frames'] frames at 30 SPS.
+           Gates: >= 27 SPS; both clients receive keyframes, B's first
+           payload a consolidated keyframe with A's creations; the folded
+           replicas equal; A's input on its own GuiInput lane; every action
+           equal to a CPU BaselinesController's on the same observations
+           where the card's top-two logits lie more than twice the
+           card-vs-CPU logit gap apart; the controller's CUDA graph equal to
+           the eager forward on the session's first inputs; #1 once per
+           render, no plain version
+           on a card tensor; #1 on one session frame against its plain
+           version. ms per frame split into env step, policy act and the
+           rest (keyframe, recorded frame), the server's send, launches and
+           idle share. (b) hitl_rearrange_v2_app's two-user session: its
+           record equal to the CPU port's, no kernel. (c) hitl_rearrange_app
+           with record=True: #3 twice per head render, keyframes card
+           against CPU, #3 on its last head render against its plain
+           version. (d) the follower example: actions equal to the CPU's.
+
 Prints the kernels' JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 """
@@ -475,6 +499,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from unittest import mock
 
@@ -815,6 +840,15 @@ EVAL_VIDEO = dict(num_envs=8, num_scenes=8, dbv=(128, 128),
                          ([2.0, 0.0, 2.0], [4.0, 1.0, 4.0])))
 # [clip]: one update per config; the envs whose features are held card against CPU
 CLIP = dict(num_envs=16, num_steps=32, num_scenes=8, check_envs=4)
+# [hitl]: the live session (frames at the target rate, the JAX test's 27 SPS bar, the late joiner's delay,
+# the frame whose rays #1 is held on, frames profiled after the gated run, env steps and acts before it, the
+# session inputs on which BaselinesController's CUDA graph is held to the eager forward, bit for bit)
+HITL = dict(frames=120, sps=30.0, min_sps=27.0, late_join_s=1.5, check_frame=60, profile_frames=5, warmup_frames=5,
+            graph_checks=20, graph_atol=0.0)
+HITL_CONFIG = "benchmark/nav/pointnav/pointnav_procgen.yaml"
+# an RGB camera at the config's 128x128 beside its depth one, so that the driver records frames (one render)
+HITL_RGB = tuple(f"habitat.simulator.agents.main_agent.sim_sensors.rgb_sensor.{k}={v}"
+                 for k, v in (("type", "HabitatSimRGBSensor"), ("width", 128), ("height", 128)))
 
 
 def log(msg):
@@ -5702,6 +5736,487 @@ def clip_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card, s
     return launches
 
 
+def hitl_clients_main(url, late_join_s):
+    """[hitl]'s two remote clients (``chip_smoke.py --hitl-clients URL
+    LATE_S``), each a thread on the port's websocket client: A from the
+    start (it presses 'w' after 5 keyframes), B after LATE_S seconds. Each
+    folds the keyframes it receives and acks the newest id, until the
+    server closes. Prints one JSON line: keyframes per client, each one's
+    first payload, the folded replicas and any errors."""
+    sys.path.insert(0, ROOT)
+    from habitat_torch.hitl import websocket as ws
+    from habitat_torch.hitl.unity_protocol import get_empty_keyframe, update_consolidated_keyframe
+
+    folds = {"A": get_empty_keyframe(), "B": get_empty_keyframe()}
+    first, counts, errors = {}, {"A": 0, "B": 0}, []
+
+    def client(tag, delay, send_input):
+        try:
+            time.sleep(delay)
+            c = ws.connect(url)
+            sent = False
+            while True:
+                try:
+                    payload = json.loads(c.recv(timeout=5.0))
+                except ws.ConnectionClosed:
+                    return
+                kfs = payload["keyframes"]
+                first.setdefault(tag, kfs)
+                for kf in kfs:
+                    update_consolidated_keyframe(folds[tag], kf)
+                counts[tag] += len(kfs)
+                ids = [kf["id"] for kf in kfs if "id" in kf]
+                out = {"recentServerKeyframeId": ids[-1]} if ids else {}
+                if send_input and not sent and counts[tag] > 5:
+                    out["input"] = {"buttonDown": ["w"], "buttonUp": []}
+                    sent = True
+                c.send(json.dumps(out))
+        except Exception as e:  # reported to the phase, which fails on it
+            errors.append(f"client {tag}: {e!r}")
+
+    threads = [threading.Thread(target=client, args=a) for a in (("A", 0.0, True), ("B", late_join_s, False))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    print(json.dumps(dict(counts=counts, first=first, folds=folds, errors=errors)), flush=True)
+    return 0
+
+
+def hitl_live_session(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card, size):
+    """[hitl] (a): the flagship Env on the card driven by BaselinesController
+    inside HitlDriver, served by NetworkingServer(unity=True) to two port
+    clients in a process of their own (hitl_clients_main; B joins late).
+    Returns (#1 launches, the #1 frame check, the per-frame figures)."""
+    import numpy as np
+    import torch
+
+    from habitat_torch.baselines.flagship import WEIGHTS
+    from habitat_torch.config.default import get_config
+    from habitat_torch.core.env import Env
+    from habitat_torch.hitl import websocket as ws
+    from habitat_torch.hitl.app_states import AppState
+    from habitat_torch.hitl.hitl_main import BaselinesController, HitlDriver, NetworkingServer
+    from habitat_torch.models.convert import load_policy_file
+    from habitat_torch.ops import raycast as rc
+    from habitat_torch.ops import raycast_kernels as rk
+
+    t0 = time.perf_counter()
+    env = Env(get_config(HITL_CONFIG, overrides=list(HITL_RGB)), device=dev)
+    policy = load_policy_file(WEIGHTS, device=dev)
+    controller = BaselinesController(policy, deterministic=True)
+    # warm-up outside the session: the first env steps and acts on the card,
+    # the controller's CUDA graph captured at its first act (the session's
+    # first act masks the warm-up's carry, as a fresh controller's zeros)
+    obs = env.reset()
+    for _ in range(size["warmup_frames"]):
+        obs = env.reset() if env.episode_over else env.step(controller.act(obs))
+    controller.on_environment_reset()
+    setup_s = time.perf_counter() - t0
+    renders, step_ms = [0], []
+    env_reset, env_step = env.reset, env.step
+
+    def counted_reset():
+        renders[0] += 1
+        return env_reset()
+
+    def timed_step(action):
+        t = time.perf_counter()
+        out = env_step(action)  # waits for its one host copy
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        renders[0] += 1
+        return out
+
+    env.reset, env.step = counted_reset, timed_step
+
+    class FlagshipApp(AppState):
+        """The policy acts every frame; a new episode starts where one ends;
+        a magenta circle 1.5 m ahead of the camera the driver composites
+        through; A's 'w' is read from GuiInput."""
+
+        def __init__(self):
+            self.service, self.frame, self.pose = None, 0, None
+            self.acts, self.act_ms, self.logits, self.inputs, self.keys = [], [], [], [], []
+
+        def on_environment_reset(self, _):
+            controller.on_environment_reset()
+
+        def sim_update(self, dt, post):
+            svc = self.service
+            reset = env.episode_over
+            if reset:
+                obs = env.reset()
+                controller.on_environment_reset()
+            else:
+                obs = svc.get_observations()
+            if self.frame == size["check_frame"]:
+                st = env._state
+                self.pose = (env._inner._make_ctx(st).sid, st.pos.clone(), st.yaw.clone(), st.pitch.clone())
+            self.inputs.append((reset, {k: obs[k].clone() for k in ("depth", "pointgoal_with_gps_compass")}))
+            t = time.perf_counter()
+            a = controller.act(obs)
+            self.act_ms.append((time.perf_counter() - t) * 1e3)
+            self.acts.append(a)
+            self.logits.append(controller.logits.clone())
+            post["action"] = a
+            sim = svc.sim
+            yaw = float(getattr(sim, "_yaw", 0.0))
+            ahead = np.asarray(getattr(sim, "_pos", np.zeros(3))) + [-1.5 * np.sin(yaw), 1.25, -1.5 * np.cos(yaw)]
+            svc.line_render.draw_circle(ahead, 0.4, color=(255, 0, 255))
+            svc.text_drawer.add_text(f"flagship policy, frame {self.frame}")
+            self.keys.append(svc.gui_input.get_key("w"))
+            self.frame += 1
+
+    app = FlagshipApp()
+    driver = HitlDriver(app, env=env, target_sps=size["sps"], record_video=True)
+    app.service = driver.service
+    frame_ms, send_ms = [], []
+    driver_step = driver.step
+
+    def timed_frame(dt):
+        t = time.perf_counter()
+        out = driver_step(dt)
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    driver.step = timed_frame
+    server_send = ws.ServerConnection.send
+
+    async def timed_send(conn, message):
+        t = time.perf_counter()
+        await server_send(conn, message)
+        send_ms.append((time.perf_counter() - t) * 1e3)
+
+    server = NetworkingServer(driver, port=0, unity=True)
+    with mock.patch.object(ws.ServerConnection, "send", timed_send):
+        server.start()  # raises, naming the error, if it cannot listen
+        # the two clients in a process of their own, as remote clients are
+        clients = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--hitl-clients",
+                                    f"ws://127.0.0.1:{server.port}", str(size["late_join_s"])],
+                                   stdout=subprocess.PIPE, text=True)
+        deadline = time.perf_counter() + 60
+        while not server.user_inputs and time.perf_counter() < deadline and clients.poll() is None:
+            time.sleep(0.01)  # client A is there from the start
+        if not server.user_inputs:
+            fail(f"[hitl] client A did not connect (the clients' process exit {clients.poll()})")
+        zero_counts()
+        for p in plain_watch:
+            p.start()
+        t_run = time.perf_counter()
+        driver.run(max_steps=size["frames"])
+        wall = time.perf_counter() - t_run
+        sync(dev)
+        for p in plain_watch:
+            p.stop()
+        time.sleep(0.5)  # the last sends
+        server.stop()  # closes both connections; the clients then report
+        try:
+            out, _ = clients.communicate(timeout=30)
+        finally:
+            clients.kill()
+    got = json.loads(out.strip().splitlines()[-1]) if clients.returncode == 0 and out.strip() else None
+    if got is None or got["errors"]:
+        fail(f"[hitl] the clients' process: exit {clients.returncode}, {got and got['errors']}")
+    counts, first, folds = got["counts"], got["first"], got["folds"]
+    if plain_on_card:
+        fail(f"[hitl] plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+    launches = path_counts("[hitl] live session", raycast_fused_sel_t=renders[0])
+    sps = size["frames"] / wall
+    ended = {u: r["ended"] for u, r in server.connection_records.items() if "1000" not in r.get("ended", "1000")}
+    if ended:
+        fail(f"[hitl] connections ended by errors: {ended}")
+    if sps < size["min_sps"]:
+        rest = [f - a - s for f, a, s in zip(frame_ms, app.act_ms, step_ms)]
+        fail(f"[hitl] the server ran {sps:.2f} SPS, below {size['min_sps']}: ms per frame {ms_text(frame_ms)}, "
+             f"env step {ms_text(step_ms)}, act {ms_text(app.act_ms)}, the rest {ms_text(rest)}, "
+             f"sends {ms_text(send_ms)}; frames {[round(f, 1) for f in frame_ms]}")
+    if not (counts["A"] > size["frames"] // 2 and counts["B"] > 10):
+        fail(f"[hitl] keyframes received {counts}")
+    b0 = first["B"][0]
+    a_keys = {c["instanceKey"] for c in folds["A"].get("creations", [])}
+    if not (b0.get("creations") and {c["instanceKey"] for c in b0["creations"]} == a_keys):
+        fail(f"[hitl] the late joiner's first keyframe creations {b0.get('creations')}, A's {sorted(a_keys)}")
+    if json.dumps(folds["A"]["stateUpdates"], sort_keys=True) != json.dumps(folds["B"]["stateUpdates"],
+                                                                             sort_keys=True):
+        fail("[hitl] the two clients' folded replicas differ")
+    if not (any(app.keys) and server.user_inputs[0].get_key("w") and not server.user_inputs[1].get_key("w")):
+        fail("[hitl] client A's input did not reach GuiInput on its own lane")
+    frames = driver.service.video_frames
+    magenta = [int(((f[..., 0] == 255) & (f[..., 1] == 0) & (f[..., 2] == 255)).sum()) for f in frames]
+    if len(frames) != size["frames"] or frames[0].shape != (128, 128, 3) or min(magenta) < 10:
+        fail(f"[hitl] recorded frames {len(frames)} of {frames[0].shape if frames else None}, "
+             f"circle pixels {min(magenta) if magenta else None}")
+    # every action against a CPU controller fed the same observations (the
+    # card's action teacher-forced as the previous action)
+    cpu = BaselinesController(load_policy_file(WEIGHTS, device="cpu"), deterministic=True)
+    ruled, parted, worst = 0, [], 0.0
+    for i, ((reset, obs), a_card, lg) in enumerate(zip(app.inputs, app.acts, app.logits)):
+        if reset:
+            cpu.on_environment_reset()
+        a_cpu = cpu.act({k: v.cpu() for k, v in obs.items()})
+        lg = lg.cpu()
+        gap = (lg - cpu.logits).abs().max().item()
+        worst = max(worst, gap)
+        top = np.sort(lg[0].numpy())
+        if top[-1] - top[-2] > 2 * gap:
+            ruled += 1
+            if a_cpu != a_card:
+                fail(f"[hitl] act {i}: card {a_card}, CPU {a_cpu}, margin {top[-1] - top[-2]:.3g}, gap {gap:.3g}")
+        elif a_cpu != a_card:
+            parted.append(i)
+        cpu._prev_a = torch.tensor([a_card], dtype=torch.int32)
+    # the controller's CUDA graph against the eager forward on the session's
+    # first inputs (one state, stepped by both)
+    graphed = BaselinesController(policy, deterministic=True)
+    h, prev, mask = policy.initial_hidden(1), torch.zeros(1, dtype=torch.int32, device=dev), torch.zeros(1, device=dev)
+    graph_gap = 0.0
+    with torch.no_grad():
+        for reset, obs in app.inputs[:size["graph_checks"]]:
+            if reset:
+                graphed.on_environment_reset()
+                mask = torch.zeros(1, device=dev)
+            a = graphed.act(obs)
+            logits, _, h = policy({k: v[None] for k, v in obs.items()}, h, prev, mask)
+            graph_gap = max(graph_gap, (graphed.logits - logits.float()).abs().max().item(),
+                            (graphed._hidden - h).abs().max().item())
+            if a != int(logits.float().argmax(-1)[0]):
+                fail(f"[hitl] the controller's CUDA graph acts {a}, the eager forward {logits}")
+            prev, mask = torch.tensor([a], dtype=torch.int32, device=dev), torch.ones(1, device=dev)
+    if graph_gap > size["graph_atol"]:
+        fail(f"[hitl] the controller's CUDA graph parts from the eager forward by {graph_gap}")
+    # #1 on one of the session's frames against its plain version
+    sid, pos, yaw, pitch = app.pose
+    kernel, args, kwargs, _ = rc.closest_hit_call(env._inner.pack, sid, pos + torch.tensor([0.0, 1.25, 0.0],
+                                                                                          device=dev),
+                                                  yaw, pitch, height=128, width=128)
+    if kernel is not rk.raycast_fused_sel_t:
+        fail(f"[hitl] the session's render takes {kernel.__name__}, not #1")
+    hit, idx, dt = agreement("[hitl] #1 on the session's frame", kernel(*args, **kwargs),
+                             kernel.plain(*args, **kwargs))
+    check = dict(frame=size["check_frame"], rays=16384, hit_agree=hit, idx_agree=idx, max_abs_err=dt)
+    n_frames, n_acts, n_keys, n_renders = len(frames), len(app.acts), sum(app.keys), renders[0]
+    # device time, launches and idle share of a frame (after the gated run)
+    n = size["profile_frames"]
+    t = time.perf_counter()
+    for _ in range(n):
+        driver_step(1.0 / size["sps"])
+    wall_n = (time.perf_counter() - t) * 1e3
+    _, dev_ms, n_launch, _ = device_time_and_launches(lambda: [driver_step(1.0 / size["sps"]) for _ in range(n)])
+    rest = [f - a - s for f, a, s in zip(frame_ms, app.act_ms, step_ms)]
+    figures = dict(sps=sps, frame_ms=frame_ms, act_ms=app.act_ms, step_ms=step_ms, rest_ms=rest, send_ms=send_ms,
+                   idle=1 - dev_ms / wall_n, dev_ms=dev_ms / n, launches=n_launch / n)
+    log(f"[hitl] {gpu}: (a) the live session: Env({HITL_CONFIG}) + a 128x128 RGB sensor on the card, "
+        f"BaselinesController (flagship export, deterministic), NetworkingServer(unity=True) on port {server.port} "
+        f"(set-up {setup_s:.1f} s): {size['frames']} frames in {wall:.3f} s = {sps:.2f} SPS (target "
+        f"{size['sps']}, gate >= {size['min_sps']}); ms per frame {ms_text(frame_ms)}: env step "
+        f"{ms_text(step_ms)}, policy act {ms_text(app.act_ms)}, keyframe + recorded frame + the rest "
+        f"{ms_text(rest)}; the server thread's send {ms_text(send_ms)} per payload ({len(send_ms)} payloads); "
+        f"{n} profiled frames: {dev_ms / n:.3f} ms on the device, {n_launch / n:.0f} launches per frame, idle share "
+        f"{1 - dev_ms / wall_n:.3f} of {wall_n / n:.3f} ms; client A {counts['A']} keyframes, late joiner B "
+        f"{counts['B']} (first payload a consolidated keyframe with A's {len(a_keys)} creations), replicas equal, "
+        f"A's 'w' on user lane 0 in {n_keys} frames; {n_frames} recorded frames with the circle "
+        f"(>= {min(magenta)} pixels); #1 {launches['raycast_fused_sel_t']} = one per render ({n_renders}: "
+        f"resets and steps), no plain version on a card tensor; #1 on frame {size['check_frame']}: hit {hit:.6f}, "
+        f"winner {idx:.6f}, |dt| {dt:.3g}; actions against a CPU controller on the same observations: "
+        f"{n_acts} acts, {ruled} with the top-two logits more than twice the card-vs-CPU gap apart (all "
+        f"equal), logit gap <= {worst:.3g}, parted at {parted} (within the margin); the controller's CUDA graph "
+        f"against the eager forward on the first {size['graph_checks']} inputs: largest gap {graph_gap:.3g}")
+    return launches["raycast_fused_sel_t"], check, figures
+
+
+def hitl_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card, size=HITL):
+    """[hitl]: the HITL loop on the card. (a) hitl_live_session; (b)
+    hitl_rearrange_v2_app's scripted two-user session, its gzipped record
+    equal to the CPU port's (wall-clock stamps aside) and the two agents'
+    end state within SOCIAL_ATOL, no kernel; (c) hitl_rearrange_app with
+    record=True: #3 twice per head render, its keyframes within 1e-5 of a
+    CPU run's, #3 on every head render against its plain version (both
+    passes); (d) the follower example: its actions equal the CPU's, #1 once
+    per render. Returns ({#1 / #3 launches per part}, checks, figures)."""
+    import gzip
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from habitat_torch.examples import hitl_rearrange_app, hitl_rearrange_v2_app, shortest_path_follower_example
+    from habitat_torch.ops import raycast as rc
+    from habitat_torch.ops import raycast_kernels as rk
+
+    t_phase = time.perf_counter()
+    live_launches, live_check, figures = hitl_live_session(gpu, dev, zero_counts, path_counts, plain_watch,
+                                                           plain_on_card, size)
+    tmp = tempfile.mkdtemp(prefix="hitl_")
+
+    # (b) the two-user rearrange_v2 session
+    apps = []
+    keep_init = hitl_rearrange_v2_app.RearrangeV2App.__init__
+
+    def keep(self, *a, **k):
+        keep_init(self, *a, **k)
+        apps.append(self)
+
+    records = {}
+    with mock.patch.object(hitl_rearrange_v2_app.RearrangeV2App, "__init__", keep):
+        for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            zero_counts()
+            for p in plain_watch:
+                p.start()
+            hitl_rearrange_v2_app.main(output_path=os.path.join(tmp, f"{name}.json.gz"), device=d)
+            for p in plain_watch:
+                p.stop()
+            path_counts(f"[hitl] rearrange_v2 on the {name}")
+            with gzip.open(os.path.join(tmp, f"{name}.json.gz"), "rt") as f:
+                rec = json.load(f)
+            rec.pop("session_start"), rec.pop("session_end")
+            records[name] = rec
+    if plain_on_card:
+        fail(f"[hitl] plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+    if records["card"] != records["cpu"] or not records["card"]["finished"]:
+        fail(f"[hitl] the rearrange_v2 record on the card {records['card']}, on the CPU {records['cpu']}")
+    v2_gap = max((getattr(apps[0]._state, f).cpu() - getattr(apps[1]._state, f)).abs().max().item()
+                 for f in ("pos", "yaw", "human_pos", "human_yaw"))
+    if v2_gap > SOCIAL_ATOL:
+        fail(f"[hitl] rearrange_v2's end state card against CPU: {v2_gap}")
+
+    # (c) the rearrange app with its head camera
+    env_g = hitl_rearrange_app.make_env(record=True, device=dev)
+    index_calls = []
+
+    def index_seen(*args, **k):
+        out = rk.raycast_index_t(*args, **k)
+        index_calls.append((args, k, out))
+        return out
+
+    zero_counts()
+    for p in plain_watch:
+        p.start()
+    t = time.perf_counter()
+    with mock.patch.object(rc, "raycast_index_t", index_seen):
+        drv_g = hitl_rearrange_app.main(record=True, env=env_g)
+    sync(dev)
+    rearrange_s = time.perf_counter() - t
+    for p in plain_watch:
+        p.stop()
+    if plain_on_card:
+        fail(f"[hitl] plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+    n_head = 1 + len(drv_g.keyframes)
+    r_launches = path_counts("[hitl] rearrange app", raycast_index_t=2 * n_head)
+    drv_c = hitl_rearrange_app.main(record=True, device="cpu")
+
+    def flat(kfs):
+        return np.array([v for kf in kfs for v in kf["agent"]["position"] + kf["agent"]["rotation"]
+                         + [x for o in kf["objects"] for x in o["position"]] + [kf["held_object"]]])
+
+    kf_gap = float(np.abs(flat(drv_g.keyframes) - flat(drv_c.keyframes)).max())
+    if kf_gap > 1e-5 or not any(k["held_object"] >= 0 for k in drv_g.keyframes):
+        fail(f"[hitl] rearrange app keyframes card against CPU: gap {kf_gap}")
+    # #3 on every head render of the session (static and dynamic passes)
+    # against its plain version
+    index_check = {}
+    for i, (args, k, got) in enumerate(index_calls):
+        what = ("static", "dynamic")[i % 2]
+        ref = rk.raycast_index_t.plain(*args, **k)
+        r = index_check.setdefault(what, dict(matrix=list(args[0].shape), rays=0, hit_rays=0, renders=0,
+                                              hit_agree=1.0, idx_agree=1.0, max_abs_err=0.0))
+        r["renders"] += 1
+        r["rays"] += args[2].numel() // 16
+        if (got[1] >= 0).any() or (ref[1] >= 0).any():
+            hit_a, idx_a, dt = agreement(f"[hitl] raycast_index_t on the rearrange app's head render {i // 2}, "
+                                         f"{what} pass", got, ref)
+            r["hit_agree"], r["idx_agree"] = min(r["hit_agree"], hit_a), min(r["idx_agree"], idx_a)
+            r["max_abs_err"] = max(r["max_abs_err"], dt)
+            r["hit_rays"] += int((ref[1] >= 0).sum().item())
+    if len(index_calls) != 2 * n_head or index_check["dynamic"]["hit_rays"] == 0:
+        fail(f"[hitl] #3 calls {len(index_calls)}, dynamic hits {index_check['dynamic']['hit_rays']}")
+
+    # (d) the follower example
+    zero_counts()
+    for p in plain_watch:
+        p.start()
+    t = time.perf_counter()
+    acts_g = shortest_path_follower_example.shortest_path_example(device=dev, output_dir=tmp)
+    follower_s = time.perf_counter() - t
+    for p in plain_watch:
+        p.stop()
+    if plain_on_card:
+        fail(f"[hitl] plain versions ran on card tensors: {sorted(set(plain_on_card))}")
+    # TpuSim renders at construction and at reset, then once per step
+    f_launches = path_counts("[hitl] follower example", raycast_fused_sel_t=2 + len(acts_g) - 1)
+    acts_c = shortest_path_follower_example.shortest_path_example(make_video=False, device="cpu")
+    shutil.rmtree(tmp)
+    if acts_g != acts_c or acts_g[-1] != 0:
+        fail(f"[hitl] the follower's actions on the card {acts_g}, on the CPU {acts_c}")
+    log(f"[hitl] {gpu}: (b) hitl_rearrange_v2_app, two users, {len(records['card']['episodes'])} episodes: the "
+        f"session record equal to the CPU port's, end state gap {v2_gap:.3g}, no kernel; (c) hitl_rearrange_app "
+        f"record=True: {len(drv_g.keyframes)} steps in {rearrange_s:.2f} s, #3 {r_launches['raycast_index_t']} = 2 "
+        f"x {n_head} head renders, keyframes within {kf_gap:.3g} of the CPU's, #3 on every head render: "
+        + "; ".join(f"{w} {r['matrix']} x {r['rays']} rays ({r['hit_rays']} hits) hit {r['hit_agree']:.6f} idx "
+                    f"{r['idx_agree']:.6f} |dt| {r['max_abs_err']:.3g}" for w, r in index_check.items())
+        + f"; (d) the follower example: {len(acts_g)} actions equal to the CPU's in {follower_s:.2f} s (GIF "
+        f"included), #1 {f_launches['raycast_fused_sel_t']}; the phase {time.perf_counter() - t_phase:.1f} s")
+    launches = dict(live=live_launches, rearrange=r_launches["raycast_index_t"],
+                    follower=f_launches["raycast_fused_sel_t"])
+    return launches, dict(live=live_check, index=index_check), figures
+
+
+def kernel_counters():
+    """The launch counters of every kernel wrapper and the watch on their
+    plain versions, as every phase takes them.
+
+    Returns ``(zero_counts, path_counts, plain_watch, plain_on_card)``:
+    ``zero_counts()`` sets every count to 0; ``path_counts(path, **want)``
+    returns the counts since then and fails unless they are exactly
+    ``want`` (kernels not named: no launch); ``plain_watch`` holds one
+    ``mock.patch`` per plain version, by the name its wrapper calls it,
+    that appends its name to ``plain_on_card`` when it runs on card
+    tensors."""
+    import torch
+
+    from habitat_torch.ops import pool
+    from habitat_torch.ops import raycast_kernels as rk
+
+    wrappers = {n: getattr(rk, n) for n in (
+        "raycast_fused_sel_t", "raycast_fused_t", "raycast_exactsel_t", "raycast_stream_t", "cullmask_t",
+        "raycast_index_t", "raycast_culled_t", "raycast_index", "raycast_culled", "raycast_tilecull_t")}
+    wrappers["max_pool_3x3s2_bwd"] = pool.max_pool_3x3s2_bwd
+
+    def zero_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def path_counts(path, **want):
+        got = {n: w.launches for n, w in wrappers.items()}
+        if got != {**dict.fromkeys(wrappers, 0), **want}:
+            fail(f"{path} launches {got}, want {want} and no other")
+        return got
+
+    plain_on_card = []
+
+    def watch(fn):
+        def run(*args, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                plain_on_card.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return run
+
+    plain_watch = [
+        mock.patch.object(pool, "max_pool_3x3s2_bwd_plain", watch(pool.max_pool_3x3s2_bwd_plain)),
+        mock.patch.object(rk, "raycast_fused_sel_t_plain", watch(rk.raycast_fused_sel_t_plain)),
+        mock.patch.object(rk, "raycast_fused_t_plain", watch(rk.raycast_fused_t_plain)),
+        mock.patch.object(rk, "cull_mask_torch", watch(rk.cull_mask_torch)),
+        mock.patch.object(rk.raycast_exactsel_t, "plain", watch(rk.raycast_exactsel_t.plain)),
+        mock.patch.object(rk.raycast_stream_t, "plain", watch(rk.raycast_stream_t.plain)),
+        mock.patch.object(rk, "raycast_index_t_plain", watch(rk.raycast_index_t_plain)),
+        mock.patch.object(rk, "raycast_culled_t_plain", watch(rk.raycast_culled_t_plain)),
+        mock.patch.object(rk, "raycast_index_plain", watch(rk.raycast_index_plain)),
+        mock.patch.object(rk, "raycast_culled_plain", watch(rk.raycast_culled_plain)),
+        mock.patch.object(rk, "raycast_tilecull_t_plain", watch(rk.raycast_tilecull_t_plain)),
+    ]
+    return zero_counts, path_counts, plain_watch, plain_on_card
+
+
 def main():
     import torch
 
@@ -5798,22 +6313,7 @@ def main():
     )
 
     # ---- 2. kernels -------------------------------------------------------
-    wrappers = {n: getattr(rk, n) for n in (
-        "raycast_fused_sel_t", "raycast_fused_t", "raycast_exactsel_t", "raycast_stream_t", "cullmask_t",
-        "raycast_index_t", "raycast_culled_t", "raycast_index", "raycast_culled", "raycast_tilecull_t")}
-    wrappers["max_pool_3x3s2_bwd"] = pool.max_pool_3x3s2_bwd
-
-    def zero_counts():
-        for w in wrappers.values():
-            w.launches = 0
-
-    def path_counts(path, **want):
-        """The launch counts since zero_counts(); fails unless they are
-        exactly ``want`` (kernels not named: no launch)."""
-        got = {n: w.launches for n, w in wrappers.items()}
-        if got != {**dict.fromkeys(wrappers, 0), **want}:
-            fail(f"{path} launches {got}, want {want} and no other")
-        return got
+    zero_counts, path_counts, plain_watch, plain_on_card = kernel_counters()
 
     cam_offset = torch.tensor([0.0, 1.25, 0.0], device=dev)
     hw = dict(height=BENCH["height"], width=BENCH["width"])
@@ -6423,30 +6923,6 @@ def main():
         fail(f"the scan route disagrees with the all-chunks oracle: hitmatch {hitmatch}, t_agree_5mm {t_agree}")
 
     # ---- 6. train: rollout + PPO update at the bench shape, then the scan scene ----
-    plain_on_card = []
-
-    def watch(fn):
-        def run(*args, **kwargs):
-            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
-                plain_on_card.append(fn.__name__)
-            return fn(*args, **kwargs)
-        return run
-
-    # every plain version, by the names its wrapper calls it
-    plain_watch = [
-        mock.patch.object(pool, "max_pool_3x3s2_bwd_plain", watch(pool.max_pool_3x3s2_bwd_plain)),
-        mock.patch.object(rk, "raycast_fused_sel_t_plain", watch(rk.raycast_fused_sel_t_plain)),
-        mock.patch.object(rk, "raycast_fused_t_plain", watch(rk.raycast_fused_t_plain)),
-        mock.patch.object(rk, "cull_mask_torch", watch(rk.cull_mask_torch)),
-        mock.patch.object(rk.raycast_exactsel_t, "plain", watch(rk.raycast_exactsel_t.plain)),
-        mock.patch.object(rk.raycast_stream_t, "plain", watch(rk.raycast_stream_t.plain)),
-        mock.patch.object(rk, "raycast_index_t_plain", watch(rk.raycast_index_t_plain)),
-        mock.patch.object(rk, "raycast_culled_t_plain", watch(rk.raycast_culled_t_plain)),
-        mock.patch.object(rk, "raycast_index_plain", watch(rk.raycast_index_plain)),
-        mock.patch.object(rk, "raycast_culled_plain", watch(rk.raycast_culled_plain)),
-        mock.patch.object(rk, "raycast_tilecull_t_plain", watch(rk.raycast_tilecull_t_plain)),
-    ]
-
     def train_path(tag, lrn, seed, steps):
         """A warm-up and ``steps`` timed train steps; returns (rollout
         state, train env-steps/s sorted, per-step rollout and update ms,
@@ -6987,6 +7463,16 @@ def main():
     sel["clip_pointnav_launches"] = clip_launches["pointnav"]
     sel["clip_objectnav_launches"] = clip_launches["objectnav"]
 
+    # ---- 23. the HITL loop: the live Unity session, the apps -------------------
+    log(f"[hitl] starts {time.perf_counter() - t_start:.1f} s after the start")
+    torch.cuda.empty_cache()
+    hitl_launches, hitl_checks, _ = hitl_phase(gpu, dev, zero_counts, path_counts, plain_watch, plain_on_card)
+    sel["hitl_live_launches"] = hitl_launches["live"]
+    sel["hitl_live_frame"] = hitl_checks["live"]
+    sel["hitl_follower_launches"] = hitl_launches["follower"]
+    index_row["hitl_rearrange_launches"] = hitl_launches["rearrange"]
+    index_row["hitl_rearrange_head_render"] = hitl_checks["index"]
+
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -6997,6 +7483,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--hitl-clients"]:
+        sys.exit(hitl_clients_main(sys.argv[2], float(sys.argv[3])))
     if sys.argv[1:2] == ["--ddppo-rank"]:
         sys.path.insert(0, ROOT)
         sys.exit(ddppo_rank_main(int(sys.argv[2]), sys.argv[3], sys.argv[4]))

@@ -46,6 +46,7 @@ from habitat_torch.models.policy import make_pointnav_resnet_policy
 
 from tests.test_torch_eqa_il import _random_params
 from tests.test_torch_ppo import _flat, _jax_as
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, "habitat_torch", "weights", "flagship_pointnav.pt")

@@ -43,6 +43,7 @@ from habitat_torch.tasks.rearrange import generator as tgen
 from habitat_torch.tasks.rearrange import samplers as tsam
 from habitat_torch.tasks.rearrange.art_scene import opener_action
 from tests.test_torch_rearrange_env import _assert_tables_equal, _compare, to_port_state
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 ROOT = os.path.join(os.path.dirname(__file__), "assets", "mini_dataset")
 CFG = os.path.join(ROOT, "mini.scene_dataset_config.json")

@@ -34,6 +34,7 @@ from tests.test_torch_agents import HIDDEN, HW
 from tests.test_torch_env_api import CFG, SMALL
 from tests.test_torch_eqa_il import _random_params
 from tests.test_torch_ppo import _flat, _jax_as
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 EPISODES = 3
 

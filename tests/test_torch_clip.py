@@ -52,6 +52,7 @@ from habitat_torch.models import running_mean_and_var as trmv
 from habitat_torch.models.convert import params_from_jax, simple_cnn_params_from_jax
 from habitat_torch.models.policy import SimpleCNN
 from habitat_torch.models.rnn_state_encoder import build_rnn_state_encoder
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NARROW = dict(layers=(1, 1, 1, 1), width=8)

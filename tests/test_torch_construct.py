@@ -41,6 +41,7 @@ from habitat_torch.baselines import run
 from habitat_torch.config.default import get_config
 from habitat_torch.config.omega import read_write
 from tests.test_trainer import OVERRIDES
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 ATOL = 1e-5
 NAV_32 = [

@@ -51,6 +51,7 @@ from habitat_tpu.tasks.rearrange import rearrange_env as jre
 
 from habitat_torch.tasks.rearrange import generator as tgen
 from habitat_torch.tasks.rearrange import rearrange_env as tre
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 ATOL = 1e-5
 W_RTOL = 1e-5

@@ -36,6 +36,7 @@ from habitat_torch.ops import raycast as trc
 from habitat_torch.ops import raycast_kernels as trk
 from habitat_torch.sims import procedural as tproc
 from habitat_torch.sims.scene import pack_scenes as torch_pack
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 SCAN_KW = dict(seed=5, extent=6.0, n_rooms_per_axis=2, n_clutter=6, tess=0.35)
 CULL_K = 8

@@ -18,6 +18,7 @@ from habitat_tpu.datasets.pointnav import make_procedural_pointnav as jax_pointn
 
 from habitat_torch.core.env_factory import make_nav_env
 from habitat_torch.datasets.pointnav import make_procedural_pointnav
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 N_ENVS, N_STEPS, MAX_STEPS = 8, 64, 12
 MEASURES = ("distance_to_goal", "success", "spl", "soft_spl", "collisions",

@@ -51,6 +51,7 @@ from habitat_torch.core.env import Env
 from habitat_torch.core.env_factory import make_nav_env
 from habitat_torch.core.environments import RLTaskEnv, get_env_class
 from habitat_torch.datasets.pointnav import make_procedural_pointnav
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 CFG = "benchmark/nav/pointnav/pointnav_procgen.yaml"
 SMALL = [

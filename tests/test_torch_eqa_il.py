@@ -57,6 +57,7 @@ from habitat_torch.models.convert import (
 from habitat_torch.tasks.eqa import make_eqa_env
 
 from tests.test_torch_ppo import FROZEN, _flat
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 # float32 in both; 12 convolutions and GroupNorms summed in different
 # orders leave up to ~1.2e-5 on logits of size ~0.3

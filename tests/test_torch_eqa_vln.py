@@ -46,6 +46,7 @@ from habitat_torch.tasks import eqa as teqa
 from habitat_torch.tasks import vln as tvln
 
 from tests.test_torch_ppo import _flat, _jax_as
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 N, ATOL = 4, 1e-5
 STEPS = {"eqa": 20, "referent_eqa": 20, "vln": 40, "referent_vln": 40}

@@ -59,6 +59,7 @@ from habitat_torch.core.env_factory import make_nav_env
 from habitat_torch.datasets.pointnav import make_procedural_pointnav
 from habitat_torch.models.convert import load_policy_file, params_from_jax
 from habitat_torch.models.policy import make_pointnav_resnet_policy
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(ROOT, "habitat_torch", "weights", "flagship_pointnav.pt")
@@ -77,6 +78,7 @@ def _two_torch_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
+
 
 
 # ---- the export -------------------------------------------------------------------

@@ -45,6 +45,7 @@ from habitat_tpu.ops import raycast as jrc
 from habitat_torch.config.default import get_config as tget
 from habitat_torch.core.construct import rearrange_env_from_config as tfrom
 from tests.test_torch_rearrange_env import ATOL, STATE_FIELDS, _compare, to_port_state
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 N = 2
 HAB3 = ["habitat.simulator.agents.main_agent.articulated_agent_type=SpotRobot",

@@ -50,6 +50,8 @@ from habitat_torch.utils.visualizations import fog_of_war as tfog
 from habitat_torch.utils.visualizations import maps as tmaps
 
 from tests.test_torch_env_api import CFG, SCHEDULE, SMALL
+from tests.torch_jax_native import _jax_native  # noqa: F401
+
 
 ATOL = 1e-5
 HOST = {"top_down_map": "TopDownMap", "runtime_perf_stats": "RuntimePerfStats", "gfx_replay": "GfxReplayMeasure"}

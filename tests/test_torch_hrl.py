@@ -63,6 +63,7 @@ from habitat_torch.tasks.rearrange import generator as tgen
 from habitat_torch.tasks.rearrange.multi_task import pddl as tpddl
 
 from tests.test_torch_rearrange_env import to_port_state
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 ATOL = 1e-5
 COMPOSITE = dict(num_envs=4, task="rearrange", with_visual=False, max_episode_steps=400, n_rooms_per_axis=1,

@@ -61,6 +61,7 @@ from habitat_torch.sims.scene import geodesic_field, pack_scenes
 from habitat_torch.tasks.shortest_path_follower import ShortestPathFollower
 
 from tests.test_torch_ppo import FROZEN, _flat, _jax_as
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = os.path.join(ROOT, "scripts")
@@ -79,6 +80,7 @@ def _two_torch_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
+
 
 
 # -- the follower --------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The port stands alone: nothing under habitat_torch/, nothing in
 chip_smoke.py and nothing in scripts/eval_flagship_torch.py imports JAX,
-Flax, Optax, Orbax, gymnasium, OpenCV, imageio, grpc, PIL, moviepy (the
-card's machine has none of them) or the habitat_tpu package. The config path's modules, imported one by one in a
+Flax, Optax, Orbax, gymnasium, OpenCV, imageio, grpc, PIL, moviepy,
+websockets (the card's machine has none of them) or the habitat_tpu package. The config path's modules, imported one by one in a
 fresh interpreter, load none of them, and ``habitat_torch.config`` composes
 the in-repo YAML tree (read as data) without them either."""
 
@@ -12,7 +12,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gymnasium", "cv2", "imageio", "grpc", "PIL", "moviepy",
-             "habitat_tpu")
+             "websockets", "habitat_tpu")
 
 
 def _port_files():
@@ -54,7 +54,12 @@ def test_port_files_found():
                    "sims/semantic_scene.py", "sims/debug_visualizer.py", "baselines/obs_transformers.py",
                    "utils/common.py", "utils/info_dict.py", "utils/profiling_wrapper.py", "core/vector_env.py",
                    "utils/visualizations/utils.py", "utils/visualizations/image_io.py", "utils/tb.py",
-                   "models/clip_resnet.py", "models/running_mean_and_var.py", "models/rnn_state_encoder.py"):
+                   "models/clip_resnet.py", "models/running_mean_and_var.py", "models/rnn_state_encoder.py",
+                   "hitl/app_states.py", "hitl/unity_protocol.py", "hitl/controllers.py", "hitl/websocket.py",
+                   "hitl/hitl_main.py", "examples/hitl_minimal_app.py", "examples/hitl_basic_viewer_app.py",
+                   "examples/hitl_sim_viewer_app.py", "examples/hitl_rearrange_app.py",
+                   "examples/hitl_pick_throw_app.py", "examples/hitl_rearrange_v2_app.py",
+                   "examples/interactive_play.py", "examples/shortest_path_follower_example.py"):
         assert os.path.join(ROOT, "habitat_torch", module) in files
 
 
@@ -92,7 +97,12 @@ CONFIG_PATH_MODULES = (
     "habitat_torch.utils.common", "habitat_torch.utils.info_dict", "habitat_torch.utils.profiling_wrapper",
     "habitat_torch", "habitat_torch.core.vector_env", "habitat_torch.utils.visualizations.image_io",
     "habitat_torch.utils.visualizations.utils", "habitat_torch.models.clip_resnet",
-    "habitat_torch.models.running_mean_and_var",
+    "habitat_torch.models.running_mean_and_var", "habitat_torch.hitl.app_states", "habitat_torch.hitl.unity_protocol",
+    "habitat_torch.hitl.controllers", "habitat_torch.hitl.websocket", "habitat_torch.hitl.hitl_main",
+    "habitat_torch.examples.hitl_minimal_app", "habitat_torch.examples.hitl_basic_viewer_app",
+    "habitat_torch.examples.hitl_sim_viewer_app", "habitat_torch.examples.hitl_rearrange_app",
+    "habitat_torch.examples.hitl_pick_throw_app", "habitat_torch.examples.hitl_rearrange_v2_app",
+    "habitat_torch.examples.interactive_play", "habitat_torch.examples.shortest_path_follower_example",
 )
 _PROBE = """
 import json, sys

@@ -40,6 +40,8 @@ from habitat_torch.core import construct as tcons
 from habitat_torch.datasets.pointnav import PointNavDatasetV1
 from habitat_torch.datasets.registration import make_dataset
 from habitat_torch.sims import loaders as tload
+from tests.torch_jax_native import _jax_native  # noqa: F401
+
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 MINI = os.path.join(ROOT, "mini_dataset")

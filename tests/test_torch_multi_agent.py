@@ -41,6 +41,7 @@ from habitat_torch.baselines.ppo import PPOConfig
 from habitat_torch.models.convert import params_from_jax, population_params_from_jax, two_agent_params_from_jax
 from habitat_torch.models.policy import make_pointnav_resnet_policy, state_keys_of
 from habitat_torch.tasks.rearrange import social_nav as tsn
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 N, T, HIDDEN = 4, 8, 32
 PPO = dict(num_steps=T, num_mini_batch=1, ppo_epoch=2)

@@ -42,6 +42,7 @@ from habitat_torch.datasets import image_nav as tin
 from habitat_torch.datasets import object_nav as ton
 from habitat_torch.datasets.pointnav import make_procedural_pointnav
 from habitat_torch.tasks import nav as tnav
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 ATOL = 1e-5
 FRAME_AGREE = 0.999

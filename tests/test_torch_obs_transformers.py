@@ -33,6 +33,7 @@ from habitat_torch.baselines import obs_transformers as T
 from habitat_torch.datasets.pointnav import make_procedural_pointnav
 from habitat_torch.ops.raycast import render_batch
 from habitat_torch.sims.scene import pack_scenes
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 FACES = T.CUBE_FACES
 

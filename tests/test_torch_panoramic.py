@@ -56,6 +56,7 @@ from habitat_torch.ops import raycast_kernels as trk
 from habitat_torch.sims import procedural as tproc
 from habitat_torch.sims.scene import pack_scenes as torch_pack
 from habitat_torch.utils import geometry as tgeo
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 SCAN_KW = dict(seed=5, extent=6.0, n_rooms_per_axis=2, n_clutter=6, tess=0.35)
 MID_KW = dict(num_scenes=1, episodes_per_scene=1, seed=0, extent=30.0, scene_kw=dict(n_clutter=420))

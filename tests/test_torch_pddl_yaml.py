@@ -43,6 +43,7 @@ from habitat_torch.tasks.rearrange import generator as tgen
 from habitat_torch.tasks.rearrange import task_actions as tta
 from habitat_torch.tasks.rearrange.multi_task import pddl_yaml as tpy
 from tests.test_torch_rearrange_env import STATE_FIELDS, to_port_state
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 N = 4
 GEN = dict(num_envs=N, num_scenes=1, episodes_per_scene=4, seed=0, with_visual=False)

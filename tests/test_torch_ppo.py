@@ -71,6 +71,7 @@ from habitat_torch.models.policy import make_pointnav_resnet_policy
 from habitat_torch.models.rnn_state_encoder import initial_hidden_state
 
 from tests.test_torch_models import BF16_ATOL, _perturb_affine
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 T, N, HW, A, HIDDEN = 4, 4, 32, 4, 512
 ATOL = {"float32": 1e-4, "bfloat16": BF16_ATOL}
@@ -107,6 +108,7 @@ def _two_torch_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
+
 
 
 # ---- inputs ----------------------------------------------------------------

@@ -29,6 +29,7 @@ from habitat_torch.ops import raycast as trc
 from habitat_torch.ops import raycast_kernels as trk
 from habitat_torch.sims.scene import pack_scenes as torch_pack
 from habitat_torch.datasets.pointnav import make_procedural_pointnav as torch_pointnav
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 HFOV = 90.0
 

@@ -36,6 +36,7 @@ from habitat_torch.models.policy import make_gaussian_resnet_policy, state_keys_
 from habitat_torch.tasks.rearrange import generator as tgen
 from habitat_torch.utils import threefry as tf
 from tests.test_torch_rearrange_env import _assert_tables_equal, _compare, to_port_state
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 N = 4
 REACH = dict(num_envs=N, task="reach", with_visual=False, control="arm", n_rooms_per_axis=1, n_clutter=0,

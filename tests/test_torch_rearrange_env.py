@@ -52,6 +52,7 @@ from habitat_torch.ops import raycast as trc
 from habitat_torch.sims.scene import pack_scenes
 from habitat_torch.tasks.rearrange import generator as tgen
 from habitat_torch.tasks.rearrange import rearrange_env as tre
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 ATOL = 1e-5
 N = 4

@@ -18,6 +18,7 @@ from habitat_torch.sims import receptacles as trec
 from habitat_torch.sims.procedural import generate_apartment as t_apartment
 from habitat_torch.tasks.rearrange import generator as tgen
 from habitat_torch.tasks.rearrange import samplers as tsam
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 
 def test_aabb_receptacle_samples_on_top():

@@ -16,6 +16,7 @@ from habitat_torch.baselines.ppo import PPOConfig, PPOLearner
 from habitat_torch.core.env_factory import make_nav_env
 from habitat_torch.datasets.pointnav import make_procedural_pointnav
 from habitat_torch.models.policy import make_pointnav_resnet_policy, sample_action
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 N_ENVS, T, HW, MAX_STEPS = 4, 8, 32, 6
 SENSORS = (

@@ -16,6 +16,7 @@ from habitat_torch.core import dataset as tds
 from habitat_torch.datasets.pointnav import make_procedural_pointnav as torch_pointnav
 from habitat_torch.ops import raycast as trc
 from habitat_torch.sims.scene import pack_scenes as torch_pack
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 PACK_FIELDS = (
     "tri_v0", "tri_e1", "tri_e2", "tri_color", "tri_sem", "tri_valid",

@@ -33,6 +33,7 @@ from habitat_torch.sims import object_state_machine as tosm
 from habitat_torch.sims import sim_utilities as tsu
 from habitat_torch.sims.procedural import generate_empty_room as t_empty_room
 from habitat_torch.sims.receptacles import AABBReceptacle as TAABB
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 POS_ATOL = 1e-6
 T_ATOL = 1e-5

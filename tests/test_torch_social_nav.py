@@ -39,6 +39,7 @@ from habitat_tpu.tasks.rearrange import social_nav as jsn
 from habitat_torch.baselines.ppo import PPOConfig, PPOLearner
 from habitat_torch.models.policy import make_pointnav_resnet_policy, state_keys_of
 from habitat_torch.tasks.rearrange import social_nav as tsn
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 ATOL, RTOL = 1e-5, 1e-6
 STEPS = 32

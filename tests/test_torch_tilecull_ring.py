@@ -36,6 +36,7 @@ from habitat_tpu.sims.scene import pack_scenes as jax_pack
 from habitat_tpu.utils.geometry import camera_rays as jax_camera_rays
 
 from habitat_torch.ops import raycast_kernels as trk
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 N = 2
 

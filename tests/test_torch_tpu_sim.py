@@ -57,6 +57,7 @@ from habitat_torch.sims import tpu_sim as tsim
 from habitat_torch.sims.scene import pack_scenes as tpack
 from habitat_torch.utils import threefry
 from habitat_torch.utils.visualizations import maps as tmaps
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -30,6 +30,7 @@ from habitat_torch.core.env_factory import make_nav_env
 from habitat_torch.core.registry import registry
 from habitat_torch.datasets.pointnav import make_procedural_pointnav
 from habitat_torch.models.policy import make_pointnav_resnet_policy
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 N, T, HW, MAX_STEPS = 4, 4, 32, 3
 STEPS_PER_UPDATE = N * T

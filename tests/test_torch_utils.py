@@ -32,6 +32,7 @@ from habitat_tpu.utils import info_dict as jinfo
 from habitat_torch.utils import common as tcommon
 from habitat_torch.utils import info_dict as tinfo
 from habitat_torch.utils import profiling_wrapper as prof
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 
 @pytest.fixture(scope="module", autouse=True)

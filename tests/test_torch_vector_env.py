@@ -43,6 +43,7 @@ from habitat_torch.ops import cuda_build
 
 from tests.test_torch_env_api import CFG, SMALL
 from tests.torch_vector_env_worker import make_rl_env, make_stub
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 ATOL = 1e-5
 # two envs' actions: env 0 stops at step 4 and again at 19; env 1 runs into

@@ -30,6 +30,7 @@ from habitat_torch.core.construct import env_from_config
 from habitat_torch.core.env import Env
 
 from tests.test_torch_env_api import CFG, SMALL
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 ATOL = 1e-5
 VELOCITY = {"type": "VelocityAction", "lin_vel_range": [0.0, 0.25], "ang_vel_range": [-10.0, 10.0],

@@ -60,6 +60,7 @@ from habitat_torch.utils.visualizations import utils as tvis
 
 from tests.test_torch_evaluator import MAX_EP_STEPS, QUOTA, _jax_stub, _TorchStub
 from tests.test_torch_evaluator import envs  # noqa: F401 - the module fixture
+from tests.torch_jax_native import _jax_native  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FPS = 7  # delay 14 cs
